@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's decode path on one NVIDIA GPU (Hopper).
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (each prints one line; any failure exits non-zero without the final
+``{"ok": true, ...}`` line):
+
+1. device: the card, its power limit, and the build of the CUDA kernels
+   (``pytorchwavenetvocoder_tpu_torch/csrc``, compiled by nvcc at first use);
+2. K2, the warm-up layer-stack kernel, against its plain PyTorch version at
+   the main path's shape (the fleet's warm-up chunk B=32, T=3070, 30 x 512,
+   bf16), with both times;
+3. K1, the AR sample-loop kernel, against its plain version at the main
+   path's fleet (B=32, flagship width): the ring after one step, argmax
+   agreement over 256 steps, a chi-square test of the Gumbel-max sampler
+   (on a narrow config), and both times;
+
+K2 and K1 are also read against controls, variants of the plain version
+that a broken kernel would resemble (gate bias dropped, gate in bf16);
+each control must fail a limit the kernel passes.
+4. the main path: a flagship checkpoint (random weights from a seeded
+   generator) written as a bundle, loaded back through the port's loaders
+   and decoded by ``bin/decode.py``'s ``decode_batches`` as a fleet of 32
+   ragged utterances in sampling mode, with the kernels' launch counts.
+
+Needs torch (CUDA build), numpy, scipy and the CUDA toolkit; no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+
+def _fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "pytorchwavenetvocoder_tpu_torch")):
+        _fail("pytorchwavenetvocoder_tpu_torch/ is not beside chip_smoke.py")
+    sys.path.insert(0, root)
+
+    from pytorchwavenetvocoder_tpu_torch import _build
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+        WaveNetConfig,
+        _pad_seed,
+        _warmup_chunk,
+        _warmup_state,
+        init_wavenet_params,
+        input_embed,
+    )
+    from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
+    from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    failures: list[str] = []
+    kernels_out: list[dict] = []
+
+    def phase(name, fn):
+        try:
+            fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(name)
+            print(f"[{name}] FAILED", flush=True)
+
+    def time_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    # ---- 1. device + build ------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"{name}, power limit not read"
+    t0 = time.time()
+    _build.kernels()
+    ptxas = [ln.strip() for ln in _build.BUILD_INFO.get("log", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[device] {name} | {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | kernels built in {time.time() - t0:.1f} s "
+          f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s)", flush=True)
+    for ln in ptxas:
+        print(f"[device] ptxas: {ln}", flush=True)
+
+    flag = WaveNetConfig(n_quantize=256, n_aux=28, n_resch=512, n_skipch=256,
+                         dilation_depth=10, dilation_repeat=3, kernel_size=2,
+                         upsampling_factor=80, compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(1234)
+    params = init_wavenet_params(flag, gen, device=dev)
+    # small random biases so the bias paths carry real values
+    for group in ("dil", "aux", "skip", "res", "post1", "post2", "causal"):
+        b = params[group]["b"]
+        params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen).to(dev)
+    rs = np.random.RandomState(0)
+
+    # ---- 2. K2 vs plain ---------------------------------------------------
+    # Every check runs at the main path's shapes: the fleet of B=32 is one
+    # warm-up chunk of (32, T0=3070), and the AR loop steps all 32 rows.
+    B_FLEET = 32
+
+    # Controls: variants of the plain version that a wrong or less precise
+    # kernel would resemble.  Each must FAIL at least one limit that the
+    # kernel passes, or the limits could not tell a broken kernel apart.
+    #   no_dil_bias: the gate bias dropped in every layer;
+    #   gate_bf16:   z rounded to bf16 before the gate (the gate in bf16).
+    def zero_dil_bias(tree):
+        return dict(tree, dil=dict(tree["dil"],
+                                   b=torch.zeros_like(tree["dil"]["b"])))
+
+    def gate_bf16_layer(lw, l, d, x, hb):
+        """tk.ref_layer with z rounded to bf16 before the gate."""
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            _dot,
+            _shift_time,
+        )
+
+        bf = torch.bfloat16
+        R = x.shape[-1]
+        w = lw["dil_w"][l].to(bf)
+        z = _dot(x, w[1]) + _dot(_shift_time(x, d), w[0])
+        zz = (z + _dot(hb, lw["aux_w"][l].to(bf))
+              + (lw["dil_b"][l] + lw["aux_b"][l]).float()).to(bf).float()
+        g = (torch.sigmoid(zz[..., :R]) * torch.tanh(zz[..., R:])).to(bf)
+        out = (_dot(g, lw["res_w"][l].to(bf)) + lw["res_b"][l]
+               + x.float()).to(bf)
+        return out, g
+
+    def k2():
+        B, T = B_FLEET, flag.receptive_field
+        chunk = _warmup_chunk(flag, B, T, dev)
+        if chunk != B:
+            raise AssertionError(f"the fleet's warm-up chunk is {chunk} rows, "
+                                 f"not {B}: the checks below miss its shape")
+        x = torch.as_tensor(rs.randint(0, 256, (B, T)), device=dev)
+        h = torch.as_tensor(rs.randn(B, T, flag.n_aux).astype(np.float32),
+                            device=dev)
+        s0 = input_embed(x, params, flag).to(torch.bfloat16).contiguous()
+        lw = tk.layer_weights(params)
+        lw_nb = tk.layer_weights(zero_dil_bias(params))
+        hb = h.to(torch.bfloat16)
+        got = tk.layer_stack_streams(lw, flag, s0, h)
+
+        def per_layer(layer_fn):
+            """Each layer on its own: ``layer_fn`` applied to its own input
+            stream, held against the plain layer on that same input, so no
+            earlier layer's rounding is carried in.  Returns (worst
+            max|d|/max|stream|, worst share of differing elements, worst
+            max|d|)."""
+            rel = share = mabs = 0.0
+            prev = s0
+            for l in range(1, flag.n_layers):
+                d_l = flag.dilations[l - 1]
+                mine = layer_fn(l, d_l, prev)
+                want, _ = tk.ref_layer(lw, l - 1, d_l, prev, hb)
+                diff = (mine.float() - want.float()).abs()
+                rel = max(rel, diff.max().item()
+                          / max(want.float().abs().max().item(), 1e-30))
+                share = max(share, (diff > 0).float().mean().item())
+                mabs = max(mabs, diff.max().item())
+                prev = mine
+            return rel, share, mabs
+
+        readings = {
+            "kernel": per_layer(lambda l, d, prev: got[l]),
+            "no_dil_bias": per_layer(
+                lambda l, d, prev: tk.ref_layer(lw_nb, l - 1, d, prev, hb)[0]),
+            "gate_bf16": per_layer(
+                lambda l, d, prev: gate_bf16_layer(lw, l - 1, d, prev, hb)[0]),
+        }
+        ref = tk.ref_layer_stack_streams(lw, flag, s0, h)
+        chain = (got[-1].float() - ref[-1].float()).abs().max().item() \
+            / max(ref[-1].float().abs().max().item(), 1e-30)
+        del ref
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: tk.layer_stack_streams(lw, flag, s0, h))
+        plain_ms = time_ms(lambda: tk.ref_layer_stack_streams(lw, flag, s0, h))
+        # limits: kernel and plain round every stream to bf16 but sum the
+        # 2R + A products in another order, so a layer moves an element by
+        # at most a bf16 ulp (2^-8 of its magnitude), and only where the f32
+        # sums straddle a rounding boundary: a small share of elements.
+        # Chained over 29 layers those flips feed later layers' sums.
+        tol_rel, tol_share, tol_chain = 1e-2, 1e-2, 5e-2
+
+        def fails(r):
+            return [n for n, v, t in (("rel", r[0], tol_rel),
+                                      ("share", r[1], tol_share))
+                    if not v <= t]
+
+        print(f"[K2] B={B} T={T} (the fleet's warm-up chunk: {chunk} rows) "
+              f"L={flag.n_layers} R={flag.n_resch} bf16, each layer on its "
+              f"own input vs the plain layer: "
+              + "; ".join(f"{n} max|d|/max|stream| {r[0]:.3e}, differing "
+                          f"share {r[1]:.3e}, fails {fails(r) or 'none'}"
+                          for n, r in readings.items())
+              + f" (limits rel {tol_rel}, share {tol_share}) | kernel chained "
+              f"to the last stream {chain:.3e} (limit {tol_chain}) | kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms | {card}", flush=True)
+        kernels_out.append(dict(
+            name="layer_stack_fwd", route="cuda",
+            source="pytorchwavenetvocoder_tpu_torch/csrc/layer_stack_fwd.cu",
+            replaces="pytorchwavenetvocoder_tpu/ops/train_kernel.py:260",
+            launches=0, max_abs_err=readings["kernel"][2], ms=ms,
+            plain_ms=plain_ms))
+        if fails(readings["kernel"]) or not chain <= tol_chain:
+            raise AssertionError(f"K2 outside its limits: {readings['kernel']},"
+                                 f" chained {chain}")
+        blind = [n for n in ("no_dil_bias", "gate_bf16")
+                 if not fails(readings[n])]
+        if blind:
+            raise AssertionError(f"K2 limits pass the controls {blind}")
+
+    # ---- 3. K1 vs plain ---------------------------------------------------
+    def fleet_carry(config, prm, B, n, seed):
+        r = np.random.RandomState(seed)
+        T = config.receptive_field
+        x = torch.as_tensor(r.randint(0, 256, (B, T)), device=dev)
+        h = torch.as_tensor(r.randn(B, T + n, config.n_aux).astype(np.float32),
+                            device=dev)
+        x, h = _pad_seed(config, x, h)
+        carry = _warmup_state(prm, config, x, h, bf16_intermediates=True,
+                              impl="cuda")
+        return carry, h.contiguous(), x.shape[1]
+
+    def clone(carry):
+        return tuple(t.clone() for t in carry)
+
+    def k1():
+        n, B = 256, B_FLEET
+        carry, h, T0 = fleet_carry(flag, params, B, n, 1)
+        params_nb = zero_dil_bias(params)
+
+        def kernel(c_, i0, steps):
+            return ak.ar_generate(params, flag, c_, h, T0 + i0, steps,
+                                  "argmax")
+
+        def control(c_, i0, steps):      # the plain version, gate bias dropped
+            return ak.ar_generate_reference(params_nb, flag, c_, h, T0, steps,
+                                            "argmax", i0=i0)
+
+        runs = {"kernel": kernel, "no_dil_bias": control}
+        # the ring after one step: every layer's written slot depends on
+        # the whole chain of the step before it
+        cp = clone(carry)
+        ak.ar_generate_reference(params, flag, cp, h, T0, 1, "argmax")
+        ring_max = cp[0].float().abs().max().item()
+        ring = {}
+        for name, run in runs.items():
+            c_ = clone(carry)
+            run(c_, 0, 1)
+            ring[name] = (c_[0].float() - cp[0].float()).abs().max().item()
+        # argmax step by step from the same state: each step, every run
+        # starts from the plain version's carry
+        cp, same = clone(carry), {name: [] for name in runs}
+        for i in range(n):
+            outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
+            sp = ak.ar_generate_reference(params, flag, cp, h, T0, 1,
+                                          "argmax", i0=i)
+            for name, s in outs.items():
+                same[name].append((s[:, 0] == sp[:, 0]).cpu().numpy())
+        # argmax trajectories over n steps from the same carry: the share
+        # of (row, step) before each row's first divergence
+        sp = ak.ar_generate_reference(params, flag, clone(carry), h, T0, n,
+                                      "argmax").cpu().numpy()
+        readings = {}
+        for name, run in runs.items():
+            agree = run(clone(carry), 0, n).cpu().numpy() == sp
+            first = [int(np.argmin(a)) if not a.all() else n for a in agree]
+            readings[name] = (ring[name] / ring_max, float(np.mean(same[name])),
+                              float(np.mean(first)) / n)
+        # per-call times, n steps each
+        ms = time_ms(lambda: kernel(carry, 0, n))
+        plain_ms = time_ms(lambda: ak.ar_generate_reference(
+            params, flag, carry, h, T0, n, "argmax"), reps=1)
+        # limits: the ring after one step moves by a bf16 ulp where sums
+        # round apart (2^-8 of max|ring| < 2e-2); a step's argmax flips only
+        # where two logits lie within the bf16 summation-order noise, so
+        # from the same state >= 97% of (row, step) agree; once a row flips
+        # its trajectory is its own, and with a flip rate q per step the
+        # share before the first flip is about 1 / (q n): >= 0.1 for q <= 3%
+        ring_tol, step_floor, floor = 2e-2, 0.97, 0.1
+
+        def fails(r):
+            return [m for m, bad in (("ring", not r[0] <= ring_tol),
+                                     ("same-state", not r[1] >= step_floor),
+                                     ("trajectory", not r[2] >= floor)) if bad]
+
+        print(f"[K1] B={B}, argmax, {n} steps, vs the plain version: "
+              + "; ".join(f"{m} ring after 1 step max|d|/max|ring| {r[0]:.3e},"
+                          f" same-state agreement {r[1]:.4f}, share agreeing "
+                          f"up to each row's first divergence {r[2]:.4f}, "
+                          f"fails {fails(r) or 'none'}"
+                          for m, r in readings.items())
+              + f" (limits ring {ring_tol}, same-state {step_floor}, "
+              f"trajectory {floor}) | B={B} x {n} steps: kernel {ms:.2f} ms "
+              f"({1e3 * ms / n:.1f} us/step), plain {plain_ms:.2f} ms "
+              f"({1e3 * plain_ms / n:.1f} us/step) | {card}", flush=True)
+        kernels_out.append(dict(
+            name="ar_step", route="cuda",
+            source="pytorchwavenetvocoder_tpu_torch/csrc/ar_step.cu",
+            replaces="pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+            launches=0, max_abs_err=ring["kernel"], ms=ms, plain_ms=plain_ms))
+        if fails(readings["kernel"]):
+            raise AssertionError(f"K1 outside its limits: {readings['kernel']}")
+        if not fails(readings["no_dil_bias"]):
+            raise AssertionError("K1 limits pass the no_dil_bias control")
+
+    def chi2():
+        from scipy.stats import chi2 as chi2_dist
+
+        cfg = WaveNetConfig(n_quantize=256, n_aux=28, n_resch=128,
+                            n_skipch=128, dilation_depth=6, dilation_repeat=1,
+                            kernel_size=2, upsampling_factor=0,
+                            compute_dtype="bfloat16")
+        prm = init_wavenet_params(cfg, torch.Generator().manual_seed(7), dev)
+        N = 16384
+        carry1, h1, T0 = fleet_carry(cfg, prm, 1, 1, 3)
+        ring, hist, prev = carry1
+        carry = (ring.expand(-1, N, -1).contiguous(),
+                 hist.expand(N, -1).contiguous(), prev.expand(N).contiguous())
+        h = h1.expand(N, -1, -1).contiguous()
+        logits = ak.ar_step_logits(
+            ak._step_weights(prm, cfg), cfg, ring.clone(),
+            torch.cat([hist, prev[:, None]], dim=1), h1, T0 - 1)
+        p = torch.softmax(logits[0].double(), dim=0).cpu().numpy()
+        s = ak.ar_generate(prm, cfg, carry, h, T0, 1, "sampling",
+                           torch.Generator().manual_seed(11))
+        counts = np.bincount(s[:, 0].cpu().numpy(), minlength=256)
+        exp = p * N
+        order = np.argsort(exp)
+        obs_b, exp_b, acc_o, acc_e = [], [], 0.0, 0.0
+        for i in order:             # pool the rarest classes to >= 5
+            acc_o += counts[i]
+            acc_e += exp[i]
+            if acc_e >= 5:
+                obs_b.append(acc_o)
+                exp_b.append(acc_e)
+                acc_o = acc_e = 0.0
+        if acc_e > 0:
+            obs_b[-1] += acc_o
+            exp_b[-1] += acc_e
+        obs_b, exp_b = np.asarray(obs_b), np.asarray(exp_b)
+        stat = float(((obs_b - exp_b) ** 2 / exp_b).sum())
+        dof = len(obs_b) - 1
+        pval = float(chi2_dist.sf(stat, dof))
+        print(f"[K1 chi2] {N} rows, one sampling step, 6 x 128 bf16: chi2 "
+              f"{stat:.1f} on {dof} dof, p = {pval:.4f} (pass p >= 1e-3) | "
+              f"{card}", flush=True)
+        if not pval >= 1e-3:
+            raise AssertionError(f"chi-square p-value {pval} < 1e-3")
+
+    # ---- 4. main path -----------------------------------------------------
+    def main_path():
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import (
+            decode_batches,
+            load_model,
+        )
+        from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
+        from pytorchwavenetvocoder_tpu_torch.ops.scaler import (
+            StandardScaler,
+            feature_transform,
+        )
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            conf = dict(flag.to_dict(), upsampling_factor=80,
+                        use_upsampling_layer=True, feature_type="world",
+                        use_speaker_code=False)
+            with open(os.path.join(tmp, "model.conf"), "w") as f:
+                json.dump(conf, f)
+            tree = {g: {k: v.cpu().numpy() for k, v in leaves.items()}
+                    for g, leaves in params.items()}
+            ckpt = os.path.join(tmp, "checkpoint-0.pkl")
+            with open(ckpt, "wb") as f:
+                pickle.dump({"model": tree, "optimizer": None,
+                             "iterations": 0}, f)
+            model, conf = load_model(ckpt, tmp, dev)
+
+            B = 32
+            r = np.random.RandomState(5)
+            frames = r.randint(50, 101, B)
+            scaler = StandardScaler()
+            scaler.mean_ = r.randn(flag.n_aux) * 0.1
+            scaler.scale_ = 1.0 + 0.1 * r.rand(flag.n_aux)
+            tf = feature_transform(scaler, n_extra=0)
+            h = np.zeros((B, frames.max(), flag.n_aux), np.float32)
+            for b, nf in enumerate(frames):
+                h[b, :nf] = tf(r.randn(nf, flag.n_aux))
+            x = np.tile(np.asarray(encode_mu_law(np.zeros(1), 256),
+                                   np.int32)[None], (B, 1))
+            n_list = [int(nf) * 80 - 1 for nf in frames]
+            ids = [f"utt{b:02d}" for b in range(B)]
+            outdir = os.path.join(tmp, "wav")
+
+            ak.ar_generate.launches = 0
+            tk.layer_stack_streams.launches = 0
+            res = decode_batches(model, [(ids, (x, h, n_list))], outdir,
+                                 mode="sampling", impl="auto",
+                                 generator=torch.Generator().manual_seed(9))
+            torch.cuda.synchronize()
+            launches = {"ar_step": ak.ar_generate.launches,
+                        "layer_stack_fwd": tk.layer_stack_streams.launches}
+            for k in kernels_out:
+                k["launches"] = launches[k["name"]]
+
+            bad = []
+            for b, n in enumerate(n_list):
+                wav, _fs = read_wav(os.path.join(outdir, ids[b] + ".wav"))
+                if wav.shape != (n,) or not np.isfinite(wav).all():
+                    bad.append((ids[b], wav.shape, n))
+            spread = None
+            if not bad:
+                wav0, _ = read_wav(os.path.join(outdir, ids[0] + ".wav"))
+                spread = float(np.std(wav0))
+            # warm-up alone, timed at the same fleet
+            from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+                _pad_aux_to,
+                upsample_aux,
+            )
+
+            xt = torch.as_tensor(x, dtype=torch.int64, device=dev)
+            ht = upsample_aux(model.params, flag, torch.as_tensor(h, device=dev))
+            xt, ht = _pad_seed(flag, xt, ht)
+            ht = _pad_aux_to(ht, xt.shape[1] + max(n_list)).contiguous()
+            torch.cuda.synchronize()
+            tw = time.time()
+            _warmup_state(model.params, flag, xt, ht, bf16_intermediates=True,
+                          impl="cuda")
+            torch.cuda.synchronize()
+            warm_s = time.time() - tw
+            max_n = max(n_list)
+            print(f"[main] decode_batches: {B} utts, frames {frames.min()}-"
+                  f"{frames.max()}, {res['n_samples']} samples in "
+                  f"{res['seconds']:.3f} s = {res['n_samples'] / res['seconds']:.0f}"
+                  f" samples/s, {1e6 * res['seconds'] / max_n:.1f} us/step "
+                  f"({max_n} steps, warm-up included) | warm-up alone "
+                  f"{warm_s:.3f} s | launches {launches} | wav std "
+                  f"{spread} | {card}", flush=True)
+            if bad:
+                raise AssertionError(f"wavs of the wrong length or non-finite: "
+                                     f"{bad[:4]}")
+            if not spread or not np.isfinite(spread):
+                raise AssertionError(f"degenerate output wav (std {spread})")
+            if min(launches.values()) < 1:
+                raise AssertionError(f"a kernel of the path never launched: "
+                                     f"{launches}")
+
+    phase("K2", k2)
+    phase("K1", k1)
+    phase("K1 chi2", chi2)
+    phase("main", main_path)
+    if failures:
+        _fail(f"phases failed: {failures}")
+    print(json.dumps({"kernels": kernels_out}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

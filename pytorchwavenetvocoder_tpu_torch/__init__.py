@@ -1,0 +1,18 @@
+"""PyTorch + CUDA port of the WaveNet vocoder framework.
+
+A second package beside the JAX reference ``pytorchwavenetvocoder_tpu``:
+the same parameter layout, bundle format and decode path, in PyTorch, with
+the decode path's TPU kernels rewritten by hand for NVIDIA Hopper
+(``csrc/``, built with ``nvcc`` at first use).  It imports nothing of JAX
+or of the JAX package.
+
+Layer map:
+  CLI (bin/decode.py)  ->  model (models/wavenet.py: warm-up + AR loop)
+  ->  kernels (ops/train_kernel.py, ops/ar_kernel.py; csrc/*.cu)
+  ->  host I/O (utils/, data/generator.py, parallel/checkpoint.py)
+"""
+
+__version__ = "0.1.0"
+
+from pytorchwavenetvocoder_tpu_torch.ops.mulaw import decode_mu_law, encode_mu_law  # noqa: F401
+from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNet, WaveNetConfig  # noqa: F401

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, from the sources in this
+checkout only, into ``build/torch_kernels/`` beside the package; the
+library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.  Importing this module
+builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: The kernels' limit on n_aux (``AR_AUX_MAX`` in csrc/ar_step.cu sizes the
+#: AR kernel's shared aux rows; the layer-stack kernel is held to the same).
+AUX_MAX = 96
+
+#: What the last ``build_kernels`` call did: library path, seconds spent
+#: compiling (0 when reused), and nvcc's output (ptxas register/spill report).
+BUILD_INFO: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA kernels "
+                       "are built from source at first use")
+
+
+def build_kernels() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless a build of the
+    same sources exists; returns its path."""
+    srcs = _sources()
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    lib = BUILD_DIR / f"libwn_kernels_{digest.hexdigest()[:12]}.so"
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, log="(cached)")
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.time()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=time.time() - t0,
+                      log=res.stdout + res.stderr)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build_kernels()))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wn_ar_generate.restype = i32
+    lib.wn_ar_generate.argtypes = (
+        [vp] * 11            # w4 wsr auxw zb srb causal_w causal_b p1w p1b p2w p2b
+        + [vp, vp, vp]       # ring, offsets (host int*), caps (host int*)
+        + [vp, i32]          # h_up, its time length
+        + [vp] * 11          # za out_f32 out_bf16 g proj skip skip_relu h1 logits
+                             # ids samples
+        + [i32] * 9          # B R S Q A L T0 max_n sampling
+        + [ctypes.c_uint64, vp])   # seed, stream
+    lib.wn_layer_stack_fwd.restype = i32
+    lib.wn_layer_stack_fwd.argtypes = (
+        [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b
+        + [vp]               # dilations (host int*)
+        + [i32] * 5          # n_run B T R A
+        + [vp])              # stream
+    return lib

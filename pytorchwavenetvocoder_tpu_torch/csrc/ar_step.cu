@@ -1,0 +1,401 @@
+// The WaveNet AR sample loop (bf16, kernel_size 2) for Hopper.
+//
+// Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
+// (the fused Pallas TPU kernel) for bf16 models with kernel_size 2; the
+// plain PyTorch version is ops/ar_kernel.py::ar_generate_reference.
+//
+// Bound on the H100: each step reads the whole bf16 weight pack,
+// L * R * (4R + S + R) * 2 bytes (82.5 MB at 30 x 512, more than the 50 MB
+// L2), for only B rows, so a large fleet is bound by device-memory bytes
+// and a small one by the dependent launches of the step.  The TPU kernel
+// kept the pack resident in VMEM across its sequential grid; a Hopper SM
+// holds 227 KB and blocks share nothing between launches, so here:
+//   * the step loop runs in C++ (wn_ar_generate), not in Python;
+//   * ar_embed_kernel starts each step with the input conv (two row
+//     gathers of the causal weights); ar_aux_kernel projects the step's aux
+//     column for all L layers at once (it does not depend on the chain);
+//   * per layer, ar_gate_kernel computes out @ [W_cur | W_past] over
+//     16-column slices (8 warps split K, loads unrolled so several are in
+//     flight): blocks of current-tap columns hold the sigmoid and tanh
+//     halves of 8 channels and apply the ring tap, aux term, bias and f32
+//     gate; blocks of past-tap columns stage the projection-forwarded ring
+//     values for step p + d;
+//   * ar_res_kernel computes g @ [W_skip | W_res] over 16-column slices,
+//     the f32 skip sum and the residual add, and copies the staged ring
+//     values into slot p mod d (the slot the gate launch just read:
+//     (p - d) mod d = p mod d), so no block writes what another reads;
+//   * the post stack is two ar_dense_kernel GEMMs (ReLU/1x1 twice), then
+//     ar_sample_kernel takes, per row, the argmax (ties to the lowest
+//     index) or the Gumbel-max with noise from a counter-based
+//     Philox4x32-10 on (seed, row, step, class).
+// Matmuls use wmma bf16 16x16x16 tiles with f32 accumulation; operands
+// come straight from device memory, and a second grid axis over 64-row
+// chunks keeps large fleets parallel.  65 launches per step.  The ring is
+// updated in place in the caller's carry.
+#include "wn_common.cuh"
+
+using namespace nvcuda;
+
+#define AR_THREADS 256
+#define AR_ROWS 64        // rows per block of the K-split GEMMs: 4 row tiles
+#define AR_AUX_MAX 96
+#define AR_AUX_ROWS 32
+
+// ---------------------------------------------------------------- Philox
+
+static __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
+    const unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+    unsigned hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    unsigned hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    return make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+}
+
+static __device__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+        if (i) { k.x += 0x9E3779B9u; k.y += 0xBB67AE85u; }
+        c = philox_round(c, k);
+    }
+    return c;
+}
+
+// Gumbel noise for (row, step, class); the uniform is ((bits >> 9) + 0.5)
+// * 2^-23, which lies in the open interval (0, 1) and is exact in f32.
+static __device__ float gumbel_noise(unsigned long long seed, int row,
+                                     int step, int cls) {
+    uint4 ctr = make_uint4((unsigned)cls >> 2, (unsigned)row,
+                           (unsigned)step, 0u);
+    uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
+    uint4 r = philox4x32_10(ctr, key);
+    unsigned w = (cls & 3) == 0 ? r.x : (cls & 3) == 1 ? r.y
+               : (cls & 3) == 2 ? r.z : r.w;
+    float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
+    return -logf(-logf(u));
+}
+
+// ---------------------------------------------------------------- kernels
+
+// out = causal_b + causal_w[0][id_old] + causal_w[1][id_new]; skip = 0.
+__global__ void __launch_bounds__(AR_THREADS) ar_embed_kernel(
+    const bf16* __restrict__ causal_w,   // (2, Q, R)
+    const float* __restrict__ causal_b,  // (R)
+    const int* __restrict__ ids,         // (B, 2): [id at p-1, id at p]
+    float* __restrict__ out_f32, bf16* __restrict__ out_bf16,  // (Bp, R)
+    float* __restrict__ skip,            // (B, S)
+    int R, int S, int Q) {
+    const int b = blockIdx.x;
+    const int i0 = ((ids[2 * b] % Q) + Q) % Q;
+    const int i1 = ((ids[2 * b + 1] % Q) + Q) % Q;
+    const bf16* w0 = causal_w + (size_t)i0 * R;
+    const bf16* w1 = causal_w + ((size_t)Q + i1) * R;
+    for (int r = threadIdx.x; r < R; r += AR_THREADS) {
+        float v = (causal_b[r] + bf2f(w0[r])) + bf2f(w1[r]);
+        out_f32[(size_t)b * R + r] = v;
+        out_bf16[(size_t)b * R + r] = f2bf(v);
+    }
+    for (int s = threadIdx.x; s < S; s += AR_THREADS) skip[(size_t)b * S + s] = 0.f;
+}
+
+// za[b, n] = bf16(h_up[b, p]) @ auxw[:, n] + zb[n] for all L * 2R columns n
+// (auxw (L, A, 2R), column n = l * 2R + c); one thread per column.
+__global__ void __launch_bounds__(AR_THREADS) ar_aux_kernel(
+    const bf16* __restrict__ auxw, const float* __restrict__ zb,
+    const float* __restrict__ h_up, int h_T, int p,
+    float* __restrict__ za, int B, int A, int R, int L) {
+    __shared__ float hs[AR_AUX_ROWS][AR_AUX_MAX];
+    const int N = L * 2 * R;
+    const int n = blockIdx.x * AR_THREADS + threadIdx.x;
+    const int l = n / (2 * R), c = n - l * 2 * R;
+    const bf16* w = auxw + (size_t)l * A * 2 * R + c;
+    for (int row0 = 0; row0 < B; row0 += AR_AUX_ROWS) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < AR_AUX_ROWS * A; i += AR_THREADS) {
+            const int r = i / A, a = i - r * A, b = row0 + r;
+            hs[r][a] = b < B ? bf_round(h_up[((size_t)b * h_T + p) * A + a]) : 0.f;
+        }
+        __syncthreads();
+        if (n >= N) continue;
+        float acc[AR_AUX_ROWS];
+#pragma unroll
+        for (int r = 0; r < AR_AUX_ROWS; ++r) acc[r] = 0.f;
+        for (int a = 0; a < A; ++a) {
+            const float wa = bf2f(w[(size_t)a * 2 * R]);
+#pragma unroll
+            for (int r = 0; r < AR_AUX_ROWS; ++r) acc[r] += hs[r][a] * wa;
+        }
+        const float bias = zb[n];
+#pragma unroll
+        for (int r = 0; r < AR_AUX_ROWS; ++r)
+            if (row0 + r < B) za[(size_t)(row0 + r) * N + n] = acc[r] + bias;
+    }
+}
+
+// The K-split GEMM core of the 1x1 layers: acc = A[row0:row0+64] @ W[:, col0:col0+16]
+// summed over the 8 warps' K slices [w K/8, (w+1) K/8) into cs.
+static __device__ __forceinline__ void ksplit_gemm(
+    const bf16* __restrict__ A, int K, const bf16* __restrict__ W, int N,
+    int row0, int col0, int nt, float (*cs)[AR_ROWS][16]) {
+    const int warp = threadIdx.x >> 5;
+    const int kc = K / 8, kbeg = warp * kc, kend = kbeg + kc;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0.f);
+#pragma unroll 4
+    for (int k = kbeg; k < kend; k += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+        wmma::load_matrix_sync(bfr, W + (size_t)k * N + col0, N);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            if (t < nt) {
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
+                wmma::load_matrix_sync(afr, A + (size_t)(row0 + 16 * t) * K + k, K);
+                wmma::mma_sync(acc[t], afr, bfr, acc[t]);
+            }
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+        if (t < nt)
+            wmma::store_matrix_sync(&cs[warp][16 * t][0], acc[t], 16,
+                                    wmma::mem_row_major);
+    __syncthreads();
+}
+
+// One layer's z = out @ W4 over 16 columns x 64 rows per block.  W4's
+// first 2R columns hold the current tap with sigmoid and tanh columns
+// interleaved in groups of 8 (column 16q + i: sigmoid channel 8q + i,
+// column 16q + 8 + i: tanh channel 8q + i), so block q < R/8 holds both
+// halves of channels [8q, 8q+8) and applies the gate with the ring tap and
+// aux term.  Blocks q >= R/8 compute the projection-forwarded ring values
+// (the past tap) into proj; ar_res_kernel copies them into the ring slot,
+// after every gate block of this layer has read the slot's old values.
+__global__ void __launch_bounds__(AR_THREADS) ar_gate_kernel(
+    const bf16* __restrict__ w4,       // (R, 4R) this layer, layout above
+    const float* __restrict__ za,      // aux term + biases of this layer; row stride zs
+    int zs,
+    const bf16* __restrict__ out_bf16, // (Bp, R)
+    bf16* __restrict__ g_bf16,         // (Bp, R)
+    const bf16* __restrict__ ring_slot,// (B, 2R): this layer's slot p % d
+    bf16* __restrict__ proj,           // (B, 2R)
+    int B, int R) {
+    __shared__ __align__(32) float cs[8][AR_ROWS][16];
+    constexpr int PAIRS = AR_ROWS * 8 / AR_THREADS;
+    const int col0 = blockIdx.x * 16, row0 = blockIdx.y * AR_ROWS;
+    const int nt = min(4, (B - row0 + 15) / 16);
+    const bool gate = blockIdx.x < R / 8;
+    // gate blocks: thread owns (row, channel) pairs; load their operands
+    // before the GEMM so the latency overlaps the weight loads
+    const int jj = threadIdx.x & 7, c = blockIdx.x * 8 + jj;
+    float ring_s[PAIRS], ring_t[PAIRS], za_s[PAIRS], za_t[PAIRS];
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+        const int b = row0 + ((threadIdx.x + q * AR_THREADS) >> 3);
+        const bool live = gate && b < B;
+        ring_s[q] = live ? bf2f(ring_slot[(size_t)b * 2 * R + c]) : 0.f;
+        ring_t[q] = live ? bf2f(ring_slot[(size_t)b * 2 * R + R + c]) : 0.f;
+        za_s[q] = live ? za[(size_t)b * zs + c] : 0.f;
+        za_t[q] = live ? za[(size_t)b * zs + R + c] : 0.f;
+    }
+    ksplit_gemm(out_bf16, R, w4, 4 * R, row0, col0, nt, cs);
+    if (gate) {
+#pragma unroll
+        for (int q = 0; q < PAIRS; ++q) {
+            const int r = (threadIdx.x + q * AR_THREADS) >> 3, b = row0 + r;
+            if (b >= B) continue;
+            float zsig = 0.f, ztanh = 0.f;
+#pragma unroll
+            for (int w = 0; w < 8; ++w) {
+                zsig += cs[w][r][jj];
+                ztanh += cs[w][r][8 + jj];
+            }
+            g_bf16[(size_t)b * R + c] = f2bf(wn_gate((zsig + ring_s[q]) + za_s[q],
+                                                     (ztanh + ring_t[q]) + za_t[q]));
+        }
+    } else {
+        for (int i = threadIdx.x; i < AR_ROWS * 16; i += AR_THREADS) {
+            const int r = i >> 4, j = i & 15, b = row0 + r;
+            if (b >= B) continue;
+            float v = 0.f;
+#pragma unroll
+            for (int w = 0; w < 8; ++w) v += cs[w][r][j];
+            proj[(size_t)b * 2 * R + (col0 - 2 * R + j)] = f2bf(v);
+        }
+    }
+}
+
+// sr = g @ [W_skip | W_res] + b, 16 columns x 64 rows per block; skip +=
+// sr[:S]; out += sr[S:].  On the last layer (skip_relu set) it also writes
+// bf16(relu(skip)), the post stack's input.  Each thread loads the values
+// it will update before the GEMM.  The grid also copies the layer's staged
+// ring values (proj) into its ring slot.
+__global__ void __launch_bounds__(AR_THREADS) ar_res_kernel(
+    const bf16* __restrict__ wsr,      // (R, S+R) this layer
+    const float* __restrict__ srb,     // (S+R)
+    const bf16* __restrict__ g_bf16,   // (Bp, R)
+    float* __restrict__ skip,          // (B, S)
+    float* __restrict__ out_f32, bf16* __restrict__ out_bf16,  // (Bp, R)
+    bf16* __restrict__ skip_relu,      // (Bp, S) or null
+    const bf16* __restrict__ proj,     // (B, 2R)
+    bf16* __restrict__ ring_slot,      // (B, 2R)
+    int B, int R, int S) {
+    __shared__ __align__(32) float cs[8][AR_ROWS][16];
+    {
+        const int n_vec = B * 2 * R / 8;   // 16-byte vectors
+        const int nthreads = gridDim.x * gridDim.y * AR_THREADS;
+        for (int v = (blockIdx.y * gridDim.x + blockIdx.x) * AR_THREADS + threadIdx.x;
+             v < n_vec; v += nthreads)
+            ((uint4*)ring_slot)[v] = ((const uint4*)proj)[v];
+    }
+    constexpr int PAIRS = AR_ROWS * 16 / AR_THREADS;
+    const int col0 = blockIdx.x * 16, row0 = blockIdx.y * AR_ROWS;
+    const int nt = min(4, (B - row0 + 15) / 16);
+    const int j = threadIdx.x & 15, col = col0 + j;
+    float* dst = col < S ? skip + col : out_f32 + (col - S);
+    const int ld = col < S ? S : R;
+    const float bias = srb[col];
+    float old[PAIRS];
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+        const int b = row0 + ((threadIdx.x + q * AR_THREADS) >> 4);
+        old[q] = b < B ? dst[(size_t)b * ld] : 0.f;
+    }
+    ksplit_gemm(g_bf16, R, wsr, S + R, row0, col0, nt, cs);
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+        const int r = (threadIdx.x + q * AR_THREADS) >> 4, b = row0 + r;
+        if (b >= B) continue;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) v += cs[w][r][j];
+        const float nv = (v + bias) + old[q];
+        dst[(size_t)b * ld] = nv;
+        if (col < S) {
+            if (skip_relu) skip_relu[(size_t)b * S + col] = f2bf(fmaxf(nv, 0.f));
+        } else {
+            out_bf16[(size_t)b * R + (col - S)] = f2bf(nv);
+        }
+    }
+}
+
+// y = x @ W + b (x (Bp, K) bf16, W (K, N) bf16), 16 columns x 64 rows per
+// block: to out_relu as bf16(relu(y)) if set, else to out as f32.
+__global__ void __launch_bounds__(AR_THREADS) ar_dense_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ W,
+    const float* __restrict__ bias, bf16* __restrict__ out_relu,
+    float* __restrict__ out, int K, int N, int B) {
+    __shared__ __align__(32) float cs[8][AR_ROWS][16];
+    const int col0 = blockIdx.x * 16, row0 = blockIdx.y * AR_ROWS;
+    const int nt = min(4, (B - row0 + 15) / 16);
+    ksplit_gemm(x, K, W, N, row0, col0, nt, cs);
+    for (int i = threadIdx.x; i < AR_ROWS * 16; i += AR_THREADS) {
+        const int r = i >> 4, j = i & 15, b = row0 + r;
+        if (b >= B) continue;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) v += cs[w][r][j];
+        v += bias[col0 + j];
+        if (out_relu) out_relu[(size_t)b * N + col0 + j] = f2bf(fmaxf(v, 0.f));
+        else out[(size_t)b * N + col0 + j] = v;
+    }
+}
+
+// Per row: the argmax of the logits, plus Gumbel noise in sampling mode.
+__global__ void __launch_bounds__(AR_THREADS) ar_sample_kernel(
+    const float* __restrict__ logits,                 // (B, Q)
+    int* __restrict__ ids, int* __restrict__ samples, // (B, 2), (B, max_n)
+    int Q, int step, int max_n, int sampling, unsigned long long seed) {
+    __shared__ float rv[AR_THREADS];
+    __shared__ int ri[AR_THREADS];
+    const int b = blockIdx.x, tid = threadIdx.x;
+    float best = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int j = tid; j < Q; j += AR_THREADS) {
+        float v = logits[(size_t)b * Q + j];
+        if (sampling) v += gumbel_noise(seed, b, step, j);
+        if (v > best || (v == best && j < bi)) { best = v; bi = j; }
+    }
+    rv[tid] = best;
+    ri[tid] = bi;
+    __syncthreads();
+    for (int s = AR_THREADS / 2; s > 0; s >>= 1) {
+        if (tid < s) {
+            const float ov = rv[tid + s];
+            const int oi = ri[tid + s];
+            if (ov > rv[tid] || (ov == rv[tid] && oi < ri[tid])) {
+                rv[tid] = ov;
+                ri[tid] = oi;
+            }
+        }
+        __syncthreads();
+    }
+    if (tid == 0) {
+        const int smp = ri[0] < Q ? ri[0] : 0;   // all-NaN logits -> 0
+        samples[(size_t)b * max_n + step] = smp;
+        ids[2 * b] = ids[2 * b + 1];
+        ids[2 * b + 1] = smp;
+    }
+}
+
+// ---------------------------------------------------------------- entry
+
+// Runs max_n steps on `stream`.  Returns cudaGetLastError() (0 = success).
+// offsets / caps are host arrays of L ints (the ring layout of
+// models/wavenet.py::_buffer_layout); the ring is (total_cap, B, 2R).
+// Scratch: za (B, L*2R) f32; out_f32, out_bf16, g_bf16 (Bp, R); proj
+// (B, 2R) bf16; skip (B, S) f32; skip_relu, h1 (Bp, S) bf16; logits (B, Q) f32.  Rows
+// B..Bp-1 of the bf16 scratch must be zero.
+extern "C" int wn_ar_generate(
+    const void* w4, const void* wsr, const void* auxw, const void* zb,
+    const void* srb, const void* causal_w, const void* causal_b,
+    const void* post1_w, const void* post1_b, const void* post2_w,
+    const void* post2_b, void* ring, const void* offsets_v,
+    const void* caps_v, const void* h_up, int h_T, void* za, void* out_f32,
+    void* out_bf16, void* g_bf16, void* proj, void* skip, void* skip_relu,
+    void* h1, void* logits, void* ids, void* samples, int B, int R, int S, int Q,
+    int A, int L, int T0, int max_n, int sampling, unsigned long long seed,
+    void* stream) {
+    const int* offsets = (const int*)offsets_v;
+    const int* caps = (const int*)caps_v;
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t w4_l = (size_t)R * 4 * R, wsr_l = (size_t)R * (S + R);
+    const int N_aux = L * 2 * R;
+    const dim3 g_gate(4 * R / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_res((S + R) / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_p1(S / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_p2(Q / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    for (int i = 0; i < max_n; ++i) {
+        const int p = T0 - 1 + i;
+        ar_embed_kernel<<<B, AR_THREADS, 0, st>>>(
+            (const bf16*)causal_w, (const float*)causal_b, (const int*)ids,
+            (float*)out_f32, (bf16*)out_bf16, (float*)skip, R, S, Q);
+        ar_aux_kernel<<<(N_aux + AR_THREADS - 1) / AR_THREADS, AR_THREADS, 0, st>>>(
+            (const bf16*)auxw, (const float*)zb, (const float*)h_up, h_T, p,
+            (float*)za, B, A, R, L);
+        for (int l = 0; l < L; ++l) {
+            bf16* slot = (bf16*)ring
+                + ((size_t)offsets[l] + (size_t)(p % caps[l])) * B * 2 * R;
+            ar_gate_kernel<<<g_gate, AR_THREADS, 0, st>>>(
+                (const bf16*)w4 + l * w4_l, (const float*)za + (size_t)l * 2 * R,
+                N_aux, (const bf16*)out_bf16, (bf16*)g_bf16, slot,
+                (bf16*)proj, B, R);
+            ar_res_kernel<<<g_res, AR_THREADS, 0, st>>>(
+                (const bf16*)wsr + l * wsr_l,
+                (const float*)srb + (size_t)l * (S + R), (const bf16*)g_bf16,
+                (float*)skip, (float*)out_f32, (bf16*)out_bf16,
+                l == L - 1 ? (bf16*)skip_relu : nullptr, (const bf16*)proj,
+                slot, B, R, S);
+        }
+        ar_dense_kernel<<<g_p1, AR_THREADS, 0, st>>>(
+            (const bf16*)skip_relu, (const bf16*)post1_w,
+            (const float*)post1_b, (bf16*)h1, nullptr, S, S, B);
+        ar_dense_kernel<<<g_p2, AR_THREADS, 0, st>>>(
+            (const bf16*)h1, (const bf16*)post2_w, (const float*)post2_b,
+            nullptr, (float*)logits, S, Q, B);
+        ar_sample_kernel<<<B, AR_THREADS, 0, st>>>(
+            (const float*)logits, (int*)ids, (int*)samples, Q, i, max_n,
+            sampling, seed);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
+}

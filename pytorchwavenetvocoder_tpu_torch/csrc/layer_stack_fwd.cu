@@ -1,0 +1,180 @@
+// Forward of the WaveNet gated-residual stack, streams only (kernel_size 2),
+// for Hopper.
+//
+// Replaces pytorchwavenetvocoder_tpu/ops/train_kernel.py::_fwd_pallas in its
+// streams-only mode (save_st=False), which fills the decode warm-up's ring
+// buffers; the plain PyTorch version is
+// ops/train_kernel.py::ref_layer_stack_streams.
+//
+// Bound on the H100: per layer a (B*T, 2R) x (2R, 2R) plus a (B*T, R) x (R, R)
+// bf16 product; at the warm-up's ~10^5 rows this is tensor-core work, and
+// the bf16 output stream is the only device-memory traffic that grows with
+// B*T.  Design: one launch per layer; a block owns 32 time steps of one
+// utterance.  It stages x[t] and x[t - d] (zero where t - d < 0: the causal
+// padding) from the previous layer's stream into shared memory, computes z
+// in 64-channel chunks (sigmoid and tanh halves) with wmma bf16 tiles and
+// f32 accumulation, adds the aux projection and bias, applies the f32 gate
+// into a bf16 tile that stays in shared memory, then runs the residual 1x1
+// on it and writes out = bf16(g @ W_res + b_res + x).  The skip 1x1 is not
+// computed (streams-only).  The TPU kernel's ring of tiles, packed int32
+// pairs and tile cadence were Mosaic constraints and are not carried over.
+#include "wn_common.cuh"
+
+using namespace nvcuda;
+
+#define LS_THREADS 256
+#define LS_TM 32          // time steps per block: 2 wmma row tiles
+#define LS_ZC 128         // staged accumulator columns
+
+static size_t ls_smem_bytes(int R, int A) {
+    return (size_t)3 * LS_TM * R * sizeof(bf16)       // x[t], x[t-d], gate
+         + (size_t)LS_TM * LS_ZC * sizeof(float)       // accumulator stage
+         + (size_t)LS_TM * A * sizeof(float);          // aux rows
+}
+
+__global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
+    const bf16* __restrict__ x_in,    // (B, T, R) this layer's input stream
+    bf16* __restrict__ x_out,         // (B, T, R) its output stream
+    const bf16* __restrict__ h,       // (B, T, A)
+    const bf16* __restrict__ dil_w,   // (2, R, 2R): [0] tap t-d, [1] tap t
+    const bf16* __restrict__ aux_w,   // (A, 2R)
+    const float* __restrict__ zb,     // (2R) dil_b + aux_b
+    const bf16* __restrict__ res_w,   // (R, R)
+    const float* __restrict__ res_b,  // (R)
+    int T, int R, int A, int d) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* xc = (bf16*)smem;                    // (TM, R) x[t]
+    bf16* xs = xc + LS_TM * R;                 // (TM, R) x[t - d]
+    bf16* gs = xs + LS_TM * R;                 // (TM, R) gate output
+    float* zs = (float*)(gs + LS_TM * R);      // (TM, ZC) accumulators
+    float* hs = zs + LS_TM * LS_ZC;            // (TM, A) aux
+    const int b = blockIdx.y, t0 = blockIdx.x * LS_TM;
+    const int warp = threadIdx.x >> 5;
+    const int R2 = 2 * R;
+    const bf16* xb = x_in + (size_t)b * T * R;
+
+    // stage the two taps, 16-byte vectors, zeros outside [0, T)
+    const int vec = R / 8;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < LS_TM * vec; i += LS_THREADS) {
+        const int r = i / vec, v = i - r * vec, t = t0 + r, ts = t - d;
+        ((uint4*)(xc + (size_t)r * R))[v] =
+            t < T ? ((const uint4*)(xb + (size_t)t * R))[v] : zero;
+        ((uint4*)(xs + (size_t)r * R))[v] =
+            (t < T && ts >= 0) ? ((const uint4*)(xb + (size_t)ts * R))[v] : zero;
+    }
+    for (int i = threadIdx.x; i < LS_TM * A; i += LS_THREADS) {
+        const int r = i / A, a = i - r * A, t = t0 + r;
+        hs[i] = t < T ? bf2f(h[((size_t)b * T + t) * A + a]) : 0.f;
+    }
+    __syncthreads();
+
+    // gate, 64 channels (128 z columns) per chunk; warp w owns one 16-wide
+    // column tile: sigmoid half for w < 4, tanh half otherwise
+    for (int c = 0; c < R; c += 64) {
+        const int col = warp < 4 ? c + 16 * warp : R + c + 16 * (warp - 4);
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+        wmma::fill_fragment(acc[0], 0.f);
+        wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll 4
+        for (int k = 0; k < R; k += 16) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bcur, bpast;
+            wmma::load_matrix_sync(bcur, dil_w + ((size_t)R + k) * R2 + col, R2);
+            wmma::load_matrix_sync(bpast, dil_w + (size_t)k * R2 + col, R2);
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+                wmma::load_matrix_sync(a, xc + (size_t)(16 * t) * R + k, R);
+                wmma::mma_sync(acc[t], a, bcur, acc[t]);
+                wmma::load_matrix_sync(a, xs + (size_t)(16 * t) * R + k, R);
+                wmma::mma_sync(acc[t], a, bpast, acc[t]);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+            wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
+                                    acc[t], LS_ZC, wmma::mem_row_major);
+        __syncthreads();
+        for (int i = threadIdx.x; i < LS_TM * 64; i += LS_THREADS) {
+            const int r = i >> 6, j = i & 63, cc = c + j;
+            float as = 0.f, at = 0.f;
+            for (int a = 0; a < A; ++a) {
+                const float hv = hs[r * A + a];
+                as += hv * bf2f(aux_w[(size_t)a * R2 + cc]);
+                at += hv * bf2f(aux_w[(size_t)a * R2 + R + cc]);
+            }
+            const float s = zs[r * LS_ZC + j] + as + zb[cc];
+            const float tt = zs[r * LS_ZC + 64 + j] + at + zb[R + cc];
+            gs[(size_t)r * R + cc] = f2bf(wn_gate(s, tt));
+        }
+        __syncthreads();
+    }
+
+    // residual 1x1, 128 output columns per chunk; warp w owns 16 of them
+    for (int c = 0; c < R; c += LS_ZC) {
+        const int col = c + 16 * warp;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+        wmma::fill_fragment(acc[0], 0.f);
+        wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll 4
+        for (int k = 0; k < R; k += 16) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+            wmma::load_matrix_sync(bw, res_w + (size_t)k * R + col, R);
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+                wmma::load_matrix_sync(a, gs + (size_t)(16 * t) * R + k, R);
+                wmma::mma_sync(acc[t], a, bw, acc[t]);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+            wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
+                                    acc[t], LS_ZC, wmma::mem_row_major);
+        __syncthreads();
+        for (int i = threadIdx.x; i < LS_TM * LS_ZC; i += LS_THREADS) {
+            const int r = i >> 7, j = i & (LS_ZC - 1), t = t0 + r, cc = c + j;
+            if (t < T) {
+                const float v = zs[r * LS_ZC + j] + res_b[cc]
+                              + bf2f(xc[(size_t)r * R + cc]);
+                x_out[((size_t)b * T + t) * R + cc] = f2bf(v);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Runs layers 0 .. n_run-1 on `stream`: layer l reads stream l (x0 for
+// l = 0, else streams[l-1]) and writes streams[l]; streams is
+// (n_run, B, T, R).  dilations is a host array of n_run ints.  Returns
+// cudaGetLastError() (0 = success).
+extern "C" int wn_layer_stack_fwd(
+    const void* x0, void* streams, const void* h, const void* dil_w,
+    const void* aux_w, const void* zb, const void* res_w, const void* res_b,
+    const void* dilations_v, int n_run, int B, int T, int R, int A,
+    void* stream) {
+    const int* dilations = (const int*)dilations_v;
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t smem = ls_smem_bytes(R, A);
+    cudaError_t e = cudaFuncSetAttribute(
+        stack_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const size_t stream_sz = (size_t)B * T * R;
+    const dim3 grid((T + LS_TM - 1) / LS_TM, B);
+    for (int l = 0; l < n_run; ++l) {
+        const bf16* in = l == 0 ? (const bf16*)x0
+                                : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
+        bf16* out = (bf16*)streams + (size_t)l * stream_sz;
+        stack_layer_kernel<<<grid, LS_THREADS, smem, st>>>(
+            in, out, (const bf16*)h,
+            (const bf16*)dil_w + (size_t)l * 2 * R * 2 * R,
+            (const bf16*)aux_w + (size_t)l * A * 2 * R,
+            (const float*)zb + (size_t)l * 2 * R,
+            (const bf16*)res_w + (size_t)l * R * R,
+            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l]);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,363 @@
+"""The WaveNet AR sample loop: plain PyTorch version and Hopper kernel.
+
+Replaces ``pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate``
+(the fused Pallas TPU kernel) for bf16 models with kernel_size 2.  Same
+contract as the JAX package's ``_scan_from_state``: carry in, ``(B, max_n)``
+int32 samples out.
+
+Per emitted sample and row the loop does: the input conv over the last k
+ids (a row gather), then for each of the L layers the current-tap matmul,
+the ring-buffer tap read at ``(p - d) mod cap``, the aux projection and
+bias, the sigmoid*tanh gate in f32, the fused skip+res 1x1, the residual
+add and the f32 skip sum, and the ring write at ``p mod cap``; then the
+ReLU/1x1 post stack and argmax or Gumbel-max sampling.
+
+``ar_generate_reference`` is that math in plain PyTorch (the step of
+``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
+config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
+carry goes to the plain version, a CUDA carry to the kernel
+(``csrc/ar_step.cu``), or it raises.
+
+Both update the carry IN PLACE: the ring rows, the sample history and
+``prev`` end the call in the state that continues the stream, so a second
+call (with ``i0`` advanced, plain version) continues it exactly.  The JAX
+package could only reach this through buffer donation.
+
+What bounds the kernel on the H100: every step streams the whole bf16
+weight pack (``L * R * (4R + S + R)`` = 82.5 MB at the 30x512 flagship,
+more than the 50 MB L2) for B rows, so at fleet sizes it is bound by
+device-memory bytes (~25 us/step at 3.35 TB/s), and at small fleets by
+the 65 dependent launches per step.  The design: the step loop runs in
+C++ (no Python per step); each layer is two launches over column slices
+(current and past tap GEMM with the gate; skip/res + residual add + ring
+write) with ``wmma`` bf16 tensor-core tiles and f32 accumulation; per
+step one launch embeds the input ids, one projects the aux column for all
+layers, and three run the post stack and sampling.  Persistence, CUDA
+graphs and TMA/``wgmma`` are later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
+
+
+def ar_kernel_constraint_error(config) -> str | None:
+    """Why the CUDA AR kernel can NOT run this config (None when it can)."""
+    c = config
+    if c.compute_dtype != "bfloat16":
+        return f"compute_dtype={c.compute_dtype!r} (the kernel is bf16)"
+    if c.kernel_size != 2:
+        return (f"kernel_size={c.kernel_size} (only the projection-"
+                "forwarded kernel_size 2 rings are ported)")
+    if c.n_resch % 128 != 0:
+        return f"n_resch={c.n_resch} must be a multiple of 128"
+    if c.n_skipch % 128 != 0:
+        return f"n_skipch={c.n_skipch} must be a multiple of 128"
+    if c.n_quantize % 16 != 0:
+        return f"n_quantize={c.n_quantize} must be a multiple of 16"
+    if not 0 < c.n_aux <= AUX_MAX:
+        return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _sample(logits: torch.Tensor, mode: str,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """(B, Q) logits -> (B,) int64 ids: argmax (ties to the lowest index,
+    like ``jnp.argmax``) or Gumbel-max with uniforms in the open (0, 1)."""
+    if mode == "argmax":
+        return logits.argmax(dim=-1)
+    if mode != "sampling":
+        raise ValueError(f"mode must be sampling or argmax, got {mode!r}")
+    gdev = generator.device if generator is not None else "cpu"
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float64,
+                   device=gdev).to(logits.device)
+    u = u.clamp_min(torch.finfo(torch.float64).tiny)
+    return (logits.to(torch.float64) - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def _step_weights(params, config) -> dict:
+    """The per-step weight views the plain loop consumes, cast once."""
+    c = config
+    L, A, R, k = c.n_layers, c.n_aux, c.n_resch, c.kernel_size
+    dt = c.dtype
+    dil_w = params["dil"]["w"].to(dt)                       # (L, k, R, 2R)
+    return dict(
+        # fused aux projection (A, L*2R)
+        aux_w=params["aux"]["w"].permute(1, 0, 2).reshape(A, L * 2 * R).to(dt),
+        aux_b=params["aux"]["b"],
+        dil_w_cur=dil_w[:, k - 1],                          # (L, R, 2R)
+        # past taps ordered by lag j = 1..k-1 -> weight index k-1-j
+        dil_w_past=torch.flip(dil_w[:, : k - 1], dims=[1]),  # (L, k-1, R, 2R)
+        dil_b=params["dil"]["b"],
+        sr_w=torch.cat([params["skip"]["w"], params["res"]["w"]],
+                       dim=-1).to(dt),                      # (L, R, S+R)
+        sr_b=torch.cat([params["skip"]["b"], params["res"]["b"]], dim=-1),
+        causal_w=params["causal"]["w"].to(dt),              # (k, Q, R)
+        causal_b=params["causal"]["b"],
+        post1_w=params["post1"]["w"].to(dt), post1_b=params["post1"]["b"],
+        post2_w=params["post2"]["w"].to(dt), post2_b=params["post2"]["b"],
+    )
+
+
+def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
+                   ids: torch.Tensor, h_up: torch.Tensor,
+                   p: int) -> torch.Tensor:
+    """One step of the loop at absolute position ``p``: returns the (B, Q)
+    logits and writes every layer's ring slot ``p mod cap`` in place.
+
+    ``ids`` (B, k) holds the class ids at p-k+1 .. p, oldest first.
+    """
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+        _buffer_layout,
+        _dot,
+    )
+
+    c = config
+    w = weights
+    B = ids.shape[0]
+    R, S, k, L = c.n_resch, c.n_skipch, c.kernel_size, c.n_layers
+    dt, acc = c.dtype, c.acc_dtype
+    dev = act_buf.device
+    caps, offsets, _ = _buffer_layout(c)
+    offs_v = torch.tensor(offsets, device=dev)
+    caps_v = torch.tensor(caps, device=dev)
+    lags_v = torch.tensor([[j * d for j in range(1, k)] for d in c.dilations],
+                          dtype=torch.int64, device=dev).reshape(L, k - 1)
+
+    # input causal conv at position p: taps are ids at p-k+1 .. p
+    ids = torch.remainder(ids.long(), c.n_quantize)
+    out = w["causal_b"].to(acc) + torch.zeros((B, R), dtype=acc, device=dev)
+    for j in range(k):
+        out = out + w["causal_w"][j][ids[:, j]]
+
+    # aux column at position p, projected for all layers at once
+    hcol = h_up[:, p, :].to(dt)
+    za_all = _dot(hcol, w["aux_w"]).reshape(B, L, 2 * R) + w["aux_b"][None]
+
+    # every layer's past taps in one gather; kernel_size 2 rings hold the
+    # projected (B, 2R) gate contribution already
+    if k == 2:
+        read_idx = offs_v + (p - lags_v[:, 0]) % caps_v
+        z_past = act_buf[read_idx].to(acc)                     # (L, B, 2R)
+    elif k > 1:
+        read_idx = (offs_v[:, None] + (p - lags_v) % caps_v[:, None]).reshape(-1)
+        past = act_buf[read_idx].reshape(L, k - 1, B, R)
+        z_past = torch.einsum("ljbr,ljro->lbo", past.to(dt).to(acc),
+                              w["dil_w_past"].to(acc))         # (L, B, 2R)
+    else:
+        z_past = torch.zeros((L, B, 2 * R), dtype=acc, device=dev)
+
+    skip_sum = torch.zeros((B, S), dtype=acc, device=dev)
+    new_vals = []
+    for l in range(L):
+        z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
+             + w["dil_b"][l] + za_all[:, l])
+        g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
+        sr = _dot(g.to(dt), w["sr_w"][l]) + w["sr_b"][l]
+        skip_sum = skip_sum + sr[:, :S]
+        new_vals.append(out)
+        out = sr[:, S:] + out
+
+    # every layer's input recorded for future taps in one scatter
+    # (kernel_size 2: projected at write time)
+    write_idx = offs_v + p % caps_v
+    new_stack = torch.stack(new_vals)                          # (L, B, R)
+    if k == 2:
+        new_stack = torch.einsum("lbr,lro->lbo", new_stack.to(dt).to(acc),
+                                 w["dil_w_past"][:, 0].to(acc))
+    act_buf[write_idx] = new_stack.to(act_buf.dtype)
+
+    post = torch.relu(skip_sum)
+    post = torch.relu(_dot(post.to(dt), w["post1_w"]) + w["post1_b"])
+    return _dot(post.to(dt), w["post2_w"]) + w["post2_b"]     # (B, Q)
+
+
+def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
+                          T0: int, max_n: int, mode: str,
+                          generator: torch.Generator | None = None,
+                          i0: int = 0) -> torch.Tensor:
+    """The AR sample loop in plain PyTorch, step math of ``_scan_chunk``.
+
+    Args:
+      carry: (act_buf (total_cap, B, W), sample_hist (B, k-1) int32,
+        prev (B,) int32) from ``_warmup_state``; updated in place.
+      h_up: (B, >= T0 + i0 + max_n, A) sample-rate aux.
+      T0: seed length (first generated sample has index T0).
+      i0: absolute step offset of this call (chunked decoding).
+      generator: ``torch.Generator`` for the Gumbel noise (sampling mode).
+
+    Returns:
+      (B, max_n) int32 generated mu-law classes.
+    """
+    act_buf, sample_hist, prev = carry
+    k = config.kernel_size
+    weights = _step_weights(params, config)
+    ids = torch.cat([sample_hist, prev[:, None]], dim=1)
+    out = []
+    for i in range(max_n):
+        logits = ar_step_logits(weights, config, act_buf, ids, h_up,
+                                T0 - 1 + i0 + i)
+        sample = _sample(logits, mode, generator).to(torch.int32)
+        out.append(sample)
+        ids = torch.cat([ids[:, 1:], sample[:, None]], dim=1)
+    if k > 1:
+        sample_hist.copy_(ids[:, :-1])
+    prev.copy_(ids[:, -1])
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def pack_ar_weights(params, config) -> dict:
+    """The kernel's weight layout (on the params' device, contiguous):
+
+    w4   (L, R, 4R) bf16   [current tap (2R) | past tap (2R)], the current
+                           tap's sigmoid and tanh columns interleaved in
+                           groups of 8: column 16q + i is sigmoid channel
+                           8q + i, column 16q + 8 + i tanh channel 8q + i
+    wsr  (L, R, S+R) bf16  [skip | res]
+    auxw (L, A, 2R) bf16;  zb (L, 2R) f32 = dil_b + aux_b;  srb (L, S+R) f32
+    causal_w (2, Q, R) bf16, causal_b (R,) f32, post1/post2 w bf16, b f32
+    """
+    bf, f32 = torch.bfloat16, torch.float32
+    dil_w = params["dil"]["w"]
+    L, R = dil_w.shape[0], dil_w.shape[2]
+    cur = dil_w[:, 1].reshape(L, R, 2, R // 8, 8).transpose(2, 3)
+    return dict(
+        w4=torch.cat([cur.reshape(L, R, 2 * R), dil_w[:, 0]],
+                     dim=-1).to(bf).contiguous(),
+        wsr=torch.cat([params["skip"]["w"], params["res"]["w"]],
+                      dim=-1).to(bf).contiguous(),
+        auxw=params["aux"]["w"].to(bf).contiguous(),
+        zb=(params["dil"]["b"] + params["aux"]["b"]).to(f32).contiguous(),
+        srb=torch.cat([params["skip"]["b"], params["res"]["b"]],
+                      dim=-1).to(f32).contiguous(),
+        causal_w=params["causal"]["w"].to(bf).contiguous(),
+        causal_b=params["causal"]["b"].to(f32).contiguous(),
+        post1_w=params["post1"]["w"].to(bf).contiguous(),
+        post1_b=params["post1"]["b"].to(f32).contiguous(),
+        post2_w=params["post2"]["w"].to(bf).contiguous(),
+        post2_b=params["post2"]["b"].to(f32).contiguous(),
+    )
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
+                max_n: int, mode: str,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """The AR sample loop: the CUDA kernel for a CUDA carry, the plain
+    version for a CPU carry.  Contract of ``ar_generate_reference``
+    (carry updated in place); returns (B, max_n) int32.
+
+    On CUDA the config must pass ``ar_kernel_constraint_error`` and the
+    ring must be the bf16 projection-forwarded ``(total_cap, B, 2R)`` ring
+    of ``_warmup_state``; anything else raises.  Sampling draws one 64-bit
+    Philox seed from ``generator``; the kernel's Gumbel noise is a function
+    of (seed, row, step, class).
+    """
+    act_buf, sample_hist, prev = carry
+    if act_buf.device.type == "cpu":
+        return ar_generate_reference(params, config, carry, h_up, T0, max_n,
+                                     mode, generator)
+    if act_buf.device.type != "cuda":
+        raise ValueError(f"ar_generate: unsupported device {act_buf.device}")
+    why = ar_kernel_constraint_error(config)
+    if why is not None:
+        raise NotImplementedError(f"CUDA AR kernel: {why}")
+    if mode not in ("argmax", "sampling"):
+        raise ValueError(f"mode must be sampling or argmax, got {mode!r}")
+
+    from pytorchwavenetvocoder_tpu_torch._build import kernels
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
+
+    c = config
+    dev = act_buf.device
+    B = prev.shape[0]
+    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
+    caps, offsets, total_cap = _buffer_layout(c)
+    _check(act_buf, "act_buf", torch.bfloat16, (total_cap, B, 2 * R), dev)
+    _check(sample_hist, "sample_hist", torch.int32, (B, 1), dev)
+    _check(prev, "prev", torch.int32, (B,), dev)
+    if (h_up.device != dev or h_up.dtype != torch.float32 or h_up.ndim != 3
+            or h_up.shape[0] != B or h_up.shape[2] != A
+            or h_up.shape[1] < T0 + max_n or not h_up.is_contiguous()):
+        raise ValueError(f"h_up must be contiguous float32 (B={B}, >= "
+                         f"{T0 + max_n}, A={A}) on {dev}; got "
+                         f"{tuple(h_up.shape)} {h_up.dtype} {h_up.device}")
+    pk = pack_ar_weights(params, c)
+    for name, t in pk.items():
+        if t.device != dev:
+            raise ValueError(f"params ({name}) are on {t.device}, not {dev}")
+
+    Bp = -(-B // 16) * 16   # wmma row tiles of 16; pad rows stay zero
+
+    def scratch(rows, cols, dtype):
+        return torch.zeros((rows, cols), dtype=dtype, device=dev)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    za = torch.empty((B, L * 2 * R), dtype=f32, device=dev)
+    out_f32, out_bf16, g_bf16 = (scratch(Bp, R, f32), scratch(Bp, R, bf),
+                                 scratch(Bp, R, bf))
+    proj = torch.empty((B, 2 * R), dtype=bf, device=dev)
+    skip = torch.empty((B, S), dtype=f32, device=dev)
+    skip_relu, h1 = scratch(Bp, S, bf), scratch(Bp, S, bf)
+    logits = torch.empty((B, Q), dtype=f32, device=dev)
+    ids = torch.stack([sample_hist[:, 0], prev], dim=1).contiguous()
+    samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
+    offs_arr = (ctypes.c_int * L)(*offsets)
+    caps_arr = (ctypes.c_int * L)(*caps)
+    seed = 0
+    if mode == "sampling":
+        gdev = generator.device if generator is not None else "cpu"
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=gdev))
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = kernels().wn_ar_generate(
+            ptr(pk["w4"]), ptr(pk["wsr"]), ptr(pk["auxw"]), ptr(pk["zb"]),
+            ptr(pk["srb"]), ptr(pk["causal_w"]), ptr(pk["causal_b"]),
+            ptr(pk["post1_w"]), ptr(pk["post1_b"]), ptr(pk["post2_w"]),
+            ptr(pk["post2_b"]), ptr(act_buf),
+            ctypes.cast(offs_arr, ctypes.c_void_p),
+            ctypes.cast(caps_arr, ctypes.c_void_p),
+            ptr(h_up), h_up.shape[1], ptr(za), ptr(out_f32), ptr(out_bf16),
+            ptr(g_bf16), ptr(proj), ptr(skip), ptr(skip_relu), ptr(h1),
+            ptr(logits),
+            ptr(ids), ptr(samples), B, R, S, Q, A, L, T0, max_n,
+            int(mode == "sampling"), seed, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
+    ar_generate.launches += 1
+    sample_hist.copy_(ids[:, :1])
+    prev.copy_(ids[:, 1])
+    return samples
+
+
+ar_generate.launches = 0

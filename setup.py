@@ -9,6 +9,10 @@ setup(
     description="TPU-native (JAX/XLA/Pallas) WaveNet vocoder framework",
     packages=find_packages(exclude=("tests",)),
     install_requires=["jax", "numpy", "scipy", "h5py"],
+    # the PyTorch + CUDA port: its kernels are built from csrc/ at first use
+    package_data={"pytorchwavenetvocoder_tpu_torch": ["csrc/*.cu",
+                                                       "csrc/*.cuh"]},
+    extras_require={"torch": ["torch", "numpy", "scipy"]},
     entry_points={
         "console_scripts": [
             "wn-feature-extract=pytorchwavenetvocoder_tpu.bin.feature_extract:main",
