@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's decode path on one NVIDIA GPU (Hopper).
+"""Smoke run of the PyTorch port's decode and training paths on one NVIDIA GPU
+(Hopper).
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero without the final
+Phases (each prints its lines; any failure exits non-zero without the final
 ``{"ok": true, ...}`` line):
 
 1. device: the card, its power limit, and the build of the CUDA kernels
@@ -15,20 +16,34 @@ Phases (each prints one line; any failure exits non-zero without the final
    path's fleet (B=32, flagship width): the ring after one step, argmax
    agreement over 256 steps, a chi-square test of the Gumbel-max sampler
    (on a narrow config), and both times;
-
-K2 and K1 are also read against controls, variants of the plain version
-that a broken kernel would resemble (gate bias dropped, gate in bf16);
-each control must fail a limit the kernel passes.
-4. the main path: a flagship checkpoint (random weights from a seeded
+4. the decode path: a flagship checkpoint (random weights from a seeded
    generator) written as a bundle, loaded back through the port's loaders
    and decoded by ``bin/decode.py``'s ``decode_batches`` as a fleet of 32
-   ragged utterances in sampling mode, with the kernels' launch counts.
+   ragged utterances in sampling mode, with the kernels' launch counts;
+5. K2 in training mode (the sigma/tanh saves and the skip sum) against its
+   plain version at the flagship training window (B=1, T=23,040), each
+   layer on the kernel's own input stream, with both times;
+6. K3, the backward, against its plain version on those saves and a random
+   skip cotangent: every gradient's cosine and max|d|/max|ref|, whether two
+   runs are bitwise equal, and both times;
+7. the training path: ``bin/train.py``'s ``train_loop`` with ``--fused
+   auto`` on the flagship config, 20 steps on one window made in memory
+   (the card's machine has no h5py for feature files): first-step loss and
+   gradients against the plain eager path, K2-train and K3 launched once
+   per step, a falling loss, the fused and plain ms/step, a checkpoint that
+   ``bin/decode.py`` loads and decodes, and ``--resume latest``.
+
+Every check is also read against controls, variants of the plain version
+that a broken kernel would resemble (gate bias dropped, gate in bf16, the
+lagged tap read at t, dskip kept in f32, the lagged tap dropped); each
+control must fail a limit the kernel passes.
 
 Needs torch (CUDA build), numpy, scipy and the CUDA toolkit; no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -135,8 +150,8 @@ def main() -> int:
         return dict(tree, dil=dict(tree["dil"],
                                    b=torch.zeros_like(tree["dil"]["b"])))
 
-    def gate_bf16_layer(lw, l, d, x, hb):
-        """tk.ref_layer with z rounded to bf16 before the gate."""
+    def gate_bf16_st(lw, l, d, x, hb):
+        """tk._ref_gate with z rounded to bf16 before the gate."""
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _dot,
             _shift_time,
@@ -148,10 +163,13 @@ def main() -> int:
         z = _dot(x, w[1]) + _dot(_shift_time(x, d), w[0])
         zz = (z + _dot(hb, lw["aux_w"][l].to(bf))
               + (lw["dil_b"][l] + lw["aux_b"][l]).float()).to(bf).float()
-        g = (torch.sigmoid(zz[..., :R]) * torch.tanh(zz[..., R:])).to(bf)
-        out = (_dot(g, lw["res_w"][l].to(bf)) + lw["res_b"][l]
-               + x.float()).to(bf)
-        return out, g
+        return torch.sigmoid(zz[..., :R]), torch.tanh(zz[..., R:])
+
+    def gate_bf16_layer(lw, l, d, x, hb):
+        """tk.ref_layer with z rounded to bf16 before the gate."""
+        s, t = gate_bf16_st(lw, l, d, x, hb)
+        g = (s * t).to(torch.bfloat16)
+        return tk._ref_res(lw, l, g, x), g
 
     def k2():
         B, T = B_FLEET, flag.receptive_field
@@ -472,10 +490,423 @@ def main() -> int:
                 raise AssertionError(f"a kernel of the path never launched: "
                                      f"{launches}")
 
+    # ---- 5. the training path: K2 training mode, K3, bin/train.py ---------
+    # The flagship training window: --batch_length 20000 --batch_size 1 on
+    # arctic-sd gives windows of 288 frames (train_generator rounds
+    # receptive field + batch length down to whole frames): T = 23,040.
+    B_TRAIN, T_TRAIN = 1, 288 * 80
+    bf = torch.bfloat16
+    train_saves: dict = {}
+
+    def train_window(seed):
+        """One training window as train_generator yields it: mu-law ids of
+        a synthetic waveform (x, t shifted by one) and frame-rate aux."""
+        from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
+
+        r = np.random.RandomState(seed)
+        n = np.arange(T_TRAIN + 1)
+        wav = sum(0.25 * np.sin(2 * np.pi * f * n / 16000 + r.rand() * 6)
+                  for f in (110.0, 220.0, 330.0)) + 0.02 * r.randn(T_TRAIN + 1)
+        ids = np.asarray(encode_mu_law(wav, 256), np.int32)
+        h = r.randn(B_TRAIN, T_TRAIN // 80, flag.n_aux).astype(np.float32)
+        return (ids[None, :-1], h), ids[None, 1:]
+
+    def k2_train():
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            _dot,
+            upsample_aux,
+        )
+
+        (x, h), _t = train_window(21)
+        s0 = input_embed(torch.as_tensor(x, device=dev).long(), params,
+                         flag).to(bf).contiguous()
+        h_up = upsample_aux(params, flag, torch.as_tensor(h, device=dev))
+        hb = h_up.to(bf)
+        lw = tk.layer_weights(params)
+        lw_nb = tk.layer_weights(zero_dil_bias(params))
+        skip, streams, st = tk.layer_stack_fwd_train(lw, flag, s0, h_up)
+        torch.cuda.synchronize()
+        gates = {"kernel": lambda l, d, x: tk._ref_gate(lw, l, d, x, hb),
+                 "no_dil_bias": lambda l, d, x: tk._ref_gate(lw_nb, l, d, x, hb),
+                 "gate_bf16": lambda l, d, x: gate_bf16_st(lw, l, d, x, hb)}
+        # each layer on the kernel's own input stream; the kernel's saves
+        # and output stream against the plain layer (the controls' outputs
+        # for the two controls).  Per reading: worst max|d|/max|stream|,
+        # worst differing share of the stream, worst max|d| of the
+        # sigma/tanh saves, worst differing share of the saves, worst
+        # max|d| of the stream.
+        readings = {}
+        skip_ref = torch.zeros_like(skip)
+        for name, gate in gates.items():
+            r = [0.0, 0.0, 0.0, 0.0, 0.0]
+            prev = s0
+            for l, d in enumerate(flag.dilations):
+                s, t = gate(l, d, prev)
+                want = torch.cat([s, t], -1).to(bf).float()
+                mine = st[l].float()
+                diff = (mine - want).abs()
+                r[2] = max(r[2], diff.max().item())
+                r[3] = max(r[3], (diff > 0).float().mean().item())
+                g = (s * t).to(bf)
+                if name == "kernel":
+                    skip_ref += (_dot(g, lw["skip_w"][l].to(bf))
+                                 + lw["skip_b"][l])
+                if l < flag.n_layers - 1:
+                    want = tk._ref_res(lw, l, g, prev).float()
+                    diff = (streams[l].float() - want).abs()
+                    r[0] = max(r[0], diff.max().item()
+                               / max(want.abs().max().item(), 1e-30))
+                    r[1] = max(r[1], (diff > 0).float().mean().item())
+                    r[4] = max(r[4], diff.max().item())
+                    prev = streams[l]
+                del s, t, want, mine, diff, g
+            readings[name] = r
+        skip_rel = ((skip - skip_ref).abs().max()
+                    / skip_ref.abs().max()).item()
+        del skip_ref
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: tk.layer_stack_fwd_train(lw, flag, s0, h_up))
+        plain_ms = time_ms(lambda: tk.ref_layer_stack(lw, flag, s0, h_up))
+        # limits: as [K2] for the stream; sigma and tanh lie in (-1, 1), so
+        # a flip where the f32 z straddles a bf16 rounding boundary moves a
+        # save by at most one ulp, 2^-8, in a small share of elements; the
+        # skip sum adds 30 layers' 1x1s of gates that differ in the same
+        # small share: 1e-2 of max|skip|
+        tol_rel, tol_share, tol_st, tol_skip = 1e-2, 1e-2, 2.0 ** -8, 1e-2
+
+        def fails(r):
+            return [n for n, v, t in (("rel", r[0], tol_rel),
+                                      ("share", r[1], tol_share),
+                                      ("st", r[2], tol_st),
+                                      ("st share", r[3], tol_share))
+                    if not v <= t]
+
+        print(f"[K2 train] B={B_TRAIN} T={T_TRAIN} L={flag.n_layers} "
+              f"R={flag.n_resch} S={flag.n_skipch} bf16, each layer on its "
+              f"own input vs the plain layer: "
+              + "; ".join(f"{n} stream max|d|/max|stream| {r[0]:.3e}, "
+                          f"differing share {r[1]:.3e}, sigma/tanh max|d| "
+                          f"{r[2]:.3e}, differing share {r[3]:.3e}, fails "
+                          f"{fails(r) or 'none'}"
+                          for n, r in readings.items())
+              + f" (limits rel {tol_rel}, share {tol_share}, st {tol_st}) | "
+              f"skip sum vs the plain layers' 1x1s on the kernel's streams "
+              f"{skip_rel:.3e} (limit {tol_skip}) | kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms | {card}", flush=True)
+        kernels_out.append(dict(
+            name="layer_stack_fwd_train", route="cuda",
+            source="pytorchwavenetvocoder_tpu_torch/csrc/layer_stack_fwd.cu",
+            replaces="pytorchwavenetvocoder_tpu/ops/train_kernel.py:260",
+            launches=0, max_abs_err=max(readings["kernel"][2],
+                                        readings["kernel"][4]),
+            ms=ms, plain_ms=plain_ms))
+        train_saves.update(lw=lw, s0=s0, h_up=h_up, streams=streams, st=st)
+        if fails(readings["kernel"]) or not skip_rel <= tol_skip:
+            raise AssertionError(f"K2 training mode outside its limits: "
+                                 f"{readings['kernel']}, skip {skip_rel}")
+        blind = [n for n in ("no_dil_bias", "gate_bf16")
+                 if not fails(readings[n])]
+        if blind:
+            raise AssertionError(f"K2 training-mode limits pass the controls "
+                                 f"{blind}")
+
+    def k3():
+        if not train_saves:
+            raise AssertionError("no saves: [K2 train] did not run")
+        lw, s0, h_up = train_saves["lw"], train_saves["s0"], train_saves["h_up"]
+        streams, st = train_saves["streams"], train_saves["st"]
+        r = np.random.RandomState(23)
+        dskip = torch.as_tensor(
+            r.randn(B_TRAIN, T_TRAIN, flag.n_skipch) * 1e-3,
+            dtype=torch.float32, device=dev)
+        got = tk.layer_stack_bwd(lw, flag, s0, streams, st, h_up, dskip)
+        again = tk.layer_stack_bwd(lw, flag, s0, streams, st, h_up, dskip)
+        torch.cuda.synchronize()
+        bitwise = (all(torch.equal(got[0][k], again[0][k]) for k in got[0])
+                   and torch.equal(got[1], again[1])
+                   and torch.equal(got[2], again[2]))
+        del again
+        ref = tk.ref_layer_stack_bwd(lw, flag, s0, streams, st, h_up, dskip)
+
+        def variant(dsk, lag):
+            """The plain backward, layer by layer, with ``dsk`` as the
+            skip cotangent and the lagged tap read ``lag`` steps ahead."""
+            hb = h_up.to(bf)
+            dout = torch.zeros_like(s0)
+            dh = torch.zeros(h_up.shape, dtype=torch.float32, device=dev)
+            per = [None] * flag.n_layers
+            for l in reversed(range(flag.n_layers)):
+                x = s0 if l == 0 else streams[l - 1]
+                per[l], dout, dh_l = tk.ref_layer_bwd(
+                    lw, l, lag(flag.dilations[l]), x, st[l], hb, dsk, dout)
+                dh += dh_l.float()
+            dlw = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+            return dlw, dout, dh
+
+        def views(res):
+            dlw, ds0, dh = res
+            return {"dil_w tap t-d": dlw["dil_w"][:, 0],
+                    "dil_w tap t": dlw["dil_w"][:, 1],
+                    "aux_w": dlw["aux_w"], "skip_w": dlw["skip_w"],
+                    "res_w": dlw["res_w"], "dzb": dlw["dil_b"],
+                    "res_b": dlw["res_b"], "dstream0": ds0, "dh_up": dh}
+
+        def compare(res, want):
+            out = {}
+            for k, w in views(want).items():
+                a, b = w.double().flatten(), views(res)[k].double().flatten()
+                cos = (a @ b / (a.norm() * b.norm() + 1e-30)).item()
+                mx = (a - b).abs().max().item()
+                out[k] = (cos, mx / max(a.abs().max().item(), 1e-30), mx)
+            return out
+
+        readings = {
+            "kernel": compare(got, ref),
+            # a kernel that read the lagged tap's dz at t, not t + d
+            "lag_at_t": compare(variant(dskip.to(bf), lambda d: 0), ref),
+            # a kernel that kept dskip in f32
+            "dskip_f32": compare(variant(dskip, lambda d: d), ref),
+        }
+        del ref
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: tk.layer_stack_bwd(lw, flag, s0, streams, st,
+                                                h_up, dskip))
+        plain_ms = time_ms(lambda: tk.ref_layer_stack_bwd(
+            lw, flag, s0, streams, st, h_up, dskip), reps=1)
+        # limits: the JAX kernel's own against autodiff (cos > 0.9999, rel
+        # < 3e-2, tests/test_train_kernel.py:116-119): kernel and plain
+        # round dz and dx to bf16 after sums in another order, and the
+        # flips chain through 30 layers of dx.  skip_w's gradient g^T
+        # bf16(dskip) takes the same g (from the saves) and the same
+        # bf16(dskip) in both, so only the f32 summation order differs:
+        # rel < 1e-4.
+        tol_cos, tol_rel, tol_skip_w = 0.9999, 3e-2, 1e-4
+
+        def fails(rd):
+            bad = [k for k, (c, rl, _) in rd.items()
+                   if not (c > tol_cos and rl < tol_rel)]
+            if not rd["skip_w"][1] < tol_skip_w:
+                bad.append("skip_w rel")
+            return bad
+
+        for name, rd in readings.items():
+            print(f"[K3] {name} vs the plain backward on the same saves, B="
+                  f"{B_TRAIN} T={T_TRAIN} {flag.n_layers} x {flag.n_resch}: "
+                  + ", ".join(f"{k} cos {c:.7f} rel {rl:.3e}"
+                              for k, (c, rl, _) in rd.items())
+                  + f" | fails {fails(rd) or 'none'}", flush=True)
+        print(f"[K3] limits cos > {tol_cos}, rel < {tol_rel}, skip_w rel < "
+              f"{tol_skip_w} | two runs bitwise equal: {bitwise} | kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms | {card}", flush=True)
+        kernels_out.append(dict(
+            name="layer_stack_bwd", route="cuda",
+            source="pytorchwavenetvocoder_tpu_torch/csrc/layer_stack_bwd.cu",
+            replaces="pytorchwavenetvocoder_tpu/ops/train_kernel.py:510",
+            launches=0,
+            max_abs_err=max(v[2] for v in readings["kernel"].values()),
+            ms=ms, plain_ms=plain_ms))
+        if fails(readings["kernel"]) or not bitwise:
+            raise AssertionError(f"K3 outside its limits: "
+                                 f"{fails(readings['kernel'])}, bitwise "
+                                 f"{bitwise}")
+        blind = [n for n in ("lag_at_t", "dskip_f32") if not fails(readings[n])]
+        if blind:
+            raise AssertionError(f"K3 limits pass the controls {blind}")
+        train_saves.clear()
+
+    def train_path():
+        import itertools
+
+        from pytorchwavenetvocoder_tpu_torch.bin import train as train_cli
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import (
+            decode_batches,
+            load_model,
+        )
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            wavenet_forward,
+        )
+        from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
+        from pytorchwavenetvocoder_tpu_torch.parallel import (
+            create_train_state,
+            make_train_step,
+            masked_ce_loss,
+            save_model_conf,
+        )
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        n_steps, lr = 20, 1e-3
+        batch = train_window(31)
+        with tempfile.TemporaryDirectory(dir=root) as expdir:
+            # the recipe's flags (egs/arctic/sd/run.sh, bench.py:153-175);
+            # lr 1e-3, ten times the recipe's, so that 20 steps on one
+            # window show the loss falling.  No feature files: the card's
+            # machine has no h5py, so the window comes from memory.
+            args = train_cli.get_parser().parse_args([
+                "--waveforms", "-", "--feats", "-", "--stats", "-",
+                "--expdir", expdir, "--n_aux", "28", "--n_resch", "512",
+                "--n_skipch", "256", "--dilation_depth", "10",
+                "--dilation_repeat", "3", "--upsampling_factor", "80",
+                "--batch_length", "20000", "--batch_size", "1",
+                "--iters", str(n_steps), "--intervals", "1",
+                "--checkpoint_interval", str(n_steps // 2), "--lr", str(lr),
+                "--fused", "auto", "--device", "cuda", "--seed", "1",
+                "--verbose", "0"])
+            config = train_cli.model_config(args)
+            if config != flag:
+                raise AssertionError(f"the CLI's config {config} is not the "
+                                     f"flagship {flag}")
+            save_model_conf(expdir, dict(config.to_dict(), **vars(args)))
+            (bx, bh), bt = batch
+
+            # first step: the fused route against the plain eager path
+            # (bf16 intermediates + autograd) from the same initial params;
+            # both also against the f32 eager path, the nearest to exact
+            def first_step(fused, cfg=config, drop_lag_tap=False):
+                st0 = create_train_state(
+                    cfg, generator=torch.Generator().manual_seed(args.seed),
+                    device=dev)
+                prm = st0.params
+                if drop_lag_tap:
+                    with torch.no_grad():
+                        prm["dil"]["w"][:, 0] = 0.0
+                logits = wavenet_forward(
+                    prm, cfg, torch.as_tensor(bx, device=dev).long(),
+                    torch.as_tensor(bh, device=dev),
+                    bf16_intermediates=True, fused=fused)
+                loss = masked_ce_loss(logits, torch.as_tensor(
+                    bt, device=dev).long(), cfg.receptive_field)
+                loss.backward()
+                grads = {g: torch.cat([t.grad.flatten().double()
+                                       for t in leaves.values()])
+                         for g, leaves in prm.items()}
+                return loss.item(), grads
+
+            def agreement(a, b):
+                """(|loss_a - loss_b| / loss_b, per-group gradient cosine)"""
+                return (abs(a[0] - b[0]) / abs(b[0]),
+                        {g: (a[1][g] @ b[1][g] / (a[1][g].norm()
+                                                  * b[1][g].norm() + 1e-30)
+                             ).item() for g in a[1]})
+
+            fused1 = first_step(True)
+            plain1 = first_step(False)
+            agree = {"plain": agreement(fused1, plain1),
+                     "lag_tap_dropped": agreement(
+                         fused1, first_step(False, drop_lag_tap=True))}
+            f32_1 = first_step(False, dataclasses.replace(
+                config, compute_dtype="float32"))
+            vs_f32 = {"fused": agreement(fused1, f32_1),
+                      "plain": agreement(plain1, f32_1)}
+            del plain1, f32_1
+            # limits: the two routes round at other places (the plain path
+            # rounds the gate inputs, each tap's product and the residual
+            # sum to bf16, the fused one the saved sigma/tanh), and the
+            # differences chain through 30 layers forward and back: the
+            # loss agrees to ~1e-4, each group's gradient to a cosine of
+            # ~0.996 (measured on one H100).  A control with the lagged
+            # tap dropped reads loss 4e-2, cosines 0.26-0.97.
+            tol_loss, tol_cos = 1e-3, 0.99
+
+            def fails(a):
+                bad = ["loss"] if not a[0] < tol_loss else []
+                return bad + [g for g, c in a[1].items() if not c > tol_cos]
+
+            print("[train] first step, fused vs the plain eager path: "
+                  + "; ".join(f"{n}: loss |d|/loss {a[0]:.3e}, grad cos "
+                              + ", ".join(f"{g} {c:.6f}"
+                                          for g, c in a[1].items())
+                              + f", fails {fails(a) or 'none'}"
+                              for n, a in agree.items())
+                  + f" (limits loss {tol_loss}, cos {tol_cos}) | against the "
+                  f"f32 eager path: "
+                  + "; ".join(f"{n} loss |d|/loss {a[0]:.3e}, min grad cos "
+                              f"{min(a[1].values()):.6f}"
+                              for n, a in vs_f32.items())
+                  + f" | fused loss {fused1[0]:.6f}", flush=True)
+            del fused1
+
+            tk.layer_stack_fwd_train.launches = 0
+            tk.layer_stack_bwd.launches = 0
+            res = train_cli.train_loop(config, itertools.repeat(batch), expdir,
+                                       args, dev)
+            torch.cuda.synchronize()
+            launches = {"layer_stack_fwd_train": tk.layer_stack_fwd_train.launches,
+                        "layer_stack_bwd": tk.layer_stack_bwd.launches}
+            for k in kernels_out:
+                k["launches"] = launches.get(k["name"], k["launches"])
+            losses = [l for _i, l, _s in res["intervals"]]
+            secs = [s for _i, _l, s in res["intervals"]]
+            fused_ms = 1e3 * float(np.median(secs[2:]))
+
+            # the plain route at the same point, a few steps
+            plain_state = create_train_state(
+                config, lr=lr, generator=torch.Generator().manual_seed(1),
+                device=dev)
+            plain_step = make_train_step(config, lr=lr, fused=False)
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                plain_step(plain_state, bx, bh, bt)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+            plain_ms = 1e3 * float(np.median(times[1:]))
+            del plain_state
+
+            # the final checkpoint through bin/decode.py's loader: a short
+            # utterance decoded on the card
+            ckpt = os.path.join(expdir, "checkpoint-final.pkl")
+            model, _conf = load_model(ckpt, expdir, dev)
+            h_dec = np.random.RandomState(33).randn(
+                1, 10, flag.n_aux).astype(np.float32)
+            x_dec = np.asarray(encode_mu_law(np.zeros(1), 256),
+                               np.int32)[None]
+            outdir = os.path.join(expdir, "wav")
+            decode_batches(model, [(["utt"], (x_dec, h_dec, [799]))], outdir,
+                           mode="sampling", impl="auto",
+                           generator=torch.Generator().manual_seed(3))
+            wav, _fs = read_wav(os.path.join(outdir, "utt.wav"))
+            del model
+
+            # --resume latest picks the final checkpoint and goes on from it
+            args.resume, args.iters = "latest", n_steps + 2
+            res2 = train_cli.train_loop(config, itertools.repeat(batch),
+                                        expdir, args, dev)
+            print(f"[train] bin/train.py train_loop, --fused auto, lr {lr}, "
+                  f"{n_steps} steps on one window (B={B_TRAIN}, T={T_TRAIN}): "
+                  f"route {res['route']}, launches {launches}, loss "
+                  + " ".join(f"{l:.4f}" for l in losses)
+                  + f" | ms/step fused {fused_ms:.1f}, plain {plain_ms:.1f} | "
+                  f"checkpoint decoded: wav {wav.shape}, finite "
+                  f"{bool(np.isfinite(wav).all())}, std {float(np.std(wav)):.4f}"
+                  f" | resumed at step {res2['start']}, ended at "
+                  f"{res2['state'].step} | {card}", flush=True)
+            if fails(agree["plain"]):
+                raise AssertionError(f"first step off the plain path: "
+                                     f"{agree['plain']}")
+            if not fails(agree["lag_tap_dropped"]):
+                raise AssertionError("first-step limits pass the control")
+            if res["route"] != "fused" or min(launches.values()) != n_steps:
+                raise AssertionError(f"route {res['route']}, launches "
+                                     f"{launches}: not one K2/K3 launch per "
+                                     f"step")
+            if (len(losses) != n_steps or not np.isfinite(losses).all()
+                    or not np.mean(losses[-5:]) < np.mean(losses[:5])):
+                raise AssertionError(f"loss not finite and falling: {losses}")
+            if wav.shape != (799,) or not np.isfinite(wav).all():
+                raise AssertionError(f"decoded wav {wav.shape}, finite "
+                                     f"{np.isfinite(wav).all()}")
+            if res2["start"] != n_steps or res2["state"].step != n_steps + 2:
+                raise AssertionError(f"resume started at {res2['start']}, "
+                                     f"ended at {res2['state'].step}")
+
     phase("K2", k2)
     phase("K1", k1)
     phase("K1 chi2", chi2)
     phase("main", main_path)
+    phase("K2 train", k2_train)
+    phase("K3", k3)
+    phase("train", train_path)
     if failures:
         _fail(f"phases failed: {failures}")
     print(json.dumps({"kernels": kernels_out}), flush=True)

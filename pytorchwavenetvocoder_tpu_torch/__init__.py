@@ -1,13 +1,15 @@
 """PyTorch + CUDA port of the WaveNet vocoder framework.
 
 A second package beside the JAX reference ``pytorchwavenetvocoder_tpu``:
-the same parameter layout, bundle format and decode path, in PyTorch, with
-the decode path's TPU kernels rewritten by hand for NVIDIA Hopper
-(``csrc/``, built with ``nvcc`` at first use).  It imports nothing of JAX
-or of the JAX package.
+the same parameter layout, bundle format, decode and training paths, in
+PyTorch, with the TPU kernels of those paths rewritten by hand for NVIDIA
+Hopper (``csrc/``, built with ``nvcc`` at first use).  It imports nothing
+of JAX or of the JAX package.
 
 Layer map:
-  CLI (bin/decode.py)  ->  model (models/wavenet.py: warm-up + AR loop)
+  CLIs (bin/decode.py, bin/train.py)
+  ->  model and train step (models/wavenet.py: warm-up + AR loop, the
+      training forward; parallel/train.py: loss, Adam)
   ->  kernels (ops/train_kernel.py, ops/ar_kernel.py; csrc/*.cu)
   ->  host I/O (utils/, data/generator.py, parallel/checkpoint.py)
 """

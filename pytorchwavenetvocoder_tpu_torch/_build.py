@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``.  The build runs at first use, from the sources in this
-checkout only, into ``build/torch_kernels/`` beside the package; the
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.  Importing this module
-builds nothing.
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use, from the sources in this checkout only, into
+``build/torch_kernels/`` beside the package; the library's name carries a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused.  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: The kernels' limit on n_aux (``AR_AUX_MAX`` in csrc/ar_step.cu sizes the
 #: AR kernel's shared aux rows; the layer-stack kernel is held to the same).
@@ -65,16 +65,36 @@ def build_kernels() -> Path:
         BUILD_INFO.update(path=str(lib), seconds=0.0, log="(cached)")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in srcs]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs))]
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     BUILD_INFO.update(path=str(lib), seconds=time.time() - t0,
-                      log=res.stdout + res.stderr)
+                      log="".join(logs))
     return lib
 
 
@@ -97,5 +117,22 @@ def kernels() -> ctypes.CDLL:
         [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b
         + [vp]               # dilations (host int*)
         + [i32] * 5          # n_run B T R A
+        + [vp])              # stream
+    lib.wn_layer_stack_fwd_train.restype = i32
+    lib.wn_layer_stack_fwd_train.argtypes = (
+        [vp] * 12            # x0 streams st skip_sum h dil_w aux_w zb skip_w
+                             # skip_b res_w res_b
+        + [vp]               # dilations (host int*)
+        + [i32] * 6          # L B T R S A
+        + [vp])              # stream
+    lib.wn_layer_stack_bwd_workspace.restype = ctypes.c_longlong
+    lib.wn_layer_stack_bwd_workspace.argtypes = [i32] * 5   # B T R S A
+    lib.wn_layer_stack_bwd.restype = i32
+    lib.wn_layer_stack_bwd.argtypes = (
+        [vp] * 9             # x0 streams st dsk h dil_w aux_wp skip_w res_w
+        + [vp]               # dilations (host int*)
+        + [vp] * 8           # ddil daux dskip_w dres_w dzb dres_b dstream0 dh
+        + [vp] * 3           # dz dx_pp ws
+        + [i32] * 7          # L B T R S A A_pad
         + [vp])              # stream
     return lib

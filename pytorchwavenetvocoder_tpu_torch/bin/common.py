@@ -1,4 +1,4 @@
-"""Shared CLI plumbing: logging configuration and argument echo.
+"""Shared CLI plumbing: logging configuration, argument echo, strtobool.
 
 Mirrors the uniform logging setup every reference CLI repeats
 (`train.py:396-413`, `decode.py:206-219`, `feature_extract.py:334-351`).
@@ -25,3 +25,13 @@ def configure_logging(verbose: int) -> None:
 def echo_args(args: argparse.Namespace) -> None:
     for key, value in vars(args).items():
         logging.info("%s = %s", key, str(value))
+
+
+def strtobool(v: str) -> bool:
+    """distutils.util.strtobool equivalent (distutils is removed in 3.12)."""
+    v = str(v).lower()
+    if v in ("y", "yes", "t", "true", "on", "1"):
+        return True
+    if v in ("n", "no", "f", "false", "off", "0"):
+        return False
+    raise ValueError(f"invalid truth value {v!r}")

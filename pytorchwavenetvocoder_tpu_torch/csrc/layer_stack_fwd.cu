@@ -1,23 +1,33 @@
-// Forward of the WaveNet gated-residual stack, streams only (kernel_size 2),
-// for Hopper.
+// Forward of the WaveNet gated-residual stack (kernel_size 2) for Hopper, in
+// two modes.
 //
-// Replaces pytorchwavenetvocoder_tpu/ops/train_kernel.py::_fwd_pallas in its
-// streams-only mode (save_st=False), which fills the decode warm-up's ring
-// buffers; the plain PyTorch version is
-// ops/train_kernel.py::ref_layer_stack_streams.
+// Replaces pytorchwavenetvocoder_tpu/ops/train_kernel.py::_fwd_pallas:
+//   * streams only (save_st=False), which fills the decode warm-up's ring
+//     buffers: wn_layer_stack_fwd; plain PyTorch version
+//     ops/train_kernel.py::ref_layer_stack_streams;
+//   * training (save_st=True), which also writes the sigma/tanh saves and
+//     the f32 skip sum for the backward (csrc/layer_stack_bwd.cu):
+//     wn_layer_stack_fwd_train; plain version ops/train_kernel.py::
+//     ref_layer_stack.
 //
 // Bound on the H100: per layer a (B*T, 2R) x (2R, 2R) plus a (B*T, R) x (R, R)
-// bf16 product; at the warm-up's ~10^5 rows this is tensor-core work, and
-// the bf16 output stream is the only device-memory traffic that grows with
-// B*T.  Design: one launch per layer; a block owns 32 time steps of one
-// utterance.  It stages x[t] and x[t - d] (zero where t - d < 0: the causal
-// padding) from the previous layer's stream into shared memory, computes z
-// in 64-channel chunks (sigmoid and tanh halves) with wmma bf16 tiles and
-// f32 accumulation, adds the aux projection and bias, applies the f32 gate
-// into a bf16 tile that stays in shared memory, then runs the residual 1x1
-// on it and writes out = bf16(g @ W_res + b_res + x).  The skip 1x1 is not
-// computed (streams-only).  The TPU kernel's ring of tiles, packed int32
-// pairs and tile cadence were Mosaic constraints and are not carried over.
+// bf16 product (and in training a (B*T, R) x (R, S) skip product); at the
+// warm-up's ~10^5 rows and the training window's 23,040 this is tensor-core
+// work.  The bf16 streams, and in training the (B*T, 2R) bf16 saves (1.42 GB
+// over 30 layers at the flagship window), are the only device-memory
+// traffic that grows with B*T.  Design: one launch per layer; a block owns
+// 32 time steps of one utterance.  It stages x[t] and x[t - d] (zero where
+// t - d < 0: the causal padding) from the previous layer's stream into
+// shared memory, computes z in 64-channel chunks (sigmoid and tanh halves)
+// with wmma bf16 tiles and f32 accumulation, adds the aux projection and
+// bias, applies the f32 gate into a bf16 tile that stays in shared memory,
+// then runs the 1x1s on it: in training the skip 1x1, added into the f32
+// skip sum (each block owns its rows, so no two blocks touch one element;
+// layer 0 writes it, later layers read-modify-write), and the residual
+// 1x1, out = bf16(g @ W_res + b_res + x), which the last layer of a
+// training stack skips (its output feeds nothing).  The TPU kernel's ring of
+// tiles, packed int32 pairs and tile cadence were Mosaic constraints and are
+// not carried over.
 #include "wn_common.cuh"
 
 using namespace nvcuda;
@@ -32,6 +42,9 @@ static size_t ls_smem_bytes(int R, int A) {
          + (size_t)LS_TM * A * sizeof(float);          // aux rows
 }
 
+// TRAIN adds the sigma/tanh saves and the skip sum; without it the kernel
+// is the streams-only one the decode warm-up runs.
+template <bool TRAIN>
 __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
     const bf16* __restrict__ x_in,    // (B, T, R) this layer's input stream
     bf16* __restrict__ x_out,         // (B, T, R) its output stream
@@ -41,7 +54,13 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
     const float* __restrict__ zb,     // (2R) dil_b + aux_b
     const bf16* __restrict__ res_w,   // (R, R)
     const float* __restrict__ res_b,  // (R)
-    int T, int R, int A, int d) {
+    int T, int R, int A, int d,
+    // training mode only
+    bf16* __restrict__ st,            // (B, T, 2R) this layer's sigma | tanh
+    float* __restrict__ skip_sum,     // (B, T, S)
+    const bf16* __restrict__ skip_w,  // (R, S)
+    const float* __restrict__ skip_b, // (S)
+    int S, int first_layer, int do_res) {
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* xc = (bf16*)smem;                    // (TM, R) x[t]
     bf16* xs = xc + LS_TM * R;                 // (TM, R) x[t - d]
@@ -105,9 +124,56 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
             }
             const float s = zs[r * LS_ZC + j] + as + zb[cc];
             const float tt = zs[r * LS_ZC + 64 + j] + at + zb[R + cc];
-            gs[(size_t)r * R + cc] = f2bf(wn_gate(s, tt));
+            if constexpr (TRAIN) {
+                const float sg = wn_sigmoid(s), th = tanhf(tt);
+                gs[(size_t)r * R + cc] = f2bf(sg * th);
+                const int t = t0 + r;
+                if (t < T) {
+                    bf16* row = st + ((size_t)b * T + t) * R2;
+                    row[cc] = f2bf(sg);
+                    row[R + cc] = f2bf(th);
+                }
+            } else {
+                gs[(size_t)r * R + cc] = f2bf(wn_gate(s, tt));
+            }
         }
         __syncthreads();
+    }
+
+    if constexpr (TRAIN) {
+        // skip 1x1 into the f32 skip sum, 128 columns per chunk
+        for (int c = 0; c < S; c += LS_ZC) {
+            const int col = c + 16 * warp;
+            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+            wmma::fill_fragment(acc[0], 0.f);
+            wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll 4
+            for (int k = 0; k < R; k += 16) {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+                wmma::load_matrix_sync(bw, skip_w + (size_t)k * S + col, S);
+#pragma unroll
+                for (int t = 0; t < 2; ++t) {
+                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+                    wmma::load_matrix_sync(a, gs + (size_t)(16 * t) * R + k, R);
+                    wmma::mma_sync(acc[t], a, bw, acc[t]);
+                }
+            }
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+                wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
+                                        acc[t], LS_ZC, wmma::mem_row_major);
+            __syncthreads();
+            for (int i = threadIdx.x; i < LS_TM * LS_ZC; i += LS_THREADS) {
+                const int r = i >> 7, j = i & (LS_ZC - 1), t = t0 + r, cc = c + j;
+                if (t < T) {
+                    float* dst = skip_sum + ((size_t)b * T + t) * S + cc;
+                    const float v = zs[r * LS_ZC + j] + skip_b[cc];
+                    *dst = first_layer ? v : *dst + v;
+                }
+            }
+            __syncthreads();
+        }
+        if (!do_res) return;    // the last layer's output stream feeds nothing
     }
 
     // residual 1x1, 128 output columns per chunk; warp w owns 16 of them
@@ -157,7 +223,7 @@ extern "C" int wn_layer_stack_fwd(
     cudaStream_t st = (cudaStream_t)stream;
     const size_t smem = ls_smem_bytes(R, A);
     cudaError_t e = cudaFuncSetAttribute(
-        stack_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stack_layer_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     const size_t stream_sz = (size_t)B * T * R;
@@ -166,13 +232,54 @@ extern "C" int wn_layer_stack_fwd(
         const bf16* in = l == 0 ? (const bf16*)x0
                                 : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
         bf16* out = (bf16*)streams + (size_t)l * stream_sz;
-        stack_layer_kernel<<<grid, LS_THREADS, smem, st>>>(
+        stack_layer_kernel<false><<<grid, LS_THREADS, smem, st>>>(
             in, out, (const bf16*)h,
             (const bf16*)dil_w + (size_t)l * 2 * R * 2 * R,
             (const bf16*)aux_w + (size_t)l * A * 2 * R,
             (const float*)zb + (size_t)l * 2 * R,
             (const bf16*)res_w + (size_t)l * R * R,
-            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l]);
+            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l],
+            nullptr, nullptr, nullptr, nullptr, 0, 0, 0);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The training forward: runs all L layers.  Layer l reads stream l (x0 for
+// l = 0, else streams[l-1]), writes streams[l] for l < L-1 (streams is
+// (L-1, B, T, R)), its sigma | tanh saves into st[l] (st is (L, B, T, 2R)),
+// and adds its skip 1x1 into skip_sum (B, T, S) f32.  dilations is a host
+// array of L ints.  Returns cudaGetLastError() (0 = success).
+extern "C" int wn_layer_stack_fwd_train(
+    const void* x0, void* streams, void* st_v, void* skip_sum, const void* h,
+    const void* dil_w, const void* aux_w, const void* zb, const void* skip_w,
+    const void* skip_b, const void* res_w, const void* res_b,
+    const void* dilations_v, int L, int B, int T, int R, int S, int A,
+    void* stream) {
+    const int* dilations = (const int*)dilations_v;
+    cudaStream_t cs = (cudaStream_t)stream;
+    const size_t smem = ls_smem_bytes(R, A);
+    cudaError_t e = cudaFuncSetAttribute(
+        stack_layer_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const size_t stream_sz = (size_t)B * T * R;
+    const dim3 grid((T + LS_TM - 1) / LS_TM, B);
+    for (int l = 0; l < L; ++l) {
+        const bf16* in = l == 0 ? (const bf16*)x0
+                                : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
+        bf16* out = l < L - 1 ? (bf16*)streams + (size_t)l * stream_sz : nullptr;
+        stack_layer_kernel<true><<<grid, LS_THREADS, smem, cs>>>(
+            in, out, (const bf16*)h,
+            (const bf16*)dil_w + (size_t)l * 2 * R * 2 * R,
+            (const bf16*)aux_w + (size_t)l * A * 2 * R,
+            (const float*)zb + (size_t)l * 2 * R,
+            (const bf16*)res_w + (size_t)l * R * R,
+            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l],
+            (bf16*)st_v + (size_t)l * 2 * stream_sz, (float*)skip_sum,
+            (const bf16*)skip_w + (size_t)l * R * S,
+            (const float*)skip_b + (size_t)l * S, S, l == 0, l < L - 1);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }

@@ -1,4 +1,5 @@
-"""Conditional WaveNet in PyTorch, with Hopper kernels on the decode path.
+"""Conditional WaveNet in PyTorch, with Hopper kernels on the decode and
+training paths.
 
 Counterpart of ``pytorchwavenetvocoder_tpu/models/wavenet.py`` (itself a
 re-design of the reference ``wavenet_vocoder/nets/wavenet.py:157-549``):
@@ -24,7 +25,10 @@ fast-WaveNet ring buffers (arXiv 1611.09482), then the AR sample loop
 emits one sample per row per step.  ``impl="cuda"`` runs them through the
 hand-written kernels of ``ops/train_kernel.py`` (warm-up streams) and
 ``ops/ar_kernel.py`` (the sample loop); ``impl="plain"`` runs the same
-math in plain PyTorch.
+math in plain PyTorch.  Training (``wavenet_forward``) runs the layer stack
+either as plain PyTorch under autograd or, with ``fused=True``, through
+``ops/train_kernel.py::FusedLayerStack``, whose forward and backward are
+hand-written kernels on a CUDA device.
 
 Parity invariant (reference ``test/test_wavenet.py:93-253``): naive
 full-forward AR == ring-buffer AR == batched ring-buffer AR, bit-equal in
@@ -41,6 +45,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 Params = dict
@@ -300,27 +305,71 @@ def _stack_inputs(params: Params, config: WaveNetConfig, x: torch.Tensor,
 
 def wavenet_forward(params: Params, config: WaveNetConfig,
                     x: torch.Tensor, h: torch.Tensor,
-                    bf16_intermediates: bool = False) -> torch.Tensor:
+                    remat: bool = False,
+                    bf16_intermediates: bool = False,
+                    fused: bool = False) -> torch.Tensor:
     """Training forward: (B, T) ids + (B, T', A) aux -> (B, T, Q) logits.
 
     Mirrors reference ``forward`` (`wavenet.py:212-241`).  If
     ``upsampling_factor > 0``, ``h`` is frame-rate and gets upsampled here;
     otherwise it must already be sample-rate with T' == T.
 
+    ``remat=True`` recomputes each residual layer but the first in the
+    backward (``torch.utils.checkpoint``) instead of keeping its
+    intermediates: less memory at large batches, identical gradients.
+
     ``bf16_intermediates=True`` (bf16 configs only) materializes the big
     per-layer matmul outputs (gate inputs, residual stream) in bf16; the
     gate still runs in f32.
+
+    ``fused=True`` runs the L-layer stack through ``FusedLayerStack``
+    (ops/train_kernel.py): the training forward and backward kernels on a
+    CUDA device, their plain versions on the CPU.  It needs a bf16 config
+    inside ``fused_train_constraint_error``, or it raises.  Numerics match
+    ``bf16_intermediates=True`` up to where bf16 rounding lands (the saved
+    sigma/tanh instead of the gate inputs).
     """
     c = config
+    if fused:
+        from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+            fused_layer_stack,
+            fused_train_constraint_error,
+        )
+
+        if c.dtype != torch.bfloat16:
+            raise ValueError(
+                "fused=True requires compute_dtype='bfloat16' (the fused "
+                "kernels are bf16; an f32 parity run must use the plain "
+                "path)")
+        why_not = fused_train_constraint_error(c, x.shape[1])
+        if why_not is not None:
+            raise ValueError(
+                f"fused=True but this config/window is outside the fused "
+                f"kernels' envelope: {why_not}. Use the plain path "
+                "(fused=False / --fused false) instead.")
+        out = input_embed(x, params, c).to(torch.bfloat16)
+        if c.upsampling_factor > 0:
+            h = upsample_aux(params, c, h)
+        skip_sum = fused_layer_stack(params, c, out, h)
+        return _post_stack(params, skip_sum, torch.bfloat16)
+
     if c.upsampling_factor > 0:
         h = upsample_aux(params, c, h)
     out, h, mm_dt = _stack_inputs(params, c, x, h, bf16_intermediates)
-    skip_sum = None
-    for l, d in enumerate(c.dilations):
+
+    def layer(l, d, out, skip_sum, h):
         out, g = _residual_layer(params, c, l, d, out, h, mm_dt)
         # skip stays f32: it is the L-term accumulator
         skip = _dot(g, params["skip"]["w"][l].to(c.dtype)) + params["skip"]["b"][l]
-        skip_sum = skip if skip_sum is None else skip_sum + skip
+        return out, (skip if skip_sum is None else skip_sum + skip)
+
+    skip_sum = None
+    for l, d in enumerate(c.dilations):
+        if remat and skip_sum is not None:
+            out, skip_sum = torch.utils.checkpoint.checkpoint(
+                layer, l, d, out, skip_sum, h, use_reentrant=False)
+        else:
+            out, skip_sum = layer(l, d, out, skip_sum, h)
     return _post_stack(params, skip_sum, c.dtype)
 
 

@@ -1,0 +1,152 @@
+"""The training step on one device.
+
+Counterpart of ``pytorchwavenetvocoder_tpu/parallel/train.py`` (reference
+training inner loop, `train.py:527-539`): Adam and a cross-entropy with the
+first ``receptive_field`` positions masked out of the loss
+(`train.py:534-536`), weight decay as torch-Adam L2 on the gradient.  The
+layer stack runs through the fused CUDA training kernels
+(``ops/train_kernel.py::FusedLayerStack``) or the plain PyTorch forward
+with autograd.  Data and tensor parallelism are not yet ported: a request
+for more than one device raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable
+
+import torch
+
+from pytorchwavenetvocoder_tpu_torch.convert import param_leaves
+from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+    Params,
+    WaveNetConfig,
+    init_wavenet_params,
+    wavenet_forward,
+)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything the optimizer step mutates: the params (leaf tensors that
+    require grad), the optimizer over them, and the step count."""
+
+    params: Params
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def make_optimizer(params: Params, lr: float = 1e-4,
+                   weight_decay: float = 0.0) -> torch.optim.Adam:
+    """Adam over the params in ``param_leaves`` order, with weight decay as
+    L2 on the gradient (torch Adam semantics, `train.py:457-460`): the same
+    update as optax ``add_decayed_weights`` then ``adam``, eps 1e-8 outside
+    the square root in both."""
+    return torch.optim.Adam([t for _g, _n, t in param_leaves(params)], lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def create_train_state(config: WaveNetConfig, lr: float = 1e-4,
+                       weight_decay: float = 0.0,
+                       params: Params | None = None,
+                       generator: torch.Generator | None = None,
+                       device="cpu") -> TrainState:
+    """A fresh state: ``params`` (default: ``init_wavenet_params`` from
+    ``generator`` on ``device``) made leaf tensors that require grad, and
+    a fresh optimizer."""
+    if params is None:
+        params = init_wavenet_params(config, generator, device)
+    for _g, _n, t in param_leaves(params):
+        t.requires_grad_(True)
+    return TrainState(params=params,
+                      optimizer=make_optimizer(params, lr, weight_decay),
+                      step=0)
+
+
+def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+                   receptive_field: int) -> torch.Tensor:
+    """Mean cross-entropy over positions >= receptive_field.
+
+    The reference slices ``[:, receptive_field:]`` before the loss
+    (`train.py:534-536`); masking keeps the shape.  Negative targets mark
+    padding (the utterance-mode trainer pads windows to length buckets)
+    and are excluded from the mean; an all-masked batch gives 0.
+    """
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -logp.gather(-1, targets.clamp(min=0).long()[..., None])[..., 0]
+    pos = torch.arange(targets.shape[1], device=targets.device)
+    mask = ((pos[None, :] >= receptive_field) & (targets >= 0)).to(ce.dtype)
+    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
+                    weight_decay: float = 0.0, remat: bool = False,
+                    bf16_intermediates: bool | None = None,
+                    fused: bool | None = None, n_devices: int = 1,
+                    model_parallel: int = 1) -> Callable:
+    """Build ``step_fn(state, batch_x, batch_h, batch_t) -> (state, loss)``.
+
+    The batch (numpy or tensors) moves to the params' device; the state is
+    updated in place and returned; ``loss`` is a 0-dim tensor on the
+    device (reading it synchronizes).  The step sets the optimizer's lr and
+    weight decay to ``lr``/``weight_decay``.
+
+    ``remat`` recomputes the residual layers in the backward (plain path
+    only).  ``bf16_intermediates`` (default: on for bf16 configs)
+    materializes the plain path's layer matmul outputs in bf16.  ``fused``
+    routes the layer stack through the fused training kernels
+    (``FusedLayerStack``); the default (None) picks it when the params are
+    on a CUDA device, the config is bf16 and ``supports_fused_train``
+    holds, as the JAX package does for its TPU backend.  ``step_fn.route``
+    names the route of the last step ("fused" or "plain"); a change of
+    route is logged.
+    """
+    if n_devices > 1 or model_parallel > 1:
+        raise NotImplementedError(
+            f"n_devices={n_devices}, model_parallel={model_parallel}: "
+            "multi-device training is not yet ported to the PyTorch package")
+    rf = config.receptive_field
+    if bf16_intermediates is None:
+        bf16_intermediates = config.dtype == torch.bfloat16
+
+    def use_fused(device: torch.device, T: int) -> bool:
+        if fused is not None:
+            return fused
+        from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+            supports_fused_train,
+        )
+
+        return (device.type == "cuda" and config.dtype == torch.bfloat16
+                and supports_fused_train(config, T))
+
+    def step_fn(state: TrainState, batch_x, batch_h, batch_t):
+        device = state.params["causal"]["w"].device
+        bx = torch.as_tensor(batch_x, device=device).long()
+        bh = torch.as_tensor(batch_h, device=device)
+        bt = torch.as_tensor(batch_t, device=device).long()
+        on_fused = use_fused(device, bx.shape[1])
+        route = "fused" if on_fused else "plain"
+        if route != step_fn.route:
+            logging.info("train step route: %s (device %s, compute_dtype %s, "
+                         "fused=%s)", route, device, config.compute_dtype,
+                         "auto" if fused is None else fused)
+            step_fn.route = route
+        opt = state.optimizer
+        for group in opt.param_groups:
+            group["lr"] = lr
+            group["weight_decay"] = weight_decay
+        opt.zero_grad(set_to_none=True)
+        logits = wavenet_forward(state.params, config, bx, bh,
+                                 remat=remat and not on_fused,
+                                 bf16_intermediates=bf16_intermediates,
+                                 fused=on_fused)
+        loss = masked_ce_loss(logits, bt, rf)
+        loss.backward()
+        opt.step()
+        state.step += 1
+        return state, loss.detach()
+
+    step_fn.route = None
+    return step_fn

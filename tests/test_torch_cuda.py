@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (the AR loop, the layer stack's warm-up and
+training forward, its backward) against their plain PyTorch versions, on
+the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
 On a machine with an NVIDIA Hopper GPU and nvcc (``--noconftest``: the
@@ -129,3 +131,76 @@ def test_batch_fast_generate_cuda_runs_both_kernels(dev):
     assert [len(o) for o in out] == [59, 40, 20]
     assert ak.ar_generate.launches == k1 + 1
     assert tk.layer_stack_streams.launches == k2 + 1
+
+
+def _cos_rel(want, got):
+    a, b = want.double().flatten(), got.double().flatten()
+    cos = (a @ b / (a.norm() * b.norm() + 1e-30)).item()
+    rel = ((a - b).abs().max() / (a.abs().max() + 1e-9)).item()
+    return cos, rel
+
+
+def test_train_kernels_match_plain(dev):
+    """K2 training mode and K3 at a ragged T (not a multiple of the 32-row
+    tile) and B=3, against their plain versions on the same inputs."""
+    cfg = _cfg()
+    params = _params(cfg, dev, seed=4)
+    rng = np.random.RandomState(4)
+    B, T = 3, 700
+    s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
+                         dtype=torch.bfloat16, device=dev)
+    h = torch.as_tensor(rng.randn(B, T, cfg.n_aux), dtype=torch.float32,
+                        device=dev)
+    dskip = torch.as_tensor(rng.randn(B, T, cfg.n_skipch),
+                            dtype=torch.float32, device=dev)
+    lw = tk.layer_weights(params)
+    n_fwd, n_bwd = tk.layer_stack_fwd_train.launches, tk.layer_stack_bwd.launches
+    skip, streams, st = tk.layer_stack_fwd_train(lw, cfg, s0, h)
+    assert tk.layer_stack_fwd_train.launches == n_fwd + 1
+    # each layer on the kernel's own input stream: sigma, tanh and the
+    # stream move by at most a bf16 ulp, where sums round apart
+    hb, x = h.to(torch.bfloat16), s0
+    skip_ref = torch.zeros_like(skip)
+    for l, d in enumerate(cfg.dilations):
+        s, t = tk._ref_gate(lw, l, d, x, hb)
+        want = torch.cat([s, t], -1).to(torch.bfloat16).float()
+        diff = (st[l].float() - want).abs()
+        assert diff.max().item() <= 2 ** -8 and (diff > 0).float().mean() <= 1e-2
+        g = (s * t).to(torch.bfloat16)
+        skip_ref += P._dot(g, lw["skip_w"][l].to(torch.bfloat16)) + lw["skip_b"][l]
+        if l < cfg.n_layers - 1:
+            want = tk._ref_res(lw, l, g, x).float()
+            diff = (streams[l].float() - want).abs()
+            assert diff.max().item() <= 1e-2 * want.abs().max().item()
+            assert (diff > 0).float().mean().item() <= 1e-2
+            x = streams[l]
+    assert _cos_rel(skip_ref, skip)[1] <= 1e-2
+    # K3 on the kernel's saves: only summation order differs; dz flips by a
+    # bf16 ulp chain through the bf16 dx of 8 layers
+    got = tk.layer_stack_bwd(lw, cfg, s0, streams, st, h, dskip)
+    assert tk.layer_stack_bwd.launches == n_bwd + 1
+    ref = tk.ref_layer_stack_bwd(lw, cfg, s0, streams, st, h, dskip)
+    pairs = [(k, ref[0][k], got[0][k]) for k in ref[0]]
+    pairs += [("stream0", ref[1], got[1]), ("h_up", ref[2], got[2])]
+    for name, want, mine in pairs:
+        assert mine.dtype == want.dtype and mine.shape == want.shape, name
+        cos, rel = _cos_rel(want, mine)
+        assert cos > 0.99999 and rel < 1e-2, (name, cos, rel)
+    # no atomics: a second run is bitwise equal
+    again = tk.layer_stack_bwd(lw, cfg, s0, streams, st, h, dskip)
+    for k in got[0]:
+        assert torch.equal(got[0][k], again[0][k]), k
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+def test_fused_train_raises_outside_envelope(dev):
+    for cfg in (_cfg(kernel_size=3), _cfg(n_skipch=96)):
+        params = _params(cfg, dev)
+        x = torch.zeros((1, 64), dtype=torch.int64, device=dev)
+        h = torch.zeros((1, 64, cfg.n_aux), device=dev)
+        with pytest.raises(ValueError, match="envelope"):
+            P.wavenet_forward(params, cfg, x, h, fused=True)
+        s0 = torch.zeros((1, 64, cfg.n_resch), dtype=torch.bfloat16,
+                         device=dev)
+        with pytest.raises(NotImplementedError):
+            tk.layer_stack_fwd_train(tk.layer_weights(params), cfg, s0, h)

@@ -35,6 +35,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import pytorchwavenetvocoder_tpu_torch\n"
         "import pytorchwavenetvocoder_tpu_torch.bin.decode\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.train\n"
+        "import pytorchwavenetvocoder_tpu_torch.parallel.train\n"
+        "import pytorchwavenetvocoder_tpu_torch.parallel.checkpoint\n"
+        "from pytorchwavenetvocoder_tpu_torch.data import train_generator\n"
+        "from pytorchwavenetvocoder_tpu_torch.ops import FusedLayerStack\n"
         "import pytorchwavenetvocoder_tpu_torch.ops.ar_kernel\n"
         "import pytorchwavenetvocoder_tpu_torch.ops.train_kernel\n"
         "import pytorchwavenetvocoder_tpu_torch.parallel\n"
