@@ -31,12 +31,27 @@ Phases (each prints its lines; any failure exits non-zero without the final
    (the card's machine has no h5py for feature files): first-step loss and
    gradients against the plain eager path, K2-train and K3 launched once
    per step, a falling loss, the fused and plain ms/step, a checkpoint that
-   ``bin/decode.py`` loads and decodes, and ``--resume latest``.
+   ``bin/decode.py`` loads and decodes, and ``--resume latest``;
+8. K1-int8, the AR kernel's int8 variant, against the plain int8 version
+   at the fleet's B=32 on the same carry and warm-up-calibrated scales (the
+   ring after one step, argmax agreement, 256-step trajectories, both
+   times), and timed against the bf16 K1 at B=32 and B=256 (the plain int8
+   version too, at B=256);
+9. the JAX package's own int8 gate at the flagship (int8 against bf16,
+   argmax, B=8 x 400 steps through ``batch_fast_generate``), and a
+   chi-square test of the int8 path's sampler on fixed logits;
+10. the int8 decode path: ``decode_batches(..., quantize=True)`` on
+   phase 4's bundle and fleet, with K1-int8 launched once and the warm-up
+   kernel once per warm-up chunk (calibration adds no forward), then a
+   short fleet under a forced ``WNV_DECODE_HBM_BUDGET`` split into
+   sub-fleets, each row equal to its sub-fleet decoded alone.
 
 Every check is also read against controls, variants of the plain version
 that a broken kernel would resemble (gate bias dropped, gate in bf16, the
-lagged tap read at t, dskip kept in f32, the lagged tap dropped); each
-control must fail a limit the kernel passes.
+lagged tap read at t, dskip kept in f32, the lagged tap dropped; for int8
+one weight scale per tensor, the gate quantized at the layer's activation
+scale, and the bf16 loop); each control must fail a limit the kernel
+passes.
 
 Needs torch (CUDA build), numpy, scipy and the CUDA toolkit; no JAX.
 """
@@ -63,6 +78,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -73,9 +89,12 @@ def main() -> int:
     from pytorchwavenetvocoder_tpu_torch import _build
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
         WaveNetConfig,
+        _buffer_layout,
+        _fleet_hbm_bytes,
         _pad_seed,
         _warmup_chunk,
         _warmup_state,
+        batch_fast_generate,
         init_wavenet_params,
         input_embed,
     )
@@ -256,7 +275,9 @@ def main() -> int:
             raise AssertionError(f"K2 limits pass the controls {blind}")
 
     # ---- 3. K1 vs plain ---------------------------------------------------
-    def fleet_carry(config, prm, B, n, seed):
+    def fleet_carry(config, prm, B, n, seed, scales=False):
+        """The cuda warm-up's carry for B random rows (and, with
+        ``scales``, the int8 activation scales calibrated in it)."""
         r = np.random.RandomState(seed)
         T = config.receptive_field
         x = torch.as_tensor(r.randint(0, 256, (B, T)), device=dev)
@@ -264,7 +285,11 @@ def main() -> int:
                             device=dev)
         x, h = _pad_seed(config, x, h)
         carry = _warmup_state(prm, config, x, h, bf16_intermediates=True,
-                              impl="cuda")
+                              collect_act_maxes=scales, impl="cuda")
+        if scales:
+            carry, maxes = carry
+            return carry, h.contiguous(), x.shape[1], \
+                ak.act_scales_from_maxes(maxes)
         return carry, h.contiguous(), x.shape[1]
 
     def clone(carry):
@@ -395,6 +420,8 @@ def main() -> int:
             raise AssertionError(f"chi-square p-value {pval} < 1e-3")
 
     # ---- 4. main path -----------------------------------------------------
+    fleet: dict = {}   # the loaded bundle and the fleet, for [main int8]
+
     def main_path():
         from pytorchwavenetvocoder_tpu_torch.bin.decode import (
             decode_batches,
@@ -436,6 +463,8 @@ def main() -> int:
             n_list = [int(nf) * 80 - 1 for nf in frames]
             ids = [f"utt{b:02d}" for b in range(B)]
             outdir = os.path.join(tmp, "wav")
+            fleet.update(model=model, x=x, h=h, n_list=n_list, ids=ids,
+                         frames=frames)
 
             ak.ar_generate.launches = 0
             tk.layer_stack_streams.launches = 0
@@ -446,7 +475,7 @@ def main() -> int:
             launches = {"ar_step": ak.ar_generate.launches,
                         "layer_stack_fwd": tk.layer_stack_streams.launches}
             for k in kernels_out:
-                k["launches"] = launches[k["name"]]
+                k["launches"] = launches.get(k["name"], k["launches"])
 
             bad = []
             for b, n in enumerate(n_list):
@@ -900,6 +929,345 @@ def main() -> int:
                 raise AssertionError(f"resume started at {res2['start']}, "
                                      f"ended at {res2['state'].step}")
 
+    # ---- 8. K1-int8 vs plain int8, and against the bf16 K1 -----------------
+    def plain_loop(weights, quantize, h, T0, scales):
+        """``ar_generate_reference``'s argmax loop on a given weights dict
+        (the controls swap in their own packs or gate scale)."""
+        def run(c_, i0, steps):
+            ids = torch.cat([c_[1], c_[2][:, None]], dim=1)
+            out = []
+            for i in range(steps):
+                logits = ak.ar_step_logits(weights, flag, c_[0], ids, h,
+                                           T0 - 1 + i0 + i, quantize, scales)
+                smp = logits.argmax(dim=-1).to(torch.int32)
+                out.append(smp)
+                ids = torch.cat([ids[:, 1:], smp[:, None]], dim=1)
+            c_[1].copy_(ids[:, :-1])
+            c_[2].copy_(ids[:, -1])
+            return torch.stack(out, dim=1)
+        return run
+
+    def k1_int8():
+        n, B = 256, B_FLEET
+        # trained weights differ in magnitude from one output column to the
+        # next; xavier columns all reach about the same bound, which would
+        # hide a per-tensor scale (control a).  Gains 2^U(-1, 1) per layer
+        # and output column on the gate (both taps), skip and res weights.
+        g = torch.Generator().manual_seed(77)
+        params_q = {k: dict(v) for k, v in params.items()}
+        for group, dims in (("dil", (1, 2)), ("skip", (1,)), ("res", (1,))):
+            w = params[group]["w"]
+            shape = [w.shape[0]] + [1] * len(dims) + [w.shape[-1]]
+            gain = 2.0 ** (2 * torch.rand(shape, generator=g) - 1)
+            params_q[group]["w"] = w * gain.to(dev)
+        prm = params_q
+        carry, h, T0, scales = fleet_carry(flag, prm, B, n, 1, scales=True)
+
+        def reference(c_, i0, steps):
+            return ak.ar_generate_reference(prm, flag, c_, h, T0, steps,
+                                            "argmax", i0=i0, quantize=True,
+                                            act_scales=scales)
+
+        def kernel(c_, i0, steps):
+            return ak.ar_generate(prm, flag, c_, h, T0 + i0, steps,
+                                  "argmax", quantize=True, act_scales=scales)
+
+        # controls: (a) one weight scale per layer tensor instead of one per
+        # output column; (b) the gate quantized at the layer's activation
+        # scale instead of 1/127; (c) the plain bf16 loop
+        wq = ak._step_weights(prm, flag, quantize=True)
+        pk = ak.pack_ar_weights(prm, flag)
+
+        def per_tensor(wb):
+            wf = wb.float()
+            sc = torch.clamp_min(wf.abs().amax(dim=(1, 2)), 1e-8) / 127.0
+            q = torch.clamp(torch.round(wf / sc[:, None, None]), -127, 127)
+            return q, sc[:, None].expand(-1, wb.shape[-1]).contiguous()
+
+        w_tensor = dict(wq)
+        w_tensor["q_w4"], w_tensor["q_w4_scale"] = per_tensor(pk["w4"])
+        w_tensor["q_wsr"], w_tensor["q_wsr_scale"] = per_tensor(pk["wsr"])
+        w_gate = dict(wq, q_gate_scale=scales[:, 0].clone())
+        runs = {"kernel": kernel,
+                "per_tensor": plain_loop(w_tensor, True, h, T0, scales),
+                "gate_at_act_scale": plain_loop(w_gate, True, h, T0, scales),
+                "bf16": plain_loop(ak._step_weights(prm, flag), False, h,
+                                   T0, None)}
+        # the ring slots written by the first step (p = T0 - 1), all layers
+        caps, offs, _ = _buffer_layout(flag)
+        rows = torch.tensor([o + (T0 - 1) % c for o, c in zip(offs, caps)],
+                            device=dev)
+        cp = clone(carry)
+        reference(cp, 0, 1)
+        want = cp[0][rows].float()
+        ring_max = want.abs().max().item()
+        ring = {}
+        for name, run in runs.items():
+            c_ = clone(carry)
+            run(c_, 0, 1)
+            d = (c_[0][rows].float() - want).abs()
+            ring[name] = (d.max().item(), (d > 0).float().mean().item())
+        cp, same = clone(carry), {name: [] for name in runs}
+        for i in range(n):
+            outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
+            sp = reference(cp, i, 1)
+            for name, smp in outs.items():
+                same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
+        sp = reference(clone(carry), 0, n).cpu().numpy()
+        readings = {}
+        for name, run in runs.items():
+            agree = run(clone(carry), 0, n).cpu().numpy() == sp
+            first = [int(np.argmin(a)) if not a.all() else n for a in agree]
+            readings[name] = (ring[name][0] / ring_max, ring[name][1],
+                              float(np.mean(same[name])),
+                              float(np.mean(first)) / n)
+        ms = time_ms(lambda: kernel(carry, 0, n))
+        plain_ms = time_ms(lambda: reference(carry, 0, n), reps=1)
+        # int8 against bf16 K1 on the same fleet, in turns
+        times = {"int8": [], "bf16": []}
+        for B_t, n_t in ((B, n), (256, 128)):
+            c_t, h_t, T_t, s_t = (carry, h, T0, scales) if B_t == B else \
+                fleet_carry(flag, prm, B_t, n_t, 2, scales=True)
+            fns = {"int8": lambda: ak.ar_generate(
+                       prm, flag, c_t, h_t, T_t, n_t, "argmax",
+                       quantize=True, act_scales=s_t),
+                   "bf16": lambda: ak.ar_generate(prm, flag, c_t, h_t,
+                                                  T_t, n_t, "argmax")}
+            got = {k: [] for k in fns}
+            for k in ("bf16", "int8", "int8", "bf16"):
+                got[k].append(1e3 * time_ms(fns[k]) / n_t)
+            for k in fns:
+                times[k].append((B_t, min(got[k])))
+            if B_t != B:   # the plain int8 version at the large fleet
+                n_p, B_big = min(16, n_t), B_t
+                plain_big = 1e3 * time_ms(lambda: ak.ar_generate_reference(
+                    prm, flag, c_t, h_t, T_t, n_p, "argmax", quantize=True,
+                    act_scales=s_t), reps=1) / n_p
+            del c_t, h_t
+        # limits: kernel and plain take the same integer products and round
+        # their f32 epilogues alike; only the aux sum's order and the
+        # sigmoid/tanh differ, by an f32 ulp.  Where that puts an int8
+        # value on the other side of a rounding boundary, the flip moves
+        # the rest of that row's layers by int8 quanta, so a minority of the
+        # ring values written in a step differ, each by a few quanta:
+        # max|d| <= 5e-2 of max|ring|, differing share <= 0.25.  A control
+        # requantizes every value: nearly all differ.  Argmax as [K1]:
+        # same-state >= 97%, trajectories >= 0.1 before the first divergence
+        ring_tol, share_tol, step_floor, floor = 5e-2, 0.25, 0.97, 0.1
+
+        def fails(r):
+            return [m for m, bad in (("ring", not r[0] <= ring_tol),
+                                     ("ring share", not r[1] <= share_tol),
+                                     ("same-state", not r[2] >= step_floor),
+                                     ("trajectory", not r[3] >= floor)) if bad]
+
+        print(f"[K1 int8] B={B}, argmax, {n} steps, vs the plain int8 "
+              f"version on the same carry and scales: "
+              + "; ".join(f"{m} ring written in step 1 max|d|/max|ring| "
+                          f"{r[0]:.3e}, differing share {r[1]:.3e}, "
+                          f"same-state agreement {r[2]:.4f}, share agreeing "
+                          f"up to each row's first divergence {r[3]:.4f}, "
+                          f"fails {fails(r) or 'none'}"
+                          for m, r in readings.items())
+              + f" (limits ring {ring_tol}, ring share {share_tol}, "
+              f"same-state {step_floor}, trajectory {floor}) | B={B} x {n} "
+              f"steps: kernel {ms:.2f} ms "
+              f"({1e3 * ms / n:.1f} us/step), plain int8 {plain_ms:.2f} ms "
+              f"({1e3 * plain_ms / n:.1f} us/step) | us/step, best of two in "
+              f"turns: " + ", ".join(f"B={b_} int8 {t:.1f} bf16 "
+                                     f"{dict(times['bf16'])[b_]:.1f}"
+                                     for b_, t in times["int8"])
+              + f"; plain int8 at B={B_big} {plain_big:.1f} | {card}", flush=True)
+        kernels_out.append(dict(
+            name="ar_step_int8", route="cuda",
+            source="pytorchwavenetvocoder_tpu_torch/csrc/ar_step.cu",
+            replaces="pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+            launches=0, max_abs_err=ring["kernel"][0], ms=ms,
+            plain_ms=plain_ms))
+        if fails(readings["kernel"]):
+            raise AssertionError(f"K1-int8 outside its limits: "
+                                 f"{readings['kernel']}")
+        blind = [m for m in ("per_tensor", "gate_at_act_scale", "bf16")
+                 if not fails(readings[m])]
+        if blind:
+            raise AssertionError(f"K1-int8 limits pass the controls {blind}")
+
+    # ---- 9. int8 against bf16 at the flagship, and the int8 sampler --------
+    def int8_track():
+        # tests/test_tpu_hardware.py:312-339: the flagship widths with
+        # sample-rate aux, argmax, int8 against bf16 through the fleet entry
+        cfg = dataclasses.replace(flag, upsampling_factor=0)
+        prm = {g: v for g, v in params.items() if g != "upsampling"}
+        r = np.random.RandomState(0)
+        B, n = 8, 400
+        x = np.full((B, 1), 128, np.int32)
+        h = r.randn(B, cfg.receptive_field + n, cfg.n_aux).astype(np.float32)
+        k1q = ak.ar_generate.int8_launches
+        ref = batch_fast_generate(prm, cfg, x, h, [n] * B, mode="argmax",
+                                  impl="cuda")
+        q = batch_fast_generate(prm, cfg, x, h, [n] * B, mode="argmax",
+                                impl="cuda", quantize=True)
+        diff = np.abs(np.stack(ref).astype(int) - np.stack(q).astype(int))
+        med, share = float(np.median(diff)), float((diff <= 8).mean())
+        print(f"[int8 track] B={B} x {n} steps argmax, int8 vs bf16 through "
+              f"batch_fast_generate(impl='cuda'): median |d class| {med}, "
+              f"share within 8 classes {share:.4f}, identical "
+              f"{float((diff == 0).mean()):.4f} (pass median <= 2, share > "
+              f"0.8) | K1-int8 launches {ak.ar_generate.int8_launches - k1q}"
+              f" | {card}", flush=True)
+        if ak.ar_generate.int8_launches - k1q != 1:
+            raise AssertionError("the int8 fleet did not run K1-int8 once")
+        if not (med <= 2 and share > 0.8):
+            raise AssertionError(f"int8 off bf16: median {med}, share {share}")
+
+    def chi2_int8():
+        from scipy.stats import chi2 as chi2_dist
+
+        # tests/test_tpu_hardware.py:268-309: an all-zero network, so the
+        # logits are post2's bias and the samples iid softmax draws
+        cfg = WaveNetConfig(n_quantize=256, n_aux=28, n_resch=512,
+                            n_skipch=256, dilation_depth=3, dilation_repeat=2,
+                            kernel_size=2, upsampling_factor=0,
+                            compute_dtype="bfloat16")
+        logits = np.full(256, -30.0)
+        live = np.arange(16) * 16 + 3
+        logits[live] = np.random.RandomState(0).uniform(-1.0, 1.0, 16)
+        prm = init_wavenet_params(cfg, torch.Generator().manual_seed(0), dev)
+        prm = {g: {k: torch.zeros_like(v) for k, v in leaves.items()}
+               for g, leaves in prm.items()}
+        prm["post2"]["b"] = torch.as_tensor(logits, dtype=torch.float32,
+                                            device=dev)
+        B, n = 128, 1500
+        x = torch.full((B, 1), 128, dtype=torch.int64, device=dev)
+        h = torch.zeros((B, cfg.receptive_field + n, cfg.n_aux), device=dev)
+        x, h = _pad_seed(cfg, x, h)
+        carry, maxes = _warmup_state(prm, cfg, x, h, bf16_intermediates=True,
+                                     collect_act_maxes=True, impl="cuda")
+        s = ak.ar_generate(prm, cfg, carry, h.contiguous(), x.shape[1], n,
+                           "sampling", torch.Generator().manual_seed(11),
+                           quantize=True,
+                           act_scales=ak.act_scales_from_maxes(maxes))
+        counts = np.bincount(s.cpu().numpy().ravel(), minlength=256)
+        p = np.exp(logits - logits.max())
+        p /= p.sum()
+        exp = p[live] * counts.sum()
+        stat = float(((counts[live] - exp) ** 2 / exp).sum())
+        dead = int(counts.sum() - counts[live].sum())
+        pval = float(chi2_dist.sf(stat, len(live) - 1))
+        print(f"[K1 int8 chi2] {B} rows x {n} sampling steps, 3 x 2 layers of "
+              f"512 int8, fixed logits over 16 live classes: chi2 {stat:.1f} "
+              f"on {len(live) - 1} dof, p = {pval:.4f} (pass p > 1e-3), "
+              f"samples on dead classes {dead} | {card}", flush=True)
+        if not pval > 1e-3 or dead:
+            raise AssertionError(f"int8 sampler: p {pval}, dead {dead}")
+
+    # ---- 10. the int8 decode path -----------------------------------------
+    def main_int8():
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            _pad_aux_to,
+            upsample_aux,
+        )
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        if not fleet:
+            raise AssertionError("no bundle: [main] did not run")
+        model, x, h = fleet["model"], fleet["x"], fleet["h"]
+        n_list, ids, frames = fleet["n_list"], fleet["ids"], fleet["frames"]
+        B, max_n = len(n_list), max(n_list)
+        T0 = flag.receptive_field
+        chunks = -(-B // _warmup_chunk(flag, B, T0, dev))
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            outdir = os.path.join(tmp, "wav")
+            ak.ar_generate.launches = 0
+            ak.ar_generate.int8_launches = 0
+            tk.layer_stack_streams.launches = 0
+            res = decode_batches(model, [(ids, (x, h, n_list))], outdir,
+                                 mode="sampling", impl="auto",
+                                 generator=torch.Generator().manual_seed(9),
+                                 quantize=True)
+            torch.cuda.synchronize()
+            launches = {"ar_step_int8": ak.ar_generate.int8_launches,
+                        "ar_step": ak.ar_generate.launches,
+                        "layer_stack_fwd": tk.layer_stack_streams.launches}
+            for k in kernels_out:
+                if k["name"] == "ar_step_int8":
+                    k["launches"] = launches["ar_step_int8"]
+            bad, spread = [], None
+            for b, n in enumerate(n_list):
+                wav, _fs = read_wav(os.path.join(outdir, ids[b] + ".wav"))
+                if wav.shape != (n,) or not np.isfinite(wav).all():
+                    bad.append((ids[b], wav.shape, n))
+                if b == 0:
+                    spread = float(np.std(wav))
+        # the warm-up with its calibration, alone, at the same fleet
+        xt = torch.as_tensor(x, dtype=torch.int64, device=dev)
+        ht = upsample_aux(model.params, flag, torch.as_tensor(h, device=dev))
+        xt, ht = _pad_seed(flag, xt, ht)
+        ht = _pad_aux_to(ht, xt.shape[1] + max_n).contiguous()
+        torch.cuda.synchronize()
+        tw = time.time()
+        _, maxes = _warmup_state(model.params, flag, xt, ht,
+                                 bf16_intermediates=True,
+                                 collect_act_maxes=True, impl="cuda")
+        scales = ak.act_scales_from_maxes(maxes)
+        torch.cuda.synchronize()
+        warm_s = time.time() - tw
+        del xt, ht
+        print(f"[main int8] decode_batches(quantize=True): {B} utts, frames "
+              f"{frames.min()}-{frames.max()}, {res['n_samples']} samples in "
+              f"{res['seconds']:.3f} s = {res['n_samples'] / res['seconds']:.0f}"
+              f" samples/s, {1e6 * res['seconds'] / max_n:.1f} us/step "
+              f"({max_n} steps, warm-up included) | warm-up with calibration "
+              f"alone {warm_s:.3f} s, scales {scales.min().item():.4g}-"
+              f"{scales.max().item():.4g} | launches {launches} (warm-up "
+              f"chunks {chunks}) | wav std {spread} | {card}", flush=True)
+        if bad:
+            raise AssertionError(f"wavs of the wrong length or non-finite: "
+                                 f"{bad[:4]}")
+        if not spread or not np.isfinite(spread):
+            raise AssertionError(f"degenerate output wav (std {spread})")
+        if launches != {"ar_step_int8": 1, "ar_step": 0,
+                        "layer_stack_fwd": chunks}:
+            raise AssertionError(f"not one K1-int8 launch and one K2 launch "
+                                 f"per warm-up chunk: {launches}")
+
+        # a short argmax fleet under a forced budget: sub-fleets of half the
+        # fleet, each with its own warm-up and scales
+        r = np.random.RandomState(6)
+        B2 = 8
+        fr2 = r.randint(3, 7, B2)
+        h2 = r.randn(B2, fr2.max(), flag.n_aux).astype(np.float32)
+        x2 = x[:B2]
+        n2 = [int(f) * 80 - 1 for f in fr2]
+        est = _fleet_hbm_bytes(flag, B2, max(n2))
+        os.environ["WNV_DECODE_HBM_BUDGET"] = str(est // 2 + 1)
+        try:
+            ak.ar_generate.int8_launches = 0
+            capped = model.batch_fast_generate(x2, h2, n2, mode="argmax",
+                                               quantize=True)
+            n_capped = ak.ar_generate.int8_launches
+        finally:
+            del os.environ["WNV_DECODE_HBM_BUDGET"]
+        alone = []
+        for b0 in range(0, B2, B2 // 2):
+            sl = slice(b0, b0 + B2 // 2)
+            alone += model.batch_fast_generate(x2[sl], h2[sl], n2[sl],
+                                               mode="argmax", quantize=True)
+        whole = model.batch_fast_generate(x2, h2, n2, mode="argmax",
+                                          quantize=True)
+        same = [bool(np.array_equal(a, b)) for a, b in zip(capped, alone)]
+        vs_whole = float(np.mean([np.mean(a == b)
+                                  for a, b in zip(capped, whole)]))
+        print(f"[main int8] capped fleet: {B2} utts, budget {est // 2 + 1} of "
+              f"{est} bytes -> K1-int8 launches {n_capped} (sub-fleets 2), "
+              f"rows equal to their sub-fleet decoded alone {sum(same)}/{B2},"
+              f" samples equal to the unsplit fleet's {vs_whole:.4f} "
+              f"(own scales per sub-fleet) | {card}", flush=True)
+        if n_capped != 2 or not all(same):
+            raise AssertionError(f"fleet capping: {n_capped} launches, rows "
+                                 f"equal {same}")
+
     phase("K2", k2)
     phase("K1", k1)
     phase("K1 chi2", chi2)
@@ -907,8 +1275,14 @@ def main() -> int:
     phase("K2 train", k2_train)
     phase("K3", k3)
     phase("train", train_path)
+    phase("K1 int8", k1_int8)
+    phase("int8 track", int8_track)
+    phase("K1 int8 chi2", chi2_int8)
+    phase("main int8", main_int8)
     if failures:
         _fail(f"phases failed: {failures}")
+    print(f"[smoke] all phases passed in {time.time() - t_start:.1f} s, the "
+          f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

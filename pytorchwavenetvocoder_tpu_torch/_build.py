@@ -111,7 +111,10 @@ def kernels() -> ctypes.CDLL:
         + [vp] * 11          # za out_f32 out_bf16 g proj skip skip_relu h1 logits
                              # ids samples
         + [i32] * 9          # B R S Q A L T0 max_n sampling
-        + [ctypes.c_uint64, vp])   # seed, stream
+        + [ctypes.c_uint64]  # seed
+        + [i32] + [vp] * 6   # quantize; w4s wsrs ascale ainv out_i8 g_i8
+        + [ctypes.c_float] * 2    # gscale ginv
+        + [vp])              # stream
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
         [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b

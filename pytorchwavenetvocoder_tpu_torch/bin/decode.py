@@ -6,9 +6,9 @@ Counterpart of ``pytorchwavenetvocoder_tpu/bin/decode.py`` (reference
 + model.conf + stats.h5) and writes PCM-16 wavs.  Each batch of utterances
 is one lockstep AR fleet (``batch_fast_generate``); on a CUDA device it
 runs through the port's hand-written kernels (``--impl auto`` or
-``cuda``).  Feature loading for the next batch runs on a prefetch thread
-and mu-law decode + wav writing for the previous batch on a writer thread,
-overlapping the device.
+``cuda``); ``--quantize`` decodes in int8.  Feature loading for the next
+batch runs on a prefetch thread and mu-law decode + wav writing for the
+previous batch on a writer thread, overlapping the device.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.decode --feats ...
 --stats ... --checkpoint ... --config ... --outdir ... [--device cuda]``.
@@ -57,7 +57,10 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to decode on (cuda, cuda:1, cpu)")
     parser.add_argument("--quantize", default=False, action="store_true",
-                        help="int8 decode: not yet ported (raises)")
+                        help="int8 decode (kernel_size 2): int8 weights with "
+                             "one scale per output column, activation scales "
+                             "calibrated in each fleet's warm-up; on cuda the "
+                             "int8 AR kernel")
     parser.add_argument("--intervals", default=1000, type=int,
                         help="log generation progress every this many "
                              "samples (plain impl; the cuda impl logs per "
@@ -88,9 +91,10 @@ def load_model(checkpoint: str, config_path: str, device):
 def decode_batches(model, batches, outdir: str, mode: str = "sampling",
                    impl: str = "auto",
                    generator: torch.Generator | None = None,
-                   fs: int = 16000, intervals: int | None = None) -> dict:
+                   fs: int = 16000, intervals: int | None = None,
+                   quantize: bool = False) -> dict:
     """Decode every ``(feat_ids, (x, h, n_samples))`` batch and write
-    ``<outdir>/<feat_id>.wav``.
+    ``<outdir>/<feat_id>.wav`` (int8 decode with ``quantize``).
 
     Wav writing runs on a bounded writer thread, overlapping the next
     fleet's decode.  Returns totals: utterances, samples, decode seconds
@@ -131,7 +135,7 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
             start = time.time()
             samples_list = model.batch_fast_generate(
                 x, h, list(n_samples), intervals=intervals, mode=mode,
-                generator=generator, impl=impl)
+                generator=generator, impl=impl, quantize=quantize)
             elapsed = time.time() - start
             n_gen = sum(int(n) for n in n_samples)
             records.append(dict(n_utts=len(feat_ids), n_samples=n_gen,
@@ -163,9 +167,6 @@ def main(argv=None) -> dict:
     args = get_parser().parse_args(argv)
     configure_logging(args.verbose)
     echo_args(args)
-    if args.quantize:
-        raise NotImplementedError("--quantize (int8 decode) is not yet "
-                                  "ported to the PyTorch package")
     if args.n_devices != 1:
         raise NotImplementedError("--n_devices > 1 (multi-GPU decode) is not "
                                   "yet ported to the PyTorch package")
@@ -213,7 +214,7 @@ def main(argv=None) -> dict:
     return decode_batches(model, BackgroundGenerator(batches, max_prefetch=2),
                           args.outdir, mode=args.mode, impl=args.impl,
                           generator=generator, fs=args.fs,
-                          intervals=args.intervals)
+                          intervals=args.intervals, quantize=args.quantize)
 
 
 if __name__ == "__main__":

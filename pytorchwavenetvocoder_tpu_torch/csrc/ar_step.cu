@@ -1,8 +1,9 @@
-// The WaveNet AR sample loop (bf16, kernel_size 2) for Hopper.
+// The WaveNet AR sample loop (kernel_size 2, bf16 or int8) for Hopper.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
-// (the fused Pallas TPU kernel) for bf16 models with kernel_size 2; the
-// plain PyTorch version is ops/ar_kernel.py::ar_generate_reference.
+// (the fused Pallas TPU kernel) for bf16 models with kernel_size 2, and its
+// int8 path (quantize=True); the plain PyTorch version is
+// ops/ar_kernel.py::ar_generate_reference.
 //
 // Bound on the H100: each step reads the whole bf16 weight pack,
 // L * R * (4R + S + R) * 2 bytes (82.5 MB at 30 x 512, more than the 50 MB
@@ -32,6 +33,27 @@
 // come straight from device memory, and a second grid axis over 64-row
 // chunks keeps large fleets parallel.  65 launches per step.  The ring is
 // updated in place in the caller's carry.
+//
+// int8 (the INT8 template instances, one launch structure): the layer
+// packs are int8 with one f32 scale per output column, stored as whole
+// 16 x 16 tiles so each wmma s8 16x16x16 operand load is one aligned
+// 256-byte block (a row-major int8 tile at k = 16 would sit 16 bytes off
+// the 32-byte alignment wmma asks for); int32 accumulation is exact.  The
+// quantization is fused into the producers: the embed and each res launch
+// write the residual stream as int8 tiles at the scale of the layer that
+// reads it (from the f32 stream, round half to even, clip to +-127), the
+// gate launch writes g as int8 tiles at 1/127, and each GEMM's epilogue
+// dequantizes by (activation scale x column scale).  The ring keeps the
+// bf16 projection of the int8 product.  The epilogues round with
+// __fmul_rn / __fadd_rn (no FMA contraction), as the plain version does:
+// an f32 difference that flips one int8 value would move the rest of the
+// row's layers by int8 quanta.  Same 65 launches per step; the int8 pack
+// (43.3 MB at 30 x 512) halves the bytes each step reads, and each gate
+// block's re-read of its input rows, which bounds large fleets; small
+// fleets stay bound by the launches' latency (an s8 16x16x16 MMA covers
+// the K of a bf16 one, so the dependent wmma steps are as many).
+#include <type_traits>
+
 #include "wn_common.cuh"
 
 using namespace nvcuda;
@@ -73,14 +95,34 @@ static __device__ float gumbel_noise(unsigned long long seed, int row,
     return -logf(-logf(u));
 }
 
+// ---------------------------------------------------------------- int8
+
+// Offset of element (b, c) of a (rows, C) int8 matrix stored as whole
+// 16 x 16 tiles, row-major over tiles: [rows/16][C/16][16][16].
+static __device__ __forceinline__ size_t tix(int b, int c, int C) {
+    return ((size_t)(b >> 4) * (C >> 4) + (c >> 4)) * 256
+           + ((b & 15) << 4) + (c & 15);
+}
+
+// clip(round_half_even(v), -127, 127): jnp.round / torch.round semantics
+static __device__ __forceinline__ int8_t quant_i8(float v) {
+    return (int8_t)max(-127, min(127, __float2int_rn(v)));
+}
+
 // ---------------------------------------------------------------- kernels
 
-// out = causal_b + causal_w[0][id_old] + causal_w[1][id_new]; skip = 0.
+// bf16: out = (causal_b + causal_w[0][id_old]) + causal_w[1][id_new], also
+// as bf16 rows.  INT8: out = (causal_w[0][id_old] + causal_w[1][id_new]) +
+// causal_b (the JAX kernel's one-hot matmul, then the bias), also as int8
+// tiles at layer 0's scale (ainv = its reciprocal).  skip = 0.
+template <bool INT8>
 __global__ void __launch_bounds__(AR_THREADS) ar_embed_kernel(
     const bf16* __restrict__ causal_w,   // (2, Q, R)
     const float* __restrict__ causal_b,  // (R)
     const int* __restrict__ ids,         // (B, 2): [id at p-1, id at p]
-    float* __restrict__ out_f32, bf16* __restrict__ out_bf16,  // (Bp, R)
+    float* __restrict__ out_f32,         // (Bp, R)
+    void* __restrict__ out_lo,           // (Bp, R): bf16 rows, or int8 tiles
+    const float* __restrict__ ainv,      // INT8: layer 0's 1 / scale
     float* __restrict__ skip,            // (B, S)
     int R, int S, int Q) {
     const int b = blockIdx.x;
@@ -89,9 +131,15 @@ __global__ void __launch_bounds__(AR_THREADS) ar_embed_kernel(
     const bf16* w0 = causal_w + (size_t)i0 * R;
     const bf16* w1 = causal_w + ((size_t)Q + i1) * R;
     for (int r = threadIdx.x; r < R; r += AR_THREADS) {
-        float v = (causal_b[r] + bf2f(w0[r])) + bf2f(w1[r]);
-        out_f32[(size_t)b * R + r] = v;
-        out_bf16[(size_t)b * R + r] = f2bf(v);
+        if constexpr (INT8) {
+            const float v = __fadd_rn(__fadd_rn(bf2f(w0[r]), bf2f(w1[r])), causal_b[r]);
+            out_f32[(size_t)b * R + r] = v;
+            ((int8_t*)out_lo)[tix(b, r, R)] = quant_i8(__fmul_rn(v, ainv[0]));
+        } else {
+            const float v = (causal_b[r] + bf2f(w0[r])) + bf2f(w1[r]);
+            out_f32[(size_t)b * R + r] = v;
+            ((bf16*)out_lo)[(size_t)b * R + r] = f2bf(v);
+        }
     }
     for (int s = threadIdx.x; s < S; s += AR_THREADS) skip[(size_t)b * S + s] = 0.f;
 }
@@ -161,6 +209,41 @@ static __device__ __forceinline__ void ksplit_gemm(
     __syncthreads();
 }
 
+// The same K split on int8 tiles (A: (Bp, K) tiles, W: (K, N) tiles),
+// int32 accumulation: acc = A[row0:row0+64] @ W[:, col0:col0+16].
+static __device__ __forceinline__ void ksplit_gemm_i8(
+    const int8_t* __restrict__ A, int K, const int8_t* __restrict__ W, int N,
+    int row0, int col0, int nt, int (*cs)[AR_ROWS][16]) {
+    const int warp = threadIdx.x >> 5;
+    const int KT = K / 16, NT = N / 16;
+    const int kc = KT / 8, kbeg = warp * kc, kend = kbeg + kc;   // k tiles
+    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0);
+#pragma unroll 4
+    for (int kt = kbeg; kt < kend; ++kt) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bfr;
+        wmma::load_matrix_sync(
+            bfr, (const signed char*)W + ((size_t)kt * NT + (col0 >> 4)) * 256, 16);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            if (t < nt) {
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> afr;
+                wmma::load_matrix_sync(
+                    afr, (const signed char*)A
+                             + ((size_t)((row0 >> 4) + t) * KT + kt) * 256, 16);
+                wmma::mma_sync(acc[t], afr, bfr, acc[t]);
+            }
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+        if (t < nt)
+            wmma::store_matrix_sync(&cs[warp][16 * t][0], acc[t], 16,
+                                    wmma::mem_row_major);
+    __syncthreads();
+}
+
 // One layer's z = out @ W4 over 16 columns x 64 rows per block.  W4's
 // first 2R columns hold the current tap with sigmoid and tanh columns
 // interleaved in groups of 8 (column 16q + i: sigmoid channel 8q + i,
@@ -169,16 +252,24 @@ static __device__ __forceinline__ void ksplit_gemm(
 // aux term.  Blocks q >= R/8 compute the projection-forwarded ring values
 // (the past tap) into proj; ar_res_kernel copies them into the ring slot,
 // after every gate block of this layer has read the slot's old values.
+// INT8: the product of the int8 stream and int8 pack, dequantized by
+// (the layer's activation scale x the column's scale); z = zfull + (ring +
+// za); g goes out as int8 tiles at 1 / ginv.
+template <bool INT8>
 __global__ void __launch_bounds__(AR_THREADS) ar_gate_kernel(
-    const bf16* __restrict__ w4,       // (R, 4R) this layer, layout above
+    const void* __restrict__ w4,       // (R, 4R) this layer: bf16 rows / int8 tiles
+    const float* __restrict__ w4s,     // INT8: (4R) column scales of this layer
+    const float* __restrict__ ascale,  // INT8: this layer's activation scale
     const float* __restrict__ za,      // aux term + biases of this layer; row stride zs
     int zs,
-    const bf16* __restrict__ out_bf16, // (Bp, R)
-    bf16* __restrict__ g_bf16,         // (Bp, R)
+    const void* __restrict__ x_in,     // (Bp, R) stream: bf16 rows / int8 tiles
+    void* __restrict__ g_out,          // (Bp, R) gate: bf16 rows / int8 tiles
+    float ginv,                        // INT8: 1 / the gate's scale
     const bf16* __restrict__ ring_slot,// (B, 2R): this layer's slot p % d
     bf16* __restrict__ proj,           // (B, 2R)
     int B, int R) {
-    __shared__ __align__(32) float cs[8][AR_ROWS][16];
+    using Acc = std::conditional_t<INT8, int, float>;
+    __shared__ __align__(32) Acc cs[8][AR_ROWS][16];
     constexpr int PAIRS = AR_ROWS * 8 / AR_THREADS;
     const int col0 = blockIdx.x * 16, row0 = blockIdx.y * AR_ROWS;
     const int nt = min(4, (B - row0 + 15) / 16);
@@ -196,29 +287,55 @@ __global__ void __launch_bounds__(AR_THREADS) ar_gate_kernel(
         za_s[q] = live ? za[(size_t)b * zs + c] : 0.f;
         za_t[q] = live ? za[(size_t)b * zs + R + c] : 0.f;
     }
-    ksplit_gemm(out_bf16, R, w4, 4 * R, row0, col0, nt, cs);
+    if constexpr (INT8)
+        ksplit_gemm_i8((const int8_t*)x_in, R, (const int8_t*)w4, 4 * R, row0,
+                       col0, nt, cs);
+    else
+        ksplit_gemm((const bf16*)x_in, R, (const bf16*)w4, 4 * R, row0, col0,
+                    nt, cs);
     if (gate) {
+        float sc_s = 0.f, sc_t = 0.f;
+        if constexpr (INT8) {
+            sc_s = __fmul_rn(ascale[0], w4s[col0 + jj]);
+            sc_t = __fmul_rn(ascale[0], w4s[col0 + 8 + jj]);
+        }
 #pragma unroll
         for (int q = 0; q < PAIRS; ++q) {
             const int r = (threadIdx.x + q * AR_THREADS) >> 3, b = row0 + r;
             if (b >= B) continue;
-            float zsig = 0.f, ztanh = 0.f;
+            Acc zsig = 0, ztanh = 0;
 #pragma unroll
             for (int w = 0; w < 8; ++w) {
                 zsig += cs[w][r][jj];
                 ztanh += cs[w][r][8 + jj];
             }
-            g_bf16[(size_t)b * R + c] = f2bf(wn_gate((zsig + ring_s[q]) + za_s[q],
-                                                     (ztanh + ring_t[q]) + za_t[q]));
+            if constexpr (INT8) {
+                // _rn intrinsics: no FMA contraction, the plain version's
+                // rounding of the dequantized product and the sums
+                const float g = wn_gate(
+                    __fadd_rn(__fmul_rn((float)zsig, sc_s),
+                              __fadd_rn(ring_s[q], za_s[q])),
+                    __fadd_rn(__fmul_rn((float)ztanh, sc_t),
+                              __fadd_rn(ring_t[q], za_t[q])));
+                ((int8_t*)g_out)[tix(b, c, R)] = quant_i8(__fmul_rn(g, ginv));
+            } else {
+                ((bf16*)g_out)[(size_t)b * R + c] = f2bf(
+                    wn_gate((zsig + ring_s[q]) + za_s[q],
+                            (ztanh + ring_t[q]) + za_t[q]));
+            }
         }
     } else {
         for (int i = threadIdx.x; i < AR_ROWS * 16; i += AR_THREADS) {
             const int r = i >> 4, j = i & 15, b = row0 + r;
             if (b >= B) continue;
-            float v = 0.f;
+            Acc v = 0;
 #pragma unroll
             for (int w = 0; w < 8; ++w) v += cs[w][r][j];
-            proj[(size_t)b * 2 * R + (col0 - 2 * R + j)] = f2bf(v);
+            float fv;
+            if constexpr (INT8)
+                fv = __fmul_rn((float)v, __fmul_rn(ascale[0], w4s[col0 + j]));
+            else fv = v;
+            proj[(size_t)b * 2 * R + (col0 - 2 * R + j)] = f2bf(fv);
         }
     }
 }
@@ -227,18 +344,27 @@ __global__ void __launch_bounds__(AR_THREADS) ar_gate_kernel(
 // sr[:S]; out += sr[S:].  On the last layer (skip_relu set) it also writes
 // bf16(relu(skip)), the post stack's input.  Each thread loads the values
 // it will update before the GEMM.  The grid also copies the layer's staged
-// ring values (proj) into its ring slot.
+// ring values (proj) into its ring slot.  INT8: sr's product is
+// dequantized by (the gate's scale x the column's scale), and the new
+// stream goes out as int8 tiles at the next layer's scale (none after the
+// last layer).
+template <bool INT8>
 __global__ void __launch_bounds__(AR_THREADS) ar_res_kernel(
-    const bf16* __restrict__ wsr,      // (R, S+R) this layer
+    const void* __restrict__ wsr,      // (R, S+R) this layer: bf16 rows / int8 tiles
+    const float* __restrict__ wsrs,    // INT8: (S+R) column scales of this layer
+    float gscale,                      // INT8: the gate's scale
     const float* __restrict__ srb,     // (S+R)
-    const bf16* __restrict__ g_bf16,   // (Bp, R)
+    const void* __restrict__ g_in,     // (Bp, R) gate: bf16 rows / int8 tiles
     float* __restrict__ skip,          // (B, S)
-    float* __restrict__ out_f32, bf16* __restrict__ out_bf16,  // (Bp, R)
+    float* __restrict__ out_f32,       // (Bp, R)
+    void* __restrict__ x_out,          // (Bp, R) stream: bf16 rows / int8 tiles
+    const float* __restrict__ next_inv,// INT8: next layer's 1 / scale, or null
     bf16* __restrict__ skip_relu,      // (Bp, S) or null
     const bf16* __restrict__ proj,     // (B, 2R)
     bf16* __restrict__ ring_slot,      // (B, 2R)
     int B, int R, int S) {
-    __shared__ __align__(32) float cs[8][AR_ROWS][16];
+    using Acc = std::conditional_t<INT8, int, float>;
+    __shared__ __align__(32) Acc cs[8][AR_ROWS][16];
     {
         const int n_vec = B * 2 * R / 8;   // 16-byte vectors
         const int nthreads = gridDim.x * gridDim.y * AR_THREADS;
@@ -253,26 +379,38 @@ __global__ void __launch_bounds__(AR_THREADS) ar_res_kernel(
     float* dst = col < S ? skip + col : out_f32 + (col - S);
     const int ld = col < S ? S : R;
     const float bias = srb[col];
+    float wsc = 0.f;
+    if constexpr (INT8) wsc = __fmul_rn(gscale, wsrs[col]);
     float old[PAIRS];
 #pragma unroll
     for (int q = 0; q < PAIRS; ++q) {
         const int b = row0 + ((threadIdx.x + q * AR_THREADS) >> 4);
         old[q] = b < B ? dst[(size_t)b * ld] : 0.f;
     }
-    ksplit_gemm(g_bf16, R, wsr, S + R, row0, col0, nt, cs);
+    if constexpr (INT8)
+        ksplit_gemm_i8((const int8_t*)g_in, R, (const int8_t*)wsr, S + R, row0,
+                       col0, nt, cs);
+    else
+        ksplit_gemm((const bf16*)g_in, R, (const bf16*)wsr, S + R, row0, col0,
+                    nt, cs);
 #pragma unroll
     for (int q = 0; q < PAIRS; ++q) {
         const int r = (threadIdx.x + q * AR_THREADS) >> 4, b = row0 + r;
         if (b >= B) continue;
-        float v = 0.f;
+        Acc v = 0;
 #pragma unroll
         for (int w = 0; w < 8; ++w) v += cs[w][r][j];
-        const float nv = (v + bias) + old[q];
+        float nv;
+        if constexpr (INT8) nv = __fadd_rn(__fadd_rn(__fmul_rn((float)v, wsc), bias), old[q]);
+        else nv = (v + bias) + old[q];
         dst[(size_t)b * ld] = nv;
         if (col < S) {
             if (skip_relu) skip_relu[(size_t)b * S + col] = f2bf(fmaxf(nv, 0.f));
+        } else if constexpr (INT8) {
+            if (next_inv)
+                ((int8_t*)x_out)[tix(b, col - S, R)] = quant_i8(__fmul_rn(nv, next_inv[0]));
         } else {
-            out_bf16[(size_t)b * R + (col - S)] = f2bf(nv);
+            ((bf16*)x_out)[(size_t)b * R + (col - S)] = f2bf(nv);
         }
     }
 }
@@ -338,12 +476,67 @@ __global__ void __launch_bounds__(AR_THREADS) ar_sample_kernel(
 
 // ---------------------------------------------------------------- entry
 
+// The step loop.  Weight packs are raw bytes: bf16 rows or int8 tiles.
+template <bool INT8>
+static int run_steps(
+    const char* w4, const char* wsr, const float* w4s, const float* wsrs,
+    const float* ascale, const float* ainv, float gscale, float ginv,
+    const bf16* auxw, const float* zb, const float* srb, const bf16* causal_w,
+    const float* causal_b, const bf16* post1_w, const float* post1_b,
+    const bf16* post2_w, const float* post2_b, bf16* ring, const int* offsets,
+    const int* caps, const float* h_up, int h_T, float* za, float* out_f32,
+    void* x_lo, void* g_lo, bf16* proj, float* skip, bf16* skip_relu,
+    bf16* h1, float* logits, int* ids, int* samples, int B, int R, int S,
+    int Q, int A, int L, int T0, int max_n, int sampling,
+    unsigned long long seed, cudaStream_t st) {
+    const size_t esz = INT8 ? 1 : 2;
+    const size_t w4_l = (size_t)R * 4 * R * esz, wsr_l = (size_t)R * (S + R) * esz;
+    const int N_aux = L * 2 * R;
+    const dim3 g_gate(4 * R / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_res((S + R) / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_p1(S / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const dim3 g_p2(Q / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    for (int i = 0; i < max_n; ++i) {
+        const int p = T0 - 1 + i;
+        ar_embed_kernel<INT8><<<B, AR_THREADS, 0, st>>>(
+            causal_w, causal_b, ids, out_f32, x_lo, ainv, skip, R, S, Q);
+        ar_aux_kernel<<<(N_aux + AR_THREADS - 1) / AR_THREADS, AR_THREADS, 0, st>>>(
+            auxw, zb, h_up, h_T, p, za, B, A, R, L);
+        for (int l = 0; l < L; ++l) {
+            bf16* slot = ring + ((size_t)offsets[l] + (size_t)(p % caps[l])) * B * 2 * R;
+            ar_gate_kernel<INT8><<<g_gate, AR_THREADS, 0, st>>>(
+                w4 + l * w4_l, INT8 ? w4s + (size_t)l * 4 * R : nullptr,
+                INT8 ? ascale + l : nullptr, za + (size_t)l * 2 * R, N_aux,
+                x_lo, g_lo, ginv, slot, proj, B, R);
+            ar_res_kernel<INT8><<<g_res, AR_THREADS, 0, st>>>(
+                wsr + l * wsr_l, INT8 ? wsrs + (size_t)l * (S + R) : nullptr,
+                gscale, srb + (size_t)l * (S + R), g_lo, skip, out_f32, x_lo,
+                INT8 && l + 1 < L ? ainv + l + 1 : nullptr,
+                l == L - 1 ? skip_relu : nullptr, proj, slot, B, R, S);
+        }
+        ar_dense_kernel<<<g_p1, AR_THREADS, 0, st>>>(
+            skip_relu, post1_w, post1_b, h1, nullptr, S, S, B);
+        ar_dense_kernel<<<g_p2, AR_THREADS, 0, st>>>(
+            h1, post2_w, post2_b, nullptr, logits, S, Q, B);
+        ar_sample_kernel<<<B, AR_THREADS, 0, st>>>(
+            logits, ids, samples, Q, i, max_n, sampling, seed);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
+}
+
 // Runs max_n steps on `stream`.  Returns cudaGetLastError() (0 = success).
 // offsets / caps are host arrays of L ints (the ring layout of
 // models/wavenet.py::_buffer_layout); the ring is (total_cap, B, 2R).
-// Scratch: za (B, L*2R) f32; out_f32, out_bf16, g_bf16 (Bp, R); proj
-// (B, 2R) bf16; skip (B, S) f32; skip_relu, h1 (Bp, S) bf16; logits (B, Q) f32.  Rows
-// B..Bp-1 of the bf16 scratch must be zero.
+// Scratch: za (B, L*2R) f32; out_f32 (Bp, R); proj (B, 2R) bf16; skip
+// (B, S) f32; skip_relu, h1 (Bp, S) bf16; logits (B, Q) f32.
+// bf16 (quantize 0): w4 (L, R, 4R) and wsr (L, R, S+R) bf16 rows; out_bf16,
+// g_bf16 (Bp, R) bf16.  int8 (quantize 1): w4, wsr int8 in 16 x 16 tiles
+// per layer, w4s (L, 4R) and wsrs (L, S+R) f32 column scales, ascale /
+// ainv (L) f32 activation scales and their reciprocals, gscale / ginv the
+// gate's scale and its reciprocal; out_i8, g_i8 (Bp, R) int8 tiles.  Rows
+// B..Bp-1 of the row-tiled scratch must be zero.
 extern "C" int wn_ar_generate(
     const void* w4, const void* wsr, const void* auxw, const void* zb,
     const void* srb, const void* causal_w, const void* causal_b,
@@ -353,49 +546,21 @@ extern "C" int wn_ar_generate(
     void* out_bf16, void* g_bf16, void* proj, void* skip, void* skip_relu,
     void* h1, void* logits, void* ids, void* samples, int B, int R, int S, int Q,
     int A, int L, int T0, int max_n, int sampling, unsigned long long seed,
+    int quantize, const void* w4s, const void* wsrs, const void* ascale,
+    const void* ainv, void* out_i8, void* g_i8, float gscale, float ginv,
     void* stream) {
-    const int* offsets = (const int*)offsets_v;
-    const int* caps = (const int*)caps_v;
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t w4_l = (size_t)R * 4 * R, wsr_l = (size_t)R * (S + R);
-    const int N_aux = L * 2 * R;
-    const dim3 g_gate(4 * R / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_res((S + R) / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_p1(S / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_p2(Q / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    for (int i = 0; i < max_n; ++i) {
-        const int p = T0 - 1 + i;
-        ar_embed_kernel<<<B, AR_THREADS, 0, st>>>(
-            (const bf16*)causal_w, (const float*)causal_b, (const int*)ids,
-            (float*)out_f32, (bf16*)out_bf16, (float*)skip, R, S, Q);
-        ar_aux_kernel<<<(N_aux + AR_THREADS - 1) / AR_THREADS, AR_THREADS, 0, st>>>(
-            (const bf16*)auxw, (const float*)zb, (const float*)h_up, h_T, p,
-            (float*)za, B, A, R, L);
-        for (int l = 0; l < L; ++l) {
-            bf16* slot = (bf16*)ring
-                + ((size_t)offsets[l] + (size_t)(p % caps[l])) * B * 2 * R;
-            ar_gate_kernel<<<g_gate, AR_THREADS, 0, st>>>(
-                (const bf16*)w4 + l * w4_l, (const float*)za + (size_t)l * 2 * R,
-                N_aux, (const bf16*)out_bf16, (bf16*)g_bf16, slot,
-                (bf16*)proj, B, R);
-            ar_res_kernel<<<g_res, AR_THREADS, 0, st>>>(
-                (const bf16*)wsr + l * wsr_l,
-                (const float*)srb + (size_t)l * (S + R), (const bf16*)g_bf16,
-                (float*)skip, (float*)out_f32, (bf16*)out_bf16,
-                l == L - 1 ? (bf16*)skip_relu : nullptr, (const bf16*)proj,
-                slot, B, R, S);
-        }
-        ar_dense_kernel<<<g_p1, AR_THREADS, 0, st>>>(
-            (const bf16*)skip_relu, (const bf16*)post1_w,
-            (const float*)post1_b, (bf16*)h1, nullptr, S, S, B);
-        ar_dense_kernel<<<g_p2, AR_THREADS, 0, st>>>(
-            (const bf16*)h1, (const bf16*)post2_w, (const float*)post2_b,
-            nullptr, (float*)logits, S, Q, B);
-        ar_sample_kernel<<<B, AR_THREADS, 0, st>>>(
-            (const float*)logits, (int*)ids, (int*)samples, Q, i, max_n,
-            sampling, seed);
-        cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return (int)cudaGetLastError();
+#define WN_AR_ARGS(X_LO, G_LO)                                                 \
+    (const char*)w4, (const char*)wsr, (const float*)w4s, (const float*)wsrs, \
+    (const float*)ascale, (const float*)ainv, gscale, ginv,                   \
+    (const bf16*)auxw, (const float*)zb, (const float*)srb,                   \
+    (const bf16*)causal_w, (const float*)causal_b, (const bf16*)post1_w,      \
+    (const float*)post1_b, (const bf16*)post2_w, (const float*)post2_b,       \
+    (bf16*)ring, (const int*)offsets_v, (const int*)caps_v,                   \
+    (const float*)h_up, h_T, (float*)za, (float*)out_f32, X_LO, G_LO,         \
+    (bf16*)proj, (float*)skip, (bf16*)skip_relu, (bf16*)h1, (float*)logits,   \
+    (int*)ids, (int*)samples, B, R, S, Q, A, L, T0, max_n, sampling, seed,    \
+    (cudaStream_t)stream
+    if (quantize) return run_steps<true>(WN_AR_ARGS(out_i8, g_i8));
+    return run_steps<false>(WN_AR_ARGS(out_bf16, g_bf16));
+#undef WN_AR_ARGS
 }

@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 
 import numpy as np
@@ -415,6 +416,20 @@ def _forward_collect(params: Params, config: WaveNetConfig,
     return streams
 
 
+def _forward_act_maxes(params: Params, config: WaveNetConfig,
+                       x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Per-layer max |residual stream| over the teacher-forced seed region
+    (JAX ``_forward_act_maxes``): ``_forward_collect``'s math in the compute
+    dtype, each layer's input stream reduced to its max instead of kept.
+    Returns (L,) f32; the oracle of int8 calibration."""
+    out, h, mm_dt = _stack_inputs(params, config, x, h, False)
+    maxes = []
+    for l, d in enumerate(config.dilations):
+        maxes.append(out.abs().amax().float())
+        out, _ = _residual_layer(params, config, l, d, out, h, mm_dt)
+    return torch.stack(maxes)
+
+
 def _buffer_layout(config: WaveNetConfig):
     """Static ring-buffer layout: per-layer capacity (k-1)*d and offsets."""
     k = config.kernel_size
@@ -516,7 +531,7 @@ def _warmup_state(params: Params, config: WaveNetConfig,
         buf = torch.cat(parts, dim=0)          # (total_cap, Bc, R or 2R)
         mx = None
         if collect_act_maxes:
-            mx = torch.stack([streams[l][:, :T0].float().abs().max()
+            mx = torch.stack([streams[l][:, :T0].abs().amax().float()
                               for l in range(L)])
         return buf, mx
 
@@ -539,8 +554,10 @@ def _warmup_state(params: Params, config: WaveNetConfig,
 
 def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
                    T0: int, max_n: int, mode: str, generator, impl: str,
-                   intervals: int | None = None) -> torch.Tensor:
-    """The AR sample loop after the warm-up, in ``intervals`` chunks.
+                   intervals: int | None = None, quantize: bool = False,
+                   act_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The AR sample loop after the warm-up, in ``intervals`` chunks
+    (int8 with ``quantize`` and the warm-up's ``act_scales``).
 
     ``impl="cuda"`` goes through the kernel wrapper ``ar_generate`` in one
     call (its progress is logged per batch); ``impl="plain"`` runs
@@ -554,18 +571,19 @@ def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
         ar_generate_reference,
     )
 
+    q = dict(quantize=quantize, act_scales=act_scales)
     if impl == "cuda":
         return ar_generate(params, config, carry, h_up, T0, max_n, mode,
-                           generator)
+                           generator, **q)
     if not intervals or intervals >= max_n:
         return ar_generate_reference(params, config, carry, h_up, T0, max_n,
-                                     mode, generator)
+                                     mode, generator, **q)
     gen, outs = 0, []
     t_start = time.time()
     while gen < max_n:
         n_c = min(intervals, max_n - gen)
         outs.append(ar_generate_reference(params, config, carry, h_up, T0,
-                                          n_c, mode, generator, i0=gen))
+                                          n_c, mode, generator, i0=gen, **q))
         gen += n_c
         logging.info("%d/%d samples generated (%.6f sec / sample)",
                      gen, max_n, (time.time() - t_start) / gen)
@@ -581,8 +599,13 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
     if impl == "auto":
         impl = "cuda" if device.type == "cuda" else "plain"
     if quantize:
-        raise NotImplementedError(
-            "int8 decode (--quantize) is not yet ported to the CUDA path")
+        from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+            int8_constraint_error,
+        )
+
+        why = int8_constraint_error(config)
+        if why is not None:
+            raise NotImplementedError(why)
     if impl == "cuda":
         if device.type != "cuda":
             raise ValueError("impl='cuda' needs a CUDA device; got "
@@ -594,12 +617,51 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
             layer_stack_constraint_error,
         )
 
-        for check in (layer_stack_constraint_error, ar_kernel_constraint_error):
-            why = check(config)
+        for why in (layer_stack_constraint_error(config),
+                    ar_kernel_constraint_error(config, quantize)):
             if why is not None:
                 raise NotImplementedError(
                     f"the CUDA decode kernels do not serve this config: {why}")
     return impl
+
+
+def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int) -> int:
+    """Device bytes one decode fleet of B rows holds on the cuda path, for
+    capping the fleet before the card runs out (JAX ``_fleet_hbm_bytes``,
+    `models/wavenet.py:859-877`, counted for this port's buffers): the bf16
+    ring carry, the f32 sample-rate aux, the AR kernel's (B, L*2R) f32 aux
+    scratch and the int32 output.  The warm-up's temporaries are bounded
+    on their own, by ``_warmup_chunk``."""
+    c = config
+    need_T = c.receptive_field + 1 + max_n
+    rw = 2 * c.n_resch if c.kernel_size == 2 else c.n_resch
+    ring = (c.kernel_size - 1) * sum(c.dilations) * B * rw * 2
+    h_up = B * need_T * c.n_aux * 4
+    za = B * c.n_layers * 2 * c.n_resch * 4
+    out = B * max_n * 4
+    return ring + h_up + za + out
+
+
+def _decode_hbm_budget(device: torch.device) -> float:
+    """Device bytes one decode fleet may take: ``WNV_DECODE_HBM_BUDGET``
+    when set, else 3/4 of the free memory ``torch.cuda.mem_get_info``
+    reports on a CUDA device (headroom for the weights and the warm-up),
+    unbounded elsewhere (a CPU fleet splits only under a set budget)."""
+    env = os.environ.get("WNV_DECODE_HBM_BUDGET")
+    if env:
+        return float(env)
+    if device.type != "cuda":
+        return float("inf")
+    free, _total = torch.cuda.mem_get_info(device)
+    return 0.75 * float(free)
+
+
+def _sub_generator(generator: torch.Generator, seed: int,
+                   i: int) -> torch.Generator:
+    """The generator of sub-fleet ``i``: seeded from (seed, i)."""
+    sub_seed = np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)
+    return torch.Generator(device=generator.device).manual_seed(
+        int(sub_seed[0]))
 
 
 def batch_fast_generate(params: Params, config: WaveNetConfig,
@@ -625,7 +687,20 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         intermediates on the cuda path (its kernels consume the rings in
         bf16) and the compute dtype on the plain path, which keeps the
         naive == fast bit-equality invariant.
+      quantize: int8 decode (kernel_size 2): the warm-up also collects
+        each layer's max |residual stream| (calibration rides the warm-up
+        forward, no second pass), ``act_scales_from_maxes`` turns them into
+        static activation scales, and the loop runs int8 (the K1 int8
+        kernel on cuda).  A config int8 decode does not serve raises.
       device: where to decode; default the device of the params.
+
+    A fleet whose buffers (``_fleet_hbm_bytes``) exceed
+    ``_decode_hbm_budget`` is decoded as sequential sub-fleets of equal
+    size, each through this function with its own warm-up (and, in int8,
+    its own scales); ``WNV_DECODE_FLEET_CHUNK=<rows>`` forces the size.
+    Sampling draws one seed from ``generator`` and seeds sub-fleet i from
+    (seed, i).  Each sub-fleet's rows come out as that sub-fleet decoded
+    on its own.
 
     Returns:
       list of np.int32 arrays, one per utterance in input order, each of
@@ -639,6 +714,30 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
+    B_fleet = len(x)
+    if B_fleet > 1:
+        forced = int(os.environ.get("WNV_DECODE_FLEET_CHUNK", "0"))
+        if forced > 0:
+            chunk_B = min(forced, B_fleet)
+        else:
+            budget = _decode_hbm_budget(device)
+            est = _fleet_hbm_bytes(c, B_fleet, int(max(n_samples_list)))
+            chunk_B = (B_fleet if est <= budget
+                       else max(1, B_fleet // -(-est // max(1, int(budget)))))
+        if chunk_B < B_fleet:
+            gdev = generator.device
+            seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                     device=gdev))
+            n_list = list(n_samples_list)
+            outs = []
+            for i, b0 in enumerate(range(0, B_fleet, chunk_B)):
+                sl = slice(b0, b0 + chunk_B)
+                outs.extend(batch_fast_generate(
+                    params, c, x[sl], h[sl], n_list[sl], mode,
+                    _sub_generator(generator, seed, i), impl=impl,
+                    intervals=intervals, quantize=quantize, device=device))
+            return outs
+
     x = torch.as_tensor(x, dtype=torch.int64, device=device)
     h = torch.as_tensor(h, dtype=c.acc_dtype, device=device)
     if c.upsampling_factor > 0:
@@ -649,10 +748,19 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     # aux must cover positions up to T0 - 1 + max_n - 1 + 1
     h = _pad_aux_to(h, T0 + max_n).contiguous()
 
-    carry = _warmup_state(params, c, x, h,
-                          bf16_intermediates=(impl == "cuda"), impl=impl)
+    carry = _warmup_state(params, c, x, h, bf16_intermediates=(impl == "cuda"),
+                          collect_act_maxes=quantize, impl=impl)
+    act_scales = None
+    if quantize:
+        from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+            act_scales_from_maxes,
+        )
+
+        carry, maxes = carry
+        act_scales = act_scales_from_maxes(maxes)
     samples = _generate_loop(params, c, carry, h, T0, max_n, mode, generator,
-                             impl, intervals=intervals)
+                             impl, intervals=intervals, quantize=quantize,
+                             act_scales=act_scales)
     samples = samples.to(torch.int32).cpu().numpy()
     return [samples[b, : int(n)] for b, n in enumerate(n_samples_list)]
 

@@ -1,9 +1,9 @@
 """The WaveNet AR sample loop: plain PyTorch version and Hopper kernel.
 
 Replaces ``pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate``
-(the fused Pallas TPU kernel) for bf16 models with kernel_size 2.  Same
-contract as the JAX package's ``_scan_from_state``: carry in, ``(B, max_n)``
-int32 samples out.
+(the fused Pallas TPU kernel) for bf16 models with kernel_size 2, in bf16
+and in int8 (``quantize=True``).  Same contract as the JAX package's
+``_scan_from_state``: carry in, ``(B, max_n)`` int32 samples out.
 
 Per emitted sample and row the loop does: the input conv over the last k
 ids (a row gather), then for each of the L layers the current-tap matmul,
@@ -18,6 +18,16 @@ config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
 carry goes to the plain version, a CUDA carry to the kernel
 (``csrc/ar_step.cu``), or it raises.
 
+int8 (``quantize=True``, kernel_size 2) is the JAX kernel's int8 path
+(`ops/ar_kernel.py:480-485, 557-576, 751-800` there): the current- and
+past-tap pack and the skip/res pack in int8 with one f32 scale per output
+column (``quantize_ar_weights``), the residual stream quantized at a static
+per-layer activation scale calibrated from the warm-up
+(``act_scales_from_maxes``), the gate at exactly 1/127; the integer
+products are dequantized by (activation scale x column scale).  The aux
+projection, the input conv and the post stack stay bf16, and the ring keeps
+the bf16 projection of the int8 product.
+
 Both update the carry IN PLACE: the ring rows, the sample history and
 ``prev`` end the call in the state that continues the stream, so a second
 call (with ``i0`` advanced, plain version) continues it exactly.  The JAX
@@ -26,8 +36,9 @@ package could only reach this through buffer donation.
 What bounds the kernel on the H100: every step streams the whole bf16
 weight pack (``L * R * (4R + S + R)`` = 82.5 MB at the 30x512 flagship,
 more than the 50 MB L2) for B rows, so at fleet sizes it is bound by
-device-memory bytes (~25 us/step at 3.35 TB/s), and at small fleets by
-the 65 dependent launches per step.  The design: the step loop runs in
+device-memory bytes (~25 us/step at 3.35 TB/s; the int8 pack is 43.3 MB,
+~13 us/step, and would fit the L2), and at small fleets by the 65 dependent
+launches per step.  The design: the step loop runs in
 C++ (no Python per step); each layer is two launches over column slices
 (current and past tap GEMM with the gate; skip/res + residual add + ring
 write) with ``wmma`` bf16 tensor-core tiles and f32 accumulation; per
@@ -39,15 +50,41 @@ graphs and TMA/``wgmma`` are later work.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 
 
-def ar_kernel_constraint_error(config) -> str | None:
-    """Why the CUDA AR kernel can NOT run this config (None when it can)."""
+#: int8 decode's own limit on n_resch: the integer products are f32
+#: matmuls of int8 values in the plain version, exact while every partial
+#: sum stays below 2^24 (K * 127^2 < 2^24 for K = n_resch <= 1040)
+INT8_MAX_RESCH = 1024
+
+
+def int8_constraint_error(config) -> str | None:
+    """Why int8 decode (``quantize=True``) can NOT run this config, on any
+    route (None when it can)."""
     c = config
+    if c.kernel_size != 2:
+        return (f"int8 decode with kernel_size={c.kernel_size} (raw int8 "
+                "rings) is not yet ported: ROADMAP 'What is left' 1, the "
+                "kernel_size 3 family")
+    if c.n_resch > INT8_MAX_RESCH:
+        return (f"int8 decode needs n_resch <= {INT8_MAX_RESCH} (exact f32 "
+                f"sums of the int8 products); got {c.n_resch}")
+    return None
+
+
+def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
+    """Why the CUDA AR kernel can NOT run this config (None when it can);
+    ``quantize`` asks about its int8 variant."""
+    c = config
+    if quantize:
+        why = int8_constraint_error(c)
+        if why is not None:
+            return why
     if c.compute_dtype != "bfloat16":
         return f"compute_dtype={c.compute_dtype!r} (the kernel is bf16)"
     if c.kernel_size != 2:
@@ -84,13 +121,21 @@ def _sample(logits: torch.Tensor, mode: str,
     return (logits.to(torch.float64) - torch.log(-torch.log(u))).argmax(dim=-1)
 
 
-def _step_weights(params, config) -> dict:
-    """The per-step weight views the plain loop consumes, cast once."""
+def _step_weights(params, config, quantize: bool = False) -> dict:
+    """The per-step weight views the plain loop consumes, cast once.
+
+    ``quantize`` adds the int8 packs of ``quantize_ar_weights`` (as f32
+    values, for exact f32 matmuls) and the gate's scale; the rest is then
+    taken in bf16 with f32 biases, as the JAX kernel's int8 path takes it
+    whatever the compute dtype.
+    """
     c = config
+    if quantize:
+        c = dataclasses.replace(c, compute_dtype="bfloat16")
     L, A, R, k = c.n_layers, c.n_aux, c.n_resch, c.kernel_size
     dt = c.dtype
     dil_w = params["dil"]["w"].to(dt)                       # (L, k, R, 2R)
-    return dict(
+    w = dict(
         # fused aux projection (A, L*2R)
         aux_w=params["aux"]["w"].permute(1, 0, 2).reshape(A, L * 2 * R).to(dt),
         aux_b=params["aux"]["b"],
@@ -106,15 +151,35 @@ def _step_weights(params, config) -> dict:
         post1_w=params["post1"]["w"].to(dt), post1_b=params["post1"]["b"],
         post2_w=params["post2"]["w"].to(dt), post2_b=params["post2"]["b"],
     )
+    if quantize:
+        for key in ("aux_b", "dil_b", "sr_b", "causal_b", "post1_b",
+                    "post2_b"):
+            w[key] = w[key].float()
+        q = quantize_ar_weights(params, c)
+        w.update(q_w4=q["w4"].float(), q_w4_scale=q["w4_scale"],
+                 q_wsr=q["wsr"].float(), q_wsr_scale=q["wsr_scale"],
+                 q_gate_scale=torch.full((L,), GATE_SCALE, device=dil_w.device))
+    return w
+
+
+def _deinterleave(z: torch.Tensor) -> torch.Tensor:
+    """(..., 2R) in the kernel's column order (sigmoid and tanh columns
+    interleaved in groups of 8, see ``pack_ar_weights``) -> [sigmoid | tanh]."""
+    R = z.shape[-1] // 2
+    lead = z.shape[:-1]
+    return z.reshape(*lead, R // 8, 2, 8).transpose(-3, -2).reshape(*lead, 2 * R)
 
 
 def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
-                   ids: torch.Tensor, h_up: torch.Tensor,
-                   p: int) -> torch.Tensor:
+                   ids: torch.Tensor, h_up: torch.Tensor, p: int,
+                   quantize: bool = False,
+                   act_scales: torch.Tensor | None = None) -> torch.Tensor:
     """One step of the loop at absolute position ``p``: returns the (B, Q)
     logits and writes every layer's ring slot ``p mod cap`` in place.
 
     ``ids`` (B, k) holds the class ids at p-k+1 .. p, oldest first.
+    ``quantize`` runs the int8 step (``weights`` from
+    ``_step_weights(..., quantize=True)``, ``act_scales`` (L, 1) f32).
     """
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
         _buffer_layout,
@@ -125,7 +190,12 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     w = weights
     B = ids.shape[0]
     R, S, k, L = c.n_resch, c.n_skipch, c.kernel_size, c.n_layers
-    dt, acc = c.dtype, c.acc_dtype
+    if quantize:
+        if act_scales is None:
+            raise ValueError("quantize=True needs act_scales (L, 1)")
+        dt, acc = torch.bfloat16, torch.float32
+    else:
+        dt, acc = c.dtype, c.acc_dtype
     dev = act_buf.device
     caps, offsets, _ = _buffer_layout(c)
     offs_v = torch.tensor(offsets, device=dev)
@@ -135,19 +205,28 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
 
     # input causal conv at position p: taps are ids at p-k+1 .. p
     ids = torch.remainder(ids.long(), c.n_quantize)
-    out = w["causal_b"].to(acc) + torch.zeros((B, R), dtype=acc, device=dev)
-    for j in range(k):
-        out = out + w["causal_w"][j][ids[:, j]]
+    if quantize:
+        # the JAX kernel's one-hot matmul: the taps summed, then the bias
+        out = w["causal_w"][0][ids[:, 0]].to(acc)
+        for j in range(1, k):
+            out = out + w["causal_w"][j][ids[:, j]]
+        out = out + w["causal_b"]
+    else:
+        out = w["causal_b"].to(acc) + torch.zeros((B, R), dtype=acc,
+                                                  device=dev)
+        for j in range(k):
+            out = out + w["causal_w"][j][ids[:, j]]
 
     # aux column at position p, projected for all layers at once
     hcol = h_up[:, p, :].to(dt)
     za_all = _dot(hcol, w["aux_w"]).reshape(B, L, 2 * R) + w["aux_b"][None]
 
     # every layer's past taps in one gather; kernel_size 2 rings hold the
-    # projected (B, 2R) gate contribution already
+    # projected (B, 2R) gate contribution already (int8 reads them in bf16)
     if k == 2:
         read_idx = offs_v + (p - lags_v[:, 0]) % caps_v
-        z_past = act_buf[read_idx].to(acc)                     # (L, B, 2R)
+        past = act_buf[read_idx]
+        z_past = (past.to(torch.bfloat16) if quantize else past).to(acc)
     elif k > 1:
         read_idx = (offs_v[:, None] + (p - lags_v) % caps_v[:, None]).reshape(-1)
         past = act_buf[read_idx].reshape(L, k - 1, B, R)
@@ -158,20 +237,40 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
 
     skip_sum = torch.zeros((B, S), dtype=acc, device=dev)
     new_vals = []
+    if quantize:
+        s = act_scales.reshape(L).to(device=dev, dtype=torch.float32)
+        inv_s = 1.0 / s
+        gs = w["q_gate_scale"]
+        inv_g = 1.0 / gs
     for l in range(L):
-        z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
-             + w["dil_b"][l] + za_all[:, l])
-        g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
-        sr = _dot(g.to(dt), w["sr_w"][l]) + w["sr_b"][l]
+        if quantize:
+            # the residual stream (f32) at the layer's static scale; the
+            # integer product is exact in f32, then dequantized
+            xq = torch.clamp(torch.round(out * inv_s[l]), -127, 127)
+            zfull = _dot(xq, w["q_w4"][l]) * (s[l] * w["q_w4_scale"][l])
+            z = (_deinterleave(zfull[:, : 2 * R])
+                 + ((z_past[l] + za_all[:, l]) + w["dil_b"][l]))
+            g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
+            gq = torch.clamp(torch.round(g * inv_g[l]), -127, 127)
+            sr = (_dot(gq, w["q_wsr"][l]) * (gs[l] * w["q_wsr_scale"][l])
+                  + w["sr_b"][l])
+            new_vals.append(zfull[:, 2 * R:])   # the ring value for p + d
+        else:
+            z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
+                 + w["dil_b"][l] + za_all[:, l])
+            g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
+            sr = _dot(g.to(dt), w["sr_w"][l]) + w["sr_b"][l]
+            new_vals.append(out)
         skip_sum = skip_sum + sr[:, :S]
-        new_vals.append(out)
         out = sr[:, S:] + out
 
     # every layer's input recorded for future taps in one scatter
     # (kernel_size 2: projected at write time)
     write_idx = offs_v + p % caps_v
-    new_stack = torch.stack(new_vals)                          # (L, B, R)
-    if k == 2:
+    new_stack = torch.stack(new_vals)                          # (L, B, R|2R)
+    if quantize:
+        new_stack = new_stack.to(torch.bfloat16)
+    elif k == 2:
         new_stack = torch.einsum("lbr,lro->lbo", new_stack.to(dt).to(acc),
                                  w["dil_w_past"][:, 0].to(acc))
     act_buf[write_idx] = new_stack.to(act_buf.dtype)
@@ -184,8 +283,11 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
 def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
                           T0: int, max_n: int, mode: str,
                           generator: torch.Generator | None = None,
-                          i0: int = 0) -> torch.Tensor:
-    """The AR sample loop in plain PyTorch, step math of ``_scan_chunk``.
+                          i0: int = 0, quantize: bool = False,
+                          act_scales: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The AR sample loop in plain PyTorch, step math of ``_scan_chunk``
+    (bf16/f32/f64) or of the JAX kernel's int8 path (``quantize``).
 
     Args:
       carry: (act_buf (total_cap, B, W), sample_hist (B, k-1) int32,
@@ -194,18 +296,24 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
       T0: seed length (first generated sample has index T0).
       i0: absolute step offset of this call (chunked decoding).
       generator: ``torch.Generator`` for the Gumbel noise (sampling mode).
+      quantize: int8 step; needs kernel_size 2 and ``act_scales`` (L, 1)
+        f32 from ``act_scales_from_maxes``.
 
     Returns:
       (B, max_n) int32 generated mu-law classes.
     """
     act_buf, sample_hist, prev = carry
     k = config.kernel_size
-    weights = _step_weights(params, config)
+    if quantize:
+        why = int8_constraint_error(config)
+        if why is not None:
+            raise NotImplementedError(why)
+    weights = _step_weights(params, config, quantize)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1)
     out = []
     for i in range(max_n):
         logits = ar_step_logits(weights, config, act_buf, ids, h_up,
-                                T0 - 1 + i0 + i)
+                                T0 - 1 + i0 + i, quantize, act_scales)
         sample = _sample(logits, mode, generator).to(torch.int32)
         out.append(sample)
         ids = torch.cat([ids[:, 1:], sample[:, None]], dim=1)
@@ -213,6 +321,66 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
         sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# int8: weight quantization and activation calibration
+# ---------------------------------------------------------------------------
+
+#: The gate's static int8 scale: sigmoid * tanh lies in (-1, 1)
+GATE_SCALE = 1.0 / 127.0
+
+
+def quantize_ar_weights(params, config) -> dict:
+    """The int8 packs of the kernel (JAX ``_pallas_ar_generate``'s
+    quantization, `ops/ar_kernel.py:480-485`), in the column order of
+    ``pack_ar_weights``:
+
+    w4  (L, R, 4R) int8, w4_scale (L, 4R) f32: [current tap | past tap]
+    wsr (L, R, S+R) int8, wsr_scale (L, S+R) f32: [skip | res]
+
+    Each weight is rounded to bf16; each output column gets
+    ``max(max_r |w|, 1e-8) / 127`` over its R input rows, and the weight
+    ``clip(round_half_even(w / scale), -127, 127)``.
+    """
+    return _quantize_pack(pack_ar_weights(params, config))
+
+
+def _quantize_pack(pk: dict) -> dict:
+    """``quantize_ar_weights`` on an existing ``pack_ar_weights`` pack."""
+    out = {}
+    for name in ("w4", "wsr"):
+        wf = pk[name].float()
+        scale = torch.clamp_min(wf.abs().amax(dim=1), 1e-8) / 127.0
+        out[name] = torch.clamp(torch.round(wf / scale[:, None, :]),
+                                -127, 127).to(torch.int8)
+        out[name + "_scale"] = scale.contiguous()
+    return out
+
+
+def act_scales_from_maxes(maxes: torch.Tensor) -> torch.Tensor:
+    """(L,) per-layer max |residual stream| -> (L, 1) f32 int8 activation
+    scales, ``1.25 * max(maxes, 1e-3) / 127``: the teacher-forced range
+    maps into [-127, 127] with 25% headroom for free-running drift."""
+    return (1.25 * torch.clamp_min(maxes.float(), 1e-3) / 127.0)[:, None]
+
+
+def calibrate_act_scales(params, config, x: torch.Tensor,
+                         h_up: torch.Tensor) -> torch.Tensor:
+    """Static per-layer int8 activation scales from a teacher-forced
+    forward over the whole fleet's seed region, in blocks of 8 rows
+    (JAX ``calibrate_act_scales``, `ops/ar_kernel.py:233-266`).  Decode
+    takes the same maxes from its warm-up instead
+    (``_warmup_state(collect_act_maxes=True)``); this is the oracle."""
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+        _forward_act_maxes,
+    )
+
+    h = h_up[:, : x.shape[1]]
+    maxes = torch.stack([_forward_act_maxes(params, config, x[b: b + 8],
+                                            h[b: b + 8])
+                         for b in range(0, x.shape[0], 8)])
+    return act_scales_from_maxes(maxes.amax(dim=0))
 
 
 # ---------------------------------------------------------------------------
@@ -265,26 +433,41 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _tile16(w: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) -> the int8 kernel's tile layout: 16 x 16 tiles stored
+    whole, row-major over tiles ([K/16][N/16][16][16]), so every ``wmma``
+    operand load is one aligned 256-byte block."""
+    *lead, K, N = w.shape
+    return (w.reshape(*lead, K // 16, 16, N // 16, 16).transpose(-3, -2)
+            .contiguous())
+
+
 def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                 max_n: int, mode: str,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                quantize: bool = False,
+                act_scales: torch.Tensor | None = None) -> torch.Tensor:
     """The AR sample loop: the CUDA kernel for a CUDA carry, the plain
     version for a CPU carry.  Contract of ``ar_generate_reference``
     (carry updated in place); returns (B, max_n) int32.
 
-    On CUDA the config must pass ``ar_kernel_constraint_error`` and the
-    ring must be the bf16 projection-forwarded ``(total_cap, B, 2R)`` ring
-    of ``_warmup_state``; anything else raises.  Sampling draws one 64-bit
+    On CUDA the config must pass ``ar_kernel_constraint_error(config,
+    quantize)`` and the ring must be the bf16 projection-forwarded
+    ``(total_cap, B, 2R)`` ring of ``_warmup_state``; anything else raises.
+    ``quantize`` launches the int8 variant with ``act_scales`` (L, 1) f32
+    on the carry's device (counted in ``ar_generate.int8_launches``; the
+    bf16 kernel in ``ar_generate.launches``).  Sampling draws one 64-bit
     Philox seed from ``generator``; the kernel's Gumbel noise is a function
     of (seed, row, step, class).
     """
     act_buf, sample_hist, prev = carry
     if act_buf.device.type == "cpu":
         return ar_generate_reference(params, config, carry, h_up, T0, max_n,
-                                     mode, generator)
+                                     mode, generator, quantize=quantize,
+                                     act_scales=act_scales)
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate: unsupported device {act_buf.device}")
-    why = ar_kernel_constraint_error(config)
+    why = ar_kernel_constraint_error(config, quantize)
     if why is not None:
         raise NotImplementedError(f"CUDA AR kernel: {why}")
     if mode not in ("argmax", "sampling"):
@@ -318,9 +501,30 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         return torch.zeros((rows, cols), dtype=dtype, device=dev)
 
     bf, f32 = torch.bfloat16, torch.float32
+    null = ctypes.c_void_p(0)
+    if quantize:
+        if act_scales is None:
+            raise ValueError("quantize=True needs act_scales (L, 1)")
+        ascale = act_scales.reshape(-1)
+        _check(ascale, "act_scales", f32, (L,), dev)
+        if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
+            raise ValueError("act_scales must be finite and positive")
+        q = _quantize_pack(pk)
+        w4, wsr = _tile16(q["w4"]), _tile16(q["wsr"])
+        w4s, wsrs, ainv = q["w4_scale"], q["wsr_scale"], 1.0 / ascale
+        # the activation rows in the same 16 x 16 tile layout: (Bp, R)
+        out_q, g_q = scratch(Bp, R, torch.int8), scratch(Bp, R, torch.int8)
+        out_bf16 = g_bf16 = None
+        # f32 scale and its f32 reciprocal, as the plain version takes them
+        gscale = ctypes.c_float(GATE_SCALE)
+        ginv = ctypes.c_float(float(1.0 / torch.tensor(GATE_SCALE, dtype=f32)))
+    else:
+        w4, wsr = pk["w4"], pk["wsr"]
+        out_bf16, g_bf16 = scratch(Bp, R, bf), scratch(Bp, R, bf)
+        w4s = wsrs = ascale = ainv = out_q = g_q = None
+        gscale = ginv = ctypes.c_float(0.0)
     za = torch.empty((B, L * 2 * R), dtype=f32, device=dev)
-    out_f32, out_bf16, g_bf16 = (scratch(Bp, R, f32), scratch(Bp, R, bf),
-                                 scratch(Bp, R, bf))
+    out_f32 = scratch(Bp, R, f32)
     proj = torch.empty((B, 2 * R), dtype=bf, device=dev)
     skip = torch.empty((B, S), dtype=f32, device=dev)
     skip_relu, h1 = scratch(Bp, S, bf), scratch(Bp, S, bf)
@@ -336,12 +540,12 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                                  device=gdev))
 
     def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
+        return null if t is None else ctypes.c_void_p(t.data_ptr())
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_ar_generate(
-            ptr(pk["w4"]), ptr(pk["wsr"]), ptr(pk["auxw"]), ptr(pk["zb"]),
+            ptr(w4), ptr(wsr), ptr(pk["auxw"]), ptr(pk["zb"]),
             ptr(pk["srb"]), ptr(pk["causal_w"]), ptr(pk["causal_b"]),
             ptr(pk["post1_w"]), ptr(pk["post1_b"]), ptr(pk["post2_w"]),
             ptr(pk["post2_b"]), ptr(act_buf),
@@ -351,13 +555,20 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
             ptr(g_bf16), ptr(proj), ptr(skip), ptr(skip_relu), ptr(h1),
             ptr(logits),
             ptr(ids), ptr(samples), B, R, S, Q, A, L, T0, max_n,
-            int(mode == "sampling"), seed, ctypes.c_void_p(stream))
+            int(mode == "sampling"), seed,
+            int(quantize), ptr(w4s), ptr(wsrs), ptr(ascale), ptr(ainv),
+            ptr(out_q), ptr(g_q), gscale, ginv,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
-    ar_generate.launches += 1
+    if quantize:
+        ar_generate.int8_launches += 1
+    else:
+        ar_generate.launches += 1
     sample_hist.copy_(ids[:, :1])
     prev.copy_(ids[:, 1])
     return samples
 
 
 ar_generate.launches = 0
+ar_generate.int8_launches = 0

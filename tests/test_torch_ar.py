@@ -130,6 +130,35 @@ def test_bf16_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_aux_bias_matches_jax_scan():
+    """The port keeps the aux bias ``aux.b`` (reference ``aux_1x1_*.bias``):
+    with a nonzero aux.b the plain loop (and so the kernel, which folds it
+    into its gate bias) matches JAX ``_scan_from_state`` bit-for-bit in
+    argmax.  The JAX Pallas kernel drops aux.b (its ``_pack_weights``
+    omits it): a fault of the reference, ROADMAP Queue 3."""
+    jc, pc = _cfgs(n_resch=32, n_skipch=32, compute_dtype="float32")
+    jp, _ = _params(jc, 9)
+    rng = np.random.RandomState(9)
+    jp["aux"]["b"] = jnp.asarray(
+        rng.uniform(-0.5, 0.5, jp["aux"]["b"].shape).astype(np.float32))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp))
+    n = 20
+    x, h = _seed_inputs(jc, 4, n, seed=9)
+    xj, hj = jnp.asarray(x), jnp.asarray(h)
+    T0 = xj.shape[1]
+    carry = J._warmup_state(jp, jc, xj, hj)
+    want = np.asarray(J._scan_from_state(jp, jc, carry, hj, T0, n, "argmax",
+                                         jax.random.PRNGKey(0)))
+    got = ak.ar_generate(pp, pc, _to_torch(carry), torch.tensor(h), T0, n,
+                         "argmax")
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the bias matters here: dropped, the samples differ
+    pp["aux"]["b"] = torch.zeros_like(pp["aux"]["b"])
+    dropped = ak.ar_generate(pp, pc, _to_torch(carry), torch.tensor(h), T0,
+                             n, "argmax")
+    assert not np.array_equal(dropped.numpy(), want)
+
+
 def _chi_square_p(counts, probs):
     """Pearson chi-square p-value, the rarest classes pooled until every
     bin expects >= 5."""

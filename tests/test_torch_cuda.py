@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the AR loop, the layer stack's warm-up and
-training forward, its backward) against their plain PyTorch versions, on
-the card.
+"""The port's CUDA kernels (the AR loop in bf16 and int8, the layer stack's
+warm-up and training forward, its backward) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
 On a machine with an NVIDIA Hopper GPU and nvcc (``--noconftest``: the
@@ -106,6 +106,101 @@ def test_ar_kernel_matches_plain(dev, B):
     assert s.shape == (B, n) and s.min() >= 0 and s.max() < 256
     assert torch.equal(s, sample(0))          # the seed fixes the stream
     assert not torch.equal(s, sample(1))
+
+
+# the fleets of the bf16 test: one partial row tile, two, two 64-row chunks
+@pytest.mark.parametrize("B", [1, 20, 65])
+def test_ar_int8_kernel_matches_plain(dev, B):
+    """K1-int8 against the plain int8 loop on the same carry and scales:
+    the integer products are exact in both and the epilogues round alike,
+    so only the aux sum's order and the sigmoid/tanh differ (an f32 ulp).
+    Where that flips an int8 value, the rest of the row's layers move by
+    int8 quanta: a minority of the ring values a step writes differ, each
+    by a few quanta (max|d| <= 5e-2 of max|ring|, share <= 0.25)."""
+    cfg = _cfg()
+    params = _params(cfg, dev, seed=5)
+    rng = np.random.RandomState(5)
+    n = 24
+    x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
+                        device=dev)
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32, device=dev)
+    carry, maxes = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
+                                   collect_act_maxes=True, impl="cuda")
+    scales = ak.act_scales_from_maxes(maxes)
+    T0 = x.shape[1]
+    caps, offs, _ = P._buffer_layout(cfg)
+    agree = []
+    cp = tuple(t.clone() for t in carry)
+    for i in range(n):
+        ck = tuple(t.clone() for t in cp)
+        before = ak.ar_generate.int8_launches
+        sk = ak.ar_generate(params, cfg, ck, h, T0 + i, 1, "argmax",
+                            quantize=True, act_scales=scales)
+        assert ak.ar_generate.int8_launches == before + 1
+        sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
+                                      i0=i, quantize=True, act_scales=scales)
+        p = T0 - 1 + i
+        rows = [o + p % c for o, c in zip(offs, caps)]
+        want = cp[0][rows].float()
+        d = (ck[0][rows].float() - want).abs()
+        assert d.max().item() <= 5e-2 * want.abs().max().item()
+        assert (d > 0).float().mean().item() <= 0.25
+        rest = torch.ones(ck[0].shape[0], dtype=torch.bool, device=dev)
+        rest[rows] = False
+        assert torch.equal(ck[0][rest], cp[0][rest])   # other slots untouched
+        agree.append((sk == sp).float().mean().item())
+    assert np.mean(agree) >= 0.97
+
+    def sample(seed):
+        return ak.ar_generate(params, cfg, tuple(t.clone() for t in carry), h,
+                              T0, n, "sampling",
+                              torch.Generator().manual_seed(seed),
+                              quantize=True, act_scales=scales)
+
+    s = sample(0)
+    assert s.shape == (B, n) and s.min() >= 0 and s.max() < 256
+    assert torch.equal(s, sample(0))
+    assert not torch.equal(s, sample(1))
+
+
+def test_int8_refusals(dev):
+    cfg = _cfg(kernel_size=3)
+    params = _params(cfg, dev)
+    x = np.zeros((2, 1), np.int32)
+    h = np.zeros((2, 40, cfg.n_aux), np.float32)
+    with pytest.raises(NotImplementedError, match="int8"):
+        P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda",
+                              quantize=True)
+    cfg = _cfg()
+    params = _params(cfg, dev)
+    xt = torch.zeros((2, cfg.receptive_field), dtype=torch.int64, device=dev)
+    ht = torch.zeros((2, cfg.receptive_field + 4, cfg.n_aux), device=dev)
+    carry = P._warmup_state(params, cfg, xt, ht, bf16_intermediates=True,
+                            impl="cuda")
+    with pytest.raises(ValueError, match="act_scales"):
+        ak.ar_generate(params, cfg, carry, ht, xt.shape[1], 4, "argmax",
+                       quantize=True)
+    with pytest.raises(ValueError, match="act_scales"):
+        ak.ar_generate(params, cfg, carry, ht, xt.shape[1], 4, "argmax",
+                       quantize=True,
+                       act_scales=torch.zeros((cfg.n_layers, 1), device=dev))
+
+
+def test_batch_fast_generate_int8_runs_k1_int8(dev):
+    cfg = _cfg(upsampling_factor=10)
+    params = _params(cfg, dev, seed=6)
+    rng = np.random.RandomState(6)
+    x = np.full((3, 1), 128, np.int32)
+    h = rng.randn(3, 6, cfg.n_aux).astype(np.float32)
+    k1, k1q = ak.ar_generate.launches, ak.ar_generate.int8_launches
+    k2 = tk.layer_stack_streams.launches
+    out = P.batch_fast_generate(params, cfg, x, h, [59, 40, 20],
+                                mode="argmax", quantize=True)
+    assert [len(o) for o in out] == [59, 40, 20]
+    assert ak.ar_generate.int8_launches == k1q + 1
+    assert ak.ar_generate.launches == k1
+    assert tk.layer_stack_streams.launches == k2 + 1
 
 
 def test_cuda_path_raises_outside_envelope(dev):

@@ -1,0 +1,371 @@
+"""int8 decode (``quantize=True``) on the CPU: the plain version of the AR
+kernel's int8 variant against the JAX package's int8 Pallas kernel in
+interpret mode, the weight quantization and the warm-up calibration against
+the JAX formulas, the slice end to end (library and ``bin/decode.py``), and
+fleet auto-capping.
+
+Every comparison with the JAX Pallas kernel keeps ``aux.b = 0`` (as
+``init_wavenet_params`` gives it): that kernel drops the aux bias, which
+the port keeps (``tests/test_torch_ar.py::test_aux_bias_matches_jax_scan``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pytorchwavenetvocoder_tpu.models import wavenet as J
+from pytorchwavenetvocoder_tpu.ops import ar_kernel as jak
+
+from pytorchwavenetvocoder_tpu_torch.bin import decode as torch_decode
+from pytorchwavenetvocoder_tpu_torch.convert import params_from_jax
+from pytorchwavenetvocoder_tpu_torch.models import wavenet as P
+from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
+
+torch.set_num_threads(2)
+
+
+def _cfgs(**kw):
+    """tests/test_ar_kernel.py's small_cfg: R=S=128, 3 x 2 layers, bf16."""
+    base = dict(n_quantize=256, n_aux=28, n_resch=128, n_skipch=128,
+                dilation_depth=3, dilation_repeat=2, kernel_size=2,
+                upsampling_factor=0, compute_dtype="bfloat16")
+    base.update(kw)
+    return J.WaveNetConfig(**base), P.WaveNetConfig(**base)
+
+
+def _params(jc, seed):
+    jp = J.init_wavenet_params(jax.random.PRNGKey(seed), jc)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+def _inputs(jc, B, n, seed):
+    """tests/test_ar_kernel.py's ``_make``: a full receptive field of random
+    ids and randn aux."""
+    rng = np.random.RandomState(seed)
+    T = jc.receptive_field
+    x = rng.randint(0, 256, (B, T)).astype(np.int32)
+    h = rng.randn(B, T + n, jc.n_aux).astype(np.float32)
+    return x, h
+
+
+def _carry_to_torch(carry):
+    ring, hist, prev = (np.asarray(c.astype(jnp.float32)) for c in carry)
+    return (torch.tensor(ring).to(torch.bfloat16),
+            torch.tensor(hist).to(torch.int32),
+            torch.tensor(prev).to(torch.int32))
+
+
+def test_weight_quantization_matches_jax_formula():
+    """Bit-equal int8 weights and scales to 1e-7, after undoing the port's
+    interleave of the current tap's sigmoid and tanh columns."""
+    jc, pc = _cfgs()
+    jp, pp = _params(jc, 3)
+    wpack = jak._pack_weights(jp, jc)[0]
+    # the JAX kernel's quantization, ops/ar_kernel.py:481-485
+    wf = wpack.astype(jnp.float32)
+    wscale = jnp.maximum(jnp.max(jnp.abs(wf), axis=1), 1e-8) / 127.0
+    want_q = np.asarray(jnp.clip(jnp.round(wf / wscale[:, None, :]), -127,
+                                 127).astype(jnp.int8))
+    want_s = np.asarray(wscale)
+    q = ak.quantize_ar_weights(pp, pc)
+    R = pc.n_resch
+    assert q["w4"].dtype == torch.int8 and q["wsr"].dtype == torch.int8
+    got_q = torch.cat([ak._deinterleave(q["w4"][..., : 2 * R]),
+                       q["w4"][..., 2 * R:], q["wsr"]], dim=-1).numpy()
+    got_s = torch.cat([ak._deinterleave(q["w4_scale"][..., : 2 * R]),
+                       q["w4_scale"][..., 2 * R:], q["wsr_scale"]],
+                      dim=-1).numpy()
+    np.testing.assert_array_equal(got_q, want_q)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-7, atol=0)
+    assert np.abs(got_q).max() == 127 and got_q.min() >= -127
+
+
+# f32: the same op sequence in both frameworks, GEMM sums in another order
+# (~1e-7 relative) through six layers: 1e-6.  bf16: the gate is rounded to
+# bf16, and a gate whose f32 value the two frameworks round one ulp (2^-8)
+# apart moves a layer's max by ~1e-4: 1e-3.
+@pytest.mark.parametrize("dtype, rtol", [("float32", 1e-6),
+                                         ("bfloat16", 1e-3)])
+@pytest.mark.parametrize("B", [4, 72])   # one block of 8 rows / ragged blocks
+def test_warmup_calibration_matches_jax(B, dtype, rtol):
+    """The port's warm-up maxes -> scales against JAX ``calibrate_act_scales``
+    (a separate teacher-forced pass in blocks of 8 rows); the port's own
+    ``calibrate_act_scales`` agrees with both."""
+    jc, pc = _cfgs(compute_dtype=dtype)
+    jp, pp = _params(jc, 11)
+    x, h = _inputs(jc, B, 8, seed=4)
+    want = np.asarray(jak.calibrate_act_scales(jp, jc, jnp.asarray(x),
+                                               jnp.asarray(h)))
+    carry, maxes = P._warmup_state(pp, pc, torch.as_tensor(x),
+                                   torch.as_tensor(h), collect_act_maxes=True)
+    got = ak.act_scales_from_maxes(maxes)
+    assert got.shape == (pc.n_layers, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol)
+    oracle = ak.calibrate_act_scales(pp, pc, torch.as_tensor(x),
+                                     torch.as_tensor(h))
+    np.testing.assert_allclose(oracle.numpy(), got.numpy(), rtol=1e-6)
+    # collecting the maxes leaves the carry as it was
+    ref = P._warmup_state(pp, pc, torch.as_tensor(x), torch.as_tensor(h))
+    for a, b in zip(carry, ref):
+        assert torch.equal(a, b)
+
+
+def test_int8_matches_pallas_interpret():
+    """The plain int8 loop against JAX's int8 Pallas kernel (interpret) on
+    the same carry and scales: the integer products are exact in both, so
+    the argmax samples are bit-equal (a near-tie within f32 rounding of
+    the sigmoid/tanh could flip one).  The port's bf16 loop on the same
+    inputs is not, so the comparison sees the quantization."""
+    jc, pc = _cfgs()
+    jp, pp = _params(jc, 12)
+    B, n = 8, 16
+    x, h = _inputs(jc, B, n, seed=6)
+    xj, hj = jnp.asarray(x), jnp.asarray(h)
+    T0 = xj.shape[1]
+    carry = J._warmup_state(jp, jc, xj, hj)
+    scales = jak.calibrate_act_scales(jp, jc, xj, hj)
+    want = np.asarray(jak.pallas_ar_generate(
+        jp, jc, carry, hj, T0, n, "argmax", jax.random.PRNGKey(0),
+        interpret=True, quantize=True, act_scales=scales))
+    st = torch.tensor(np.asarray(scales))
+    ht = torch.tensor(h)
+    got = ak.ar_generate(pp, pc, _carry_to_torch(carry), ht, T0, n, "argmax",
+                         quantize=True, act_scales=st)
+    np.testing.assert_array_equal(got.numpy(), want)
+    bf16 = ak.ar_generate(pp, pc, _carry_to_torch(carry), ht, T0, n,
+                          "argmax")
+    assert not np.array_equal(bf16.numpy(), want)
+
+
+def test_int8_fleet_is_warmup_scales_then_loop():
+    """``batch_fast_generate(quantize=True)`` on the plain route: the
+    warm-up with the maxes, their scales, the int8 loop: nothing else."""
+    jc, pc = _cfgs()
+    _, pp = _params(jc, 2)
+    n_list = [40, 25, 33]
+    x, h = _inputs(jc, len(n_list), max(n_list), seed=3)
+    got = P.batch_fast_generate(pp, pc, x, h, n_list, mode="argmax",
+                                quantize=True, impl="plain")
+    xt, ht = torch.as_tensor(x, dtype=torch.int64), torch.as_tensor(h)
+    carry, maxes = P._warmup_state(pp, pc, xt, ht, collect_act_maxes=True)
+    want = ak.ar_generate_reference(pp, pc, carry, ht, xt.shape[1],
+                                    max(n_list), "argmax", quantize=True,
+                                    act_scales=ak.act_scales_from_maxes(maxes))
+    for b, n in enumerate(n_list):
+        np.testing.assert_array_equal(got[b], want[b, :n].numpy())
+    bf16 = P.batch_fast_generate(pp, pc, x, h, n_list, mode="argmax",
+                                 impl="plain")
+    assert any(not np.array_equal(a, b) for a, b in zip(got, bf16))
+
+
+def test_int8_tracks_jax_scan():
+    """JAX's own gate for its int8 kernel (tests/test_ar_kernel.py:242-262):
+    the int8 trajectory tracks the f32 scan decoder, median |d class| <= 2
+    and a share within 10 classes > 0.7."""
+    jc, pc = _cfgs()
+    jp, pp = _params(jc, 5)
+    n, B = 30, 4
+    x, h = _inputs(jc, B, n, seed=2)
+    xj, hj = jnp.asarray(x), jnp.asarray(h)
+    T0 = xj.shape[1]
+    carry = J._warmup_state(jp, jc, xj, hj)
+    ref = np.asarray(J._scan_from_state(jp, jc, carry, hj, T0, n, "argmax",
+                                        jax.random.PRNGKey(0)))
+    out = P.batch_fast_generate(pp, pc, x, h, [n] * B, mode="argmax",
+                                quantize=True, impl="plain")
+    diff = np.abs(ref.astype(int) - np.stack(out).astype(int))
+    assert np.median(diff) <= 2, np.median(diff)
+    assert (diff <= 10).mean() > 0.7, (diff.mean(), (diff <= 10).mean())
+
+
+def _bundle(tmp_path):
+    """A port-written bundle (checkpoint, model.conf, stats.h5) and three
+    feature files, bf16 3 x 1 layers of 128 channels, upsampling 10."""
+    from pytorchwavenetvocoder_tpu_torch.parallel import (
+        create_train_state,
+        save_checkpoint,
+        save_model_conf,
+    )
+    from pytorchwavenetvocoder_tpu_torch.utils import write_hdf5
+
+    cfg = P.WaveNetConfig(n_aux=8, n_resch=128, n_skipch=128,
+                          dilation_depth=3, dilation_repeat=1,
+                          kernel_size=2, upsampling_factor=10,
+                          compute_dtype="bfloat16")
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(4))
+    expdir = tmp_path / "exp"
+    ckpt = save_checkpoint(str(expdir), state, iterations=1)
+    save_model_conf(str(expdir), dict(cfg.to_dict(), feature_type="world",
+                                      use_upsampling_layer=True,
+                                      use_speaker_code=False))
+    rng = np.random.RandomState(1)
+    stats = str(tmp_path / "stats.h5")
+    write_hdf5(stats, "/world/mean", (rng.randn(8) * 0.1).astype(np.float32))
+    write_hdf5(stats, "/world/scale", (1 + rng.rand(8)).astype(np.float32))
+    featdir = tmp_path / "feats"
+    for i, frames in enumerate([5, 3, 4]):
+        write_hdf5(str(featdir / f"u{i}.h5"), "/world",
+                   rng.randn(frames, 8).astype(np.float32))
+    return ["--stats", stats, "--checkpoint", ckpt, "--config", str(expdir),
+            "--feats", str(featdir), "--batch_size", "2", "--mode", "argmax",
+            "--device", "cpu", "--verbose", "0"]
+
+
+def test_decode_cli_quantize_writes_the_library_int8_wavs(tmp_path,
+                                                          monkeypatch):
+    """``bin/decode.py --quantize --device cpu`` writes, byte for byte, the
+    wavs of ``batch_fast_generate(quantize=True, impl="plain")`` on the
+    batches it reads; without ``--quantize`` the wavs differ."""
+    from pytorchwavenetvocoder_tpu_torch.ops.mulaw import decode_mu_law
+    from pytorchwavenetvocoder_tpu_torch.utils import write_wav
+
+    common = _bundle(tmp_path)
+    seen = {}
+    real = torch_decode.decode_batches
+
+    def spy(model, batch_iter, outdir, **kw):
+        seen.update(model=model, batches=list(batch_iter), kw=kw)
+        return real(model, seen["batches"], outdir, **kw)
+
+    monkeypatch.setattr(torch_decode, "decode_batches", spy)
+    out_q = tmp_path / "wav_q"
+    res = torch_decode.main(common + ["--outdir", str(out_q), "--quantize"])
+    model, batches = seen["model"], seen["batches"]
+    assert seen["kw"]["quantize"] is True
+    assert res["n_utts"] == 3 and len(batches) == 2
+    lib = tmp_path / "wav_lib"
+    lib.mkdir()
+    names = []
+    for feat_ids, (x, h, n_list) in batches:
+        out = P.batch_fast_generate(model.params, model.config, x, h,
+                                    list(n_list), mode="argmax",
+                                    impl="plain", quantize=True)
+        for feat_id, samples in zip(feat_ids, out):
+            write_wav(str(lib / f"{feat_id}.wav"),
+                      decode_mu_law(samples, 256).astype(np.float32), 16000)
+            names.append(f"{feat_id}.wav")
+    assert sorted(os.listdir(out_q)) == sorted(names) == [
+        "u0.wav", "u1.wav", "u2.wav"]
+    for name in names:
+        assert (out_q / name).read_bytes() == (lib / name).read_bytes(), name
+    monkeypatch.setattr(torch_decode, "decode_batches", real)
+    out_b = tmp_path / "wav_bf16"
+    torch_decode.main(common + ["--outdir", str(out_b)])
+    assert any((out_b / n).read_bytes() != (out_q / n).read_bytes()
+               for n in names)
+
+
+# ---------------------------------------------------------------------------
+# fleet auto-capping
+# ---------------------------------------------------------------------------
+
+N_LIST = [11, 7, 13, 9, 10]
+
+
+def _fleet(dtype, seed=7):
+    _, pc = _cfgs(compute_dtype=dtype, n_resch=16, n_skipch=16, n_aux=8)
+    gen = torch.Generator().manual_seed(seed)
+    pp = P.init_wavenet_params(pc, gen)
+    for g in ("dil", "aux", "skip", "res"):
+        pp[g]["b"] = 0.05 * torch.randn(pp[g]["b"].shape, generator=gen)
+    x, h = _inputs(pc, len(N_LIST), max(N_LIST), seed)
+    return pc, pp, x, h
+
+
+def _cap_env(kind, pc):
+    """The environment that splits the fleet of 5 into [2, 2, 1]."""
+    if kind == "chunk":
+        return {"WNV_DECODE_FLEET_CHUNK": "2"}
+    est = P._fleet_hbm_bytes(pc, len(N_LIST), max(N_LIST))
+    # ceil(est / budget) = 3 -> 5 // 3 = 1 row per sub-fleet; a budget of
+    # est / 2 gives 5 // 2 = 2
+    return {"WNV_DECODE_HBM_BUDGET": str(est // 2 + 1)}
+
+
+def _decode(pc, pp, x, h, n_list, **kw):
+    return P.batch_fast_generate(pp, pc, x, h, n_list, impl="plain", **kw)
+
+
+@pytest.mark.parametrize("kind", ["chunk", "budget"])
+def test_capped_fleet_f64_equals_unsplit(kind, monkeypatch):
+    """float64: a capped fleet's argmax rows are bit-equal to the unsplit
+    fleet's (in f32, BLAS blocking may round a row apart with B)."""
+    pc, pp, x, h = _fleet("float64")
+    whole = _decode(pc, pp, x, h, N_LIST, mode="argmax")
+    calls = []
+    real = P._warmup_state
+
+    def spy(params, config, x_, *a, **k):
+        calls.append(x_.shape[0])
+        return real(params, config, x_, *a, **k)
+
+    monkeypatch.setattr(P, "_warmup_state", spy)
+    for name, value in _cap_env(kind, pc).items():
+        monkeypatch.setenv(name, value)
+    capped = _decode(pc, pp, x, h, N_LIST, mode="argmax")
+    assert calls == [2, 2, 1]
+    for a, b in zip(capped, whole):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["chunk", "budget"])
+def test_capped_int8_fleet_equals_its_sub_fleets(kind, monkeypatch):
+    """int8: each sub-fleet calibrates its own scales, so a capped fleet's
+    rows are bit-equal to the same rows decoded as a fleet of their own;
+    the scales differ from the unsplit fleet's."""
+    pc, pp, x, h = _fleet("bfloat16")
+    whole = _decode(pc, pp, x, h, N_LIST, mode="argmax", quantize=True)
+    alone = []
+    for b0 in (0, 2, 4):
+        alone += _decode(pc, pp, x[b0:b0 + 2], h[b0:b0 + 2],
+                         N_LIST[b0:b0 + 2], mode="argmax", quantize=True)
+    for name, value in _cap_env(kind, pc).items():
+        monkeypatch.setenv(name, value)
+    capped = _decode(pc, pp, x, h, N_LIST, mode="argmax", quantize=True)
+    for a, b in zip(capped, alone):
+        np.testing.assert_array_equal(a, b)
+    assert any(not np.array_equal(a, b) for a, b in zip(capped, whole))
+
+
+def test_capped_sampling_is_seeded(monkeypatch):
+    """Sampling through a capped fleet: the same seed gives the same
+    samples, another seed others; sub-fleets draw from their own
+    generators (seeded from one draw of the caller's and the index)."""
+    pc, pp, x, h = _fleet("float32")
+    monkeypatch.setenv("WNV_DECODE_FLEET_CHUNK", "2")
+
+    def run(seed):
+        return _decode(pc, pp, x, h, N_LIST, mode="sampling",
+                       generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = run(5), run(5), run(6)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    assert any(not np.array_equal(u, v) for u, v in zip(a, c))
+    g = torch.Generator().manual_seed(5)
+    seed = int(torch.randint(0, 2**62, (1,), generator=g))
+    first = _decode(pc, pp, x[:2], h[:2], N_LIST[:2], mode="sampling",
+                    generator=P._sub_generator(g, seed, 0))
+    for u, v in zip(a[:2], first):
+        np.testing.assert_array_equal(u, v)
+
+
+def test_fleet_bytes_hand_count(monkeypatch):
+    """The flagship fleet of 32 x 8,000 samples: ring 3,069 slots x 32 rows
+    x 1,024 bf16; f32 aux over 3,071 + 8,000 positions x 28; the (32,
+    30 x 1,024) f32 aux scratch; the int32 output."""
+    cfg = P.WaveNetConfig(compute_dtype="bfloat16")
+    ring = 3069 * 32 * 1024 * 2
+    h_up = 32 * (3070 + 1 + 8000) * 28 * 4
+    za = 32 * 30 * 1024 * 4
+    out = 32 * 8000 * 4
+    assert P._fleet_hbm_bytes(cfg, 32, 8000) == ring + h_up + za + out
+    monkeypatch.delenv("WNV_DECODE_HBM_BUDGET", raising=False)
+    assert P._decode_hbm_budget(torch.device("cpu")) == float("inf")
+    monkeypatch.setenv("WNV_DECODE_HBM_BUDGET", "1e6")
+    assert P._decode_hbm_budget(torch.device("cpu")) == 1e6

@@ -71,8 +71,13 @@ def test_cuda_impl_on_cpu_raises():
     h = rng.randn(2, cfg.receptive_field + 5, cfg.n_aux).astype(np.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         batch_fast_generate(params, cfg, x, h, [5, 5], impl="cuda")
+    # int8 decode is ported for kernel_size 2; kernel_size 3 still raises
+    cfg3 = _tiny(compute_dtype="bfloat16", kernel_size=3)
+    params3 = init_wavenet_params(cfg3, torch.Generator().manual_seed(0))
+    x3 = rng.randint(0, 256, (2, cfg3.receptive_field)).astype(np.int32)
+    h3 = rng.randn(2, cfg3.receptive_field + 5, cfg3.n_aux).astype(np.float32)
     with pytest.raises(NotImplementedError, match="int8"):
-        batch_fast_generate(params, cfg, x, h, [5, 5], quantize=True)
+        batch_fast_generate(params3, cfg3, x3, h3, [5, 5], quantize=True)
     with pytest.raises(ValueError, match="impl"):
         batch_fast_generate(params, cfg, x, h, [5, 5], impl="scan")
 
@@ -88,6 +93,17 @@ def test_kernel_envelopes_name_what_is_out():
         WaveNetConfig(compute_dtype="bfloat16", n_resch=96))
     assert "n_aux" in layer_stack_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_aux=200))
+    # the int8 variant: the bf16 envelope, kernel_size 2, n_resch <= 1024
+    assert ar_kernel_constraint_error(flag, quantize=True) is None
+    why = ar_kernel_constraint_error(
+        WaveNetConfig(compute_dtype="bfloat16", kernel_size=3), quantize=True)
+    assert "int8" in why and "kernel_size" in why
+    assert "n_resch" in ar_kernel_constraint_error(
+        WaveNetConfig(compute_dtype="bfloat16", n_resch=1152), quantize=True)
+    assert ar_kernel_constraint_error(
+        WaveNetConfig(compute_dtype="bfloat16", n_resch=1152)) is None
+    assert "compute_dtype" in ar_kernel_constraint_error(WaveNetConfig(),
+                                                         quantize=True)
 
 
 @pytest.mark.parametrize("kw, what", [
