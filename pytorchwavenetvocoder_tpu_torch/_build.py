@@ -105,28 +105,29 @@ def kernels() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wn_ar_generate.restype = i32
     lib.wn_ar_generate.argtypes = (
-        [vp] * 11            # w4 wsr auxw zb srb causal_w causal_b p1w p1b p2w p2b
+        [vp] * 11            # wz wsr auxw zb srb causal_w causal_b p1w p1b p2w p2b
         + [vp, vp, vp]       # ring, offsets (host int*), caps (host int*)
         + [vp, i32]          # h_up, its time length
         + [vp] * 11          # za out_f32 out_bf16 g proj skip skip_relu h1 logits
                              # ids samples
         + [i32] * 9          # B R S Q A L T0 max_n sampling
         + [ctypes.c_uint64]  # seed
-        + [i32] + [vp] * 6   # quantize; w4s wsrs ascale ainv out_i8 g_i8
+        + [i32] + [vp] * 6   # quantize; wzs wsrs ascale ainv out_i8 g_i8
         + [ctypes.c_float] * 2    # gscale ginv
+        + [i32, vp, vp]      # kernel_size, lag, lag_meta
         + [vp])              # stream
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
         [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b
         + [vp]               # dilations (host int*)
-        + [i32] * 5          # n_run B T R A
+        + [i32] * 6          # n_run B T R A kernel_size
         + [vp])              # stream
     lib.wn_layer_stack_fwd_train.restype = i32
     lib.wn_layer_stack_fwd_train.argtypes = (
         [vp] * 12            # x0 streams st skip_sum h dil_w aux_w zb skip_w
                              # skip_b res_w res_b
         + [vp]               # dilations (host int*)
-        + [i32] * 6          # L B T R S A
+        + [i32] * 7          # L B T R S A kernel_size
         + [vp])              # stream
     lib.wn_layer_stack_bwd_workspace.restype = ctypes.c_longlong
     lib.wn_layer_stack_bwd_workspace.argtypes = [i32] * 5   # B T R S A
@@ -136,6 +137,6 @@ def kernels() -> ctypes.CDLL:
         + [vp]               # dilations (host int*)
         + [vp] * 8           # ddil daux dskip_w dres_w dzb dres_b dstream0 dh
         + [vp] * 3           # dz dx_pp ws
-        + [i32] * 7          # L B T R S A A_pad
+        + [i32] * 8          # L B T R S A A_pad kernel_size
         + [vp])              # stream
     return lib

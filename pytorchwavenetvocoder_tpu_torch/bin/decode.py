@@ -52,12 +52,12 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--impl", default="auto",
                         choices=["auto", "plain", "cuda"],
                         help="AR decoder: cuda = the hand-written kernels "
-                             "(bf16, kernel_size 2), plain = plain PyTorch, "
+                             "(bf16), plain = plain PyTorch, "
                              "auto = cuda on a CUDA device, else plain")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to decode on (cuda, cuda:1, cpu)")
     parser.add_argument("--quantize", default=False, action="store_true",
-                        help="int8 decode (kernel_size 2): int8 weights with "
+                        help="int8 decode: int8 weights with "
                              "one scale per output column, activation scales "
                              "calibrated in each fleet's warm-up; on cuda the "
                              "int8 AR kernel")

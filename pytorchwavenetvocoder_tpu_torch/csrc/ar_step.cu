@@ -1,13 +1,13 @@
-// The WaveNet AR sample loop (kernel_size 2, bf16 or int8) for Hopper.
+// The WaveNet AR sample loop (kernel_size 2 and 3, bf16 or int8) for Hopper.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
-// (the fused Pallas TPU kernel) for bf16 models with kernel_size 2, and its
-// int8 path (quantize=True); the plain PyTorch version is
+// (the fused Pallas TPU kernel) for bf16 models with kernel_size 2 or 3,
+// and its int8 path (quantize=True); the plain PyTorch version is
 // ops/ar_kernel.py::ar_generate_reference.
 //
 // Bound on the H100: each step reads the whole bf16 weight pack,
-// L * R * (4R + S + R) * 2 bytes (82.5 MB at 30 x 512, more than the 50 MB
-// L2), for only B rows, so a large fleet is bound by device-memory bytes
+// L * R * (2kR + S + R) * 2 bytes (86.5 MB at 30 x 512 with k = 2, 118.0 MB
+// with k = 3, more than the 50 MB L2), for only B rows, so a large fleet is bound by device-memory bytes
 // and a small one by the dependent launches of the step.  The TPU kernel
 // kept the pack resident in VMEM across its sequential grid; a Hopper SM
 // holds 227 KB and blocks share nothing between launches, so here:
@@ -52,6 +52,22 @@
 // block's re-read of its input rows, which bounds large fleets; small
 // fleets stay bound by the launches' latency (an s8 16x16x16 MMA covers
 // the K of a bf16 one, so the dependent wmma steps are as many).
+//
+// kernel_size 3 (the ljspeech models; K = 3 at run time, same template
+// instances): the rings are raw, capacity 2d, and hold each layer's input
+// row at slot p mod 2d: bf16, or the int8 row at the layer's scale that
+// the current tap already multiplies.  There is nothing to project, so
+// per step ar_lag_gather_kernel first copies every layer's two lagged rows
+// ((p - d) and (p - 2d) mod 2d) into a zero-padded scratch (int8 as 16 x 16
+// tiles, which also fixes the row-major ring's wmma alignment); per layer
+// ar_gate3_kernel then runs the three K = R products [x | lag d | lag 2d]
+// @ [W_cur; W_d; W_2d] onto the 2R gate columns (interleaved as above) and
+// the gate, and writes the layer's input row into slot p mod 2d, which the
+// gather has read already; ar_res_kernel is unchanged.  int8 dequantizes
+// each product by its own column scales and adds them in the plain
+// version's order.  66 launches per step; the packs are 118.0 MB (bf16)
+// and 59.0 MB (int8), neither of which fits the L2.
+#include <algorithm>
 #include <type_traits>
 
 #include "wn_common.cuh"
@@ -111,32 +127,35 @@ static __device__ __forceinline__ int8_t quant_i8(float v) {
 
 // ---------------------------------------------------------------- kernels
 
-// bf16: out = (causal_b + causal_w[0][id_old]) + causal_w[1][id_new], also
-// as bf16 rows.  INT8: out = (causal_w[0][id_old] + causal_w[1][id_new]) +
-// causal_b (the JAX kernel's one-hot matmul, then the bias), also as int8
-// tiles at layer 0's scale (ainv = its reciprocal).  skip = 0.
+// The input conv over the K ids at p-K+1 .. p (tap j reads causal_w[j] at
+// the id j steps after the oldest).  bf16: out = ((causal_b + w_0) + w_1)
+// (+ w_2), also as bf16 rows.  INT8: out = ((w_0 + w_1) (+ w_2)) + causal_b
+// (the JAX kernel's one-hot matmul, then the bias), also as int8 tiles at
+// layer 0's scale (ainv = its reciprocal).  skip = 0.
 template <bool INT8>
 __global__ void __launch_bounds__(AR_THREADS) ar_embed_kernel(
-    const bf16* __restrict__ causal_w,   // (2, Q, R)
+    const bf16* __restrict__ causal_w,   // (K, Q, R)
     const float* __restrict__ causal_b,  // (R)
-    const int* __restrict__ ids,         // (B, 2): [id at p-1, id at p]
+    const int* __restrict__ ids,         // (B, K): ids at p-K+1 .. p
     float* __restrict__ out_f32,         // (Bp, R)
     void* __restrict__ out_lo,           // (Bp, R): bf16 rows, or int8 tiles
     const float* __restrict__ ainv,      // INT8: layer 0's 1 / scale
     float* __restrict__ skip,            // (B, S)
-    int R, int S, int Q) {
+    int R, int S, int Q, int K) {
     const int b = blockIdx.x;
-    const int i0 = ((ids[2 * b] % Q) + Q) % Q;
-    const int i1 = ((ids[2 * b + 1] % Q) + Q) % Q;
-    const bf16* w0 = causal_w + (size_t)i0 * R;
-    const bf16* w1 = causal_w + ((size_t)Q + i1) * R;
+    const bf16* w[3];
+    for (int j = 0; j < K; ++j)
+        w[j] = causal_w + ((size_t)j * Q + ((ids[K * b + j] % Q) + Q) % Q) * R;
     for (int r = threadIdx.x; r < R; r += AR_THREADS) {
         if constexpr (INT8) {
-            const float v = __fadd_rn(__fadd_rn(bf2f(w0[r]), bf2f(w1[r])), causal_b[r]);
+            float v = bf2f(w[0][r]);
+            for (int j = 1; j < K; ++j) v = __fadd_rn(v, bf2f(w[j][r]));
+            v = __fadd_rn(v, causal_b[r]);
             out_f32[(size_t)b * R + r] = v;
             ((int8_t*)out_lo)[tix(b, r, R)] = quant_i8(__fmul_rn(v, ainv[0]));
         } else {
-            const float v = (causal_b[r] + bf2f(w0[r])) + bf2f(w1[r]);
+            float v = causal_b[r];
+            for (int j = 0; j < K; ++j) v += bf2f(w[j][r]);
             out_f32[(size_t)b * R + r] = v;
             ((bf16*)out_lo)[(size_t)b * R + r] = f2bf(v);
         }
@@ -340,6 +359,142 @@ __global__ void __launch_bounds__(AR_THREADS) ar_gate_kernel(
     }
 }
 
+// kernel_size 3, once per step before any layer: lag[l][j] (Bp, R) =
+// ring rows of layer l at slot (p - (j+1) d_l) mod 2 d_l, j = 0, 1, for rows
+// b < B: bf16 rows, or INT8 16 x 16 tiles (the ring's rows are row-major
+// int8, 16 bytes off wmma's 32-byte alignment at k = 16).  Every read
+// precedes this step's ring writes, which reuse the lag-2d slot.
+template <bool INT8>
+__global__ void __launch_bounds__(AR_THREADS) ar_lag_gather_kernel(
+    const void* __restrict__ ring,     // (total_cap, B, R) bf16 / int8
+    const int* __restrict__ meta,      // (L, 2): ring offset, dilation
+    int p, void* __restrict__ lag,     // (L, 2, Bp, R)
+    int B, int Bp, int R, int L) {
+    constexpr int ESZ = INT8 ? 1 : 2;
+    const int vpr = R * ESZ / 16;                  // 16-byte vectors a row
+    const long long n = (long long)L * 2 * B * vpr;
+    for (long long i = (long long)blockIdx.x * AR_THREADS + threadIdx.x; i < n;
+         i += (long long)gridDim.x * AR_THREADS) {
+        const int v = (int)(i % vpr);
+        long long rest = i / vpr;
+        const int b = (int)(rest % B);
+        rest /= B;
+        const int j = (int)(rest & 1), l = (int)(rest >> 1);
+        const int d = meta[2 * l + 1], cap = 2 * d;
+        const int slot = meta[2 * l] + (((p - (j + 1) * d) % cap) + cap) % cap;
+        const uint4 val = ((const uint4*)((const char*)ring
+                                          + ((size_t)slot * B + b) * R * ESZ))[v];
+        char* dst = (char*)lag + (size_t)(2 * l + j) * Bp * R * ESZ;
+        if constexpr (INT8) dst += tix(b, 16 * v, R);
+        else dst += ((size_t)b * R + 8 * v) * 2;
+        *(uint4*)dst = val;
+    }
+}
+
+// kernel_size 3: one layer's z = [x | lag d | lag 2d] @ [W_cur; W_d; W_2d]
+// over 16 columns x 64 rows per block, the three K = R products in turn
+// through the same K-split core, each summed over the warps into the
+// threads' (row, channel) pairs.  wz holds the three (R, 2R) blocks side by
+// side, [cur | lag d | lag 2d], each interleaved like W4's current tap, so
+// block q holds the sigmoid and tanh halves of channels [8q, 8q+8) and
+// applies the gate.  The grid also copies the layer's input rows (bf16
+// rows or int8 tiles) into its ring slot p mod 2d as row-major (B, R): the
+// lag gather has read that slot already.  INT8: each product dequantized
+// by (activation scale x its column's scale), summed in the plain
+// version's order, cur + (((lag d + lag 2d) + za)); g goes out as int8
+// tiles at 1 / ginv.
+template <bool INT8>
+__global__ void __launch_bounds__(AR_THREADS) ar_gate3_kernel(
+    const void* __restrict__ wz,       // (R, 6R) this layer: bf16 rows / int8 tiles
+    const float* __restrict__ wzs,     // INT8: (6R) column scales of this layer
+    const float* __restrict__ ascale,  // INT8: this layer's activation scale
+    const float* __restrict__ za,      // aux term + biases of this layer; row stride zs
+    int zs,
+    const void* __restrict__ x_in,     // (Bp, R) stream: bf16 rows / int8 tiles
+    const void* __restrict__ lag,      // (2, Bp, R) this layer's lagged rows
+    void* __restrict__ g_out,          // (Bp, R) gate: bf16 rows / int8 tiles
+    float ginv,                        // INT8: 1 / the gate's scale
+    void* __restrict__ ring_slot,      // (B, R) bf16 / int8: slot p mod 2d
+    int B, int Bp, int R) {
+    using Acc = std::conditional_t<INT8, int, float>;
+    constexpr int ESZ = INT8 ? 1 : 2;
+    __shared__ __align__(32) Acc cs[8][AR_ROWS][16];
+    constexpr int PAIRS = AR_ROWS * 8 / AR_THREADS;
+    {
+        const int vpr = R * ESZ / 16;
+        const int n_vec = B * vpr;
+        const int nthreads = gridDim.x * gridDim.y * AR_THREADS;
+        for (int v = (blockIdx.y * gridDim.x + blockIdx.x) * AR_THREADS + threadIdx.x;
+             v < n_vec; v += nthreads) {
+            const int b = v / vpr, c16 = v - b * vpr;
+            const char* src = (const char*)x_in;
+            if constexpr (INT8) src += tix(b, 16 * c16, R);
+            else src += (size_t)v * 16;
+            ((uint4*)ring_slot)[v] = *(const uint4*)src;
+        }
+    }
+    const int col0 = blockIdx.x * 16, row0 = blockIdx.y * AR_ROWS;
+    const int nt = min(4, (B - row0 + 15) / 16);
+    const int jj = threadIdx.x & 7, c = blockIdx.x * 8 + jj;
+    float za_s[PAIRS], za_t[PAIRS], ps[3][PAIRS], pt[3][PAIRS];
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+        const int b = row0 + ((threadIdx.x + q * AR_THREADS) >> 3);
+        za_s[q] = b < B ? za[(size_t)b * zs + c] : 0.f;
+        za_t[q] = b < B ? za[(size_t)b * zs + R + c] : 0.f;
+    }
+#pragma unroll
+    for (int seg = 0; seg < 3; ++seg) {
+        const int cseg = col0 + seg * 2 * R;
+        const char* a = seg == 0 ? (const char*)x_in
+                                 : (const char*)lag + (size_t)(seg - 1) * Bp * R * ESZ;
+        if constexpr (INT8)
+            ksplit_gemm_i8((const int8_t*)a, R, (const int8_t*)wz, 6 * R, row0,
+                           cseg, nt, cs);
+        else
+            ksplit_gemm((const bf16*)a, R, (const bf16*)wz, 6 * R, row0, cseg,
+                        nt, cs);
+        float sc_s = 1.f, sc_t = 1.f;
+        if constexpr (INT8) {
+            sc_s = __fmul_rn(ascale[0], wzs[cseg + jj]);
+            sc_t = __fmul_rn(ascale[0], wzs[cseg + 8 + jj]);
+        }
+#pragma unroll
+        for (int q = 0; q < PAIRS; ++q) {
+            const int r = (threadIdx.x + q * AR_THREADS) >> 3;
+            Acc zsig = 0, ztanh = 0;
+#pragma unroll
+            for (int w = 0; w < 8; ++w) {
+                zsig += cs[w][r][jj];
+                ztanh += cs[w][r][8 + jj];
+            }
+            if constexpr (INT8) {
+                ps[seg][q] = __fmul_rn((float)zsig, sc_s);
+                pt[seg][q] = __fmul_rn((float)ztanh, sc_t);
+            } else {
+                ps[seg][q] = zsig;
+                pt[seg][q] = ztanh;
+            }
+        }
+        __syncthreads();   // cs is rewritten by the next product
+    }
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+        const int b = row0 + ((threadIdx.x + q * AR_THREADS) >> 3);
+        if (b >= B) continue;
+        if constexpr (INT8) {
+            const float g = wn_gate(
+                __fadd_rn(ps[0][q], __fadd_rn(__fadd_rn(ps[1][q], ps[2][q]), za_s[q])),
+                __fadd_rn(pt[0][q], __fadd_rn(__fadd_rn(pt[1][q], pt[2][q]), za_t[q])));
+            ((int8_t*)g_out)[tix(b, c, R)] = quant_i8(__fmul_rn(g, ginv));
+        } else {
+            ((bf16*)g_out)[(size_t)b * R + c] = f2bf(
+                wn_gate(((ps[0][q] + ps[1][q]) + ps[2][q]) + za_s[q],
+                        ((pt[0][q] + pt[1][q]) + pt[2][q]) + za_t[q]));
+        }
+    }
+}
+
 // sr = g @ [W_skip | W_res] + b, 16 columns x 64 rows per block; skip +=
 // sr[:S]; out += sr[S:].  On the last layer (skip_relu set) it also writes
 // bf16(relu(skip)), the post stack's input.  Each thread loads the values
@@ -360,12 +515,12 @@ __global__ void __launch_bounds__(AR_THREADS) ar_res_kernel(
     void* __restrict__ x_out,          // (Bp, R) stream: bf16 rows / int8 tiles
     const float* __restrict__ next_inv,// INT8: next layer's 1 / scale, or null
     bf16* __restrict__ skip_relu,      // (Bp, S) or null
-    const bf16* __restrict__ proj,     // (B, 2R)
-    bf16* __restrict__ ring_slot,      // (B, 2R)
+    const bf16* __restrict__ proj,     // (B, 2R), or null (kernel_size 3)
+    bf16* __restrict__ ring_slot,      // (B, 2R), or null
     int B, int R, int S) {
     using Acc = std::conditional_t<INT8, int, float>;
     __shared__ __align__(32) Acc cs[8][AR_ROWS][16];
-    {
+    if (proj) {   // kernel_size 2: the staged projections into the ring
         const int n_vec = B * 2 * R / 8;   // 16-byte vectors
         const int nthreads = gridDim.x * gridDim.y * AR_THREADS;
         for (int v = (blockIdx.y * gridDim.x + blockIdx.x) * AR_THREADS + threadIdx.x;
@@ -440,8 +595,8 @@ __global__ void __launch_bounds__(AR_THREADS) ar_dense_kernel(
 // Per row: the argmax of the logits, plus Gumbel noise in sampling mode.
 __global__ void __launch_bounds__(AR_THREADS) ar_sample_kernel(
     const float* __restrict__ logits,                 // (B, Q)
-    int* __restrict__ ids, int* __restrict__ samples, // (B, 2), (B, max_n)
-    int Q, int step, int max_n, int sampling, unsigned long long seed) {
+    int* __restrict__ ids, int* __restrict__ samples, // (B, K), (B, max_n)
+    int Q, int K, int step, int max_n, int sampling, unsigned long long seed) {
     __shared__ float rv[AR_THREADS];
     __shared__ int ri[AR_THREADS];
     const int b = blockIdx.x, tid = threadIdx.x;
@@ -469,76 +624,101 @@ __global__ void __launch_bounds__(AR_THREADS) ar_sample_kernel(
     if (tid == 0) {
         const int smp = ri[0] < Q ? ri[0] : 0;   // all-NaN logits -> 0
         samples[(size_t)b * max_n + step] = smp;
-        ids[2 * b] = ids[2 * b + 1];
-        ids[2 * b + 1] = smp;
+        for (int j = 0; j + 1 < K; ++j) ids[K * b + j] = ids[K * b + j + 1];
+        ids[K * b + K - 1] = smp;
     }
 }
 
 // ---------------------------------------------------------------- entry
 
 // The step loop.  Weight packs are raw bytes: bf16 rows or int8 tiles.
+// K = 2: projection-forwarded rings (B, 2R); K = 3: raw rings (B, R), their
+// lagged rows gathered into lag at each step's start (lag_meta: (L, 2)
+// ring offset and dilation on the device).
 template <bool INT8>
 static int run_steps(
-    const char* w4, const char* wsr, const float* w4s, const float* wsrs,
+    const char* wz, const char* wsr, const float* wzs, const float* wsrs,
     const float* ascale, const float* ainv, float gscale, float ginv,
     const bf16* auxw, const float* zb, const float* srb, const bf16* causal_w,
     const float* causal_b, const bf16* post1_w, const float* post1_b,
-    const bf16* post2_w, const float* post2_b, bf16* ring, const int* offsets,
+    const bf16* post2_w, const float* post2_b, char* ring, const int* offsets,
     const int* caps, const float* h_up, int h_T, float* za, float* out_f32,
     void* x_lo, void* g_lo, bf16* proj, float* skip, bf16* skip_relu,
     bf16* h1, float* logits, int* ids, int* samples, int B, int R, int S,
     int Q, int A, int L, int T0, int max_n, int sampling,
-    unsigned long long seed, cudaStream_t st) {
+    unsigned long long seed, int K, void* lag, const int* lag_meta,
+    cudaStream_t st) {
     const size_t esz = INT8 ? 1 : 2;
-    const size_t w4_l = (size_t)R * 4 * R * esz, wsr_l = (size_t)R * (S + R) * esz;
+    const size_t wz_l = (size_t)R * 2 * K * R * esz, wsr_l = (size_t)R * (S + R) * esz;
+    // ring row width in bytes: (B, 2R) bf16 projections, or (B, R) rows
+    const size_t slot_bytes = K == 2 ? (size_t)B * 2 * R * 2 : (size_t)B * R * esz;
+    const int Bp = (B + 15) / 16 * 16;
     const int N_aux = L * 2 * R;
-    const dim3 g_gate(4 * R / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_res((S + R) / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_p1(S / 16, (B + AR_ROWS - 1) / AR_ROWS);
-    const dim3 g_p2(Q / 16, (B + AR_ROWS - 1) / AR_ROWS);
+    const int rows = (B + AR_ROWS - 1) / AR_ROWS;
+    const dim3 g_gate(K == 2 ? 4 * R / 16 : 2 * R / 16, rows);
+    const dim3 g_res((S + R) / 16, rows);
+    const dim3 g_p1(S / 16, rows);
+    const dim3 g_p2(Q / 16, rows);
+    const long long lag_vec = (long long)L * 2 * B * R * esz / 16;
+    const int g_lag = (int)std::min<long long>((lag_vec + AR_THREADS - 1) / AR_THREADS, 1024);
     for (int i = 0; i < max_n; ++i) {
         const int p = T0 - 1 + i;
         ar_embed_kernel<INT8><<<B, AR_THREADS, 0, st>>>(
-            causal_w, causal_b, ids, out_f32, x_lo, ainv, skip, R, S, Q);
+            causal_w, causal_b, ids, out_f32, x_lo, ainv, skip, R, S, Q, K);
         ar_aux_kernel<<<(N_aux + AR_THREADS - 1) / AR_THREADS, AR_THREADS, 0, st>>>(
             auxw, zb, h_up, h_T, p, za, B, A, R, L);
+        if (K == 3)
+            ar_lag_gather_kernel<INT8><<<g_lag, AR_THREADS, 0, st>>>(
+                ring, lag_meta, p, lag, B, Bp, R, L);
         for (int l = 0; l < L; ++l) {
-            bf16* slot = ring + ((size_t)offsets[l] + (size_t)(p % caps[l])) * B * 2 * R;
-            ar_gate_kernel<INT8><<<g_gate, AR_THREADS, 0, st>>>(
-                w4 + l * w4_l, INT8 ? w4s + (size_t)l * 4 * R : nullptr,
-                INT8 ? ascale + l : nullptr, za + (size_t)l * 2 * R, N_aux,
-                x_lo, g_lo, ginv, slot, proj, B, R);
+            char* slot = ring + ((size_t)offsets[l] + (size_t)(p % caps[l])) * slot_bytes;
+            const float* l_wzs = INT8 ? wzs + (size_t)l * 2 * K * R : nullptr;
+            const float* l_as = INT8 ? ascale + l : nullptr;
+            if (K == 2)
+                ar_gate_kernel<INT8><<<g_gate, AR_THREADS, 0, st>>>(
+                    wz + l * wz_l, l_wzs, l_as, za + (size_t)l * 2 * R, N_aux,
+                    x_lo, g_lo, ginv, (const bf16*)slot, proj, B, R);
+            else
+                ar_gate3_kernel<INT8><<<g_gate, AR_THREADS, 0, st>>>(
+                    wz + l * wz_l, l_wzs, l_as, za + (size_t)l * 2 * R, N_aux,
+                    x_lo, (const char*)lag + (size_t)l * 2 * Bp * R * esz, g_lo,
+                    ginv, slot, B, Bp, R);
             ar_res_kernel<INT8><<<g_res, AR_THREADS, 0, st>>>(
                 wsr + l * wsr_l, INT8 ? wsrs + (size_t)l * (S + R) : nullptr,
                 gscale, srb + (size_t)l * (S + R), g_lo, skip, out_f32, x_lo,
                 INT8 && l + 1 < L ? ainv + l + 1 : nullptr,
-                l == L - 1 ? skip_relu : nullptr, proj, slot, B, R, S);
+                l == L - 1 ? skip_relu : nullptr, K == 2 ? proj : nullptr,
+                K == 2 ? (bf16*)slot : nullptr, B, R, S);
         }
         ar_dense_kernel<<<g_p1, AR_THREADS, 0, st>>>(
             skip_relu, post1_w, post1_b, h1, nullptr, S, S, B);
         ar_dense_kernel<<<g_p2, AR_THREADS, 0, st>>>(
             h1, post2_w, post2_b, nullptr, logits, S, Q, B);
         ar_sample_kernel<<<B, AR_THREADS, 0, st>>>(
-            logits, ids, samples, Q, i, max_n, sampling, seed);
+            logits, ids, samples, Q, K, i, max_n, sampling, seed);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
     return (int)cudaGetLastError();
 }
 
-// Runs max_n steps on `stream`.  Returns cudaGetLastError() (0 = success).
-// offsets / caps are host arrays of L ints (the ring layout of
-// models/wavenet.py::_buffer_layout); the ring is (total_cap, B, 2R).
-// Scratch: za (B, L*2R) f32; out_f32 (Bp, R); proj (B, 2R) bf16; skip
-// (B, S) f32; skip_relu, h1 (Bp, S) bf16; logits (B, Q) f32.
-// bf16 (quantize 0): w4 (L, R, 4R) and wsr (L, R, S+R) bf16 rows; out_bf16,
-// g_bf16 (Bp, R) bf16.  int8 (quantize 1): w4, wsr int8 in 16 x 16 tiles
-// per layer, w4s (L, 4R) and wsrs (L, S+R) f32 column scales, ascale /
-// ainv (L) f32 activation scales and their reciprocals, gscale / ginv the
-// gate's scale and its reciprocal; out_i8, g_i8 (Bp, R) int8 tiles.  Rows
-// B..Bp-1 of the row-tiled scratch must be zero.
+// Runs max_n steps on `stream`.  Returns cudaGetLastError() (0 = success;
+// cudaErrorInvalidValue for a kernel size other than 2 and 3).  offsets /
+// caps are host arrays of L ints (the ring layout of
+// models/wavenet.py::_buffer_layout).  K = 2: the ring is (total_cap, B, 2R)
+// bf16 projections, proj (B, 2R) bf16 scratch, wz = W4 (L, R, 4R).  K = 3:
+// the ring is (total_cap, B, R) raw rows (bf16, or int8 under quantize),
+// wz = W6 (L, R, 6R), lag (L, 2, Bp, R) scratch of the ring's type (int8:
+// tiles), lag_meta (L, 2) int32 on the device.  ids (B, K).  Scratch: za
+// (B, L*2R) f32; out_f32 (Bp, R); skip (B, S) f32; skip_relu, h1 (Bp, S)
+// bf16; logits (B, Q) f32.  bf16 (quantize 0): wz and wsr (L, R, S+R) bf16
+// rows; out_bf16, g_bf16 (Bp, R) bf16.  int8 (quantize 1): wz, wsr int8 in
+// 16 x 16 tiles per layer, wzs (L, 2KR) and wsrs (L, S+R) f32 column scales,
+// ascale / ainv (L) f32 activation scales and their reciprocals, gscale /
+// ginv the gate's scale and its reciprocal; out_i8, g_i8 (Bp, R) int8
+// tiles.  Rows B..Bp-1 of the row-tiled scratch (lag too) must be zero.
 extern "C" int wn_ar_generate(
-    const void* w4, const void* wsr, const void* auxw, const void* zb,
+    const void* wz, const void* wsr, const void* auxw, const void* zb,
     const void* srb, const void* causal_w, const void* causal_b,
     const void* post1_w, const void* post1_b, const void* post2_w,
     const void* post2_b, void* ring, const void* offsets_v,
@@ -546,20 +726,21 @@ extern "C" int wn_ar_generate(
     void* out_bf16, void* g_bf16, void* proj, void* skip, void* skip_relu,
     void* h1, void* logits, void* ids, void* samples, int B, int R, int S, int Q,
     int A, int L, int T0, int max_n, int sampling, unsigned long long seed,
-    int quantize, const void* w4s, const void* wsrs, const void* ascale,
+    int quantize, const void* wzs, const void* wsrs, const void* ascale,
     const void* ainv, void* out_i8, void* g_i8, float gscale, float ginv,
-    void* stream) {
+    int K, void* lag, const void* lag_meta, void* stream) {
+    if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
 #define WN_AR_ARGS(X_LO, G_LO)                                                 \
-    (const char*)w4, (const char*)wsr, (const float*)w4s, (const float*)wsrs, \
+    (const char*)wz, (const char*)wsr, (const float*)wzs, (const float*)wsrs, \
     (const float*)ascale, (const float*)ainv, gscale, ginv,                   \
     (const bf16*)auxw, (const float*)zb, (const float*)srb,                   \
     (const bf16*)causal_w, (const float*)causal_b, (const bf16*)post1_w,      \
     (const float*)post1_b, (const bf16*)post2_w, (const float*)post2_b,       \
-    (bf16*)ring, (const int*)offsets_v, (const int*)caps_v,                   \
+    (char*)ring, (const int*)offsets_v, (const int*)caps_v,                   \
     (const float*)h_up, h_T, (float*)za, (float*)out_f32, X_LO, G_LO,         \
     (bf16*)proj, (float*)skip, (bf16*)skip_relu, (bf16*)h1, (float*)logits,   \
     (int*)ids, (int*)samples, B, R, S, Q, A, L, T0, max_n, sampling, seed,    \
-    (cudaStream_t)stream
+    K, lag, (const int*)lag_meta, (cudaStream_t)stream
     if (quantize) return run_steps<true>(WN_AR_ARGS(out_i8, g_i8));
     return run_steps<false>(WN_AR_ARGS(out_bf16, g_bf16));
 #undef WN_AR_ARGS

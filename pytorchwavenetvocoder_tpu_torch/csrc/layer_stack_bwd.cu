@@ -1,4 +1,5 @@
-// Backward of the WaveNet gated-residual stack (kernel_size 2) for Hopper.
+// Backward of the WaveNet gated-residual stack (kernel_size 2 and 3) for
+// Hopper.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/train_kernel.py::_bwd_pallas; the
 // plain PyTorch version is ops/train_kernel.py::ref_layer_stack_bwd.  It
@@ -23,13 +24,14 @@
 //       place of the TPU's dz ring), the dh partial bf16(dz @ aux_w^T)
 //       added in f32 into dh, and per-tile column sums of ds | dt and dout
 //       for the bias gradients;
-//   (b) bwd_dx_kernel, per 32-row tile: dx[t] = dz[t] @ W_1^T +
-//       dz[t + d] @ W_0^T + dout[t] (the t + d term zero past the window's
-//       end), rounded to bf16 into a ping-pong buffer, or into dstream0 at
-//       layer 0;
-//   (c) wgrad_kernel, one per weight gradient: x^T dz, x^T dz[t + d],
-//       h^T dz, g^T bf16(dskip), g^T dout (g = bf16(sigma tanh) recomputed
-//       from the saves).  Each block reduces one 64 x 128 output tile over a
+//   (b) bwd_dx_kernel<K>, per 32-row tile: dx[t] = sum over m < K of
+//       dz[t + m d] @ W_{K-1-m}^T, + dout[t] (the t + m d terms zero past
+//       the window's end), rounded to bf16 into a ping-pong buffer, or into
+//       dstream0 at layer 0; it stages K tiles of dz (192 KB of shared
+//       memory at K = 3, R = 512, which bounds kernel_size 3 to R <= 512);
+//   (c) wgrad_kernel, one per weight gradient: x^T dz[t + m d] for each
+//       tap m < K, h^T dz, g^T bf16(dskip), g^T dout (g = bf16(sigma tanh)
+//       recomputed from the saves).  Each block reduces one 64 x 128 output tile over a
 //       chunk of rows into f32 partials; reduce_chunks_kernel then adds the
 //       chunks (and the bias column sums of (a)) in a fixed order.
 // No atomics: two runs give bitwise-equal gradients.  Matmuls use wmma bf16
@@ -56,8 +58,8 @@ static size_t dz_smem_bytes(int R, int S) {
          + (size_t)2 * 2 * BW_ZC * sizeof(float);            // column sums
 }
 
-static size_t dx_smem_bytes(int R) {
-    return (size_t)2 * BW_TM * 2 * R * sizeof(bf16)          // dz[t], dz[t+d]
+static size_t dx_smem_bytes(int K, int R) {
+    return (size_t)K * BW_TM * 2 * R * sizeof(bf16)          // dz[t + m d]
          + (size_t)BW_TM * BW_ZC * sizeof(float);
 }
 
@@ -197,37 +199,37 @@ __global__ void __launch_bounds__(BW_THREADS) bwd_dz_kernel(
     }
 }
 
-// (b) dx = dz[t] @ W_1^T + dz[t + d] @ W_0^T + dout[t], one 32-row tile
+// (b) dx = sum over m < K of dz[t + m d] @ W_{K-1-m}^T, + dout[t], one
+// 32-row tile
+template <int K>
 __global__ void __launch_bounds__(BW_THREADS) bwd_dx_kernel(
     const bf16* __restrict__ dz,      // (rows, 2R)
     const bf16* __restrict__ dout,    // (rows, R)
-    const bf16* __restrict__ dil_w,   // (2, R, 2R): [0] tap t-d, [1] tap t
+    const bf16* __restrict__ dil_w,   // (K, R, 2R): [K-1-m] taps x[t - m d]
     bf16* __restrict__ dx,            // (rows, R)
     int rows, int T, int R, int d) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int R2 = 2 * R;
-    bf16* Zc = (bf16*)smem;                    // (TM, 2R) dz[t]
-    bf16* Zf = Zc + BW_TM * R2;                // (TM, 2R) dz[t + d]
-    float* Zs = (float*)(Zf + BW_TM * R2);     // (TM, ZC)
+    bf16* Zc = (bf16*)smem;                    // (K, TM, 2R) dz[t + m d]
+    float* Zs = (float*)(Zc + K * BW_TM * R2); // (TM, ZC)
     const int row0 = blockIdx.x * BW_TM;
     const int warp = threadIdx.x >> 5;
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-    // rows are (b, t) flattened: dz[t + d] lies d rows on, inside the same
-    // utterance while t + d < T, and reads as zero past its end
+    // rows are (b, t) flattened: dz[t + m d] lies m d rows on, inside the
+    // same utterance while t + m d < T, and reads as zero past its end
     const int vec = R2 / 8;
     for (int i = threadIdx.x; i < BW_TM * vec; i += BW_THREADS) {
         const int r = i / vec, v = i - r * vec, row = row0 + r;
-        ((uint4*)(Zc + (size_t)r * R2))[v] =
-            row < rows ? ((const uint4*)(dz + (size_t)row * R2))[v] : zero;
-        ((uint4*)(Zf + (size_t)r * R2))[v] =
-            (row < rows && row % T + d < T)
-                ? ((const uint4*)(dz + (size_t)(row + d) * R2))[v] : zero;
+#pragma unroll
+        for (int m = 0; m < K; ++m)
+            ((uint4*)(Zc + ((size_t)m * BW_TM + r) * R2))[v] =
+                (row < rows && row % T + m * d < T)
+                    ? ((const uint4*)(dz + (size_t)(row + m * d) * R2))[v]
+                    : zero;
     }
     __syncthreads();
 
-    const bf16* w0 = dil_w;
-    const bf16* w1 = dil_w + (size_t)R * R2;
     for (int c = 0; c < R; c += BW_ZC) {
         const int col = c + 16 * warp;
         acc_frag acc[2];
@@ -235,16 +237,21 @@ __global__ void __launch_bounds__(BW_THREADS) bwd_dx_kernel(
         wmma::fill_fragment(acc[1], 0.f);
 #pragma unroll 4
         for (int k = 0; k < R2; k += 16) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b1, b0;
-            wmma::load_matrix_sync(b1, w1 + (size_t)col * R2 + k, R2);
-            wmma::load_matrix_sync(b0, w0 + (size_t)col * R2 + k, R2);
+            // bw[m]: W_{K-1-m}^T, the transposed weight of tap x[t - m d]
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw[K];
+#pragma unroll
+            for (int m = 0; m < K; ++m)
+                wmma::load_matrix_sync(
+                    bw[m], dil_w + ((size_t)(K - 1 - m) * R + col) * R2 + k, R2);
 #pragma unroll
             for (int t = 0; t < 2; ++t) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, Zc + (size_t)(16 * t) * R2 + k, R2);
-                wmma::mma_sync(acc[t], a, b1, acc[t]);
-                wmma::load_matrix_sync(a, Zf + (size_t)(16 * t) * R2 + k, R2);
-                wmma::mma_sync(acc[t], a, b0, acc[t]);
+#pragma unroll
+                for (int m = 0; m < K; ++m) {
+                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+                    wmma::load_matrix_sync(
+                        a, Zc + ((size_t)m * BW_TM + 16 * t) * R2 + k, R2);
+                    wmma::mma_sync(acc[t], a, bw[m], acc[t]);
+                }
             }
         }
 #pragma unroll
@@ -439,9 +446,10 @@ extern "C" long long wn_layer_stack_bwd_workspace(int B, int T, int R, int S,
 // The backward of wn_layer_stack_fwd_train.  Inputs: x0 (B, T, R) and
 // streams (L-1, B, T, R) bf16, the layers' input streams; st (L, B, T, 2R)
 // bf16; dsk (B, T, S) bf16(dskip); h (B, T, A) bf16; weights dil_w
-// (L, 2, R, 2R), aux_wp (L, A_pad, 2R) zero-padded, skip_w (L, R, S),
-// res_w (L, R, R), all bf16; dilations, a host array of L ints.  Outputs
-// (f32 unless noted): ddil (L, 2, R, 2R), daux (L, A, 2R), dskip_w
+// (L, K, R, 2R), aux_wp (L, A_pad, 2R) zero-padded, skip_w (L, R, S),
+// res_w (L, R, R), all bf16; dilations, a host array of L ints; K the
+// kernel size (2 or 3).  Outputs (f32 unless noted): ddil (L, K, R, 2R),
+// daux (L, A, 2R), dskip_w
 // (L, R, S), dres_w (L, R, R), dzb (L, 2R), dres_b (L, R), dstream0
 // (B, T, R) bf16, and dh (B, T, A), which must hold zeros on entry.
 // Scratch: dz (B, T, 2R) and dx_pp (2, B, T, R) bf16, ws f32 of
@@ -453,17 +461,19 @@ extern "C" int wn_layer_stack_bwd(
     const void* dilations_v, void* ddil_v, void* daux_v, void* dskip_w_v,
     void* dres_w_v, void* dzb_v, void* dres_b_v, void* dstream0_v, void* dh_v,
     void* dz_v, void* dx_pp_v, void* ws_v, int L, int B, int T, int R, int S,
-    int A, int A_pad, void* stream) {
+    int A, int A_pad, int K, void* stream) {
     const int* dilations = (const int*)dilations_v;
     cudaStream_t cs = (cudaStream_t)stream;
     const int rows = B * T, R2 = 2 * R;
     const size_t rs = (size_t)rows * R;
-    const size_t dz_smem = dz_smem_bytes(R, S), dx_smem = dx_smem_bytes(R);
+    if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
+    const size_t dz_smem = dz_smem_bytes(R, S), dx_smem = dx_smem_bytes(K, R);
     cudaError_t e = cudaFuncSetAttribute(
         bwd_dz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dz_smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaFuncSetAttribute(
-        bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dx_smem);
+        K == 2 ? bwd_dx_kernel<2> : bwd_dx_kernel<3>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dx_smem);
     if (e != cudaSuccess) return (int)e;
 
     const bf16* x0 = (const bf16*)x0_v;
@@ -494,19 +504,22 @@ extern "C" int wn_layer_stack_bwd(
             zb_part, rb_part, rows, R, S, A, A_pad);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
-        bwd_dx_kernel<<<tiles, BW_THREADS, dx_smem, cs>>>(
-            dz, dout, (const bf16*)dil_w_v + (size_t)l * 2 * R * R2, dxo, rows,
-            T, R, d);
+        const bf16* dil_w = (const bf16*)dil_w_v + (size_t)l * K * R * R2;
+        if (K == 2)
+            bwd_dx_kernel<2><<<tiles, BW_THREADS, dx_smem, cs>>>(
+                dz, dout, dil_w, dxo, rows, T, R, d);
+        else
+            bwd_dx_kernel<3><<<tiles, BW_THREADS, dx_smem, cs>>>(
+                dz, dout, dil_w, dxo, rows, T, R, d);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
 
-        float* ddil = (float*)ddil_v + (size_t)l * 2 * R * R2;
+        float* ddil = (float*)ddil_v + (size_t)l * K * R * R2;
         int err;
-        if ((err = wgrad(cs, 0, x, R, R, dz, R2, rows, T, 0, part,
-                         ddil + (size_t)R * R2)))                 // tap t
-            return err;
-        if ((err = wgrad(cs, 0, x, R, R, dz, R2, rows, T, d, part, ddil)))
-            return err;                                           // tap t - d
+        for (int m = 0; m < K; ++m)   // tap x[t - m d]: x^T dz[t + m d]
+            if ((err = wgrad(cs, 0, x, R, R, dz, R2, rows, T, m * d, part,
+                             ddil + (size_t)(K - 1 - m) * R * R2)))
+                return err;
         if ((err = wgrad(cs, 0, h, A, A, dz, R2, rows, T, 0, part,
                          (float*)daux_v + (size_t)l * A * R2)))
             return err;

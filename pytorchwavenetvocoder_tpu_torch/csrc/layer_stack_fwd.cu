@@ -1,5 +1,5 @@
-// Forward of the WaveNet gated-residual stack (kernel_size 2) for Hopper, in
-// two modes.
+// Forward of the WaveNet gated-residual stack (kernel_size 2 and 3) for
+// Hopper, in two modes.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/train_kernel.py::_fwd_pallas:
 //   * streams only (save_st=False), which fills the decode warm-up's ring
@@ -10,24 +10,29 @@
 //     wn_layer_stack_fwd_train; plain version ops/train_kernel.py::
 //     ref_layer_stack.
 //
-// Bound on the H100: per layer a (B*T, 2R) x (2R, 2R) plus a (B*T, R) x (R, R)
-// bf16 product (and in training a (B*T, R) x (R, S) skip product); at the
-// warm-up's ~10^5 rows and the training window's 23,040 this is tensor-core
-// work.  The bf16 streams, and in training the (B*T, 2R) bf16 saves (1.42 GB
-// over 30 layers at the flagship window), are the only device-memory
-// traffic that grows with B*T.  Design: one launch per layer; a block owns
-// 32 time steps of one utterance.  It stages x[t] and x[t - d] (zero where
-// t - d < 0: the causal padding) from the previous layer's stream into
-// shared memory, computes z in 64-channel chunks (sigmoid and tanh halves)
+// Bound on the H100: per layer a (B*T, kR) x (kR, 2R) plus a (B*T, R) x
+// (R, R) bf16 product (and in training a (B*T, R) x (R, S) skip product); at
+// the warm-up's ~10^5 rows and the training windows' ~2 x 10^4 this is
+// tensor-core work.  The bf16 streams, and in training the (B*T, 2R) bf16
+// saves (1.42 GB over 30 layers at the arctic flagship window), are the
+// only device-memory traffic that grows with B*T.  Design: one launch per
+// layer; a block owns 32 time steps of one utterance.  It stages the K taps
+// x[t - m d], m = 0 .. K-1 (zero where t - m d < 0: the causal padding)
+// from the previous layer's stream into shared memory (K, the kernel size,
+// is a template parameter: the kernel_size 2 instance is unchanged by the
+// third tap), computes z in 64-channel chunks (sigmoid and tanh halves)
 // with wmma bf16 tiles and f32 accumulation, adds the aux projection and
 // bias, applies the f32 gate into a bf16 tile that stays in shared memory,
 // then runs the 1x1s on it: in training the skip 1x1, added into the f32
 // skip sum (each block owns its rows, so no two blocks touch one element;
 // layer 0 writes it, later layers read-modify-write), and the residual
 // 1x1, out = bf16(g @ W_res + b_res + x), which the last layer of a
-// training stack skips (its output feeds nothing).  The TPU kernel's ring of
-// tiles, packed int32 pairs and tile cadence were Mosaic constraints and are
-// not carried over.
+// training stack skips (its output feeds nothing).  Shared memory grows
+// with K: (K + 1) x 32 x R bf16 tiles, 152 KB at K = 3, R = 512, which
+// keeps kernel_size 3 under Hopper's 227 KB up to R = 768
+// (ops/train_kernel.py::_smem_bytes).  The TPU kernel's ring of tiles,
+// packed int32 pairs and tile cadence were Mosaic constraints and are not
+// carried over.
 #include "wn_common.cuh"
 
 using namespace nvcuda;
@@ -36,20 +41,21 @@ using namespace nvcuda;
 #define LS_TM 32          // time steps per block: 2 wmma row tiles
 #define LS_ZC 128         // staged accumulator columns
 
+template <int K>
 static size_t ls_smem_bytes(int R, int A) {
-    return (size_t)3 * LS_TM * R * sizeof(bf16)       // x[t], x[t-d], gate
+    return (size_t)(K + 1) * LS_TM * R * sizeof(bf16) // the K taps, gate
          + (size_t)LS_TM * LS_ZC * sizeof(float)       // accumulator stage
          + (size_t)LS_TM * A * sizeof(float);          // aux rows
 }
 
 // TRAIN adds the sigma/tanh saves and the skip sum; without it the kernel
-// is the streams-only one the decode warm-up runs.
-template <bool TRAIN>
+// is the streams-only one the decode warm-up runs.  K: the kernel size.
+template <int K, bool TRAIN>
 __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
     const bf16* __restrict__ x_in,    // (B, T, R) this layer's input stream
     bf16* __restrict__ x_out,         // (B, T, R) its output stream
     const bf16* __restrict__ h,       // (B, T, A)
-    const bf16* __restrict__ dil_w,   // (2, R, 2R): [0] tap t-d, [1] tap t
+    const bf16* __restrict__ dil_w,   // (K, R, 2R): [K-1-m] taps x[t - m d]
     const bf16* __restrict__ aux_w,   // (A, 2R)
     const float* __restrict__ zb,     // (2R) dil_b + aux_b
     const bf16* __restrict__ res_w,   // (R, R)
@@ -62,9 +68,8 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
     const float* __restrict__ skip_b, // (S)
     int S, int first_layer, int do_res) {
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* xc = (bf16*)smem;                    // (TM, R) x[t]
-    bf16* xs = xc + LS_TM * R;                 // (TM, R) x[t - d]
-    bf16* gs = xs + LS_TM * R;                 // (TM, R) gate output
+    bf16* xc = (bf16*)smem;                    // (K, TM, R) x[t - m d]
+    bf16* gs = xc + K * LS_TM * R;             // (TM, R) gate output
     float* zs = (float*)(gs + LS_TM * R);      // (TM, ZC) accumulators
     float* hs = zs + LS_TM * LS_ZC;            // (TM, A) aux
     const int b = blockIdx.y, t0 = blockIdx.x * LS_TM;
@@ -72,15 +77,18 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
     const int R2 = 2 * R;
     const bf16* xb = x_in + (size_t)b * T * R;
 
-    // stage the two taps, 16-byte vectors, zeros outside [0, T)
+    // stage the K taps, 16-byte vectors, zeros outside [0, T)
     const int vec = R / 8;
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     for (int i = threadIdx.x; i < LS_TM * vec; i += LS_THREADS) {
-        const int r = i / vec, v = i - r * vec, t = t0 + r, ts = t - d;
-        ((uint4*)(xc + (size_t)r * R))[v] =
-            t < T ? ((const uint4*)(xb + (size_t)t * R))[v] : zero;
-        ((uint4*)(xs + (size_t)r * R))[v] =
-            (t < T && ts >= 0) ? ((const uint4*)(xb + (size_t)ts * R))[v] : zero;
+        const int r = i / vec, v = i - r * vec, t = t0 + r;
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+            const int ts = t - m * d;
+            ((uint4*)(xc + ((size_t)m * LS_TM + r) * R))[v] =
+                (t < T && ts >= 0) ? ((const uint4*)(xb + (size_t)ts * R))[v]
+                                   : zero;
+        }
     }
     for (int i = threadIdx.x; i < LS_TM * A; i += LS_THREADS) {
         const int r = i / A, a = i - r * A, t = t0 + r;
@@ -97,16 +105,21 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
         wmma::fill_fragment(acc[1], 0.f);
 #pragma unroll 4
         for (int k = 0; k < R; k += 16) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bcur, bpast;
-            wmma::load_matrix_sync(bcur, dil_w + ((size_t)R + k) * R2 + col, R2);
-            wmma::load_matrix_sync(bpast, dil_w + (size_t)k * R2 + col, R2);
+            // bw[m]: the weight of tap x[t - m d], dil_w[K-1-m]
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw[K];
+#pragma unroll
+            for (int m = 0; m < K; ++m)
+                wmma::load_matrix_sync(
+                    bw[m], dil_w + ((size_t)(K - 1 - m) * R + k) * R2 + col, R2);
 #pragma unroll
             for (int t = 0; t < 2; ++t) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, xc + (size_t)(16 * t) * R + k, R);
-                wmma::mma_sync(acc[t], a, bcur, acc[t]);
-                wmma::load_matrix_sync(a, xs + (size_t)(16 * t) * R + k, R);
-                wmma::mma_sync(acc[t], a, bpast, acc[t]);
+#pragma unroll
+                for (int m = 0; m < K; ++m) {
+                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+                    wmma::load_matrix_sync(
+                        a, xc + ((size_t)m * LS_TM + 16 * t) * R + k, R);
+                    wmma::mma_sync(acc[t], a, bw[m], acc[t]);
+                }
             }
         }
 #pragma unroll
@@ -212,18 +225,16 @@ __global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
 
 // Runs layers 0 .. n_run-1 on `stream`: layer l reads stream l (x0 for
 // l = 0, else streams[l-1]) and writes streams[l]; streams is
-// (n_run, B, T, R).  dilations is a host array of n_run ints.  Returns
-// cudaGetLastError() (0 = success).
-extern "C" int wn_layer_stack_fwd(
-    const void* x0, void* streams, const void* h, const void* dil_w,
-    const void* aux_w, const void* zb, const void* res_w, const void* res_b,
-    const void* dilations_v, int n_run, int B, int T, int R, int A,
-    void* stream) {
-    const int* dilations = (const int*)dilations_v;
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t smem = ls_smem_bytes(R, A);
+// (n_run, B, T, R).  dilations is a host array of n_run ints; dil_w is
+// (n_run.., K, R, 2R).  Returns cudaGetLastError() (0 = success).
+template <int K>
+static int run_fwd(const void* x0, void* streams, const void* h,
+                   const void* dil_w, const void* aux_w, const void* zb,
+                   const void* res_w, const void* res_b, const int* dilations,
+                   int n_run, int B, int T, int R, int A, cudaStream_t st) {
+    const size_t smem = ls_smem_bytes<K>(R, A);
     cudaError_t e = cudaFuncSetAttribute(
-        stack_layer_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stack_layer_kernel<K, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     const size_t stream_sz = (size_t)B * T * R;
@@ -232,9 +243,9 @@ extern "C" int wn_layer_stack_fwd(
         const bf16* in = l == 0 ? (const bf16*)x0
                                 : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
         bf16* out = (bf16*)streams + (size_t)l * stream_sz;
-        stack_layer_kernel<false><<<grid, LS_THREADS, smem, st>>>(
+        stack_layer_kernel<K, false><<<grid, LS_THREADS, smem, st>>>(
             in, out, (const bf16*)h,
-            (const bf16*)dil_w + (size_t)l * 2 * R * 2 * R,
+            (const bf16*)dil_w + (size_t)l * K * R * 2 * R,
             (const bf16*)aux_w + (size_t)l * A * 2 * R,
             (const float*)zb + (size_t)l * 2 * R,
             (const bf16*)res_w + (size_t)l * R * R,
@@ -249,19 +260,17 @@ extern "C" int wn_layer_stack_fwd(
 // The training forward: runs all L layers.  Layer l reads stream l (x0 for
 // l = 0, else streams[l-1]), writes streams[l] for l < L-1 (streams is
 // (L-1, B, T, R)), its sigma | tanh saves into st[l] (st is (L, B, T, 2R)),
-// and adds its skip 1x1 into skip_sum (B, T, S) f32.  dilations is a host
-// array of L ints.  Returns cudaGetLastError() (0 = success).
-extern "C" int wn_layer_stack_fwd_train(
+// and adds its skip 1x1 into skip_sum (B, T, S) f32.
+template <int K>
+static int run_fwd_train(
     const void* x0, void* streams, void* st_v, void* skip_sum, const void* h,
     const void* dil_w, const void* aux_w, const void* zb, const void* skip_w,
     const void* skip_b, const void* res_w, const void* res_b,
-    const void* dilations_v, int L, int B, int T, int R, int S, int A,
-    void* stream) {
-    const int* dilations = (const int*)dilations_v;
-    cudaStream_t cs = (cudaStream_t)stream;
-    const size_t smem = ls_smem_bytes(R, A);
+    const int* dilations, int L, int B, int T, int R, int S, int A,
+    cudaStream_t cs) {
+    const size_t smem = ls_smem_bytes<K>(R, A);
     cudaError_t e = cudaFuncSetAttribute(
-        stack_layer_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stack_layer_kernel<K, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     const size_t stream_sz = (size_t)B * T * R;
@@ -270,9 +279,9 @@ extern "C" int wn_layer_stack_fwd_train(
         const bf16* in = l == 0 ? (const bf16*)x0
                                 : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
         bf16* out = l < L - 1 ? (bf16*)streams + (size_t)l * stream_sz : nullptr;
-        stack_layer_kernel<true><<<grid, LS_THREADS, smem, cs>>>(
+        stack_layer_kernel<K, true><<<grid, LS_THREADS, smem, cs>>>(
             in, out, (const bf16*)h,
-            (const bf16*)dil_w + (size_t)l * 2 * R * 2 * R,
+            (const bf16*)dil_w + (size_t)l * K * R * 2 * R,
             (const bf16*)aux_w + (size_t)l * A * 2 * R,
             (const float*)zb + (size_t)l * 2 * R,
             (const bf16*)res_w + (size_t)l * R * R,
@@ -284,4 +293,42 @@ extern "C" int wn_layer_stack_fwd_train(
         if (e != cudaSuccess) return (int)e;
     }
     return (int)cudaGetLastError();
+}
+
+// The streams-only forward (run_fwd) at kernel size K (2 or 3; any other
+// returns cudaErrorInvalidValue).
+extern "C" int wn_layer_stack_fwd(
+    const void* x0, void* streams, const void* h, const void* dil_w,
+    const void* aux_w, const void* zb, const void* res_w, const void* res_b,
+    const void* dilations_v, int n_run, int B, int T, int R, int A, int K,
+    void* stream) {
+    const int* dil = (const int*)dilations_v;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (K == 2)
+        return run_fwd<2>(x0, streams, h, dil_w, aux_w, zb, res_w, res_b, dil,
+                          n_run, B, T, R, A, st);
+    if (K == 3)
+        return run_fwd<3>(x0, streams, h, dil_w, aux_w, zb, res_w, res_b, dil,
+                          n_run, B, T, R, A, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The training forward (run_fwd_train) at kernel size K (2 or 3).
+extern "C" int wn_layer_stack_fwd_train(
+    const void* x0, void* streams, void* st_v, void* skip_sum, const void* h,
+    const void* dil_w, const void* aux_w, const void* zb, const void* skip_w,
+    const void* skip_b, const void* res_w, const void* res_b,
+    const void* dilations_v, int L, int B, int T, int R, int S, int A, int K,
+    void* stream) {
+    const int* dil = (const int*)dilations_v;
+    cudaStream_t cs = (cudaStream_t)stream;
+    if (K == 2)
+        return run_fwd_train<2>(x0, streams, st_v, skip_sum, h, dil_w, aux_w,
+                                zb, skip_w, skip_b, res_w, res_b, dil, L, B,
+                                T, R, S, A, cs);
+    if (K == 3)
+        return run_fwd_train<3>(x0, streams, st_v, skip_sum, h, dil_w, aux_w,
+                                zb, skip_w, skip_b, res_w, res_b, dil, L, B,
+                                T, R, S, A, cs);
+    return (int)cudaErrorInvalidValue;
 }

@@ -625,21 +625,37 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
     return impl
 
 
-def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int) -> int:
-    """Device bytes one decode fleet of B rows holds on the cuda path, for
-    capping the fleet before the card runs out (JAX ``_fleet_hbm_bytes``,
-    `models/wavenet.py:859-877`, counted for this port's buffers): the bf16
-    ring carry, the f32 sample-rate aux, the AR kernel's (B, L*2R) f32 aux
-    scratch and the int32 output.  The warm-up's temporaries are bounded
-    on their own, by ``_warmup_chunk``."""
+def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
+                     quantize: bool = False) -> int:
+    """Device bytes one decode fleet of B rows holds at its peak on the cuda
+    path, for capping the fleet before the card runs out (JAX
+    ``_fleet_hbm_bytes``, `models/wavenet.py:859-877`, counted for this
+    port's buffers).  In the loop: the ring carry (bf16; int8 rows for
+    int8 at kernel_size 3, JAX `ops/ar_kernel.py:469`), the f32 sample-rate
+    aux, the AR kernel's (B, L*2R) f32 aux scratch, its lag scratch at
+    kernel_size 3 (two (Bp, R) rows per layer, Bp = B rounded up to 16)
+    and the int32 output.  int8 at kernel_size 3 has a second peak, while
+    ``int8_ring_fill`` converts the ring: the bf16 ring, the int8 ring, the
+    f32 copy of the largest layer's ring and the aux; the larger of the two
+    counts.  The warm-up's temporaries are bounded on their own, by
+    ``_warmup_chunk``."""
     c = config
+    k, R, L = c.kernel_size, c.n_resch, c.n_layers
     need_T = c.receptive_field + 1 + max_n
-    rw = 2 * c.n_resch if c.kernel_size == 2 else c.n_resch
-    ring = (c.kernel_size - 1) * sum(c.dilations) * B * rw * 2
+    slots = (k - 1) * sum(c.dilations)
+    rw = 2 * R if k == 2 else R
+    raw_int8 = quantize and k > 2
+    ring = slots * B * rw * (1 if raw_int8 else 2)
     h_up = B * need_T * c.n_aux * 4
-    za = B * c.n_layers * 2 * c.n_resch * 4
+    za = B * L * 2 * R * 4
+    Bp = -(-B // 16) * 16
+    lag = 0 if k == 2 else L * 2 * Bp * R * (1 if raw_int8 else 2)
     out = B * max_n * 4
-    return ring + h_up + za + out
+    loop = ring + h_up + za + lag + out
+    if not raw_int8:
+        return loop
+    fill = ring + slots * B * R * 2 + (k - 1) * max(c.dilations) * B * R * 4
+    return max(loop, fill + h_up)
 
 
 def _decode_hbm_budget(device: torch.device) -> float:
@@ -680,18 +696,20 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
       n_samples_list: per-utterance sample counts (length B).
       mode: "sampling" | "argmax".
       generator: ``torch.Generator`` for sampling mode.
-      impl: "cuda" (the hand-written Hopper kernels: bf16, kernel_size 2),
+      impl: "cuda" (the hand-written Hopper kernels: bf16, kernel_size 2
+        or 3),
         "plain" (the same math in plain PyTorch, any config, any device),
         or "auto" (cuda on a CUDA device, plain on the CPU).  A CUDA request
         the kernels cannot serve raises.  The warm-up keeps bf16
         intermediates on the cuda path (its kernels consume the rings in
         bf16) and the compute dtype on the plain path, which keeps the
         naive == fast bit-equality invariant.
-      quantize: int8 decode (kernel_size 2): the warm-up also collects
-        each layer's max |residual stream| (calibration rides the warm-up
-        forward, no second pass), ``act_scales_from_maxes`` turns them into
-        static activation scales, and the loop runs int8 (the K1 int8
-        kernel on cuda).  A config int8 decode does not serve raises.
+      quantize: int8 decode: the warm-up also collects each layer's max
+        |residual stream| (calibration rides the warm-up forward, no second
+        pass), ``act_scales_from_maxes`` turns them into static activation
+        scales, kernel_size 3 converts the raw ring to int8 under them
+        (``int8_ring_fill``), and the loop runs int8 (the K1 int8 kernel on
+        cuda).  A config int8 decode does not serve raises.
       device: where to decode; default the device of the params.
 
     A fleet whose buffers (``_fleet_hbm_bytes``) exceed
@@ -721,7 +739,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
             chunk_B = min(forced, B_fleet)
         else:
             budget = _decode_hbm_budget(device)
-            est = _fleet_hbm_bytes(c, B_fleet, int(max(n_samples_list)))
+            est = _fleet_hbm_bytes(c, B_fleet, int(max(n_samples_list)),
+                                   quantize)
             chunk_B = (B_fleet if est <= budget
                        else max(1, B_fleet // -(-est // max(1, int(budget)))))
         if chunk_B < B_fleet:
@@ -758,6 +777,14 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
 
         carry, maxes = carry
         act_scales = act_scales_from_maxes(maxes)
+        if c.kernel_size > 2:
+            # raw rings become int8 rows under each layer's scale; the
+            # bf16 ring is dropped with the old carry
+            from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+                int8_ring_fill,
+            )
+
+            carry = (int8_ring_fill(carry[0], act_scales, c),) + carry[1:]
     samples = _generate_loop(params, c, carry, h, T0, max_n, mode, generator,
                              impl, intervals=intervals, quantize=quantize,
                              act_scales=act_scales)

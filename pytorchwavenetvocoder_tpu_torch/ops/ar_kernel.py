@@ -1,16 +1,23 @@
 """The WaveNet AR sample loop: plain PyTorch version and Hopper kernel.
 
 Replaces ``pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate``
-(the fused Pallas TPU kernel) for bf16 models with kernel_size 2, in bf16
-and in int8 (``quantize=True``).  Same contract as the JAX package's
+(the fused Pallas TPU kernel) for bf16 models with kernel_size 2 or 3, in
+bf16 and in int8 (``quantize=True``).  Same contract as the JAX package's
 ``_scan_from_state``: carry in, ``(B, max_n)`` int32 samples out.
 
 Per emitted sample and row the loop does: the input conv over the last k
 ids (a row gather), then for each of the L layers the current-tap matmul,
-the ring-buffer tap read at ``(p - d) mod cap``, the aux projection and
-bias, the sigmoid*tanh gate in f32, the fused skip+res 1x1, the residual
-add and the f32 skip sum, and the ring write at ``p mod cap``; then the
-ReLU/1x1 post stack and argmax or Gumbel-max sampling.
+the ring-buffer tap reads at ``(p - j d) mod cap`` (j = 1 .. k-1), the aux
+projection and bias, the sigmoid*tanh gate in f32, the fused skip+res 1x1,
+the residual add and the f32 skip sum, and the ring write at ``p mod cap``;
+then the ReLU/1x1 post stack and argmax or Gumbel-max sampling.
+
+kernel_size 2 rings are projection-forwarded (each slot holds the (B, 2R)
+gate contribution of a past input); kernel_size 3 rings are raw, capacity
+2d, and hold each layer's (B, R) input row: bf16, or under ``quantize`` the
+int8 row the current tap already quantized (``int8_ring_fill`` converts the
+warm-up's bf16 ring), as in the JAX kernel (`ops/ar_kernel.py:386-445`
+there).
 
 ``ar_generate_reference`` is that math in plain PyTorch (the step of
 ``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
@@ -18,15 +25,17 @@ config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
 carry goes to the plain version, a CUDA carry to the kernel
 (``csrc/ar_step.cu``), or it raises.
 
-int8 (``quantize=True``, kernel_size 2) is the JAX kernel's int8 path
-(`ops/ar_kernel.py:480-485, 557-576, 751-800` there): the current- and
+int8 (``quantize=True``) is the JAX kernel's int8 path
+(`ops/ar_kernel.py:480-485, 557-576, 707-800` there): the current- and
 past-tap pack and the skip/res pack in int8 with one f32 scale per output
 column (``quantize_ar_weights``), the residual stream quantized at a static
 per-layer activation scale calibrated from the warm-up
 (``act_scales_from_maxes``), the gate at exactly 1/127; the integer
 products are dequantized by (activation scale x column scale).  The aux
-projection, the input conv and the post stack stay bf16, and the ring keeps
-the bf16 projection of the int8 product.
+projection, the input conv and the post stack stay bf16.  At kernel_size 2
+the ring keeps the bf16 projection of the int8 product; at kernel_size 3
+it keeps the int8 rows, and each lagged tap is an integer product of a
+ring row with its own int8 column block.
 
 Both update the carry IN PLACE: the ring rows, the sample history and
 ``prev`` end the call in the state that continues the stream, so a second
@@ -34,16 +43,17 @@ call (with ``i0`` advanced, plain version) continues it exactly.  The JAX
 package could only reach this through buffer donation.
 
 What bounds the kernel on the H100: every step streams the whole bf16
-weight pack (``L * R * (4R + S + R)`` = 82.5 MB at the 30x512 flagship,
-more than the 50 MB L2) for B rows, so at fleet sizes it is bound by
-device-memory bytes (~25 us/step at 3.35 TB/s; the int8 pack is 43.3 MB,
-~13 us/step, and would fit the L2), and at small fleets by the 65 dependent
-launches per step.  The design: the step loop runs in
-C++ (no Python per step); each layer is two launches over column slices
-(current and past tap GEMM with the gate; skip/res + residual add + ring
-write) with ``wmma`` bf16 tensor-core tiles and f32 accumulation; per
-step one launch embeds the input ids, one projects the aux column for all
-layers, and three run the post stack and sampling.  Persistence, CUDA
+weight pack (``L * R * (2kR + S + R)`` = 86.5 MB at the 30x512 kernel_size 2
+flagship, 118.0 MB at the kernel_size 3 one, more than the 50 MB L2) for B
+rows, so at fleet sizes it is bound by device-memory bytes (~25 and ~35
+us/step at 3.35 TB/s; the int8 packs are 43.3 and 59.0 MB), and at small
+fleets by the ~65 dependent launches per step.  The design: the step loop
+runs in C++ (no Python per step); each layer is two launches over column
+slices (the gate GEMM over every tap with the gate; skip/res + residual
+add) with ``wmma`` tensor-core tiles and f32 (int8: int32) accumulation;
+per step one launch embeds the input ids, one projects the aux column for
+all layers, kernel_size 3 adds one that gathers every layer's two lagged
+ring rows, and three run the post stack and sampling.  Persistence, CUDA
 graphs and TMA/``wgmma`` are later work.
 """
 
@@ -63,14 +73,18 @@ from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 INT8_MAX_RESCH = 1024
 
 
+#: The kernel sizes the AR kernel serves, bf16 and int8 (the JAX kernel's,
+#: `ops/ar_kernel.py:82` there): projection-forwarded rings at 2, raw at 3
+KERNEL_SIZES = (2, 3)
+
+
 def int8_constraint_error(config) -> str | None:
     """Why int8 decode (``quantize=True``) can NOT run this config, on any
     route (None when it can)."""
     c = config
-    if c.kernel_size != 2:
-        return (f"int8 decode with kernel_size={c.kernel_size} (raw int8 "
-                "rings) is not yet ported: ROADMAP 'What is left' 1, the "
-                "kernel_size 3 family")
+    if c.kernel_size not in KERNEL_SIZES:
+        return (f"int8 decode serves kernel_size 2 and 3 (as the JAX int8 "
+                f"kernel does); got kernel_size={c.kernel_size}")
     if c.n_resch > INT8_MAX_RESCH:
         return (f"int8 decode needs n_resch <= {INT8_MAX_RESCH} (exact f32 "
                 f"sums of the int8 products); got {c.n_resch}")
@@ -87,9 +101,9 @@ def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
             return why
     if c.compute_dtype != "bfloat16":
         return f"compute_dtype={c.compute_dtype!r} (the kernel is bf16)"
-    if c.kernel_size != 2:
-        return (f"kernel_size={c.kernel_size} (only the projection-"
-                "forwarded kernel_size 2 rings are ported)")
+    if c.kernel_size not in KERNEL_SIZES:
+        return (f"kernel_size={c.kernel_size} (the kernel serves kernel_size "
+                "2 and 3)")
     if c.n_resch % 128 != 0:
         return f"n_resch={c.n_resch} must be a multiple of 128"
     if c.n_skipch % 128 != 0:
@@ -125,9 +139,10 @@ def _step_weights(params, config, quantize: bool = False) -> dict:
     """The per-step weight views the plain loop consumes, cast once.
 
     ``quantize`` adds the int8 packs of ``quantize_ar_weights`` (as f32
-    values, for exact f32 matmuls) and the gate's scale; the rest is then
-    taken in bf16 with f32 biases, as the JAX kernel's int8 path takes it
-    whatever the compute dtype.
+    values, for exact f32 matmuls: ``q_wz`` is the gate pack of either
+    kernel size) and the gate's scale; the rest is then taken in bf16 with
+    f32 biases, as the JAX kernel's int8 path takes it whatever the compute
+    dtype.
     """
     c = config
     if quantize:
@@ -156,10 +171,26 @@ def _step_weights(params, config, quantize: bool = False) -> dict:
                     "post2_b"):
             w[key] = w[key].float()
         q = quantize_ar_weights(params, c)
-        w.update(q_w4=q["w4"].float(), q_w4_scale=q["w4_scale"],
+        gk = _gate_key(k)
+        w.update(q_wz=q[gk].float(), q_wz_scale=q[gk + "_scale"],
                  q_wsr=q["wsr"].float(), q_wsr_scale=q["wsr_scale"],
                  q_gate_scale=torch.full((L,), GATE_SCALE, device=dil_w.device))
     return w
+
+
+def _gate_key(k: int) -> str:
+    """The name of the gate pack in ``pack_ar_weights``: w4 = [current |
+    past] at kernel_size 2, w6 = [current | lag d | lag 2d] at 3."""
+    return "w4" if k == 2 else "w6"
+
+
+def _interleave(w: torch.Tensor) -> torch.Tensor:
+    """(..., 2R) [sigmoid | tanh] -> the kernel's column order: column
+    16q + i is sigmoid channel 8q + i, column 16q + 8 + i tanh channel
+    8q + i (the inverse of ``_deinterleave``)."""
+    R = w.shape[-1] // 2
+    lead = w.shape[:-1]
+    return w.reshape(*lead, 2, R // 8, 8).transpose(-3, -2).reshape(*lead, 2 * R)
 
 
 def _deinterleave(z: torch.Tensor) -> torch.Tensor:
@@ -222,7 +253,8 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     za_all = _dot(hcol, w["aux_w"]).reshape(B, L, 2 * R) + w["aux_b"][None]
 
     # every layer's past taps in one gather; kernel_size 2 rings hold the
-    # projected (B, 2R) gate contribution already (int8 reads them in bf16)
+    # projected (B, 2R) gate contribution already (int8 reads them in bf16),
+    # larger ones the raw rows (int8 rows under quantize, multiplied below)
     if k == 2:
         read_idx = offs_v + (p - lags_v[:, 0]) % caps_v
         past = act_buf[read_idx]
@@ -230,8 +262,9 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     elif k > 1:
         read_idx = (offs_v[:, None] + (p - lags_v) % caps_v[:, None]).reshape(-1)
         past = act_buf[read_idx].reshape(L, k - 1, B, R)
-        z_past = torch.einsum("ljbr,ljro->lbo", past.to(dt).to(acc),
-                              w["dil_w_past"].to(acc))         # (L, B, 2R)
+        if not quantize:
+            z_past = torch.einsum("ljbr,ljro->lbo", past.to(dt).to(acc),
+                                  w["dil_w_past"].to(acc))     # (L, B, 2R)
     else:
         z_past = torch.zeros((L, B, 2 * R), dtype=acc, device=dev)
 
@@ -242,19 +275,39 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
         inv_s = 1.0 / s
         gs = w["q_gate_scale"]
         inv_g = 1.0 / gs
+
+        def block(j):
+            """The columns of tap block j of the gate pack."""
+            return slice(j * 2 * R, (j + 1) * 2 * R)
+
+        def qdot(a, l, cols):
+            """a (integer-valued f32) @ columns ``cols`` of layer l's int8
+            gate pack: exact in f32, then dequantized."""
+            return (_dot(a, w["q_wz"][l][:, cols])
+                    * (s[l] * w["q_wz_scale"][l][cols]))
     for l in range(L):
         if quantize:
             # the residual stream (f32) at the layer's static scale; the
             # integer product is exact in f32, then dequantized
             xq = torch.clamp(torch.round(out * inv_s[l]), -127, 127)
-            zfull = _dot(xq, w["q_w4"][l]) * (s[l] * w["q_w4_scale"][l])
-            z = (_deinterleave(zfull[:, : 2 * R])
-                 + ((z_past[l] + za_all[:, l]) + w["dil_b"][l]))
+            if k == 2:
+                zfull = qdot(xq, l, slice(None))
+                z = (_deinterleave(zfull[:, : 2 * R])
+                     + ((z_past[l] + za_all[:, l]) + w["dil_b"][l]))
+                new_vals.append(zfull[:, 2 * R:])   # the ring value for p + d
+            else:
+                # the raw int8 ring rows, lag d first; JAX's order of the
+                # f32 sums: cur + (((lag d + lag 2d) + aux) + bias)
+                zp = qdot(past[l, 0].float(), l, block(1))
+                for j in range(2, k):
+                    zp = zp + qdot(past[l, j - 1].float(), l, block(j))
+                z = (_deinterleave(qdot(xq, l, block(0)))
+                     + ((_deinterleave(zp) + za_all[:, l]) + w["dil_b"][l]))
+                new_vals.append(xq)                 # the int8 ring row
             g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
             gq = torch.clamp(torch.round(g * inv_g[l]), -127, 127)
             sr = (_dot(gq, w["q_wsr"][l]) * (gs[l] * w["q_wsr_scale"][l])
                   + w["sr_b"][l])
-            new_vals.append(zfull[:, 2 * R:])   # the ring value for p + d
         else:
             z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
                  + w["dil_b"][l] + za_all[:, l])
@@ -268,7 +321,7 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     # (kernel_size 2: projected at write time)
     write_idx = offs_v + p % caps_v
     new_stack = torch.stack(new_vals)                          # (L, B, R|2R)
-    if quantize:
+    if quantize and k == 2:
         new_stack = new_stack.to(torch.bfloat16)
     elif k == 2:
         new_stack = torch.einsum("lbr,lro->lbo", new_stack.to(dt).to(acc),
@@ -296,8 +349,9 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
       T0: seed length (first generated sample has index T0).
       i0: absolute step offset of this call (chunked decoding).
       generator: ``torch.Generator`` for the Gumbel noise (sampling mode).
-      quantize: int8 step; needs kernel_size 2 and ``act_scales`` (L, 1)
-        f32 from ``act_scales_from_maxes``.
+      quantize: int8 step; needs ``act_scales`` (L, 1) f32 from
+        ``act_scales_from_maxes`` and, at kernel_size 3, the int8 ring of
+        ``int8_ring_fill`` under those scales.
 
     Returns:
       (B, max_n) int32 generated mu-law classes.
@@ -308,6 +362,7 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
         why = int8_constraint_error(config)
         if why is not None:
             raise NotImplementedError(why)
+        _check_int8_ring(act_buf, k)
     weights = _step_weights(params, config, quantize)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1)
     out = []
@@ -337,6 +392,9 @@ def quantize_ar_weights(params, config) -> dict:
     ``pack_ar_weights``:
 
     w4  (L, R, 4R) int8, w4_scale (L, 4R) f32: [current tap | past tap]
+        (kernel_size 2), or
+    w6  (L, R, 6R) int8, w6_scale (L, 6R) f32: [current | lag d | lag 2d]
+        (kernel_size 3, JAX ``_pack_weights``' blocks, `:160-172`);
     wsr (L, R, S+R) int8, wsr_scale (L, S+R) f32: [skip | res]
 
     Each weight is rounded to bf16; each output column gets
@@ -349,13 +407,41 @@ def quantize_ar_weights(params, config) -> dict:
 def _quantize_pack(pk: dict) -> dict:
     """``quantize_ar_weights`` on an existing ``pack_ar_weights`` pack."""
     out = {}
-    for name in ("w4", "wsr"):
+    for name in ("w4", "w6", "wsr"):
+        if name not in pk:
+            continue
         wf = pk[name].float()
         scale = torch.clamp_min(wf.abs().amax(dim=1), 1e-8) / 127.0
         out[name] = torch.clamp(torch.round(wf / scale[:, None, :]),
                                 -127, 127).to(torch.int8)
         out[name + "_scale"] = scale.contiguous()
     return out
+
+
+def int8_ring_fill(act_buf: torch.Tensor, act_scales: torch.Tensor,
+                   config) -> torch.Tensor:
+    """The warm-up's raw ring (total_cap, B, R) as int8 rows under each
+    layer's activation scale, for int8 decode at kernel_size 3: JAX
+    ``clip(round(ring / s), -127, 127)`` (`ops/ar_kernel.py:437-445`), the
+    quantization the loop applies to every row it writes.  This fill
+    divides by s, as JAX's does; the loop multiplies by 1/s (`:572`), and
+    the two can round a half-way value apart, so each keeps its own form.
+    One layer at a time, so the f32 temporary is one layer's ring."""
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
+
+    caps, offsets, _ = _buffer_layout(config)
+    s = act_scales.reshape(-1).to(device=act_buf.device, dtype=torch.float32)
+    out = torch.empty(act_buf.shape, dtype=torch.int8, device=act_buf.device)
+    for l, (o, c) in enumerate(zip(offsets, caps)):
+        out[o: o + c] = (act_buf[o: o + c].float().div_(s[l]).round_()
+                         .clamp_(-127, 127))
+    return out
+
+
+def _check_int8_ring(act_buf: torch.Tensor, k: int) -> None:
+    if k > 2 and act_buf.dtype != torch.int8:
+        raise ValueError(f"int8 decode at kernel_size {k} runs on the int8 "
+                         f"ring of int8_ring_fill; got a {act_buf.dtype} ring")
 
 
 def act_scales_from_maxes(maxes: torch.Tensor) -> torch.Tensor:
@@ -391,34 +477,42 @@ def calibrate_act_scales(params, config, x: torch.Tensor,
 def pack_ar_weights(params, config) -> dict:
     """The kernel's weight layout (on the params' device, contiguous):
 
-    w4   (L, R, 4R) bf16   [current tap (2R) | past tap (2R)], the current
-                           tap's sigmoid and tanh columns interleaved in
-                           groups of 8: column 16q + i is sigmoid channel
-                           8q + i, column 16q + 8 + i tanh channel 8q + i
+    w4   (L, R, 4R) bf16   kernel_size 2: [current tap (2R) | past tap
+                           (2R)], the current tap's sigmoid and tanh
+                           columns interleaved in groups of 8
+                           (``_interleave``): column 16q + i is sigmoid
+                           channel 8q + i, column 16q + 8 + i tanh channel
+                           8q + i; the past tap in its own order (it makes
+                           the projection-forwarded ring value)
+    w6   (L, R, 6R) bf16   kernel_size 3: [current | lag d | lag 2d], each
+                           block interleaved (all three feed the gate)
     wsr  (L, R, S+R) bf16  [skip | res]
     auxw (L, A, 2R) bf16;  zb (L, 2R) f32 = dil_b + aux_b;  srb (L, S+R) f32
-    causal_w (2, Q, R) bf16, causal_b (R,) f32, post1/post2 w bf16, b f32
+    causal_w (k, Q, R) bf16, causal_b (R,) f32, post1/post2 w bf16, b f32
     """
     bf, f32 = torch.bfloat16, torch.float32
     dil_w = params["dil"]["w"]
-    L, R = dil_w.shape[0], dil_w.shape[2]
-    cur = dil_w[:, 1].reshape(L, R, 2, R // 8, 8).transpose(2, 3)
-    return dict(
-        w4=torch.cat([cur.reshape(L, R, 2 * R), dil_w[:, 0]],
-                     dim=-1).to(bf).contiguous(),
-        wsr=torch.cat([params["skip"]["w"], params["res"]["w"]],
-                      dim=-1).to(bf).contiguous(),
-        auxw=params["aux"]["w"].to(bf).contiguous(),
-        zb=(params["dil"]["b"] + params["aux"]["b"]).to(f32).contiguous(),
-        srb=torch.cat([params["skip"]["b"], params["res"]["b"]],
-                      dim=-1).to(f32).contiguous(),
-        causal_w=params["causal"]["w"].to(bf).contiguous(),
-        causal_b=params["causal"]["b"].to(f32).contiguous(),
-        post1_w=params["post1"]["w"].to(bf).contiguous(),
-        post1_b=params["post1"]["b"].to(f32).contiguous(),
-        post2_w=params["post2"]["w"].to(bf).contiguous(),
-        post2_b=params["post2"]["b"].to(f32).contiguous(),
-    )
+    k = dil_w.shape[1]
+    if k == 2:
+        blocks = [_interleave(dil_w[:, 1]), dil_w[:, 0]]
+    else:
+        # lag j*d multiplies dil_w[k-1-j], as the JAX pack orders them
+        blocks = [_interleave(dil_w[:, k - 1 - j]) for j in range(k)]
+    return {
+        _gate_key(k): torch.cat(blocks, dim=-1).to(bf).contiguous(),
+        "wsr": torch.cat([params["skip"]["w"], params["res"]["w"]],
+                         dim=-1).to(bf).contiguous(),
+        "auxw": params["aux"]["w"].to(bf).contiguous(),
+        "zb": (params["dil"]["b"] + params["aux"]["b"]).to(f32).contiguous(),
+        "srb": torch.cat([params["skip"]["b"], params["res"]["b"]],
+                         dim=-1).to(f32).contiguous(),
+        "causal_w": params["causal"]["w"].to(bf).contiguous(),
+        "causal_b": params["causal"]["b"].to(f32).contiguous(),
+        "post1_w": params["post1"]["w"].to(bf).contiguous(),
+        "post1_b": params["post1"]["b"].to(f32).contiguous(),
+        "post2_w": params["post2"]["w"].to(bf).contiguous(),
+        "post2_b": params["post2"]["b"].to(f32).contiguous(),
+    }
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -452,13 +546,16 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     (carry updated in place); returns (B, max_n) int32.
 
     On CUDA the config must pass ``ar_kernel_constraint_error(config,
-    quantize)`` and the ring must be the bf16 projection-forwarded
-    ``(total_cap, B, 2R)`` ring of ``_warmup_state``; anything else raises.
-    ``quantize`` launches the int8 variant with ``act_scales`` (L, 1) f32
-    on the carry's device (counted in ``ar_generate.int8_launches``; the
-    bf16 kernel in ``ar_generate.launches``).  Sampling draws one 64-bit
-    Philox seed from ``generator``; the kernel's Gumbel noise is a function
-    of (seed, row, step, class).
+    quantize)`` and the ring must be ``_warmup_state``'s: the bf16
+    projection-forwarded ``(total_cap, B, 2R)`` ring at kernel_size 2, the
+    raw ``(total_cap, B, R)`` ring at kernel_size 3 (int8 from
+    ``int8_ring_fill`` under ``quantize``, else bf16); anything else
+    raises.  ``quantize`` launches the int8 variant with ``act_scales``
+    (L, 1) f32 on the carry's device (counted in
+    ``ar_generate.int8_launches``; the bf16 kernel in
+    ``ar_generate.launches``).  Sampling draws one 64-bit Philox seed from
+    ``generator``; the kernel's Gumbel noise is a function of (seed, row,
+    step, class).
     """
     act_buf, sample_hist, prev = carry
     if act_buf.device.type == "cpu":
@@ -480,9 +577,15 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     dev = act_buf.device
     B = prev.shape[0]
     R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
+    k = c.kernel_size
     caps, offsets, total_cap = _buffer_layout(c)
-    _check(act_buf, "act_buf", torch.bfloat16, (total_cap, B, 2 * R), dev)
-    _check(sample_hist, "sample_hist", torch.int32, (B, 1), dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    if k == 2:
+        _check(act_buf, "act_buf", bf, (total_cap, B, 2 * R), dev)
+    else:
+        _check(act_buf, "act_buf", torch.int8 if quantize else bf,
+               (total_cap, B, R), dev)
+    _check(sample_hist, "sample_hist", torch.int32, (B, k - 1), dev)
     _check(prev, "prev", torch.int32, (B,), dev)
     if (h_up.device != dev or h_up.dtype != torch.float32 or h_up.ndim != 3
             or h_up.shape[0] != B or h_up.shape[2] != A
@@ -494,13 +597,13 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     for name, t in pk.items():
         if t.device != dev:
             raise ValueError(f"params ({name}) are on {t.device}, not {dev}")
+    gk = _gate_key(k)
 
     Bp = -(-B // 16) * 16   # wmma row tiles of 16; pad rows stay zero
 
     def scratch(rows, cols, dtype):
         return torch.zeros((rows, cols), dtype=dtype, device=dev)
 
-    bf, f32 = torch.bfloat16, torch.float32
     null = ctypes.c_void_p(0)
     if quantize:
         if act_scales is None:
@@ -510,8 +613,8 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
             raise ValueError("act_scales must be finite and positive")
         q = _quantize_pack(pk)
-        w4, wsr = _tile16(q["w4"]), _tile16(q["wsr"])
-        w4s, wsrs, ainv = q["w4_scale"], q["wsr_scale"], 1.0 / ascale
+        wz, wsr = _tile16(q[gk]), _tile16(q["wsr"])
+        wzs, wsrs, ainv = q[gk + "_scale"], q["wsr_scale"], 1.0 / ascale
         # the activation rows in the same 16 x 16 tile layout: (Bp, R)
         out_q, g_q = scratch(Bp, R, torch.int8), scratch(Bp, R, torch.int8)
         out_bf16 = g_bf16 = None
@@ -519,17 +622,25 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         gscale = ctypes.c_float(GATE_SCALE)
         ginv = ctypes.c_float(float(1.0 / torch.tensor(GATE_SCALE, dtype=f32)))
     else:
-        w4, wsr = pk["w4"], pk["wsr"]
+        wz, wsr = pk[gk], pk["wsr"]
         out_bf16, g_bf16 = scratch(Bp, R, bf), scratch(Bp, R, bf)
-        w4s = wsrs = ascale = ainv = out_q = g_q = None
+        wzs = wsrs = ascale = ainv = out_q = g_q = None
         gscale = ginv = ctypes.c_float(0.0)
     za = torch.empty((B, L * 2 * R), dtype=f32, device=dev)
     out_f32 = scratch(Bp, R, f32)
-    proj = torch.empty((B, 2 * R), dtype=bf, device=dev)
+    proj = lag = lag_meta = None
+    if k == 2:
+        proj = torch.empty((B, 2 * R), dtype=bf, device=dev)
+    else:
+        # every layer's two lagged ring rows, gathered at each step's start:
+        # bf16 rows, or int8 16 x 16 tiles; pad rows stay zero
+        lag = scratch(L * 2 * Bp, R, act_buf.dtype)
+        lag_meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
+                                device=dev).T.contiguous()      # (L, 2)
     skip = torch.empty((B, S), dtype=f32, device=dev)
     skip_relu, h1 = scratch(Bp, S, bf), scratch(Bp, S, bf)
     logits = torch.empty((B, Q), dtype=f32, device=dev)
-    ids = torch.stack([sample_hist[:, 0], prev], dim=1).contiguous()
+    ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
     offs_arr = (ctypes.c_int * L)(*offsets)
     caps_arr = (ctypes.c_int * L)(*caps)
@@ -545,7 +656,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_ar_generate(
-            ptr(w4), ptr(wsr), ptr(pk["auxw"]), ptr(pk["zb"]),
+            ptr(wz), ptr(wsr), ptr(pk["auxw"]), ptr(pk["zb"]),
             ptr(pk["srb"]), ptr(pk["causal_w"]), ptr(pk["causal_b"]),
             ptr(pk["post1_w"]), ptr(pk["post1_b"]), ptr(pk["post2_w"]),
             ptr(pk["post2_b"]), ptr(act_buf),
@@ -556,8 +667,9 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
             ptr(logits),
             ptr(ids), ptr(samples), B, R, S, Q, A, L, T0, max_n,
             int(mode == "sampling"), seed,
-            int(quantize), ptr(w4s), ptr(wsrs), ptr(ascale), ptr(ainv),
+            int(quantize), ptr(wzs), ptr(wsrs), ptr(ascale), ptr(ainv),
             ptr(out_q), ptr(g_q), gscale, ginv,
+            k, ptr(lag), ptr(lag_meta),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
@@ -565,8 +677,8 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         ar_generate.int8_launches += 1
     else:
         ar_generate.launches += 1
-    sample_hist.copy_(ids[:, :1])
-    prev.copy_(ids[:, 1])
+    sample_hist.copy_(ids[:, :-1])
+    prev.copy_(ids[:, -1])
     return samples
 
 

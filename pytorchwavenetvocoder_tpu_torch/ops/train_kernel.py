@@ -32,10 +32,14 @@ Each wrapper sends a CPU tensor to the plain version and a CUDA tensor to
 its kernel (``csrc/layer_stack_fwd.cu``, ``csrc/layer_stack_bwd.cu``), and
 raises on anything else; it counts its kernel launches in ``.launches``.
 
+Both serve kernel_size 2 and 3 (the ljspeech recipes' models): a tap j of
+the (k, R, 2R) gate weight multiplies x[t - (k-1-j) d], causal zeros before
+t = 0.
+
 What bounds the kernels on the H100: per layer the forward is a
-(B*T, 2R) x (2R, 2R), a (B*T, R) x (R, R) and in training a (B*T, R) x
+(B*T, kR) x (kR, 2R), a (B*T, R) x (R, R) and in training a (B*T, R) x
 (R, S) bf16 product, and the backward about twice that; at the warm-up's
-10^5 rows and the training window's 23,040 this is tensor-core work.  The
+10^5 rows and the training windows' 2 x 10^4 this is tensor-core work.  The
 bf16 streams and saves are the only device-memory traffic that grows with
 B*T (2.1 GB written and read back per flagship training window).  The
 kernels' own source notes give their designs.  No ring of tiles, no packed
@@ -74,28 +78,47 @@ def layer_weights(params) -> dict:
     )
 
 
+#: The kernel sizes the stack kernels serve (the JAX kernels',
+#: `ops/train_kernel.py:109` there)
+KERNEL_SIZES = (2, 3)
+
+
+def _smem_bytes(config) -> dict:
+    """Dynamic shared memory of each stack kernel's block (the
+    ``*_smem_bytes`` functions of csrc/): the forward stages k taps of x
+    and the gate tile, the backward's dx pass k tiles of dz."""
+    R, S, A, k = config.n_resch, config.n_skipch, config.n_aux, config.kernel_size
+    stage = _TM * _ZC * 4
+    return {
+        "forward": (k + 1) * _TM * R * 2 + stage + _TM * A * 4,
+        "backward dz pass": _TM * (3 * R + S) * 2 + stage + 4 * _ZC * 4,
+        "backward dx pass": k * _TM * 2 * R * 2 + stage,
+    }
+
+
+def _smem_error(config, kernels) -> str | None:
+    for kernel in kernels:
+        n = _smem_bytes(config)[kernel]
+        if n > SMEM_MAX:
+            return (f"the {kernel} kernel needs {n} bytes of shared memory "
+                    f"per block at n_resch={config.n_resch}, n_skipch="
+                    f"{config.n_skipch}, kernel_size={config.kernel_size}; "
+                    f"Hopper allows {SMEM_MAX}")
+    return None
+
+
 def layer_stack_constraint_error(config) -> str | None:
-    """Why the CUDA stack kernel can NOT run this config (None when it can)."""
+    """Why the CUDA stack kernel (the forward) can NOT run this config (None
+    when it can)."""
     c = config
-    if c.kernel_size != 2:
-        return f"kernel_size={c.kernel_size} (only kernel_size 2 is ported)"
+    if c.kernel_size not in KERNEL_SIZES:
+        return (f"kernel_size={c.kernel_size} (the kernels serve kernel_size "
+                "2 and 3)")
     if c.n_resch % 128 != 0 or c.n_resch > 1024:
         return f"n_resch={c.n_resch} must be a multiple of 128, <= 1024"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
-    return None
-
-
-def _smem_bytes(config) -> dict:
-    """Dynamic shared memory of each training kernel's block (the
-    ``*_smem_bytes`` functions of csrc/)."""
-    R, S, A = config.n_resch, config.n_skipch, config.n_aux
-    stage = _TM * _ZC * 4
-    return {
-        "forward": 3 * _TM * R * 2 + stage + _TM * A * 4,
-        "backward dz pass": _TM * (3 * R + S) * 2 + stage + 4 * _ZC * 4,
-        "backward dx pass": 2 * _TM * 2 * R * 2 + stage,
-    }
+    return _smem_error(c, ("forward",))
 
 
 def fused_train_constraint_error(config, T: int) -> str | None:
@@ -109,12 +132,7 @@ def fused_train_constraint_error(config, T: int) -> str | None:
                 "(the kernels' 128-column output chunks)")
     if T < 1:
         return f"window T={T} is empty"
-    for kernel, n in _smem_bytes(config).items():
-        if n > SMEM_MAX:
-            return (f"the {kernel} kernel needs {n} bytes of shared memory "
-                    f"per block at n_resch={config.n_resch}, n_skipch="
-                    f"{config.n_skipch}; Hopper allows {SMEM_MAX}")
-    return None
+    return _smem_error(config, ("backward dz pass", "backward dx pass"))
 
 
 def supports_fused_train(config, T: int) -> bool:
@@ -237,14 +255,17 @@ def _rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def ref_layer_bwd(lw, l: int, d: int, x: torch.Tensor, st_l: torch.Tensor,
                   h: torch.Tensor, dsk: torch.Tensor, dout: torch.Tensor):
-    """Plain backward of ONE layer (l, dilation d).
+    """Plain backward of ONE layer (l, dilation d), any kernel size k.
 
     x: its bf16 input stream (B, T, R); st_l: its bf16 sigma | tanh saves
     (B, T, 2R); h: bf16 aux; dsk: the skip cotangent as the kernel uses it
     (bf16); dout: bf16 cotangent of its output stream (zeros for the top
     layer).  Returns (its weight and bias gradients, f32; dx, bf16; its dh
-    partial bf16(dz @ aux_w^T)).  The lagged tap's weight gradient and dx
-    term read dz shifted forward, dz[t + d], zero past the window's end.
+    partial bf16(dz @ aux_w^T)).  Tap j of dil_w multiplies x[t - m d],
+    m = k-1-j, so its weight gradient and its dx term read dz shifted
+    forward, dz[t + m d], zero past the window's end; JAX ``_bwd_pallas``'s
+    order (`ops/train_kernel.py:660-699`): dx = dz W_{k-1}^T + dout, then
+    the lagged terms for j = 0 .. k-2.
     """
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _dot
 
@@ -258,20 +279,23 @@ def ref_layer_bwd(lw, l: int, d: int, x: torch.Tensor, st_l: torch.Tensor,
     dt = dg * s * (1.0 - t * t)
     dzf = torch.cat([ds, dt], dim=-1)
     dz = dzf.to(bf)                       # rounded once, feeds every product
-    dz_lag = _shift_ahead(dz, d)
     g = (s * t).to(bf)
-    w = lw["dil_w"][l].to(bf)             # (2, R, 2R): [0] tap t-d, [1] tap t
+    w = lw["dil_w"][l].to(bf)             # (k, R, 2R): [k-1] is tap t
+    k = w.shape[0]
+    dz_at = [_shift_ahead(dz, (k - 1 - j) * d) for j in range(k - 1)] + [dz]
     grads = dict(
-        dil_w=torch.stack([_rows_dot(x, dz_lag), _rows_dot(x, dz)]),
+        dil_w=torch.stack([_rows_dot(x, dz_j) for dz_j in dz_at]),
         dil_b=dzf.sum(dim=(0, 1)),
         aux_w=_rows_dot(h, dz),
         skip_w=_rows_dot(g, dsk),
         res_w=_rows_dot(g, dout),
         res_b=dout.float().sum(dim=(0, 1)),
     )
-    dx = (_dot(dz, w[1].T) + _dot(dz_lag, w[0].T) + dout.float()).to(bf)
+    dx = _dot(dz, w[k - 1].T) + dout.float()
+    for j in range(k - 1):
+        dx = dx + _dot(dz_at[j], w[j].T)
     dh = _dot(dz, lw["aux_w"][l].to(bf).T).to(bf)
-    return grads, dx, dh
+    return grads, dx.to(bf), dh
 
 
 def ref_layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
@@ -376,7 +400,7 @@ def layer_stack_streams(lw, config, stream0: torch.Tensor,
     if n_run == 0:
         return [stream0]
     bf, f32 = torch.bfloat16, torch.float32
-    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, 2, R, 2R)
+    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
     aux_w = lw["aux_w"].to(bf).contiguous()                  # (L, A, 2R)
     zb = (lw["dil_b"] + lw["aux_b"]).to(f32).contiguous()    # (L, 2R)
     res_w = lw["res_w"].to(bf).contiguous()                  # (L, R, R)
@@ -390,7 +414,7 @@ def layer_stack_streams(lw, config, stream0: torch.Tensor,
             _ptr(stream0), _ptr(out), _ptr(h_b), _ptr(dil_w), _ptr(aux_w),
             _ptr(zb), _ptr(res_w), _ptr(res_b),
             ctypes.cast(dils, ctypes.c_void_p), n_run, B, T, R, A,
-            ctypes.c_void_p(stream))
+            c.kernel_size, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_fwd failed: CUDA error {err}")
     layer_stack_streams.launches += 1
@@ -422,7 +446,7 @@ def layer_stack_fwd_train(lw, config, stream0: torch.Tensor,
     dev = stream0.device
     R, S, A, L = c.n_resch, c.n_skipch, c.n_aux, c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
-    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, 2, R, 2R)
+    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
     aux_w = lw["aux_w"].to(bf).contiguous()                  # (L, A, 2R)
     zb = (lw["dil_b"] + lw["aux_b"]).to(f32).contiguous()    # (L, 2R)
     skip_w = lw["skip_w"].to(bf).contiguous()                # (L, R, S)
@@ -441,7 +465,7 @@ def layer_stack_fwd_train(lw, config, stream0: torch.Tensor,
             _ptr(h_b), _ptr(dil_w), _ptr(aux_w), _ptr(zb), _ptr(skip_w),
             _ptr(skip_b), _ptr(res_w), _ptr(res_b),
             ctypes.cast(dils, ctypes.c_void_p), L, B, T, R, S, A,
-            ctypes.c_void_p(stream))
+            c.kernel_size, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_fwd_train failed: CUDA error {err}")
     layer_stack_fwd_train.launches += 1
@@ -489,7 +513,7 @@ def layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
                          f"{dev}; got {tuple(dskip.shape)} {dskip.device}")
     dsk = dskip.to(bf).contiguous()
     A_pad = -(-A // 16) * 16
-    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, 2, R, 2R)
+    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
     aux_wp = torch.zeros((L, A_pad, 2 * R), dtype=bf, device=dev)
     aux_wp[:, :A] = lw["aux_w"].to(bf)                       # zero-padded rows
     skip_w = lw["skip_w"].to(bf).contiguous()                # (L, R, S)
@@ -499,7 +523,7 @@ def layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
     def empty(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    ddil, daux = empty(L, 2, R, 2 * R), empty(L, A, 2 * R)
+    ddil, daux = empty(L, c.kernel_size, R, 2 * R), empty(L, A, 2 * R)
     dskip_w, dres_w = empty(L, R, S), empty(L, R, R)
     dzb, dres_b = empty(L, 2 * R), empty(L, R)
     dstream0 = empty(B, T, R, dtype=bf)
@@ -516,7 +540,7 @@ def layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
             ctypes.cast(dils, ctypes.c_void_p), _ptr(ddil), _ptr(daux),
             _ptr(dskip_w), _ptr(dres_w), _ptr(dzb), _ptr(dres_b),
             _ptr(dstream0), _ptr(dh), _ptr(dz), _ptr(dx_pp), _ptr(ws),
-            L, B, T, R, S, A, A_pad, ctypes.c_void_p(stream))
+            L, B, T, R, S, A, A_pad, c.kernel_size, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_bwd failed: CUDA error {err}")
     layer_stack_bwd.launches += 1

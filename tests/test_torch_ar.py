@@ -107,13 +107,15 @@ def test_short_seed_padded_like_jax():
                                   got)
 
 
-def test_bf16_matches_pallas_interpret():
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_bf16_matches_pallas_interpret(kernel_size):
     """At tests/test_ar_kernel.py's bf16 config (B=4, n=20) the plain loop
     takes the Pallas kernel's bf16 matmul inputs with f32 accumulation on
-    the same carry; its argmax samples are bit-equal here (a near-tie of
-    two logits within f32 summation noise could flip one)."""
+    the same carry (kernel_size 3: raw bf16 rings, two lagged taps); its
+    argmax samples are bit-equal here (a near-tie of two logits within f32
+    summation noise could flip one)."""
     jc, pc = _cfgs(n_aux=28, n_resch=128, n_skipch=128,
-                   compute_dtype="bfloat16")
+                   compute_dtype="bfloat16", kernel_size=kernel_size)
     jp, pp = _params(jc, 3)
     B, n = 4, 20
     x, h = _seed_inputs(jc, B, n, seed=0)
@@ -256,3 +258,23 @@ def test_kernel_weight_pack_layout():
     torch.testing.assert_close(
         pk["zb"], pp["dil"]["b"] + pp["aux"]["b"], rtol=0, atol=0)
     assert pk["wsr"].shape == (pc.n_layers, R, pc.n_skipch + R)
+
+
+def test_kernel_weight_pack_layout_kernel_size_3():
+    """kernel_size 3: the gate pack is [current | lag d | lag 2d], every
+    block interleaved like the current tap (all three feed the gate); lag
+    j*d multiplies dil_w[2 - j], as in the JAX pack."""
+    _, pc = _cfgs(n_resch=128, n_skipch=128, compute_dtype="bfloat16",
+                  kernel_size=3)
+    pp = P.init_wavenet_params(pc, torch.Generator().manual_seed(1))
+    pk = ak.pack_ar_weights(pp, pc)
+    R, bf = pc.n_resch, torch.bfloat16
+    w6 = pk["w6"]
+    assert "w4" not in pk
+    assert w6.shape == (pc.n_layers, R, 6 * R) and w6.dtype == bf
+    for j in range(3):
+        blk = w6[:, :, 2 * R * j: 2 * R * (j + 1)]
+        torch.testing.assert_close(ak._deinterleave(blk),
+                                   pp["dil"]["w"][:, 2 - j].to(bf),
+                                   rtol=0, atol=0)
+    assert pk["causal_w"].shape == (3, pc.n_quantize, R)

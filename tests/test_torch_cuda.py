@@ -48,8 +48,9 @@ def _params(cfg, dev, seed=0):
     return params
 
 
-def test_layer_stack_kernel_matches_plain(dev):
-    cfg = _cfg()
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_layer_stack_kernel_matches_plain(dev, kernel_size):
+    cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev)
     rng = np.random.RandomState(0)
     B, T = 3, 700   # T not a multiple of the kernel's 32-row tile
@@ -71,10 +72,12 @@ def test_layer_stack_kernel_matches_plain(dev):
 
 
 # B=1: one partial row tile; 20: two tiles, the second partial; 65: two
-# 64-row chunks on the kernels' second grid axis, the second of one row
+# 64-row chunks on the kernels' second grid axis, the second of one row;
+# kernel_size 3 (raw rings, the lag gather) at each
+@pytest.mark.parametrize("kernel_size", [2, 3])
 @pytest.mark.parametrize("B", [1, 20, 65])
-def test_ar_kernel_matches_plain(dev, B):
-    cfg = _cfg()
+def test_ar_kernel_matches_plain(dev, B, kernel_size):
+    cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=1)
     rng = np.random.RandomState(1)
     n = 24
@@ -109,15 +112,17 @@ def test_ar_kernel_matches_plain(dev, B):
 
 
 # the fleets of the bf16 test: one partial row tile, two, two 64-row chunks
+@pytest.mark.parametrize("kernel_size", [2, 3])
 @pytest.mark.parametrize("B", [1, 20, 65])
-def test_ar_int8_kernel_matches_plain(dev, B):
+def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
     """K1-int8 against the plain int8 loop on the same carry and scales:
     the integer products are exact in both and the epilogues round alike,
     so only the aux sum's order and the sigmoid/tanh differ (an f32 ulp).
     Where that flips an int8 value, the rest of the row's layers move by
     int8 quanta: a minority of the ring values a step writes differ, each
-    by a few quanta (max|d| <= 5e-2 of max|ring|, share <= 0.25)."""
-    cfg = _cfg()
+    by a few quanta (max|d| <= 5e-2 of max|ring|, share <= 0.25).
+    kernel_size 3 runs on the int8 ring of ``int8_ring_fill``."""
+    cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=5)
     rng = np.random.RandomState(5)
     n = 24
@@ -128,6 +133,8 @@ def test_ar_int8_kernel_matches_plain(dev, B):
     carry, maxes = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
                                    collect_act_maxes=True, impl="cuda")
     scales = ak.act_scales_from_maxes(maxes)
+    if kernel_size == 3:
+        carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
     T0 = x.shape[1]
     caps, offs, _ = P._buffer_layout(cfg)
     agree = []
@@ -165,7 +172,7 @@ def test_ar_int8_kernel_matches_plain(dev, B):
 
 
 def test_int8_refusals(dev):
-    cfg = _cfg(kernel_size=3)
+    cfg = _cfg(kernel_size=4)
     params = _params(cfg, dev)
     x = np.zeros((2, 1), np.int32)
     h = np.zeros((2, 40, cfg.n_aux), np.float32)
@@ -187,8 +194,9 @@ def test_int8_refusals(dev):
                        act_scales=torch.zeros((cfg.n_layers, 1), device=dev))
 
 
-def test_batch_fast_generate_int8_runs_k1_int8(dev):
-    cfg = _cfg(upsampling_factor=10)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
+    cfg = _cfg(upsampling_factor=10, kernel_size=kernel_size)
     params = _params(cfg, dev, seed=6)
     rng = np.random.RandomState(6)
     x = np.full((3, 1), 128, np.int32)
@@ -204,7 +212,7 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev):
 
 
 def test_cuda_path_raises_outside_envelope(dev):
-    for cfg in (_cfg(kernel_size=3), _cfg(compute_dtype="float32"),
+    for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float32"),
                 _cfg(n_resch=1152)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
@@ -213,8 +221,9 @@ def test_cuda_path_raises_outside_envelope(dev):
             P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda")
 
 
-def test_batch_fast_generate_cuda_runs_both_kernels(dev):
-    cfg = _cfg(upsampling_factor=10)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_batch_fast_generate_cuda_runs_both_kernels(dev, kernel_size):
+    cfg = _cfg(upsampling_factor=10, kernel_size=kernel_size)
     params = _params(cfg, dev, seed=2)
     rng = np.random.RandomState(2)
     x = np.full((3, 1), 128, np.int32)
@@ -235,10 +244,11 @@ def _cos_rel(want, got):
     return cos, rel
 
 
-def test_train_kernels_match_plain(dev):
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_train_kernels_match_plain(dev, kernel_size):
     """K2 training mode and K3 at a ragged T (not a multiple of the 32-row
     tile) and B=3, against their plain versions on the same inputs."""
-    cfg = _cfg()
+    cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=4)
     rng = np.random.RandomState(4)
     B, T = 3, 700
@@ -289,7 +299,7 @@ def test_train_kernels_match_plain(dev):
 
 
 def test_fused_train_raises_outside_envelope(dev):
-    for cfg in (_cfg(kernel_size=3), _cfg(n_skipch=96)):
+    for cfg in (_cfg(kernel_size=4), _cfg(n_skipch=96)):
         params = _params(cfg, dev)
         x = torch.zeros((1, 64), dtype=torch.int64, device=dev)
         h = torch.zeros((1, 64, cfg.n_aux), device=dev)

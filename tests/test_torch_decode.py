@@ -78,11 +78,11 @@ def test_port_decode_sampling_runs_and_refuses_unported_flags(tmp_path):
     assert res["n_utts"] == 3 and len(os.listdir(out)) == 3
     with pytest.raises(NotImplementedError, match="not yet ported"):
         torch_decode.main(common + ["--outdir", out, "--n_devices", "2"])
-    # --quantize decodes kernel_size 2 (tests/test_torch_int8.py); int8
-    # with kernel_size 3 is not ported yet
-    ckpt3, expdir3, stats3, featdir3 = _bundle(tmp_path / "k3", kernel_size=3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_decode.main(["--feats", featdir3, "--stats", stats3,
-                           "--checkpoint", ckpt3, "--config", expdir3,
+    # --quantize decodes kernel_size 2 and 3 (tests/test_torch_int8.py);
+    # int8 with kernel_size 4 is refused, by name, before any work
+    ckpt4, expdir4, stats4, featdir4 = _bundle(tmp_path / "k4", kernel_size=4)
+    with pytest.raises(NotImplementedError, match="kernel_size=4"):
+        torch_decode.main(["--feats", featdir4, "--stats", stats4,
+                           "--checkpoint", ckpt4, "--config", expdir4,
                            "--verbose", "0", "--device", "cpu", "--outdir",
                            out, "--quantize"])

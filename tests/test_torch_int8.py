@@ -60,10 +60,12 @@ def _carry_to_torch(carry):
             torch.tensor(prev).to(torch.int32))
 
 
-def test_weight_quantization_matches_jax_formula():
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_weight_quantization_matches_jax_formula(kernel_size):
     """Bit-equal int8 weights and scales to 1e-7, after undoing the port's
-    interleave of the current tap's sigmoid and tanh columns."""
-    jc, pc = _cfgs()
+    interleave of the gate's sigmoid and tanh columns (the current tap at
+    kernel_size 2; every tap block, [cur | lag d | lag 2d], at 3)."""
+    jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp = _params(jc, 3)
     wpack = jak._pack_weights(jp, jc)[0]
     # the JAX kernel's quantization, ops/ar_kernel.py:481-485
@@ -74,12 +76,21 @@ def test_weight_quantization_matches_jax_formula():
     want_s = np.asarray(wscale)
     q = ak.quantize_ar_weights(pp, pc)
     R = pc.n_resch
-    assert q["w4"].dtype == torch.int8 and q["wsr"].dtype == torch.int8
-    got_q = torch.cat([ak._deinterleave(q["w4"][..., : 2 * R]),
-                       q["w4"][..., 2 * R:], q["wsr"]], dim=-1).numpy()
-    got_s = torch.cat([ak._deinterleave(q["w4_scale"][..., : 2 * R]),
-                       q["w4_scale"][..., 2 * R:], q["wsr_scale"]],
-                      dim=-1).numpy()
+    gk = "w4" if kernel_size == 2 else "w6"
+    assert q[gk].dtype == torch.int8 and q["wsr"].dtype == torch.int8
+
+    def unpack(wz, wsr):
+        """The port's gate and skip/res packs in JAX ``_pack_weights``'
+        column order."""
+        if kernel_size == 2:
+            blocks = [ak._deinterleave(wz[..., : 2 * R]), wz[..., 2 * R:]]
+        else:
+            blocks = [ak._deinterleave(wz[..., 2 * R * j: 2 * R * (j + 1)])
+                      for j in range(3)]
+        return torch.cat(blocks + [wsr], dim=-1).numpy()
+
+    got_q = unpack(q[gk], q["wsr"])
+    got_s = unpack(q[gk + "_scale"], q["wsr_scale"])
     np.testing.assert_array_equal(got_q, want_q)
     np.testing.assert_allclose(got_s, want_s, rtol=1e-7, atol=0)
     assert np.abs(got_q).max() == 127 and got_q.min() >= -127
@@ -115,13 +126,15 @@ def test_warmup_calibration_matches_jax(B, dtype, rtol):
         assert torch.equal(a, b)
 
 
-def test_int8_matches_pallas_interpret():
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_matches_pallas_interpret(kernel_size):
     """The plain int8 loop against JAX's int8 Pallas kernel (interpret) on
     the same carry and scales: the integer products are exact in both, so
     the argmax samples are bit-equal (a near-tie within f32 rounding of
-    the sigmoid/tanh could flip one).  The port's bf16 loop on the same
-    inputs is not, so the comparison sees the quantization."""
-    jc, pc = _cfgs()
+    the sigmoid/tanh could flip one).  kernel_size 3 runs on the int8 ring
+    of ``int8_ring_fill``, as JAX fills its own.  The port's bf16 loop on
+    the same inputs is not, so the comparison sees the quantization."""
+    jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp = _params(jc, 12)
     B, n = 8, 16
     x, h = _inputs(jc, B, n, seed=6)
@@ -134,7 +147,10 @@ def test_int8_matches_pallas_interpret():
         interpret=True, quantize=True, act_scales=scales))
     st = torch.tensor(np.asarray(scales))
     ht = torch.tensor(h)
-    got = ak.ar_generate(pp, pc, _carry_to_torch(carry), ht, T0, n, "argmax",
+    tc = _carry_to_torch(carry)
+    if kernel_size == 3:
+        tc = (ak.int8_ring_fill(tc[0], st, pc),) + tc[1:]
+    got = ak.ar_generate(pp, pc, tc, ht, T0, n, "argmax",
                          quantize=True, act_scales=st)
     np.testing.assert_array_equal(got.numpy(), want)
     bf16 = ak.ar_generate(pp, pc, _carry_to_torch(carry), ht, T0, n,
@@ -142,10 +158,12 @@ def test_int8_matches_pallas_interpret():
     assert not np.array_equal(bf16.numpy(), want)
 
 
-def test_int8_fleet_is_warmup_scales_then_loop():
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_fleet_is_warmup_scales_then_loop(kernel_size):
     """``batch_fast_generate(quantize=True)`` on the plain route: the
-    warm-up with the maxes, their scales, the int8 loop: nothing else."""
-    jc, pc = _cfgs()
+    warm-up with the maxes, their scales (kernel_size 3: the ring filled
+    as int8 under them), the int8 loop: nothing else."""
+    jc, pc = _cfgs(kernel_size=kernel_size)
     _, pp = _params(jc, 2)
     n_list = [40, 25, 33]
     x, h = _inputs(jc, len(n_list), max(n_list), seed=3)
@@ -153,9 +171,12 @@ def test_int8_fleet_is_warmup_scales_then_loop():
                                 quantize=True, impl="plain")
     xt, ht = torch.as_tensor(x, dtype=torch.int64), torch.as_tensor(h)
     carry, maxes = P._warmup_state(pp, pc, xt, ht, collect_act_maxes=True)
+    scales = ak.act_scales_from_maxes(maxes)
+    if kernel_size == 3:
+        carry = (ak.int8_ring_fill(carry[0], scales, pc),) + carry[1:]
     want = ak.ar_generate_reference(pp, pc, carry, ht, xt.shape[1],
                                     max(n_list), "argmax", quantize=True,
-                                    act_scales=ak.act_scales_from_maxes(maxes))
+                                    act_scales=scales)
     for b, n in enumerate(n_list):
         np.testing.assert_array_equal(got[b], want[b, :n].numpy())
     bf16 = P.batch_fast_generate(pp, pc, x, h, n_list, mode="argmax",
@@ -183,7 +204,7 @@ def test_int8_tracks_jax_scan():
     assert (diff <= 10).mean() > 0.7, (diff.mean(), (diff <= 10).mean())
 
 
-def _bundle(tmp_path):
+def _bundle(tmp_path, kernel_size=2):
     """A port-written bundle (checkpoint, model.conf, stats.h5) and three
     feature files, bf16 3 x 1 layers of 128 channels, upsampling 10."""
     from pytorchwavenetvocoder_tpu_torch.parallel import (
@@ -195,7 +216,7 @@ def _bundle(tmp_path):
 
     cfg = P.WaveNetConfig(n_aux=8, n_resch=128, n_skipch=128,
                           dilation_depth=3, dilation_repeat=1,
-                          kernel_size=2, upsampling_factor=10,
+                          kernel_size=kernel_size, upsampling_factor=10,
                           compute_dtype="bfloat16")
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(4))
     expdir = tmp_path / "exp"
@@ -216,15 +237,19 @@ def _bundle(tmp_path):
             "--device", "cpu", "--verbose", "0"]
 
 
+@pytest.mark.parametrize("kernel_size", [
+    pytest.param(2, id="k2"), pytest.param(3, id="k3")])
 def test_decode_cli_quantize_writes_the_library_int8_wavs(tmp_path,
-                                                          monkeypatch):
+                                                          monkeypatch,
+                                                          kernel_size):
     """``bin/decode.py --quantize --device cpu`` writes, byte for byte, the
     wavs of ``batch_fast_generate(quantize=True, impl="plain")`` on the
-    batches it reads; without ``--quantize`` the wavs differ."""
+    batches it reads (kernel_size 3 too, the ljspeech models' size);
+    without ``--quantize`` the wavs differ."""
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import decode_mu_law
     from pytorchwavenetvocoder_tpu_torch.utils import write_wav
 
-    common = _bundle(tmp_path)
+    common = _bundle(tmp_path, kernel_size)
     seen = {}
     real = torch_decode.decode_batches
 
@@ -238,6 +263,7 @@ def test_decode_cli_quantize_writes_the_library_int8_wavs(tmp_path,
     model, batches = seen["model"], seen["batches"]
     assert seen["kw"]["quantize"] is True
     assert res["n_utts"] == 3 and len(batches) == 2
+    assert model.config.kernel_size == kernel_size
     lib = tmp_path / "wav_lib"
     lib.mkdir()
     names = []
@@ -369,3 +395,62 @@ def test_fleet_bytes_hand_count(monkeypatch):
     assert P._decode_hbm_budget(torch.device("cpu")) == float("inf")
     monkeypatch.setenv("WNV_DECODE_HBM_BUDGET", "1e6")
     assert P._decode_hbm_budget(torch.device("cpu")) == 1e6
+
+
+def test_fleet_bytes_hand_count_int8_kernel_size_3():
+    """The ljspeech flagship fleet of 16 x 11,000 samples in int8: the loop
+    holds the int8 ring (6,138 slots x 16 rows x 512), the f32 aux over
+    6,139 + 1 + 11,000 positions x 39, the (16, 30 x 1,024) f32 aux scratch,
+    the int8 lag scratch (30 x 2 x 16 x 512) and the int32 output; the ring
+    fill holds the bf16 ring, the int8 ring and the f32 copy of the largest
+    layer's ring (2 x 512 slots) beside the aux.  The fill is the peak."""
+    cfg = P.WaveNetConfig(n_aux=39, kernel_size=3, upsampling_factor=110,
+                          compute_dtype="bfloat16")
+    slots = 2 * 3069
+    h_up = 16 * (6139 + 1 + 11000) * 39 * 4
+    loop = (slots * 16 * 512 + h_up + 16 * 30 * 1024 * 4
+            + 30 * 2 * 16 * 512 + 16 * 11000 * 4)
+    fill = slots * 16 * 512 * 3 + 1024 * 16 * 512 * 4 + h_up
+    assert fill > loop
+    assert P._fleet_hbm_bytes(cfg, 16, 11000, quantize=True) == fill
+    # bf16 at kernel_size 3: the bf16 ring and a bf16 lag scratch
+    assert P._fleet_hbm_bytes(cfg, 16, 11000) == (
+        slots * 16 * 512 * 2 + h_up + 16 * 30 * 1024 * 4
+        + 30 * 2 * 16 * 512 * 2 + 16 * 11000 * 4)
+
+
+def test_int8_ring_fill_matches_jax_formula():
+    """``int8_ring_fill`` on a JAX warm-up's raw ring is bit-equal to the
+    JAX kernel's fill, ``clip(round(ring / s), -127, 127)`` with each
+    layer's scale (`ops/ar_kernel.py:437-445`)."""
+    jc, pc = _cfgs(kernel_size=3)
+    jp, _ = _params(jc, 8)
+    x, h = _inputs(jc, 4, 4, seed=8)
+    xj, hj = jnp.asarray(x), jnp.asarray(h)
+    ring = J._warmup_state(jp, jc, xj, hj)[0]
+    scales = jak.calibrate_act_scales(jp, jc, xj, hj)
+    caps = [2 * d for d in jc.dilations]
+    lidx = jnp.asarray(np.repeat(np.arange(jc.n_layers), caps))
+    s = scales.astype(jnp.float32)[lidx, 0][:, None, None]
+    want = np.asarray(jnp.clip(jnp.round(ring.astype(jnp.float32) / s),
+                               -127, 127).astype(jnp.int8))
+    ring_t = torch.tensor(np.asarray(ring.astype(jnp.float32))).to(torch.bfloat16)
+    got = ak.int8_ring_fill(ring_t, torch.tensor(np.asarray(scales)), pc)
+    assert got.dtype == torch.int8 and got.shape == ring_t.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want).max() > 64     # the scales' range is used
+
+
+def test_int8_kernel_size_3_refuses_a_bf16_ring():
+    """The int8 loop at kernel_size 3 runs on the int8 ring only: a bf16
+    ring (the warm-up's, not yet filled) raises instead of being read as
+    int8 rows."""
+    jc, pc = _cfgs(kernel_size=3)
+    _, pp = _params(jc, 2)
+    x, h = _inputs(jc, 2, 3, seed=2)
+    carry, maxes = P._warmup_state(pp, pc, torch.as_tensor(x),
+                                   torch.as_tensor(h), collect_act_maxes=True)
+    with pytest.raises(ValueError, match="int8_ring_fill"):
+        ak.ar_generate(pp, pc, carry, torch.as_tensor(h), x.shape[1], 3,
+                       "argmax", quantize=True,
+                       act_scales=ak.act_scales_from_maxes(maxes))

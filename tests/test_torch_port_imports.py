@@ -71,13 +71,20 @@ def test_cuda_impl_on_cpu_raises():
     h = rng.randn(2, cfg.receptive_field + 5, cfg.n_aux).astype(np.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         batch_fast_generate(params, cfg, x, h, [5, 5], impl="cuda")
-    # int8 decode is ported for kernel_size 2; kernel_size 3 still raises
+    # int8 decode serves kernel_size 2 and 3; kernel_size 4 raises
+    cfg4 = _tiny(compute_dtype="bfloat16", kernel_size=4)
+    params4 = init_wavenet_params(cfg4, torch.Generator().manual_seed(0))
+    x4 = rng.randint(0, 256, (2, cfg4.receptive_field)).astype(np.int32)
+    h4 = rng.randn(2, cfg4.receptive_field + 5, cfg4.n_aux).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="int8"):
+        batch_fast_generate(params4, cfg4, x4, h4, [5, 5], quantize=True)
+    # kernel_size 3 decodes in int8 on the plain route
     cfg3 = _tiny(compute_dtype="bfloat16", kernel_size=3)
     params3 = init_wavenet_params(cfg3, torch.Generator().manual_seed(0))
     x3 = rng.randint(0, 256, (2, cfg3.receptive_field)).astype(np.int32)
     h3 = rng.randn(2, cfg3.receptive_field + 5, cfg3.n_aux).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        batch_fast_generate(params3, cfg3, x3, h3, [5, 5], quantize=True)
+    out = batch_fast_generate(params3, cfg3, x3, h3, [5, 4], quantize=True)
+    assert [len(o) for o in out] == [5, 4]
     with pytest.raises(ValueError, match="impl"):
         batch_fast_generate(params, cfg, x, h, [5, 5], impl="scan")
 
@@ -87,16 +94,24 @@ def test_kernel_envelopes_name_what_is_out():
     assert ar_kernel_constraint_error(flag) is None
     assert layer_stack_constraint_error(flag) is None
     assert "kernel_size" in ar_kernel_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", kernel_size=3))
+        WaveNetConfig(compute_dtype="bfloat16", kernel_size=4))
+    # the ljspeech models' kernel_size 3, bf16 and int8, warm-up and loop
+    lj = WaveNetConfig(compute_dtype="bfloat16", kernel_size=3, n_aux=39,
+                       upsampling_factor=110)
+    assert ar_kernel_constraint_error(lj) is None
+    assert ar_kernel_constraint_error(lj, quantize=True) is None
+    assert layer_stack_constraint_error(lj) is None
+    assert "kernel_size" in layer_stack_constraint_error(
+        WaveNetConfig(compute_dtype="bfloat16", kernel_size=4))
     assert "compute_dtype" in ar_kernel_constraint_error(WaveNetConfig())
     assert "n_resch" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_resch=96))
     assert "n_aux" in layer_stack_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_aux=200))
-    # the int8 variant: the bf16 envelope, kernel_size 2, n_resch <= 1024
+    # the int8 variant: the bf16 envelope, kernel_size 2 or 3, n_resch <= 1024
     assert ar_kernel_constraint_error(flag, quantize=True) is None
     why = ar_kernel_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", kernel_size=3), quantize=True)
+        WaveNetConfig(compute_dtype="bfloat16", kernel_size=4), quantize=True)
     assert "int8" in why and "kernel_size" in why
     assert "n_resch" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_resch=1152), quantize=True)
@@ -108,7 +123,7 @@ def test_kernel_envelopes_name_what_is_out():
 
 @pytest.mark.parametrize("kw, what", [
     (dict(n_resch=1152), "n_resch"),          # only the warm-up kernel refuses
-    (dict(kernel_size=3), "kernel_size"),
+    (dict(kernel_size=4), "kernel_size"),
     (dict(compute_dtype="float32"), "compute_dtype"),
 ])
 def test_check_impl_refuses_before_any_work(kw, what):

@@ -65,8 +65,9 @@ def _grads(dlw, dstream0, dh):
                   ("h_up", dh.float().numpy())]
 
 
-def test_forward_with_saves_matches_pallas_interpret():
-    jc, pc = _cfgs()
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_forward_with_saves_matches_pallas_interpret(kernel_size):
+    jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp, stream0, h_up, _ = _data(jc)
     skip_j, (_x0, streams_j, st_j, _hb) = jtk._fwd_pallas(
         jc, jtk._layer_weights(jp), jnp.asarray(stream0), jnp.asarray(h_up),
@@ -110,14 +111,16 @@ def test_forward_with_saves_matches_pallas_interpret():
     assert tk.supports_fused_train(pc, T)
 
 
-def test_backward_matches_pallas_interpret():
-    """One case, interpret mode being slow: the plain backward on the JAX
-    kernel's own saves and the same dskip.  Only the f32 summation order
-    differs, so dz differs by a bf16 ulp where a sum straddles a rounding
-    boundary, and those flips chain through the bf16 dx of six layers:
-    cos > 0.99999 and max|d| < 1e-2 of max|ref| for every gradient (the
-    readings were >= 0.9999991 and <= 5.6e-3, dstream0 the largest)."""
-    jc, pc = _cfgs()
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_backward_matches_pallas_interpret(kernel_size):
+    """One case per kernel size, interpret mode being slow: the plain
+    backward on the JAX kernel's own saves and the same dskip.  Only the f32
+    summation order differs, so dz differs by a bf16 ulp where a sum
+    straddles a rounding boundary, and those flips chain through the bf16
+    dx of six layers: cos > 0.99999 and max|d| < 1e-2 of max|ref| for every
+    gradient (the kernel_size 2 readings were >= 0.9999991 and <= 5.6e-3,
+    dstream0 the largest)."""
+    jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp, stream0, h_up, dskip = _data(jc)
     jlw = jtk._layer_weights(jp)
     _, (x0, streams_j, st_j, hb) = jtk._fwd_pallas(
@@ -136,15 +139,19 @@ def test_backward_matches_pallas_interpret():
         _close(want[name], g, 0.99999, 1e-2, name)
 
 
-# odd B and a T that is not a multiple of the kernels' 32-row tile
-@pytest.mark.parametrize("B, T", [(3, 1000), (2, 777)])
-def test_backward_matches_jax_autodiff(B, T):
+# odd B and a T that is not a multiple of the kernels' 32-row tile; the
+# second lagged tap (kernel_size 3) at both
+@pytest.mark.parametrize("B, T, kernel_size", [
+    pytest.param(3, 1000, 2, id="3-1000"), pytest.param(2, 777, 2, id="2-777"),
+    pytest.param(3, 1000, 3, id="k3-3-1000"),
+    pytest.param(2, 777, 3, id="k3-2-777")])
+def test_backward_matches_jax_autodiff(B, T, kernel_size):
     """The plain forward's saves and plain backward against jax.grad of the
     JAX ref_layer_stack, which flows f32 where the backward rounds (saves,
     dz, dx chain, dh partials) to bf16: the JAX kernel's own limits against
     the same autodiff, cos > 0.9999 and rel < 3e-2
     (tests/test_train_kernel.py:116-119)."""
-    jc, pc = _cfgs()
+    jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp, stream0, h_up, dskip = _data(jc, B=B, T=T, seed=B)
 
     def loss(lw, s0, h):
@@ -163,11 +170,12 @@ def test_backward_matches_jax_autodiff(B, T):
         _close(want[name], g, 0.9999, 3e-2, name)
 
 
-def test_fused_layer_stack_autograd_is_the_plain_backward():
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_fused_layer_stack_autograd_is_the_plain_backward(kernel_size):
     """On the CPU FusedLayerStack runs the plain versions: its autograd
     gradients equal ref_layer_stack_bwd on the same saves exactly, in the
     primal dtypes (f32 weights, bf16 stream0 and h_up)."""
-    jc, pc = _cfgs(dilation_depth=2)
+    jc, pc = _cfgs(dilation_depth=2, kernel_size=kernel_size)
     _, pp, stream0, h_up, dskip = _data(jc, B=2, T=300, seed=3)
     for leaves in pp.values():
         for t in leaves.values():
@@ -217,14 +225,25 @@ def test_fused_constraint_is_hoppers():
     flag = P.WaveNetConfig(compute_dtype="bfloat16", upsampling_factor=80)
     assert tk.fused_train_constraint_error(flag, 23040) is None
     assert tk.supports_fused_train(flag, 5)        # no tile-count cadence
-    for kw, what in ((dict(kernel_size=3), "kernel_size"),
+    for kw, what in ((dict(kernel_size=4), "kernel_size"),
                      (dict(n_skipch=96), "n_skipch"),
                      (dict(n_resch=96), "n_resch"),
                      (dict(n_aux=200), "n_aux"),
-                     (dict(n_resch=1024), "shared memory")):
+                     (dict(n_resch=1024), "shared memory"),
+                     # kernel_size 3: the dx pass's three dz tiles
+                     (dict(kernel_size=3, n_resch=640), "dx pass"),
+                     # and the forward's four tiles, which the warm-up runs
+                     (dict(kernel_size=3, n_resch=1024), "forward")):
         cfg = P.WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
         assert what in tk.fused_train_constraint_error(cfg, 20000), kw
     assert "empty" in tk.fused_train_constraint_error(flag, 0)
+    # the ljspeech flagship (egs/ljspeech/sd/run.sh) fits, at both aux widths
+    for n_aux in (39, 80):
+        lj = P.WaveNetConfig(n_aux=n_aux, kernel_size=3, upsampling_factor=110,
+                             compute_dtype="bfloat16")
+        assert tk.fused_train_constraint_error(lj, 21120) is None
+    assert "forward" in tk.layer_stack_constraint_error(P.WaveNetConfig(
+        kernel_size=3, n_resch=1024, compute_dtype="bfloat16"))
 
 
 def test_fused_forward_refuses_f32_and_outside_the_envelope():
