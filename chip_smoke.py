@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's decode and training paths on one NVIDIA GPU
-(Hopper).
+"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper): the decode and
+training paths, and the serial matmul-chain probe.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -47,17 +47,27 @@ the model it runs:
    bundle and fleet, with K1-int8 launched once and the warm-up kernel
    once per warm-up chunk, then a short fleet under a forced
    ``WNV_DECODE_HBM_BUDGET`` split into sub-fleets, each row equal to its
-   sub-fleet decoded alone.
+   sub-fleet decoded alone;
+11. [K4] (after the ljspeech phases): the serial matmul-chain probe.  The
+   main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
+   split; one cooperative launch per chain run); then every variant at
+   B=128 against the plain chain over 2 steps (int8raw exact, two runs
+   bitwise equal), timed at 1,000 steps, the plain chain and the plain
+   chain captured as one CUDA graph at 20; spine, full, int8 and int8raw at
+   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run; and
+   the 60 grid barriers per step alone.
 
 Every check is also read against controls, variants of the plain version
 that a broken kernel would resemble (gate bias dropped, gate in bf16, the
 lagged tap read at t, dskip kept in f32; at kernel_size 3 the lag-2d tap
 dropped, the two lagged weight blocks swapped, the lag-2d dz read at t +
 d; for int8 one weight scale per tensor, the gate quantized at the
-layer's activation scale, and the bf16 loop); each control must fail a
+layer's activation scale, and the bf16 loop; for the chain probe the past
+tap dropped and one int8 scale per tensor); each control must fail a
 limit the kernel passes.  The kernels line gives every kernel's time,
-plain time, bound (bytes or operations, from the run's shapes) and
-launches in its main-path run.
+plain time, bound (bytes or operations, from the run's shapes), the
+library call where one computes the same function (the chain probe: its
+plain version as one CUDA graph), and launches in its main-path run.
 
 Needs torch (CUDA build), numpy, scipy and the CUDA toolkit; no JAX.
 """
@@ -251,16 +261,21 @@ def main() -> int:
         return bound(nbytes, small, layer) if quantize else \
             bound(nbytes, layer + small)
 
-    def kernel_entry(name, m, source, replaces, err, ms, plain_ms, bnd):
-        """One entry of the kernels line; no single PyTorch call computes
-        a gated residual stack, its backward or the AR loop, so library_ms
-        is null for every kernel here."""
+    def kernel_entry(name, m, source, replaces, err, ms, plain_ms, bnd,
+                     library_ms=None):
+        """One entry of the kernels line.  ``m``: the model (its name suffix),
+        None for the probe; ``replaces``: the TPU kernel's file:line in the
+        repo; ``library_ms``: one PyTorch call that computes the same
+        function, where there is one (none computes a gated residual stack,
+        its backward or the AR loop)."""
         kernels_out.append(dict(
-            name=name + m["suffix"], route="cuda",
+            name=name + (m["suffix"] if m else ""), route="cuda",
             source="pytorchwavenetvocoder_tpu_torch/csrc/" + source,
-            replaces="pytorchwavenetvocoder_tpu/ops/" + replaces,
-            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=None, **bnd))
+            replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, **bnd))
+
+    #: K1's us/step in this run, by (model, "bf16" or "int8", B), for [K4]
+    k1_us: dict = {}
 
     def set_launches(m, launches):
         """Launch counts of a main-path run, by kernel base name."""
@@ -397,8 +412,8 @@ def main() -> int:
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | {card}",
               flush=True)
         kernel_entry("layer_stack_fwd", m, "layer_stack_fwd.cu",
-                     "train_kernel.py:260", readings["kernel"][2], ms,
-                     plain_ms, bnd)
+                     "pytorchwavenetvocoder_tpu/ops/train_kernel.py:260",
+                     readings["kernel"][2], ms, plain_ms, bnd)
         if fails(readings["kernel"]) or not chain <= tol_chain:
             raise AssertionError(f"K2 outside its limits: {readings['kernel']},"
                                  f" chained {chain}")
@@ -491,6 +506,7 @@ def main() -> int:
             ms_b = time_ms(lambda: ak.ar_generate(prm, cfg, c_b, h_b, T_b,
                                                   n_big, "argmax"))
             bb = ar_bound(cfg, B_big, n_big, False)
+            k1_us[(m["name"], "bf16", B_big)] = 1e3 * ms_b / n_big
             big = (f" | B={B_big} x {n_big} steps: kernel {ms_b:.2f} ms "
                    f"({1e3 * ms_b / n_big:.1f} us/step), bound "
                    f"{bb['bound_ms']:.3f} ms ({bb['bound_by']})")
@@ -523,8 +539,10 @@ def main() -> int:
               f"({1e3 * plain_ms / n:.1f} us/step), bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}){big} | {card}",
               flush=True)
-        kernel_entry("ar_step", m, "ar_step.cu", "ar_kernel.py:347",
+        kernel_entry("ar_step", m, "ar_step.cu",
+                     "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      ring["kernel"], ms, plain_ms, bnd)
+        k1_us[(m["name"], "bf16", B)] = 1e3 * ms / n
         if fails(readings["kernel"]):
             raise AssertionError(f"K1 outside its limits: {readings['kernel']}")
         blind = [c for c in controls if not fails(readings[c])]
@@ -828,7 +846,7 @@ def main() -> int:
               f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
               f"({bnd['bound_by']}) | {card}", flush=True)
         kernel_entry("layer_stack_fwd_train", m, "layer_stack_fwd.cu",
-                     "train_kernel.py:260",
+                     "pytorchwavenetvocoder_tpu/ops/train_kernel.py:260",
                      max(readings["kernel"][2], readings["kernel"][4]), ms,
                      plain_ms, bnd)
         train_saves.update(lw=lw, s0=s0, h_up=h_up, streams=streams, st=st)
@@ -952,7 +970,7 @@ def main() -> int:
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | {card}",
               flush=True)
         kernel_entry("layer_stack_bwd", m, "layer_stack_bwd.cu",
-                     "train_kernel.py:510",
+                     "pytorchwavenetvocoder_tpu/ops/train_kernel.py:510",
                      max(v[2] for v in readings["kernel"].values()), ms,
                      plain_ms, bnd)
         if fails(readings["kernel"]) or not bitwise:
@@ -1327,8 +1345,12 @@ def main() -> int:
                           for b_, t in times["int8"])
               + f"; plain int8 at B={B_big} {plain_big:.1f} | {card}",
               flush=True)
-        kernel_entry("ar_step_int8", m, "ar_step.cu", "ar_kernel.py:347",
+        kernel_entry("ar_step_int8", m, "ar_step.cu",
+                     "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      ring["kernel"][0], ms, plain_ms, bnd)
+        for route in ("int8", "bf16"):
+            for b_, t in times[route]:
+                k1_us.setdefault((m["name"], route, b_), t)
         if fails(readings["kernel"]):
             raise AssertionError(f"K1-int8 outside its limits: "
                                  f"{readings['kernel']}")
@@ -1528,6 +1550,161 @@ def main() -> int:
             raise AssertionError(f"fleet capping: {n_capped} launches, rows "
                                  f"equal {same}")
 
+    # ---- 11. K4: the serial matmul-chain probe ------------------------------
+    def k4():
+        from pytorchwavenetvocoder_tpu_torch.bin import (
+            matmul_chain_probe as probe,
+        )
+        from pytorchwavenetvocoder_tpu_torch.ops import matmul_chain as mc
+
+        t_phase = time.time()
+        R, B, n_check, n_time, n_plain = mc.R, 128, 2, 1000, 20
+        # the main path: the probe's entry point as a user runs it (the
+        # chain once with the build, then three timed runs; one launch each)
+        mc.matmul_chain.launches = 0
+        res = probe.main([str(B), str(n_time), "split"])
+        torch.cuda.synchronize()
+        launches = mc.matmul_chain.launches
+
+        def fails(variant, rel, share):
+            """limits of tests/test_torch_matmul_chain.py: int8raw exact;
+            int8 within 2e-2 of max|ref| in <= 25% of the elements (an f32
+            ulp of sigmoid/tanh flips a gate quantum now and then); the bf16
+            chains within 3e-2 (summation-order flips carried through 60
+            products: 1.4e-2 to 1.5e-2 between f32 and f64 sums)"""
+            if variant == "int8raw":
+                return [] if rel == 0 else ["exact"]
+            if variant == "int8":
+                return [n for n, bad in (("rel", not rel <= 2e-2),
+                                         ("share", not share <= 0.25)) if bad]
+            return [] if rel <= 3e-2 else ["rel"]
+
+        def reading(got, want):
+            d = (got.float() - want.float()).abs()
+            return ((d.max() / want.float().abs().max()).item(),
+                    (d > 0).float().mean().item(), d.max().item())
+
+        def graph_ms(fn):
+            """one replay of ``fn`` captured in a CUDA graph"""
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                fn()
+            return time_ms(g.replay)
+
+        def chain_bound(v, b, n):
+            ops = n * mc.step_ops(v, b)
+            nbytes = mc.weight_bytes(v) + 2 * b * R * 2
+            return (bound(nbytes, 0.0, ops) if v in mc.INT8_VARIANTS
+                    else bound(nbytes, ops))
+
+        weights, bad, entry = {}, [], None
+        for i, v in enumerate(mc.VARIANTS):
+            gen = torch.Generator(device=dev).manual_seed(100 + i)
+            w = mc.make_chain_weights(v, gen, dev)
+            x0 = torch.randn((B, R), generator=gen, device=dev).to(bf)
+            got = mc.matmul_chain(x0, w, v, n_check)
+            again = mc.matmul_chain(x0, w, v, n_check)
+            want = mc.matmul_chain_reference(x0, w, v, n_check)
+            torch.cuda.synchronize()
+            rel, share, mabs = reading(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            bitwise = torch.equal(got, again)
+            f = fails(v, rel, share) + ([] if finite else ["finite"]) + \
+                ([] if bitwise else ["bitwise"])
+            if f:
+                bad.append((v, f))
+            controls = {}
+            if v == "split":     # a kernel that dropped the past tap
+                controls["wp_dropped"] = reading(got, mc.matmul_chain_reference(
+                    x0, dict(w, wp=torch.zeros_like(w["wp"])), v, n_check))
+            if v == "int8":      # one weight scale per tensor
+                sc = w["wsc"].clone()
+                sc[:, :4 * R] = sc[:, :4 * R].amax(dim=1, keepdim=True)
+                sc[:, 4 * R:] = sc[:, 4 * R:].amax(dim=1, keepdim=True)
+                controls["per_tensor_scale"] = reading(
+                    got, mc.matmul_chain_reference(x0, dict(w, wsc=sc), v,
+                                                   n_check))
+            blind = [c for c, r in controls.items() if not fails(v, r[0], r[1])]
+            if blind:
+                bad.append((v, f"limits pass the controls {blind}"))
+            us = 1e3 * time_ms(lambda: mc.matmul_chain(x0, w, v, n_time),
+                               reps=1) / n_time
+            ms20 = time_ms(lambda: mc.matmul_chain(x0, w, v, n_plain))
+            plain20 = time_ms(lambda: mc.matmul_chain_reference(
+                x0, w, v, n_plain), reps=1)
+            graph20 = graph_ms(lambda: mc.matmul_chain_reference(
+                x0, w, v, n_plain))
+            rate = mc.step_ops(v, B) / (us * 1e-6) / 1e12
+            bnd = chain_bound(v, B, n_plain)
+            print(f"[K4] {v} B={B} vs the plain chain at {n_check} steps: "
+                  f"max|d|/max|ref| {rel:.3e}, differing share {share:.3e}, "
+                  f"finite {finite}, two runs bitwise equal {bitwise}, fails "
+                  f"{f or 'none'}"
+                  + "".join(f"; control {c} {r[0]:.3e} / {r[1]:.3e}, fails "
+                            f"{fails(v, r[0], r[1]) or 'none'}"
+                            for c, r in controls.items())
+                  + f" | kernel {us:.1f} us/step at n={n_time} ({rate:.1f} "
+                  f"T(FL)OP/s); n={n_plain}: kernel {ms20:.3f} ms, plain "
+                  f"{plain20:.3f} ms, the plain chain as one CUDA graph "
+                  f"{graph20:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
+                  f"({bnd['bound_by']}) | {card}", flush=True)
+            if v == "split":
+                entry = (mabs, ms20, plain20, bnd, graph20)
+            if v in ("spine", "full", "int8", "int8raw"):
+                weights[v] = w
+            del got, again, want
+        # the bound above counts each weight once per call; a chain that
+        # streams them from device memory every step has this floor
+        print("[K4] the weights read once per step at 3.35 TB/s: " + ", ".join(
+            f"{v} {1e6 * mc.weight_bytes(v) / HBM:.1f}" for v in mc.VARIANTS)
+            + " us/step", flush=True)
+        # at K1's fleet sizes, beside K1's own us/step from this run
+        rows = []
+        for b in (16, 32, 256):
+            x = torch.randn((b, R), device=dev).to(bf)
+            us = {v: 1e3 * time_ms(lambda: mc.matmul_chain(x, w, v, 500),
+                                   reps=1) / 500 for v, w in weights.items()}
+            k1 = [f"{name} {route} {t:.1f}" for (name, route, bb), t in
+                  sorted(k1_us.items()) if bb == b]
+            rows.append(f"B={b}: " + ", ".join(f"{v} {t:.1f}"
+                                               for v, t in us.items())
+                        + f" (K1 in this run: {', '.join(k1) or 'not run'})")
+        barrier_us = 1e3 * time_ms(lambda: mc.barrier_chain(n_time),
+                                   reps=1) / n_time
+        # where a stage's time goes: the kernel's own phase times
+        phases = []
+        for v, b in (("spine", 16), ("int8", 16), ("spine", 128)):
+            x = torch.randn((b, R), device=dev).to(bf)
+            ph = probe.phase_times(x, weights[v], v, 200)
+            phases.append(f"{v} B={b}: " + ", ".join(
+                f"{k} {t:.2f}" for k, t in ph.items()))
+        print(f"[K4] chain us/step at K1's fleets: " + "; ".join(rows)
+              + f" | the 60 grid barriers per step alone: {barrier_us:.1f} "
+              f"us/step | main path (bin/matmul_chain_probe.py {B} {n_time} "
+              f"split): {res['us_per_step']:.1f} us/step, launches "
+              f"{launches} | phase {time.time() - t_phase:.1f} s | {card}",
+              flush=True)
+        print("[K4] where a stage's time goes, us per stage (the kernel's "
+              "phase times, 200 steps; means over the blocks with a unit, "
+              "the barrier wait over all blocks): " + "; ".join(phases)
+              + f" | {card}", flush=True)
+        mabs, ms20, plain20, bnd, graph20 = entry
+        kernel_entry("matmul_chain", None, "matmul_chain.cu",
+                     "scripts/matmul_chain_probe.py:38", mabs, ms20, plain20,
+                     bnd, library_ms=graph20)
+        kernels_out[-1]["launches"] = launches
+        if launches != 4 or tuple(res["out"].shape) != (B, R):
+            raise AssertionError(f"the probe ran {launches} chain launches "
+                                 f"(expected 4: one per run), out "
+                                 f"{tuple(res['out'].shape)}")
+        if bad:
+            raise AssertionError(f"K4 outside its limits: {bad}")
+
     phase("K2", lambda: k2(arctic))
     phase("K1", lambda: k1(arctic, 256, 256,
                            {"no_dil_bias": zero_dil_bias(params)}))
@@ -1554,6 +1731,8 @@ def main() -> int:
     phase("K2 train k3", lambda: k2_train(ljs))
     phase("K3 k3", lambda: k3(ljs))
     phase("train k3", lambda: train_path(ljs))
+    # the probe last, beside K1's times from this run
+    phase("K4", k4)
     if failures:
         _fail(f"phases failed: {failures}")
     print(f"[smoke] all phases passed in {time.time() - t_start:.1f} s, the "

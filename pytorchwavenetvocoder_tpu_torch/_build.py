@@ -139,4 +139,12 @@ def kernels() -> ctypes.CDLL:
         + [vp] * 3           # dz dx_pp ws
         + [i32] * 8          # L B T R S A A_pad kernel_size
         + [vp])              # stream
+    lib.wn_matmul_chain_plan.restype = i32
+    lib.wn_matmul_chain_plan.argtypes = [i32, i32, vp]   # variant B; info
+    lib.wn_matmul_chain.restype = i32
+    lib.wn_matmul_chain.argtypes = (
+        [vp] * 7             # x0 w1 w2 (packed per unit) wsc y workspace
+                             # phase times
+        + [i32] * 3          # variant B n_steps
+        + [vp])              # stream
     return lib

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the AR loop in bf16 and int8, the layer stack's
-warm-up and training forward, its backward) against their plain PyTorch
-versions, on the card.
+warm-up and training forward, its backward, the matmul-chain probe) against
+their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
 On a machine with an NVIDIA Hopper GPU and nvcc (``--noconftest``: the
@@ -15,6 +15,7 @@ import torch
 
 from pytorchwavenetvocoder_tpu_torch.models import wavenet as P
 from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
+from pytorchwavenetvocoder_tpu_torch.ops import matmul_chain as mc
 from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
 
 torch.set_num_threads(2)
@@ -309,3 +310,34 @@ def test_fused_train_raises_outside_envelope(dev):
                          device=dev)
         with pytest.raises(NotImplementedError):
             tk.layer_stack_fwd_train(tk.layer_weights(params), cfg, s0, h)
+
+
+# B=20: two row tiles, the second partial (dual: halves of 10, each padded
+# to its own tile); B=1: one row (dual: two, one per half); B=200: 13 row
+# tiles, cut into 13 row groups; all at two steps, where the bf16 chains
+# are still finite
+@pytest.mark.parametrize("B", [1, 20, 200])
+@pytest.mark.parametrize("variant", mc.VARIANTS)
+def test_matmul_chain_kernel_matches_plain(dev, variant, B):
+    B = max(B, 2) if variant == "dual" else B
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = mc.make_chain_weights(variant, gen, dev)
+    x0 = torch.randn((B, mc.R), generator=gen, device=dev).to(torch.bfloat16)
+    before = mc.matmul_chain.launches
+    got = mc.matmul_chain(x0, w, variant, 2)
+    assert mc.matmul_chain.launches == before + 1    # one launch, all steps
+    again = mc.matmul_chain(x0, w, variant, 2)
+    assert torch.equal(got, again)                   # fixed-order reduction
+    want = mc.matmul_chain_reference(x0, w, variant, 2)
+    assert torch.isfinite(got.float()).all()
+    if variant == "int8raw":
+        assert torch.equal(got, want)
+        return
+    # limits of tests/test_torch_matmul_chain.py: summation-order flips
+    # carried through the chain
+    d = (got.float() - want.float()).abs()
+    rel = (d.max() / want.float().abs().max()).item()
+    if variant == "int8":
+        assert rel <= 2e-2 and (d > 0).float().mean().item() <= 0.25
+    else:
+        assert rel <= 3e-2, rel

@@ -42,6 +42,8 @@ def test_port_imports_no_jax():
         "from pytorchwavenetvocoder_tpu_torch.ops import FusedLayerStack\n"
         "import pytorchwavenetvocoder_tpu_torch.ops.ar_kernel\n"
         "import pytorchwavenetvocoder_tpu_torch.ops.train_kernel\n"
+        "import pytorchwavenetvocoder_tpu_torch.ops.matmul_chain\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.matmul_chain_probe\n"
         "import pytorchwavenetvocoder_tpu_torch.parallel\n"
         "import pytorchwavenetvocoder_tpu_torch.data\n"
         "import pytorchwavenetvocoder_tpu_torch.convert\n"
