@@ -105,7 +105,11 @@ def test_kernel_envelopes_name_what_is_out():
     assert layer_stack_constraint_error(lj) is None
     assert "kernel_size" in layer_stack_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", kernel_size=4))
-    assert "compute_dtype" in ar_kernel_constraint_error(WaveNetConfig())
+    # float32 configs decode through the bf16 pack, as the JAX kernel's;
+    # float64 (the exactness tests' dtype) is out
+    assert ar_kernel_constraint_error(WaveNetConfig()) is None
+    assert "compute_dtype" in ar_kernel_constraint_error(
+        WaveNetConfig(compute_dtype="float64"))
     assert "n_resch" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_resch=96))
     assert "n_aux" in layer_stack_constraint_error(
@@ -119,14 +123,15 @@ def test_kernel_envelopes_name_what_is_out():
         WaveNetConfig(compute_dtype="bfloat16", n_resch=1152), quantize=True)
     assert ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_resch=1152)) is None
-    assert "compute_dtype" in ar_kernel_constraint_error(WaveNetConfig(),
-                                                         quantize=True)
+    assert ar_kernel_constraint_error(WaveNetConfig(), quantize=True) is None
+    assert "compute_dtype" in ar_kernel_constraint_error(
+        WaveNetConfig(compute_dtype="float64"), quantize=True)
 
 
 @pytest.mark.parametrize("kw, what", [
     (dict(n_resch=1152), "n_resch"),          # only the warm-up kernel refuses
     (dict(kernel_size=4), "kernel_size"),
-    (dict(compute_dtype="float32"), "compute_dtype"),
+    (dict(compute_dtype="float64"), "compute_dtype"),
 ])
 def test_check_impl_refuses_before_any_work(kw, what):
     # the whole CUDA envelope (warm-up and AR kernels) is checked up front;
@@ -135,6 +140,44 @@ def test_check_impl_refuses_before_any_work(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         _check_impl("cuda", cfg, torch.device("cuda"), False)
     assert _check_impl("plain", cfg, torch.device("cpu"), False) == "plain"
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_check_impl_auto_serves_float32_configs(quantize):
+    # a float32 conf (what the JAX bin/convert_checkpoint.py writes for a
+    # reference checkpoint) resolves to the kernels on a CUDA device, from
+    # the envelopes alone: no card is touched
+    for k in (2, 3):
+        cfg = WaveNetConfig(compute_dtype="float32", kernel_size=k)
+        assert _check_impl("auto", cfg, torch.device("cuda"), quantize) \
+            == "cuda"
+        assert _check_impl("cuda", cfg, torch.device("cuda"), quantize) \
+            == "cuda"
+        assert _check_impl("auto", cfg, torch.device("cpu"), quantize) \
+            == "plain"
+
+
+@pytest.mark.parametrize("kw, what", [
+    (dict(n_resch=64), "n_resch"),
+    (dict(n_skipch=192), "n_skipch"),
+    (dict(compute_dtype="float64"), "compute_dtype"),
+])
+def test_check_impl_auto_takes_plain_outside_the_envelope(kw, what, caplog):
+    # auto falls back to the plain route where an envelope refuses the
+    # config, logging the reason once; cuda raises on the same config
+    from pytorchwavenetvocoder_tpu_torch.models import wavenet
+
+    cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
+    wavenet._AUTO_PLAIN_LOGGED.clear()
+    with caplog.at_level("WARNING"):
+        assert _check_impl("auto", cfg, torch.device("cuda"), False) \
+            == "plain"
+        assert _check_impl("auto", cfg, torch.device("cuda"), False) \
+            == "plain"
+    said = [r.getMessage() for r in caplog.records if what in r.getMessage()]
+    assert len(said) == 1 and "plain route" in said[0]
+    with pytest.raises(NotImplementedError, match=what):
+        _check_impl("cuda", cfg, torch.device("cuda"), False)
 
 
 def test_wrapper_refuses_other_devices():
