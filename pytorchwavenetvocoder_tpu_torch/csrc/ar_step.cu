@@ -71,6 +71,7 @@
 #include <type_traits>
 
 #include "wn_common.cuh"
+#include "wn_hopper.cuh"
 
 using namespace nvcuda;
 
@@ -78,38 +79,6 @@ using namespace nvcuda;
 #define AR_ROWS 64        // rows per block of the K-split GEMMs: 4 row tiles
 #define AR_AUX_MAX 96
 #define AR_AUX_ROWS 32
-
-// ---------------------------------------------------------------- Philox
-
-static __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
-    const unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-    unsigned hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    unsigned hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    return make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-}
-
-static __device__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-        if (i) { k.x += 0x9E3779B9u; k.y += 0xBB67AE85u; }
-        c = philox_round(c, k);
-    }
-    return c;
-}
-
-// Gumbel noise for (row, step, class); the uniform is ((bits >> 9) + 0.5)
-// * 2^-23, which lies in the open interval (0, 1) and is exact in f32.
-static __device__ float gumbel_noise(unsigned long long seed, int row,
-                                     int step, int cls) {
-    uint4 ctr = make_uint4((unsigned)cls >> 2, (unsigned)row,
-                           (unsigned)step, 0u);
-    uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
-    uint4 r = philox4x32_10(ctr, key);
-    unsigned w = (cls & 3) == 0 ? r.x : (cls & 3) == 1 ? r.y
-               : (cls & 3) == 2 ? r.z : r.w;
-    float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
-    return -logf(-logf(u));
-}
 
 // ---------------------------------------------------------------- int8
 

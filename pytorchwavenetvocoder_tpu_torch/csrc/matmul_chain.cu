@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "wn_common.cuh"
+#include "wn_hopper.cuh"
 
 namespace cg = cooperative_groups;
 using namespace nvcuda;
@@ -183,44 +184,6 @@ static __device__ __forceinline__ signed char clip8(int v) {
 // undefined in C++)
 static __device__ __forceinline__ int wadd(int a, int b) {
     return (int)((unsigned)a + (unsigned)b);
-}
-
-// ---- bulk copies -----------------------------------------------------------
-static __device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-static __device__ __forceinline__ void mbar_init(uint64_t* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-}
-
-// one thread: the barrier's one arrival, expecting `bytes`, then the copies
-static __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-static __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                                 unsigned bytes, uint64_t* bar) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-                 " [%0], [%1], %2, [%3];\n"
-                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-                 : "memory");
-}
-
-static __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    asm volatile("{\n .reg .pred done;\n"
-                 "MC_WAIT_%=:\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-                 " @!done bra MC_WAIT_%=;\n}\n"
-                 ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// order this thread's generic-proxy writes to global memory before later
-// async-proxy reads of them (the bulk copies of the next stage, after the
-// barrier); the readers need no fence of their own
-static __device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Per block: three mbarriers (the two weight buffers, the A rows) and the
