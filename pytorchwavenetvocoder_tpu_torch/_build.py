@@ -116,6 +116,16 @@ def kernels() -> ctypes.CDLL:
         + [ctypes.c_float] * 2    # gscale ginv
         + [i32, vp, vp]      # kernel_size, lag, lag_meta
         + [vp])              # stream
+    lib.wn_ar_generate_persistent.restype = i32
+    lib.wn_ar_generate_persistent.argtypes = (
+        [vp] * 4             # the gate, res, post1, post2 packs (per unit)
+        + [vp] * 6           # zb srb post1_b post2_b causal_w causal_b
+        + [vp, i32]          # h_up, its time length
+        + [vp, vp]           # ring, meta (device (L, 2) int32)
+        + [vp] * 9           # xs of skip gs sr h1 logits ids samples
+        + [i32] * 10         # B R S Q A L K T0 max_n sampling
+        + [ctypes.c_uint64]  # seed
+        + [vp, vp])          # plan (host int*), stream
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
         [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b

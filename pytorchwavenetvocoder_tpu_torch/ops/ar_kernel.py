@@ -116,6 +116,11 @@ def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
         return f"n_quantize={c.n_quantize} must be a multiple of 16"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
+    if not quantize:
+        try:     # the persistent kernel's units fit shared memory
+            ar_plan(c, 1, grid=H100_SMS)
+        except ValueError as e:
+            return f"n_resch={c.n_resch}, kernel_size={c.kernel_size}: {e}"
     return None
 
 
@@ -519,6 +524,196 @@ def pack_ar_weights(params, config) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the persistent bf16 kernel's plan and weight layout (csrc/ar_persistent.cu)
+# ---------------------------------------------------------------------------
+
+#: The weighted stages of a step, in the kernel's order (``AP_*`` in
+#: csrc/ar_persistent.cu): per layer a gate stage and a res stage, then the
+#: two post products.  A step also has a sample stage (no weights).
+AR_STAGES = ("gate", "res", "post1", "post2")
+
+#: Shared memory a unit may take per region: a weight slice (two buffers:
+#: this stage's and the next one's, prefetched; the plan tries the caps in
+#: turn until the whole fits), the A rows, the warps' partial sums
+AR_W_CAPS, AR_A_MAX, AR_P_MAX = (80 * 1024, 64 * 1024, 48 * 1024), \
+    64 * 1024, 32 * 1024
+
+#: Dynamic shared memory a block of the persistent kernel may take: the
+#: H100's 232,448 bytes less 1 KB for its static mbarriers
+AR_SMEM_MAX = 232448 - 1024
+
+#: The A rows' padding in shared memory, bf16 elements per row (keeps
+#: wmma's 16-byte row chunks on distinct banks)
+AR_A_PAD = 8
+
+#: Streaming multiprocessors of an H100 SXM: the plan's default grid where
+#: no card is asked (CPU tests)
+H100_SMS = 132
+
+
+def _aux_pad(A: int) -> int:
+    """n_aux rounded up to whole 16-row k tiles: the aux columns the gate
+    stage's A rows carry after the stream."""
+    return -(-A // 16) * 16
+
+
+def ar_stage_shapes(config) -> dict:
+    """Per weighted stage: K (the weight rows, = the A row width), the
+    quarters a unit spans and the columns N of each quarter.
+
+    gate, kernel_size 2: A = [x (R) | aux (Ap)], two quarters: the current
+    tap with the aux rows (the gate's 2R columns) and the past tap (the
+    2R projections the ring keeps), both interleaved in groups of 8.
+    kernel_size 3: A = [x | aux | lag d | lag 2d], one quarter (the gate).
+    res: g @ [W_skip | W_res]; post1: relu(skip) @ post1_w; post2: h1 @
+    post2_w."""
+    c = config
+    R, S, Q, k = c.n_resch, c.n_skipch, c.n_quantize, c.kernel_size
+    Ap = _aux_pad(c.n_aux)
+    gate_k = R + Ap if k == 2 else 3 * R + Ap
+    return {"gate": (gate_k, 2 if k == 2 else 1, 2 * R),
+            "res": (R, 1, S + R), "post1": (S, 1, S), "post2": (S, 1, Q)}
+
+
+def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
+         w_max: int):
+    """How a stage is cut into units (a row group of at most ``mt`` 16-row
+    tiles x a column group of ``cw`` columns in each quarter), each taking
+    all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
+    grid holds, of those the widest column groups; where no cut fits the
+    grid, the fewest units (blocks then take several).  None where no cut
+    fits the shared-memory regions."""
+    best = None
+    for cw in (64, 32, 16):
+        if N % cw or K * quarters * cw * 2 > w_max:
+            continue
+        ntu = quarters * cw // 16
+        for mt in (4, 3, 2, 1):
+            rg = -(-row_tiles // mt)
+            mt_used = -(-row_tiles // rg)
+            if mt_used != mt or 16 * mt * (K + AR_A_PAD) * 2 > AR_A_MAX:
+                continue
+            ks = max(1, 8 // ntu)       # the warps split K: a task each
+            while ks > 1 and ks * 16 * mt * quarters * cw * 4 > AR_P_MAX:
+                ks //= 2
+            if ks * 16 * mt * quarters * cw * 4 > AR_P_MAX or K // 16 < ks:
+                continue
+            units = rg * (N // cw)
+            if best is not None:
+                b = best["units"]
+                if not ((units <= grid and (b > grid or units > b))
+                        or (units > grid and b > grid and units < b)):
+                    continue
+            best = dict(K=K, quarters=quarters, N=N, cw=cw, G=N // cw,
+                        mt=mt, rg=rg, ks=ks, units=units)
+    return best
+
+
+def _align256(n: int) -> int:
+    return (n + 255) & ~255
+
+
+def ar_plan(config, B: int, grid: int | None = None) -> dict:
+    """The persistent bf16 kernel's launch plan for a fleet of B rows: per
+    weighted stage (``AR_STAGES``) its cut (``_cut``), the grid (one block
+    per SM: ``grid``, default the current CUDA device's SM count, else an
+    H100's 132) and the shared-memory layout.  Raises ValueError where a
+    stage has no cut that fits.  ``csrc/ar_persistent.cu`` checks the same
+    plan again before it launches."""
+    if B < 1:
+        raise ValueError(f"B must be >= 1, got {B}")
+    if grid is None:
+        grid = (torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+            if torch.cuda.is_available() else H100_SMS)
+    row_tiles = -(-B // 16)
+    for w_max in AR_W_CAPS:
+        stages = {}
+        for name, (K, quarters, N) in ar_stage_shapes(config).items():
+            stages[name] = _cut(K, quarters, N, row_tiles, grid, w_max)
+        if any(s is None for s in stages.values()):
+            continue
+        w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2)
+                for s in stages.values())
+        a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
+                for s in stages.values())
+        p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"]
+                          * 4) for s in stages.values())
+        if 2 * w + a + p <= AR_SMEM_MAX:
+            return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
+                        smem_w=(0, w), smem_a=2 * w, smem_p=2 * w + a,
+                        smem=2 * w + a + p)
+    shapes = ", ".join(f"{n} K={K} x {q * N}" for n, (K, q, N)
+                       in ar_stage_shapes(config).items())
+    raise ValueError(f"the persistent AR kernel has no cut of its stages "
+                     f"({shapes}) whose weight slices, A rows and sums fit "
+                     f"a block's {AR_SMEM_MAX} bytes of shared memory")
+
+
+def ar_plan_array(plan: dict) -> list:
+    """The plan as the int array ``wn_ar_generate_persistent`` takes: grid,
+    smem, the two weight buffers', the A rows' and the sums' offsets, then
+    per stage cw, mt, ks."""
+    out = [plan["grid"], plan["smem"], *plan["smem_w"], plan["smem_a"],
+           plan["smem_p"]]
+    for name in AR_STAGES:
+        s = plan["stages"][name]
+        out += [s["cw"], s["mt"], s["ks"]]
+    return out
+
+
+def ar_stage_units(plan: dict, stage: str, block: int):
+    """The units block ``block`` takes in ``stage``, as the kernel walks
+    them: a contiguous run of unit ids, column group major (consecutive
+    units of a block share a column group's weights).  Yields (rows, cols):
+    the real rows [r0, r1) and, per quarter q, the columns q*N + [c0, c1)."""
+    s, grid = plan["stages"][stage], plan["grid"]
+    u0, u1 = block * s["units"] // grid, (block + 1) * s["units"] // grid
+    for u in range(u0, u1):
+        grp, rgi = divmod(u, s["rg"])
+        r0 = rgi * 16 * s["mt"]
+        r1 = min(r0 + 16 * s["mt"], plan["B"])
+        yield ((r0, r1), [(q * s["N"] + grp * s["cw"],
+                           q * s["N"] + (grp + 1) * s["cw"])
+                          for q in range(s["quarters"])])
+
+
+def pack_ar_units(pk: dict, plan: dict, config) -> dict:
+    """``pack_ar_weights``' bf16 layout cut per unit for the persistent
+    kernel (``_pack_units`` of ``ops/matmul_chain.py``: each unit's slice
+    one contiguous run of 16 x 16 tiles, [L][G][K/16][quarters*cw/16][16]
+    [16]).  The gate rows follow the A rows ``ar_stage_shapes`` names, aux
+    rows zero-padded to whole tiles (and zero under the past tap at
+    kernel_size 2); the past tap is interleaved like the current one, so a
+    unit's projections are the ring values of the channels it gates."""
+    from pytorchwavenetvocoder_tpu_torch.ops.matmul_chain import _pack_units
+
+    c = config
+    R, A, k, L = c.n_resch, c.n_aux, c.kernel_size, c.n_layers
+    Ap = _aux_pad(A)
+    st = plan["stages"]
+    auxw = torch.zeros((L, Ap, 2 * R), dtype=torch.bfloat16,
+                       device=pk["auxw"].device)
+    auxw[:, :A] = _interleave(pk["auxw"])
+    if k == 2:
+        w4 = pk["w4"]
+        cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
+        past = torch.cat([_interleave(w4[..., 2 * R:]),
+                          torch.zeros_like(auxw)], dim=1)
+        gate = torch.cat([cur, past], dim=-1)          # (L, R + Ap, 4R)
+    else:
+        w6 = pk["w6"]
+        gate = torch.cat([w6[..., :2 * R], auxw, w6[..., 2 * R:4 * R],
+                          w6[..., 4 * R:]], dim=1)     # (L, 3R + Ap, 2R)
+    return {
+        "gate": _pack_units(gate, st["gate"]["quarters"], st["gate"]["cw"]),
+        "res": _pack_units(pk["wsr"], 1, st["res"]["cw"]),
+        "post1": _pack_units(pk["post1_w"][None], 1, st["post1"]["cw"]),
+        "post2": _pack_units(pk["post2_w"][None], 1, st["post2"]["cw"]),
+    }
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -554,12 +749,14 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     projection-forwarded ``(total_cap, B, 2R)`` ring at kernel_size 2, the
     raw ``(total_cap, B, R)`` ring at kernel_size 3 (int8 from
     ``int8_ring_fill`` under ``quantize``, else bf16); anything else
-    raises.  ``quantize`` launches the int8 variant with ``act_scales``
-    (L, 1) f32 on the carry's device (counted in
-    ``ar_generate.int8_launches``; the bf16 kernel in
-    ``ar_generate.launches``).  Sampling draws one 64-bit Philox seed from
-    ``generator``; the kernel's Gumbel noise is a function of (seed, row,
-    step, class).
+    raises.  bf16 runs every step in one cooperative launch of the
+    persistent kernel (``csrc/ar_persistent.cu``, counted in
+    ``ar_generate.launches``); a grid that cannot be co-resident, a build
+    or a launch error raises.  ``quantize`` runs the int8 launch loop
+    (``csrc/ar_step.cu``, counted in ``ar_generate.int8_launches``) with
+    ``act_scales`` (L, 1) f32 on the carry's device.  Sampling draws one
+    64-bit Philox seed from ``generator``; the kernels' Gumbel noise is a
+    function of (seed, row, step, class).
     """
     act_buf, sample_hist, prev = carry
     if act_buf.device.type == "cpu":
@@ -574,16 +771,14 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     if mode not in ("argmax", "sampling"):
         raise ValueError(f"mode must be sampling or argmax, got {mode!r}")
 
-    from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
     c = config
     dev = act_buf.device
     B = prev.shape[0]
-    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
-    k = c.kernel_size
-    caps, offsets, total_cap = _buffer_layout(c)
-    bf, f32 = torch.bfloat16, torch.float32
+    R, A, k = c.n_resch, c.n_aux, c.kernel_size
+    _caps, _offsets, total_cap = _buffer_layout(c)
+    bf = torch.bfloat16
     if k == 2:
         _check(act_buf, "act_buf", bf, (total_cap, B, 2 * R), dev)
     else:
@@ -601,6 +796,108 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     for name, t in pk.items():
         if t.device != dev:
             raise ValueError(f"params ({name}) are on {t.device}, not {dev}")
+    if quantize:
+        if act_scales is None:
+            raise ValueError("quantize=True needs act_scales (L, 1)")
+        ascale = act_scales.reshape(-1)
+        _check(ascale, "act_scales", torch.float32, (c.n_layers,), dev)
+        if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
+            raise ValueError("act_scales must be finite and positive")
+    ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
+    seed = 0
+    if mode == "sampling":
+        gdev = generator.device if generator is not None else "cpu"
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=gdev))
+    if quantize:
+        samples = _launch_loop(pk, c, act_buf, ids, h_up, T0, max_n, seed,
+                               mode == "sampling", act_scales.reshape(-1))
+        ar_generate.int8_launches += 1
+    else:
+        samples = _persistent(pk, c, act_buf, ids, h_up, T0, max_n, seed,
+                              mode == "sampling")
+        ar_generate.launches += 1
+    sample_hist.copy_(ids[:, :-1])
+    prev.copy_(ids[:, -1])
+    return samples
+
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _plan_error(err: int) -> str:
+    return {-1: "the grid cannot be co-resident (no block fits an SM)",
+            -2: "the device has no cooperative launch",
+            -3: "the plan does not cut the stages or fit its shared memory"
+            }.get(err, f"CUDA error {err}")
+
+
+def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
+                seed: int, sampling: bool) -> torch.Tensor:
+    """bf16: every step in one cooperative launch of
+    ``wn_ar_generate_persistent`` on the plan ``ar_plan`` cuts for this
+    fleet; ``ids`` (B, k) updated in place.  Returns (B, max_n) int32."""
+    from pytorchwavenetvocoder_tpu_torch._build import kernels
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
+
+    c = config
+    dev = act_buf.device
+    B = ids.shape[0]
+    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
+    bf, f32 = torch.bfloat16, torch.float32
+    with torch.cuda.device(dev):
+        plan = ar_plan(c, B)
+    units = pack_ar_units(pk, plan, c)
+    _caps, offsets, _total = _buffer_layout(c)
+    meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
+                        device=dev).T.contiguous()                # (L, 2)
+    # the stream and the step's aux column; columns R + A .. stay zero
+    xs = torch.zeros((B, R + _aux_pad(A)), dtype=bf, device=dev)
+    of = torch.empty((B, R), dtype=f32, device=dev)
+    skip = torch.empty((B, S), dtype=f32, device=dev)
+    gs = torch.empty((B, R), dtype=bf, device=dev)
+    sr, h1 = (torch.empty((B, S), dtype=bf, device=dev) for _ in range(2))
+    logits = torch.empty((B, Q), dtype=f32, device=dev)
+    samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
+    arr = ar_plan_array(plan)
+    plan_arr = (ctypes.c_int * len(arr))(*arr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = kernels().wn_ar_generate_persistent(
+            *(_ptr(units[n]) for n in AR_STAGES),
+            _ptr(pk["zb"]), _ptr(pk["srb"]), _ptr(pk["post1_b"]),
+            _ptr(pk["post2_b"]), _ptr(pk["causal_w"]), _ptr(pk["causal_b"]),
+            _ptr(h_up), h_up.shape[1], _ptr(act_buf), _ptr(meta), _ptr(xs),
+            _ptr(of), _ptr(skip), _ptr(gs), _ptr(sr), _ptr(h1), _ptr(logits),
+            _ptr(ids), _ptr(samples), B, R, S, Q, A, L, c.kernel_size, T0,
+            max_n, int(sampling), seed,
+            ctypes.cast(plan_arr, ctypes.c_void_p), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"wn_ar_generate_persistent (B={B}) failed: "
+                           f"{_plan_error(err)}")
+    return samples
+
+
+def _launch_loop(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
+                 seed: int, sampling: bool,
+                 ascale: torch.Tensor | None) -> torch.Tensor:
+    """The launch loop of ``wn_ar_generate`` (csrc/ar_step.cu, 65-66
+    launches per step from C++): int8 with the (L,) activation scales
+    ``ascale``, or bf16 with ``ascale`` None (the loop the persistent
+    kernel replaced, kept for timing beside it).  ``ids`` (B, k) updated
+    in place.  Returns (B, max_n) int32."""
+    from pytorchwavenetvocoder_tpu_torch._build import kernels
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
+
+    c = config
+    dev = act_buf.device
+    B = ids.shape[0]
+    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
+    k = c.kernel_size
+    caps, offsets, _total_cap = _buffer_layout(c)
+    bf, f32 = torch.bfloat16, torch.float32
+    quantize = ascale is not None
     gk = _gate_key(k)
 
     Bp = -(-B // 16) * 16   # wmma row tiles of 16; pad rows stay zero
@@ -608,14 +905,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     def scratch(rows, cols, dtype):
         return torch.zeros((rows, cols), dtype=dtype, device=dev)
 
-    null = ctypes.c_void_p(0)
     if quantize:
-        if act_scales is None:
-            raise ValueError("quantize=True needs act_scales (L, 1)")
-        ascale = act_scales.reshape(-1)
-        _check(ascale, "act_scales", f32, (L,), dev)
-        if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
-            raise ValueError("act_scales must be finite and positive")
         q = _quantize_pack(pk)
         wz, wsr = _tile16(q[gk]), _tile16(q["wsr"])
         wzs, wsrs, ainv = q[gk + "_scale"], q["wsr_scale"], 1.0 / ascale
@@ -628,7 +918,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     else:
         wz, wsr = pk[gk], pk["wsr"]
         out_bf16, g_bf16 = scratch(Bp, R, bf), scratch(Bp, R, bf)
-        wzs = wsrs = ascale = ainv = out_q = g_q = None
+        wzs = wsrs = ainv = out_q = g_q = None
         gscale = ginv = ctypes.c_float(0.0)
     za = torch.empty((B, L * 2 * R), dtype=f32, device=dev)
     out_f32 = scratch(Bp, R, f32)
@@ -644,18 +934,10 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     skip = torch.empty((B, S), dtype=f32, device=dev)
     skip_relu, h1 = scratch(Bp, S, bf), scratch(Bp, S, bf)
     logits = torch.empty((B, Q), dtype=f32, device=dev)
-    ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
     offs_arr = (ctypes.c_int * L)(*offsets)
     caps_arr = (ctypes.c_int * L)(*caps)
-    seed = 0
-    if mode == "sampling":
-        gdev = generator.device if generator is not None else "cpu"
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                 device=gdev))
-
-    def ptr(t):
-        return null if t is None else ctypes.c_void_p(t.data_ptr())
+    ptr = _ptr
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -670,20 +952,29 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
             ptr(g_bf16), ptr(proj), ptr(skip), ptr(skip_relu), ptr(h1),
             ptr(logits),
             ptr(ids), ptr(samples), B, R, S, Q, A, L, T0, max_n,
-            int(mode == "sampling"), seed,
+            int(sampling), seed,
             int(quantize), ptr(wzs), ptr(wsrs), ptr(ascale), ptr(ainv),
             ptr(out_q), ptr(g_q), gscale, ginv,
             k, ptr(lag), ptr(lag_meta),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
-    if quantize:
-        ar_generate.int8_launches += 1
-    else:
-        ar_generate.launches += 1
+    return samples
+
+
+def ar_generate_launch_loop(params, config, carry, h_up: torch.Tensor,
+                            T0: int, max_n: int) -> torch.Tensor:
+    """bf16 argmax steps on the launch loop the persistent kernel replaced
+    (``csrc/ar_step.cu``, 65-66 launches per step), for timing the two in
+    turns on one card; the carry is updated in place.  Not counted in
+    ``ar_generate.launches``, and no route of the port takes it."""
+    act_buf, sample_hist, prev = carry
+    ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
+    out = _launch_loop(pack_ar_weights(params, config), config, act_buf, ids,
+                       h_up, T0, max_n, 0, False, None)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
-    return samples
+    return out
 
 
 ar_generate.launches = 0

@@ -72,11 +72,13 @@ def test_layer_stack_kernel_matches_plain(dev, kernel_size):
         assert (d > 0).float().mean().item() <= 1e-2
 
 
-# B=1: one partial row tile; 20: two tiles, the second partial; 65: two
-# 64-row chunks on the kernels' second grid axis, the second of one row;
-# kernel_size 3 (raw rings, the lag gather) at each
+# B=1: one partial row tile; 20: two tiles, the second partial; 65: a
+# partial last tile of one row; 200 and 1000: more units than blocks, so
+# blocks loop over units (1000: over several row groups of one column
+# group, and its last row group partial); kernel_size 3 (raw rings, the lag
+# rows read straight from the ring) at each
 @pytest.mark.parametrize("kernel_size", [2, 3])
-@pytest.mark.parametrize("B", [1, 20, 65])
+@pytest.mark.parametrize("B", [1, 20, 65, 200, 1000])
 def test_ar_kernel_matches_plain(dev, B, kernel_size):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=1)
@@ -213,13 +215,109 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
 
 
 def test_cuda_path_raises_outside_envelope(dev):
-    for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float32"),
-                _cfg(n_resch=1152)):
+    for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float64"),
+                _cfg(n_resch=1152), _cfg(n_resch=768, kernel_size=3)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
         h = np.zeros((2, 40, cfg.n_aux), np.float32)
         with pytest.raises(NotImplementedError):
             P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda")
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_ar_kernel_one_launch_per_call(dev, kernel_size):
+    """The bf16 route makes one device launch of the AR loop per call,
+    whatever the number of steps (the launch loop made 65-66 per step)."""
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=4)
+    rng = np.random.RandomState(4)
+    B, n = 8, 12
+    x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
+                        device=dev)
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32, device=dev)
+    carry = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
+                            impl="cuda")
+    ak.ar_generate(params, cfg, carry, h, x.shape[1], 1, "argmax")   # build
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ak.ar_generate(params, cfg, carry, h, x.shape[1], n, "argmax")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    loop = [nm for nm in names if nm.split("<")[0].split()[-1].startswith("ar_")]
+    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], loop
+
+
+def test_float32_bundle_decodes_through_k1(dev, tmp_path):
+    """A float32 conf (what the JAX bin/convert_checkpoint.py writes for a
+    reference checkpoint) at the arctic flagship's widths decodes through
+    ``decode_batches(impl="auto")`` on the card: the warm-up on the plain
+    forward in f32, the ring in bf16, K1 once per fleet.  From that carry,
+    K1 meets the [K1] limits against the plain loop on the same bf16-cast
+    weights (the bf16 conf's plain loop)."""
+    import dataclasses
+    import json
+    import pickle
+
+    from pytorchwavenetvocoder_tpu_torch.bin.decode import (
+        decode_batches,
+        load_model,
+    )
+    from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+    cfg = P.WaveNetConfig(n_quantize=256, n_aux=28, n_resch=512,
+                          n_skipch=256, dilation_depth=10, dilation_repeat=1,
+                          kernel_size=2, upsampling_factor=80,
+                          compute_dtype="float32")
+    params = _params(cfg, dev, seed=8)
+    conf = dict(cfg.to_dict(), use_upsampling_layer=True,
+                feature_type="world", use_speaker_code=False)
+    (tmp_path / "model.conf").write_text(json.dumps(conf))
+    tree = {g: {k: v.cpu().numpy() for k, v in leaves.items()}
+            for g, leaves in params.items()}
+    ckpt = tmp_path / "checkpoint-0.pkl"
+    with open(ckpt, "wb") as f:
+        pickle.dump({"model": tree, "optimizer": None, "iterations": 0}, f)
+    model, _conf = load_model(str(ckpt), str(tmp_path), dev)
+    rng = np.random.RandomState(8)
+    B, frames = 4, [3, 5, 4, 2]
+    h = rng.randn(B, max(frames), cfg.n_aux).astype(np.float32)
+    x = np.full((B, 1), 128, np.int32)
+    n_list = [f * cfg.upsampling_factor - 1 for f in frames]
+    ids = [f"u{b}" for b in range(B)]
+    k1 = ak.ar_generate.launches
+    decode_batches(model, [(ids, (x, h, n_list))], str(tmp_path / "wav"),
+                   mode="sampling", impl="auto", fs=16000,
+                   generator=torch.Generator().manual_seed(1))
+    assert ak.ar_generate.launches == k1 + 1
+    for b, n in enumerate(n_list):
+        wav, _fs = read_wav(str(tmp_path / "wav" / f"u{b}.wav"))
+        assert wav.shape == (n,) and np.isfinite(wav).all()
+    # K1 from the f32 route's carry against the plain bf16 loop
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                               upsampling_factor=0)
+    n = 16
+    xt = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
+                         device=dev)
+    ht = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                         dtype=torch.float32, device=dev)
+    carry = P._warmup_state(params, dataclasses.replace(cfg,
+                                                        upsampling_factor=0),
+                            xt, ht, impl="cuda")
+    assert carry[0].dtype == torch.bfloat16
+    T0 = xt.shape[1]
+    agree, cp = [], tuple(t.clone() for t in carry)
+    for i in range(n):
+        ck = tuple(t.clone() for t in cp)
+        sk = ak.ar_generate(params, cfg, ck, ht, T0 + i, 1, "argmax")
+        sp = ak.ar_generate_reference(params, bcfg, cp, ht, T0, 1, "argmax",
+                                      i0=i)
+        ring = (ck[0].float() - cp[0].float()).abs().max().item()
+        assert ring <= 2e-2 * cp[0].float().abs().max().item()
+        agree.append((sk == sp).float().mean().item())
+    assert np.mean(agree) >= 0.97
 
 
 @pytest.mark.parametrize("kernel_size", [2, 3])
