@@ -15,15 +15,20 @@ the model it runs:
 2. [K2]: the warm-up layer-stack kernel against its plain PyTorch version
    at the main path's shape (the fleet's warm-up chunk: 32 x 3,070 arctic,
    16 x 6,139 ljspeech), with both times;
-3. [K1]: the AR sample-loop kernel against its plain version at the
-   fleet's B: the ring after one step, same-state argmax agreement and
-   trajectories, both times (ljspeech also at B=256); [K1 chi2], a
-   chi-square test of the Gumbel-max sampler (on a narrow config);
+3. [K1]: the AR sample-loop kernel (bf16: one persistent cooperative
+   launch per call) against its plain version at the fleet's B: the ring
+   after one step, same-state argmax agreement and trajectories, both
+   times, the AR-loop device kernels of one call counted by
+   ``torch.profiler`` (must be 1), and the kernel against the launch loop
+   it replaced, in turns, at B = 16, 32 and 256; [K1 chi2], a chi-square
+   test of the Gumbel-max sampler (on a narrow config, B = 16,384);
 4. [main]: the decode path: a flagship checkpoint (random weights from a
    seeded generator) written as a bundle, loaded back through the port's
    loaders and decoded by ``bin/decode.py``'s ``decode_batches`` as a fleet
    of ragged utterances in sampling mode, with the kernels' launch counts
-   and the plain loop never run;
+   and the plain loop never run; [main f32], the same fleet from a
+   float32-conf bundle of the same weights with ``impl="auto"`` (the
+   warm-up on the plain f32 forward, K1 once per fleet);
 5. [K2 train]: K2 in training mode (the sigma/tanh saves and the skip sum)
    against its plain version at the flagship training window (B=1, T =
    23,040 arctic, 21,120 ljspeech), each layer on the kernel's own input
@@ -54,8 +59,9 @@ the model it runs:
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
    bitwise equal), timed at 1,000 steps, the plain chain and the plain
    chain captured as one CUDA graph at 20; spine, full, int8 and int8raw at
-   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run; and
-   the 60 grid barriers per step alone.
+   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run (bf16:
+   the persistent kernel; int8: the launch loop); and the 60 grid barriers
+   per step alone.
 
 Every check is also read against controls, variants of the plain version
 that a broken kernel would resemble (gate bias dropped, gate in bf16, the
@@ -78,6 +84,7 @@ import dataclasses
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -449,10 +456,13 @@ def main() -> int:
     def clone(carry):
         return tuple(t.clone() for t in carry)
 
-    def k1(m, n, n_check, controls, B_big=None, n_big=64):
+    def k1(m, n, n_check, controls, n_big=64):
         """K1 against the plain loop from the same carry: the ring after one
         step, same-state argmax over n_check steps, trajectories over
-        n_check steps; the kernel timed over n steps (and at B_big)."""
+        n_check steps; the kernel timed over n steps, its device launches
+        in one call counted by the profiler, and the kernel against the
+        launch loop it replaced at B = 16, 32 and 256 (n_big steps at the
+        sizes other than the fleet's)."""
         cfg, prm, B = m["cfg"], m["params"], m["fleet"]
         carry, h, T0 = fleet_carry(cfg, prm, B, n, 1)
 
@@ -500,17 +510,46 @@ def main() -> int:
         plain_ms = time_ms(lambda: ak.ar_generate_reference(
             prm, cfg, carry, h, T0, n, "argmax"), reps=1)
         bnd = ar_bound(cfg, B, n, False)
-        big = ""
-        if B_big:
-            c_b, h_b, T_b = fleet_carry(cfg, prm, B_big, n_big, 2)
-            ms_b = time_ms(lambda: ak.ar_generate(prm, cfg, c_b, h_b, T_b,
-                                                  n_big, "argmax"))
-            bb = ar_bound(cfg, B_big, n_big, False)
-            k1_us[(m["name"], "bf16", B_big)] = 1e3 * ms_b / n_big
-            big = (f" | B={B_big} x {n_big} steps: kernel {ms_b:.2f} ms "
-                   f"({1e3 * ms_b / n_big:.1f} us/step), bound "
-                   f"{bb['bound_ms']:.3f} ms ({bb['bound_by']})")
-            del c_b, h_b
+        # the device kernels of the AR loop in one call of n steps: one
+        # cooperative launch (the launch loop made 65-66 per step)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            kernel(carry, 0, n)
+            torch.cuda.synchronize()
+        loop_kernels = [e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and re.match(r"(void )?ar_\w+_kernel", e.name)]
+        # the persistent kernel against the launch loop it replaced, in
+        # turns (persistent, loop, loop, persistent; best of each), at the
+        # fleet sizes 16, 32 and 256
+        turns = {}
+        for b_t in (16, 32, 256):
+            n_t = n if b_t == B else n_big
+            if b_t == B:
+                c_t, h_t, T_t = carry, h, T0
+            else:
+                c_t, h_t, T_t = fleet_carry(cfg, prm, b_t, n_t, 2)
+            fns = {"persistent": lambda: ak.ar_generate(
+                       prm, cfg, c_t, h_t, T_t, n_t, "argmax"),
+                   "launch loop": lambda: ak.ar_generate_launch_loop(
+                       prm, cfg, c_t, h_t, T_t, n_t)}
+            got = {k_: [] for k_ in fns}
+            for k_ in ("persistent", "launch loop", "launch loop",
+                       "persistent"):
+                got[k_].append(1e3 * time_ms(fns[k_]) / n_t)
+            turns[b_t] = {k_: min(v) for k_, v in got.items()}
+            k1_us[(m["name"], "bf16", b_t)] = turns[b_t]["persistent"]
+            if b_t != B:
+                del c_t, h_t
+        bb = ar_bound(cfg, 256, n_big, False)
+        big = (" | us/step, best of two in turns (persistent / launch "
+               "loop): " + ", ".join(
+                   f"B={b_} {t_['persistent']:.1f} / {t_['launch loop']:.1f}"
+                   for b_, t_ in turns.items())
+               + f" (B != {B}: over {n_big} steps); bound at B=256 x "
+               f"{n_big}: {bb['bound_ms']:.3f} ms ({bb['bound_by']}) | AR-loop "
+               f"device kernels in one call of {n} steps: {len(loop_kernels)} "
+               f"{sorted(set(loop_kernels))}")
         # limits: the ring after one step moves by a bf16 ulp where sums
         # round apart (2^-8 of max|ring| < 2e-2); a step's argmax flips only
         # where two logits lie within the bf16 summation-order noise, so
@@ -539,12 +578,15 @@ def main() -> int:
               f"({1e3 * plain_ms / n:.1f} us/step), bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}){big} | {card}",
               flush=True)
-        kernel_entry("ar_step", m, "ar_step.cu",
+        kernel_entry("ar_persistent", m, "ar_persistent.cu",
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      ring["kernel"], ms, plain_ms, bnd)
-        k1_us[(m["name"], "bf16", B)] = 1e3 * ms / n
         if fails(readings["kernel"]):
             raise AssertionError(f"K1 outside its limits: {readings['kernel']}")
+        if len(loop_kernels) != 1 or "ar_persistent_kernel" not in \
+                loop_kernels[0]:
+            raise AssertionError(f"one call of {n} steps ran the AR-loop "
+                                 f"kernels {loop_kernels}, not one launch")
         blind = [c for c in controls if not fails(readings[c])]
         if blind:
             raise AssertionError(f"K1 limits pass the controls {blind}")
@@ -596,11 +638,25 @@ def main() -> int:
     # ---- 4. main path -----------------------------------------------------
     fleet: dict = {}   # per model: the loaded bundle and the fleet, for [main int8]
 
+    def write_bundle(cfg, prm, tmp):
+        """A checkpoint bundle (model.conf, checkpoint-0.pkl) of ``prm``
+        under ``cfg`` in ``tmp``, loaded back through bin/decode.py."""
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import load_model
+
+        conf = dict(cfg.to_dict(), use_upsampling_layer=True,
+                    feature_type="world", use_speaker_code=False)
+        with open(os.path.join(tmp, "model.conf"), "w") as f:
+            json.dump(conf, f)
+        tree = {g: {k: v.cpu().numpy() for k, v in leaves.items()}
+                for g, leaves in prm.items()}
+        ckpt = os.path.join(tmp, "checkpoint-0.pkl")
+        with open(ckpt, "wb") as f:
+            pickle.dump({"model": tree, "optimizer": None,
+                         "iterations": 0}, f)
+        return load_model(ckpt, tmp, dev)[0]
+
     def main_path(m):
-        from pytorchwavenetvocoder_tpu_torch.bin.decode import (
-            decode_batches,
-            load_model,
-        )
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _pad_aux_to,
             upsample_aux,
@@ -614,17 +670,7 @@ def main() -> int:
 
         cfg, prm, uf = m["cfg"], m["params"], m["cfg"].upsampling_factor
         with tempfile.TemporaryDirectory(dir=root) as tmp:
-            conf = dict(cfg.to_dict(), use_upsampling_layer=True,
-                        feature_type="world", use_speaker_code=False)
-            with open(os.path.join(tmp, "model.conf"), "w") as f:
-                json.dump(conf, f)
-            tree = {g: {k: v.cpu().numpy() for k, v in leaves.items()}
-                    for g, leaves in prm.items()}
-            ckpt = os.path.join(tmp, "checkpoint-0.pkl")
-            with open(ckpt, "wb") as f:
-                pickle.dump({"model": tree, "optimizer": None,
-                             "iterations": 0}, f)
-            model, conf = load_model(ckpt, tmp, dev)
+            model = write_bundle(cfg, prm, tmp)
 
             B = m["fleet"]
             r = np.random.RandomState(5)
@@ -682,8 +728,8 @@ def main() -> int:
             launches = {"ar_step": ak.ar_generate.launches,
                         "ar_step_int8": ak.ar_generate.int8_launches,
                         "layer_stack_fwd": tk.layer_stack_streams.launches}
-            set_launches(m, {k: launches[k] for k in ("ar_step",
-                                                      "layer_stack_fwd")})
+            set_launches(m, {"ar_persistent": launches["ar_step"],
+                             "layer_stack_fwd": launches["layer_stack_fwd"]})
 
             bad = []
             for b, n in enumerate(n_list):
@@ -725,6 +771,70 @@ def main() -> int:
                 raise AssertionError(f"not one K1 launch, K2 launched and no "
                                      f"plain loop: {launches}, plain "
                                      f"{plain_runs[0]}")
+
+    def main_f32(m):
+        """The [main] fleet from a float32-conf bundle of the same weights
+        (what the JAX package's bin/convert_checkpoint.py writes for a
+        reference checkpoint) through decode_batches(impl="auto"): the
+        warm-up on the plain f32 forward, the ring in bf16, K1 launched
+        once per fleet and the plain loop never run."""
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        if m["name"] not in fleet:
+            raise AssertionError("no fleet: [main] did not run")
+        cfg = dataclasses.replace(m["cfg"], compute_dtype="float32")
+        fl = fleet[m["name"]]
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            model = write_bundle(cfg, m["params"], tmp)
+            outdir = os.path.join(tmp, "wav")
+            plain_runs = [0]
+            real_ref = ak.ar_generate_reference
+
+            def counted_ref(*a, **k):
+                plain_runs[0] += 1
+                return real_ref(*a, **k)
+
+            ak.ar_generate_reference = counted_ref
+            ak.ar_generate.launches = 0
+            ak.ar_generate.int8_launches = 0
+            tk.layer_stack_streams.launches = 0
+            try:
+                res = decode_batches(model, [(fl["ids"], (fl["x"], fl["h"],
+                                                          fl["n_list"]))],
+                                     outdir, mode="sampling", impl="auto",
+                                     fs=m["fs"],
+                                     generator=torch.Generator().manual_seed(9))
+                torch.cuda.synchronize()
+            finally:
+                ak.ar_generate_reference = real_ref
+            launches = {"ar_step": ak.ar_generate.launches,
+                        "ar_step_int8": ak.ar_generate.int8_launches,
+                        "layer_stack_fwd": tk.layer_stack_streams.launches}
+            bad = []
+            for b, n in enumerate(fl["n_list"]):
+                wav, _fs = read_wav(os.path.join(outdir, fl["ids"][b] + ".wav"))
+                if wav.shape != (n,) or not np.isfinite(wav).all():
+                    bad.append((fl["ids"][b], wav.shape, n))
+                if b == 0:
+                    spread = float(np.std(wav))
+        max_n = max(fl["n_list"])
+        print(f"[main f32{m['tag']}] {m['name']} float32 conf, decode_batches"
+              f"(impl='auto'): {len(fl['n_list'])} utts, {res['n_samples']} "
+              f"samples in {res['seconds']:.3f} s = "
+              f"{res['n_samples'] / res['seconds']:.0f} samples/s, "
+              f"{1e6 * res['seconds'] / max_n:.1f} us/step (warm-up on the "
+              f"plain f32 forward included) | launches {launches}, plain loop "
+              f"runs {plain_runs[0]} | wav std {spread} | {card}", flush=True)
+        if bad:
+            raise AssertionError(f"wavs of the wrong length or non-finite: "
+                                 f"{bad[:4]}")
+        if not spread or not np.isfinite(spread):
+            raise AssertionError(f"degenerate output wav (std {spread})")
+        if launches != {"ar_step": 1, "ar_step_int8": 0,
+                        "layer_stack_fwd": 0} or plain_runs[0]:
+            raise AssertionError(f"not one K1 launch on the float32 bundle's "
+                                 f"fleet: {launches}, plain {plain_runs[0]}")
 
     # ---- 5. the training path: K2 training mode, K3, bin/train.py ---------
     # The flagship training windows: --batch_length 20000 (arctic) and 15000
@@ -1710,6 +1820,7 @@ def main() -> int:
                            {"no_dil_bias": zero_dil_bias(params)}))
     phase("K1 chi2", chi2)
     phase("main", lambda: main_path(arctic))
+    phase("main f32", lambda: main_f32(arctic))
     phase("K2 train", lambda: k2_train(arctic))
     phase("K3", lambda: k3(arctic))
     phase("train", lambda: train_path(arctic))
@@ -1722,8 +1833,7 @@ def main() -> int:
     phase("K2 k3", lambda: k2(ljs))
     phase("K1 k3", lambda: k1(ljs, 256, 128,
                               {"lag_2d_dropped": drop_lag_2d(ljs["params"]),
-                               "lags_swapped": swap_lags(ljs["params"])},
-                              B_big=256))
+                               "lags_swapped": swap_lags(ljs["params"])}))
     phase("K1 int8 k3", lambda: k1_int8(ljs, 256, 128))
     phase("int8 track k3", lambda: int8_track(ljs, 10, 0.7))
     phase("main k3", lambda: main_path(ljs))

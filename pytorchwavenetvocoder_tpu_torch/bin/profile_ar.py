@@ -1,12 +1,15 @@
 #!/usr/bin/env python
-"""Per-launch device time of the AR kernel (K1) on a CUDA card.
+"""Device time of the AR kernel (K1) on a CUDA card.
 
 Decodes a fleet of random rows with random weights (seeded) at one of the
 two flagship configurations, then runs ``torch.profiler`` over ``--steps``
 argmax steps of ``ops/ar_kernel.py::ar_generate`` and prints, per CUDA
 kernel, its launches and device microseconds per step (the wrapper's
 per-call work, such as packing the weights, spread over the steps), the
-device-busy sum and the host clock per step.
+device-busy sum and the host clock per step.  bf16 runs the steps in one
+launch of the persistent kernel, whose device microseconds per step it
+names on a line of their own; int8 (``--quantize``) keeps the launch
+loop's table, one row per kernel of the step.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.profile_ar --model
 ljspeech --batch 16 [--quantize]``.
@@ -96,6 +99,12 @@ def main(argv=None) -> dict:
     for key, (count, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:9.2f} us/step  {count / n:6.1f} launches/step  "
               f"{key[:90]}")
+    if not args.quantize:
+        loop = [(c, us) for key, (c, us) in rows.items()
+                if "ar_persistent_kernel" in key]
+        print(f"  the AR loop: {sum(c for c, _ in loop)} launch(es) of "
+              f"ar_persistent_kernel for {n} steps, "
+              f"{sum(us for _, us in loop):.2f} us/step of device time")
     print(f"  device busy {busy:.1f} us/step, host clock {host_us:.1f} "
           f"us/step, idle share {1 - busy / host_us:.3f}")
     return dict(rows=rows, busy_us=busy, host_us=host_us)

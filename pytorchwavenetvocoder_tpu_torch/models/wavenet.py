@@ -451,9 +451,11 @@ def _warmup_chunk(config: WaveNetConfig, B: int, T0: int,
         return B
     c = config
     free, _total = torch.cuda.mem_get_info(device)
-    # per row: the L bf16 streams plus f32 gate-input temporaries of the
+    # per row: the L streams (bf16, or the compute dtype of a config that
+    # warms up on the plain forward) plus f32 gate-input temporaries of the
     # projection and the plain path
-    per_row = T0 * (c.n_layers * c.n_resch * 2 + 6 * c.n_resch * 4)
+    itemsize = torch.empty((), dtype=c.dtype).element_size()
+    per_row = T0 * (c.n_layers * c.n_resch * itemsize + 6 * c.n_resch * 4)
     return int(max(1, min(B, (free // 2) // max(per_row, 1))))
 
 

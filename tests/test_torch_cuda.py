@@ -9,6 +9,8 @@ suite's conftest imports jax, which these tests do not need):
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -246,7 +248,7 @@ def test_ar_kernel_one_launch_per_call(dev, kernel_size):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    loop = [nm for nm in names if nm.split("<")[0].split()[-1].startswith("ar_")]
+    loop = [nm for nm in names if re.match(r"(void )?ar_\w+_kernel", nm)]
     assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], loop
 
 
