@@ -522,7 +522,7 @@ def main() -> int:
         # the persistent kernel against the launch loop it replaced, in
         # turns (persistent, loop, loop, persistent; best of each), at the
         # fleet sizes 16, 32 and 256
-        turns = {}
+        turns, phases = {}, {}
         for b_t in (16, 32, 256):
             n_t = n if b_t == B else n_big
             if b_t == B:
@@ -539,6 +539,8 @@ def main() -> int:
                 got[k_].append(1e3 * time_ms(fns[k_]) / n_t)
             turns[b_t] = {k_: min(v) for k_, v in got.items()}
             k1_us[(m["name"], "bf16", b_t)] = turns[b_t]["persistent"]
+            if b_t in (B, 256):    # where a step's time goes
+                phases[b_t] = ak.ar_phase_times(prm, cfg, c_t, h_t, T_t, n_t)
             if b_t != B:
                 del c_t, h_t
         bb = ar_bound(cfg, 256, n_big, False)
@@ -578,6 +580,18 @@ def main() -> int:
               f"({1e3 * plain_ms / n:.1f} us/step), bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}){big} | {card}",
               flush=True)
+        print(f"[K1{m['tag']}] {m['name']} where a step goes, us per stage "
+              f"(the kernel's phase times; means over the blocks with a "
+              f"unit, the barrier wait over all blocks): " + "; ".join(
+                  f"B={b_}: " + ", ".join(
+                      f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
+                                  else f"ask {v['ask']:.2f} wait {v['wait']:.2f}"
+                                  f" products {v['products']:.2f} epilogue "
+                                  f"{v['epilogue']:.2f} units {v['units']:.2f}")
+                      for st, v in ph.items() if st != "barrier")
+                  + f", barrier {ph['barrier']['wait']:.2f} x "
+                  f"{ph['barrier']['per_step']:.0f}/step"
+                  for b_, ph in phases.items()) + f" | {card}", flush=True)
         kernel_entry("ar_persistent", m, "ar_persistent.cu",
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      ring["kernel"], ms, plain_ms, bnd)

@@ -125,7 +125,9 @@ def kernels() -> ctypes.CDLL:
         + [vp] * 9           # xs of skip gs sr h1 logits ids samples
         + [i32] * 10         # B R S Q A L K T0 max_n sampling
         + [ctypes.c_uint64]  # seed
-        + [vp, vp])          # plan (host int*), stream
+        + [vp, vp, vp])      # plan (host int*), phase times, stream
+    lib.wn_ar_phase_slots.restype = i32
+    lib.wn_ar_phase_slots.argtypes = []
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
         [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b

@@ -58,7 +58,7 @@ def main(argv=None) -> dict:
     r = np.random.RandomState(args.seed)
     B, n, T = args.batch, args.steps, cfg.receptive_field
     x = torch.as_tensor(r.randint(0, 256, (B, T)), device=dev)
-    h = torch.as_tensor(r.randn(B, T + 2 * n, cfg.n_aux).astype(np.float32),
+    h = torch.as_tensor(r.randn(B, T + 3 * n, cfg.n_aux).astype(np.float32),
                         device=dev)
     x, h = _pad_seed(cfg, x, h)
     h = h.contiguous()
@@ -107,7 +107,15 @@ def main(argv=None) -> dict:
               f"{sum(us for _, us in loop):.2f} us/step of device time")
     print(f"  device busy {busy:.1f} us/step, host clock {host_us:.1f} "
           f"us/step, idle share {1 - busy / host_us:.3f}")
-    return dict(rows=rows, busy_us=busy, host_us=host_us)
+    phases = None
+    if not args.quantize:
+        # where a step of the persistent kernel goes, from its phase times
+        phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n)
+        print("  us per stage (means over the blocks with a unit):")
+        for st, v in phases.items():
+            print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
+                                               for k, x in v.items()))
+    return dict(rows=rows, busy_us=busy, host_us=host_us, phases=phases)
 
 
 if __name__ == "__main__":

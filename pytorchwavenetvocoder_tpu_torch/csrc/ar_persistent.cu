@@ -121,14 +121,25 @@ struct ApArgs {
     int B, Mt, R, S, Q, A, Ap, L, h_T, T0, max_n, sampling;
     unsigned long long seed;
     ApStage st[AP_NSTAGES];
-    int smem_w[2], smem_a, smem_p;
+    // shared memory: two weight buffers, nab (1 or 2) A-row buffers, the
+    // warps' sums, the epilogue's operands
+    int smem_w[2], smem_a[2], smem_p, smem_e, nab;
+    // phase times (null: off): per block AP_PH u64, see wn_ar_phase_slots
+    unsigned long long* phase;
 };
 
-// Per block: three mbarriers (the two weight buffers, the A rows) and the
-// parity each waits on next.
+// phase-time slots per block: per stage type (the four weighted ones, then
+// the sample stage) asking for operands, waiting for them, the products,
+// the epilogue, the stages with a unit, the units (ns sums and counts);
+// then the barrier waits and their count
+#define AP_PH_STAGE 6
+#define AP_PH (5 * AP_PH_STAGE + 2)
+
+// Per block: four mbarriers (the two weight buffers, the two A-row
+// buffers) and the parity each waits on next.
 struct ApBars {
     uint64_t* bar;
-    unsigned parity[3];
+    unsigned parity[4];
 };
 
 static __device__ __forceinline__ float ldcg_bf(const bf16* p) {
@@ -225,6 +236,71 @@ static __device__ void copy_a(const ApArgs& a, unsigned char* As, uint64_t* bar,
     }
 }
 
+// The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
+// of *rows (16-row tiles), column group *grp.
+static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage& s,
+                                                 int u, int* grp, int* r0,
+                                                 int* rows, int* n) {
+    *grp = u / s.rg;
+    const int rgi = u - *grp * s.rg;
+    *r0 = rgi * 16 * s.mt;
+    *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
+    *n = min(*rows, a.B - *r0);
+}
+
+// Warp 0: ask for unit u's A rows into A buffer ab (lane 0 makes the
+// buffer's one arrival, expecting every byte, before the copies).
+template <int KS, int T>
+static __device__ void issue_a(const ApArgs& a, unsigned char* smem, ApBars& bars,
+                               int ab, int l, int p, int u, int lane) {
+    const ApStage& s = a.st[T];
+    int grp, r0, rows, n;
+    unit_rows(a, s, u, &grp, &r0, &rows, &n);
+    if (lane == 0) mbar_expect(bars.bar + 2 + ab, (unsigned)n * s.K * 2);
+    __syncwarp();
+    copy_a<KS, T>(a, smem + a.smem_a[ab], bars.bar + 2 + ab, l, p, r0, n,
+                  s.K + AP_PAD, lane);
+}
+
+// The epilogue's operands of a unit into Es ([rmax][cw] per-row values,
+// then a row of per-column biases), asked for before the unit waits for its
+// A rows so that their latency overlaps: the ring tap (kernel_size 2, the
+// unit's sigmoid channels then its tanh channels), the old skip sum and
+// stream (res), the biases.
+template <int KS, int T>
+static __device__ void load_e(const ApArgs& a, float* Es, int l, int p, int grp,
+                              int r0, int n, int cw, int rmax) {
+    const int R = a.R, S = a.S;
+    float* eb = Es + (size_t)rmax * cw;
+    if constexpr (T == AP_GATE) {
+        const int hc = cw / 2;
+        for (int j = threadIdx.x; j < cw; j += AP_THREADS) {
+            const int c = grp * hc + (j < hc ? j : j - hc);
+            eb[j] = __ldg(a.zb + (size_t)l * 2 * R + (j < hc ? c : R + c));
+        }
+        if constexpr (KS == 2) {
+            const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+            const bf16* slot = a.ring + ((size_t)o + p % d) * a.B * 2 * R;
+            for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
+                const int ml = e / cw, j = e - ml * cw;
+                const int c = grp * hc + (j < hc ? j : j - hc);
+                Es[e] = ldcg_bf(slot + (size_t)(r0 + ml) * 2 * R + (j < hc ? c : R + c));
+            }
+        }
+    } else if constexpr (T == AP_RES) {
+        for (int j = threadIdx.x; j < cw; j += AP_THREADS)
+            eb[j] = __ldg(a.srb + (size_t)l * (S + R) + grp * cw + j);
+        for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
+            const int ml = e / cw, col = grp * cw + e - ml * cw, b = r0 + ml;
+            Es[e] = col < S ? (l == 0 ? 0.f : __ldcg(a.skip + (size_t)b * S + col))
+                            : __ldcg(a.of + (size_t)b * R + col - S);
+        }
+    } else {
+        const float* bias = T == AP_POST1 ? a.p1b : a.p2b;
+        for (int j = threadIdx.x; j < cw; j += AP_THREADS) eb[j] = __ldg(bias + grp * cw + j);
+    }
+}
+
 // the sum of column col of row ml over the warps' K slices, in slice order
 static __device__ __forceinline__ float psum(const float* Ps, int ks, int rows,
                                              int cols, int ml, int col) {
@@ -234,14 +310,16 @@ static __device__ __forceinline__ float psum(const float* Ps, int ks, int rows,
 }
 
 // The epilogue of one unit: rows [r0, r0 + n) (real rows only) of column
-// group grp; the sums in Ps ([ks][rows][cols]).
+// group grp; the sums in Ps ([ks][rows][cols]), the operands in Es
+// (load_e).
 template <int KS, int T>
-static __device__ void epilogue(const ApArgs& a, const float* Ps, int l, int p,
-                                int grp, int r0, int n, int rows, int cols, int ks) {
+static __device__ void epilogue(const ApArgs& a, const float* Ps, const float* Es,
+                                int l, int p, int grp, int r0, int n, int rows,
+                                int cols, int ks, int cw, int rmax) {
     const int R = a.R, S = a.S;
+    const float* eb = Es + (size_t)rmax * cw;
     if constexpr (T == AP_GATE) {
-        const int cw = KS == 2 ? cols / 2 : cols, hc = cw / 2;
-        const float* zb = a.zb + (size_t)l * 2 * R;
+        const int hc = cw / 2;
         bf16* slot = nullptr;
         if constexpr (KS == 2) {
             const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
@@ -254,19 +332,18 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, int l, int p,
             float zs = psum(Ps, ks, rows, cols, ml, cs);
             float zt = psum(Ps, ks, rows, cols, ml, ct);
             if constexpr (KS == 2) {
-                // read the ring tap, then overwrite it with the projection
-                // for step p + d: this thread is the element's only reader
+                // the ring tap this block read before the products (every
+                // read of the unit precedes the __syncthreads before this
+                // epilogue), then the projection for step p + d over it
+                zs += Es[ml * cw + ci];
+                zt += Es[ml * cw + hc + ci];
                 bf16* rr = slot + (size_t)b * 2 * R;
-                zs += ldcg_bf(rr + c);
-                zt += ldcg_bf(rr + R + c);
                 rr[c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + cs));
                 rr[R + c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + ct));
             }
-            a.gs[(size_t)b * R + c] = f2bf(wn_gate(zs + zb[c], zt + zb[R + c]));
+            a.gs[(size_t)b * R + c] = f2bf(wn_gate(zs + eb[ci], zt + eb[hc + ci]));
         }
     } else if constexpr (T == AP_RES) {
-        const int cw = cols;
-        const float* srb = a.srb + (size_t)l * (S + R);
         const bool last = l == a.L - 1;
         bf16* slot = nullptr;
         if constexpr (KS == 3) {
@@ -276,28 +353,24 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, int l, int p,
         for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
             const int ml = e / cw, jj = e - ml * cw;
             const int b = r0 + ml, col = grp * cw + jj;
-            const float v = psum(Ps, ks, rows, cols, ml, jj) + srb[col];
+            const float v = psum(Ps, ks, rows, cols, ml, jj) + eb[jj];
+            const float old = Es[ml * cw + jj], nv = v + old;
             if (col < S) {
-                float* dst = a.skip + (size_t)b * S + col;
-                const float nv = l == 0 ? v : v + __ldcg(dst);
-                *dst = nv;
+                a.skip[(size_t)b * S + col] = nv;
                 if (last) a.sr[(size_t)b * S + col] = f2bf(fmaxf(nv, 0.f));
             } else {
                 const int j = col - S;
-                float* dst = a.of + (size_t)b * R + j;
-                const float old = __ldcg(dst), nv = v + old;
-                *dst = nv;
+                a.of[(size_t)b * R + j] = nv;
                 a.xs[(size_t)b * (R + a.Ap) + j] = f2bf(nv);
                 if constexpr (KS == 3) slot[(size_t)b * R + j] = f2bf(old);
             }
         }
     } else {
         const int N = T == AP_POST1 ? S : a.Q;
-        const float* bias = T == AP_POST1 ? a.p1b : a.p2b;
         for (int e = threadIdx.x; e < n * cols; e += AP_THREADS) {
             const int ml = e / cols, jj = e - ml * cols;
             const int b = r0 + ml, col = grp * cols + jj;
-            const float v = psum(Ps, ks, rows, cols, ml, jj) + bias[col];
+            const float v = psum(Ps, ks, rows, cols, ml, jj) + eb[jj];
             if constexpr (T == AP_POST1) a.h1[(size_t)b * N + col] = f2bf(fmaxf(v, 0.f));
             else a.logits[(size_t)b * N + col] = v;
         }
@@ -306,9 +379,10 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, int l, int p,
 
 // One weighted stage: this block's run of units, each taking all of K.  The
 // first unit's weights were asked for during the previous stage; a later
-// unit asks for its own only where its column group changes.  Right after
-// asking for its first unit's A rows, the block asks for its first unit's
-// weights of the next stage (Tn at layer ln; Tn < 0: none).
+// unit asks for its own only where its column group changes.  With two A
+// buffers, a unit's A rows are asked for while the unit before it computes.
+// Right after asking for its first unit's A rows, the block asks for its
+// first unit's weights of the next stage (Tn at layer ln; Tn < 0: none).
 template <int KS, int T>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                               int Tn, int ln) {
@@ -319,40 +393,44 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     constexpr int buf = T & 1;
     const int u0 = unit_begin(s.units, blockIdx.x);
     const int u1 = unit_begin(s.units, blockIdx.x + 1);
-    if (u0 >= u1) {   // no unit here: still ask for the next stage's weights
-        if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
-        return;
-    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 && u0 < u1) issue_a<KS, T>(a, smem, bars, 0, l, p, u0, lane);
+    if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
+    if (u0 >= u1) return;
     const int K = s.K, KT = K / 16, cols = s.quarters * s.cw, ntu = cols / 16;
-    const int lda = K + AP_PAD, ks = s.ks;
-    const bf16* As = (const bf16*)(smem + a.smem_a);
+    const int lda = K + AP_PAD, ks = s.ks, rmax = 16 * s.mt;
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
     float* Ps = (float*)(smem + a.smem_p);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* Es = (float*)(smem + a.smem_e);
+    unsigned long long* ph = a.phase != nullptr && threadIdx.x == 0
+        ? a.phase + (size_t)blockIdx.x * AP_PH + T * AP_PH_STAGE : nullptr;
+    unsigned long long t[5] = {0, 0, 0, 0, 0};
     int have = -1;     // the column group whose weights the buffer holds
     for (int u = u0; u < u1; ++u) {
-        const int grp = u / s.rg, rgi = u - grp * s.rg;
-        const int r0 = rgi * 16 * s.mt;
-        const int mtu = min(s.mt, a.Mt - rgi * s.mt), rows = 16 * mtu;
-        const int n = min(rows, a.B - r0);
+        const int ab = a.nab == 2 ? (u - u0) & 1 : 0;
+        int grp, r0, rows, n;
+        unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
-        __syncthreads();   // the previous unit's tiles and sums are consumed
+        if (ph) t[0] = now_ns();
+        if (u != u0) __syncthreads();   // the previous unit's tiles, sums, operands consumed
         if (warp == 0) {
-            if (lane == 0) {
-                if (fetch) fetch_w(a, smem, bars, T, l, grp);
-                mbar_expect(bars.bar + 2, (unsigned)n * K * 2);
-            }
-            __syncwarp();
-            copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, lda, lane);
-            if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
+            if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
+            if (a.nab == 1 && u != u0) issue_a<KS, T>(a, smem, bars, 0, l, p, u, lane);
+            if (a.nab == 2 && u + 1 < u1)
+                issue_a<KS, T>(a, smem, bars, ab ^ 1, l, p, u + 1, lane);
         }
-        mbar_wait(bars.bar + 2, bars.parity[2]);
-        bars.parity[2] ^= 1;
+        load_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw, rmax);
+        if (ph) t[1] = now_ns();
+        mbar_wait(bars.bar + 2 + ab, bars.parity[2 + ab]);
+        bars.parity[2 + ab] ^= 1;
         if (u == u0 || fetch) {
             mbar_wait(bars.bar + buf, bars.parity[buf]);
             bars.parity[buf] ^= 1;
         }
         have = grp;
+        if (ph) t[2] = now_ns();
+        const bf16* As = (const bf16*)(smem + a.smem_a[ab]);
+        const int mtu = rows / 16;
 
         // task = (16-column tile, K slice) over the unit's row tiles, with
         // AP_ACC independent sums per warp: one per row tile where the unit
@@ -381,7 +459,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
 #pragma unroll
                 for (int h = 1; h < AP_ACC; ++h)
 #pragma unroll
-                    for (int t = 0; t < acc[0].num_elements; ++t) acc[0].x[t] += acc[h].x[t];
+                    for (int i = 0; i < acc[0].num_elements; ++i) acc[0].x[i] += acc[h].x[i];
             } else {
 #pragma unroll 2
                 for (int kt = kb; kt < ke; ++kt) {
@@ -404,8 +482,18 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                                             acc[i], cols, wmma::mem_row_major);
         }
         __syncthreads();
-        epilogue<KS, T>(a, Ps, l, p, grp, r0, n, rows, cols, ks);
+        if (ph) t[3] = now_ns();
+        epilogue<KS, T>(a, Ps, Es, l, p, grp, r0, n, rows, cols, ks, s.cw, rmax);
+        if (a.phase != nullptr) {
+            __syncthreads();   // every thread's epilogue
+            if (ph) {
+                t[4] = now_ns();
+                for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
+                ph[5] += 1;
+            }
+        }
     }
+    if (ph) ph[4] += 1;
     // the next stages' bulk copies read what this stage wrote
     fence_proxy_async();
 }
@@ -416,6 +504,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
 template <int KS>
 static __device__ void sample_stage(const ApArgs& a, int step, int p) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
     for (int b = blockIdx.x * AP_WARPS + warp; b < a.B; b += gridDim.x * AP_WARPS) {
         float best = -INFINITY;
         int bi = 0x7fffffff;
@@ -443,16 +532,37 @@ static __device__ void sample_stage(const ApArgs& a, int step, int p) {
         if (step + 1 < a.max_n) embed_row<KS>(a, b, id, p + 1, lane);
     }
     fence_proxy_async();
+    if (a.phase != nullptr) {
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH
+                                     + AP_NSTAGES * AP_PH_STAGE;
+            ph[3] += now_ns() - t0;
+            ph[4] += 1;
+        }
+    }
+}
+
+// the grid barrier; with phase times on, thread 0 of each block adds its
+// wait (its arrival to the last block's) and counts it
+static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_group& grid) {
+    const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
+    grid.sync();
+    if (a.phase != nullptr && threadIdx.x == 0) {
+        unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH + 5 * AP_PH_STAGE;
+        ph[0] += now_ns() - t0;
+        ph[1] += 1;
+    }
 }
 
 template <int KS>
 __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
-    __shared__ __align__(8) uint64_t bar[3];
+    __shared__ __align__(8) uint64_t bar[4];
     cg::grid_group grid = cg::this_grid();
-    ApBars bars = {bar, {0u, 0u, 0u}};
+    ApBars bars = {bar, {0u, 0u, 0u, 0u}};
     if (threadIdx.x == 0) {
-        for (int i = 0; i < 3; ++i) mbar_init(bar + i);
+        for (int i = 0; i < 4; ++i) mbar_init(bar + i);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
@@ -466,23 +576,23 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
     }
     fence_proxy_async();
     if (threadIdx.x == 0) prefetch(a, smem, bars, AP_GATE, 0);
-    grid.sync();
+    timed_sync(a, grid);
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
         for (int l = 0; l < a.L; ++l) {
             wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
-            grid.sync();
+            timed_sync(a, grid);
             if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1);
             else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0);
-            grid.sync();
+            timed_sync(a, grid);
         }
         wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
-        grid.sync();
+        timed_sync(a, grid);
         // the next step's first gate weights: buffer 0, free since post1
         wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0);
-        grid.sync();
+        timed_sync(a, grid);
         sample_stage<KS>(a, i, p);
-        if (i + 1 < a.max_n) grid.sync();
+        if (i + 1 < a.max_n) timed_sync(a, grid);
     }
 }
 
@@ -517,19 +627,24 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
     *smem = plan[1];
     a->smem_w[0] = plan[2];
     a->smem_w[1] = plan[3];
-    a->smem_a = plan[4];
-    a->smem_p = plan[5];
-    if (a->smem_w[0] != 0 || a->smem_w[1] < 0 || a->smem_a < a->smem_w[1]
-        || a->smem_p < a->smem_a || *smem < a->smem_p || *grid < 1
-        || a->R % 16 || a->S % 16 || a->Q % 16 || a->Ap % 16 || a->Ap < a->A)
+    a->smem_a[0] = plan[4];
+    a->smem_a[1] = plan[5];
+    a->smem_p = plan[6];
+    a->smem_e = plan[7];
+    a->nab = plan[8];
+    const int wcap = a->smem_w[1], acap = a->smem_a[1] - a->smem_a[0];
+    if (a->smem_w[0] != 0 || wcap < 0 || a->smem_a[0] != 2 * wcap || acap < 0
+        || (a->nab != 1 && a->nab != 2)
+        || a->smem_p != a->smem_a[0] + a->nab * acap || a->smem_e < a->smem_p
+        || *smem < a->smem_e || *grid < 1 || a->R % 16 || a->S % 16
+        || a->Q % 16 || a->Ap % 16 || a->Ap < a->A)
         return -3;
-    const int wcap = a->smem_w[1], wcap1 = a->smem_a - a->smem_w[1];
     for (int T = 0; T < AP_NSTAGES; ++T) {
         ApStage& s = a->st[T];
         stage_shape(T, K_, a->R, a->S, a->Q, a->Ap, &s.K, &s.quarters, &s.N);
-        s.cw = plan[6 + 3 * T];
-        s.mt = plan[7 + 3 * T];
-        s.ks = plan[8 + 3 * T];
+        s.cw = plan[9 + 3 * T];
+        s.mt = plan[10 + 3 * T];
+        s.ks = plan[11 + 3 * T];
         if (s.cw < 16 || s.cw % 16 || s.N % s.cw || s.mt < 1 || s.mt > AP_MT_MAX
             || s.ks < 1 || s.ks > s.K / 16)
             return -3;
@@ -539,8 +654,9 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
         const long long wbytes = (long long)s.K * s.quarters * s.cw * 2;
         const long long abytes = 16LL * s.mt * (s.K + AP_PAD) * 2;
         const long long pbytes = (long long)s.ks * 16 * s.mt * s.quarters * s.cw * 4;
-        if (wbytes > wcap || wbytes > wcap1 || abytes > a->smem_p - a->smem_a
-            || pbytes > *smem - a->smem_p)
+        const long long ebytes = (16LL * s.mt + 1) * s.cw * 4;
+        if (wbytes > wcap || abytes > acap || pbytes > a->smem_e - a->smem_p
+            || ebytes > *smem - a->smem_e)
             return -3;
     }
     int dev = 0, sms = 0, coop = 0, bps = 0;
@@ -570,8 +686,12 @@ extern "C" {
 // dilation.  Scratch: xs (B, R + Ap) bf16 with columns R + A .. R + Ap - 1
 // zero (Ap = A rounded up to 16); of (B, R), skip (B, S), logits (B, Q) f32;
 // gs (B, R), sr, h1 (B, S) bf16.  ids (B, K) int32, updated in place;
-// samples (B, max_n) int32.  plan: host ints of ar_plan_array.  Returns 0,
-// a negative plan error (check_plan) or a CUDA error.
+// samples (B, max_n) int32.  plan: host ints of ar_plan_array.  phase:
+// null, or (grid, wn_ar_phase_slots()) zeroed u64 that the run adds
+// nanoseconds and counts to (AP_PH_STAGE slots per stage type: gate, res,
+// post1, post2, sample; then the barrier waits and their count; thread 0,
+// globaltimer).  Returns 0, a negative plan error (check_plan) or a CUDA
+// error.
 int wn_ar_generate_persistent(
     const void* w_gate, const void* w_res, const void* w_post1, const void* w_post2,
     const void* zb, const void* srb, const void* p1b, const void* p2b,
@@ -579,7 +699,7 @@ int wn_ar_generate_persistent(
     void* ring, const void* meta, void* xs, void* of, void* skip, void* gs,
     void* sr, void* h1, void* logits, void* ids, void* samples, int B, int R,
     int S, int Q, int A, int L, int K, int T0, int max_n, int sampling,
-    unsigned long long seed, const void* plan, void* stream) {
+    unsigned long long seed, const void* plan, void* phase, void* stream) {
     if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
     if (B < 1 || max_n < 1 || L < 1) return -3;
     ApArgs a;
@@ -618,6 +738,7 @@ int wn_ar_generate_persistent(
     a.max_n = max_n;
     a.sampling = sampling;
     a.seed = seed;
+    a.phase = (unsigned long long*)phase;
     int grid = 0, smem = 0;
     const int err = check_plan((const int*)plan, &a, K, &grid, &smem);
     if (err != 0) return err;
@@ -628,5 +749,7 @@ int wn_ar_generate_persistent(
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
+
+int wn_ar_phase_slots(void) { return AP_PH; }
 
 }  // extern "C"

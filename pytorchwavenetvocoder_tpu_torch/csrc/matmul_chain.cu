@@ -118,12 +118,6 @@ struct McArgs {
 
 #define MC_PHASES 8
 
-static __device__ __forceinline__ unsigned long long now_ns() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-    return t;
-}
-
 template <int V> struct McTypes {
     typedef bf16 T;
     typedef float Acc;

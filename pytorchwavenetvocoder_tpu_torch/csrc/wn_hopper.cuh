@@ -9,6 +9,13 @@
 
 #include "wn_common.cuh"
 
+// the global nanosecond timer (phase times of the persistent kernels)
+static __device__ __forceinline__ unsigned long long now_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+    return t;
+}
+
 // ---- bulk copies -----------------------------------------------------------
 static __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);

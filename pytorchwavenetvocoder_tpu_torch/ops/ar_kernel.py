@@ -534,10 +534,12 @@ def pack_ar_weights(params, config) -> dict:
 AR_STAGES = ("gate", "res", "post1", "post2")
 
 #: Shared memory a unit may take per region: a weight slice (two buffers:
-#: this stage's and the next one's, prefetched; the plan tries the caps in
-#: turn until the whole fits), the A rows, the warps' partial sums
-AR_W_CAPS, AR_A_MAX, AR_P_MAX = (80 * 1024, 64 * 1024, 48 * 1024), \
-    64 * 1024, 32 * 1024
+#: this stage's and the next one's, prefetched), the A rows (two buffers
+#: where they fit: the next unit's rows arrive while a unit computes), the
+#: warps' partial sums; the plan tries the caps in turn until the whole fits
+AR_W_CAPS = (80 * 1024, 64 * 1024, 48 * 1024)
+AR_A_CAPS = (64 * 1024, 52 * 1024, 40 * 1024, 28 * 1024)
+AR_P_CAPS = (32 * 1024, 16 * 1024)
 
 #: Dynamic shared memory a block of the persistent kernel may take: the
 #: H100's 232,448 bytes less 1 KB for its static mbarriers
@@ -577,7 +579,7 @@ def ar_stage_shapes(config) -> dict:
 
 
 def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
-         w_max: int):
+         w_max: int, a_max: int, p_max: int):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
@@ -592,12 +594,12 @@ def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
         for mt in (4, 3, 2, 1):
             rg = -(-row_tiles // mt)
             mt_used = -(-row_tiles // rg)
-            if mt_used != mt or 16 * mt * (K + AR_A_PAD) * 2 > AR_A_MAX:
+            if mt_used != mt or 16 * mt * (K + AR_A_PAD) * 2 > a_max:
                 continue
             ks = max(1, 8 // ntu)       # the warps split K: a task each
-            while ks > 1 and ks * 16 * mt * quarters * cw * 4 > AR_P_MAX:
+            while ks > 1 and ks * 16 * mt * quarters * cw * 4 > p_max:
                 ks //= 2
-            if ks * 16 * mt * quarters * cw * 4 > AR_P_MAX or K // 16 < ks:
+            if ks * 16 * mt * quarters * cw * 4 > p_max or K // 16 < ks:
                 continue
             units = rg * (N // cw)
             if best is not None:
@@ -610,6 +612,30 @@ def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
     return best
 
 
+def _cut_stages(shapes: dict, row_tiles: int, grid: int, w_max: int,
+                a_max: int, p_max: int):
+    """Every stage's cut under the caps: the gate first (the largest K);
+    the other stages within the gate's weight slice and A rows where they
+    fit there (a larger slice would only grow the buffers), else within the
+    caps.  None where a stage has no cut."""
+    K, q, N = shapes["gate"]
+    gate = _cut(K, q, N, row_tiles, grid, w_max, a_max, p_max)
+    if gate is None:
+        return None
+    wg = gate["K"] * gate["quarters"] * gate["cw"] * 2
+    ag = 16 * gate["mt"] * (gate["K"] + AR_A_PAD) * 2
+    stages = {"gate": gate}
+    for name, (K, q, N) in shapes.items():
+        if name != "gate":
+            stages[name] = (_cut(K, q, N, row_tiles, grid, min(w_max, wg),
+                                 min(a_max, ag), p_max)
+                            or _cut(K, q, N, row_tiles, grid, w_max, a_max,
+                                    p_max))
+            if stages[name] is None:
+                return None
+    return stages
+
+
 def _align256(n: int) -> int:
     return (n + 255) & ~255
 
@@ -618,9 +644,11 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
     """The persistent bf16 kernel's launch plan for a fleet of B rows: per
     weighted stage (``AR_STAGES``) its cut (``_cut``), the grid (one block
     per SM: ``grid``, default the current CUDA device's SM count, else an
-    H100's 132) and the shared-memory layout.  Raises ValueError where a
-    stage has no cut that fits.  ``csrc/ar_persistent.cu`` checks the same
-    plan again before it launches."""
+    H100's 132) and the shared-memory layout: two weight buffers, ``nab``
+    A-row buffers (2 where they fit), the warps' sums, the epilogues'
+    operands.  Raises ValueError where no cut fits.
+    ``csrc/ar_persistent.cu`` checks the same plan again before it
+    launches."""
     if B < 1:
         raise ValueError(f"B must be >= 1, got {B}")
     if grid is None:
@@ -628,35 +656,42 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
             torch.cuda.current_device()).multi_processor_count
             if torch.cuda.is_available() else H100_SMS)
     row_tiles = -(-B // 16)
-    for w_max in AR_W_CAPS:
-        stages = {}
-        for name, (K, quarters, N) in ar_stage_shapes(config).items():
-            stages[name] = _cut(K, quarters, N, row_tiles, grid, w_max)
-        if any(s is None for s in stages.values()):
-            continue
-        w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2)
-                for s in stages.values())
-        a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
-                for s in stages.values())
-        p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"]
-                          * 4) for s in stages.values())
-        if 2 * w + a + p <= AR_SMEM_MAX:
-            return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
-                        smem_w=(0, w), smem_a=2 * w, smem_p=2 * w + a,
-                        smem=2 * w + a + p)
-    shapes = ", ".join(f"{n} K={K} x {q * N}" for n, (K, q, N)
-                       in ar_stage_shapes(config).items())
+    shapes = ar_stage_shapes(config)
+    caps = [(w, a, p) for w in AR_W_CAPS for a in AR_A_CAPS
+            for p in AR_P_CAPS]
+    for nab in (2, 1):
+        for w_max, a_max, p_max in caps:
+            stages = _cut_stages(shapes, row_tiles, grid, w_max, a_max, p_max)
+            if stages is None:
+                continue
+            vals = stages.values()
+            w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2)
+                    for s in vals)
+            a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
+                    for s in vals)
+            p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"]
+                              * s["cw"] * 4) for s in vals)
+            e = max(_align256((16 * s["mt"] + 1) * s["cw"] * 4)
+                    for s in vals)
+            smem_p = 2 * w + nab * a
+            if smem_p + p + e <= AR_SMEM_MAX:
+                return dict(grid=grid, B=B, row_tiles=row_tiles,
+                            stages=stages, nab=nab, smem_w=(0, w),
+                            smem_a=(2 * w, 2 * w + a), smem_p=smem_p,
+                            smem_e=smem_p + p, smem=smem_p + p + e)
+    desc = ", ".join(f"{n} K={K} x {q * N}" for n, (K, q, N) in shapes.items())
     raise ValueError(f"the persistent AR kernel has no cut of its stages "
-                     f"({shapes}) whose weight slices, A rows and sums fit "
+                     f"({desc}) whose weight slices, A rows and sums fit "
                      f"a block's {AR_SMEM_MAX} bytes of shared memory")
 
 
 def ar_plan_array(plan: dict) -> list:
     """The plan as the int array ``wn_ar_generate_persistent`` takes: grid,
-    smem, the two weight buffers', the A rows' and the sums' offsets, then
-    per stage cw, mt, ks."""
-    out = [plan["grid"], plan["smem"], *plan["smem_w"], plan["smem_a"],
-           plan["smem_p"]]
+    smem, the two weight buffers', the two A buffers', the sums' and the
+    epilogue operands' offsets, the A buffers in use, then per stage cw,
+    mt, ks."""
+    out = [plan["grid"], plan["smem"], *plan["smem_w"], *plan["smem_a"],
+           plan["smem_p"], plan["smem_e"], plan["nab"]]
     for name in AR_STAGES:
         s = plan["stages"][name]
         out += [s["cw"], s["mt"], s["ks"]]
@@ -834,10 +869,13 @@ def _plan_error(err: int) -> str:
 
 
 def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
-                seed: int, sampling: bool) -> torch.Tensor:
+                seed: int, sampling: bool,
+                phase: torch.Tensor | None = None) -> torch.Tensor:
     """bf16: every step in one cooperative launch of
     ``wn_ar_generate_persistent`` on the plan ``ar_plan`` cuts for this
-    fleet; ``ids`` (B, k) updated in place.  Returns (B, max_n) int32."""
+    fleet; ``ids`` (B, k) updated in place; ``phase`` (grid,
+    ``wn_ar_phase_slots()``) zeroed int64 turns the kernel's phase times on.
+    Returns (B, max_n) int32."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
@@ -872,7 +910,8 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
             _ptr(of), _ptr(skip), _ptr(gs), _ptr(sr), _ptr(h1), _ptr(logits),
             _ptr(ids), _ptr(samples), B, R, S, Q, A, L, c.kernel_size, T0,
             max_n, int(sampling), seed,
-            ctypes.cast(plan_arr, ctypes.c_void_p), ctypes.c_void_p(stream))
+            ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(phase),
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate_persistent (B={B}) failed: "
                            f"{_plan_error(err)}")
@@ -960,6 +999,51 @@ def _launch_loop(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     if err != 0:
         raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
     return samples
+
+
+#: The persistent kernel's stage types in its phase-time slots
+AR_PHASE_STAGES = AR_STAGES + ("sample",)
+
+
+def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
+                   max_n: int) -> dict:
+    """Where a step of the persistent bf16 kernel goes: runs ``max_n``
+    argmax steps (carry updated in place) with the kernel's phase times on
+    and returns, per stage type, the mean microseconds a block with a unit
+    spends per stage asking for its operands, waiting for them, in the
+    products and in the epilogue (the sample stage: all of it), and its
+    units per stage; and the mean wait per grid barrier over all blocks,
+    and the barriers per step.  CUDA only; not counted in
+    ``ar_generate.launches``."""
+    from pytorchwavenetvocoder_tpu_torch._build import kernels
+
+    act_buf, sample_hist, prev = carry
+    dev = act_buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"ar_phase_times runs on a CUDA device, not {dev}")
+    with torch.cuda.device(dev):
+        slots = kernels().wn_ar_phase_slots()
+        grid = ar_plan(config, prev.shape[0])["grid"]
+    phase = torch.zeros((grid, slots), dtype=torch.int64, device=dev)
+    ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
+    _persistent(pack_ar_weights(params, config), config, act_buf, ids, h_up,
+                T0, max_n, 0, False, phase)
+    sample_hist.copy_(ids[:, :-1])
+    prev.copy_(ids[:, -1])
+    ph = phase.cpu().double()
+    per = len(AR_PHASE_STAGES)
+    out = {}
+    for i, name in enumerate(AR_PHASE_STAGES):
+        blk = ph[:, i * 6: i * 6 + 6]
+        live = blk[:, 4] > 0
+        stage = blk[live] / blk[live, 4:5]
+        out[name] = dict(zip(("ask", "wait", "products", "epilogue"),
+                             (1e-3 * stage[:, :4].mean(dim=0)).tolist()),
+                         units=float(stage[:, 5].mean()))
+    bar = ph[:, per * 6: per * 6 + 2]
+    out["barrier"] = dict(wait=float(1e-3 * (bar[:, 0] / bar[:, 1]).mean()),
+                          per_step=float(bar[0, 1]) / max_n)
+    return out
 
 
 def ar_generate_launch_loop(params, config, carry, h_up: torch.Tensor,
