@@ -541,6 +541,9 @@ AR_W_CAPS = (80 * 1024, 64 * 1024, 48 * 1024)
 AR_A_CAPS = (64 * 1024, 52 * 1024, 40 * 1024, 28 * 1024)
 AR_P_CAPS = (32 * 1024, 16 * 1024)
 
+#: The A-row buffer counts the plan tries, in turn
+AR_A_BUFFERS = (2, 1)
+
 #: Dynamic shared memory a block of the persistent kernel may take: the
 #: H100's 232,448 bytes less 1 KB for its static mbarriers
 AR_SMEM_MAX = 232448 - 1024
@@ -659,7 +662,7 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
     shapes = ar_stage_shapes(config)
     caps = [(w, a, p) for w in AR_W_CAPS for a in AR_A_CAPS
             for p in AR_P_CAPS]
-    for nab in (2, 1):
+    for nab in AR_A_BUFFERS:
         for w_max, a_max, p_max in caps:
             stages = _cut_stages(shapes, row_tiles, grid, w_max, a_max, p_max)
             if stages is None:
