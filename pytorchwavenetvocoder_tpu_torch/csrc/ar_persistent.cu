@@ -121,9 +121,9 @@ struct ApArgs {
     int B, Mt, R, S, Q, A, Ap, L, h_T, T0, max_n, sampling;
     unsigned long long seed;
     ApStage st[AP_NSTAGES];
-    // shared memory: two weight buffers, nab (1 or 2) A-row buffers, the
-    // warps' sums, the epilogue's operands
-    int smem_w[2], smem_a[2], smem_p, smem_e, nab;
+    // shared memory: two weight buffers, the A rows, the warps' sums, the
+    // epilogue's operands
+    int smem_w[2], smem_a, smem_p, smem_e;
     // phase times (null: off): per block AP_PH u64, see wn_ar_phase_slots
     unsigned long long* phase;
 };
@@ -135,11 +135,11 @@ struct ApArgs {
 #define AP_PH_STAGE 6
 #define AP_PH (5 * AP_PH_STAGE + 2)
 
-// Per block: four mbarriers (the two weight buffers, the two A-row
-// buffers) and the parity each waits on next.
+// Per block: three mbarriers (the two weight buffers, the A rows) and the
+// parity each waits on next.
 struct ApBars {
     uint64_t* bar;
-    unsigned parity[4];
+    unsigned parity[3];
 };
 
 static __device__ __forceinline__ float ldcg_bf(const bf16* p) {
@@ -248,57 +248,70 @@ static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage&
     *n = min(*rows, a.B - *r0);
 }
 
-// Warp 0: ask for unit u's A rows into A buffer ab (lane 0 makes the
-// buffer's one arrival, expecting every byte, before the copies).
+// Warp 0: ask for unit u's A rows (lane 0 makes the A barrier's one
+// arrival, expecting every byte, before the copies).
 template <int KS, int T>
 static __device__ void issue_a(const ApArgs& a, unsigned char* smem, ApBars& bars,
-                               int ab, int l, int p, int u, int lane) {
+                               int l, int p, int u, int lane) {
     const ApStage& s = a.st[T];
     int grp, r0, rows, n;
     unit_rows(a, s, u, &grp, &r0, &rows, &n);
-    if (lane == 0) mbar_expect(bars.bar + 2 + ab, (unsigned)n * s.K * 2);
+    if (lane == 0) mbar_expect(bars.bar + 2, (unsigned)n * s.K * 2);
     __syncwarp();
-    copy_a<KS, T>(a, smem + a.smem_a[ab], bars.bar + 2 + ab, l, p, r0, n,
-                  s.K + AP_PAD, lane);
+    copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, s.K + AP_PAD, lane);
 }
 
-// The epilogue's operands of a unit into Es ([rmax][cw] per-row values,
-// then a row of per-column biases), asked for before the unit waits for its
-// A rows so that their latency overlaps: the ring tap (kernel_size 2, the
-// unit's sigmoid channels then its tanh channels), the old skip sum and
-// stream (res), the biases.
+// Every thread: its share of the 16-byte chunks of `runs` contiguous runs
+// of `bytes` each (run i from src + i * sstride bytes to dst + i * dstride)
+// by cp.async, committed as one group.
+static __device__ __forceinline__ void fetch_runs(unsigned char* dst, int dstride,
+                                                  const void* src, size_t sstride,
+                                                  int runs, int bytes, int first) {
+    const int per = bytes / 16;
+    for (int i = threadIdx.x - first; i < runs * per; i += AP_THREADS) {
+        if (i < 0) continue;
+        const int r = i / per, c = i - r * per;
+        cp_async16(dst + (size_t)r * dstride + 16 * c,
+                   (const char*)src + r * sstride + 16 * c);
+    }
+}
+
+// The epilogue's operands of a unit into Es, by cp.async right after the A
+// rows have arrived, so that they arrive during the products (asked for
+// earlier, they competed with the A rows and the weight prefetch):
+// per-row values [rmax][cw] (kernel_size 2 gate: the ring tap of the unit's
+// sigmoid then tanh channels, bf16; res: the old skip sum or stream, f32),
+// then a row of per-column biases (f32).
 template <int KS, int T>
-static __device__ void load_e(const ApArgs& a, float* Es, int l, int p, int grp,
-                              int r0, int n, int cw, int rmax) {
+static __device__ void fetch_e(const ApArgs& a, unsigned char* Es, int l, int p,
+                               int grp, int r0, int n, int cw, int rmax) {
     const int R = a.R, S = a.S;
-    float* eb = Es + (size_t)rmax * cw;
+    unsigned char* eb = Es + (size_t)rmax * cw * 4;
     if constexpr (T == AP_GATE) {
         const int hc = cw / 2;
-        for (int j = threadIdx.x; j < cw; j += AP_THREADS) {
-            const int c = grp * hc + (j < hc ? j : j - hc);
-            eb[j] = __ldg(a.zb + (size_t)l * 2 * R + (j < hc ? c : R + c));
-        }
+        const float* zb = a.zb + (size_t)l * 2 * R + grp * hc;
+        fetch_runs(eb, hc * 4, zb, (size_t)R * 4, 2, hc * 4, 0);
         if constexpr (KS == 2) {
             const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
-            const bf16* slot = a.ring + ((size_t)o + p % d) * a.B * 2 * R;
-            for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
-                const int ml = e / cw, j = e - ml * cw;
-                const int c = grp * hc + (j < hc ? j : j - hc);
-                Es[e] = ldcg_bf(slot + (size_t)(r0 + ml) * 2 * R + (j < hc ? c : R + c));
-            }
+            const bf16* row0 = a.ring + (((size_t)o + p % d) * a.B + r0) * 2 * R + grp * hc;
+            // per row: the sigmoid channels at row0, the tanh ones at + R
+            fetch_runs(Es, cw * 2, row0, (size_t)2 * R * 2, n, hc * 2, 64);
+            fetch_runs(Es + hc * 2, cw * 2, row0 + R, (size_t)2 * R * 2, n, hc * 2, 128);
         }
     } else if constexpr (T == AP_RES) {
-        for (int j = threadIdx.x; j < cw; j += AP_THREADS)
-            eb[j] = __ldg(a.srb + (size_t)l * (S + R) + grp * cw + j);
-        for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
-            const int ml = e / cw, col = grp * cw + e - ml * cw, b = r0 + ml;
-            Es[e] = col < S ? (l == 0 ? 0.f : __ldcg(a.skip + (size_t)b * S + col))
-                            : __ldcg(a.of + (size_t)b * R + col - S);
-        }
+        const int c0 = grp * cw;   // a column group lies wholly in skip or in res
+        fetch_runs(eb, 0, a.srb + (size_t)l * (S + R) + c0, 0, 1, cw * 4, 0);
+        if (c0 >= S)
+            fetch_runs(Es, cw * 4, a.of + (size_t)r0 * R + c0 - S, (size_t)R * 4, n,
+                       cw * 4, 64);
+        else if (l > 0)
+            fetch_runs(Es, cw * 4, a.skip + (size_t)r0 * S + c0, (size_t)S * 4, n,
+                       cw * 4, 64);
     } else {
         const float* bias = T == AP_POST1 ? a.p1b : a.p2b;
-        for (int j = threadIdx.x; j < cw; j += AP_THREADS) eb[j] = __ldg(bias + grp * cw + j);
+        fetch_runs(eb, 0, bias + grp * cw, 0, 1, cw * 4, 0);
     }
+    cp_async_commit();
 }
 
 // the sum of column col of row ml over the warps' K slices, in slice order
@@ -311,13 +324,14 @@ static __device__ __forceinline__ float psum(const float* Ps, int ks, int rows,
 
 // The epilogue of one unit: rows [r0, r0 + n) (real rows only) of column
 // group grp; the sums in Ps ([ks][rows][cols]), the operands in Es
-// (load_e).
+// (fetch_e).
 template <int KS, int T>
-static __device__ void epilogue(const ApArgs& a, const float* Ps, const float* Es,
+static __device__ void epilogue(const ApArgs& a, const float* Ps,
+                                const unsigned char* Es,
                                 int l, int p, int grp, int r0, int n, int rows,
                                 int cols, int ks, int cw, int rmax) {
     const int R = a.R, S = a.S;
-    const float* eb = Es + (size_t)rmax * cw;
+    const float* eb = (const float*)(Es + (size_t)rmax * cw * 4);
     if constexpr (T == AP_GATE) {
         const int hc = cw / 2;
         bf16* slot = nullptr;
@@ -335,8 +349,9 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, const float* E
                 // the ring tap this block read before the products (every
                 // read of the unit precedes the __syncthreads before this
                 // epilogue), then the projection for step p + d over it
-                zs += Es[ml * cw + ci];
-                zt += Es[ml * cw + hc + ci];
+                const bf16* tap = (const bf16*)Es + (size_t)ml * cw;
+                zs += bf2f(tap[ci]);
+                zt += bf2f(tap[hc + ci]);
                 bf16* rr = slot + (size_t)b * 2 * R;
                 rr[c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + cs));
                 rr[R + c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + ct));
@@ -354,7 +369,9 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, const float* E
             const int ml = e / cw, jj = e - ml * cw;
             const int b = r0 + ml, col = grp * cw + jj;
             const float v = psum(Ps, ks, rows, cols, ml, jj) + eb[jj];
-            const float old = Es[ml * cw + jj], nv = v + old;
+            const float old = col < S && l == 0
+                ? 0.f : ((const float*)Es)[(size_t)ml * cw + jj];
+            const float nv = v + old;
             if (col < S) {
                 a.skip[(size_t)b * S + col] = nv;
                 if (last) a.sr[(size_t)b * S + col] = f2bf(fmaxf(nv, 0.f));
@@ -379,10 +396,9 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps, const float* E
 
 // One weighted stage: this block's run of units, each taking all of K.  The
 // first unit's weights were asked for during the previous stage; a later
-// unit asks for its own only where its column group changes.  With two A
-// buffers, a unit's A rows are asked for while the unit before it computes.
-// Right after asking for its first unit's A rows, the block asks for its
-// first unit's weights of the next stage (Tn at layer ln; Tn < 0: none).
+// unit asks for its own only where its column group changes.  Right after
+// asking for its first unit's A rows, the block asks for its first unit's
+// weights of the next stage (Tn at layer ln; Tn < 0: none).
 template <int KS, int T>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                               int Tn, int ln) {
@@ -393,43 +409,42 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     constexpr int buf = T & 1;
     const int u0 = unit_begin(s.units, blockIdx.x);
     const int u1 = unit_begin(s.units, blockIdx.x + 1);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (warp == 0 && u0 < u1) issue_a<KS, T>(a, smem, bars, 0, l, p, u0, lane);
-    if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
-    if (u0 >= u1) return;
+    if (u0 >= u1) {   // no unit here: still ask for the next stage's weights
+        if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
+        return;
+    }
     const int K = s.K, KT = K / 16, cols = s.quarters * s.cw, ntu = cols / 16;
     const int lda = K + AP_PAD, ks = s.ks, rmax = 16 * s.mt;
+    const bf16* As = (const bf16*)(smem + a.smem_a);
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
     float* Ps = (float*)(smem + a.smem_p);
-    float* Es = (float*)(smem + a.smem_e);
+    unsigned char* Es = smem + a.smem_e;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     unsigned long long* ph = a.phase != nullptr && threadIdx.x == 0
         ? a.phase + (size_t)blockIdx.x * AP_PH + T * AP_PH_STAGE : nullptr;
     unsigned long long t[5] = {0, 0, 0, 0, 0};
     int have = -1;     // the column group whose weights the buffer holds
     for (int u = u0; u < u1; ++u) {
-        const int ab = a.nab == 2 ? (u - u0) & 1 : 0;
         int grp, r0, rows, n;
         unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
         if (ph) t[0] = now_ns();
-        if (u != u0) __syncthreads();   // the previous unit's tiles, sums, operands consumed
+        __syncthreads();   // the previous unit's tiles, sums and operands are consumed
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
-            if (a.nab == 1 && u != u0) issue_a<KS, T>(a, smem, bars, 0, l, p, u, lane);
-            if (a.nab == 2 && u + 1 < u1)
-                issue_a<KS, T>(a, smem, bars, ab ^ 1, l, p, u + 1, lane);
+            issue_a<KS, T>(a, smem, bars, l, p, u, lane);
+            if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
         }
-        load_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw, rmax);
         if (ph) t[1] = now_ns();
-        mbar_wait(bars.bar + 2 + ab, bars.parity[2 + ab]);
-        bars.parity[2 + ab] ^= 1;
+        mbar_wait(bars.bar + 2, bars.parity[2]);
+        bars.parity[2] ^= 1;
         if (u == u0 || fetch) {
             mbar_wait(bars.bar + buf, bars.parity[buf]);
             bars.parity[buf] ^= 1;
         }
         have = grp;
+        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw, rmax);
         if (ph) t[2] = now_ns();
-        const bf16* As = (const bf16*)(smem + a.smem_a[ab]);
         const int mtu = rows / 16;
 
         // task = (16-column tile, K slice) over the unit's row tiles, with
@@ -481,6 +496,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                     wmma::store_matrix_sync(Ps + ((size_t)ksi * rows + i * 16) * cols + nt * 16,
                                             acc[i], cols, wmma::mem_row_major);
         }
+        cp_async_wait();   // this thread's epilogue operands
         __syncthreads();
         if (ph) t[3] = now_ns();
         epilogue<KS, T>(a, Ps, Es, l, p, grp, r0, n, rows, cols, ks, s.cw, rmax);
@@ -558,11 +574,11 @@ static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_grou
 template <int KS>
 __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
-    __shared__ __align__(8) uint64_t bar[4];
+    __shared__ __align__(8) uint64_t bar[3];
     cg::grid_group grid = cg::this_grid();
-    ApBars bars = {bar, {0u, 0u, 0u, 0u}};
+    ApBars bars = {bar, {0u, 0u, 0u}};
     if (threadIdx.x == 0) {
-        for (int i = 0; i < 4; ++i) mbar_init(bar + i);
+        for (int i = 0; i < 3; ++i) mbar_init(bar + i);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
@@ -627,24 +643,21 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
     *smem = plan[1];
     a->smem_w[0] = plan[2];
     a->smem_w[1] = plan[3];
-    a->smem_a[0] = plan[4];
-    a->smem_a[1] = plan[5];
-    a->smem_p = plan[6];
-    a->smem_e = plan[7];
-    a->nab = plan[8];
-    const int wcap = a->smem_w[1], acap = a->smem_a[1] - a->smem_a[0];
-    if (a->smem_w[0] != 0 || wcap < 0 || a->smem_a[0] != 2 * wcap || acap < 0
-        || (a->nab != 1 && a->nab != 2)
-        || a->smem_p != a->smem_a[0] + a->nab * acap || a->smem_e < a->smem_p
-        || *smem < a->smem_e || *grid < 1 || a->R % 16 || a->S % 16
-        || a->Q % 16 || a->Ap % 16 || a->Ap < a->A)
+    a->smem_a = plan[4];
+    a->smem_p = plan[5];
+    a->smem_e = plan[6];
+    const int wcap = a->smem_w[1];
+    if (a->smem_w[0] != 0 || wcap < 0 || a->smem_a != 2 * wcap
+        || a->smem_p < a->smem_a || a->smem_e < a->smem_p || *smem < a->smem_e
+        || *grid < 1 || a->R % 16 || a->S % 16 || a->Q % 16 || a->Ap % 16
+        || a->Ap < a->A)
         return -3;
     for (int T = 0; T < AP_NSTAGES; ++T) {
         ApStage& s = a->st[T];
         stage_shape(T, K_, a->R, a->S, a->Q, a->Ap, &s.K, &s.quarters, &s.N);
-        s.cw = plan[9 + 3 * T];
-        s.mt = plan[10 + 3 * T];
-        s.ks = plan[11 + 3 * T];
+        s.cw = plan[7 + 3 * T];
+        s.mt = plan[8 + 3 * T];
+        s.ks = plan[9 + 3 * T];
         if (s.cw < 16 || s.cw % 16 || s.N % s.cw || s.mt < 1 || s.mt > AP_MT_MAX
             || s.ks < 1 || s.ks > s.K / 16)
             return -3;
@@ -655,7 +668,8 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
         const long long abytes = 16LL * s.mt * (s.K + AP_PAD) * 2;
         const long long pbytes = (long long)s.ks * 16 * s.mt * s.quarters * s.cw * 4;
         const long long ebytes = (16LL * s.mt + 1) * s.cw * 4;
-        if (wbytes > wcap || abytes > acap || pbytes > a->smem_e - a->smem_p
+        if (wbytes > wcap || abytes > a->smem_p - a->smem_a
+            || pbytes > a->smem_e - a->smem_p
             || ebytes > *smem - a->smem_e)
             return -3;
     }

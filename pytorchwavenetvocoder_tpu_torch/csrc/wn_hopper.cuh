@@ -1,8 +1,8 @@
 // Hopper helpers shared by the persistent kernels (csrc/matmul_chain.cu,
 // csrc/ar_persistent.cu) and the AR launch loop (csrc/ar_step.cu): bulk
 // copies into shared memory completing on mbarriers, the proxy fence their
-// writers need, and the counter-based Philox4x32-10 Gumbel noise of the
-// AR samplers.
+// writers need, 16-byte cp.async copies, and the counter-based
+// Philox4x32-10 Gumbel noise of the AR samplers.
 #pragma once
 
 #include <stdint.h>
@@ -45,6 +45,22 @@ static __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity)
                  " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
                  " @!done bra MC_WAIT_%=;\n}\n"
                  ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// 16 bytes global -> shared by cp.async (L2 only), completing in the
+// thread's current group
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait for every cp.async group of this thread
+static __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // order this thread's generic-proxy writes to global memory before later

@@ -534,15 +534,10 @@ def pack_ar_weights(params, config) -> dict:
 AR_STAGES = ("gate", "res", "post1", "post2")
 
 #: Shared memory a unit may take per region: a weight slice (two buffers:
-#: this stage's and the next one's, prefetched), the A rows (two buffers
-#: where they fit: the next unit's rows arrive while a unit computes), the
-#: warps' partial sums; the plan tries the caps in turn until the whole fits
+#: this stage's and the next one's, prefetched; the plan tries the caps in
+#: turn until the whole fits), the A rows, the warps' partial sums
 AR_W_CAPS = (80 * 1024, 64 * 1024, 48 * 1024)
-AR_A_CAPS = (64 * 1024, 52 * 1024, 40 * 1024, 28 * 1024)
-AR_P_CAPS = (32 * 1024, 16 * 1024)
-
-#: The A-row buffer counts the plan tries, in turn
-AR_A_BUFFERS = (2, 1)
+AR_A_MAX, AR_P_MAX = 64 * 1024, 32 * 1024
 
 #: Dynamic shared memory a block of the persistent kernel may take: the
 #: H100's 232,448 bytes less 1 KB for its static mbarriers
@@ -582,7 +577,7 @@ def ar_stage_shapes(config) -> dict:
 
 
 def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
-         w_max: int, a_max: int, p_max: int):
+         w_max: int, a_max: int = AR_A_MAX, p_max: int = AR_P_MAX):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
@@ -615,14 +610,13 @@ def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
     return best
 
 
-def _cut_stages(shapes: dict, row_tiles: int, grid: int, w_max: int,
-                a_max: int, p_max: int):
-    """Every stage's cut under the caps: the gate first (the largest K);
-    the other stages within the gate's weight slice and A rows where they
-    fit there (a larger slice would only grow the buffers), else within the
-    caps.  None where a stage has no cut."""
+def _cut_stages(shapes: dict, row_tiles: int, grid: int, w_max: int):
+    """Every stage's cut under the weight cap: the gate first (the largest
+    K); the other stages within the gate's weight slice and A rows where
+    they fit there (a larger slice would only grow the buffers), else
+    within the caps.  None where a stage has no cut."""
     K, q, N = shapes["gate"]
-    gate = _cut(K, q, N, row_tiles, grid, w_max, a_max, p_max)
+    gate = _cut(K, q, N, row_tiles, grid, w_max)
     if gate is None:
         return None
     wg = gate["K"] * gate["quarters"] * gate["cw"] * 2
@@ -631,9 +625,8 @@ def _cut_stages(shapes: dict, row_tiles: int, grid: int, w_max: int,
     for name, (K, q, N) in shapes.items():
         if name != "gate":
             stages[name] = (_cut(K, q, N, row_tiles, grid, min(w_max, wg),
-                                 min(a_max, ag), p_max)
-                            or _cut(K, q, N, row_tiles, grid, w_max, a_max,
-                                    p_max))
+                                 min(AR_A_MAX, ag))
+                            or _cut(K, q, N, row_tiles, grid, w_max))
             if stages[name] is None:
                 return None
     return stages
@@ -647,11 +640,10 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
     """The persistent bf16 kernel's launch plan for a fleet of B rows: per
     weighted stage (``AR_STAGES``) its cut (``_cut``), the grid (one block
     per SM: ``grid``, default the current CUDA device's SM count, else an
-    H100's 132) and the shared-memory layout: two weight buffers, ``nab``
-    A-row buffers (2 where they fit), the warps' sums, the epilogues'
-    operands.  Raises ValueError where no cut fits.
-    ``csrc/ar_persistent.cu`` checks the same plan again before it
-    launches."""
+    H100's 132) and the shared-memory layout: two weight buffers, the A
+    rows, the warps' sums, the epilogues' operands.  Raises ValueError where
+    no cut fits.  ``csrc/ar_persistent.cu`` checks the same plan again
+    before it launches."""
     if B < 1:
         raise ValueError(f"B must be >= 1, got {B}")
     if grid is None:
@@ -660,28 +652,21 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
             if torch.cuda.is_available() else H100_SMS)
     row_tiles = -(-B // 16)
     shapes = ar_stage_shapes(config)
-    caps = [(w, a, p) for w in AR_W_CAPS for a in AR_A_CAPS
-            for p in AR_P_CAPS]
-    for nab in AR_A_BUFFERS:
-        for w_max, a_max, p_max in caps:
-            stages = _cut_stages(shapes, row_tiles, grid, w_max, a_max, p_max)
-            if stages is None:
-                continue
-            vals = stages.values()
-            w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2)
-                    for s in vals)
-            a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
-                    for s in vals)
-            p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"]
-                              * s["cw"] * 4) for s in vals)
-            e = max(_align256((16 * s["mt"] + 1) * s["cw"] * 4)
-                    for s in vals)
-            smem_p = 2 * w + nab * a
-            if smem_p + p + e <= AR_SMEM_MAX:
-                return dict(grid=grid, B=B, row_tiles=row_tiles,
-                            stages=stages, nab=nab, smem_w=(0, w),
-                            smem_a=(2 * w, 2 * w + a), smem_p=smem_p,
-                            smem_e=smem_p + p, smem=smem_p + p + e)
+    for w_max in AR_W_CAPS:
+        stages = _cut_stages(shapes, row_tiles, grid, w_max)
+        if stages is None:
+            continue
+        vals = stages.values()
+        w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2) for s in vals)
+        a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
+                for s in vals)
+        p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"] * 4)
+                for s in vals)
+        e = max(_align256((16 * s["mt"] + 1) * s["cw"] * 4) for s in vals)
+        if 2 * w + a + p + e <= AR_SMEM_MAX:
+            return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
+                        smem_w=(0, w), smem_a=2 * w, smem_p=2 * w + a,
+                        smem_e=2 * w + a + p, smem=2 * w + a + p + e)
     desc = ", ".join(f"{n} K={K} x {q * N}" for n, (K, q, N) in shapes.items())
     raise ValueError(f"the persistent AR kernel has no cut of its stages "
                      f"({desc}) whose weight slices, A rows and sums fit "
@@ -690,11 +675,10 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
 
 def ar_plan_array(plan: dict) -> list:
     """The plan as the int array ``wn_ar_generate_persistent`` takes: grid,
-    smem, the two weight buffers', the two A buffers', the sums' and the
-    epilogue operands' offsets, the A buffers in use, then per stage cw,
-    mt, ks."""
-    out = [plan["grid"], plan["smem"], *plan["smem_w"], *plan["smem_a"],
-           plan["smem_p"], plan["smem_e"], plan["nab"]]
+    smem, the two weight buffers', the A rows', the sums' and the epilogue
+    operands' offsets, then per stage cw, mt, ks."""
+    out = [plan["grid"], plan["smem"], *plan["smem_w"], plan["smem_a"],
+           plan["smem_p"], plan["smem_e"]]
     for name in AR_STAGES:
         s = plan["stages"][name]
         out += [s["cw"], s["mt"], s["ks"]]
