@@ -55,11 +55,18 @@
 //    tiles (ops/ar_kernel.py::pack_ar_units), moved by one bulk copy
 //    (cp.async.bulk on an mbarrier); the next stage's slice of a block's
 //    first unit is asked for during this stage, into a second buffer, so
-//    the weight stream overlaps the stage and the barrier.  The A rows are
-//    row-major (the ring's layout), moved row by row by bulk copies into
-//    rows padded by 16 bytes (so wmma's row chunks fall on distinct banks);
-//    the writers of every array a later stage bulk-copies fence the proxies
-//    before the barrier.
+//    the weight stream overlaps the stage and the barrier.  The stages
+//    write their A operands (the stream with its aux column, the gate,
+//    relu(skip), post1's output) in rows padded by 16 bytes, as the units
+//    hold them in shared memory (wmma's 16-byte row chunks then fall on
+//    distinct banks), so a unit's A rows are one bulk copy; only the
+//    kernel_size 3 gate's lagged rows, row-major in the ring, go row by
+//    row (each bulk copy costs the issuing lane time: per-row copies of
+//    every operand made "asking for the operands" a third of a stage).
+//    The epilogue's operands (ring taps, old stream values, biases) come
+//    by cp.async once the A rows are in, during the products.  The writers
+//    of every array a later stage bulk-copies fence the proxies before the
+//    barrier.
 //
 // The ring hazard.  kernel_size 2: the gate stage of layer l reads ring slot
 // p mod d (the projection written d steps ago) and writes the projection
@@ -109,16 +116,19 @@ struct ApArgs {
     const float* h_up;           // (B, h_T, A)
     bf16* ring;                  // k = 2: (total_cap, B, 2R); k = 3: (total_cap, B, R)
     const int* meta;             // (L, 2): ring offset (slots), dilation
-    bf16* xs;                    // (B, R + Ap): the stream in bf16, the step's aux column
+    // the A operands of the stages, rows padded by AP_PAD (row strides
+    // xs_ld, gs_ld, s_ld) as the units hold them in shared memory, so that a
+    // unit's rows are one bulk copy
+    bf16* xs;                    // (B, xs_ld): the stream in bf16, the step's aux column
     float* of;                   // (B, R) the stream in f32
     float* skip;                 // (B, S)
-    bf16* gs;                    // (B, R) the gate
-    bf16* sr;                    // (B, S) bf16(relu(skip))
-    bf16* h1;                    // (B, S)
+    bf16* gs;                    // (B, gs_ld) the gate
+    bf16* sr;                    // (B, s_ld) bf16(relu(skip))
+    bf16* h1;                    // (B, s_ld)
     float* logits;               // (B, Q)
     int* ids;                    // (B, K) the ids at p-K+1 .. p
     int* samples;                // (B, max_n)
-    int B, Mt, R, S, Q, A, Ap, L, h_T, T0, max_n, sampling;
+    int B, Mt, R, S, Q, A, Ap, L, h_T, T0, max_n, sampling, xs_ld, gs_ld, s_ld;
     unsigned long long seed;
     ApStage st[AP_NSTAGES];
     // shared memory: two weight buffers, the A rows, the warps' sums, the
@@ -180,7 +190,7 @@ static __device__ void prefetch(const ApArgs& a, unsigned char* smem, ApBars& ba
 template <int KS>
 static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
                                  int lane) {
-    const int R = a.R, Q = a.Q, W = R + a.Ap;
+    const int R = a.R, Q = a.Q, W = a.xs_ld;
     const bf16* w[KS];
 #pragma unroll
     for (int j = 0; j < KS; ++j)
@@ -196,43 +206,36 @@ static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
     for (int i = lane; i < a.A; i += 32) a.xs[(size_t)b * W + R + i] = f2bf(hp[i]);
 }
 
-// Warp 0: the A rows [r0, r0 + n) of stage T into shared memory, row by row
-// (each segment of a row one bulk copy into the padded row), completing on
-// the A mbarrier (whose one arrival lane 0 has made, expecting every byte).
+// The row stride of stage T's padded A rows (part 0 in shared memory).
+template <int T>
+static __device__ __forceinline__ int a_ld(const ApArgs& a) {
+    return T == AP_GATE ? a.xs_ld : T == AP_RES ? a.gs_ld : a.s_ld;
+}
+
+// Warp 0: the A rows [r0, r0 + n) of stage T into shared memory,
+// completing on the A mbarrier (whose one arrival lane 0 has made,
+// expecting every byte): the stage's padded rows (xs, gs, sr or h1) as one
+// bulk copy into part 0, whose rows have the same stride; at kernel_size 3
+// the gate's two lagged ring rows (row-major in the ring) row by row into
+// part 1 (rows of 2R + AP_PAD: lag d, then lag 2d), rmax rows after part 0.
 template <int KS, int T>
 static __device__ void copy_a(const ApArgs& a, unsigned char* As, uint64_t* bar,
-                              int l, int p, int r0, int n, int lda, int lane) {
-    const bf16* src[3];
-    int width[3], off[3], nseg = 1;
-    if constexpr (T == AP_GATE) {
-        src[0] = a.xs;
-        width[0] = a.R + a.Ap;
-        off[0] = 0;
-        if constexpr (KS == 3) {
-            const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
-            const int cap = 2 * d;
-#pragma unroll
-            for (int j = 1; j <= 2; ++j) {
-                const int slot = o + ((p - j * d) % cap + cap) % cap;
-                src[j] = a.ring + (size_t)slot * a.B * a.R;
-                width[j] = a.R;
-                off[j] = a.R + a.Ap + (j - 1) * a.R;
-            }
-            nseg = 3;
+                              int l, int p, int r0, int n, int rmax, int lane) {
+    const bf16* src = T == AP_GATE ? a.xs : T == AP_RES ? a.gs
+                    : T == AP_POST1 ? a.sr : a.h1;
+    const int ld = a_ld<T>(a);
+    if (lane == 0) bulk_copy(As, src + (size_t)r0 * ld, (unsigned)n * ld * 2, bar);
+    if constexpr (KS == 3 && T == AP_GATE) {
+        const int R = a.R, ld1 = 2 * R + AP_PAD;
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        const int cap = 2 * d;
+        unsigned char* A1 = As + (size_t)rmax * ld * 2;
+        for (int i = lane; i < 2 * n; i += 32) {
+            const int j = i / n, m = i - j * n;
+            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
+            bulk_copy(A1 + ((size_t)m * ld1 + j * R) * 2,
+                      a.ring + ((size_t)slot * a.B + r0 + m) * R, R * 2, bar);
         }
-    } else if constexpr (T == AP_RES) {
-        src[0] = a.gs;
-        width[0] = a.R;
-        off[0] = 0;
-    } else {
-        src[0] = T == AP_POST1 ? a.sr : a.h1;
-        width[0] = a.S;
-        off[0] = 0;
-    }
-    for (int i = lane; i < n * nseg; i += 32) {
-        const int sg = i / n, m = i - sg * n;
-        bulk_copy(As + ((size_t)m * lda + off[sg]) * 2,
-                  src[sg] + (size_t)(r0 + m) * width[sg], width[sg] * 2, bar);
     }
 }
 
@@ -256,9 +259,11 @@ static __device__ void issue_a(const ApArgs& a, unsigned char* smem, ApBars& bar
     const ApStage& s = a.st[T];
     int grp, r0, rows, n;
     unit_rows(a, s, u, &grp, &r0, &rows, &n);
-    if (lane == 0) mbar_expect(bars.bar + 2, (unsigned)n * s.K * 2);
+    unsigned bytes = (unsigned)n * a_ld<T>(a) * 2;
+    if (KS == 3 && T == AP_GATE) bytes += (unsigned)n * 2 * a.R * 2;
+    if (lane == 0) mbar_expect(bars.bar + 2, bytes);
     __syncwarp();
-    copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, s.K + AP_PAD, lane);
+    copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, 16 * s.mt, lane);
 }
 
 // Every thread: its share of the 16-byte chunks of `runs` contiguous runs
@@ -356,7 +361,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
                 rr[c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + cs));
                 rr[R + c] = f2bf(psum(Ps, ks, rows, cols, ml, cw + ct));
             }
-            a.gs[(size_t)b * R + c] = f2bf(wn_gate(zs + eb[ci], zt + eb[hc + ci]));
+            a.gs[(size_t)b * a.gs_ld + c] = f2bf(wn_gate(zs + eb[ci], zt + eb[hc + ci]));
         }
     } else if constexpr (T == AP_RES) {
         const bool last = l == a.L - 1;
@@ -374,11 +379,11 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
             const float nv = v + old;
             if (col < S) {
                 a.skip[(size_t)b * S + col] = nv;
-                if (last) a.sr[(size_t)b * S + col] = f2bf(fmaxf(nv, 0.f));
+                if (last) a.sr[(size_t)b * a.s_ld + col] = f2bf(fmaxf(nv, 0.f));
             } else {
                 const int j = col - S;
                 a.of[(size_t)b * R + j] = nv;
-                a.xs[(size_t)b * (R + a.Ap) + j] = f2bf(nv);
+                a.xs[(size_t)b * a.xs_ld + j] = f2bf(nv);
                 if constexpr (KS == 3) slot[(size_t)b * R + j] = f2bf(old);
             }
         }
@@ -388,7 +393,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
             const int ml = e / cols, jj = e - ml * cols;
             const int b = r0 + ml, col = grp * cols + jj;
             const float v = psum(Ps, ks, rows, cols, ml, jj) + eb[jj];
-            if constexpr (T == AP_POST1) a.h1[(size_t)b * N + col] = f2bf(fmaxf(v, 0.f));
+            if constexpr (T == AP_POST1) a.h1[(size_t)b * a.s_ld + col] = f2bf(fmaxf(v, 0.f));
             else a.logits[(size_t)b * N + col] = v;
         }
     }
@@ -414,8 +419,13 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         return;
     }
     const int K = s.K, KT = K / 16, cols = s.quarters * s.cw, ntu = cols / 16;
-    const int lda = K + AP_PAD, ks = s.ks, rmax = 16 * s.mt;
+    const int ks = s.ks, rmax = 16 * s.mt;
+    // the A operand: part 0 (k tiles below kt0, row stride ld0), then at
+    // kernel_size 3 the gate's lagged rows in part 1 (row stride ld1)
+    const int ld0 = a_ld<T>(a), ld1 = 2 * a.R + AP_PAD;
+    const int kt0 = KS == 3 && T == AP_GATE ? (a.R + a.Ap) / 16 : KT;
     const bf16* As = (const bf16*)(smem + a.smem_a);
+    const bf16* A1 = As + (size_t)rmax * ld0;
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
     float* Ps = (float*)(smem + a.smem_p);
     unsigned char* Es = smem + a.smem_e;
@@ -466,7 +476,8 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                             wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
                             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
                             wmma::load_matrix_sync(bw, Ws + ((size_t)kt * ntu + nt) * 256, 16);
-                            wmma::load_matrix_sync(fa, As + kt * 16, lda);
+                            if (kt < kt0) wmma::load_matrix_sync(fa, As + kt * 16, ld0);
+                            else wmma::load_matrix_sync(fa, A1 + (kt - kt0) * 16, ld1);
                             wmma::mma_sync(acc[h], fa, bw, acc[h]);
                         }
                     }
@@ -484,7 +495,11 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                     for (int i = 0; i < AP_ACC; ++i) {
                         if (i < mtu) {
                             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                            wmma::load_matrix_sync(fa, As + (size_t)i * 16 * lda + kt * 16, lda);
+                            if (kt < kt0)
+                                wmma::load_matrix_sync(fa, As + (size_t)i * 16 * ld0 + kt * 16, ld0);
+                            else
+                                wmma::load_matrix_sync(fa, A1 + (size_t)i * 16 * ld1
+                                                           + (kt - kt0) * 16, ld1);
                             wmma::mma_sync(acc[i], fa, bw, acc[i]);
                         }
                     }
@@ -665,7 +680,8 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
         s.rg = (a->Mt + s.mt - 1) / s.mt;
         s.units = s.rg * s.G;
         const long long wbytes = (long long)s.K * s.quarters * s.cw * 2;
-        const long long abytes = 16LL * s.mt * (s.K + AP_PAD) * 2;
+        const long long abytes =
+            16LL * s.mt * (s.K + (K_ == 3 && T == AP_GATE ? 2 : 1) * AP_PAD) * 2;
         const long long pbytes = (long long)s.ks * 16 * s.mt * s.quarters * s.cw * 4;
         const long long ebytes = (16LL * s.mt + 1) * s.cw * 4;
         if (wbytes > wcap || abytes > a->smem_p - a->smem_a
@@ -697,9 +713,10 @@ extern "C" {
 // (Q), causal_b (R) f32; causal_w (K, Q, R) bf16.  ring: k = 2 (total_cap,
 // B, 2R) bf16 projections, k = 3 (total_cap, B, R) bf16 rows, updated in
 // place; meta (L, 2) int32 on the device: each layer's ring offset and
-// dilation.  Scratch: xs (B, R + Ap) bf16 with columns R + A .. R + Ap - 1
-// zero (Ap = A rounded up to 16); of (B, R), skip (B, S), logits (B, Q) f32;
-// gs (B, R), sr, h1 (B, S) bf16.  ids (B, K) int32, updated in place;
+// dilation.  Scratch, rows padded by 8 elements: xs (B, R + Ap + 8) bf16
+// with columns R + A .. R + Ap - 1 zero (Ap = A rounded up to 16), gs (B,
+// R + 8), sr, h1 (B, S + 8) bf16; of (B, R), skip (B, S), logits (B, Q) f32.
+// ids (B, K) int32, updated in place;
 // samples (B, max_n) int32.  plan: host ints of ar_plan_array.  phase:
 // null, or (grid, wn_ar_phase_slots()) zeroed u64 that the run adds
 // nanoseconds and counts to (AP_PH_STAGE slots per stage type: gate, res,
@@ -746,6 +763,9 @@ int wn_ar_generate_persistent(
     a.Q = Q;
     a.A = A;
     a.Ap = (A + 15) / 16 * 16;
+    a.xs_ld = R + a.Ap + AP_PAD;
+    a.gs_ld = R + AP_PAD;
+    a.s_ld = S + AP_PAD;
     a.L = L;
     a.h_T = h_T;
     a.T0 = T0;

@@ -576,14 +576,16 @@ def ar_stage_shapes(config) -> dict:
             "res": (R, 1, S + R), "post1": (S, 1, S), "post2": (S, 1, Q)}
 
 
-def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
-         w_max: int, a_max: int = AR_A_MAX, p_max: int = AR_P_MAX):
+def _cut(K: int, quarters: int, N: int, a_row: int, row_tiles: int,
+         grid: int, w_max: int, a_max: int = AR_A_MAX,
+         p_max: int = AR_P_MAX):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
     grid holds, of those the widest column groups; where no cut fits the
-    grid, the fewest units (blocks then take several).  None where no cut
-    fits the shared-memory regions."""
+    grid, the fewest units (blocks then take several).  ``a_row``: the
+    elements of a row of the unit's A operand in shared memory.  None where
+    no cut fits the shared-memory regions."""
     best = None
     for cw in (64, 32, 16):
         if N % cw or K * quarters * cw * 2 > w_max:
@@ -592,7 +594,7 @@ def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
         for mt in (4, 3, 2, 1):
             rg = -(-row_tiles // mt)
             mt_used = -(-row_tiles // rg)
-            if mt_used != mt or 16 * mt * (K + AR_A_PAD) * 2 > a_max:
+            if mt_used != mt or 16 * mt * a_row * 2 > a_max:
                 continue
             ks = max(1, 8 // ntu)       # the warps split K: a task each
             while ks > 1 and ks * 16 * mt * quarters * cw * 4 > p_max:
@@ -605,30 +607,37 @@ def _cut(K: int, quarters: int, N: int, row_tiles: int, grid: int,
                 if not ((units <= grid and (b > grid or units > b))
                         or (units > grid and b > grid and units < b)):
                     continue
-            best = dict(K=K, quarters=quarters, N=N, cw=cw, G=N // cw,
-                        mt=mt, rg=rg, ks=ks, units=units)
+            best = dict(K=K, quarters=quarters, N=N, a_row=a_row, cw=cw,
+                        G=N // cw, mt=mt, rg=rg, ks=ks, units=units)
     return best
 
 
-def _cut_stages(shapes: dict, row_tiles: int, grid: int, w_max: int):
+def _a_row(name: str, K: int, kernel_size: int) -> int:
+    """The elements of a row of a stage's A operand in shared memory: its
+    padded rows (``AR_A_PAD`` more than K); at kernel_size 3 the gate's
+    lagged ring rows are a second part with a padding of their own."""
+    return K + AR_A_PAD * (2 if name == "gate" and kernel_size == 3 else 1)
+
+
+def _cut_stages(shapes: dict, kernel_size: int, row_tiles: int, grid: int,
+                w_max: int):
     """Every stage's cut under the weight cap: the gate first (the largest
     K); the other stages within the gate's weight slice and A rows where
     they fit there (a larger slice would only grow the buffers), else
     within the caps.  None where a stage has no cut."""
-    K, q, N = shapes["gate"]
-    gate = _cut(K, q, N, row_tiles, grid, w_max)
-    if gate is None:
-        return None
-    wg = gate["K"] * gate["quarters"] * gate["cw"] * 2
-    ag = 16 * gate["mt"] * (gate["K"] + AR_A_PAD) * 2
-    stages = {"gate": gate}
+    stages = {}
     for name, (K, q, N) in shapes.items():
-        if name != "gate":
-            stages[name] = (_cut(K, q, N, row_tiles, grid, min(w_max, wg),
-                                 min(AR_A_MAX, ag))
-                            or _cut(K, q, N, row_tiles, grid, w_max))
-            if stages[name] is None:
-                return None
+        args = (K, q, N, _a_row(name, K, kernel_size), row_tiles, grid)
+        if name == "gate":
+            stages[name] = _cut(*args, w_max)
+        else:
+            g = stages["gate"]
+            stages[name] = (
+                _cut(*args, min(w_max, g["K"] * g["quarters"] * g["cw"] * 2),
+                     min(AR_A_MAX, 16 * g["mt"] * g["a_row"] * 2))
+                or _cut(*args, w_max))
+        if stages[name] is None:
+            return None
     return stages
 
 
@@ -653,13 +662,13 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
     row_tiles = -(-B // 16)
     shapes = ar_stage_shapes(config)
     for w_max in AR_W_CAPS:
-        stages = _cut_stages(shapes, row_tiles, grid, w_max)
+        stages = _cut_stages(shapes, config.kernel_size, row_tiles, grid,
+                             w_max)
         if stages is None:
             continue
         vals = stages.values()
         w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2) for s in vals)
-        a = max(_align256(16 * s["mt"] * (s["K"] + AR_A_PAD) * 2)
-                for s in vals)
+        a = max(_align256(16 * s["mt"] * s["a_row"] * 2) for s in vals)
         p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"] * 4)
                 for s in vals)
         e = max(_align256((16 * s["mt"] + 1) * s["cw"] * 4) for s in vals)
@@ -877,12 +886,16 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     _caps, offsets, _total = _buffer_layout(c)
     meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
                         device=dev).T.contiguous()                # (L, 2)
-    # the stream and the step's aux column; columns R + A .. stay zero
-    xs = torch.zeros((B, R + _aux_pad(A)), dtype=bf, device=dev)
+    # the stages' A operands, rows padded as the units hold them in shared
+    # memory: the stream and the step's aux column (columns R + A .. stay
+    # zero), the gate, relu(skip) and post1's output
+    pad = AR_A_PAD
+    xs = torch.zeros((B, R + _aux_pad(A) + pad), dtype=bf, device=dev)
+    gs = torch.empty((B, R + pad), dtype=bf, device=dev)
+    sr, h1 = (torch.empty((B, S + pad), dtype=bf, device=dev)
+              for _ in range(2))
     of = torch.empty((B, R), dtype=f32, device=dev)
     skip = torch.empty((B, S), dtype=f32, device=dev)
-    gs = torch.empty((B, R), dtype=bf, device=dev)
-    sr, h1 = (torch.empty((B, S), dtype=bf, device=dev) for _ in range(2))
     logits = torch.empty((B, Q), dtype=f32, device=dev)
     samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
     arr = ar_plan_array(plan)
