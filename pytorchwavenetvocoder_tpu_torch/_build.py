@@ -119,7 +119,7 @@ def kernels() -> ctypes.CDLL:
     lib.wn_ar_generate_persistent.restype = i32
     lib.wn_ar_generate_persistent.argtypes = (
         [vp] * 4             # the gate, res, post1, post2 packs (per unit)
-        + [vp] * 6           # zb srb post1_b post2_b causal_w causal_b
+        + [vp] * 2           # causal_w causal_b
         + [vp, i32]          # h_up, its time length
         + [vp, vp]           # ring, meta (device (L, 2) int32)
         + [vp] * 9           # xs of skip gs sr h1 logits ids samples

@@ -106,11 +106,8 @@ struct ApStage {
 };
 
 struct ApArgs {
-    const bf16* w[AP_NSTAGES];   // packed per unit ([L][G][K/16][ntu][16][16])
-    const float* zb;             // (L, 2R) dil_b + aux_b
-    const float* srb;            // (L, S + R)
-    const float* p1b;            // (S)
-    const float* p2b;            // (Q)
+    const bf16* w[AP_NSTAGES];   // packed per unit: [L][G] runs of [K/16][ntu][16][16]
+                                 // tiles, then the unit's cw f32 biases
     const bf16* causal_w;        // (K, Q, R)
     const float* causal_b;       // (R)
     const float* h_up;           // (B, h_T, A)
@@ -166,7 +163,7 @@ static __device__ __forceinline__ int unit_begin(int units, int blk) {
 static __device__ void fetch_w(const ApArgs& a, unsigned char* smem, ApBars& bars,
                                int T, int l, int grp) {
     const ApStage& s = a.st[T];
-    const unsigned elems = (unsigned)s.K * s.quarters * s.cw;
+    const unsigned elems = (unsigned)(s.K * s.quarters + 2) * s.cw;
     const bf16* src = a.w[T] + ((size_t)l * s.G + grp) * elems;
     uint64_t* bar = bars.bar + (T & 1);
     mbar_expect(bar, elems * 2);
@@ -281,40 +278,30 @@ static __device__ __forceinline__ void fetch_runs(unsigned char* dst, int dstrid
     }
 }
 
-// The epilogue's operands of a unit into Es, by cp.async right after the A
-// rows have arrived, so that they arrive during the products (asked for
-// earlier, they competed with the A rows and the weight prefetch):
-// per-row values [rmax][cw] (kernel_size 2 gate: the ring tap of the unit's
-// sigmoid then tanh channels, bf16; res: the old skip sum or stream, f32),
-// then a row of per-column biases (f32).
+// The epilogue's per-row operands of a unit into Es ([rmax][cw]), by
+// cp.async once the A rows are in, so that they arrive during the products
+// (asked for earlier, they competed with the A rows): the ring tap of the
+// unit's sigmoid then tanh channels (kernel_size 2 gate, bf16), the old
+// skip sum or stream (res, f32).  The biases come with the weights.
 template <int KS, int T>
 static __device__ void fetch_e(const ApArgs& a, unsigned char* Es, int l, int p,
-                               int grp, int r0, int n, int cw, int rmax) {
+                               int grp, int r0, int n, int cw) {
     const int R = a.R, S = a.S;
-    unsigned char* eb = Es + (size_t)rmax * cw * 4;
-    if constexpr (T == AP_GATE) {
+    if constexpr (T == AP_GATE && KS == 2) {
         const int hc = cw / 2;
-        const float* zb = a.zb + (size_t)l * 2 * R + grp * hc;
-        fetch_runs(eb, hc * 4, zb, (size_t)R * 4, 2, hc * 4, 0);
-        if constexpr (KS == 2) {
-            const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
-            const bf16* row0 = a.ring + (((size_t)o + p % d) * a.B + r0) * 2 * R + grp * hc;
-            // per row: the sigmoid channels at row0, the tanh ones at + R
-            fetch_runs(Es, cw * 2, row0, (size_t)2 * R * 2, n, hc * 2, 64);
-            fetch_runs(Es + hc * 2, cw * 2, row0 + R, (size_t)2 * R * 2, n, hc * 2, 128);
-        }
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        const bf16* row0 = a.ring + (((size_t)o + p % d) * a.B + r0) * 2 * R + grp * hc;
+        // per row: the sigmoid channels at row0, the tanh ones at + R
+        fetch_runs(Es, cw * 2, row0, (size_t)2 * R * 2, n, hc * 2, 0);
+        fetch_runs(Es + hc * 2, cw * 2, row0 + R, (size_t)2 * R * 2, n, hc * 2, 128);
     } else if constexpr (T == AP_RES) {
         const int c0 = grp * cw;   // a column group lies wholly in skip or in res
-        fetch_runs(eb, 0, a.srb + (size_t)l * (S + R) + c0, 0, 1, cw * 4, 0);
         if (c0 >= S)
             fetch_runs(Es, cw * 4, a.of + (size_t)r0 * R + c0 - S, (size_t)R * 4, n,
-                       cw * 4, 64);
+                       cw * 4, 0);
         else if (l > 0)
             fetch_runs(Es, cw * 4, a.skip + (size_t)r0 * S + c0, (size_t)S * 4, n,
-                       cw * 4, 64);
-    } else {
-        const float* bias = T == AP_POST1 ? a.p1b : a.p2b;
-        fetch_runs(eb, 0, bias + grp * cw, 0, 1, cw * 4, 0);
+                       cw * 4, 0);
     }
     cp_async_commit();
 }
@@ -328,15 +315,14 @@ static __device__ __forceinline__ float psum(const float* Ps, int ks, int rows,
 }
 
 // The epilogue of one unit: rows [r0, r0 + n) (real rows only) of column
-// group grp; the sums in Ps ([ks][rows][cols]), the operands in Es
-// (fetch_e).
+// group grp; the sums in Ps ([ks][rows][cols]), the per-row operands in Es
+// (fetch_e), the biases in eb (after the unit's weight tiles).
 template <int KS, int T>
 static __device__ void epilogue(const ApArgs& a, const float* Ps,
-                                const unsigned char* Es,
+                                const unsigned char* Es, const float* eb,
                                 int l, int p, int grp, int r0, int n, int rows,
-                                int cols, int ks, int cw, int rmax) {
+                                int cols, int ks, int cw) {
     const int R = a.R, S = a.S;
-    const float* eb = (const float*)(Es + (size_t)rmax * cw * 4);
     if constexpr (T == AP_GATE) {
         const int hc = cw / 2;
         bf16* slot = nullptr;
@@ -427,6 +413,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     const bf16* As = (const bf16*)(smem + a.smem_a);
     const bf16* A1 = As + (size_t)rmax * ld0;
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
+    const float* eb = (const float*)(Ws + (size_t)K * s.quarters * s.cw);
     float* Ps = (float*)(smem + a.smem_p);
     unsigned char* Es = smem + a.smem_e;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -453,7 +440,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
             bars.parity[buf] ^= 1;
         }
         have = grp;
-        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw, rmax);
+        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw);
         if (ph) t[2] = now_ns();
         const int mtu = rows / 16;
 
@@ -514,7 +501,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         cp_async_wait();   // this thread's epilogue operands
         __syncthreads();
         if (ph) t[3] = now_ns();
-        epilogue<KS, T>(a, Ps, Es, l, p, grp, r0, n, rows, cols, ks, s.cw, rmax);
+        epilogue<KS, T>(a, Ps, Es, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
         if (a.phase != nullptr) {
             __syncthreads();   // every thread's epilogue
             if (ph) {
@@ -679,11 +666,11 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
         s.G = s.N / s.cw;
         s.rg = (a->Mt + s.mt - 1) / s.mt;
         s.units = s.rg * s.G;
-        const long long wbytes = (long long)s.K * s.quarters * s.cw * 2;
+        const long long wbytes = (long long)(s.K * s.quarters + 2) * s.cw * 2;
         const long long abytes =
             16LL * s.mt * (s.K + (K_ == 3 && T == AP_GATE ? 2 : 1) * AP_PAD) * 2;
         const long long pbytes = (long long)s.ks * 16 * s.mt * s.quarters * s.cw * 4;
-        const long long ebytes = (16LL * s.mt + 1) * s.cw * 4;
+        const long long ebytes = 16LL * s.mt * s.cw * 4;
         if (wbytes > wcap || abytes > a->smem_p - a->smem_a
             || pbytes > a->smem_e - a->smem_p
             || ebytes > *smem - a->smem_e)
@@ -708,11 +695,11 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
 extern "C" {
 
 // Runs max_n bf16 steps on `stream` in one cooperative launch.  Weights:
-// w_gate, w_res, w_post1, w_post2 packed per unit by the plan
-// (ops/ar_kernel.py::pack_ar_units); zb (L, 2R), srb (L, S+R), p1b (S), p2b
-// (Q), causal_b (R) f32; causal_w (K, Q, R) bf16.  ring: k = 2 (total_cap,
-// B, 2R) bf16 projections, k = 3 (total_cap, B, R) bf16 rows, updated in
-// place; meta (L, 2) int32 on the device: each layer's ring offset and
+// w_gate, w_res, w_post1, w_post2 packed per unit by the plan, each unit's
+// biases after its tiles (ops/ar_kernel.py::pack_ar_units); causal_b (R)
+// f32, causal_w (K, Q, R) bf16.  ring: k = 2 (total_cap, B, 2R) bf16
+// projections, k = 3 (total_cap, B, R) bf16 rows, updated in place; meta
+// (L, 2) int32 on the device: each layer's ring offset and
 // dilation.  Scratch, rows padded by 8 elements: xs (B, R + Ap + 8) bf16
 // with columns R + A .. R + Ap - 1 zero (Ap = A rounded up to 16), gs (B,
 // R + 8), sr, h1 (B, S + 8) bf16; of (B, R), skip (B, S), logits (B, Q) f32.
@@ -725,7 +712,6 @@ extern "C" {
 // error.
 int wn_ar_generate_persistent(
     const void* w_gate, const void* w_res, const void* w_post1, const void* w_post2,
-    const void* zb, const void* srb, const void* p1b, const void* p2b,
     const void* causal_w, const void* causal_b, const void* h_up, int h_T,
     void* ring, const void* meta, void* xs, void* of, void* skip, void* gs,
     void* sr, void* h1, void* logits, void* ids, void* samples, int B, int R,
@@ -738,10 +724,6 @@ int wn_ar_generate_persistent(
     a.w[AP_RES] = (const bf16*)w_res;
     a.w[AP_POST1] = (const bf16*)w_post1;
     a.w[AP_POST2] = (const bf16*)w_post2;
-    a.zb = (const float*)zb;
-    a.srb = (const float*)srb;
-    a.p1b = (const float*)p1b;
-    a.p2b = (const float*)p2b;
     a.causal_w = (const bf16*)causal_w;
     a.causal_b = (const float*)causal_b;
     a.h_up = (const float*)h_up;

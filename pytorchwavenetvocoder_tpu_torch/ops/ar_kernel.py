@@ -588,7 +588,7 @@ def _cut(K: int, quarters: int, N: int, a_row: int, row_tiles: int,
     no cut fits the shared-memory regions."""
     best = None
     for cw in (64, 32, 16):
-        if N % cw or K * quarters * cw * 2 > w_max:
+        if N % cw or (K * quarters + 2) * cw * 2 > w_max:
             continue
         ntu = quarters * cw // 16
         for mt in (4, 3, 2, 1):
@@ -633,7 +633,8 @@ def _cut_stages(shapes: dict, kernel_size: int, row_tiles: int, grid: int,
         else:
             g = stages["gate"]
             stages[name] = (
-                _cut(*args, min(w_max, g["K"] * g["quarters"] * g["cw"] * 2),
+                _cut(*args, min(w_max,
+                                (g["K"] * g["quarters"] + 2) * g["cw"] * 2),
                      min(AR_A_MAX, 16 * g["mt"] * g["a_row"] * 2))
                 or _cut(*args, w_max))
         if stages[name] is None:
@@ -667,11 +668,12 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
         if stages is None:
             continue
         vals = stages.values()
-        w = max(_align256(s["K"] * s["quarters"] * s["cw"] * 2) for s in vals)
+        w = max(_align256((s["K"] * s["quarters"] + 2) * s["cw"] * 2)
+                for s in vals)
         a = max(_align256(16 * s["mt"] * s["a_row"] * 2) for s in vals)
         p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"] * 4)
                 for s in vals)
-        e = max(_align256((16 * s["mt"] + 1) * s["cw"] * 4) for s in vals)
+        e = max(_align256(16 * s["mt"] * s["cw"] * 4) for s in vals)
         if 2 * w + a + p + e <= AR_SMEM_MAX:
             return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
                         smem_w=(0, w), smem_a=2 * w, smem_p=2 * w + a,
@@ -712,12 +714,16 @@ def ar_stage_units(plan: dict, stage: str, block: int):
 
 def pack_ar_units(pk: dict, plan: dict, config) -> dict:
     """``pack_ar_weights``' bf16 layout cut per unit for the persistent
-    kernel (``_pack_units`` of ``ops/matmul_chain.py``: each unit's slice
-    one contiguous run of 16 x 16 tiles, [L][G][K/16][quarters*cw/16][16]
-    [16]).  The gate rows follow the A rows ``ar_stage_shapes`` names, aux
+    kernel: per layer and column group one contiguous run (one bulk copy),
+    the unit's weight slice as 16 x 16 tiles (``_pack_units`` of
+    ``ops/matmul_chain.py``: [K/16][quarters*cw/16][16][16]) followed by
+    its cw f32 biases (kept as bf16 pairs): (L, G, K*quarters*cw + 2*cw)
+    bf16.  The gate rows follow the A rows ``ar_stage_shapes`` names, aux
     rows zero-padded to whole tiles (and zero under the past tap at
     kernel_size 2); the past tap is interleaved like the current one, so a
-    unit's projections are the ring values of the channels it gates."""
+    unit's projections are the ring values of the channels it gates; the
+    gate's biases are zb of the unit's sigmoid channels, then of its tanh
+    channels."""
     from pytorchwavenetvocoder_tpu_torch.ops.matmul_chain import _pack_units
 
     c = config
@@ -737,12 +743,32 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
         w6 = pk["w6"]
         gate = torch.cat([w6[..., :2 * R], auxw, w6[..., 2 * R:4 * R],
                           w6[..., 4 * R:]], dim=1)     # (L, 3R + Ap, 2R)
-    return {
-        "gate": _pack_units(gate, st["gate"]["quarters"], st["gate"]["cw"]),
-        "res": _pack_units(pk["wsr"], 1, st["res"]["cw"]),
-        "post1": _pack_units(pk["post1_w"][None], 1, st["post1"]["cw"]),
-        "post2": _pack_units(pk["post2_w"][None], 1, st["post2"]["cw"]),
-    }
+    # the gate's biases in the units' channel order: column group g of cw
+    # columns holds channels [g hc, (g + 1) hc), hc = cw / 2
+    hc = st["gate"]["cw"] // 2
+    zb = pk["zb"].reshape(L, 2, R // hc, hc).transpose(1, 2)
+    out = {}
+    for name, w, b in (("gate", gate, zb.reshape(L, -1)),
+                       ("res", pk["wsr"], pk["srb"]),
+                       ("post1", pk["post1_w"][None], pk["post1_b"][None]),
+                       ("post2", pk["post2_w"][None], pk["post2_b"][None])):
+        s = st[name]
+        tiles = _pack_units(w, s["quarters"], s["cw"])
+        Lw, G = tiles.shape[:2]
+        bias = b.reshape(Lw, G, s["cw"]).contiguous().view(torch.bfloat16)
+        out[name] = torch.cat([tiles.reshape(Lw, G, -1), bias], dim=-1)
+    return out
+
+
+def unpack_ar_unit(units: dict, plan: dict, name: str, l: int, grp: int):
+    """The tiles ((K/16, quarters*cw/16, 16, 16) bf16) and the biases (cw
+    f32) of one unit's run in ``pack_ar_units``' layout."""
+    s = plan["stages"][name]
+    run = units[name][l, grp]
+    cw = s["cw"]
+    tiles = run[:-2 * cw].reshape(s["K"] // 16, s["quarters"] * cw // 16,
+                                  16, 16)
+    return tiles, run[-2 * cw:].contiguous().view(torch.float32)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -904,8 +930,7 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     with torch.cuda.device(dev):
         err = kernels().wn_ar_generate_persistent(
             *(_ptr(units[n]) for n in AR_STAGES),
-            _ptr(pk["zb"]), _ptr(pk["srb"]), _ptr(pk["post1_b"]),
-            _ptr(pk["post2_b"]), _ptr(pk["causal_w"]), _ptr(pk["causal_b"]),
+            _ptr(pk["causal_w"]), _ptr(pk["causal_b"]),
             _ptr(h_up), h_up.shape[1], _ptr(act_buf), _ptr(meta), _ptr(xs),
             _ptr(of), _ptr(skip), _ptr(gs), _ptr(sr), _ptr(h1), _ptr(logits),
             _ptr(ids), _ptr(samples), B, R, S, Q, A, L, c.kernel_size, T0,

@@ -42,15 +42,14 @@ def test_ar_plan_covers_every_output_once(kernel_size, B, width):
         s = plan["stages"][name]
         assert (s["K"], s["quarters"], s["N"]) == (K, quarters, N)
         # each region holds the stage's largest unit
-        assert K * quarters * s["cw"] * 2 <= w
+        assert (K * quarters + 2) * s["cw"] * 2 <= w
         a_row = K + ak.AR_A_PAD * (2 if name == "gate" and kernel_size == 3
                                    else 1)
         assert s["a_row"] == a_row
         assert 16 * s["mt"] * a_row * 2 <= plan["smem_p"] - plan["smem_a"]
         assert s["ks"] * 16 * s["mt"] * quarters * s["cw"] * 4 \
             <= plan["smem_e"] - plan["smem_p"]
-        assert (16 * s["mt"] + 1) * s["cw"] * 4 \
-            <= plan["smem"] - plan["smem_e"]
+        assert 16 * s["mt"] * s["cw"] * 4 <= plan["smem"] - plan["smem_e"]
         assert 1 <= s["ks"] <= K // 16 and 1 <= s["mt"] <= 4
         seen = np.zeros((B, quarters * N), np.uint8)
         units = 0
@@ -64,13 +63,20 @@ def test_ar_plan_covers_every_output_once(kernel_size, B, width):
         assert (seen == 1).all(), name
 
 
-def _unpack(t, quarters):
-    """Inverse of the per-unit pack: (L, G, K/16, ntu, 16, 16) ->
-    (L, K, quarters * N) with column q * N + g * cw + j."""
-    L, G, KT, ntu = t.shape[:4]
-    cw = ntu * 16 // quarters
-    w = t.permute(0, 2, 4, 1, 3, 5).reshape(L, KT * 16, G, quarters, cw)
-    return w.permute(0, 1, 3, 2, 4).reshape(L, KT * 16, quarters * G * cw)
+def _unpack(units, plan, name):
+    """Inverse of the per-unit pack: (L, K, quarters * N) weights with
+    column q * N + g * cw + j, and (L, quarters... N) biases per column
+    group in the units' order."""
+    s = plan["stages"][name]
+    L, G = units[name].shape[:2]
+    runs = [[ak.unpack_ar_unit(units, plan, name, l, g) for g in range(G)]
+            for l in range(L)]
+    t = torch.stack([torch.stack([r[0] for r in row]) for row in runs])
+    KT, ntu = t.shape[2:4]
+    q, cw = s["quarters"], s["cw"]
+    w = t.permute(0, 2, 4, 1, 3, 5).reshape(L, KT * 16, G, q, cw)
+    bias = torch.stack([torch.cat([r[1] for r in row]) for row in runs])
+    return w.permute(0, 1, 3, 2, 4).reshape(L, KT * 16, q * G * cw), bias
 
 
 @pytest.mark.parametrize("B", [16, 256])
@@ -83,7 +89,12 @@ def test_pack_ar_units_unpacks_bit_equal(kernel_size, B):
     units = ak.pack_ar_units(pk, plan, cfg)
     R, A = cfg.n_resch, cfg.n_aux
     Ap = -(-A // 16) * 16
-    gate = _unpack(units["gate"], plan["stages"]["gate"]["quarters"])
+    gate, zb = _unpack(units, plan, "gate")
+    # the gate's biases: per column group, its sigmoid channels' zb, then
+    # its tanh channels'
+    hc = plan["stages"]["gate"]["cw"] // 2
+    assert torch.equal(zb, pk["zb"].reshape(-1, 2, R // hc, hc)
+                       .transpose(1, 2).reshape(zb.shape))
     aux = ak._interleave(pk["auxw"])
     if kernel_size == 2:
         w4 = pk["w4"]
@@ -99,9 +110,11 @@ def test_pack_ar_units_unpacks_bit_equal(kernel_size, B):
         assert not gate[:, R + A:R + Ap].any()
         assert torch.equal(gate[:, R + Ap:2 * R + Ap], w6[..., 2 * R:4 * R])
         assert torch.equal(gate[:, 2 * R + Ap:], w6[..., 4 * R:])
-    assert torch.equal(_unpack(units["res"], 1), pk["wsr"])
-    assert torch.equal(_unpack(units["post1"], 1)[0], pk["post1_w"])
-    assert torch.equal(_unpack(units["post2"], 1)[0], pk["post2_w"])
+    for name, w, b in (("res", pk["wsr"], pk["srb"]),
+                       ("post1", pk["post1_w"][None], pk["post1_b"][None]),
+                       ("post2", pk["post2_w"][None], pk["post2_b"][None])):
+        got_w, got_b = _unpack(units, plan, name)
+        assert torch.equal(got_w, w) and torch.equal(got_b, b)
 
 
 def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
@@ -147,9 +160,9 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
                     a = torch.cat(parts, dim=1)
                 else:
                     a = {"res": gs, "post1": sr, "post2": h1}[name][r0:r1]
-                t = units[name][l, grp]                 # (K/16, ntu, 16, 16)
+                t, bias = ak.unpack_ar_unit(units, plan, name, l, grp)
                 w = t.permute(0, 2, 1, 3).reshape(t.shape[0] * 16, -1)
-                epi(a.float() @ w.float(), grp, r0, r1, s["cw"])
+                epi(a.float() @ w.float(), bias, grp, r0, r1, s["cw"])
 
     for i in range(max_n):
         p = T0 - 1 + i
@@ -157,7 +170,7 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
         for l in range(L):
             d = cfg.dilations[l]
 
-            def gate_epi(z, grp, r0, r1, cw):
+            def gate_epi(z, bias, grp, r0, r1, cw):
                 hc = cw // 2
                 ci = torch.arange(hc)
                 c = grp * hc + ci
@@ -169,13 +182,12 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
                     zt = zt + rr[:, R + c].float()
                     rr[:, c] = z[:, cw + cs].to(bf)
                     rr[:, R + c] = z[:, cw + cs + 8].to(bf)
-                zb = pk["zb"][l]
-                gs[r0:r1, c] = (torch.sigmoid(zs + zb[c])
-                                * torch.tanh(zt + zb[R + c])).to(bf)
+                gs[r0:r1, c] = (torch.sigmoid(zs + bias[ci])
+                                * torch.tanh(zt + bias[hc + ci])).to(bf)
 
-            def res_epi(z, grp, r0, r1, cw):
+            def res_epi(z, bias, grp, r0, r1, cw):
                 col = grp * cw + torch.arange(cw)
-                v = z + pk["srb"][l][col]
+                v = z + bias
                 sk, rs = col < S, col >= S
                 if sk.any():
                     c_ = col[sk]
@@ -194,13 +206,13 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
             stage("gate", l, p, gate_epi)
             stage("res", l, p, res_epi)
 
-        def post1_epi(z, grp, r0, r1, cw):
+        def post1_epi(z, bias, grp, r0, r1, cw):
             col = grp * cw + torch.arange(cw)
-            h1[r0:r1, col] = torch.relu(z + pk["post1_b"][col]).to(bf)
+            h1[r0:r1, col] = torch.relu(z + bias).to(bf)
 
-        def post2_epi(z, grp, r0, r1, cw):
+        def post2_epi(z, bias, grp, r0, r1, cw):
             col = grp * cw + torch.arange(cw)
-            logits[r0:r1, col] = z + pk["post2_b"][col]
+            logits[r0:r1, col] = z + bias
 
         stage("post1", 0, p, post1_epi)
         stage("post2", 0, p, post2_epi)
