@@ -209,31 +209,18 @@ static __device__ __forceinline__ int a_ld(const ApArgs& a) {
     return T == AP_GATE ? a.xs_ld : T == AP_RES ? a.gs_ld : a.s_ld;
 }
 
-// Warp 0: the A rows [r0, r0 + n) of stage T into shared memory,
-// completing on the A mbarrier (whose one arrival lane 0 has made,
-// expecting every byte): the stage's padded rows (xs, gs, sr or h1) as one
-// bulk copy into part 0, whose rows have the same stride; at kernel_size 3
-// the gate's two lagged ring rows (row-major in the ring) row by row into
-// part 1 (rows of 2R + AP_PAD: lag d, then lag 2d), rmax rows after part 0.
-template <int KS, int T>
+// Lane 0 of warp 0: the A rows [r0, r0 + n) of stage T, the stage's padded
+// rows (xs, gs, sr or h1), as one bulk copy into part 0 of the A operand,
+// whose rows have the same stride; it completes on the A mbarrier.
+template <int T>
 static __device__ void copy_a(const ApArgs& a, unsigned char* As, uint64_t* bar,
-                              int l, int p, int r0, int n, int rmax, int lane) {
+                              int r0, int n) {
     const bf16* src = T == AP_GATE ? a.xs : T == AP_RES ? a.gs
                     : T == AP_POST1 ? a.sr : a.h1;
     const int ld = a_ld<T>(a);
-    if (lane == 0) bulk_copy(As, src + (size_t)r0 * ld, (unsigned)n * ld * 2, bar);
-    if constexpr (KS == 3 && T == AP_GATE) {
-        const int R = a.R, ld1 = 2 * R + AP_PAD;
-        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
-        const int cap = 2 * d;
-        unsigned char* A1 = As + (size_t)rmax * ld * 2;
-        for (int i = lane; i < 2 * n; i += 32) {
-            const int j = i / n, m = i - j * n;
-            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
-            bulk_copy(A1 + ((size_t)m * ld1 + j * R) * 2,
-                      a.ring + ((size_t)slot * a.B + r0 + m) * R, R * 2, bar);
-        }
-    }
+    const unsigned bytes = (unsigned)n * ld * 2;
+    mbar_expect(bar, bytes);
+    bulk_copy(As, src + (size_t)r0 * ld, bytes, bar);
 }
 
 // The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
@@ -246,21 +233,6 @@ static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage&
     *r0 = rgi * 16 * s.mt;
     *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
     *n = min(*rows, a.B - *r0);
-}
-
-// Warp 0: ask for unit u's A rows (lane 0 makes the A barrier's one
-// arrival, expecting every byte, before the copies).
-template <int KS, int T>
-static __device__ void issue_a(const ApArgs& a, unsigned char* smem, ApBars& bars,
-                               int l, int p, int u, int lane) {
-    const ApStage& s = a.st[T];
-    int grp, r0, rows, n;
-    unit_rows(a, s, u, &grp, &r0, &rows, &n);
-    unsigned bytes = (unsigned)n * a_ld<T>(a) * 2;
-    if (KS == 3 && T == AP_GATE) bytes += (unsigned)n * 2 * a.R * 2;
-    if (lane == 0) mbar_expect(bars.bar + 2, bytes);
-    __syncwarp();
-    copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, 16 * s.mt, lane);
 }
 
 // Every thread: its share of the 16-byte chunks of `runs` contiguous runs
@@ -278,16 +250,27 @@ static __device__ __forceinline__ void fetch_runs(unsigned char* dst, int dstrid
     }
 }
 
-// The epilogue's per-row operands of a unit into Es ([rmax][cw]), by
-// cp.async once the A rows are in, so that they arrive during the products
-// (asked for earlier, they competed with the A rows): the ring tap of the
-// unit's sigmoid then tanh channels (kernel_size 2 gate, bf16), the old
-// skip sum or stream (res, f32).  The biases come with the weights.
+// Every thread, by cp.async (one group): the unit's operands that are not
+// padded rows of a scratch array.  The kernel_size 3 gate's two lagged ring
+// rows per row (row-major in the ring) into part 1 of the A operand (rows of
+// 2R + AP_PAD: lag d, then lag 2d; one bulk copy per row cost the issuing
+// warp more than the stage's products); the epilogue's per-row operands
+// into Es ([rmax][cw]): the ring tap of the unit's sigmoid then tanh
+// channels (kernel_size 2 gate, bf16), the old skip sum or stream (res,
+// f32).  The biases come with the weights.
 template <int KS, int T>
-static __device__ void fetch_e(const ApArgs& a, unsigned char* Es, int l, int p,
-                               int grp, int r0, int n, int cw) {
+static __device__ void fetch_e(const ApArgs& a, unsigned char* A1, unsigned char* Es,
+                               int l, int p, int grp, int r0, int n, int cw) {
     const int R = a.R, S = a.S;
-    if constexpr (T == AP_GATE && KS == 2) {
+    if constexpr (T == AP_GATE && KS == 3) {
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        const int cap = 2 * d, ld1 = (2 * R + AP_PAD) * 2;
+        for (int j = 0; j < 2; ++j) {
+            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
+            fetch_runs(A1 + j * R * 2, ld1, a.ring + ((size_t)slot * a.B + r0) * R,
+                       (size_t)R * 2, n, R * 2, j * 128);
+        }
+    } else if constexpr (T == AP_GATE) {
         const int hc = cw / 2;
         const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
         const bf16* row0 = a.ring + (((size_t)o + p % d) * a.B + r0) * 2 * R + grp * hc;
@@ -411,7 +394,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     const int ld0 = a_ld<T>(a), ld1 = 2 * a.R + AP_PAD;
     const int kt0 = KS == 3 && T == AP_GATE ? (a.R + a.Ap) / 16 : KT;
     const bf16* As = (const bf16*)(smem + a.smem_a);
-    const bf16* A1 = As + (size_t)rmax * ld0;
+    const bf16* A1 = As + (size_t)rmax * ld0;   // part 1 (kernel_size 3 gate)
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
     const float* eb = (const float*)(Ws + (size_t)K * s.quarters * s.cw);
     float* Ps = (float*)(smem + a.smem_p);
@@ -429,9 +412,10 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         __syncthreads();   // the previous unit's tiles, sums and operands are consumed
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
-            issue_a<KS, T>(a, smem, bars, l, p, u, lane);
+            if (lane == 0) copy_a<T>(a, smem + a.smem_a, bars.bar + 2, r0, n);
             if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
         }
+        fetch_e<KS, T>(a, (unsigned char*)A1, Es, l, p, grp, r0, n, s.cw);
         if (ph) t[1] = now_ns();
         mbar_wait(bars.bar + 2, bars.parity[2]);
         bars.parity[2] ^= 1;
@@ -440,7 +424,10 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
             bars.parity[buf] ^= 1;
         }
         have = grp;
-        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw);
+        if constexpr (KS == 3 && T == AP_GATE) {   // the lagged rows too
+            cp_async_wait();
+            __syncthreads();
+        }
         if (ph) t[2] = now_ns();
         const int mtu = rows / 16;
 
