@@ -170,15 +170,46 @@ static __device__ void fetch_w(const ApArgs& a, unsigned char* smem, ApBars& bar
     bulk_copy(smem + a.smem_w[T & 1], src, elems * 2, bar);
 }
 
+// The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
+// of *rows (16-row tiles), column group *grp.
+static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage& s,
+                                                 int u, int* grp, int* r0,
+                                                 int* rows, int* n) {
+    *grp = u / s.rg;
+    const int rgi = u - *grp * s.rg;
+    *r0 = rgi * 16 * s.mt;
+    *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
+    *n = min(*rows, a.B - *r0);
+}
+
 // Thread 0: the weights of this block's first unit in stage Tn at layer ln
-// (Tn < 0: none, or the block has no unit there).
+// and position pn (Tn < 0: none, or the block has no unit there).  Before a
+// gate stage, the blocks holding column group 0's units also ask the L2 for
+// the ring rows the gate will read (every column group reads all of each
+// row; the rows were written d or more steps ago, and the weight stream
+// has evicted them from the L2 since): the slot at pn mod d (kernel_size
+// 2), the two lagged slots (kernel_size 3).
+template <int KS>
 static __device__ void prefetch(const ApArgs& a, unsigned char* smem, ApBars& bars,
-                                int Tn, int ln) {
+                                int Tn, int ln, int pn) {
     if (Tn < 0) return;
     const ApStage& s = a.st[Tn];
     const int u0 = unit_begin(s.units, blockIdx.x);
-    if (u0 >= unit_begin(s.units, blockIdx.x + 1)) return;
+    const int u1 = unit_begin(s.units, blockIdx.x + 1);
+    if (u0 >= u1) return;
     fetch_w(a, smem, bars, Tn, ln, u0 / s.rg);
+    if (Tn != AP_GATE) return;
+    const int o = __ldg(a.meta + 2 * ln), d = __ldg(a.meta + 2 * ln + 1);
+    const int W = KS == 2 ? 2 * a.R : a.R;
+    for (int u = u0; u < min(u1, s.rg); ++u) {   // column group 0
+        int grp, r0, rows, n;
+        unit_rows(a, s, u, &grp, &r0, &rows, &n);
+        for (int j = 0; j < KS - 1; ++j) {
+            const int slot = KS == 2 ? o + pn % d
+                           : o + ((pn - (j + 1) * d) % (2 * d) + 2 * d) % (2 * d);
+            prefetch_l2(a.ring + ((size_t)slot * a.B + r0) * W, (unsigned)n * W * 2);
+        }
+    }
 }
 
 // The embed of row b for position p from its K ids: out = ((causal_b + w_0)
@@ -209,30 +240,47 @@ static __device__ __forceinline__ int a_ld(const ApArgs& a) {
     return T == AP_GATE ? a.xs_ld : T == AP_RES ? a.gs_ld : a.s_ld;
 }
 
-// Lane 0 of warp 0: the A rows [r0, r0 + n) of stage T, the stage's padded
-// rows (xs, gs, sr or h1), as one bulk copy into part 0 of the A operand,
-// whose rows have the same stride; it completes on the A mbarrier.
-template <int T>
+// Warp 0: the A rows [r0, r0 + n) of stage T into shared memory,
+// completing on the A mbarrier (whose one arrival lane 0 has made,
+// expecting every byte): the stage's padded rows (xs, gs, sr or h1) as one
+// bulk copy into part 0, whose rows have the same stride; at kernel_size 3
+// the gate's two lagged ring rows (row-major in the ring) row by row into
+// part 1 (rows of 2R + AP_PAD: lag d, then lag 2d), rmax rows after part 0.
+template <int KS, int T>
 static __device__ void copy_a(const ApArgs& a, unsigned char* As, uint64_t* bar,
-                              int r0, int n) {
+                              int l, int p, int r0, int n, int rmax, int lane) {
     const bf16* src = T == AP_GATE ? a.xs : T == AP_RES ? a.gs
                     : T == AP_POST1 ? a.sr : a.h1;
     const int ld = a_ld<T>(a);
-    const unsigned bytes = (unsigned)n * ld * 2;
-    mbar_expect(bar, bytes);
-    bulk_copy(As, src + (size_t)r0 * ld, bytes, bar);
+    if (lane == 0) bulk_copy(As, src + (size_t)r0 * ld, (unsigned)n * ld * 2, bar);
+    if constexpr (KS == 3 && T == AP_GATE) {
+        const int R = a.R, ld1 = 2 * R + AP_PAD;
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        const int cap = 2 * d;
+        unsigned char* A1 = As + (size_t)rmax * ld * 2;
+        for (int i = lane; i < 2 * n; i += 32) {
+            const int j = i / n, m = i - j * n;
+            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
+            bulk_copy(A1 + ((size_t)m * ld1 + j * R) * 2,
+                      a.ring + ((size_t)slot * a.B + r0 + m) * R, R * 2, bar);
+        }
+    }
 }
 
-// The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
-// of *rows (16-row tiles), column group *grp.
-static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage& s,
-                                                 int u, int* grp, int* r0,
-                                                 int* rows, int* n) {
-    *grp = u / s.rg;
-    const int rgi = u - *grp * s.rg;
-    *r0 = rgi * 16 * s.mt;
-    *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
-    *n = min(*rows, a.B - *r0);
+
+// Warp 0: ask for unit u's A rows (lane 0 makes the A barrier's one
+// arrival, expecting every byte, before the copies).
+template <int KS, int T>
+static __device__ void issue_a(const ApArgs& a, unsigned char* smem, ApBars& bars,
+                               int l, int p, int u, int lane) {
+    const ApStage& s = a.st[T];
+    int grp, r0, rows, n;
+    unit_rows(a, s, u, &grp, &r0, &rows, &n);
+    unsigned bytes = (unsigned)n * a_ld<T>(a) * 2;
+    if (KS == 3 && T == AP_GATE) bytes += (unsigned)n * 2 * a.R * 2;
+    if (lane == 0) mbar_expect(bars.bar + 2, bytes);
+    __syncwarp();
+    copy_a<KS, T>(a, smem + a.smem_a, bars.bar + 2, l, p, r0, n, 16 * s.mt, lane);
 }
 
 // Every thread: its share of the 16-byte chunks of `runs` contiguous runs
@@ -250,27 +298,15 @@ static __device__ __forceinline__ void fetch_runs(unsigned char* dst, int dstrid
     }
 }
 
-// Every thread, by cp.async (one group): the unit's operands that are not
-// padded rows of a scratch array.  The kernel_size 3 gate's two lagged ring
-// rows per row (row-major in the ring) into part 1 of the A operand (rows of
-// 2R + AP_PAD: lag d, then lag 2d; one bulk copy per row cost the issuing
-// warp more than the stage's products); the epilogue's per-row operands
-// into Es ([rmax][cw]): the ring tap of the unit's sigmoid then tanh
+// The epilogue's per-row operands of a unit into Es ([rmax][cw]), by
+// cp.async beside the A rows: the ring tap of the unit's sigmoid then tanh
 // channels (kernel_size 2 gate, bf16), the old skip sum or stream (res,
 // f32).  The biases come with the weights.
 template <int KS, int T>
-static __device__ void fetch_e(const ApArgs& a, unsigned char* A1, unsigned char* Es,
-                               int l, int p, int grp, int r0, int n, int cw) {
+static __device__ void fetch_e(const ApArgs& a, unsigned char* Es, int l, int p,
+                               int grp, int r0, int n, int cw) {
     const int R = a.R, S = a.S;
-    if constexpr (T == AP_GATE && KS == 3) {
-        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
-        const int cap = 2 * d, ld1 = (2 * R + AP_PAD) * 2;
-        for (int j = 0; j < 2; ++j) {
-            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
-            fetch_runs(A1 + j * R * 2, ld1, a.ring + ((size_t)slot * a.B + r0) * R,
-                       (size_t)R * 2, n, R * 2, j * 128);
-        }
-    } else if constexpr (T == AP_GATE) {
+    if constexpr (T == AP_GATE && KS == 2) {
         const int hc = cw / 2;
         const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
         const bf16* row0 = a.ring + (((size_t)o + p % d) * a.B + r0) * 2 * R + grp * hc;
@@ -375,7 +411,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
 // weights of the next stage (Tn at layer ln; Tn < 0: none).
 template <int KS, int T>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
-                              int Tn, int ln) {
+                              int Tn, int ln, int pn) {
     // the dynamic shared memory named here, not passed in: the compiler then
     // knows the operands are shared and loads them as such
     extern __shared__ __align__(128) unsigned char smem[];
@@ -384,7 +420,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     const int u0 = unit_begin(s.units, blockIdx.x);
     const int u1 = unit_begin(s.units, blockIdx.x + 1);
     if (u0 >= u1) {   // no unit here: still ask for the next stage's weights
-        if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
+        if (threadIdx.x == 0) prefetch<KS>(a, smem, bars, Tn, ln, pn);
         return;
     }
     const int K = s.K, KT = K / 16, cols = s.quarters * s.cw, ntu = cols / 16;
@@ -394,7 +430,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     const int ld0 = a_ld<T>(a), ld1 = 2 * a.R + AP_PAD;
     const int kt0 = KS == 3 && T == AP_GATE ? (a.R + a.Ap) / 16 : KT;
     const bf16* As = (const bf16*)(smem + a.smem_a);
-    const bf16* A1 = As + (size_t)rmax * ld0;   // part 1 (kernel_size 3 gate)
+    const bf16* A1 = As + (size_t)rmax * ld0;
     const bf16* Ws = (const bf16*)(smem + a.smem_w[buf]);
     const float* eb = (const float*)(Ws + (size_t)K * s.quarters * s.cw);
     float* Ps = (float*)(smem + a.smem_p);
@@ -412,10 +448,10 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         __syncthreads();   // the previous unit's tiles, sums and operands are consumed
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
-            if (lane == 0) copy_a<T>(a, smem + a.smem_a, bars.bar + 2, r0, n);
-            if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
+            issue_a<KS, T>(a, smem, bars, l, p, u, lane);
+            if (lane == 0 && u == u0) prefetch<KS>(a, smem, bars, Tn, ln, pn);
         }
-        fetch_e<KS, T>(a, (unsigned char*)A1, Es, l, p, grp, r0, n, s.cw);
+        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw);
         if (ph) t[1] = now_ns();
         mbar_wait(bars.bar + 2, bars.parity[2]);
         bars.parity[2] ^= 1;
@@ -424,10 +460,6 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
             bars.parity[buf] ^= 1;
         }
         have = grp;
-        if constexpr (KS == 3 && T == AP_GATE) {   // the lagged rows too
-            cp_async_wait();
-            __syncthreads();
-        }
         if (ph) t[2] = now_ns();
         const int mtu = rows / 16;
 
@@ -580,21 +612,21 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
         embed_row<KS>(a, b, id, a.T0 - 1, lane);
     }
     fence_proxy_async();
-    if (threadIdx.x == 0) prefetch(a, smem, bars, AP_GATE, 0);
+    if (threadIdx.x == 0) prefetch<KS>(a, smem, bars, AP_GATE, 0, a.T0 - 1);
     timed_sync(a, grid);
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
         for (int l = 0; l < a.L; ++l) {
-            wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+            wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l, p);
             timed_sync(a, grid);
-            if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1);
-            else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0);
+            if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1, p);
+            else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0, p);
             timed_sync(a, grid);
         }
-        wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
+        wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0, p);
         timed_sync(a, grid);
         // the next step's first gate weights: buffer 0, free since post1
-        wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0);
+        wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0, p + 1);
         timed_sync(a, grid);
         sample_stage<KS>(a, i, p);
         if (i + 1 < a.max_n) timed_sync(a, grid);
