@@ -170,46 +170,15 @@ static __device__ void fetch_w(const ApArgs& a, unsigned char* smem, ApBars& bar
     bulk_copy(smem + a.smem_w[T & 1], src, elems * 2, bar);
 }
 
-// The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
-// of *rows (16-row tiles), column group *grp.
-static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage& s,
-                                                 int u, int* grp, int* r0,
-                                                 int* rows, int* n) {
-    *grp = u / s.rg;
-    const int rgi = u - *grp * s.rg;
-    *r0 = rgi * 16 * s.mt;
-    *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
-    *n = min(*rows, a.B - *r0);
-}
-
 // Thread 0: the weights of this block's first unit in stage Tn at layer ln
-// and position pn (Tn < 0: none, or the block has no unit there).  Before a
-// gate stage, the blocks holding column group 0's units also ask the L2 for
-// the ring rows the gate will read (every column group reads all of each
-// row; the rows were written d or more steps ago, and the weight stream
-// has evicted them from the L2 since): the slot at pn mod d (kernel_size
-// 2), the two lagged slots (kernel_size 3).
-template <int KS>
+// (Tn < 0: none, or the block has no unit there).
 static __device__ void prefetch(const ApArgs& a, unsigned char* smem, ApBars& bars,
-                                int Tn, int ln, int pn) {
+                                int Tn, int ln) {
     if (Tn < 0) return;
     const ApStage& s = a.st[Tn];
     const int u0 = unit_begin(s.units, blockIdx.x);
-    const int u1 = unit_begin(s.units, blockIdx.x + 1);
-    if (u0 >= u1) return;
+    if (u0 >= unit_begin(s.units, blockIdx.x + 1)) return;
     fetch_w(a, smem, bars, Tn, ln, u0 / s.rg);
-    if (Tn != AP_GATE) return;
-    const int o = __ldg(a.meta + 2 * ln), d = __ldg(a.meta + 2 * ln + 1);
-    const int W = KS == 2 ? 2 * a.R : a.R;
-    for (int u = u0; u < min(u1, s.rg); ++u) {   // column group 0
-        int grp, r0, rows, n;
-        unit_rows(a, s, u, &grp, &r0, &rows, &n);
-        for (int j = 0; j < KS - 1; ++j) {
-            const int slot = KS == 2 ? o + pn % d
-                           : o + ((pn - (j + 1) * d) % (2 * d) + 2 * d) % (2 * d);
-            prefetch_l2(a.ring + ((size_t)slot * a.B + r0) * W, (unsigned)n * W * 2);
-        }
-    }
 }
 
 // The embed of row b for position p from its K ids: out = ((causal_b + w_0)
@@ -267,6 +236,17 @@ static __device__ void copy_a(const ApArgs& a, unsigned char* As, uint64_t* bar,
     }
 }
 
+// The rows of unit u of stage T: real rows [*r0, *r0 + *n) of a row group
+// of *rows (16-row tiles), column group *grp.
+static __device__ __forceinline__ void unit_rows(const ApArgs& a, const ApStage& s,
+                                                 int u, int* grp, int* r0,
+                                                 int* rows, int* n) {
+    *grp = u / s.rg;
+    const int rgi = u - *grp * s.rg;
+    *r0 = rgi * 16 * s.mt;
+    *rows = 16 * min(s.mt, a.Mt - rgi * s.mt);
+    *n = min(*rows, a.B - *r0);
+}
 
 // Warp 0: ask for unit u's A rows (lane 0 makes the A barrier's one
 // arrival, expecting every byte, before the copies).
@@ -299,9 +279,10 @@ static __device__ __forceinline__ void fetch_runs(unsigned char* dst, int dstrid
 }
 
 // The epilogue's per-row operands of a unit into Es ([rmax][cw]), by
-// cp.async beside the A rows: the ring tap of the unit's sigmoid then tanh
-// channels (kernel_size 2 gate, bf16), the old skip sum or stream (res,
-// f32).  The biases come with the weights.
+// cp.async once the A rows are in, so that they arrive during the products
+// (asked for earlier, they competed with the A rows): the ring tap of the
+// unit's sigmoid then tanh channels (kernel_size 2 gate, bf16), the old
+// skip sum or stream (res, f32).  The biases come with the weights.
 template <int KS, int T>
 static __device__ void fetch_e(const ApArgs& a, unsigned char* Es, int l, int p,
                                int grp, int r0, int n, int cw) {
@@ -411,7 +392,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
 // weights of the next stage (Tn at layer ln; Tn < 0: none).
 template <int KS, int T>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
-                              int Tn, int ln, int pn) {
+                              int Tn, int ln) {
     // the dynamic shared memory named here, not passed in: the compiler then
     // knows the operands are shared and loads them as such
     extern __shared__ __align__(128) unsigned char smem[];
@@ -420,7 +401,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     const int u0 = unit_begin(s.units, blockIdx.x);
     const int u1 = unit_begin(s.units, blockIdx.x + 1);
     if (u0 >= u1) {   // no unit here: still ask for the next stage's weights
-        if (threadIdx.x == 0) prefetch<KS>(a, smem, bars, Tn, ln, pn);
+        if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
         return;
     }
     const int K = s.K, KT = K / 16, cols = s.quarters * s.cw, ntu = cols / 16;
@@ -449,7 +430,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
             issue_a<KS, T>(a, smem, bars, l, p, u, lane);
-            if (lane == 0 && u == u0) prefetch<KS>(a, smem, bars, Tn, ln, pn);
+            if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
         }
         fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw);
         if (ph) t[1] = now_ns();
@@ -612,21 +593,21 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
         embed_row<KS>(a, b, id, a.T0 - 1, lane);
     }
     fence_proxy_async();
-    if (threadIdx.x == 0) prefetch<KS>(a, smem, bars, AP_GATE, 0, a.T0 - 1);
+    if (threadIdx.x == 0) prefetch(a, smem, bars, AP_GATE, 0);
     timed_sync(a, grid);
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
         for (int l = 0; l < a.L; ++l) {
-            wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l, p);
+            wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
             timed_sync(a, grid);
-            if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1, p);
-            else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0, p);
+            if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1);
+            else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0);
             timed_sync(a, grid);
         }
-        wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0, p);
+        wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
         timed_sync(a, grid);
         // the next step's first gate weights: buffer 0, free since post1
-        wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0, p + 1);
+        wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0);
         timed_sync(a, grid);
         sample_stage<KS>(a, i, p);
         if (i + 1 < a.max_n) timed_sync(a, grid);

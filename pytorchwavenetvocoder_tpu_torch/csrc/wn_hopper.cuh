@@ -47,12 +47,6 @@ static __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity)
                  ::"r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// ask the L2 for `bytes` (a multiple of 16) at src, 16-byte aligned
-static __device__ __forceinline__ void prefetch_l2(const void* src, unsigned bytes) {
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
-                 ::"l"(src), "r"(bytes) : "memory");
-}
-
 // 16 bytes global -> shared by cp.async (L2 only), completing in the
 // thread's current group
 static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

@@ -534,10 +534,11 @@ def pack_ar_weights(params, config) -> dict:
 AR_STAGES = ("gate", "res", "post1", "post2")
 
 #: Shared memory a unit may take per region: a weight slice (two buffers:
-#: this stage's and the next one's, prefetched; the plan tries the caps in
-#: turn until the whole fits), the A rows, the warps' partial sums
+#: this stage's and the next one's, prefetched), the A rows (the plan
+#: tries the caps in turn until the whole fits), the warps' partial sums
 AR_W_CAPS = (80 * 1024, 64 * 1024, 48 * 1024)
-AR_A_MAX, AR_P_MAX = 64 * 1024, 32 * 1024
+AR_A_CAPS = (104 * 1024, 64 * 1024)
+AR_P_MAX = 32 * 1024
 
 #: Dynamic shared memory a block of the persistent kernel may take: the
 #: H100's 232,448 bytes less 1 KB for its static mbarriers
@@ -577,8 +578,7 @@ def ar_stage_shapes(config) -> dict:
 
 
 def _cut(K: int, quarters: int, N: int, a_row: int, row_tiles: int,
-         grid: int, w_max: int, a_max: int = AR_A_MAX,
-         p_max: int = AR_P_MAX):
+         grid: int, w_max: int, a_max: int, p_max: int = AR_P_MAX):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
@@ -620,23 +620,24 @@ def _a_row(name: str, K: int, kernel_size: int) -> int:
 
 
 def _cut_stages(shapes: dict, kernel_size: int, row_tiles: int, grid: int,
-                w_max: int):
-    """Every stage's cut under the weight cap: the gate first (the largest
-    K); the other stages within the gate's weight slice and A rows where
-    they fit there (a larger slice would only grow the buffers), else
-    within the caps.  None where a stage has no cut."""
+                w_max: int, a_max: int):
+    """Every stage's cut under the caps: the gate first (the largest K);
+    the other stages within the gate's weight slice, A rows and sums where
+    they fit there (larger ones would only grow the regions), else within
+    the caps.  None where a stage has no cut."""
     stages = {}
     for name, (K, q, N) in shapes.items():
         args = (K, q, N, _a_row(name, K, kernel_size), row_tiles, grid)
         if name == "gate":
-            stages[name] = _cut(*args, w_max)
+            stages[name] = _cut(*args, w_max, a_max)
         else:
             g = stages["gate"]
             stages[name] = (
                 _cut(*args, min(w_max,
                                 (g["K"] * g["quarters"] + 2) * g["cw"] * 2),
-                     min(AR_A_MAX, 16 * g["mt"] * g["a_row"] * 2))
-                or _cut(*args, w_max))
+                     min(a_max, 16 * g["mt"] * g["a_row"] * 2),
+                     g["ks"] * 16 * g["mt"] * g["quarters"] * g["cw"] * 4)
+                or _cut(*args, w_max, a_max))
         if stages[name] is None:
             return None
     return stages
@@ -662,9 +663,9 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
             if torch.cuda.is_available() else H100_SMS)
     row_tiles = -(-B // 16)
     shapes = ar_stage_shapes(config)
-    for w_max in AR_W_CAPS:
+    for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
         stages = _cut_stages(shapes, config.kernel_size, row_tiles, grid,
-                             w_max)
+                             w_max, a_max)
         if stages is None:
             continue
         vals = stages.values()
