@@ -52,21 +52,27 @@
 //    unit's column tiles and K (wmma bf16 16x16x16 from shared memory, f32
 //    sums), and the sums meet in shared memory in a fixed order;
 //  - operands: each unit's weight slice is one contiguous run of 16 x 16
-//    tiles (ops/ar_kernel.py::pack_ar_units), moved by one bulk copy
-//    (cp.async.bulk on an mbarrier); the next stage's slice of a block's
-//    first unit is asked for during this stage, into a second buffer, so
-//    the weight stream overlaps the stage and the barrier.  The stages
-//    write their A operands (the stream with its aux column, the gate,
-//    relu(skip), post1's output) in rows padded by 16 bytes, as the units
-//    hold them in shared memory (wmma's 16-byte row chunks then fall on
-//    distinct banks), so a unit's A rows are one bulk copy; only the
-//    kernel_size 3 gate's lagged rows, row-major in the ring, go row by
-//    row (each bulk copy costs the issuing lane time: per-row copies of
-//    every operand made "asking for the operands" a third of a stage).
-//    The epilogue's operands (ring taps, old stream values, biases) come
-//    by cp.async once the A rows are in, during the products.  The writers
-//    of every array a later stage bulk-copies fence the proxies before the
-//    barrier.
+//    tiles followed by its biases (ops/ar_kernel.py::pack_ar_units), moved
+//    by one bulk copy (cp.async.bulk on an mbarrier); the next stage's run
+//    of a block's first unit is asked for during this stage, into a second
+//    buffer, so the weight stream overlaps the stage and the barrier.  The
+//    stages write their A operands (the stream with its aux column, the
+//    gate, relu(skip), post1's output) in rows padded by 16 bytes, as the
+//    units hold them in shared memory (wmma's 16-byte row chunks then fall
+//    on distinct banks), so a unit's A rows are one bulk copy; only the
+//    kernel_size 3 gate's lagged rows, row-major in the ring, go row by row.
+//    The epilogue's per-row operands (ring taps, old skip sums and stream)
+//    come by cp.async beside the A rows.  The writers of every array a later
+//    stage bulk-copies fence the proxies before the barrier.
+//
+// What the card showed (PERF.md, PR 7): asking for every operand row by row
+// made "asking" a third of a stage (each bulk copy costs its lane time);
+// epilogue operands loaded before the A wait by plain loads stalled the
+// products behind them; a second A buffer and an L2 prefetch of the ring
+// rows a stage ahead did not pay, and neither did the lagged rows by
+// cp.async or 4-byte epilogue stores.  What remains per stage at the main
+// path's fleets is ~0.5-1.9 us asking, ~1.1-2.4 us of products (K4's wmma
+// core), ~0.5-1.4 us of epilogue, and the barrier.
 //
 // The ring hazard.  kernel_size 2: the gate stage of layer l reads ring slot
 // p mod d (the projection written d steps ago) and writes the projection

@@ -22,8 +22,8 @@ there).
 ``ar_generate_reference`` is that math in plain PyTorch (the step of
 ``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
 config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
-carry goes to the plain version, a CUDA carry to the kernel
-(``csrc/ar_step.cu``), or it raises.
+carry goes to the plain version, a CUDA carry to the kernels (bf16:
+``csrc/ar_persistent.cu``; int8: ``csrc/ar_step.cu``), or it raises.
 
 int8 (``quantize=True``) is the JAX kernel's int8 path
 (`ops/ar_kernel.py:480-485, 557-576, 707-800` there): the current- and
@@ -42,19 +42,20 @@ Both update the carry IN PLACE: the ring rows, the sample history and
 call (with ``i0`` advanced, plain version) continues it exactly.  The JAX
 package could only reach this through buffer donation.
 
-What bounds the kernel on the H100: every step streams the whole bf16
+What bounds the kernels on the H100: every step streams the whole bf16
 weight pack (``L * R * (2kR + S + R)`` = 86.5 MB at the 30x512 kernel_size 2
 flagship, 118.0 MB at the kernel_size 3 one, more than the 50 MB L2) for B
 rows, so at fleet sizes it is bound by device-memory bytes (~25 and ~35
 us/step at 3.35 TB/s; the int8 packs are 43.3 and 59.0 MB), and at small
-fleets by the ~65 dependent launches per step.  The design: the step loop
-runs in C++ (no Python per step); each layer is two launches over column
-slices (the gate GEMM over every tap with the gate; skip/res + residual
-add) with ``wmma`` tensor-core tiles and f32 (int8: int32) accumulation;
-per step one launch embeds the input ids, one projects the aux column for
-all layers, kernel_size 3 adds one that gathers every layer's two lagged
-ring rows, and three run the post stack and sampling.  Persistence, CUDA
-graphs and TMA/``wgmma`` are later work.
+fleets by the chain of dependent products: 2L + 3 stages per step.  bf16
+runs every step of a call in one persistent cooperative launch
+(``_persistent``): per step L gate stages (the aux term an extra K of the
+product), L res stages, post1, post2 and the sample stage, with a grid
+barrier after each; a stage is cut into units by ``ar_plan``, each unit's
+weights packed into one run by ``pack_ar_units``.  int8 runs the launch
+loop (``_launch_loop``): a C++ step loop of 65-66 launches per step (one
+per layer product, with the embed, aux, lag gather, post and sample
+launches), ``wmma`` int8 tiles with int32 accumulation.
 """
 
 from __future__ import annotations
