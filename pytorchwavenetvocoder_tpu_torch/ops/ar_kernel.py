@@ -762,17 +762,6 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
     return out
 
 
-def unpack_ar_unit(units: dict, plan: dict, name: str, l: int, grp: int):
-    """The tiles ((K/16, quarters*cw/16, 16, 16) bf16) and the biases (cw
-    f32) of one unit's run in ``pack_ar_units``' layout."""
-    s = plan["stages"][name]
-    run = units[name][l, grp]
-    cw = s["cw"]
-    tiles = run[:-2 * cw].reshape(s["K"] // 16, s["quarters"] * cw // 16,
-                                  16, 16)
-    return tiles, run[-2 * cw:].contiguous().view(torch.float32)
-
-
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -63,13 +63,24 @@ def test_ar_plan_covers_every_output_once(kernel_size, B, width):
         assert (seen == 1).all(), name
 
 
+def _unit_run(units, plan, name, l, grp):
+    """The tiles ((K/16, quarters*cw/16, 16, 16) bf16) and the biases (cw
+    f32) of one unit's run in ``pack_ar_units``' layout."""
+    s = plan["stages"][name]
+    run = units[name][l, grp]
+    cw = s["cw"]
+    tiles = run[:-2 * cw].reshape(s["K"] // 16, s["quarters"] * cw // 16,
+                                  16, 16)
+    return tiles, run[-2 * cw:].contiguous().view(torch.float32)
+
+
 def _unpack(units, plan, name):
-    """Inverse of the per-unit pack: (L, K, quarters * N) weights with
-    column q * N + g * cw + j, and (L, quarters... N) biases per column
-    group in the units' order."""
+    """Inverse of the per-unit pack: the (L, K, quarters * N) weights
+    with column q * N + g * cw + j, and the (L, G * cw) biases in the
+    units' order."""
     s = plan["stages"][name]
     L, G = units[name].shape[:2]
-    runs = [[ak.unpack_ar_unit(units, plan, name, l, g) for g in range(G)]
+    runs = [[_unit_run(units, plan, name, l, g) for g in range(G)]
             for l in range(L)]
     t = torch.stack([torch.stack([r[0] for r in row]) for row in runs])
     KT, ntu = t.shape[2:4]
@@ -160,7 +171,7 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
                     a = torch.cat(parts, dim=1)
                 else:
                     a = {"res": gs, "post1": sr, "post2": h1}[name][r0:r1]
-                t, bias = ak.unpack_ar_unit(units, plan, name, l, grp)
+                t, bias = _unit_run(units, plan, name, l, grp)
                 w = t.permute(0, 2, 1, 3).reshape(t.shape[0] * 16, -1)
                 epi(a.float() @ w.float(), bias, grp, r0, r1, s["cw"])
 
