@@ -65,7 +65,7 @@
 //    come by cp.async beside the A rows.  The writers of every array a later
 //    stage bulk-copies fence the proxies before the barrier.
 //
-// What the card showed (PERF.md, PR 7): asking for every operand row by row
+// What the card showed (PERF.md): asking for every operand row by row
 // made "asking" a third of a stage (each bulk copy costs its lane time);
 // epilogue operands loaded before the A wait by plain loads stalled the
 // products behind them; a second A buffer and an L2 prefetch of the ring
