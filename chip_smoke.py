@@ -15,20 +15,25 @@ the model it runs:
 2. [K2]: the warm-up layer-stack kernel against its plain PyTorch version
    at the main path's shape (the fleet's warm-up chunk: 32 x 3,070 arctic,
    16 x 6,139 ljspeech), with both times;
-3. [K1]: the AR sample-loop kernel (bf16: one persistent cooperative
-   launch per call) against its plain version at the fleet's B: the ring
-   after one step, same-state argmax agreement and trajectories, both
-   times, the AR-loop device kernels of one call counted by
-   ``torch.profiler`` (must be 1), and the kernel against the launch loop
-   it replaced, in turns, at B = 16, 32 and 256; [K1 chi2], a chi-square
-   test of the Gumbel-max sampler (on a narrow config, B = 16,384);
+3. [K1]: the AR sample-loop kernels against their plain version at the
+   fleet's B: the bf16 kernel ``ops/ar_kernel.py::ar_route`` picks there
+   (the persistent kernel: one cooperative launch per call) and the other
+   one (the launch loop), each by the ring after one step, same-state
+   argmax agreement and trajectories; both times, the AR-loop device
+   kernels of one call counted by ``torch.profiler`` (must be 1), and the
+   two bf16 kernels in turns at B = 16 to 512, where ar_route's threshold
+   is read; ljspeech also holds the kernel of its wide fleet (B = 256, the
+   launch loop) the same way; [K1 chi2], a chi-square test of the
+   Gumbel-max sampler (on a narrow config, B = 16,384);
 4. [main]: the decode path: a flagship checkpoint (random weights from a
    seeded generator) written as a bundle, loaded back through the port's
    loaders and decoded by ``bin/decode.py``'s ``decode_batches`` as a fleet
    of ragged utterances in sampling mode, with the kernels' launch counts
    and the plain loop never run; [main f32], the same fleet from a
-   float32-conf bundle of the same weights with ``impl="auto"`` (the
-   warm-up on the plain f32 forward, K1 once per fleet);
+   float32-conf bundle of the same weights with ``impl="auto"`` (run as
+   the bf16 conf: K2 and K1 once per fleet), and K1 on the float32 conf's
+   carry against the plain loop; [main wide k3], a ljspeech fleet of 256
+   short utterances, on the bf16 launch loop;
 5. [K2 train]: K2 in training mode (the sigma/tanh saves and the skip sum)
    against its plain version at the flagship training window (B=1, T =
    23,040 arctic, 21,120 ljspeech), each layer on the kernel's own input
@@ -194,7 +199,9 @@ def main() -> int:
     arctic = dict(name="arctic", tag="", suffix="", cfg=flag,
                   params=make_params(flag, 1234), fleet=32, train_frames=288,
                   batch_length=20000, fs=16000, rs=np.random.RandomState(0))
-    ljs = dict(name="ljspeech", tag=" k3", suffix="_k3", cfg=lj,
+    # wide: a fleet of the JAX package's bench size (256, bench.py), which
+    # ar_route gives the other bf16 kernel than the recipes' fleet
+    ljs = dict(name="ljspeech", tag=" k3", suffix="_k3", cfg=lj, wide=256,
                params=make_params(lj, 4321), fleet=16, train_frames=192,
                batch_length=15000, fs=22050, rs=np.random.RandomState(10))
     params = arctic["params"]
@@ -456,29 +463,17 @@ def main() -> int:
     def clone(carry):
         return tuple(t.clone() for t in carry)
 
-    def k1(m, n, n_check, controls, n_big=64):
-        """K1 against the plain loop from the same carry: the ring after one
-        step, same-state argmax over n_check steps, trajectories over
-        n_check steps; the kernel timed over n steps, its device launches
-        in one call counted by the profiler, and the kernel against the
-        launch loop it replaced at B = 16, 32 and 256 (n_big steps at the
-        sizes other than the fleet's)."""
-        cfg, prm, B = m["cfg"], m["params"], m["fleet"]
-        carry, h, T0 = fleet_carry(cfg, prm, B, n, 1)
-
-        def kernel(c_, i0, steps):
-            return ak.ar_generate(prm, cfg, c_, h, T0 + i0, steps, "argmax")
-
-        def plain(p_):
-            return lambda c_, i0, steps: ak.ar_generate_reference(
-                p_, cfg, c_, h, T0, steps, "argmax", i0=i0)
-
-        runs = {"kernel": kernel}
-        runs.update({name: plain(p_) for name, p_ in controls.items()})
+    def k1_readings(cfg, prm, carry, h, T0, n_check, runs, plain_cfg=None):
+        """Each of ``runs`` ((carry, i0, steps) -> samples) against the
+        plain loop (on ``plain_cfg``, default ``cfg``) from the same carry:
+        the ring after one step over max|ring| (and its max|d|), same-state
+        argmax agreement over n_check steps, and the share of (row, step)
+        before each row's first divergence over n_check steps."""
+        pcfg = plain_cfg or cfg
         # the ring after one step: every layer's written slot depends on
         # the whole chain of the step before it
         cp = clone(carry)
-        ak.ar_generate_reference(prm, cfg, cp, h, T0, 1, "argmax")
+        ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax")
         ring_max = cp[0].float().abs().max().item()
         ring = {}
         for name, run in runs.items():
@@ -490,13 +485,13 @@ def main() -> int:
         cp, same = clone(carry), {name: [] for name in runs}
         for i in range(n_check):
             outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
-            sp = ak.ar_generate_reference(prm, cfg, cp, h, T0, 1, "argmax",
+            sp = ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax",
                                           i0=i)
             for name, smp in outs.items():
                 same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
         # argmax trajectories over n_check steps from the same carry: the
         # share of (row, step) before each row's first divergence
-        sp = ak.ar_generate_reference(prm, cfg, clone(carry), h, T0, n_check,
+        sp = ak.ar_generate_reference(prm, pcfg, clone(carry), h, T0, n_check,
                                       "argmax").cpu().numpy()
         readings = {}
         for name, run in runs.items():
@@ -504,14 +499,91 @@ def main() -> int:
             first = [int(np.argmin(a)) if not a.all() else n_check
                      for a in agree]
             readings[name] = (ring[name] / ring_max, float(np.mean(same[name])),
-                              float(np.mean(first)) / n_check)
+                              float(np.mean(first)) / n_check, ring[name])
+        return readings
+
+    # limits: the ring after one step moves by a bf16 ulp where sums round
+    # apart (2^-8 of max|ring| < 2e-2); a step's argmax flips only where two
+    # logits lie within the bf16 summation-order noise, so from the same
+    # state >= 97% of (row, step) agree; once a row flips its trajectory is
+    # its own, and with a flip rate q per step the share before the first
+    # flip is about 1 / (q n): >= 0.1 for q <= 3% over 256 steps (>= 0.2
+    # over 128, >= 0.4 over 64)
+    K1_RING_TOL, K1_STEP_FLOOR = 2e-2, 0.97
+
+    def k1_fails(r, n_check):
+        floor = 0.1 * 256 / n_check
+        return [c for c, bad in (("ring", not r[0] <= K1_RING_TOL),
+                                 ("same-state", not r[1] >= K1_STEP_FLOOR),
+                                 ("trajectory", not r[2] >= floor)) if bad]
+
+    def k1_line(readings, n_check):
+        return ("; ".join(f"{c} ring after 1 step max|d|/max|ring| "
+                          f"{r[0]:.3e}, same-state agreement {r[1]:.4f}, share "
+                          f"agreeing up to each row's first divergence "
+                          f"{r[2]:.4f}, fails {k1_fails(r, n_check) or 'none'}"
+                          for c, r in readings.items())
+                + f" (limits ring {K1_RING_TOL}, same-state {K1_STEP_FLOOR}, "
+                f"trajectory {0.1 * 256 / n_check:.2f})")
+
+    def k1_check(readings, controls, n_check, what):
+        """The kernels' readings pass the limits, every control fails."""
+        bad = {c: r for c, r in readings.items()
+               if c not in controls and k1_fails(r, n_check)}
+        if bad:
+            raise AssertionError(f"{what} outside its limits: {bad}")
+        blind = [c for c in controls if not k1_fails(readings[c], n_check)]
+        if blind:
+            raise AssertionError(f"{what} limits pass the controls {blind}")
+
+    def slice_carry(carry, h, b):
+        """The first b rows of a fleet's carry and aux, as their own."""
+        ring, hist, prev = carry
+        return ((ring[:, :b].contiguous(), hist[:b].contiguous(),
+                 prev[:b].contiguous()), h[:b].contiguous())
+
+    #: the fleets at which [K1*] time both bf16 kernels in turns: the main
+    #: paths' (16, 32), the JAX package's bench fleet (256) and sizes
+    #: between and beyond, on both sides of ar_route's threshold
+    K1_TURN_B = (16, 32, 64, 128, 192, 256, 512)
+
+    def k1(m, n, n_check, controls, n_big=64, n_wide=64):
+        """K1 against the plain loop from the same carry at the fleet's B,
+        both bf16 kernels (the one ar_route picks, and the other one held
+        the same way): the ring after one step, same-state argmax over
+        n_check steps, trajectories over n_check steps; the picked kernel
+        timed over n steps and its device launches in one call counted by
+        the profiler; both kernels in turns at K1_TURN_B (n_big steps at
+        the sizes other than the fleet's); and, where the model has a wide
+        fleet (m["wide"]) on the other kernel, that kernel at it, held
+        against the plain loop over n_wide steps."""
+        cfg, prm, B = m["cfg"], m["params"], m["fleet"]
+        carry, h, T0 = fleet_carry(cfg, prm, B, n, 1)
+        route = ak.ar_route(cfg, B)
+        other = "loop" if route == "persistent" else "persistent"
+        names = {"persistent": "persistent", "loop": "launch loop"}
+
+        def kernel(c_, i0, steps):
+            return ak.ar_generate(prm, cfg, c_, h, T0 + i0, steps, "argmax")
+
+        def on(r_, h_, T_):
+            return lambda c_, i0, steps: ak.ar_generate_on(
+                r_, prm, cfg, c_, h_, T_ + i0, steps)
+
+        def plain(p_, h_, T_):
+            return lambda c_, i0, steps: ak.ar_generate_reference(
+                p_, cfg, c_, h_, T_, steps, "argmax", i0=i0)
+
+        runs = {"kernel": kernel, names[other]: on(other, h, T0)}
+        runs.update({c: plain(p_, h, T0) for c, p_ in controls.items()})
+        readings = k1_readings(cfg, prm, carry, h, T0, n_check, runs)
         # per-call times, n steps each
         ms = time_ms(lambda: kernel(carry, 0, n))
         plain_ms = time_ms(lambda: ak.ar_generate_reference(
             prm, cfg, carry, h, T0, n, "argmax"), reps=1)
         bnd = ar_bound(cfg, B, n, False)
         # the device kernels of the AR loop in one call of n steps: one
-        # cooperative launch (the launch loop made 65-66 per step)
+        # cooperative launch (the launch loop makes 65-66 per step)
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             kernel(carry, 0, n)
@@ -519,70 +591,52 @@ def main() -> int:
         loop_kernels = [e.name for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and re.match(r"(void )?ar_\w+_kernel", e.name)]
-        # the persistent kernel against the launch loop it replaced, in
-        # turns (persistent, loop, loop, persistent; best of each), at the
-        # fleet sizes 16, 32 and 256
+        # both bf16 kernels in turns (persistent, loop, loop, persistent;
+        # best of each) from one carry of the largest fleet, sliced
         turns, phases = {}, {}
-        for b_t in (16, 32, 256):
-            n_t = n if b_t == B else n_big
+        big_carry, big_h, T_big = fleet_carry(cfg, prm, max(K1_TURN_B), n_big,
+                                              2)
+        for b_t in K1_TURN_B:
             if b_t == B:
-                c_t, h_t, T_t = carry, h, T0
+                c_t, h_t, T_t, n_t = carry, h, T0, n
             else:
-                c_t, h_t, T_t = fleet_carry(cfg, prm, b_t, n_t, 2)
-            fns = {"persistent": lambda: ak.ar_generate(
-                       prm, cfg, c_t, h_t, T_t, n_t, "argmax"),
-                   "launch loop": lambda: ak.ar_generate_launch_loop(
-                       prm, cfg, c_t, h_t, T_t, n_t)}
-            got = {k_: [] for k_ in fns}
-            for k_ in ("persistent", "launch loop", "launch loop",
-                       "persistent"):
-                got[k_].append(1e3 * time_ms(fns[k_]) / n_t)
-            turns[b_t] = {k_: min(v) for k_, v in got.items()}
-            k1_us[(m["name"], "bf16", b_t)] = turns[b_t]["persistent"]
-            if b_t in (B, 256):    # where a step's time goes
+                (c_t, h_t), T_t, n_t = (slice_carry(big_carry, big_h, b_t),
+                                        T_big, n_big)
+            fns = {r_: (lambda r_=r_: ak.ar_generate_on(
+                r_, prm, cfg, c_t, h_t, T_t, n_t)) for r_ in names}
+            got = {r_: [] for r_ in fns}
+            for r_ in ("persistent", "loop", "loop", "persistent"):
+                got[r_].append(1e3 * time_ms(fns[r_]) / n_t)
+            turns[b_t] = {r_: min(v) for r_, v in got.items()}
+            turns[b_t]["route"] = ak.ar_route(cfg, b_t)
+            k1_us[(m["name"], "bf16", b_t)] = turns[b_t][turns[b_t]["route"]]
+            if b_t in (B, 256):    # where a persistent step's time goes
                 phases[b_t] = ak.ar_phase_times(prm, cfg, c_t, h_t, T_t, n_t)
             if b_t != B:
                 del c_t, h_t
         bb = ar_bound(cfg, 256, n_big, False)
         big = (" | us/step, best of two in turns (persistent / launch "
-               "loop): " + ", ".join(
-                   f"B={b_} {t_['persistent']:.1f} / {t_['launch loop']:.1f}"
+               "loop, * = the one ar_route picks): " + ", ".join(
+                   f"B={b_} {t_['persistent']:.1f}"
+                   f"{'*' if t_['route'] == 'persistent' else ''} / "
+                   f"{t_['loop']:.1f}{'*' if t_['route'] == 'loop' else ''}"
                    for b_, t_ in turns.items())
                + f" (B != {B}: over {n_big} steps); bound at B=256 x "
                f"{n_big}: {bb['bound_ms']:.3f} ms ({bb['bound_by']}) | AR-loop "
-               f"device kernels in one call of {n} steps: {len(loop_kernels)} "
-               f"{sorted(set(loop_kernels))}")
-        # limits: the ring after one step moves by a bf16 ulp where sums
-        # round apart (2^-8 of max|ring| < 2e-2); a step's argmax flips only
-        # where two logits lie within the bf16 summation-order noise, so
-        # from the same state >= 97% of (row, step) agree; once a row flips
-        # its trajectory is its own, and with a flip rate q per step the
-        # share before the first flip is about 1 / (q n): >= 0.1 for q <= 3%
-        # over 256 steps (>= 0.2 over 128)
-        ring_tol, step_floor = 2e-2, 0.97
-        floor = 0.1 * 256 / n_check
-
-        def fails(r):
-            return [c for c, bad in (("ring", not r[0] <= ring_tol),
-                                     ("same-state", not r[1] >= step_floor),
-                                     ("trajectory", not r[2] >= floor)) if bad]
-
+               f"device kernels in one call of {n} steps ({route}): "
+               f"{len(loop_kernels)} {sorted(set(loop_kernels))}")
         print(f"[K1{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, argmax, "
-              f"{n_check} steps vs the plain version: "
-              + "; ".join(f"{c} ring after 1 step max|d|/max|ring| {r[0]:.3e},"
-                          f" same-state agreement {r[1]:.4f}, share agreeing "
-                          f"up to each row's first divergence {r[2]:.4f}, "
-                          f"fails {fails(r) or 'none'}"
-                          for c, r in readings.items())
-              + f" (limits ring {ring_tol}, same-state {step_floor}, "
-              f"trajectory {floor:.2f}) | B={B} x {n} steps: kernel {ms:.2f} "
+              f"{n_check} steps vs the plain version (kernel: the {route} "
+              f"kernel ar_route picks): " + k1_line(readings, n_check)
+              + f" | B={B} x {n} steps: kernel {ms:.2f} "
               f"ms ({1e3 * ms / n:.1f} us/step), plain {plain_ms:.2f} ms "
               f"({1e3 * plain_ms / n:.1f} us/step), bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}){big} | {card}",
               flush=True)
-        print(f"[K1{m['tag']}] {m['name']} where a step goes, us per stage "
-              f"(the kernel's phase times; means over the blocks with a "
-              f"unit, the barrier wait over all blocks): " + "; ".join(
+        print(f"[K1{m['tag']}] {m['name']} where a step of the persistent "
+              f"kernel goes, us per stage (its phase times; means over the "
+              f"blocks with a unit, the barrier wait over all blocks): "
+              + "; ".join(
                   f"B={b_}: " + ", ".join(
                       f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
                                   else f"ask {v['ask']:.2f} wait {v['wait']:.2f}"
@@ -592,18 +646,43 @@ def main() -> int:
                   + f", barrier {ph['barrier']['wait']:.2f} x "
                   f"{ph['barrier']['per_step']:.0f}/step"
                   for b_, ph in phases.items()) + f" | {card}", flush=True)
-        kernel_entry("ar_persistent", m, "ar_persistent.cu",
+        entry = {"persistent": ("ar_persistent", "ar_persistent.cu"),
+                 "loop": ("ar_step", "ar_step.cu")}
+        kernel_entry(entry[route][0], m, entry[route][1],
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
-                     ring["kernel"], ms, plain_ms, bnd)
-        if fails(readings["kernel"]):
-            raise AssertionError(f"K1 outside its limits: {readings['kernel']}")
-        if len(loop_kernels) != 1 or "ar_persistent_kernel" not in \
-                loop_kernels[0]:
+                     readings["kernel"][3], ms, plain_ms, bnd)
+        k1_check(readings, controls, n_check, f"K1 ({route})")
+        if route == "persistent" and (len(loop_kernels) != 1 or
+                                      "ar_persistent_kernel" not in
+                                      loop_kernels[0]):
             raise AssertionError(f"one call of {n} steps ran the AR-loop "
                                  f"kernels {loop_kernels}, not one launch")
-        blind = [c for c in controls if not fails(readings[c])]
-        if blind:
-            raise AssertionError(f"K1 limits pass the controls {blind}")
+        wide = m.get("wide")
+        if not wide or ak.ar_route(cfg, wide) == route:
+            return
+        # the wide fleet's kernel at its own B, from the sliced carry
+        w_route = ak.ar_route(cfg, wide)
+        (c_w, h_w), T_w = slice_carry(big_carry, big_h, wide), T_big
+        del big_carry, big_h
+        runs = {"kernel": lambda c_, i0, steps: ak.ar_generate(
+            prm, cfg, c_, h_w, T_w + i0, steps, "argmax")}
+        runs.update({c: plain(p_, h_w, T_w) for c, p_ in controls.items()})
+        rd = k1_readings(cfg, prm, c_w, h_w, T_w, n_wide, runs)
+        ms_w = time_ms(lambda: runs["kernel"](c_w, 0, n_big))
+        plain_w = time_ms(lambda: ak.ar_generate_reference(
+            prm, cfg, c_w, h_w, T_w, n_big, "argmax"), reps=1)
+        bnd_w = ar_bound(cfg, wide, n_big, False)
+        print(f"[K1{m['tag']}] {m['name']} wide fleet B={wide}, argmax, "
+              f"{n_wide} steps vs the plain version (kernel: the {w_route} "
+              f"kernel ar_route picks): " + k1_line(rd, n_wide)
+              + f" | B={wide} x {n_big} steps: kernel {ms_w:.2f} ms "
+              f"({1e3 * ms_w / n_big:.1f} us/step), plain {plain_w:.2f} ms, "
+              f"bound {bnd_w['bound_ms']:.3f} ms ({bnd_w['bound_by']}) | "
+              f"{card}", flush=True)
+        kernel_entry(entry[w_route][0], m, entry[w_route][1],
+                     "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                     rd["kernel"][3], ms_w, plain_w, bnd_w)
+        k1_check(rd, controls, n_wide, f"K1 ({w_route}, B={wide})")
 
     def chi2():
         from scipy.stats import chi2 as chi2_dist
@@ -669,7 +748,11 @@ def main() -> int:
                          "iterations": 0}, f)
         return load_model(ckpt, tmp, dev)[0]
 
-    def main_path(m):
+    def main_path(m, wide=False):
+        """The decode path at the model's fleet (or, with ``wide``, at its
+        wide fleet m["wide"] of short utterances): the bf16 kernel
+        ar_route picks for that fleet launched once, K2 launched, the
+        plain loop never run."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _pad_aux_to,
@@ -686,9 +769,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=root) as tmp:
             model = write_bundle(cfg, prm, tmp)
 
-            B = m["fleet"]
+            B = m["wide"] if wide else m["fleet"]
             r = np.random.RandomState(5)
-            frames = r.randint(50, 101, B)
+            frames = r.randint(8, 13, B) if wide else r.randint(50, 101, B)
             mean = r.randn(cfg.n_aux) * 0.1
             scale = 1.0 + 0.1 * r.rand(cfg.n_aux)
             scaler = StandardScaler()
@@ -718,8 +801,9 @@ def main() -> int:
             n_list = [int(nf) * uf - 1 for nf in frames]
             ids = [f"utt{b:02d}" for b in range(B)]
             outdir = os.path.join(tmp, "wav")
-            fleet[m["name"]] = dict(model=model, x=x, h=h, n_list=n_list,
-                                    ids=ids, frames=frames)
+            if not wide:
+                fleet[m["name"]] = dict(model=model, x=x, h=h, n_list=n_list,
+                                        ids=ids, frames=frames)
 
             plain_runs = [0]
             real_ref = ak.ar_generate_reference
@@ -730,6 +814,7 @@ def main() -> int:
 
             ak.ar_generate_reference = counted_ref
             ak.ar_generate.launches = 0
+            ak.ar_generate.loop_launches = 0
             ak.ar_generate.int8_launches = 0
             tk.layer_stack_streams.launches = 0
             try:
@@ -739,11 +824,15 @@ def main() -> int:
                 torch.cuda.synchronize()
             finally:
                 ak.ar_generate_reference = real_ref
-            launches = {"ar_step": ak.ar_generate.launches,
+            launches = {"ar_persistent": ak.ar_generate.launches,
+                        "ar_step": ak.ar_generate.loop_launches,
                         "ar_step_int8": ak.ar_generate.int8_launches,
                         "layer_stack_fwd": tk.layer_stack_streams.launches}
-            set_launches(m, {"ar_persistent": launches["ar_step"],
-                             "layer_stack_fwd": launches["layer_stack_fwd"]})
+            route = ak.ar_route(cfg, B)
+            k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+            set_launches(m, {k1_name: launches[k1_name]} if wide else
+                         {k1_name: launches[k1_name],
+                          "layer_stack_fwd": launches["layer_stack_fwd"]})
 
             bad = []
             for b, n in enumerate(n_list):
@@ -767,7 +856,8 @@ def main() -> int:
             torch.cuda.synchronize()
             warm_s = time.time() - tw
             max_n = max(n_list)
-            print(f"[main{m['tag']}] {m['name']} decode_batches: {B} utts, "
+            print(f"[main{' wide' if wide else ''}{m['tag']}] {m['name']} "
+                  f"decode_batches ({route} K1): {B} utts, "
                   f"frames {frames.min()}-{frames.max()} at {m['fs']} Hz, "
                   f"{res['n_samples']} samples in {res['seconds']:.3f} s = "
                   f"{res['n_samples'] / res['seconds']:.0f} samples/s, "
@@ -780,27 +870,36 @@ def main() -> int:
                                      f"non-finite: {bad[:4]}")
             if not spread or not np.isfinite(spread):
                 raise AssertionError(f"degenerate output wav (std {spread})")
-            if (launches["ar_step"] != 1 or launches["ar_step_int8"] != 0
+            if (launches[k1_name] != 1
+                    or sum(v for k, v in launches.items()
+                           if k.startswith("ar_")) != 1
                     or launches["layer_stack_fwd"] < 1 or plain_runs[0]):
-                raise AssertionError(f"not one K1 launch, K2 launched and no "
-                                     f"plain loop: {launches}, plain "
+                raise AssertionError(f"not one {k1_name} launch, K2 launched "
+                                     f"and no plain loop: {launches}, plain "
                                      f"{plain_runs[0]}")
 
-    def main_f32(m):
+    def main_f32(m, n_check=64):
         """The [main] fleet from a float32-conf bundle of the same weights
         (what the JAX package's bin/convert_checkpoint.py writes for a
-        reference checkpoint) through decode_batches(impl="auto"): the
-        warm-up on the plain f32 forward, the ring in bf16, K1 launched
-        once per fleet and the plain loop never run."""
+        reference checkpoint) through decode_batches(impl="auto"), which
+        runs it as the bf16 conf on the same weights: K2 and K1 launched
+        once per fleet, the plain loop never run.  Then the float32 conf's
+        carry at the fleet's B (the cuda route's warm-up, ring in bf16),
+        K1 on the float32 conf against the plain loop on the bf16 conf, by
+        [K1]'s limits."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            _kernel_config,
+        )
         from pytorchwavenetvocoder_tpu_torch.utils import read_wav
 
         if m["name"] not in fleet:
             raise AssertionError("no fleet: [main] did not run")
         cfg = dataclasses.replace(m["cfg"], compute_dtype="float32")
+        prm = m["params"]
         fl = fleet[m["name"]]
         with tempfile.TemporaryDirectory(dir=root) as tmp:
-            model = write_bundle(cfg, m["params"], tmp)
+            model = write_bundle(cfg, prm, tmp)
             outdir = os.path.join(tmp, "wav")
             plain_runs = [0]
             real_ref = ak.ar_generate_reference
@@ -811,6 +910,7 @@ def main() -> int:
 
             ak.ar_generate_reference = counted_ref
             ak.ar_generate.launches = 0
+            ak.ar_generate.loop_launches = 0
             ak.ar_generate.int8_launches = 0
             tk.layer_stack_streams.launches = 0
             try:
@@ -822,7 +922,8 @@ def main() -> int:
                 torch.cuda.synchronize()
             finally:
                 ak.ar_generate_reference = real_ref
-            launches = {"ar_step": ak.ar_generate.launches,
+            launches = {"ar_persistent": ak.ar_generate.launches,
+                        "ar_step": ak.ar_generate.loop_launches,
                         "ar_step_int8": ak.ar_generate.int8_launches,
                         "layer_stack_fwd": tk.layer_stack_streams.launches}
             bad = []
@@ -832,23 +933,38 @@ def main() -> int:
                     bad.append((fl["ids"][b], wav.shape, n))
                 if b == 0:
                     spread = float(np.std(wav))
+        # the float32 conf's carry on the cuda route, K1 vs the plain loop
+        kcfg = _kernel_config(cfg)
+        B = m["fleet"]
+        carry, h, T0 = fleet_carry(kcfg, prm, B, n_check, 6)
+        runs = {"kernel": lambda c_, i0, steps: ak.ar_generate(
+            prm, cfg, c_, h, T0 + i0, steps, "argmax")}
+        rd = k1_readings(kcfg, prm, carry, h, T0, n_check, runs)
         max_n = max(fl["n_list"])
         print(f"[main f32{m['tag']}] {m['name']} float32 conf, decode_batches"
               f"(impl='auto'): {len(fl['n_list'])} utts, {res['n_samples']} "
               f"samples in {res['seconds']:.3f} s = "
               f"{res['n_samples'] / res['seconds']:.0f} samples/s, "
-              f"{1e6 * res['seconds'] / max_n:.1f} us/step (warm-up on the "
-              f"plain f32 forward included) | launches {launches}, plain loop "
-              f"runs {plain_runs[0]} | wav std {spread} | {card}", flush=True)
+              f"{1e6 * res['seconds'] / max_n:.1f} us/step (warm-up on K2 "
+              f"included) | launches {launches}, plain loop runs "
+              f"{plain_runs[0]} | wav std {spread} | the float32 conf's carry "
+              f"at B={B} (ring {carry[0].dtype}), K1 on the float32 conf vs "
+              f"the plain loop on the bf16 conf, {n_check} steps: "
+              + k1_line(rd, n_check) + f" | {card}", flush=True)
         if bad:
             raise AssertionError(f"wavs of the wrong length or non-finite: "
                                  f"{bad[:4]}")
         if not spread or not np.isfinite(spread):
             raise AssertionError(f"degenerate output wav (std {spread})")
-        if launches != {"ar_step": 1, "ar_step_int8": 0,
-                        "layer_stack_fwd": 0} or plain_runs[0]:
-            raise AssertionError(f"not one K1 launch on the float32 bundle's "
-                                 f"fleet: {launches}, plain {plain_runs[0]}")
+        if launches != {"ar_persistent": 1, "ar_step": 0, "ar_step_int8": 0,
+                        "layer_stack_fwd": 1} or plain_runs[0]:
+            raise AssertionError(f"not one K1 and one K2 launch on the float32 "
+                                 f"bundle's fleet: {launches}, plain "
+                                 f"{plain_runs[0]}")
+        if carry[0].dtype != bf:
+            raise AssertionError(f"the float32 conf's ring is {carry[0].dtype}")
+        k1_check(rd, {}, n_check, "K1 on the float32 conf's carry")
+
 
     # ---- 5. the training path: K2 training mode, K3, bin/train.py ---------
     # The flagship training windows: --batch_length 20000 (arctic) and 15000
@@ -1585,6 +1701,7 @@ def main() -> int:
 
             ak.ar_generate_reference = counted_ref
             ak.ar_generate.launches = 0
+            ak.ar_generate.loop_launches = 0
             ak.ar_generate.int8_launches = 0
             tk.layer_stack_streams.launches = 0
             try:
@@ -1596,7 +1713,8 @@ def main() -> int:
             finally:
                 ak.ar_generate_reference = real_ref
             launches = {"ar_step_int8": ak.ar_generate.int8_launches,
-                        "ar_step": ak.ar_generate.launches,
+                        "ar_persistent": ak.ar_generate.launches,
+                        "ar_step": ak.ar_generate.loop_launches,
                         "layer_stack_fwd": tk.layer_stack_streams.launches}
             set_launches(m, {"ar_step_int8": launches["ar_step_int8"]})
             bad, spread = [], None
@@ -1633,7 +1751,7 @@ def main() -> int:
                                  f"{bad[:4]}")
         if not spread or not np.isfinite(spread):
             raise AssertionError(f"degenerate output wav (std {spread})")
-        if launches != {"ar_step_int8": 1, "ar_step": 0,
+        if launches != {"ar_step_int8": 1, "ar_persistent": 0, "ar_step": 0,
                         "layer_stack_fwd": chunks} or plain_runs[0]:
             raise AssertionError(f"not one K1-int8 launch and one K2 launch "
                                  f"per warm-up chunk: {launches}")
@@ -1851,6 +1969,7 @@ def main() -> int:
     phase("K1 int8 k3", lambda: k1_int8(ljs, 256, 128))
     phase("int8 track k3", lambda: int8_track(ljs, 10, 0.7))
     phase("main k3", lambda: main_path(ljs))
+    phase("main wide k3", lambda: main_path(ljs, wide=True))
     phase("main int8 k3", lambda: main_int8(ljs))
     phase("K2 train k3", lambda: k2_train(ljs))
     phase("K3 k3", lambda: k3(ljs))

@@ -6,13 +6,21 @@ two flagship configurations, then runs ``torch.profiler`` over ``--steps``
 argmax steps of ``ops/ar_kernel.py::ar_generate`` and prints, per CUDA
 kernel, its launches and device microseconds per step (the wrapper's
 per-call work, such as packing the weights, spread over the steps), the
-device-busy sum and the host clock per step.  bf16 runs the steps in one
-launch of the persistent kernel, whose device microseconds per step it
-names on a line of their own; int8 (``--quantize``) keeps the launch
-loop's table, one row per kernel of the step.
+device-busy sum and the host clock per step.  bf16 runs on the kernel
+``ar_route`` picks for the fleet: the persistent kernel runs the steps in
+one launch, whose device microseconds per step it names on a line of
+their own, followed by its phase times per stage; on the launch loop (and
+in int8, ``--quantize``) the table has one row per kernel of the step.
+
+``--turns B1,B2,...`` times the two bf16 kernels instead, the persistent
+kernel and the launch loop, in turns (persistent, loop, loop, persistent;
+best of each, CUDA events) at each fleet size, from one carry of the
+largest sliced, and names the one ``ar_route`` picks: where its
+``AR_LOOP_FROM_B`` threshold is read.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.profile_ar --model
-ljspeech --batch 16 [--quantize]``.
+ljspeech --batch 16 [--quantize]``, or ``... --model ljspeech --turns
+128,192,256``.
 """
 
 from __future__ import annotations
@@ -46,9 +54,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--steps", type=int, default=32)
     parser.add_argument("--quantize", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--turns", default="",
+                        help="comma-separated fleet sizes: time both bf16 "
+                        "kernels in turns at each instead of profiling")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ar needs a CUDA device")
+    turn_b = [int(b) for b in args.turns.split(",") if b]
+    if turn_b:
+        args.batch = max(turn_b)
     dev = torch.device("cuda:0")
     cfg = WaveNetConfig(n_resch=512, n_skipch=256, dilation_depth=10,
                         dilation_repeat=3, compute_dtype="bfloat16",
@@ -71,6 +85,12 @@ def main(argv=None) -> dict:
             carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
         q = dict(quantize=True, act_scales=scales)
     T0 = x.shape[1]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    if turn_b:
+        return turns(params, cfg, carry, h, T0, n, turn_b, args.model, smi)
+    persistent = not args.quantize and ak.ar_route(cfg, B) == "persistent"
     ak.ar_generate(params, cfg, carry, h, T0, n, "argmax", **q)   # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -90,16 +110,14 @@ def main(argv=None) -> dict:
             torch.autograd.DeviceType.CUDA
         if dev_us > 0 and on_device and e.key != "Activity Buffer Request":
             rows[e.key] = (e.count, dev_us / n)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
     busy = sum(us for _c, us in rows.values())
     print(f"[profile_ar] {args.model} k={cfg.kernel_size} B={B} "
-          f"{'int8' if args.quantize else 'bf16'} x {n} steps | {smi}")
+          f"{'int8' if args.quantize else 'bf16'} x {n} steps "
+          f"({'persistent kernel' if persistent else 'launch loop'}) | {smi}")
     for key, (count, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:9.2f} us/step  {count / n:6.1f} launches/step  "
               f"{key[:90]}")
-    if not args.quantize:
+    if persistent:
         loop = [(c, us) for key, (c, us) in rows.items()
                 if "ar_persistent_kernel" in key]
         print(f"  the AR loop: {sum(c for c, _ in loop)} launch(es) of "
@@ -108,7 +126,7 @@ def main(argv=None) -> dict:
     print(f"  device busy {busy:.1f} us/step, host clock {host_us:.1f} "
           f"us/step, idle share {1 - busy / host_us:.3f}")
     phases = None
-    if not args.quantize:
+    if persistent:
         # where a step of the persistent kernel goes, from its phase times
         phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n)
         print("  us per stage (means over the blocks with a unit):")
@@ -116,6 +134,42 @@ def main(argv=None) -> dict:
             print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
                                                for k, x in v.items()))
     return dict(rows=rows, busy_us=busy, host_us=host_us, phases=phases)
+
+
+def turns(params, cfg, carry, h, T0: int, n: int, sizes: list, model: str,
+          smi: str) -> dict:
+    """Both bf16 kernels in turns at each fleet size of ``sizes``, n argmax
+    steps a call, from the first rows of ``carry``; returns {B: {route:
+    us/step, "route": ar_route's pick}}."""
+    def us_per_step(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(3):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return 1e3 * t0.elapsed_time(t1) / 3 / n
+
+    out = {}
+    for b in sizes:
+        c_b = tuple(t[:, :b].contiguous() if i == 0 else t[:b].contiguous()
+                    for i, t in enumerate(carry))
+        h_b = h[:b].contiguous()
+        got = {"persistent": [], "loop": []}
+        for route in ("persistent", "loop", "loop", "persistent"):
+            got[route].append(us_per_step(lambda: ak.ar_generate_on(
+                route, params, cfg, c_b, h_b, T0, n)))
+        out[b] = {r: min(v) for r, v in got.items()}
+        out[b]["route"] = ak.ar_route(cfg, b)
+        print(f"[profile_ar turns] {model} k={cfg.kernel_size} B={b}: "
+              f"persistent {out[b]['persistent']:.1f} us/step, launch loop "
+              f"{out[b]['loop']:.1f} (ratio "
+              f"{out[b]['persistent'] / out[b]['loop']:.3f}), ar_route picks "
+              f"{out[b]['route']} | {smi}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
 // (the fused Pallas TPU kernel) in bf16 at kernel_size 2 and 3; the plain
 // PyTorch version is ops/ar_kernel.py::ar_generate_reference.  int8
-// (quantize=True) stays on the launch loop of csrc/ar_step.cu.
+// (quantize=True) stays on the launch loop of csrc/ar_step.cu, and so do
+// the bf16 fleets and configs for which ops/ar_kernel.py::ar_route picks
+// that loop (kernel_size 3 from AR_LOOP_FROM_B rows, where a block takes
+// several gate units in turn; configs with no cut of the stages).
 //
 // Bounds on the H100.  Each step reads the whole bf16 weight pack,
 // L * R * (2kR + S + R) * 2 bytes (86.5 MB at 30 x 512 with k = 2, 118.0 MB
@@ -13,8 +16,8 @@
 // the layer's input) and skip/res (which needs the gate), then the post
 // stack and the sample, 2L + 3 = 63 stages at L = 30, each ended by a grid
 // barrier (~1.08 us each on this card, ops/matmul_chain.py::barrier_chain):
-// ~68 us of barriers per step.  The launch loop it replaces paid one
-// launch and its gap per stage instead.
+// ~68 us of barriers per step.  The launch loop of csrc/ar_step.cu pays
+// one launch and its gap per stage instead.
 //
 // Design (the machinery of K4, csrc/matmul_chain.cu, shared through
 // wn_hopper.cuh):

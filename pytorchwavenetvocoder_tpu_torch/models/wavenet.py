@@ -451,11 +451,9 @@ def _warmup_chunk(config: WaveNetConfig, B: int, T0: int,
         return B
     c = config
     free, _total = torch.cuda.mem_get_info(device)
-    # per row: the L streams (bf16, or the compute dtype of a config that
-    # warms up on the plain forward) plus f32 gate-input temporaries of the
+    # per row: the L bf16 streams plus f32 gate-input temporaries of the
     # projection and the plain path
-    itemsize = torch.empty((), dtype=c.dtype).element_size()
-    per_row = T0 * (c.n_layers * c.n_resch * itemsize + 6 * c.n_resch * 4)
+    per_row = T0 * (c.n_layers * c.n_resch * 2 + 6 * c.n_resch * 4)
     return int(max(1, min(B, (free // 2) // max(per_row, 1))))
 
 
@@ -477,12 +475,10 @@ def _warmup_state(params: Params, config: WaveNetConfig,
     loop reads it with a plain add.  Other kernel sizes hold the raw
     (W = R) activations.
 
-    ``impl="cuda"`` computes the per-layer streams of a bf16 config with
-    the hand-written warm-up kernel (``ops/train_kernel.py::
-    layer_stack_streams``; it requires ``bf16_intermediates``), those of
-    any other config with ``_forward_collect`` in its own dtype, and
-    returns the ring in bf16, the AR kernel's.  ``impl="plain"`` runs
-    ``_forward_collect``.
+    ``impl="cuda"`` computes the per-layer streams with the hand-written
+    warm-up kernel (``ops/train_kernel.py::layer_stack_streams``); it
+    requires a bf16 config with ``bf16_intermediates``.  ``impl="plain"``
+    runs ``_forward_collect``.
 
     ``collect_act_maxes=True`` also returns the per-layer max
     |residual-stream| over the whole fleet's seed region ((L,) f32), the
@@ -494,21 +490,15 @@ def _warmup_state(params: Params, config: WaveNetConfig,
     k = c.kernel_size
     L = c.n_layers
     dt = c.dtype
-    # the cuda loop (K1) takes a bf16 ring whatever the compute dtype, as
-    # the JAX kernel casts its ring
-    buf_dt = (torch.bfloat16 if dt == torch.bfloat16 or impl == "cuda"
-              else c.acc_dtype)
+    buf_dt = dt if dt == torch.bfloat16 else c.acc_dtype
     caps, _offsets, _total_cap = _buffer_layout(c)
     device = x.device
 
-    # the warm-up kernel computes bf16 streams: bf16 configs take it, other
-    # ones the plain forward in their own dtype (JAX `models/wavenet.py:
-    # 552-560`)
-    use_kernel = impl == "cuda" and dt == torch.bfloat16
-    if use_kernel and not bf16_intermediates:
+    use_kernel = impl == "cuda"
+    if use_kernel and not (bf16_intermediates and dt == torch.bfloat16):
         raise ValueError(
             "the CUDA warm-up kernel computes bf16 streams: it needs "
-            "bf16_intermediates=True")
+            "compute_dtype='bfloat16' and bf16_intermediates=True")
 
     proj_fwd = (k == 2)
     dil_w_past = params["dil"]["w"][:, 0].to(dt) if proj_fwd else None
@@ -600,40 +590,14 @@ def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
     return torch.cat(outs, dim=1)
 
 
-#: Reasons ``_check_impl`` already logged for an ``auto`` that fell back
-#: to the plain route (each is logged once per process)
-_AUTO_PLAIN_LOGGED: set = set()
-
-
-def _cuda_envelope_error(config: WaveNetConfig, quantize: bool) -> str | None:
-    """Why the CUDA decode kernels can NOT serve this config (None when
-    they can): the AR loop's envelope, and the warm-up kernel's where the
-    warm-up takes it (bf16 configs; a float32 one warms up on the plain
-    forward, as the JAX package does)."""
-    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
-        ar_kernel_constraint_error,
-    )
-    from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
-        layer_stack_constraint_error,
-    )
-
-    if config.dtype == torch.bfloat16:
-        why = layer_stack_constraint_error(config)
-        if why is not None:
-            return why
-    return ar_kernel_constraint_error(config, quantize)
-
-
 def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
                 quantize: bool) -> str:
-    """Resolve ``impl`` to "plain" or "cuda" before any work.
-
-    ``auto`` is cuda on a CUDA device whose kernels' envelopes serve the
-    config, else plain (the reason logged once); the decision is made from
-    the envelopes alone, never from a build or launch error.  ``cuda``
-    raises on what the kernels do not serve."""
+    """Resolve ``impl`` to "plain" or "cuda"; raise on what the CUDA
+    kernels do not serve (never a silent switch to another path)."""
     if impl not in ("auto", "plain", "cuda"):
         raise ValueError(f"impl must be auto, plain or cuda, got {impl!r}")
+    if impl == "auto":
+        impl = "cuda" if device.type == "cuda" else "plain"
     if quantize:
         from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
             int8_constraint_error,
@@ -642,24 +606,34 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
         why = int8_constraint_error(config)
         if why is not None:
             raise NotImplementedError(why)
-    if impl == "plain":
-        return impl
-    if device.type != "cuda":
-        if impl == "auto":
-            return "plain"
-        raise ValueError("impl='cuda' needs a CUDA device; got "
-                         f"{device}")
-    why = _cuda_envelope_error(config, quantize)
-    if why is None:
-        return "cuda"
     if impl == "cuda":
-        raise NotImplementedError(
-            f"the CUDA decode kernels do not serve this config: {why}")
-    if why not in _AUTO_PLAIN_LOGGED:
-        _AUTO_PLAIN_LOGGED.add(why)
-        logging.warning("impl=auto decodes on the plain route: the CUDA "
-                        "decode kernels do not serve this config (%s)", why)
-    return "plain"
+        if device.type != "cuda":
+            raise ValueError("impl='cuda' needs a CUDA device; got "
+                             f"{device}")
+        from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+            ar_kernel_constraint_error,
+        )
+        from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+            layer_stack_constraint_error,
+        )
+
+        for why in (layer_stack_constraint_error(config),
+                    ar_kernel_constraint_error(config, quantize)):
+            if why is not None:
+                raise NotImplementedError(
+                    f"the CUDA decode kernels do not serve this config: {why}")
+    return impl
+
+
+def _kernel_config(config: WaveNetConfig) -> WaveNetConfig:
+    """The config the CUDA decode kernels run ``config`` as: a float32 one
+    (what the JAX package's bin/convert_checkpoint.py writes for a
+    reference checkpoint) as the bf16 one on the same weights, since the
+    warm-up kernel and the AR kernels take their weights in bf16, as the
+    JAX AR kernel's pack does (`ops/ar_kernel.py:165-194` there)."""
+    if config.compute_dtype == "float32":
+        return dataclasses.replace(config, compute_dtype="bfloat16")
+    return config
 
 
 def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
@@ -734,12 +708,11 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
       mode: "sampling" | "argmax".
       generator: ``torch.Generator`` for sampling mode.
       impl: "cuda" (the hand-written Hopper kernels: kernel_size 2 or 3,
-        bf16 or float32 configs, whose weights the loop takes in bf16 as
-        the JAX kernel does),
+        bf16 configs, and float32 ones run as the bf16 config on the same
+        weights, ``_kernel_config``),
         "plain" (the same math in plain PyTorch, any config, any device),
-        or "auto" (cuda on a CUDA device whose kernels serve the config,
-        else plain, the reason logged once).  A "cuda" request the kernels
-        cannot serve raises.  The warm-up keeps bf16
+        or "auto" (cuda on a CUDA device, plain on the CPU).  A CUDA request
+        the kernels cannot serve raises.  The warm-up keeps bf16
         intermediates on the cuda path (its kernels consume the rings in
         bf16) and the compute dtype on the plain path, which keeps the
         naive == fast bit-equality invariant.
@@ -768,6 +741,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         device = params["causal"]["w"].device
     device = torch.device(device)
     impl = _check_impl(impl, c, device, quantize)
+    if impl == "cuda":
+        c = _kernel_config(c)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
@@ -806,9 +781,7 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     # aux must cover positions up to T0 - 1 + max_n - 1 + 1
     h = _pad_aux_to(h, T0 + max_n).contiguous()
 
-    carry = _warmup_state(params, c, x, h,
-                          bf16_intermediates=(impl == "cuda"
-                                              and c.dtype == torch.bfloat16),
+    carry = _warmup_state(params, c, x, h, bf16_intermediates=(impl == "cuda"),
                           collect_act_maxes=quantize, impl=impl)
     act_scales = None
     if quantize:

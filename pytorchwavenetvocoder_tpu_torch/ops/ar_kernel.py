@@ -22,8 +22,9 @@ there).
 ``ar_generate_reference`` is that math in plain PyTorch (the step of
 ``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
 config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
-carry goes to the plain version, a CUDA carry to the kernels (bf16:
-``csrc/ar_persistent.cu``; int8: ``csrc/ar_step.cu``), or it raises.
+carry goes to the plain version, a CUDA carry to the kernels (bf16: the
+one ``ar_route`` picks, ``csrc/ar_persistent.cu`` or the launch loop of
+``csrc/ar_step.cu``; int8: the launch loop), or it raises.
 
 int8 (``quantize=True``) is the JAX kernel's int8 path
 (`ops/ar_kernel.py:480-485, 557-576, 707-800` there): the current- and
@@ -52,10 +53,12 @@ runs every step of a call in one persistent cooperative launch
 (``_persistent``): per step L gate stages (the aux term an extra K of the
 product), L res stages, post1, post2 and the sample stage, with a grid
 barrier after each; a stage is cut into units by ``ar_plan``, each unit's
-weights packed into one run by ``pack_ar_units``.  int8 runs the launch
-loop (``_launch_loop``): a C++ step loop of 65-66 launches per step (one
-per layer product, with the embed, aux, lag gather, post and sample
-launches), ``wmma`` int8 tiles with int32 accumulation.
+weights packed into one run by ``pack_ar_units``.  The launch loop
+(``_launch_loop``) is a C++ step loop of 65-66 launches per step (one per
+layer product, with the embed, aux, lag gather, post and sample
+launches), ``wmma`` tiles with f32 (bf16) or int32 (int8) accumulation:
+int8 always runs it, bf16 where ``ar_route`` says the persistent kernel
+has no cut of its stages or is the slower of the two.
 """
 
 from __future__ import annotations
@@ -117,11 +120,6 @@ def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
         return f"n_quantize={c.n_quantize} must be a multiple of 16"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
-    if not quantize:
-        try:     # the persistent kernel's units fit shared memory
-            ar_plan(c, 1, grid=H100_SMS)
-        except ValueError as e:
-            return f"n_resch={c.n_resch}, kernel_size={c.kernel_size}: {e}"
     return None
 
 
@@ -797,12 +795,14 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     projection-forwarded ``(total_cap, B, 2R)`` ring at kernel_size 2, the
     raw ``(total_cap, B, R)`` ring at kernel_size 3 (int8 from
     ``int8_ring_fill`` under ``quantize``, else bf16); anything else
-    raises.  bf16 runs every step in one cooperative launch of the
-    persistent kernel (``csrc/ar_persistent.cu``, counted in
-    ``ar_generate.launches``); a grid that cannot be co-resident, a build
-    or a launch error raises.  ``quantize`` runs the int8 launch loop
-    (``csrc/ar_step.cu``, counted in ``ar_generate.int8_launches``) with
-    ``act_scales`` (L, 1) f32 on the carry's device.  Sampling draws one
+    raises.  bf16 runs on the kernel ``ar_route`` picks for the config and
+    fleet: every step in one cooperative launch of the persistent kernel
+    (``csrc/ar_persistent.cu``, counted in ``ar_generate.launches``; a grid
+    that cannot be co-resident, a build or a launch error raises), or the
+    bf16 launch loop (``csrc/ar_step.cu``, counted in
+    ``ar_generate.loop_launches``).  ``quantize`` runs the int8 launch loop
+    (counted in ``ar_generate.int8_launches``) with ``act_scales`` (L, 1)
+    f32 on the carry's device.  Sampling draws one
     64-bit Philox seed from ``generator``; the kernels' Gumbel noise is a
     function of (seed, row, step, class).
     """
@@ -862,9 +862,14 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                                mode == "sampling", act_scales.reshape(-1))
         ar_generate.int8_launches += 1
     else:
-        samples = _persistent(pk, c, act_buf, ids, h_up, T0, max_n, seed,
-                              mode == "sampling")
-        ar_generate.launches += 1
+        with torch.cuda.device(dev):
+            route = ar_route(c, B)
+        samples = _bf16_steps(route, pk, c, act_buf, ids, h_up, T0, max_n,
+                              seed, mode == "sampling")
+        if route == "persistent":
+            ar_generate.launches += 1
+        else:
+            ar_generate.loop_launches += 1
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return samples
@@ -879,6 +884,45 @@ def _plan_error(err: int) -> str:
             -2: "the device has no cooperative launch",
             -3: "the plan does not cut the stages or fit its shared memory"
             }.get(err, f"CUDA error {err}")
+
+
+#: The bf16 fleets, by kernel size, from which the launch loop is faster
+#: than the persistent kernel at the flagship widths (30 x 512, skip 256),
+#: read in turns on an H100 SXM by ``bin/profile_ar.py --turns`` (PERF.md):
+#: at kernel_size 3 a block of the persistent kernel takes several gate
+#: units of K = 3R + aux one after another once the fleet outgrows the
+#: grid, and from 208 rows (3.4 units a block) the loop is faster.  None:
+#: the persistent kernel wherever it has a cut (kernel_size 2: no slower
+#: than the loop up to 2,048 rows).
+AR_LOOP_FROM_B = {2: None, 3: 208}
+
+
+def ar_route(config, B: int) -> str:
+    """Which bf16 kernel runs a fleet of B rows on the current CUDA device:
+    "loop" (the launch loop of ``csrc/ar_step.cu``) where the persistent
+    kernel has no cut of its stages in shared memory (``ar_plan`` raises,
+    as at kernel_size 3 with n_resch >= 768) or B is at least
+    ``AR_LOOP_FROM_B`` of its kernel size, else "persistent"."""
+    start = AR_LOOP_FROM_B.get(config.kernel_size)
+    if start is not None and B >= start:
+        return "loop"
+    try:
+        ar_plan(config, B)
+    except ValueError:
+        return "loop"
+    return "persistent"
+
+
+def _bf16_steps(route: str, pk: dict, config, act_buf, ids, h_up, T0: int,
+                max_n: int, seed: int, sampling: bool) -> torch.Tensor:
+    """bf16 steps on the kernel ``route`` names ("persistent" or "loop")."""
+    if route == "persistent":
+        return _persistent(pk, config, act_buf, ids, h_up, T0, max_n, seed,
+                           sampling)
+    if route == "loop":
+        return _launch_loop(pk, config, act_buf, ids, h_up, T0, max_n, seed,
+                            sampling, None)
+    raise ValueError(f"route must be persistent or loop, got {route!r}")
 
 
 def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
@@ -939,9 +983,8 @@ def _launch_loop(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
                  ascale: torch.Tensor | None) -> torch.Tensor:
     """The launch loop of ``wn_ar_generate`` (csrc/ar_step.cu, 65-66
     launches per step from C++): int8 with the (L,) activation scales
-    ``ascale``, or bf16 with ``ascale`` None (the loop the persistent
-    kernel replaced, kept for timing beside it).  ``ids`` (B, k) updated
-    in place.  Returns (B, max_n) int32."""
+    ``ascale``, or bf16 with ``ascale`` None.  ``ids`` (B, k) updated in
+    place.  Returns (B, max_n) int32."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
@@ -1062,20 +1105,24 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
     return out
 
 
-def ar_generate_launch_loop(params, config, carry, h_up: torch.Tensor,
-                            T0: int, max_n: int) -> torch.Tensor:
-    """bf16 argmax steps on the launch loop the persistent kernel replaced
-    (``csrc/ar_step.cu``, 65-66 launches per step), for timing the two in
-    turns on one card; the carry is updated in place.  Not counted in
-    ``ar_generate.launches``, and no route of the port takes it."""
+def ar_generate_on(route: str, params, config, carry, h_up: torch.Tensor,
+                   T0: int, max_n: int) -> torch.Tensor:
+    """bf16 argmax steps on the kernel ``route`` names ("persistent" or
+    "loop"), whichever ``ar_route`` would pick: for holding each against
+    the plain loop and timing the two in turns on one card.  The carry is
+    updated in place; not counted in ``ar_generate``'s launch counts."""
     act_buf, sample_hist, prev = carry
+    if act_buf.device.type != "cuda":
+        raise ValueError(f"ar_generate_on runs on a CUDA device, not "
+                         f"{act_buf.device}")
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
-    out = _launch_loop(pack_ar_weights(params, config), config, act_buf, ids,
-                       h_up, T0, max_n, 0, False, None)
+    out = _bf16_steps(route, pack_ar_weights(params, config), config,
+                      act_buf, ids, h_up, T0, max_n, 0, False)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return out
 
 
 ar_generate.launches = 0
+ar_generate.loop_launches = 0
 ar_generate.int8_launches = 0

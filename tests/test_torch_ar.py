@@ -132,6 +132,44 @@ def test_bf16_matches_pallas_interpret(kernel_size):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_float32_conf_kernel_route_matches_jax(kernel_size):
+    """A float32 conf on the CUDA route runs as the bf16 conf on the same
+    weights (``_kernel_config``).  Its warm-up ring (the warm-up kernel's
+    route, which takes its plain version for CPU tensors) against JAX
+    ``_warmup_state`` on the float32 conf: each of the 6 layers rounds its
+    stream to bf16 (2^-8 relative), so the ring moves by a few bf16 ulps,
+    <= 2e-2 of max|ring|.  The plain bf16 loop (the kernels' yardstick) on
+    JAX's ring against JAX's Pallas kernel (interpret mode) on the float32
+    conf, which casts its weights and ring to bf16: bit-equal argmax, as
+    in ``test_bf16_matches_pallas_interpret``."""
+    jc, pc = _cfgs(n_aux=28, n_resch=128, n_skipch=128,
+                   compute_dtype="float32", kernel_size=kernel_size)
+    jp, pp = _params(jc, 3)
+    B, n = 4, 20
+    x, h = _seed_inputs(jc, B, n, seed=0)
+    xj, hj = J._pad_seed(jc, jnp.asarray(x), jnp.asarray(h, jnp.float32))
+    T0 = xj.shape[1]
+    carry = J._warmup_state(jp, jc, xj, hj)
+    want = np.asarray(pallas_ar_generate(jp, jc, carry, hj, T0, n, "argmax",
+                                         jax.random.PRNGKey(0),
+                                         interpret=True))
+    kc = P._kernel_config(pc)
+    assert kc.compute_dtype == "bfloat16"
+    ht = torch.tensor(np.asarray(hj))
+    ring, _hist, _prev = P._warmup_state(
+        pp, kc, torch.tensor(np.asarray(xj)).long(), ht,
+        bf16_intermediates=True, impl="cuda")
+    jring = torch.tensor(np.asarray(carry[0]))
+    assert ring.dtype == torch.bfloat16 and ring.shape == jring.shape
+    assert ((ring.float() - jring).abs().max().item()
+            <= 2e-2 * jring.abs().max().item())
+    tc = (jring.to(torch.bfloat16),) + tuple(
+        torch.tensor(np.asarray(c)).to(torch.int32) for c in carry[1:])
+    got = ak.ar_generate_reference(pp, kc, tc, ht, T0, n, "argmax")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_aux_bias_matches_jax_scan():
     """The port keeps the aux bias ``aux.b`` (reference ``aux_1x1_*.bias``):
     with a nonzero aux.b the plain loop (and so the kernel, which folds it

@@ -74,16 +74,23 @@ def test_layer_stack_kernel_matches_plain(dev, kernel_size):
         assert (d > 0).float().mean().item() <= 1e-2
 
 
+def _bf16_counts():
+    return ak.ar_generate.launches, ak.ar_generate.loop_launches
+
+
 # B=1: one partial row tile; 20: two tiles, the second partial; 65: a
 # partial last tile of one row; 200 and 1000: more units than blocks, so
 # blocks loop over units (1000: over several row groups of one column
 # group, and its last row group partial); kernel_size 3 (raw rings, the lag
-# rows read straight from the ring) at each
+# rows read straight from the ring) at each.  Each fleet runs on the kernel
+# ``ar_route`` picks (kernel_size 3 from AR_LOOP_FROM_B rows: the launch
+# loop); ``test_both_bf16_kernels_match_plain`` holds the other one.
 @pytest.mark.parametrize("kernel_size", [2, 3])
 @pytest.mark.parametrize("B", [1, 20, 65, 200, 1000])
 def test_ar_kernel_matches_plain(dev, B, kernel_size):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=1)
+    route = ak.ar_route(cfg, B)
     rng = np.random.RandomState(1)
     n = 24
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
@@ -97,7 +104,11 @@ def test_ar_kernel_matches_plain(dev, B, kernel_size):
     cp = tuple(t.clone() for t in carry)
     for i in range(n):
         ck = tuple(t.clone() for t in cp)
+        before = _bf16_counts()
         sk = ak.ar_generate(params, cfg, ck, h, T0 + i, 1, "argmax")
+        after = _bf16_counts()
+        assert after == ((before[0] + 1, before[1]) if route == "persistent"
+                         else (before[0], before[1] + 1))
         sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
                                       i0=i)
         ring = (ck[0].float() - cp[0].float()).abs().max().item()
@@ -216,9 +227,74 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
     assert tk.layer_stack_streams.launches == k2 + 1
 
 
+def _same_state(params, cfg, carry, h, T0, n, kernel, plain_cfg=None):
+    """``kernel`` (c, p, steps) against the plain loop (on ``plain_cfg``,
+    default ``cfg``) step by step from the plain loop's state: the [K1]
+    limits, the ring after each step within 2e-2 of max|ring| and argmax
+    agreement >= 0.97."""
+    agree, cp = [], tuple(t.clone() for t in carry)
+    for i in range(n):
+        ck = tuple(t.clone() for t in cp)
+        sk = kernel(ck, T0 + i, 1)
+        sp = ak.ar_generate_reference(params, plain_cfg or cfg, cp, h, T0, 1,
+                                      "argmax", i0=i)
+        ring = (ck[0].float() - cp[0].float()).abs().max().item()
+        assert ring <= 2e-2 * cp[0].float().abs().max().item()
+        agree.append((sk == sp).float().mean().item())
+    assert np.mean(agree) >= 0.97
+
+
+def _random_carry(params, cfg, dev, B, n, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
+                        device=dev)
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32, device=dev)
+    carry = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
+                            impl="cuda")
+    return carry, h, x.shape[1]
+
+
+# both bf16 kernels at one fleet, whichever ar_route picks there: 200 rows
+# (more units than blocks in the persistent kernel)
+@pytest.mark.parametrize("route", ["persistent", "loop"])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_both_bf16_kernels_match_plain(dev, kernel_size, route):
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=9)
+    n = 16
+    carry, h, T0 = _random_carry(params, cfg, dev, 200, n, 9)
+    before = _bf16_counts()
+    _same_state(params, cfg, carry, h, T0, n,
+                lambda c_, p, steps: ak.ar_generate_on(route, params, cfg, c_,
+                                                       h, p, steps))
+    assert _bf16_counts() == before      # not counted as the path's
+
+
+def test_wide_k3_config_runs_on_the_launch_loop(dev):
+    """kernel_size 3 at n_resch=768: no cut of the persistent kernel's
+    stages fits shared memory, so ``ar_route`` sends every fleet to the
+    bf16 launch loop, which serves it as before the persistent kernel; held
+    against the plain loop, and decoded through ``batch_fast_generate``."""
+    cfg = _cfg(kernel_size=3, n_resch=768)
+    params = _params(cfg, dev, seed=10)
+    assert ak.ar_route(cfg, 1) == "loop"
+    n = 16
+    carry, h, T0 = _random_carry(params, cfg, dev, 20, n, 10)
+    _same_state(params, cfg, carry, h, T0, n,
+                lambda c_, p, steps: ak.ar_generate(params, cfg, c_, h, p,
+                                                    steps, "argmax"))
+    before = _bf16_counts()
+    x = np.full((2, 1), 128, np.int32)
+    hf = np.random.RandomState(10).randn(2, 40, cfg.n_aux).astype(np.float32)
+    out = P.batch_fast_generate(params, cfg, x, hf, [30, 12], mode="argmax")
+    assert [len(o) for o in out] == [30, 12]
+    assert _bf16_counts() == (before[0], before[1] + 1)
+
+
 def test_cuda_path_raises_outside_envelope(dev):
     for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float64"),
-                _cfg(n_resch=1152), _cfg(n_resch=768, kernel_size=3)):
+                _cfg(n_resch=1152)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
         h = np.zeros((2, 40, cfg.n_aux), np.float32)
@@ -255,11 +331,10 @@ def test_ar_kernel_one_launch_per_call(dev, kernel_size):
 def test_float32_bundle_decodes_through_k1(dev, tmp_path):
     """A float32 conf (what the JAX bin/convert_checkpoint.py writes for a
     reference checkpoint) at the arctic flagship's widths decodes through
-    ``decode_batches(impl="auto")`` on the card: the warm-up on the plain
-    forward in f32, the ring in bf16, K1 once per fleet.  From that carry,
-    K1 meets the [K1] limits against the plain loop on the same bf16-cast
+    ``decode_batches(impl="auto")`` on the card as the bf16 conf on the
+    same weights: K2 and K1 once per fleet.  From that route's carry, K1
+    meets the [K1] limits against the plain loop on the same bf16-cast
     weights (the bf16 conf's plain loop)."""
-    import dataclasses
     import json
     import pickle
 
@@ -289,37 +364,25 @@ def test_float32_bundle_decodes_through_k1(dev, tmp_path):
     x = np.full((B, 1), 128, np.int32)
     n_list = [f * cfg.upsampling_factor - 1 for f in frames]
     ids = [f"u{b}" for b in range(B)]
-    k1 = ak.ar_generate.launches
+    k1, k2 = _bf16_counts(), tk.layer_stack_streams.launches
     decode_batches(model, [(ids, (x, h, n_list))], str(tmp_path / "wav"),
                    mode="sampling", impl="auto", fs=16000,
                    generator=torch.Generator().manual_seed(1))
-    assert ak.ar_generate.launches == k1 + 1
+    assert _bf16_counts() == (k1[0] + 1, k1[1])
+    assert tk.layer_stack_streams.launches == k2 + 1
     for b, n in enumerate(n_list):
         wav, _fs = read_wav(str(tmp_path / "wav" / f"u{b}.wav"))
         assert wav.shape == (n,) and np.isfinite(wav).all()
     # K1 from the f32 route's carry against the plain bf16 loop
-    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
-                               upsampling_factor=0)
+    kcfg = P._kernel_config(cfg)
+    assert kcfg.compute_dtype == "bfloat16"
     n = 16
-    xt = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
-                         device=dev)
-    ht = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
-                         dtype=torch.float32, device=dev)
-    carry = P._warmup_state(params, dataclasses.replace(cfg,
-                                                        upsampling_factor=0),
-                            xt, ht, impl="cuda")
+    carry, ht, T0 = _random_carry(params, kcfg, dev, B, n, 8)
     assert carry[0].dtype == torch.bfloat16
-    T0 = xt.shape[1]
-    agree, cp = [], tuple(t.clone() for t in carry)
-    for i in range(n):
-        ck = tuple(t.clone() for t in cp)
-        sk = ak.ar_generate(params, cfg, ck, ht, T0 + i, 1, "argmax")
-        sp = ak.ar_generate_reference(params, bcfg, cp, ht, T0, 1, "argmax",
-                                      i0=i)
-        ring = (ck[0].float() - cp[0].float()).abs().max().item()
-        assert ring <= 2e-2 * cp[0].float().abs().max().item()
-        agree.append((sk == sp).float().mean().item())
-    assert np.mean(agree) >= 0.97
+    _same_state(params, cfg, carry, ht, T0, n,
+                lambda c_, p, steps: ak.ar_generate(params, cfg, c_, ht, p,
+                                                    steps, "argmax"),
+                plain_cfg=kcfg)
 
 
 @pytest.mark.parametrize("kernel_size", [2, 3])

@@ -162,22 +162,58 @@ def test_check_impl_auto_serves_float32_configs(quantize):
     (dict(n_skipch=192), "n_skipch"),
     (dict(compute_dtype="float64"), "compute_dtype"),
 ])
-def test_check_impl_auto_takes_plain_outside_the_envelope(kw, what, caplog):
-    # auto falls back to the plain route where an envelope refuses the
-    # config, logging the reason once; cuda raises on the same config
-    from pytorchwavenetvocoder_tpu_torch.models import wavenet
-
+def test_check_impl_auto_raises_outside_the_envelope(kw, what):
+    # on a CUDA device auto means the kernels: where an envelope refuses
+    # the config it raises with the envelope's reason, as cuda does, and
+    # never decodes plainly on the card; on the CPU it is plain
     cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
-    wavenet._AUTO_PLAIN_LOGGED.clear()
-    with caplog.at_level("WARNING"):
-        assert _check_impl("auto", cfg, torch.device("cuda"), False) \
-            == "plain"
-        assert _check_impl("auto", cfg, torch.device("cuda"), False) \
-            == "plain"
-    said = [r.getMessage() for r in caplog.records if what in r.getMessage()]
-    assert len(said) == 1 and "plain route" in said[0]
-    with pytest.raises(NotImplementedError, match=what):
-        _check_impl("cuda", cfg, torch.device("cuda"), False)
+    for impl in ("auto", "cuda"):
+        with pytest.raises(NotImplementedError, match=what):
+            _check_impl(impl, cfg, torch.device("cuda"), False)
+    assert _check_impl("auto", cfg, torch.device("cpu"), False) == "plain"
+    assert _check_impl("plain", cfg, torch.device("cuda"), False) == "plain"
+
+
+def test_float32_configs_run_on_the_kernels_as_bf16():
+    # the cuda route runs a float32 conf as the bf16 conf on the same
+    # weights; bf16 confs (and float64 ones, which it refuses) stay as
+    # they are
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _kernel_config
+
+    for k in (2, 3):
+        cfg = WaveNetConfig(compute_dtype="float32", kernel_size=k)
+        got = _kernel_config(cfg)
+        assert got.compute_dtype == "bfloat16"
+        assert got == WaveNetConfig(compute_dtype="bfloat16", kernel_size=k)
+    for dt in ("bfloat16", "float64"):
+        cfg = WaveNetConfig(compute_dtype=dt)
+        assert _kernel_config(cfg) is cfg
+
+
+@pytest.mark.parametrize("kw, B, route", [
+    (dict(kernel_size=2), 32, "persistent"),
+    (dict(kernel_size=2), 1024, "persistent"),
+    (dict(kernel_size=3), 16, "persistent"),
+    (dict(kernel_size=3), 4096, "loop"),
+    # no cut of the persistent kernel's stages fits shared memory
+    (dict(kernel_size=3, n_resch=768), 1, "loop"),
+    (dict(kernel_size=3, n_resch=1024), 16, "loop"),
+])
+def test_ar_route_from_the_plan_and_the_fleet(kw, B, route):
+    # decided from what the wrapper can see before any work: whether
+    # ar_plan cuts the stages, and the fleet against AR_LOOP_FROM_B
+    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+        AR_LOOP_FROM_B,
+        ar_route,
+    )
+
+    cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16", n_resch=512,
+                                    n_skipch=256), **kw))
+    assert ar_route(cfg, B) == route
+    start = AR_LOOP_FROM_B[cfg.kernel_size]
+    if start is not None and route == "persistent":
+        assert ar_route(cfg, start) == "loop"
+        assert ar_route(cfg, start - 1) == "persistent"
 
 
 def test_wrapper_refuses_other_devices():
