@@ -89,7 +89,6 @@ import dataclasses
 import json
 import os
 import pickle
-import re
 import subprocess
 import sys
 import tempfile
@@ -115,6 +114,7 @@ def main() -> int:
     sys.path.insert(0, root)
 
     from pytorchwavenetvocoder_tpu_torch import _build
+    from pytorchwavenetvocoder_tpu_torch.bin.profile_ar import ar_loop_kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
         WaveNetConfig,
         _buffer_layout,
@@ -584,13 +584,8 @@ def main() -> int:
         bnd = ar_bound(cfg, B, n, False)
         # the device kernels of the AR loop in one call of n steps: one
         # cooperative launch (the launch loop makes 65-66 per step)
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            kernel(carry, 0, n)
-            torch.cuda.synchronize()
-        loop_kernels = [e.name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and re.match(r"(void )?ar_\w+_kernel", e.name)]
+        loop_kernels, traced, traces = ar_loop_kernels(
+            lambda: kernel(carry, 0, n))
         # both bf16 kernels in turns (persistent, loop, loop, persistent;
         # best of each) from one carry of the largest fleet, sliced
         turns, phases = {}, {}
@@ -624,7 +619,8 @@ def main() -> int:
                + f" (B != {B}: over {n_big} steps); bound at B=256 x "
                f"{n_big}: {bb['bound_ms']:.3f} ms ({bb['bound_by']}) | AR-loop "
                f"device kernels in one call of {n} steps ({route}): "
-               f"{len(loop_kernels)} {sorted(set(loop_kernels))}")
+               f"{len(loop_kernels)} {sorted(set(loop_kernels))} (trace "
+               f"{traces})")
         print(f"[K1{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, argmax, "
               f"{n_check} steps vs the plain version (kernel: the {route} "
               f"kernel ar_route picks): " + k1_line(readings, n_check)
@@ -656,7 +652,9 @@ def main() -> int:
                                       "ar_persistent_kernel" not in
                                       loop_kernels[0]):
             raise AssertionError(f"one call of {n} steps ran the AR-loop "
-                                 f"kernels {loop_kernels}, not one launch")
+                                 f"kernels {loop_kernels}, not one launch "
+                                 f"(device kernels traced: "
+                                 f"{sorted(set(traced))})")
         wide = m.get("wide")
         if not wide or ak.ar_route(cfg, wide) == route:
             return

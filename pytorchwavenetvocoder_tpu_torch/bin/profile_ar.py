@@ -26,6 +26,7 @@ ljspeech --batch 16 [--quantize]``, or ``... --model ljspeech --turns
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 
@@ -45,6 +46,39 @@ MODELS = {
     "arctic": dict(n_aux=28, kernel_size=2, upsampling_factor=80),
     "ljspeech": dict(n_aux=39, kernel_size=3, upsampling_factor=110),
 }
+
+#: An AR-loop kernel's name as the profiler reports it, demangled
+#: (``void ar_persistent_kernel<3>(ApArgs)``) or not (``_Z20ar_...``)
+AR_LOOP_KERNEL = re.compile(r"(?<![A-Za-z])ar_\w+?_kernel")
+
+
+def ar_loop_kernels(fn, tries: int = 3) -> tuple[list[str], list[str], int]:
+    """The AR-loop device kernels that ``torch.profiler`` records while
+    ``fn()`` runs on the current card: ``(their names, every device
+    kernel's name, traces taken)``.
+
+    A marker kernel (``torch.cuda._sleep``) runs before and after ``fn``,
+    with some host time between the trace's edges and the work, so that a
+    trace can be told from one that lost its device records: a trace
+    without both markers recorded nothing that can be counted and is taken
+    again, at most ``tries`` times, after which this raises.
+    """
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    for t in range(1, tries + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.02)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum("spin_kernel" in nm for nm in names) == 2:
+            return [nm for nm in names if AR_LOOP_KERNEL.search(nm)], names, t
+    raise RuntimeError(f"torch.profiler lost its device records in {tries} "
+                       f"traces: the last recorded {sorted(set(names))}")
 
 
 def main(argv=None) -> dict:

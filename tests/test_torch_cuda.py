@@ -9,12 +9,11 @@ suite's conftest imports jax, which these tests do not need):
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
-import re
-
 import numpy as np
 import pytest
 import torch
 
+from pytorchwavenetvocoder_tpu_torch.bin.profile_ar import ar_loop_kernels
 from pytorchwavenetvocoder_tpu_torch.models import wavenet as P
 from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
 from pytorchwavenetvocoder_tpu_torch.ops import matmul_chain as mc
@@ -318,14 +317,9 @@ def test_ar_kernel_one_launch_per_call(dev, kernel_size):
                             impl="cuda")
     ak.ar_generate(params, cfg, carry, h, x.shape[1], 1, "argmax")   # build
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        ak.ar_generate(params, cfg, carry, h, x.shape[1], n, "argmax")
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    loop = [nm for nm in names if re.match(r"(void )?ar_\w+_kernel", nm)]
-    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], loop
+    loop, names, _ = ar_loop_kernels(lambda: ak.ar_generate(
+        params, cfg, carry, h, x.shape[1], n, "argmax"))
+    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], (loop, names)
 
 
 def test_float32_bundle_decodes_through_k1(dev, tmp_path):
