@@ -619,8 +619,8 @@ def main() -> int:
                + f" (B != {B}: over {n_big} steps); bound at B=256 x "
                f"{n_big}: {bb['bound_ms']:.3f} ms ({bb['bound_by']}) | AR-loop "
                f"device kernels in one call of {n} steps ({route}): "
-               f"{len(loop_kernels)} {sorted(set(loop_kernels))} (trace "
-               f"{traces})")
+               f"{len(loop_kernels)} {sorted(set(loop_kernels))} (device "
+               f"kernels in each trace taken: {traces})")
         print(f"[K1{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, argmax, "
               f"{n_check} steps vs the plain version (kernel: the {route} "
               f"kernel ar_route picks): " + k1_line(readings, n_check)

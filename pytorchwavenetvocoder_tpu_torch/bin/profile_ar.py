@@ -52,33 +52,39 @@ MODELS = {
 AR_LOOP_KERNEL = re.compile(r"(?<![A-Za-z])ar_\w+?_kernel")
 
 
-def ar_loop_kernels(fn, tries: int = 3) -> tuple[list[str], list[str], int]:
+def ar_loop_kernels(fn, tries: int = 5, margin_s: float = 0.25
+                    ) -> tuple[list[str], list[str], list[int]]:
     """The AR-loop device kernels that ``torch.profiler`` records while
     ``fn()`` runs on the current card: ``(their names, every device
-    kernel's name, traces taken)``.
+    kernel's name, the device kernels each trace taken recorded)``.
 
     A marker kernel (``torch.cuda._sleep``) runs before and after ``fn``,
-    with some host time between the trace's edges and the work, so that a
-    trace can be told from one that lost its device records: a trace
-    without both markers recorded nothing that can be counted and is taken
-    again, at most ``tries`` times, after which this raises.
+    ``margin_s`` of host time from the trace's edges, so that a trace can
+    be told from one whose device records fell outside its window (the
+    profiler drops those): a trace without both markers recorded nothing
+    that can be counted and is taken again, at most ``tries`` times, after
+    which this raises.
     """
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    for t in range(1, tries + 1):
+    seen = []
+    for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
-            time.sleep(0.02)
+            time.sleep(margin_s)
             torch.cuda._sleep(1000)
             fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(margin_s)
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append(len(names))
         if sum("spin_kernel" in nm for nm in names) == 2:
-            return [nm for nm in names if AR_LOOP_KERNEL.search(nm)], names, t
-    raise RuntimeError(f"torch.profiler lost its device records in {tries} "
-                       f"traces: the last recorded {sorted(set(names))}")
+            loop = [nm for nm in names if AR_LOOP_KERNEL.search(nm)]
+            return loop, names, seen
+    raise RuntimeError(f"torch.profiler lost device records in {tries} "
+                       f"traces (device kernels recorded: {seen}); the last "
+                       f"recorded {sorted(set(names))}")
 
 
 def main(argv=None) -> dict:
