@@ -48,24 +48,34 @@ the model it runs:
    and plain ms/step, a checkpoint that ``bin/decode.py`` loads and
    decodes, and ``--resume latest``;
 8. [K1 int8]: K1's int8 variant against the plain int8 version on the same
-   carry and warm-up-calibrated scales (kernel_size 3: the int8 ring), and
-   timed against the bf16 K1 at the fleet's B and at B=256;
+   carry and warm-up-calibrated scales (kernel_size 3: the int8 ring): the
+   int8 kernel ``ar_route(..., quantize=True)`` picks (the persistent
+   kernel: one cooperative launch per call, counted by ``torch.profiler``)
+   and the other one (the int8 launch loop), both timed; the two int8
+   kernels in turns at B = 16 to 512, where the int8 threshold is read,
+   with the bf16 K1 beside them at the fleet's B and at 256; the
+   persistent int8 kernel's phase times per stage;
 9. [int8 track]: the JAX package's own int8 gate (int8 against bf16,
    argmax, B=8 x 400 steps through ``batch_fast_generate``); [K1 int8
    chi2], a chi-square test of the int8 path's sampler on fixed logits;
 10. [main int8]: ``decode_batches(..., quantize=True)`` on phase 4's
-   bundle and fleet, with K1-int8 launched once and the warm-up kernel
-   once per warm-up chunk, then a short fleet under a forced
-   ``WNV_DECODE_HBM_BUDGET`` split into sub-fleets, each row equal to its
-   sub-fleet decoded alone;
-11. [K4] (after the ljspeech phases): the serial matmul-chain probe.  The
+   bundle and fleet, with the int8 K1 ``ar_route`` picks launched once and
+   the warm-up kernel once per warm-up chunk, then a short fleet under a
+   forced ``WNV_DECODE_HBM_BUDGET`` split into sub-fleets, each row equal
+   to its sub-fleet decoded alone;
+11. [main mini]: the sd-mini recipe's model (n_resch 32, n_skipch 16),
+   whose widths the cuda route pads to the kernels' multiples: a fleet
+   through ``batch_fast_generate(impl="auto")`` in bf16 and in int8, K2
+   and K1 on the card, then K1 on the padded carry against the plain loop
+   by [K1]'s limits;
+12. [K4] (after the ljspeech phases): the serial matmul-chain probe.  The
    main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
    split; one cooperative launch per chain run); then every variant at
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
    bitwise equal), timed at 1,000 steps, the plain chain and the plain
    chain captured as one CUDA graph at 20; spine, full, int8 and int8raw at
-   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run (bf16:
-   the persistent kernel; int8: the launch loop); and the 60 grid barriers
+   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run (the
+   kernel ``ar_route`` picks, bf16 and int8); and the 60 grid barriers
    per step alone.
 
 Every check is also read against controls, variants of the plain version
@@ -291,6 +301,23 @@ def main() -> int:
     #: K1's us/step in this run, by (model, "bf16" or "int8", B), for [K4]
     k1_us: dict = {}
 
+    def reset_launches():
+        """Every decode kernel's launch count to 0, before a path's run."""
+        ak.ar_generate.launches = 0
+        ak.ar_generate.loop_launches = 0
+        ak.ar_generate.int8_launches = 0
+        ak.ar_generate.int8_persistent_launches = 0
+        tk.layer_stack_streams.launches = 0
+
+    def read_launches():
+        """The decode kernels' launch counts since reset_launches, by
+        kernel base name (the kernels line's)."""
+        return {"ar_persistent": ak.ar_generate.launches,
+                "ar_step": ak.ar_generate.loop_launches,
+                "ar_step_int8": ak.ar_generate.int8_launches,
+                "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
+                "layer_stack_fwd": tk.layer_stack_streams.launches}
+
     def set_launches(m, launches):
         """Launch counts of a main-path run, by kernel base name."""
         for k in kernels_out:
@@ -463,9 +490,11 @@ def main() -> int:
     def clone(carry):
         return tuple(t.clone() for t in carry)
 
-    def k1_readings(cfg, prm, carry, h, T0, n_check, runs, plain_cfg=None):
+    def k1_readings(cfg, prm, carry, h, T0, n_check, runs, plain_cfg=None,
+                    **plain_kw):
         """Each of ``runs`` ((carry, i0, steps) -> samples) against the
-        plain loop (on ``plain_cfg``, default ``cfg``) from the same carry:
+        plain loop (on ``plain_cfg``, default ``cfg``; ``plain_kw``: int8's
+        quantize and act_scales) from the same carry:
         the ring after one step over max|ring| (and its max|d|), same-state
         argmax agreement over n_check steps, and the share of (row, step)
         before each row's first divergence over n_check steps."""
@@ -473,7 +502,7 @@ def main() -> int:
         # the ring after one step: every layer's written slot depends on
         # the whole chain of the step before it
         cp = clone(carry)
-        ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax")
+        ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax", **plain_kw)
         ring_max = cp[0].float().abs().max().item()
         ring = {}
         for name, run in runs.items():
@@ -486,13 +515,13 @@ def main() -> int:
         for i in range(n_check):
             outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
             sp = ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax",
-                                          i0=i)
+                                          i0=i, **plain_kw)
             for name, smp in outs.items():
                 same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
         # argmax trajectories over n_check steps from the same carry: the
         # share of (row, step) before each row's first divergence
         sp = ak.ar_generate_reference(prm, pcfg, clone(carry), h, T0, n_check,
-                                      "argmax").cpu().numpy()
+                                      "argmax", **plain_kw).cpu().numpy()
         readings = {}
         for name, run in runs.items():
             agree = run(clone(carry), 0, n_check).cpu().numpy() == sp
@@ -746,11 +775,11 @@ def main() -> int:
                          "iterations": 0}, f)
         return load_model(ckpt, tmp, dev)[0]
 
-    def main_path(m, wide=False):
+    def main_path(m, wide=False, quantize=False):
         """The decode path at the model's fleet (or, with ``wide``, at its
-        wide fleet m["wide"] of short utterances): the bf16 kernel
-        ar_route picks for that fleet launched once, K2 launched, the
-        plain loop never run."""
+        wide fleet m["wide"] of short utterances), bf16 or (``quantize``)
+        int8: the kernel ar_route picks for that fleet launched once, K2
+        launched, the plain loop never run."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _pad_aux_to,
@@ -799,7 +828,7 @@ def main() -> int:
             n_list = [int(nf) * uf - 1 for nf in frames]
             ids = [f"utt{b:02d}" for b in range(B)]
             outdir = os.path.join(tmp, "wav")
-            if not wide:
+            if not wide and not quantize:
                 fleet[m["name"]] = dict(model=model, x=x, h=h, n_list=n_list,
                                         ids=ids, frames=frames)
 
@@ -811,23 +840,19 @@ def main() -> int:
                 return real_ref(*a, **k)
 
             ak.ar_generate_reference = counted_ref
-            ak.ar_generate.launches = 0
-            ak.ar_generate.loop_launches = 0
-            ak.ar_generate.int8_launches = 0
-            tk.layer_stack_streams.launches = 0
+            reset_launches()
             try:
                 res = decode_batches(model, [(ids, (x, h, n_list))], outdir,
                                      mode="sampling", impl="auto", fs=m["fs"],
-                                     generator=torch.Generator().manual_seed(9))
+                                     generator=torch.Generator().manual_seed(9),
+                                     quantize=quantize)
                 torch.cuda.synchronize()
             finally:
                 ak.ar_generate_reference = real_ref
-            launches = {"ar_persistent": ak.ar_generate.launches,
-                        "ar_step": ak.ar_generate.loop_launches,
-                        "ar_step_int8": ak.ar_generate.int8_launches,
-                        "layer_stack_fwd": tk.layer_stack_streams.launches}
-            route = ak.ar_route(cfg, B)
-            k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+            launches = read_launches()
+            route = ak.ar_route(cfg, B, quantize)
+            k1_name = ("ar_persistent" if route == "persistent"
+                       else "ar_step") + ("_int8" if quantize else "")
             set_launches(m, {k1_name: launches[k1_name]} if wide else
                          {k1_name: launches[k1_name],
                           "layer_stack_fwd": launches["layer_stack_fwd"]})
@@ -850,11 +875,12 @@ def main() -> int:
             torch.cuda.synchronize()
             tw = time.time()
             _warmup_state(model.params, cfg, xt, ht, bf16_intermediates=True,
-                          impl="cuda")
+                          impl="cuda", collect_act_maxes=quantize)
             torch.cuda.synchronize()
             warm_s = time.time() - tw
             max_n = max(n_list)
-            print(f"[main{' wide' if wide else ''}{m['tag']}] {m['name']} "
+            print(f"[main{' int8' if quantize else ''}{' wide' if wide else ''}"
+                  f"{m['tag']}] {m['name']} "
                   f"decode_batches ({route} K1): {B} utts, "
                   f"frames {frames.min()}-{frames.max()} at {m['fs']} Hz, "
                   f"{res['n_samples']} samples in {res['seconds']:.3f} s = "
@@ -907,10 +933,7 @@ def main() -> int:
                 return real_ref(*a, **k)
 
             ak.ar_generate_reference = counted_ref
-            ak.ar_generate.launches = 0
-            ak.ar_generate.loop_launches = 0
-            ak.ar_generate.int8_launches = 0
-            tk.layer_stack_streams.launches = 0
+            reset_launches()
             try:
                 res = decode_batches(model, [(fl["ids"], (fl["x"], fl["h"],
                                                           fl["n_list"]))],
@@ -920,10 +943,7 @@ def main() -> int:
                 torch.cuda.synchronize()
             finally:
                 ak.ar_generate_reference = real_ref
-            launches = {"ar_persistent": ak.ar_generate.launches,
-                        "ar_step": ak.ar_generate.loop_launches,
-                        "ar_step_int8": ak.ar_generate.int8_launches,
-                        "layer_stack_fwd": tk.layer_stack_streams.launches}
+            launches = read_launches()
             bad = []
             for b, n in enumerate(fl["n_list"]):
                 wav, _fs = read_wav(os.path.join(outdir, fl["ids"][b] + ".wav"))
@@ -955,7 +975,8 @@ def main() -> int:
         if not spread or not np.isfinite(spread):
             raise AssertionError(f"degenerate output wav (std {spread})")
         if launches != {"ar_persistent": 1, "ar_step": 0, "ar_step_int8": 0,
-                        "layer_stack_fwd": 1} or plain_runs[0]:
+                        "ar_persistent_int8": 0, "layer_stack_fwd": 1} \
+                or plain_runs[0]:
             raise AssertionError(f"not one K1 and one K2 launch on the float32 "
                                  f"bundle's fleet: {launches}, plain "
                                  f"{plain_runs[0]}")
@@ -1432,7 +1453,7 @@ def main() -> int:
             return torch.stack(out, dim=1)
         return run
 
-    def k1_int8(m, n, n_check):
+    def k1_int8(m, n, n_check, n_big=64, n_wide=64):
         cfg, B = m["cfg"], m["fleet"]
         gk = ak._gate_key(cfg.kernel_size)
         # trained weights differ in magnitude from one output column to the
@@ -1474,7 +1495,19 @@ def main() -> int:
         w_tensor = dict(wq)
         w_tensor["q_wz"], w_tensor["q_wz_scale"] = per_tensor(pk[gk])
         w_tensor["q_wsr"], w_tensor["q_wsr_scale"] = per_tensor(pk["wsr"])
-        runs = {"kernel": kernel,
+        # the kernel ar_route picks at this fleet, and the other int8 kernel
+        # held the same way
+        route = ak.ar_route(cfg, B, quantize=True)
+        other = "loop" if route == "persistent" else "persistent"
+        names = {"persistent": "persistent", "loop": "launch loop"}
+
+        def on(r_, c_h=None):
+            h_, T_, s_ = c_h or (h, T0, scales)
+            return lambda c_, i0, steps: ak.ar_generate_on(
+                r_, prm, cfg, c_, h_, T_ + i0, steps, quantize=True,
+                act_scales=s_)
+
+        runs = {"kernel": kernel, names[other]: on(other),
                 "per_tensor": plain_loop(cfg, w_tensor, True, h, T0, scales)}
         if cfg.kernel_size == 2:
             w_gate = dict(wq, q_gate_scale=scales[:, 0].clone())
@@ -1486,64 +1519,129 @@ def main() -> int:
             runs["lag_2d_dropped"] = plain_loop(
                 cfg, ak._step_weights(drop_lag_2d(prm), cfg, quantize=True),
                 True, h, T0, scales)
-        # the ring slots written by the first step (p = T0 - 1), all layers
-        # (int8 rows at kernel_size 3, compared as integers)
-        caps, offs, _ = _buffer_layout(cfg)
-        rows = torch.tensor([o + (T0 - 1) % c for o, c in zip(offs, caps)],
-                            device=dev)
-        cp = clone(carry)
-        reference(cp, 0, 1)
-        want = cp[0][rows].float()
-        ring_max = want.abs().max().item()
-        ring = {}
-        for name, run in runs.items():
-            c_ = clone(carry)
-            run(c_, 0, 1)
-            d = (c_[0][rows].float() - want).abs()
-            ring[name] = (d.max().item(), (d > 0).float().mean().item())
-        cp, same = clone(carry), {name: [] for name in runs}
-        for i in range(n_check):
-            outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
-            sp = reference(cp, i, 1)
-            for name, smp in outs.items():
-                same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
-        sp = reference(clone(carry), 0, n_check).cpu().numpy()
-        readings = {}
-        for name, run in runs.items():
-            agree = run(clone(carry), 0, n_check).cpu().numpy() == sp
-            first = [int(np.argmin(a)) if not a.all() else n_check
-                     for a in agree]
-            readings[name] = (ring[name][0] / ring_max, ring[name][1],
-                              float(np.mean(same[name])),
-                              float(np.mean(first)) / n_check)
+        controls = [c for c in runs if c not in ("kernel", names[other])]
+
+        def int8_readings(carry_, h_, T_, s_, runs_, n_check_):
+            """Each of ``runs_`` against the plain int8 version from the
+            same carry: the ring slots written by the first step (p = T_ -
+            1), all layers (int8 rows at kernel_size 3, compared as
+            integers), max|d| over max|ring| and the differing share;
+            same-state argmax agreement and the share of (row, step) before
+            each row's first divergence over n_check_ steps."""
+            def reference(c_, i0, steps):
+                return ak.ar_generate_reference(prm, cfg, c_, h_, T_, steps,
+                                                "argmax", i0=i0, quantize=True,
+                                                act_scales=s_)
+            caps, offs, _ = _buffer_layout(cfg)
+            rows = torch.tensor([o + (T_ - 1) % c for o, c in zip(offs, caps)],
+                                device=dev)
+            cp = clone(carry_)
+            reference(cp, 0, 1)
+            want = cp[0][rows].float()
+            ring_max = want.abs().max().item()
+            ring = {}
+            for name, run in runs_.items():
+                c_ = clone(carry_)
+                run(c_, 0, 1)
+                d = (c_[0][rows].float() - want).abs()
+                ring[name] = (d.max().item(), (d > 0).float().mean().item())
+            cp, same = clone(carry_), {name: [] for name in runs_}
+            for i in range(n_check_):
+                outs = {name: run(clone(cp), i, 1)
+                        for name, run in runs_.items()}
+                sp = reference(cp, i, 1)
+                for name, smp in outs.items():
+                    same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
+            sp = reference(clone(carry_), 0, n_check_).cpu().numpy()
+            readings = {}
+            for name, run in runs_.items():
+                agree = run(clone(carry_), 0, n_check_).cpu().numpy() == sp
+                first = [int(np.argmin(a)) if not a.all() else n_check_
+                         for a in agree]
+                readings[name] = (ring[name][0] / ring_max, ring[name][1],
+                                  float(np.mean(same[name])),
+                                  float(np.mean(first)) / n_check_,
+                                  ring[name][0])
+            return readings
+
+        readings = int8_readings(carry, h, T0, scales, runs, n_check)
         ms = time_ms(lambda: kernel(carry, 0, n))
-        plain_ms = time_ms(lambda: reference(carry, 0, n), reps=1)
+        other_ms = time_ms(lambda: on(other)(carry, 0, n))
+        plain_ms = time_ms(lambda: ak.ar_generate_reference(
+            prm, cfg, carry, h, T0, n, "argmax", quantize=True,
+            act_scales=scales), reps=1)
         bnd = ar_bound(cfg, B, n, True)
-        # int8 against bf16 K1 on the same fleet, in turns
-        times = {"int8": [], "bf16": []}
-        for B_t, n_t in ((B, n), (256, 128)):
-            if B_t == B:
-                c_bf, c_q, h_t, T_t, s_t = carry_bf, carry, h, T0, scales
+        # the device kernels of the AR loop in one call of n steps: one
+        # cooperative launch (the launch loop makes 65-66 per step)
+        loop_kernels, traced, traces = ar_loop_kernels(
+            lambda: kernel(carry, 0, n))
+        # both int8 kernels in turns (persistent, loop, loop, persistent;
+        # best of each) at K1_TURN_B from one carry of the largest fleet,
+        # sliced, and the bf16 K1 (the kernel ar_route picks) beside them
+        # at the fleet's B and at 256; the plain int8 version at 256
+        big_bf, big_h, T_big, big_s = fleet_carry(cfg, prm, max(K1_TURN_B),
+                                                  n_big, 2, scales=True)
+        big_q = int8_carry(cfg, big_bf, big_s)
+        turns, phases = {}, {}
+        for b_t in K1_TURN_B:
+            if b_t == B:
+                c_q, c_bf, h_t, T_t, s_t, n_t = carry, carry_bf, h, T0, \
+                    scales, n
             else:
-                c_bf, h_t, T_t, s_t = fleet_carry(cfg, prm, B_t, n_t, 2,
-                                                  scales=True)
-                c_q = int8_carry(cfg, c_bf, s_t)
-            fns = {"int8": lambda: ak.ar_generate(
-                       prm, cfg, c_q, h_t, T_t, n_t, "argmax",
-                       quantize=True, act_scales=s_t),
-                   "bf16": lambda: ak.ar_generate(prm, cfg, c_bf, h_t,
-                                                  T_t, n_t, "argmax")}
-            got = {k: [] for k in fns}
-            for k in ("bf16", "int8", "int8", "bf16"):
-                got[k].append(1e3 * time_ms(fns[k]) / n_t)
-            for k in fns:
-                times[k].append((B_t, min(got[k])))
-            if B_t != B:   # the plain int8 version at the large fleet
-                n_p, B_big = min(16, n_t), B_t
+                (c_q, h_t), T_t, s_t, n_t = (slice_carry(big_q, big_h, b_t),
+                                             T_big, big_s, n_big)
+                c_bf = slice_carry(big_bf, big_h, b_t)[0]
+            fns = {r_: on(r_, (h_t, T_t, s_t)) for r_ in names}
+            order = ["persistent", "loop", "loop", "persistent"]
+            if b_t in (B, 256):
+                fns["bf16"] = lambda: ak.ar_generate(prm, cfg, c_bf, h_t, T_t,
+                                                     n_t, "argmax")
+                order = ["bf16"] + order + ["bf16"]
+            got = {r_: [] for r_ in fns}
+            for r_ in order:
+                fn = fns[r_] if r_ == "bf16" else (
+                    lambda r_=r_: fns[r_](c_q, 0, n_t))
+                got[r_].append(1e3 * time_ms(fn) / n_t)
+            turns[b_t] = {r_: min(v) for r_, v in got.items()}
+            turns[b_t]["route"] = ak.ar_route(cfg, b_t, quantize=True)
+            k1_us[(m["name"], "int8", b_t)] = turns[b_t][turns[b_t]["route"]]
+            if b_t in (B, 256):    # where a persistent int8 step's time goes
+                phases[b_t] = ak.ar_phase_times(prm, cfg, c_q, h_t, T_t, n_t,
+                                                quantize=True, act_scales=s_t)
+            if b_t == 256:
+                n_p = 16
                 plain_big = 1e3 * time_ms(lambda: ak.ar_generate_reference(
                     prm, cfg, c_q, h_t, T_t, n_p, "argmax", quantize=True,
                     act_scales=s_t), reps=1) / n_p
-            del c_bf, c_q, h_t
+            if b_t != B:
+                del c_q, c_bf, h_t
+        # where the model has a wide fleet (m["wide"]) on the other int8
+        # kernel: that kernel at it, from the sliced carry, held against
+        # the plain int8 version over n_wide steps (control: one weight
+        # scale per tensor)
+        wide = m.get("wide")
+        w_route = ak.ar_route(cfg, wide, quantize=True) if wide else route
+        wide_rd = None
+        if w_route != route:
+            c_w, h_w = slice_carry(big_q, big_h, wide)
+
+            def at_wide(c_, i0, steps):
+                return ak.ar_generate(prm, cfg, c_, h_w, T_big + i0, steps,
+                                      "argmax", quantize=True,
+                                      act_scales=big_s)
+
+            wide_rd = int8_readings(
+                c_w, h_w, T_big, big_s,
+                {"kernel": at_wide,
+                 "per_tensor": plain_loop(cfg, w_tensor, True, h_w, T_big,
+                                          big_s)}, n_wide)
+            ms_w = time_ms(lambda: at_wide(c_w, 0, n_big))
+            plain_w = time_ms(lambda: ak.ar_generate_reference(
+                prm, cfg, c_w, h_w, T_big, n_big, "argmax", quantize=True,
+                act_scales=big_s), reps=1)
+            bnd_w = ar_bound(cfg, wide, n_big, True)
+            del c_w, h_w
+        del big_bf, big_q, big_h
         # limits: kernel and plain take the same integer products and round
         # their f32 epilogues alike; only the aux sum's order and the
         # sigmoid/tanh differ, by an f32 ulp.  Where that puts an int8
@@ -1557,15 +1655,16 @@ def main() -> int:
         ring_tol, share_tol, step_floor = 5e-2, 0.25, 0.97
         floor = 0.1 * 256 / n_check
 
-        def fails(r):
+        def fails(r, steps=n_check):
             return [c for c, bad in (("ring", not r[0] <= ring_tol),
                                      ("ring share", not r[1] <= share_tol),
                                      ("same-state", not r[2] >= step_floor),
-                                     ("trajectory", not r[3] >= floor)) if bad]
+                                     ("trajectory",
+                                      not r[3] >= 0.1 * 256 / steps)) if bad]
 
         print(f"[K1 int8{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, "
               f"argmax, {n_check} steps vs the plain int8 version on the same "
-              f"carry and scales: "
+              f"carry and scales (kernel: the {route} kernel ar_route picks): "
               + "; ".join(f"{c} ring written in step 1 max|d|/max|ring| "
                           f"{r[0]:.3e}, differing share {r[1]:.3e}, "
                           f"same-state agreement {r[2]:.4f}, share agreeing "
@@ -1575,26 +1674,77 @@ def main() -> int:
               + f" (limits ring {ring_tol}, ring share {share_tol}, "
               f"same-state {step_floor}, trajectory {floor:.2f}) | B={B} x "
               f"{n} steps: kernel {ms:.2f} ms ({1e3 * ms / n:.1f} us/step), "
-              f"plain int8 {plain_ms:.2f} ms ({1e3 * plain_ms / n:.1f} "
+              f"{names[other]} {other_ms:.2f} ms ({1e3 * other_ms / n:.1f} "
+              f"us/step), plain int8 {plain_ms:.2f} ms ({1e3 * plain_ms / n:.1f} "
               f"us/step), bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) "
-              f"| us/step, best of two in turns: "
-              + ", ".join(f"B={b_} int8 {t:.1f} bf16 "
-                          f"{dict(times['bf16'])[b_]:.1f}"
-                          for b_, t in times["int8"])
-              + f"; plain int8 at B={B_big} {plain_big:.1f} | {card}",
-              flush=True)
-        kernel_entry("ar_step_int8", m, "ar_step.cu",
+              f"| AR-loop device kernels in one call of {n} steps ({route}): "
+              f"{len(loop_kernels)} {sorted(set(loop_kernels))} (device "
+              f"kernels in each trace taken: {traces}) | {card}", flush=True)
+        print(f"[K1 int8{m['tag']}] {m['name']} us/step, best of two in turns "
+              f"(int8 persistent / int8 launch loop, * = the one ar_route "
+              f"picks; bf16 K1 beside them): " + ", ".join(
+                  f"B={b_} {t_['persistent']:.1f}"
+                  f"{'*' if t_['route'] == 'persistent' else ''} / "
+                  f"{t_['loop']:.1f}{'*' if t_['route'] == 'loop' else ''}"
+                  + (f" (bf16 {t_['bf16']:.1f})" if "bf16" in t_ else "")
+                  for b_, t_ in turns.items())
+              + f" (B != {B}: over {n_big} steps); plain int8 at B=256 "
+              f"{plain_big:.1f} | {card}", flush=True)
+        print(f"[K1 int8{m['tag']}] {m['name']} where a step of the persistent "
+              f"int8 kernel goes, us per stage (its phase times; means over "
+              f"the blocks with a unit, the barrier wait over all blocks): "
+              + "; ".join(
+                  f"B={b_}: " + ", ".join(
+                      f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
+                                  else f"ask {v['ask']:.2f} wait {v['wait']:.2f}"
+                                  f" products {v['products']:.2f} epilogue "
+                                  f"{v['epilogue']:.2f} units {v['units']:.2f}")
+                      for st, v in ph.items() if st != "barrier")
+                  + f", barrier {ph['barrier']['wait']:.2f} x "
+                  f"{ph['barrier']['per_step']:.0f}/step"
+                  for b_, ph in phases.items()) + f" | {card}", flush=True)
+        entry = {"persistent": ("ar_persistent_int8", "ar_persistent.cu"),
+                 "loop": ("ar_step_int8", "ar_step.cu")}
+        kernel_entry(entry[route][0], m, entry[route][1],
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
-                     ring["kernel"][0], ms, plain_ms, bnd)
-        for route in ("int8", "bf16"):
-            for b_, t in times[route]:
-                k1_us.setdefault((m["name"], route, b_), t)
-        if fails(readings["kernel"]):
-            raise AssertionError(f"K1-int8 outside its limits: "
-                                 f"{readings['kernel']}")
-        blind = [c for c in runs if c != "kernel" and not fails(readings[c])]
+                     readings["kernel"][4], ms, plain_ms, bnd)
+        if wide_rd is not None:
+            print(f"[K1 int8{m['tag']}] {m['name']} wide fleet B={wide}, "
+                  f"argmax, {n_wide} steps vs the plain int8 version (kernel: "
+                  f"the {w_route} kernel ar_route picks): "
+                  + "; ".join(f"{c} ring written in step 1 max|d|/max|ring| "
+                              f"{r[0]:.3e}, differing share {r[1]:.3e}, "
+                              f"same-state agreement {r[2]:.4f}, share "
+                              f"agreeing up to each row's first divergence "
+                              f"{r[3]:.4f}, fails {fails(r, n_wide) or 'none'}"
+                              for c, r in wide_rd.items())
+                  + f" | B={wide} x {n_big} steps: kernel {ms_w:.2f} ms "
+                  f"({1e3 * ms_w / n_big:.1f} us/step), plain int8 "
+                  f"{plain_w:.2f} ms, bound {bnd_w['bound_ms']:.3f} ms "
+                  f"({bnd_w['bound_by']}) | {card}", flush=True)
+            kernel_entry(entry[w_route][0], m, entry[w_route][1],
+                         "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                         wide_rd["kernel"][4], ms_w, plain_w, bnd_w)
+            if fails(wide_rd["kernel"], n_wide) or not fails(
+                    wide_rd["per_tensor"], n_wide):
+                raise AssertionError(f"K1-int8 ({w_route}, B={wide}) outside "
+                                     f"its limits or its control inside "
+                                     f"them: {wide_rd}")
+        bad = {c: fails(readings[c]) for c in ("kernel", names[other])
+               if fails(readings[c])}
+        if bad:
+            raise AssertionError(f"K1-int8 outside its limits: {bad}, "
+                                 f"{readings}")
+        blind = [c for c in controls if not fails(readings[c])]
         if blind:
             raise AssertionError(f"K1-int8 limits pass the controls {blind}")
+        if route == "persistent" and (len(loop_kernels) != 1 or
+                                      "ar_persistent_kernel" not in
+                                      loop_kernels[0]):
+            raise AssertionError(f"one int8 call of {n} steps ran the AR-loop "
+                                 f"kernels {loop_kernels}, not one launch "
+                                 f"(device kernels traced: "
+                                 f"{sorted(set(traced))})")
 
     # ---- 9. int8 against bf16 at the flagship, and the int8 sampler --------
     def int8_track(m, within, share_min):
@@ -1611,7 +1761,11 @@ def main() -> int:
         B, n = 8, 400
         x = np.full((B, 1), 128, np.int32)
         h = r.randn(B, cfg.receptive_field + n, cfg.n_aux).astype(np.float32)
-        k1q = ak.ar_generate.int8_launches
+        def int8_calls():
+            return (ak.ar_generate.int8_launches
+                    + ak.ar_generate.int8_persistent_launches)
+
+        k1q = int8_calls()
         ref = batch_fast_generate(prm, cfg, x, h, [n] * B, mode="argmax",
                                   impl="cuda")
         q = batch_fast_generate(prm, cfg, x, h, [n] * B, mode="argmax",
@@ -1624,8 +1778,8 @@ def main() -> int:
               f"share within {within} classes {share:.4f}, identical "
               f"{float((diff == 0).mean()):.4f} (pass median <= 2, share > "
               f"{share_min}) | K1-int8 launches "
-              f"{ak.ar_generate.int8_launches - k1q} | {card}", flush=True)
-        if ak.ar_generate.int8_launches - k1q != 1:
+              f"{int8_calls() - k1q} | {card}", flush=True)
+        if int8_calls() - k1q != 1:
             raise AssertionError("the int8 fleet did not run K1-int8 once")
         if not (med <= 2 and share > share_min):
             raise AssertionError(f"int8 off bf16: median {med}, share {share}")
@@ -1698,10 +1852,7 @@ def main() -> int:
                 return real_ref(*a, **k)
 
             ak.ar_generate_reference = counted_ref
-            ak.ar_generate.launches = 0
-            ak.ar_generate.loop_launches = 0
-            ak.ar_generate.int8_launches = 0
-            tk.layer_stack_streams.launches = 0
+            reset_launches()
             try:
                 res = decode_batches(model, [(ids, (x, h, n_list))], outdir,
                                      mode="sampling", impl="auto", fs=m["fs"],
@@ -1710,11 +1861,11 @@ def main() -> int:
                 torch.cuda.synchronize()
             finally:
                 ak.ar_generate_reference = real_ref
-            launches = {"ar_step_int8": ak.ar_generate.int8_launches,
-                        "ar_persistent": ak.ar_generate.launches,
-                        "ar_step": ak.ar_generate.loop_launches,
-                        "layer_stack_fwd": tk.layer_stack_streams.launches}
-            set_launches(m, {"ar_step_int8": launches["ar_step_int8"]})
+            launches = read_launches()
+            route = ak.ar_route(cfg, B, quantize=True)
+            k1_name = {"persistent": "ar_persistent_int8",
+                       "loop": "ar_step_int8"}[route]
+            set_launches(m, {k1_name: launches[k1_name]})
             bad, spread = [], None
             for b, n in enumerate(n_list):
                 wav, _fs = read_wav(os.path.join(outdir, ids[b] + ".wav"))
@@ -1736,7 +1887,8 @@ def main() -> int:
         torch.cuda.synchronize()
         warm_s = time.time() - tw
         del xt, ht
-        print(f"[main int8{m['tag']}] {m['name']} decode_batches(quantize=True): {B} utts, frames "
+        print(f"[main int8{m['tag']}] {m['name']} decode_batches(quantize=True"
+              f", {route} K1-int8): {B} utts, frames "
               f"{frames.min()}-{frames.max()}, {res['n_samples']} samples in "
               f"{res['seconds']:.3f} s = {res['n_samples'] / res['seconds']:.0f}"
               f" samples/s, {1e6 * res['seconds'] / max_n:.1f} us/step "
@@ -1749,10 +1901,12 @@ def main() -> int:
                                  f"{bad[:4]}")
         if not spread or not np.isfinite(spread):
             raise AssertionError(f"degenerate output wav (std {spread})")
-        if launches != {"ar_step_int8": 1, "ar_persistent": 0, "ar_step": 0,
-                        "layer_stack_fwd": chunks} or plain_runs[0]:
-            raise AssertionError(f"not one K1-int8 launch and one K2 launch "
-                                 f"per warm-up chunk: {launches}")
+        want = dict({k: 0 for k in launches}, layer_stack_fwd=chunks)
+        want[k1_name] = 1
+        if launches != want or plain_runs[0]:
+            raise AssertionError(f"not one {k1_name} launch ({route} K1-int8) "
+                                 f"and one K2 launch per warm-up chunk: "
+                                 f"{launches}")
 
         # a short argmax fleet under a forced budget: sub-fleets of half the
         # fleet, each with its own warm-up and scales
@@ -1765,10 +1919,11 @@ def main() -> int:
         est = _fleet_hbm_bytes(cfg, B2, max(n2), quantize=True)
         os.environ["WNV_DECODE_HBM_BUDGET"] = str(est // 2 + 1)
         try:
-            ak.ar_generate.int8_launches = 0
+            reset_launches()
             capped = model.batch_fast_generate(x2, h2, n2, mode="argmax",
                                                quantize=True)
-            n_capped = ak.ar_generate.int8_launches
+            n_capped = (ak.ar_generate.int8_launches
+                        + ak.ar_generate.int8_persistent_launches)
         finally:
             del os.environ["WNV_DECODE_HBM_BUDGET"]
         alone = []
@@ -1790,7 +1945,108 @@ def main() -> int:
             raise AssertionError(f"fleet capping: {n_capped} launches, rows "
                                  f"equal {same}")
 
-    # ---- 11. K4: the serial matmul-chain probe ------------------------------
+    # ---- 11. the sd-mini model: channel widths off the kernels' tiling ----
+    def main_mini(n_check=64):
+        """egs/arctic/sd-mini/run.sh:50-57's model (5 layers of n_resch 32,
+        n_skipch 16, kernel_size 2, 28 aux channels, upsampling by 80),
+        random seeded weights: a fleet of 8 through batch_fast_generate
+        (impl="auto"), bf16 and int8, which pads the widths to the kernels'
+        multiples (models/wavenet.py::pad_params_for_kernels) and runs K2
+        and K1 on the card, K1 launched once, the plain loop never; then K1
+        on the padded config's carry against the plain loop on it, argmax
+        by [K1]'s limits (control: the plain loop with the gate bias
+        dropped)."""
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            kernel_multiples,
+            pad_params_for_kernels,
+        )
+
+        cfg = WaveNetConfig(n_quantize=256, n_aux=28, n_resch=32, n_skipch=16,
+                            dilation_depth=5, dilation_repeat=1,
+                            kernel_size=2, upsampling_factor=80,
+                            compute_dtype="bfloat16")
+        prm = make_params(cfg, 99)
+        r = np.random.RandomState(12)
+        B = 8
+        frames = r.randint(20, 41, B)
+        h = r.randn(B, frames.max(), cfg.n_aux).astype(np.float32)
+        x = np.full((B, 1), 128, np.int32)
+        n_list = [int(f) * cfg.upsampling_factor - 1 for f in frames]
+        lines, problems = [], []
+        for quantize in (False, True):
+            mult = kernel_multiples(cfg, B, quantize)
+            kp, kc = pad_params_for_kernels(prm, cfg, mult)
+            route = ak.ar_route(kc, B, quantize)
+            k1_name = {("persistent", False): "ar_persistent",
+                       ("loop", False): "ar_step",
+                       ("persistent", True): "ar_persistent_int8",
+                       ("loop", True): "ar_step_int8"}[(route, quantize)]
+            plain_runs = [0]
+            real_ref = ak.ar_generate_reference
+
+            def counted_ref(*a, **k):
+                plain_runs[0] += 1
+                return real_ref(*a, **k)
+
+            ak.ar_generate_reference = counted_ref
+            reset_launches()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = batch_fast_generate(
+                    prm, cfg, x, h, n_list, mode="sampling",
+                    generator=torch.Generator().manual_seed(3), impl="auto",
+                    quantize=quantize)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+            finally:
+                ak.ar_generate_reference = real_ref
+            launches = read_launches()
+            want = {k: 0 for k in launches}
+            want[k1_name] = 1
+            want["layer_stack_fwd"] = launches["layer_stack_fwd"]
+            if (launches != want or launches["layer_stack_fwd"] < 1
+                    or plain_runs[0]):
+                problems.append(f"{'int8' if quantize else 'bf16'} launches "
+                                f"{launches}, plain loop runs {plain_runs[0]}")
+            if [len(o) for o in out] != n_list or not all(
+                    ((o >= 0) & (o < cfg.n_quantize)).all() for o in out):
+                problems.append("samples of the wrong length or range")
+            # K1 on the padded config's carry against the plain loop on it
+            got = fleet_carry(kc, kp, B, n_check, 4, scales=quantize)
+            carry, hk, T0 = got[:3]
+            q = {}
+            if quantize:
+                q = dict(quantize=True, act_scales=got[3])
+                carry = int8_carry(kc, carry, got[3])
+            nob = zero_dil_bias(kp)
+            runs = {"kernel": lambda c_, i0, steps: ak.ar_generate(
+                        kp, kc, c_, hk, T0 + i0, steps, "argmax", **q),
+                    "no_dil_bias": lambda c_, i0, steps:
+                        ak.ar_generate_reference(nob, kc, c_, hk, T0, steps,
+                                                 "argmax", i0=i0, **q)}
+            rd = k1_readings(kc, kp, carry, hk, T0, n_check, runs, **q)
+            lines.append(
+                f"{'int8' if quantize else 'bf16'}: padded to n_resch "
+                f"{kc.n_resch}, n_skipch {kc.n_skipch} (multiples {mult}), "
+                f"{sum(n_list)} samples in {secs:.3f} s = "
+                f"{sum(n_list) / secs:.0f} samples/s, "
+                f"{1e6 * secs / max(n_list):.1f} us/step ({max(n_list)} steps, "
+                f"warm-up included), launches {launches}, plain loop runs "
+                f"{plain_runs[0]}; K1 ({route}) on the padded carry vs the "
+                f"plain loop, {n_check} steps: " + k1_line(rd, n_check))
+            try:
+                k1_check(rd, ["no_dil_bias"], n_check,
+                         f"[main mini] {'int8' if quantize else 'bf16'} K1")
+            except AssertionError as e:
+                problems.append(str(e))
+        print("[main mini] sd-mini (egs/arctic/sd-mini/run.sh) 5 x 32/16, "
+              f"B={B}, batch_fast_generate(impl='auto'): " + " | ".join(lines)
+              + f" | {card}", flush=True)
+        if problems:
+            raise AssertionError("; ".join(problems))
+
+    # ---- 12. K4: the serial matmul-chain probe ------------------------------
     def k4():
         from pytorchwavenetvocoder_tpu_torch.bin import (
             matmul_chain_probe as probe,
@@ -1958,6 +2214,7 @@ def main() -> int:
     phase("int8 track", lambda: int8_track(arctic, 8, 0.8))
     phase("K1 int8 chi2", chi2_int8)
     phase("main int8", lambda: main_int8(arctic))
+    phase("main mini", main_mini)
     # the ljspeech flagship (kernel_size 3): fewer plain-loop steps, the
     # plain k=3 loop taking ~10 ms a step
     phase("K2 k3", lambda: k2(ljs))
@@ -1969,6 +2226,8 @@ def main() -> int:
     phase("main k3", lambda: main_path(ljs))
     phase("main wide k3", lambda: main_path(ljs, wide=True))
     phase("main int8 k3", lambda: main_int8(ljs))
+    phase("main int8 wide k3", lambda: main_path(ljs, wide=True,
+                                                 quantize=True))
     phase("K2 train k3", lambda: k2_train(ljs))
     phase("K3 k3", lambda: k3(ljs))
     phase("train k3", lambda: train_path(ljs))

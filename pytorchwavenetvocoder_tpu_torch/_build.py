@@ -125,6 +125,8 @@ def kernels() -> ctypes.CDLL:
         + [vp] * 9           # xs of skip gs sr h1 logits ids samples
         + [i32] * 10         # B R S Q A L K T0 max_n sampling
         + [ctypes.c_uint64]  # seed
+        + [i32] + [vp] * 5   # int8; xq gq xa ascale ainv
+        + [ctypes.c_float] * 2    # gscale ginv
         + [vp, vp, vp])      # plan (host int*), phase times, stream
     lib.wn_ar_phase_slots.restype = i32
     lib.wn_ar_phase_slots.argtypes = []

@@ -6,21 +6,23 @@ two flagship configurations, then runs ``torch.profiler`` over ``--steps``
 argmax steps of ``ops/ar_kernel.py::ar_generate`` and prints, per CUDA
 kernel, its launches and device microseconds per step (the wrapper's
 per-call work, such as packing the weights, spread over the steps), the
-device-busy sum and the host clock per step.  bf16 runs on the kernel
-``ar_route`` picks for the fleet: the persistent kernel runs the steps in
-one launch, whose device microseconds per step it names on a line of
-their own, followed by its phase times per stage; on the launch loop (and
-in int8, ``--quantize``) the table has one row per kernel of the step.
+device-busy sum and the host clock per step.  bf16, and int8 with
+``--quantize``, run on the kernel ``ar_route`` picks for the fleet: the
+persistent kernel runs the steps in one launch, whose device microseconds
+per step it names on a line of their own, followed by its phase times
+per stage; on the launch loop the table has one row per kernel of the
+step.
 
-``--turns B1,B2,...`` times the two bf16 kernels instead, the persistent
-kernel and the launch loop, in turns (persistent, loop, loop, persistent;
-best of each, CUDA events) at each fleet size, from one carry of the
-largest sliced, and names the one ``ar_route`` picks: where its
-``AR_LOOP_FROM_B`` threshold is read.
+``--turns B1,B2,...`` times the two kernels instead (int8 with
+``--quantize``), the persistent kernel and the launch loop, in turns
+(persistent, loop, loop, persistent; best of each, CUDA events) at each
+fleet size, from one carry of the largest sliced, and names the one
+``ar_route`` picks: where its ``AR_LOOP_FROM_B`` (``AR_INT8_LOOP_FROM_B``)
+threshold is read.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.profile_ar --model
 ljspeech --batch 16 [--quantize]``, or ``... --model ljspeech --turns
-128,192,256``.
+128,192,256 [--quantize]``.
 """
 
 from __future__ import annotations
@@ -48,8 +50,12 @@ MODELS = {
 }
 
 #: An AR-loop kernel's name as the profiler reports it, demangled
-#: (``void ar_persistent_kernel<3>(ApArgs)``) or not (``_Z20ar_...``)
+#: (``void ar_persistent_kernel<3, true>(ApArgs)``) or not (``_Z20ar_...``)
 AR_LOOP_KERNEL = re.compile(r"(?<![A-Za-z])ar_\w+?_kernel")
+
+
+#: Throwaway kernels at the head of each trace of ``ar_loop_kernels``
+_HEAD = 16
 
 
 def ar_loop_kernels(fn, tries: int = 5, margin_s: float = 0.25
@@ -63,14 +69,20 @@ def ar_loop_kernels(fn, tries: int = 5, margin_s: float = 0.25
     be told from one whose device records fell outside its window (the
     profiler drops those): a trace without both markers recorded nothing
     that can be counted and is taken again, at most ``tries`` times, after
-    which this raises.
+    which this raises.  The profiler can also drop a trace's first device
+    records (up to 4 seen on an H100 after a long run of small kernels,
+    whatever the margin), so ``_HEAD`` throwaway kernels run before the
+    first marker.
     """
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    head = torch.zeros(1, device="cuda")
     seen = []
     for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             time.sleep(margin_s)
+            for _ in range(_HEAD):
+                head.add_(1)
             torch.cuda._sleep(1000)
             fn()
             torch.cuda._sleep(1000)
@@ -95,8 +107,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--quantize", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--turns", default="",
-                        help="comma-separated fleet sizes: time both bf16 "
-                        "kernels in turns at each instead of profiling")
+                        help="comma-separated fleet sizes: time both "
+                        "kernels (int8 with --quantize) in turns at each "
+                        "instead of profiling")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ar needs a CUDA device")
@@ -129,8 +142,9 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     if turn_b:
-        return turns(params, cfg, carry, h, T0, n, turn_b, args.model, smi)
-    persistent = not args.quantize and ak.ar_route(cfg, B) == "persistent"
+        return turns(params, cfg, carry, h, T0, n, turn_b, args.model, smi,
+                     **q)
+    persistent = ak.ar_route(cfg, B, args.quantize) == "persistent"
     ak.ar_generate(params, cfg, carry, h, T0, n, "argmax", **q)   # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -168,7 +182,8 @@ def main(argv=None) -> dict:
     phases = None
     if persistent:
         # where a step of the persistent kernel goes, from its phase times
-        phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n)
+        phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n,
+                                   **q)
         print("  us per stage (means over the blocks with a unit):")
         for st, v in phases.items():
             print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
@@ -177,10 +192,11 @@ def main(argv=None) -> dict:
 
 
 def turns(params, cfg, carry, h, T0: int, n: int, sizes: list, model: str,
-          smi: str) -> dict:
-    """Both bf16 kernels in turns at each fleet size of ``sizes``, n argmax
-    steps a call, from the first rows of ``carry``; returns {B: {route:
-    us/step, "route": ar_route's pick}}."""
+          smi: str, quantize: bool = False,
+          act_scales: torch.Tensor | None = None) -> dict:
+    """Both kernels (bf16, or int8 with ``quantize``) in turns at each fleet
+    size of ``sizes``, n argmax steps a call, from the first rows of
+    ``carry``; returns {B: {route: us/step, "route": ar_route's pick}}."""
     def us_per_step(fn):
         fn()
         torch.cuda.synchronize()
@@ -201,10 +217,11 @@ def turns(params, cfg, carry, h, T0: int, n: int, sizes: list, model: str,
         got = {"persistent": [], "loop": []}
         for route in ("persistent", "loop", "loop", "persistent"):
             got[route].append(us_per_step(lambda: ak.ar_generate_on(
-                route, params, cfg, c_b, h_b, T0, n)))
+                route, params, cfg, c_b, h_b, T0, n, quantize, act_scales)))
         out[b] = {r: min(v) for r, v in got.items()}
-        out[b]["route"] = ak.ar_route(cfg, b)
-        print(f"[profile_ar turns] {model} k={cfg.kernel_size} B={b}: "
+        out[b]["route"] = ak.ar_route(cfg, b, quantize)
+        print(f"[profile_ar turns] {model} k={cfg.kernel_size} "
+              f"{'int8' if quantize else 'bf16'} B={b}: "
               f"persistent {out[b]['persistent']:.1f} us/step, launch loop "
               f"{out[b]['loop']:.1f} (ratio "
               f"{out[b]['persistent'] / out[b]['loop']:.3f}), ar_route picks "

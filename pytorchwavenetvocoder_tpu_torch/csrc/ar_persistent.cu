@@ -1,13 +1,13 @@
-// The WaveNet AR sample loop in bf16 (kernel_size 2 and 3) for Hopper: one
-// persistent cooperative kernel runs every step of a call.
+// The WaveNet AR sample loop in bf16 and int8 (kernel_size 2 and 3) for
+// Hopper: one persistent cooperative kernel runs every step of a call.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
-// (the fused Pallas TPU kernel) in bf16 at kernel_size 2 and 3; the plain
-// PyTorch version is ops/ar_kernel.py::ar_generate_reference.  int8
-// (quantize=True) stays on the launch loop of csrc/ar_step.cu, and so do
-// the bf16 fleets and configs for which ops/ar_kernel.py::ar_route picks
-// that loop (kernel_size 3 from AR_LOOP_FROM_B rows, where a block takes
-// several gate units in turn; configs with no cut of the stages).
+// (the fused Pallas TPU kernel) in bf16 and in its int8 path
+// (quantize=True) at kernel_size 2 and 3; the plain PyTorch version is
+// ops/ar_kernel.py::ar_generate_reference.  The fleets and configs for
+// which ops/ar_kernel.py::ar_route picks the launch loop of csrc/ar_step.cu
+// run there (large fleets, where a block takes several gate units in turn;
+// configs with no cut of the stages).
 //
 // Bounds on the H100.  Each step reads the whole bf16 weight pack,
 // L * R * (2kR + S + R) * 2 bytes (86.5 MB at 30 x 512 with k = 2, 118.0 MB
@@ -88,6 +88,35 @@
 // Numbers: the products sum in f32 in another order than the plain version
 // (the aux term inside the product, the biases after the ring tap), so
 // values agree up to f32 summation order before each bf16 rounding.
+//
+// int8 (the Q8 instances; the JAX kernel's int8 path): the same stage plan
+// and barriers.  The gate and res stages multiply int8 by int8 into int32
+// sums (exact), each product dequantized by (activation scale x column
+// scale) in the epilogue; the aux term stays a bf16 product (wmma, f32
+// sums) over the unit's aux rows, as in the JAX int8 path; post1, post2
+// and the sample stage are the bf16 ones.  The stream is quantized by its
+// producers: the sample stage's embed and each res stage write the next
+// layer's int8 row at that layer's scale (round half to even, +-127), the
+// gate stage writes g at 1/127.  kernel_size 2: the ring keeps the bf16
+// projection of the past-tap product, written over the element just read;
+// kernel_size 3: the raw ring holds int8 rows, the gate multiplies the
+// rows at lag d and 2d (bulk-copied from the ring) by their own weight
+// blocks, and the res stage writes the layer's int8 input row into slot
+// p mod 2d.  The epilogues round with __fmul_rn / __fadd_rn in the plain
+// version's order (an FMA, or another order, that flips one int8 value
+// moves the rest of the row's layers by quanta).
+//
+// The int8 product core: mma.sync m16n8k32 (s8 x s8 -> s32) fed by
+// ldmatrix.x4 from shared memory.  The A rows (the int8 stream, the gate,
+// the lagged ring rows) lie in shared memory in rows padded by 16 bytes,
+// a row's stride an odd number of 16-byte chunks (R a multiple of 32), so
+// the 8 row addresses of each ldmatrix phase fall on distinct banks; the
+// weights of a unit come packed per 32-deep k chunk and 16-column tile as
+// four 128-byte matrices (8 columns x 16 k bytes each, columns n-major), so
+// one ldmatrix.x4 reads the B fragments of two n8 tiles, each matrix
+// contiguous.  (wmma's s8 fragments want 32-byte aligned tile bases, which
+// the padded rows and the row-major ring rows do not give at odd 16-byte
+// k tiles.)
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -102,21 +131,30 @@ using namespace nvcuda;
 #define AP_ACC 4          // independent sums per warp
 #define AP_PAD 8          // bf16 elements of padding per A row in shared memory
 #define AP_MT_MAX 4       // row tiles of a unit at most
+#define AP_QPAD 16        // bytes of padding per int8 A row in shared memory
 
 // the weighted stages; GATE and POST1 use weight buffer 0, RES and POST2
 // buffer 1 (stage & 1), so consecutive weighted stages alternate
 enum { AP_GATE, AP_RES, AP_POST1, AP_POST2, AP_NSTAGES };
 
 struct ApStage {
-    int K, quarters, N;    // weight rows (= A row width), quarters, columns per quarter
+    int K, quarters, N;    // weight rows (= A row width; int8: of each
+                           // segment), quarters, columns per quarter
     int cw, G, mt, rg, ks; // columns per quarter and unit, column groups, row
                            // tiles per row group, row groups, the warps' K split
     int units;             // rg * G
+    int segs;              // int8 products of the stage (kernel_size 3 gate:
+                           // current, lag d, lag 2d; else 1)
+    int run;               // bytes of a unit's packed weights
 };
 
 struct ApArgs {
-    const bf16* w[AP_NSTAGES];   // packed per unit: [L][G] runs of [K/16][ntu][16][16]
-                                 // tiles, then the unit's cw f32 biases
+    // packed per unit: [L][G] runs.  bf16: [K/16][ntu][16][16] tiles, then
+    // the unit's cw f32 biases.  int8 gate and res: per segment
+    // [K/32][ntu][512] bytes (unit_pack_i8), then (gate) the aux rows'
+    // bf16 tiles [Ap/16][cw/16][16][16], then the f32 column scales
+    // [segs][quarters * cw] and biases (gate: aux_b, dil_b; res: its own)
+    const unsigned char* w[AP_NSTAGES];
     const bf16* causal_w;        // (K, Q, R)
     const float* causal_b;       // (R)
     const float* h_up;           // (B, h_T, A)
@@ -134,6 +172,17 @@ struct ApArgs {
     float* logits;               // (B, Q)
     int* ids;                    // (B, K) the ids at p-K+1 .. p
     int* samples;                // (B, max_n)
+    // int8 only: the stream at the next layer's scale and the gate at
+    // 1/127, rows of q_ld bytes (R + AP_QPAD); the step's aux column (bf16,
+    // rows of xa_ld elements); the activation scales and their reciprocals
+    // (L), the gate's scale and its reciprocal
+    signed char* xq;
+    signed char* gq;
+    bf16* xa;
+    const float* ascale;
+    const float* ainv;
+    float gscale, ginv;
+    int q_ld, xa_ld;
     int B, Mt, R, S, Q, A, Ap, L, h_T, T0, max_n, sampling, xs_ld, gs_ld, s_ld;
     unsigned long long seed;
     ApStage st[AP_NSTAGES];
@@ -172,11 +221,10 @@ static __device__ __forceinline__ int unit_begin(int units, int blk) {
 static __device__ void fetch_w(const ApArgs& a, unsigned char* smem, ApBars& bars,
                                int T, int l, int grp) {
     const ApStage& s = a.st[T];
-    const unsigned elems = (unsigned)(s.K * s.quarters + 2) * s.cw;
-    const bf16* src = a.w[T] + ((size_t)l * s.G + grp) * elems;
+    const unsigned char* src = a.w[T] + ((size_t)l * s.G + grp) * s.run;
     uint64_t* bar = bars.bar + (T & 1);
-    mbar_expect(bar, elems * 2);
-    bulk_copy(smem + a.smem_w[T & 1], src, elems * 2, bar);
+    mbar_expect(bar, (unsigned)s.run);
+    bulk_copy(smem + a.smem_w[T & 1], src, (unsigned)s.run, bar);
 }
 
 // Thread 0: the weights of this block's first unit in stage Tn at layer ln
@@ -190,10 +238,36 @@ static __device__ void prefetch(const ApArgs& a, unsigned char* smem, ApBars& ba
     fetch_w(a, smem, bars, Tn, ln, u0 / s.rg);
 }
 
-// The embed of row b for position p from its K ids: out = ((causal_b + w_0)
-// + w_1) (+ w_2) in f32 and bf16, and the aux column h_up[b, p] in bf16
-// after the stream (the gate's extra K).  One warp.
-template <int KS>
+// clip(round_half_even(v), -127, 127): torch.round / jnp.round semantics
+static __device__ __forceinline__ signed char quant_i8(float v) {
+    return (signed char)max(-127, min(127, __float2int_rn(v)));
+}
+
+// Four 8 x 16-byte matrices from shared memory (lanes 8i .. 8i + 7 give
+// matrix i's row addresses; register i holds matrix i).
+static __device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// c (16 x 8 s32) += a (16 x 32 s8, row) @ b (32 x 8 s8, col)
+static __device__ __forceinline__ void mma_s8(int c[4], const unsigned a[4],
+                                              unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                 "{%0, %1, %2, %3};\n"
+                 : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The embed of row b for position p from its K ids and the step's aux
+// column h_up[b, p] in bf16.  bf16: out = ((causal_b + w_0) + w_1) (+ w_2)
+// in f32 and bf16, the aux column after the stream (the gate's extra K).
+// Q8: out = ((w_0 + w_1) (+ w_2)) + causal_b (the JAX kernel's one-hot
+// product, then the bias) in f32 and as int8 at layer 0's scale, the aux
+// column in its own rows.  One warp.
+template <int KS, bool Q8>
 static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
                                  int lane) {
     const int R = a.R, Q = a.Q, W = a.xs_ld;
@@ -201,15 +275,26 @@ static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
 #pragma unroll
     for (int j = 0; j < KS; ++j)
         w[j] = a.causal_w + ((size_t)j * Q + ((id[j] % Q) + Q) % Q) * R;
+    const float inv0 = Q8 ? __ldg(a.ainv) : 0.f;
     for (int r = lane; r < R; r += 32) {
-        float v = a.causal_b[r];
+        if constexpr (Q8) {
+            float v = bf2f(w[0][r]);
 #pragma unroll
-        for (int j = 0; j < KS; ++j) v += bf2f(w[j][r]);
-        a.of[(size_t)b * R + r] = v;
-        a.xs[(size_t)b * W + r] = f2bf(v);
+            for (int j = 1; j < KS; ++j) v = __fadd_rn(v, bf2f(w[j][r]));
+            v = __fadd_rn(v, a.causal_b[r]);
+            a.of[(size_t)b * R + r] = v;
+            a.xq[(size_t)b * a.q_ld + r] = quant_i8(__fmul_rn(v, inv0));
+        } else {
+            float v = a.causal_b[r];
+#pragma unroll
+            for (int j = 0; j < KS; ++j) v += bf2f(w[j][r]);
+            a.of[(size_t)b * R + r] = v;
+            a.xs[(size_t)b * W + r] = f2bf(v);
+        }
     }
     const float* hp = a.h_up + ((size_t)b * a.h_T + p) * a.A;
-    for (int i = lane; i < a.A; i += 32) a.xs[(size_t)b * W + R + i] = f2bf(hp[i]);
+    bf16* aux = Q8 ? a.xa + (size_t)b * a.xa_ld : a.xs + (size_t)b * W + R;
+    for (int i = lane; i < a.A; i += 32) aux[i] = f2bf(hp[i]);
 }
 
 // The row stride of stage T's padded A rows (part 0 in shared memory).
@@ -525,10 +610,308 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
     fence_proxy_async();
 }
 
+// ---- int8: the gate and res stages -------------------------------------
+
+// Warp 0: ask for int8 unit u's A rows (lane 0 makes the A barrier's one
+// arrival, expecting every byte, before the copies): part 0, the stage's
+// int8 rows (xq or gq, q_ld bytes each) as one bulk copy; for the gate at
+// kernel_size 3 part 1, the two lagged int8 ring rows of each row (rows of
+// 2R + AP_QPAD bytes: lag d, then lag 2d), row by row; for the gate part
+// 2, the aux rows (bf16, xa_ld elements each) as one bulk copy.
+template <int KS, int T>
+static __device__ void issue_a_q8(const ApArgs& a, unsigned char* smem, ApBars& bars,
+                                  int l, int p, int u, int lane) {
+    const ApStage& s = a.st[T];
+    int grp, r0, rows, n;
+    unit_rows(a, s, u, &grp, &r0, &rows, &n);
+    const int R = a.R, rmax = 16 * s.mt, ld1 = 2 * R + AP_QPAD;
+    unsigned bytes = (unsigned)n * a.q_ld;
+    if (T == AP_GATE) bytes += (unsigned)n * a.xa_ld * 2;
+    if (KS == 3 && T == AP_GATE) bytes += (unsigned)n * 2 * R;
+    uint64_t* bar = bars.bar + 2;
+    if (lane == 0) mbar_expect(bar, bytes);
+    __syncwarp();
+    unsigned char* As = smem + a.smem_a;
+    unsigned char* A1 = As + (size_t)rmax * a.q_ld;
+    if (lane == 0) {
+        const signed char* src = T == AP_GATE ? a.xq : a.gq;
+        bulk_copy(As, src + (size_t)r0 * a.q_ld, (unsigned)n * a.q_ld, bar);
+        if (T == AP_GATE)
+            bulk_copy(A1 + (KS == 3 ? (size_t)rmax * ld1 : 0),
+                      a.xa + (size_t)r0 * a.xa_ld, (unsigned)n * a.xa_ld * 2, bar);
+    }
+    if constexpr (KS == 3 && T == AP_GATE) {
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        const int cap = 2 * d;
+        const signed char* ring = (const signed char*)a.ring;
+        for (int i = lane; i < 2 * n; i += 32) {
+            const int j = i / n, m = i - j * n;
+            const int slot = o + ((p - (j + 1) * d) % cap + cap) % cap;
+            bulk_copy(A1 + (size_t)m * ld1 + j * R,
+                      ring + ((size_t)slot * a.B + r0 + m) * R, R, bar);
+        }
+    }
+}
+
+// The int32 sum of column col of row ml of segment seg over the warps' K
+// slices (exact, any order), dequantized by sc (activation scale x column
+// scale) as the plain version does: one f32 product.
+static __device__ __forceinline__ float dq(const int* Ps, int seg, int ks, int rows,
+                                          int cols, int ml, int col, float sc) {
+    int v = 0;
+    for (int k = 0; k < ks; ++k) v += Ps[((size_t)(seg * ks + k) * rows + ml) * cols + col];
+    return __fmul_rn((float)v, sc);
+}
+
+// The epilogue of an int8 unit: rows [r0, r0 + n) of column group grp; the
+// int32 sums in Ps ([segs][ks][rows][cols]), the gate's aux sums in Pa
+// ([rows][cw] f32), the column scales sc ([segs][cols]) and biases eb after
+// them, the per-row operands in Es (fetch_e).  f32 sums in the plain
+// version's order (ops/ar_kernel.py::ar_step_logits), no FMA contraction.
+template <int KS, int T>
+static __device__ void epilogue_q8(const ApArgs& a, const int* Ps, const float* Pa,
+                                   const unsigned char* Es, const float* sc,
+                                   const float* eb, int l, int p, int grp, int r0,
+                                   int n, int rows, int cols, int ks, int cw) {
+    const int R = a.R, S = a.S;
+    if constexpr (T == AP_GATE) {
+        const int hc = cw / 2;
+        const float as = __ldg(a.ascale + l);
+        bf16* slot = nullptr;
+        if constexpr (KS == 2) {
+            const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+            slot = a.ring + ((size_t)o + p % d) * a.B * 2 * R;
+        }
+        for (int e = threadIdx.x; e < n * hc; e += AP_THREADS) {
+            const int ml = e / hc, ci = e - ml * hc, jt = ci >> 3, ii = ci & 7;
+            const int b = r0 + ml, c = grp * hc + ci;
+            const int cs = jt * 16 + ii, ct = cs + 8;
+            // za = aux product + aux_b; z = cur + ((past + za) + dil_b)
+            const float za_s = __fadd_rn(Pa[(size_t)ml * cw + cs], eb[ci]);
+            const float za_t = __fadd_rn(Pa[(size_t)ml * cw + ct], eb[hc + ci]);
+            float ps, pt;
+            if constexpr (KS == 2) {
+                // the ring tap this block read before the products, then the
+                // projection for step p + d over it
+                const bf16* tap = (const bf16*)Es + (size_t)ml * cw;
+                ps = bf2f(tap[ci]);
+                pt = bf2f(tap[hc + ci]);
+                bf16* rr = slot + (size_t)b * 2 * R;
+                rr[c] = f2bf(dq(Ps, 0, ks, rows, cols, ml, cw + cs,
+                                __fmul_rn(as, sc[cw + cs])));
+                rr[R + c] = f2bf(dq(Ps, 0, ks, rows, cols, ml, cw + ct,
+                                    __fmul_rn(as, sc[cw + ct])));
+            } else {
+                ps = __fadd_rn(dq(Ps, 1, ks, rows, cols, ml, cs, __fmul_rn(as, sc[cols + cs])),
+                               dq(Ps, 2, ks, rows, cols, ml, cs, __fmul_rn(as, sc[2 * cols + cs])));
+                pt = __fadd_rn(dq(Ps, 1, ks, rows, cols, ml, ct, __fmul_rn(as, sc[cols + ct])),
+                               dq(Ps, 2, ks, rows, cols, ml, ct, __fmul_rn(as, sc[2 * cols + ct])));
+            }
+            const float zs = __fadd_rn(dq(Ps, 0, ks, rows, cols, ml, cs, __fmul_rn(as, sc[cs])),
+                                       __fadd_rn(__fadd_rn(ps, za_s), eb[cw + ci]));
+            const float zt = __fadd_rn(dq(Ps, 0, ks, rows, cols, ml, ct, __fmul_rn(as, sc[ct])),
+                                       __fadd_rn(__fadd_rn(pt, za_t), eb[cw + hc + ci]));
+            a.gq[(size_t)b * a.q_ld + c] = quant_i8(__fmul_rn(wn_gate(zs, zt), a.ginv));
+        }
+    } else {
+        const bool last = l == a.L - 1;
+        const float inv = __ldg(a.ainv + l), inv_next = last ? 0.f : __ldg(a.ainv + l + 1);
+        signed char* slot = nullptr;
+        if constexpr (KS == 3) {
+            const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+            slot = (signed char*)a.ring + ((size_t)o + p % (2 * d)) * a.B * R;
+        }
+        for (int e = threadIdx.x; e < n * cw; e += AP_THREADS) {
+            const int ml = e / cw, jj = e - ml * cw;
+            const int b = r0 + ml, col = grp * cw + jj;
+            const float v = __fadd_rn(dq(Ps, 0, ks, rows, cols, ml, jj,
+                                         __fmul_rn(a.gscale, sc[jj])), eb[jj]);
+            const float old = col < S && l == 0
+                ? 0.f : ((const float*)Es)[(size_t)ml * cw + jj];
+            const float nv = __fadd_rn(v, old);
+            if (col < S) {
+                a.skip[(size_t)b * S + col] = nv;
+                if (last) a.sr[(size_t)b * a.s_ld + col] = f2bf(fmaxf(nv, 0.f));
+            } else {
+                const int j = col - S;
+                a.of[(size_t)b * R + j] = nv;
+                if (!last) a.xq[(size_t)b * a.q_ld + j] = quant_i8(__fmul_rn(nv, inv_next));
+                // the layer's int8 input row, as its gate quantized it
+                if constexpr (KS == 3) slot[(size_t)b * R + j] = quant_i8(__fmul_rn(old, inv));
+            }
+        }
+    }
+}
+
+// One int8 weighted stage (gate or res): the run of units and the
+// prefetch as in wstage.  Per unit, warp tasks of (16-column tile, segment,
+// K slice) over the unit's row tiles, each a chain of mma.sync m16n8k32 on
+// ldmatrix fragments; then (gate) the aux product, a task per 16 x 16 tile,
+// by wmma bf16.
+template <int KS, int T>
+static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
+                                 int Tn, int ln) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const ApStage& s = a.st[T];
+    constexpr int buf = T & 1;
+    const int u0 = unit_begin(s.units, blockIdx.x);
+    const int u1 = unit_begin(s.units, blockIdx.x + 1);
+    if (u0 >= u1) {
+        if (threadIdx.x == 0) prefetch(a, smem, bars, Tn, ln);
+        return;
+    }
+    const int R = a.R, cols = s.quarters * s.cw, ntu = cols / 16, KC = s.K / 32;
+    const int ks = s.ks, segs = s.segs, rmax = 16 * s.mt, ld0 = a.q_ld;
+    const int ld1 = 2 * R + AP_QPAD;
+    const unsigned char* As = smem + a.smem_a;
+    const unsigned char* A1 = As + (size_t)rmax * ld0;
+    const bf16* A2 = (const bf16*)(A1 + (KS == 3 && T == AP_GATE ? (size_t)rmax * ld1 : 0));
+    const unsigned char* Ws = smem + a.smem_w[buf];
+    const bf16* Wa = (const bf16*)(Ws + (size_t)segs * s.K * cols);
+    const float* sc = (const float*)(T == AP_GATE ? (const unsigned char*)(Wa + (size_t)a.Ap * s.cw)
+                                                  : (const unsigned char*)Wa);
+    const float* eb = sc + segs * cols;
+    int* Ps = (int*)(smem + a.smem_p);
+    float* Pa = (float*)(Ps + (size_t)segs * ks * rmax * cols);
+    unsigned char* Es = smem + a.smem_e;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    unsigned long long* ph = a.phase != nullptr && threadIdx.x == 0
+        ? a.phase + (size_t)blockIdx.x * AP_PH + T * AP_PH_STAGE : nullptr;
+    unsigned long long t[5] = {0, 0, 0, 0, 0};
+    int have = -1;
+    for (int u = u0; u < u1; ++u) {
+        int grp, r0, rows, n;
+        unit_rows(a, s, u, &grp, &r0, &rows, &n);
+        const bool fetch = u != u0 && grp != have;
+        if (ph) t[0] = now_ns();
+        __syncthreads();
+        if (warp == 0) {
+            if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
+            issue_a_q8<KS, T>(a, smem, bars, l, p, u, lane);
+            if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
+        }
+        fetch_e<KS, T>(a, Es, l, p, grp, r0, n, s.cw);
+        if (ph) t[1] = now_ns();
+        mbar_wait(bars.bar + 2, bars.parity[2]);
+        bars.parity[2] ^= 1;
+        if (u == u0 || fetch) {
+            mbar_wait(bars.bar + buf, bars.parity[buf]);
+            bars.parity[buf] ^= 1;
+        }
+        have = grp;
+        if (ph) t[2] = now_ns();
+        const int mtu = rows / 16;
+        // this lane's ldmatrix row: A rows lane & 15 at k byte 16 (lane >> 4);
+        // B: matrix lane / 8 of the 512-byte block, row lane % 8
+        const int arow = lane & 15, acol = (lane >> 4) * 16;
+        for (int task = warp; task < ntu * segs * ks; task += AP_WARPS) {
+            const int nt = task % ntu, rest = task / ntu;
+            const int seg = rest % segs, ksi = rest / segs;
+            const int cb = ksi * KC / ks, ce = (ksi + 1) * KC / ks;
+            const unsigned char* Aa = seg == 0 ? As : A1 + (seg - 1) * R;
+            const int lda = seg == 0 ? ld0 : ld1;
+            const unsigned char* Wb = Ws + (size_t)seg * s.K * cols + nt * 512 + lane * 16;
+            const unsigned char* Ap0 = Aa + (size_t)arow * lda + acol;
+            int acc[AP_ACC][2][4];
+#pragma unroll
+            for (int h = 0; h < AP_ACC; ++h)
+#pragma unroll
+                for (int q = 0; q < 2; ++q)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) acc[h][q][i] = 0;
+            if (mtu == 1) {
+                // AP_ACC independent sums, one per k chunk phase
+                for (int c0 = cb; c0 < ce; c0 += AP_ACC) {
+#pragma unroll
+                    for (int h = 0; h < AP_ACC; ++h) {
+                        const int c = c0 + h;
+                        if (c < ce) {
+                            unsigned b[4], fa[4];
+                            ldsm_x4(b, Wb + (size_t)c * ntu * 512);
+                            ldsm_x4(fa, Ap0 + c * 32);
+                            mma_s8(acc[h][0], fa, b[0], b[1]);
+                            mma_s8(acc[h][1], fa, b[2], b[3]);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int h = 1; h < AP_ACC; ++h)
+#pragma unroll
+                    for (int q = 0; q < 2; ++q)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) acc[0][q][i] += acc[h][q][i];
+            } else {
+#pragma unroll 2
+                for (int c = cb; c < ce; ++c) {
+                    unsigned b[4];
+                    ldsm_x4(b, Wb + (size_t)c * ntu * 512);
+#pragma unroll
+                    for (int i = 0; i < AP_ACC; ++i) {
+                        if (i < mtu) {
+                            unsigned fa[4];
+                            ldsm_x4(fa, Ap0 + (size_t)i * 16 * lda + c * 32);
+                            mma_s8(acc[i][0], fa, b[0], b[1]);
+                            mma_s8(acc[i][1], fa, b[2], b[3]);
+                        }
+                    }
+                }
+            }
+            // c0, c1: row lane / 4, columns 2 (lane % 4) + {0, 1}; c2, c3: row + 8
+            int* P = Ps + (size_t)(seg * ks + ksi) * rows * cols;
+            const int gr = lane >> 2, gc = 2 * (lane & 3);
+#pragma unroll
+            for (int i = 0; i < AP_ACC; ++i) {
+                if (i < mtu) {
+#pragma unroll
+                    for (int q = 0; q < 2; ++q) {
+                        int* o = P + (size_t)(i * 16 + gr) * cols + nt * 16 + q * 8 + gc;
+                        o[0] = acc[i][q][0];
+                        o[1] = acc[i][q][1];
+                        o[8 * cols] = acc[i][q][2];
+                        o[8 * cols + 1] = acc[i][q][3];
+                    }
+                }
+            }
+        }
+        if constexpr (T == AP_GATE) {
+            // the aux term: [aux rows] @ [auxw] over the current tap's cw columns
+            const int nta = s.cw / 16, KA = a.Ap / 16;
+            for (int task = warp; task < nta * mtu; task += AP_WARPS) {
+                const int nt = task % nta, i = task / nta;
+                wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+                wmma::fill_fragment(acc, 0.f);
+                for (int kt = 0; kt < KA; ++kt) {
+                    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+                    wmma::load_matrix_sync(bw, Wa + ((size_t)kt * nta + nt) * 256, 16);
+                    wmma::load_matrix_sync(fa, A2 + (size_t)i * 16 * a.xa_ld + kt * 16, a.xa_ld);
+                    wmma::mma_sync(acc, fa, bw, acc);
+                }
+                wmma::store_matrix_sync(Pa + (size_t)i * 16 * s.cw + nt * 16, acc, s.cw,
+                                        wmma::mem_row_major);
+            }
+        }
+        cp_async_wait();
+        __syncthreads();
+        if (ph) t[3] = now_ns();
+        epilogue_q8<KS, T>(a, Ps, Pa, Es, sc, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
+        if (a.phase != nullptr) {
+            __syncthreads();
+            if (ph) {
+                t[4] = now_ns();
+                for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
+                ph[5] += 1;
+            }
+        }
+    }
+    if (ph) ph[4] += 1;
+    fence_proxy_async();
+}
+
 // One warp per row: the argmax of the logits (plus the Gumbel noise in
 // sampling mode; ties to the lowest index, all-NaN logits to 0), the ids
 // shifted, and, before a next step, its embed and aux column.
-template <int KS>
+template <int KS, bool Q8>
 static __device__ void sample_stage(const ApArgs& a, int step, int p) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
@@ -556,7 +939,7 @@ static __device__ void sample_stage(const ApArgs& a, int step, int p) {
 #pragma unroll
             for (int j = 0; j < KS; ++j) a.ids[(size_t)b * KS + j] = id[j];
         }
-        if (step + 1 < a.max_n) embed_row<KS>(a, b, id, p + 1, lane);
+        if (step + 1 < a.max_n) embed_row<KS, Q8>(a, b, id, p + 1, lane);
     }
     fence_proxy_async();
     if (a.phase != nullptr) {
@@ -582,7 +965,7 @@ static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_grou
     }
 }
 
-template <int KS>
+template <int KS, bool Q8>
 __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ __align__(8) uint64_t bar[3];
@@ -599,7 +982,7 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
         int id[KS];
 #pragma unroll
         for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
-        embed_row<KS>(a, b, id, a.T0 - 1, lane);
+        embed_row<KS, Q8>(a, b, id, a.T0 - 1, lane);
     }
     fence_proxy_async();
     if (threadIdx.x == 0) prefetch(a, smem, bars, AP_GATE, 0);
@@ -607,10 +990,12 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
         for (int l = 0; l < a.L; ++l) {
-            wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+            const int Tn = l + 1 < a.L ? AP_GATE : AP_POST1, ln = l + 1 < a.L ? l + 1 : 0;
+            if constexpr (Q8) wstage_q8<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+            else wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
             timed_sync(a, grid);
-            if (l + 1 < a.L) wstage<KS, AP_RES>(a, bars, l, p, AP_GATE, l + 1);
-            else wstage<KS, AP_RES>(a, bars, l, p, AP_POST1, 0);
+            if constexpr (Q8) wstage_q8<KS, AP_RES>(a, bars, l, p, Tn, ln);
+            else wstage<KS, AP_RES>(a, bars, l, p, Tn, ln);
             timed_sync(a, grid);
         }
         wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
@@ -618,38 +1003,46 @@ __global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) 
         // the next step's first gate weights: buffer 0, free since post1
         wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0);
         timed_sync(a, grid);
-        sample_stage<KS>(a, i, p);
+        sample_stage<KS, Q8>(a, i, p);
         if (i + 1 < a.max_n) timed_sync(a, grid);
     }
 }
 
 // ---- host side -----------------------------------------------------------
 
-static void stage_shape(int T, int K_, int R, int S, int Q, int Ap, int* K,
-                        int* quarters, int* N) {
-    *quarters = 1;
+// Stage T's shape: K (weight rows; int8 products: of each segment), the
+// quarters a unit spans, the columns N of each quarter and the int8
+// segments (0: a bf16 stage).
+static void stage_shape(int T, int K_, bool q8, int R, int S, int Q, int Ap,
+                        ApStage* s) {
+    s->quarters = 1;
+    s->segs = 0;
     switch (T) {
     case AP_GATE:
-        *K = K_ == 2 ? R + Ap : 3 * R + Ap;
-        *quarters = K_ == 2 ? 2 : 1;
-        *N = 2 * R;
+        s->K = q8 ? R : K_ == 2 ? R + Ap : 3 * R + Ap;
+        s->quarters = K_ == 2 ? 2 : 1;
+        s->N = 2 * R;
+        if (q8) s->segs = K_ == 2 ? 1 : 3;
         break;
-    case AP_RES: *K = R; *N = S + R; break;
-    case AP_POST1: *K = S; *N = S; break;
-    default: *K = S; *N = Q; break;
+    case AP_RES: s->K = R; s->N = S + R; s->segs = q8 ? 1 : 0; break;
+    case AP_POST1: s->K = S; s->N = S; break;
+    default: s->K = S; s->N = Q; break;
     }
 }
 
-static const void* kernel_fn(int K) {
-    return K == 2 ? (const void*)ar_persistent_kernel<2>
-                  : (const void*)ar_persistent_kernel<3>;
+static const void* kernel_fn(int K, bool q8) {
+    if (q8) return K == 2 ? (const void*)ar_persistent_kernel<2, true>
+                          : (const void*)ar_persistent_kernel<3, true>;
+    return K == 2 ? (const void*)ar_persistent_kernel<2, false>
+                  : (const void*)ar_persistent_kernel<3, false>;
 }
 
 // Check the plan (ops/ar_kernel.py::ar_plan, as ar_plan_array lays it out)
 // against the shapes and the card, and fill the stages.  0, or -1 (the grid
 // cannot be co-resident), -2 (no cooperative launch), -3 (a plan that does
 // not cut the stages or fit its shared memory), or a CUDA error.
-static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) {
+static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
+                      int* smem) {
     *grid = plan[0];
     *smem = plan[1];
     a->smem_w[0] = plan[2];
@@ -660,26 +1053,38 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
     const int wcap = a->smem_w[1];
     if (a->smem_w[0] != 0 || wcap < 0 || a->smem_a != 2 * wcap
         || a->smem_p < a->smem_a || a->smem_e < a->smem_p || *smem < a->smem_e
-        || *grid < 1 || a->R % 16 || a->S % 16 || a->Q % 16 || a->Ap % 16
-        || a->Ap < a->A)
+        || *grid < 1 || a->R % (q8 ? 32 : 16) || a->S % 16 || a->Q % 16
+        || a->Ap % 16 || a->Ap < a->A)
         return -3;
     for (int T = 0; T < AP_NSTAGES; ++T) {
         ApStage& s = a->st[T];
-        stage_shape(T, K_, a->R, a->S, a->Q, a->Ap, &s.K, &s.quarters, &s.N);
+        stage_shape(T, K_, q8, a->R, a->S, a->Q, a->Ap, &s);
         s.cw = plan[7 + 3 * T];
         s.mt = plan[8 + 3 * T];
         s.ks = plan[9 + 3 * T];
+        const int kdepth = s.segs ? 32 : 16;
         if (s.cw < 16 || s.cw % 16 || s.N % s.cw || s.mt < 1 || s.mt > AP_MT_MAX
-            || s.ks < 1 || s.ks > s.K / 16)
+            || s.ks < 1 || s.ks > s.K / kdepth)
             return -3;
         s.G = s.N / s.cw;
         s.rg = (a->Mt + s.mt - 1) / s.mt;
         s.units = s.rg * s.G;
-        const long long wbytes = (long long)(s.K * s.quarters + 2) * s.cw * 2;
-        const long long abytes =
-            16LL * s.mt * (s.K + (K_ == 3 && T == AP_GATE ? 2 : 1) * AP_PAD) * 2;
-        const long long pbytes = (long long)s.ks * 16 * s.mt * s.quarters * s.cw * 4;
-        const long long ebytes = 16LL * s.mt * s.cw * 4;
+        const long long rows = 16LL * s.mt, cols = (long long)s.quarters * s.cw;
+        long long wbytes, abytes, pbytes;
+        if (s.segs) {
+            const bool gate = T == AP_GATE;
+            wbytes = s.segs * s.K * cols + (gate ? 2LL * a->Ap * s.cw : 0)
+                   + 4LL * (s.segs * cols + (gate ? 2 : 1) * s.cw);
+            abytes = rows * (a->q_ld + (gate ? 2LL * a->xa_ld : 0)
+                             + (gate && K_ == 3 ? 2LL * a->R + AP_QPAD : 0));
+            pbytes = 4LL * s.segs * s.ks * rows * cols + (gate ? 4LL * rows * s.cw : 0);
+        } else {
+            wbytes = (s.K * cols + 2LL * s.cw) * 2;
+            abytes = rows * (s.K + (K_ == 3 && T == AP_GATE ? 2 : 1) * AP_PAD) * 2;
+            pbytes = 4LL * s.ks * rows * cols;
+        }
+        s.run = (int)wbytes;
+        const long long ebytes = rows * s.cw * 4;
         if (wbytes > wcap || abytes > a->smem_p - a->smem_a
             || pbytes > a->smem_e - a->smem_p
             || ebytes > *smem - a->smem_e)
@@ -691,11 +1096,10 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return (int)e;
     if (!coop) return -2;
-    e = cudaFuncSetAttribute(kernel_fn(K_), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             *smem);
+    const void* fn = kernel_fn(K_, q8);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kernel_fn(K_), AP_THREADS,
-                                                      *smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, AP_THREADS, *smem);
     if (e != cudaSuccess) return (int)e;
     if ((long long)bps * sms < *grid) return -1;
     return 0;
@@ -703,36 +1107,41 @@ static int check_plan(const int* plan, ApArgs* a, int K_, int* grid, int* smem) 
 
 extern "C" {
 
-// Runs max_n bf16 steps on `stream` in one cooperative launch.  Weights:
-// w_gate, w_res, w_post1, w_post2 packed per unit by the plan, each unit's
-// biases after its tiles (ops/ar_kernel.py::pack_ar_units); causal_b (R)
-// f32, causal_w (K, Q, R) bf16.  ring: k = 2 (total_cap, B, 2R) bf16
-// projections, k = 3 (total_cap, B, R) bf16 rows, updated in place; meta
-// (L, 2) int32 on the device: each layer's ring offset and
-// dilation.  Scratch, rows padded by 8 elements: xs (B, R + Ap + 8) bf16
-// with columns R + A .. R + Ap - 1 zero (Ap = A rounded up to 16), gs (B,
-// R + 8), sr, h1 (B, S + 8) bf16; of (B, R), skip (B, S), logits (B, Q) f32.
-// ids (B, K) int32, updated in place;
-// samples (B, max_n) int32.  plan: host ints of ar_plan_array.  phase:
-// null, or (grid, wn_ar_phase_slots()) zeroed u64 that the run adds
-// nanoseconds and counts to (AP_PH_STAGE slots per stage type: gate, res,
-// post1, post2, sample; then the barrier waits and their count; thread 0,
-// globaltimer).  Returns 0, a negative plan error (check_plan) or a CUDA
-// error.
+// Runs max_n steps on `stream` in one cooperative launch, bf16 or (q8) int8.
+// Weights: w_gate, w_res, w_post1, w_post2 packed per unit by the plan
+// (ops/ar_kernel.py::pack_ar_units; int8: the gate and res runs of int8
+// tiles, aux tiles, column scales and biases); causal_b (R) f32, causal_w
+// (K, Q, R) bf16.  ring: k = 2 (total_cap, B, 2R) bf16 projections, k = 3
+// (total_cap, B, R) bf16 rows (int8 rows under q8), updated in place; meta
+// (L, 2) int32 on the device: each layer's ring offset and dilation.
+// Scratch, rows padded by 8 elements: xs (B, R + Ap + 8) bf16 with columns
+// R + A .. R + Ap - 1 zero (Ap = A rounded up to 16; bf16 only), gs (B,
+// R + 8) (bf16 only), sr, h1 (B, S + 8) bf16; of (B, R), skip (B, S),
+// logits (B, Q) f32.  int8 only: xq, gq (B, R + 16) int8; xa (B, Ap + 8)
+// bf16 with columns A .. Ap - 1 zero; ascale, ainv (L) f32 on the device;
+// gscale, ginv the gate's scale and its reciprocal.  ids (B, K) int32,
+// updated in place; samples (B, max_n) int32.  plan: host ints of
+// ar_plan_array.  phase: null, or (grid, wn_ar_phase_slots()) zeroed u64
+// that the run adds nanoseconds and counts to (AP_PH_STAGE slots per
+// stage type: gate, res, post1, post2, sample; then the barrier waits and
+// their count; thread 0, globaltimer).  Returns 0, a negative plan error
+// (check_plan) or a CUDA error.
 int wn_ar_generate_persistent(
     const void* w_gate, const void* w_res, const void* w_post1, const void* w_post2,
     const void* causal_w, const void* causal_b, const void* h_up, int h_T,
     void* ring, const void* meta, void* xs, void* of, void* skip, void* gs,
     void* sr, void* h1, void* logits, void* ids, void* samples, int B, int R,
     int S, int Q, int A, int L, int K, int T0, int max_n, int sampling,
-    unsigned long long seed, const void* plan, void* phase, void* stream) {
+    unsigned long long seed, int q8, void* xq, void* gq, void* xa,
+    const void* ascale, const void* ainv, float gscale, float ginv,
+    const void* plan, void* phase, void* stream) {
     if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
     if (B < 1 || max_n < 1 || L < 1) return -3;
     ApArgs a;
-    a.w[AP_GATE] = (const bf16*)w_gate;
-    a.w[AP_RES] = (const bf16*)w_res;
-    a.w[AP_POST1] = (const bf16*)w_post1;
-    a.w[AP_POST2] = (const bf16*)w_post2;
+    a.w[AP_GATE] = (const unsigned char*)w_gate;
+    a.w[AP_RES] = (const unsigned char*)w_res;
+    a.w[AP_POST1] = (const unsigned char*)w_post1;
+    a.w[AP_POST2] = (const unsigned char*)w_post2;
     a.causal_w = (const bf16*)causal_w;
     a.causal_b = (const float*)causal_b;
     a.h_up = (const float*)h_up;
@@ -747,6 +1156,13 @@ int wn_ar_generate_persistent(
     a.logits = (float*)logits;
     a.ids = (int*)ids;
     a.samples = (int*)samples;
+    a.xq = (signed char*)xq;
+    a.gq = (signed char*)gq;
+    a.xa = (bf16*)xa;
+    a.ascale = (const float*)ascale;
+    a.ainv = (const float*)ainv;
+    a.gscale = gscale;
+    a.ginv = ginv;
     a.B = B;
     a.Mt = (B + 15) / 16;
     a.R = R;
@@ -757,6 +1173,8 @@ int wn_ar_generate_persistent(
     a.xs_ld = R + a.Ap + AP_PAD;
     a.gs_ld = R + AP_PAD;
     a.s_ld = S + AP_PAD;
+    a.q_ld = R + AP_QPAD;
+    a.xa_ld = a.Ap + AP_PAD;
     a.L = L;
     a.h_T = h_T;
     a.T0 = T0;
@@ -765,10 +1183,10 @@ int wn_ar_generate_persistent(
     a.seed = seed;
     a.phase = (unsigned long long*)phase;
     int grid = 0, smem = 0;
-    const int err = check_plan((const int*)plan, &a, K, &grid, &smem);
+    const int err = check_plan((const int*)plan, &a, K, q8 != 0, &grid, &smem);
     if (err != 0) return err;
     void* args[] = {&a};
-    cudaError_t e = cudaLaunchCooperativeKernel(kernel_fn(K), dim3(grid),
+    cudaError_t e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0), dim3(grid),
                                                 dim3(AP_THREADS), args, smem,
                                                 (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;

@@ -1,12 +1,12 @@
 // The WaveNet AR sample loop (kernel_size 2 and 3, bf16 or int8) for Hopper.
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
-// (the fused Pallas TPU kernel) in its int8 path (quantize=True), and in
-// bf16 where ops/ar_kernel.py::ar_route picks this loop over the persistent
-// kernel of csrc/ar_persistent.cu: kernel_size 3 fleets from
-// AR_LOOP_FROM_B rows, and configs whose stages that kernel cannot cut in
-// shared memory (kernel_size 3 with n_resch >= 768).  The plain PyTorch
-// version is ops/ar_kernel.py::ar_generate_reference.
+// (the fused Pallas TPU kernel), bf16 and int8 (quantize=True), where
+// ops/ar_kernel.py::ar_route picks this loop over the persistent kernel of
+// csrc/ar_persistent.cu: kernel_size 3 fleets from AR_LOOP_FROM_B
+// (AR_INT8_LOOP_FROM_B) rows, and configs whose stages that kernel cannot
+// cut in shared memory (bf16 kernel_size 3 with n_resch >= 768).  The
+// plain PyTorch version is ops/ar_kernel.py::ar_generate_reference.
 //
 // Bound on the H100: each step reads the whole bf16 weight pack,
 // L * R * (2kR + S + R) * 2 bytes (86.5 MB at 30 x 512 with k = 2, 118.0 MB

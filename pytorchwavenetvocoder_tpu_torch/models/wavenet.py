@@ -593,7 +593,12 @@ def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
 def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
                 quantize: bool) -> str:
     """Resolve ``impl`` to "plain" or "cuda"; raise on what the CUDA
-    kernels do not serve (never a silent switch to another path)."""
+    kernels do not serve (never a silent switch to another path).  The
+    CUDA envelopes are asked about the config as the cuda route decodes it:
+    float32 as bf16 (``_kernel_config``) and the channel widths padded to
+    the least multiples of the kernels' tiling (``pad_params_for_kernels``;
+    the AR kernel's route is chosen, and its multiple of n_skipch applied,
+    at the fleet's size), so what raises is what no padding can serve."""
     if impl not in ("auto", "plain", "cuda"):
         raise ValueError(f"impl must be auto, plain or cuda, got {impl!r}")
     if impl == "auto":
@@ -617,8 +622,9 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
             layer_stack_constraint_error,
         )
 
-        for why in (layer_stack_constraint_error(config),
-                    ar_kernel_constraint_error(config, quantize)):
+        kc = _least_padded(_kernel_config(config), quantize)
+        for why in (layer_stack_constraint_error(kc),
+                    ar_kernel_constraint_error(kc, quantize, "persistent")):
             if why is not None:
                 raise NotImplementedError(
                     f"the CUDA decode kernels do not serve this config: {why}")
@@ -634,6 +640,112 @@ def _kernel_config(config: WaveNetConfig) -> WaveNetConfig:
     if config.compute_dtype == "float32":
         return dataclasses.replace(config, compute_dtype="bfloat16")
     return config
+
+
+#: The n_resch multiple the warm-up kernel needs (``csrc/layer_stack_fwd.cu``
+#: runs its residual 1x1 in 128-column chunks, 8 warps x 16); every AR
+#: route's n_resch multiple (``ops/ar_kernel.py::AR_MULTIPLES``) divides it
+STREAMS_RESCH_MULTIPLE = 128
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _padded_config(config: WaveNetConfig, multiple: tuple) -> WaveNetConfig:
+    """``config`` with n_resch and n_skipch rounded up to the (n_resch,
+    n_skipch) ``multiple``."""
+    R, S = (_up(config.n_resch, multiple[0]),
+            _up(config.n_skipch, multiple[1]))
+    if (R, S) == (config.n_resch, config.n_skipch):
+        return config
+    return dataclasses.replace(config, n_resch=R, n_skipch=S)
+
+
+def _least_padded(config: WaveNetConfig, quantize: bool) -> WaveNetConfig:
+    """``config`` padded to the least multiples any cuda route needs: the
+    warm-up's n_resch multiple and the persistent AR kernel's n_skipch
+    multiple (the launch loop's are coarser)."""
+    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import AR_MULTIPLES
+
+    return _padded_config(config, (STREAMS_RESCH_MULTIPLE,
+                                   AR_MULTIPLES[("persistent", quantize)][1]))
+
+
+def kernel_multiples(config: WaveNetConfig, B: int,
+                     quantize: bool = False) -> tuple:
+    """The least (n_resch, n_skipch) multiples the cuda route's kernels
+    need for a fleet of B rows: the warm-up's n_resch multiple, and the
+    multiples of the AR kernel ``ar_route`` picks for the config so padded
+    (the persistent kernel's 16-column groups, or the launch loop's 128-deep
+    K splits).  Asks the current CUDA device's plan."""
+    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+        AR_MULTIPLES,
+        ar_route,
+    )
+
+    c = _least_padded(config, quantize)
+    mr, ms = AR_MULTIPLES[(ar_route(c, B, quantize), quantize)]
+    return math.lcm(STREAMS_RESCH_MULTIPLE, mr), ms
+
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(t, (0, n - t.shape[-1]))
+
+
+def _pad_axis(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    return _pad_last(t.movedim(axis, -1), n).movedim(-1, axis)
+
+
+def _pad_gate(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A last axis [sigmoid (R) | tanh (R)] padded to [sigmoid (n) | tanh
+    (n)], each half with zeros."""
+    sig, tanh = t.chunk(2, dim=-1)
+    return torch.cat([_pad_last(sig, n), _pad_last(tanh, n)], dim=-1)
+
+
+def pad_params_for_kernels(params: Params, config: WaveNetConfig,
+                           multiple: tuple) -> tuple:
+    """Zero-pad n_resch and n_skipch up to the (n_resch, n_skipch)
+    ``multiple`` (as ``kernel_multiples`` gives it): returns
+    ``(params, config)`` padded, or the inputs where nothing needs it (JAX
+    ``pad_params_for_pallas``, `ops/ar_kernel.py:114-157` there, for this
+    port's kernels and their own multiples).
+
+    Decoding is unchanged by construction: the padded weight rows, columns
+    and biases are zero, so the padded residual lanes stay exactly 0 (gate
+    pre-activations 0, sigmoid(0) * tanh(0) = 0, residual adds 0 + 0), the
+    padded skip lanes stay 0 through the post stack's ReLUs, and the logits
+    over the Q classes see only zero extra terms.  int8 too: all-zero
+    weight columns take the 1e-8 scale floor and quantize to 0, zero rows
+    leave each column's scale as it was, and zero lanes leave the per-layer
+    activation maxes as they were.  The receptive field and Q are kept, so
+    the samples (and the wavs written from them) are those of the original
+    width.  Not for training: padded weights would receive gradients."""
+    c = config
+    pc = _padded_config(c, multiple)
+    if pc is c:
+        return params, c
+    R, S = pc.n_resch, pc.n_skipch
+    p = {
+        "causal": {"w": _pad_last(params["causal"]["w"], R),
+                   "b": _pad_last(params["causal"]["b"], R)},
+        "dil": {"w": _pad_gate(_pad_axis(params["dil"]["w"], 2, R), R),
+                "b": _pad_gate(params["dil"]["b"], R)},
+        "aux": {"w": _pad_gate(params["aux"]["w"], R),
+                "b": _pad_gate(params["aux"]["b"], R)},
+        "skip": {"w": _pad_last(_pad_axis(params["skip"]["w"], 1, R), S),
+                 "b": _pad_last(params["skip"]["b"], S)},
+        "res": {"w": _pad_last(_pad_axis(params["res"]["w"], 1, R), R),
+                "b": _pad_last(params["res"]["b"], R)},
+        "post1": {"w": _pad_last(_pad_axis(params["post1"]["w"], 0, S), S),
+                  "b": _pad_last(params["post1"]["b"], S)},
+        "post2": {"w": _pad_axis(params["post2"]["w"], 0, S),
+                  "b": params["post2"]["b"]},
+    }
+    if "upsampling" in params:
+        p["upsampling"] = params["upsampling"]
+    return p, pc
 
 
 def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
@@ -709,7 +821,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
       generator: ``torch.Generator`` for sampling mode.
       impl: "cuda" (the hand-written Hopper kernels: kernel_size 2 or 3,
         bf16 configs, and float32 ones run as the bf16 config on the same
-        weights, ``_kernel_config``),
+        weights, ``_kernel_config``; channel widths off the kernels' tiling
+        are zero-padded to it, ``pad_params_for_kernels``),
         "plain" (the same math in plain PyTorch, any config, any device),
         or "auto" (cuda on a CUDA device, plain on the CPU).  A CUDA request
         the kernels cannot serve raises.  The warm-up keeps bf16
@@ -742,7 +855,11 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     device = torch.device(device)
     impl = _check_impl(impl, c, device, quantize)
     if impl == "cuda":
+        # the kernels' config: bf16, the channel widths padded to the
+        # multiples of their tiling at this fleet's size (zero lanes)
         c = _kernel_config(c)
+        params, c = pad_params_for_kernels(
+            params, c, kernel_multiples(c, len(x), quantize))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 

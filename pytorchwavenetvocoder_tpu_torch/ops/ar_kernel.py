@@ -22,9 +22,9 @@ there).
 ``ar_generate_reference`` is that math in plain PyTorch (the step of
 ``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
 config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
-carry goes to the plain version, a CUDA carry to the kernels (bf16: the
-one ``ar_route`` picks, ``csrc/ar_persistent.cu`` or the launch loop of
-``csrc/ar_step.cu``; int8: the launch loop), or it raises.
+carry goes to the plain version, a CUDA carry to the kernel ``ar_route``
+picks (bf16 or int8: ``csrc/ar_persistent.cu`` or the launch loop of
+``csrc/ar_step.cu``), or it raises.
 
 int8 (``quantize=True``) is the JAX kernel's int8 path
 (`ops/ar_kernel.py:480-485, 557-576, 707-800` there): the current- and
@@ -48,17 +48,18 @@ weight pack (``L * R * (2kR + S + R)`` = 86.5 MB at the 30x512 kernel_size 2
 flagship, 118.0 MB at the kernel_size 3 one, more than the 50 MB L2) for B
 rows, so at fleet sizes it is bound by device-memory bytes (~25 and ~35
 us/step at 3.35 TB/s; the int8 packs are 43.3 and 59.0 MB), and at small
-fleets by the chain of dependent products: 2L + 3 stages per step.  bf16
-runs every step of a call in one persistent cooperative launch
-(``_persistent``): per step L gate stages (the aux term an extra K of the
-product), L res stages, post1, post2 and the sample stage, with a grid
-barrier after each; a stage is cut into units by ``ar_plan``, each unit's
-weights packed into one run by ``pack_ar_units``.  The launch loop
-(``_launch_loop``) is a C++ step loop of 65-66 launches per step (one per
-layer product, with the embed, aux, lag gather, post and sample
-launches), ``wmma`` tiles with f32 (bf16) or int32 (int8) accumulation:
-int8 always runs it, bf16 where ``ar_route`` says the persistent kernel
-has no cut of its stages or is the slower of the two.
+fleets by the chain of dependent products: 2L + 3 stages per step.  The
+persistent kernel (``_persistent``) runs every step of a call in one
+cooperative launch: per step L gate stages (bf16: the aux term an extra K
+of the product; int8: integer products and a bf16 aux product), L res
+stages, post1, post2 and the sample stage, with a grid barrier after
+each; a stage is cut into units by ``ar_plan``, each unit's weights packed
+into one run by ``pack_ar_units``.  The launch loop (``_launch_loop``) is
+a C++ step loop of 65-66 launches per step (one per layer product, with
+the embed, aux, lag gather, post and sample launches), ``wmma`` tiles
+with f32 (bf16) or int32 (int8) accumulation; it runs where ``ar_route``
+says the persistent kernel has no cut of its stages or is the slower of
+the two.
 """
 
 from __future__ import annotations
@@ -95,9 +96,31 @@ def int8_constraint_error(config) -> str | None:
     return None
 
 
-def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
+#: The channel multiples (n_resch, n_skipch) each AR kernel's tiling
+#: needs, by route (``ar_route``): the persistent kernel cuts its products
+#: into 16-deep k tiles and 16-column groups (int8: n_resch in 32-deep k
+#: chunks of m16n8k32, and an odd number of 16-byte chunks per padded
+#: row, so ldmatrix's rows fall on distinct banks); the launch loop's
+#: ``ksplit_gemm*`` splits K/16 tiles over 8 warps, K being n_resch or
+#: n_skipch.  ``models/wavenet.py::pad_params_for_kernels`` pads a config
+#: up to them.
+AR_MULTIPLES = {("persistent", False): (16, 16), ("persistent", True): (32, 16),
+                ("loop", False): (128, 128), ("loop", True): (128, 128)}
+
+_MULTIPLE_WHY = {
+    "persistent": "the persistent kernel cuts its products into 16-deep k "
+                  "tiles and 16-column groups",
+    "loop": "the launch loop's ksplit_gemm splits K/16 tiles over 8 warps",
+}
+
+
+def ar_kernel_constraint_error(config, quantize: bool = False,
+                               route: str | None = None) -> str | None:
     """Why the CUDA AR kernel can NOT run this config (None when it can);
-    ``quantize`` asks about its int8 variant."""
+    ``quantize`` asks about its int8 variant, ``route`` about one kernel
+    ("persistent" or "loop", ``ar_route``'s names) and its tiling.  None
+    asks about every kernel ``ar_route`` may pick for some fleet, so the
+    launch loop's channel multiples hold."""
     c = config
     if quantize:
         why = int8_constraint_error(c)
@@ -112,14 +135,19 @@ def ar_kernel_constraint_error(config, quantize: bool = False) -> str | None:
     if c.kernel_size not in KERNEL_SIZES:
         return (f"kernel_size={c.kernel_size} (the kernel serves kernel_size "
                 "2 and 3)")
-    if c.n_resch % 128 != 0:
-        return f"n_resch={c.n_resch} must be a multiple of 128"
-    if c.n_skipch % 128 != 0:
-        return f"n_skipch={c.n_skipch} must be a multiple of 128"
     if c.n_quantize % 16 != 0:
         return f"n_quantize={c.n_quantize} must be a multiple of 16"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
+    if route not in (None, "persistent", "loop"):
+        raise ValueError(f"route must be persistent or loop, got {route!r}")
+    mr, ms = AR_MULTIPLES[(route or "loop", quantize)]
+    for name, v, m in (("n_resch", c.n_resch, mr), ("n_skipch", c.n_skipch, ms)):
+        if v % m != 0:
+            return (f"{name}={v} must be a multiple of {m}: "
+                    f"{_MULTIPLE_WHY[route or 'loop']}"
+                    + (" (int8: 32-deep m16n8k32 products)"
+                       if quantize and m == 32 else ""))
     return None
 
 
@@ -495,7 +523,9 @@ def pack_ar_weights(params, config) -> dict:
     w6   (L, R, 6R) bf16   kernel_size 3: [current | lag d | lag 2d], each
                            block interleaved (all three feed the gate)
     wsr  (L, R, S+R) bf16  [skip | res]
-    auxw (L, A, 2R) bf16;  zb (L, 2R) f32 = dil_b + aux_b;  srb (L, S+R) f32
+    auxw (L, A, 2R) bf16;  zb (L, 2R) f32 = dil_b + aux_b (and each, dilb
+                           and auxb, for the int8 gate's order of sums);
+                           srb (L, S+R) f32
     causal_w (k, Q, R) bf16, causal_b (R,) f32, post1/post2 w bf16, b f32
     """
     bf, f32 = torch.bfloat16, torch.float32
@@ -512,6 +542,8 @@ def pack_ar_weights(params, config) -> dict:
                          dim=-1).to(bf).contiguous(),
         "auxw": params["aux"]["w"].to(bf).contiguous(),
         "zb": (params["dil"]["b"] + params["aux"]["b"]).to(f32).contiguous(),
+        "dilb": params["dil"]["b"].to(f32).contiguous(),
+        "auxb": params["aux"]["b"].to(f32).contiguous(),
         "srb": torch.cat([params["skip"]["b"], params["res"]["b"]],
                          dim=-1).to(f32).contiguous(),
         "causal_w": params["causal"]["w"].to(bf).contiguous(),
@@ -558,7 +590,7 @@ def _aux_pad(A: int) -> int:
     return -(-A // 16) * 16
 
 
-def ar_stage_shapes(config) -> dict:
+def ar_stage_shapes(config, quantize: bool = False) -> dict:
     """Per weighted stage: K (the weight rows, = the A row width), the
     quarters a unit spans and the columns N of each quarter.
 
@@ -567,38 +599,84 @@ def ar_stage_shapes(config) -> dict:
     2R projections the ring keeps), both interleaved in groups of 8.
     kernel_size 3: A = [x | aux | lag d | lag 2d], one quarter (the gate).
     res: g @ [W_skip | W_res]; post1: relu(skip) @ post1_w; post2: h1 @
-    post2_w."""
+    post2_w.  ``quantize``: the gate and res stages multiply int8 rows, K
+    is R (at kernel_size 3 for each of the gate's three int8 products), and
+    the aux rows are a bf16 product of their own."""
     c = config
     R, S, Q, k = c.n_resch, c.n_skipch, c.n_quantize, c.kernel_size
     Ap = _aux_pad(c.n_aux)
-    gate_k = R + Ap if k == 2 else 3 * R + Ap
+    gate_k = R if quantize else R + Ap if k == 2 else 3 * R + Ap
     return {"gate": (gate_k, 2 if k == 2 else 1, 2 * R),
             "res": (R, 1, S + R), "post1": (S, 1, S), "post2": (S, 1, Q)}
 
 
-def _cut(K: int, quarters: int, N: int, a_row: int, row_tiles: int,
+#: The int8 A rows' padding in shared memory and in the stages' int8
+#: arrays, bytes per row (``AP_QPAD``): with R a multiple of 32 a row's
+#: stride is an odd number of 16-byte chunks, so ``ldmatrix``'s eight row
+#: addresses fall on distinct banks
+AR_Q_PAD = 16
+
+
+def _unit_bytes(config, name: str, quantize: bool) -> dict:
+    """A unit's shared-memory bytes in stage ``name``, as functions of its
+    cut: ``w(cw)`` its packed weight run, ``a(mt)`` its A rows, ``p(ks, mt,
+    cw)`` the warps' sums, ``e(mt, cw)`` the epilogue's operands; ``depth``
+    the k rows of one product step (the warps' K split is in such steps),
+    ``segs`` the int8 products (0: bf16) and ``a_row`` (bf16) the elements
+    of an A row."""
+    c = config
+    R, k = c.n_resch, c.kernel_size
+    Ap = _aux_pad(c.n_aux)
+    K, q, _N = ar_stage_shapes(c, quantize)[name]
+    out = dict(e=lambda mt, cw: 16 * mt * cw * 4)
+    if quantize and name in ("gate", "res"):
+        gate = name == "gate"
+        segs = 3 if gate and k == 3 else 1
+        xa_ld = Ap + AR_A_PAD
+        a_row = (R + AR_Q_PAD + (2 * xa_ld if gate else 0)
+                 + (2 * R + AR_Q_PAD if gate and k == 3 else 0))
+        out.update(
+            w=lambda cw: (segs * K * q * cw + (2 * Ap * cw if gate else 0)
+                          + 4 * (segs * q * cw + (2 if gate else 1) * cw)),
+            a=lambda mt: 16 * mt * a_row,
+            p=lambda ks, mt, cw: (4 * segs * ks * 16 * mt * q * cw
+                                  + (4 * 16 * mt * cw if gate else 0)),
+            depth=32, segs=segs)
+    else:
+        a_row = _a_row(name, K, k)
+        out.update(w=lambda cw: (K * q + 2) * cw * 2,
+                   a=lambda mt: 16 * mt * a_row * 2,
+                   p=lambda ks, mt, cw: ks * 16 * mt * q * cw * 4,
+                   depth=16, segs=0, a_row=a_row)
+    return out
+
+
+def _cut(K: int, quarters: int, N: int, sizes: dict, row_tiles: int,
          grid: int, w_max: int, a_max: int, p_max: int = AR_P_MAX):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
     grid holds, of those the widest column groups; where no cut fits the
-    grid, the fewest units (blocks then take several).  ``a_row``: the
-    elements of a row of the unit's A operand in shared memory.  None where
-    no cut fits the shared-memory regions."""
+    grid, the fewest units (blocks then take several).  ``sizes``: the
+    unit's bytes (``_unit_bytes``).  None where no cut fits the
+    shared-memory regions."""
     best = None
-    for cw in (64, 32, 16):
-        if N % cw or (K * quarters + 2) * cw * 2 > w_max:
+    segs = max(1, sizes["segs"])
+    widths = (128, 64, 32, 16) if sizes["segs"] else (64, 32, 16)
+    for cw in widths:
+        if N % cw or sizes["w"](cw) > w_max:
             continue
         ntu = quarters * cw // 16
         for mt in (4, 3, 2, 1):
             rg = -(-row_tiles // mt)
             mt_used = -(-row_tiles // rg)
-            if mt_used != mt or 16 * mt * a_row * 2 > a_max:
+            if mt_used != mt or sizes["a"](mt) > a_max:
                 continue
-            ks = max(1, 8 // ntu)       # the warps split K: a task each
-            while ks > 1 and ks * 16 * mt * quarters * cw * 4 > p_max:
+            # the warps split K, a task each, in whole product steps
+            ks = max(1, min(8 // (ntu * segs), K // sizes["depth"]))
+            while ks > 1 and sizes["p"](ks, mt, cw) > p_max:
                 ks //= 2
-            if ks * 16 * mt * quarters * cw * 4 > p_max or K // 16 < ks:
+            if sizes["p"](ks, mt, cw) > p_max or K // sizes["depth"] < ks:
                 continue
             units = rg * (N // cw)
             if best is not None:
@@ -606,37 +684,38 @@ def _cut(K: int, quarters: int, N: int, a_row: int, row_tiles: int,
                 if not ((units <= grid and (b > grid or units > b))
                         or (units > grid and b > grid and units < b)):
                     continue
-            best = dict(K=K, quarters=quarters, N=N, a_row=a_row, cw=cw,
-                        G=N // cw, mt=mt, rg=rg, ks=ks, units=units)
+            best = dict(K=K, quarters=quarters, N=N, cw=cw, G=N // cw, mt=mt,
+                        rg=rg, ks=ks, units=units, segs=sizes["segs"],
+                        w=sizes["w"](cw), a=sizes["a"](mt),
+                        p=sizes["p"](ks, mt, cw), e=sizes["e"](mt, cw))
+            if "a_row" in sizes:
+                best["a_row"] = sizes["a_row"]
     return best
 
 
 def _a_row(name: str, K: int, kernel_size: int) -> int:
-    """The elements of a row of a stage's A operand in shared memory: its
-    padded rows (``AR_A_PAD`` more than K); at kernel_size 3 the gate's
+    """The elements of a row of a bf16 stage's A operand in shared memory:
+    its padded rows (``AR_A_PAD`` more than K); at kernel_size 3 the gate's
     lagged ring rows are a second part with a padding of their own."""
     return K + AR_A_PAD * (2 if name == "gate" and kernel_size == 3 else 1)
 
 
-def _cut_stages(shapes: dict, kernel_size: int, row_tiles: int, grid: int,
+def _cut_stages(config, quantize: bool, row_tiles: int, grid: int,
                 w_max: int, a_max: int):
     """Every stage's cut under the caps: the gate first (the largest K);
     the other stages within the gate's weight slice, A rows and sums where
     they fit there (larger ones would only grow the regions), else within
     the caps.  None where a stage has no cut."""
     stages = {}
-    for name, (K, q, N) in shapes.items():
-        args = (K, q, N, _a_row(name, K, kernel_size), row_tiles, grid)
+    for name, (K, q, N) in ar_stage_shapes(config, quantize).items():
+        args = (K, q, N, _unit_bytes(config, name, quantize), row_tiles, grid)
         if name == "gate":
             stages[name] = _cut(*args, w_max, a_max)
         else:
             g = stages["gate"]
-            stages[name] = (
-                _cut(*args, min(w_max,
-                                (g["K"] * g["quarters"] + 2) * g["cw"] * 2),
-                     min(a_max, 16 * g["mt"] * g["a_row"] * 2),
-                     g["ks"] * 16 * g["mt"] * g["quarters"] * g["cw"] * 4)
-                or _cut(*args, w_max, a_max))
+            stages[name] = (_cut(*args, min(w_max, g["w"]), min(a_max, g["a"]),
+                                 g["p"])
+                            or _cut(*args, w_max, a_max))
         if stages[name] is None:
             return None
     return stages
@@ -646,14 +725,16 @@ def _align256(n: int) -> int:
     return (n + 255) & ~255
 
 
-def ar_plan(config, B: int, grid: int | None = None) -> dict:
-    """The persistent bf16 kernel's launch plan for a fleet of B rows: per
-    weighted stage (``AR_STAGES``) its cut (``_cut``), the grid (one block
-    per SM: ``grid``, default the current CUDA device's SM count, else an
-    H100's 132) and the shared-memory layout: two weight buffers, the A
-    rows, the warps' sums, the epilogues' operands.  Raises ValueError where
-    no cut fits.  ``csrc/ar_persistent.cu`` checks the same plan again
-    before it launches."""
+def ar_plan(config, B: int, grid: int | None = None,
+            quantize: bool = False) -> dict:
+    """The persistent kernel's launch plan for a fleet of B rows, bf16 or
+    (``quantize``) int8: per weighted stage (``AR_STAGES``) its cut
+    (``_cut``), the grid (one block per SM: ``grid``, default the current
+    CUDA device's SM count, else an H100's 132) and the shared-memory
+    layout: two weight buffers, the A rows, the warps' sums, the
+    epilogues' operands.  Raises ValueError where no cut fits.
+    ``csrc/ar_persistent.cu`` checks the same plan again before it
+    launches."""
     if B < 1:
         raise ValueError(f"B must be >= 1, got {B}")
     if grid is None:
@@ -661,27 +742,24 @@ def ar_plan(config, B: int, grid: int | None = None) -> dict:
             torch.cuda.current_device()).multi_processor_count
             if torch.cuda.is_available() else H100_SMS)
     row_tiles = -(-B // 16)
-    shapes = ar_stage_shapes(config)
     for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
-        stages = _cut_stages(shapes, config.kernel_size, row_tiles, grid,
-                             w_max, a_max)
+        stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max)
         if stages is None:
             continue
-        vals = stages.values()
-        w = max(_align256((s["K"] * s["quarters"] + 2) * s["cw"] * 2)
-                for s in vals)
-        a = max(_align256(16 * s["mt"] * s["a_row"] * 2) for s in vals)
-        p = max(_align256(s["ks"] * 16 * s["mt"] * s["quarters"] * s["cw"] * 4)
-                for s in vals)
-        e = max(_align256(16 * s["mt"] * s["cw"] * 4) for s in vals)
+        w, a, p, e = (max(_align256(s[key]) for s in stages.values())
+                      for key in ("w", "a", "p", "e"))
         if 2 * w + a + p + e <= AR_SMEM_MAX:
             return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
-                        smem_w=(0, w), smem_a=2 * w, smem_p=2 * w + a,
-                        smem_e=2 * w + a + p, smem=2 * w + a + p + e)
-    desc = ", ".join(f"{n} K={K} x {q * N}" for n, (K, q, N) in shapes.items())
-    raise ValueError(f"the persistent AR kernel has no cut of its stages "
-                     f"({desc}) whose weight slices, A rows and sums fit "
-                     f"a block's {AR_SMEM_MAX} bytes of shared memory")
+                        quantize=quantize, smem_w=(0, w), smem_a=2 * w,
+                        smem_p=2 * w + a, smem_e=2 * w + a + p,
+                        smem=2 * w + a + p + e)
+    desc = ", ".join(f"{n} K={K} x {q * N}"
+                     for n, (K, q, N) in ar_stage_shapes(config,
+                                                         quantize).items())
+    raise ValueError(f"the persistent AR kernel has no cut of its "
+                     f"{'int8 ' if quantize else ''}stages ({desc}) whose "
+                     f"weight slices, A rows and sums fit a block's "
+                     f"{AR_SMEM_MAX} bytes of shared memory")
 
 
 def ar_plan_array(plan: dict) -> list:
@@ -713,51 +791,121 @@ def ar_stage_units(plan: dict, stage: str, block: int):
 
 
 def pack_ar_units(pk: dict, plan: dict, config) -> dict:
-    """``pack_ar_weights``' bf16 layout cut per unit for the persistent
-    kernel: per layer and column group one contiguous run (one bulk copy),
-    the unit's weight slice as 16 x 16 tiles (``_pack_units`` of
-    ``ops/matmul_chain.py``: [K/16][quarters*cw/16][16][16]) followed by
-    its cw f32 biases (kept as bf16 pairs): (L, G, K*quarters*cw + 2*cw)
-    bf16.  The gate rows follow the A rows ``ar_stage_shapes`` names, aux
-    rows zero-padded to whole tiles (and zero under the past tap at
-    kernel_size 2); the past tap is interleaved like the current one, so a
-    unit's projections are the ring values of the channels it gates; the
-    gate's biases are zb of the unit's sigmoid channels, then of its tanh
-    channels."""
+    """``pack_ar_weights``' layout cut per unit for the persistent kernel:
+    per layer and column group one contiguous run (one bulk copy), (L, G,
+    run) bf16 elements, or bytes (uint8) for the int8 stages.
+
+    bf16 (``plan["quantize"]`` false): the unit's weight slice as 16 x 16
+    tiles (``_pack_units`` of ``ops/matmul_chain.py``: [K/16][quarters *
+    cw/16][16][16]) followed by its cw f32 biases.  The gate rows follow
+    the A rows ``ar_stage_shapes`` names, aux rows zero-padded to whole
+    tiles (and zero under the past tap at kernel_size 2); the past tap is
+    interleaved like the current one, so a unit's projections are the ring
+    values of the channels it gates; the gate's biases are zb of the unit's
+    sigmoid channels, then of its tanh channels.
+
+    int8: post1 and post2 as in bf16; the gate and res runs hold the
+    unit's int8 weights of ``quantize_ar_weights`` (per segment,
+    ``_pack_units_i8``), then (gate) its aux rows as bf16 16 x 16 tiles
+    over the current tap's cw columns, then the f32 column scales of each
+    segment's quarters * cw columns, then the f32 biases: the gate's aux_b,
+    then dil_b (each of the unit's sigmoid channels, then its tanh
+    channels), the res stage's srb."""
     from pytorchwavenetvocoder_tpu_torch.ops.matmul_chain import _pack_units
 
     c = config
     R, A, k, L = c.n_resch, c.n_aux, c.kernel_size, c.n_layers
     Ap = _aux_pad(A)
     st = plan["stages"]
+    u8 = torch.uint8
     auxw = torch.zeros((L, Ap, 2 * R), dtype=torch.bfloat16,
                        device=pk["auxw"].device)
     auxw[:, :A] = _interleave(pk["auxw"])
-    if k == 2:
-        w4 = pk["w4"]
-        cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
-        past = torch.cat([_interleave(w4[..., 2 * R:]),
-                          torch.zeros_like(auxw)], dim=1)
-        gate = torch.cat([cur, past], dim=-1)          # (L, R + Ap, 4R)
-    else:
-        w6 = pk["w6"]
-        gate = torch.cat([w6[..., :2 * R], auxw, w6[..., 2 * R:4 * R],
-                          w6[..., 4 * R:]], dim=1)     # (L, 3R + Ap, 2R)
-    # the gate's biases in the units' channel order: column group g of cw
-    # columns holds channels [g hc, (g + 1) hc), hc = cw / 2
     hc = st["gate"]["cw"] // 2
-    zb = pk["zb"].reshape(L, 2, R // hc, hc).transpose(1, 2)
+
+    def by_group(b):
+        """(L, 2R) [sigmoid | tanh] -> (L, G, cw): column group g holds
+        channels [g hc, (g + 1) hc) of each half"""
+        return b.reshape(L, 2, R // hc, hc).transpose(1, 2).reshape(L, R // hc,
+                                                                    2 * hc)
+
+    def per_unit(t, quarters, cw):
+        """(Lw, N*quarters) -> (Lw, G, quarters * cw): each unit's columns"""
+        Lw = t.shape[0]
+        G = t.shape[-1] // (quarters * cw)
+        return t.reshape(Lw, quarters, G, cw).transpose(1, 2).reshape(Lw, G, -1)
+
+    def cat_bytes(*parts):
+        return torch.cat([t.contiguous().view(u8) for t in parts], dim=-1)
+
     out = {}
-    for name, w, b in (("gate", gate, zb.reshape(L, -1)),
-                       ("res", pk["wsr"], pk["srb"]),
-                       ("post1", pk["post1_w"][None], pk["post1_b"][None]),
-                       ("post2", pk["post2_w"][None], pk["post2_b"][None])):
+    if plan["quantize"]:
+        q = _quantize_pack(pk)
+        gk = _gate_key(k)
+        if k == 2:
+            segs = [torch.cat([q["w4"][..., :2 * R],
+                               _interleave(q["w4"][..., 2 * R:])], dim=-1)]
+            scales = [torch.cat([q["w4_scale"][:, :2 * R],
+                                 _interleave(q["w4_scale"][:, 2 * R:])], dim=-1)]
+        else:
+            segs = [q[gk][..., j * 2 * R:(j + 1) * 2 * R] for j in range(3)]
+            scales = [q[gk + "_scale"][:, j * 2 * R:(j + 1) * 2 * R]
+                      for j in range(3)]
+        s = st["gate"]
+        tiles = torch.stack([_pack_units_i8(w, s["quarters"], s["cw"])
+                             for w in segs], dim=2)
+        G = tiles.shape[1]
+        out["gate"] = cat_bytes(
+            tiles.reshape(L, G, -1),
+            _pack_units(auxw, 1, s["cw"]).reshape(L, G, -1),
+            torch.cat([per_unit(sc, s["quarters"], s["cw"]) for sc in scales],
+                      dim=-1),
+            by_group(pk["auxb"]), by_group(pk["dilb"]))
+        s = st["res"]
+        G_res = s["G"]
+        out["res"] = cat_bytes(
+            _pack_units_i8(q["wsr"], 1, s["cw"]).reshape(L, G_res, -1),
+            per_unit(q["wsr_scale"], 1, s["cw"]), per_unit(pk["srb"], 1, s["cw"]))
+        bf_stages = (("post1", pk["post1_w"][None], pk["post1_b"][None]),
+                     ("post2", pk["post2_w"][None], pk["post2_b"][None]))
+    else:
+        if k == 2:
+            w4 = pk["w4"]
+            cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
+            past = torch.cat([_interleave(w4[..., 2 * R:]),
+                              torch.zeros_like(auxw)], dim=1)
+            gate = torch.cat([cur, past], dim=-1)          # (L, R + Ap, 4R)
+        else:
+            w6 = pk["w6"]
+            gate = torch.cat([w6[..., :2 * R], auxw, w6[..., 2 * R:4 * R],
+                              w6[..., 4 * R:]], dim=1)     # (L, 3R + Ap, 2R)
+        bf_stages = (("gate", gate, by_group(pk["zb"]).reshape(L, -1)),
+                     ("res", pk["wsr"], pk["srb"]),
+                     ("post1", pk["post1_w"][None], pk["post1_b"][None]),
+                     ("post2", pk["post2_w"][None], pk["post2_b"][None]))
+    for name, w, b in bf_stages:
         s = st[name]
         tiles = _pack_units(w, s["quarters"], s["cw"])
         Lw, G = tiles.shape[:2]
         bias = b.reshape(Lw, G, s["cw"]).contiguous().view(torch.bfloat16)
         out[name] = torch.cat([tiles.reshape(Lw, G, -1), bias], dim=-1)
     return out
+
+
+def _pack_units_i8(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
+    """(L, K, N) int8 -> per layer and column group the unit's columns (as
+    ``_pack_units`` takes them) for ``ldmatrix``: per 32-deep k chunk and
+    16-column tile one 512-byte block of four 8-column x 16-byte matrices,
+    [k chunk][tile][column half][k half][8 columns][16 k bytes], so that
+    one ``ldmatrix.x4`` reads the B fragments of the tile's two
+    m16n8k32 products, each matrix 128 contiguous bytes:
+    (L, G, K/32, quarters*cw/16, 2, 2, 8, 16)."""
+    Lw, K, N = w.shape
+    G = N // (quarters * cw)
+    ntu = quarters * cw // 16
+    t = w.reshape(Lw, K, quarters, G, cw).permute(0, 3, 1, 2, 4)
+    t = t.reshape(Lw, G, K // 32, 2, 16, ntu, 2, 8)   # c, kh, kb, nt, nh, nr
+    return t.permute(0, 1, 2, 5, 6, 3, 7, 4).contiguous()
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -795,13 +943,15 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     projection-forwarded ``(total_cap, B, 2R)`` ring at kernel_size 2, the
     raw ``(total_cap, B, R)`` ring at kernel_size 3 (int8 from
     ``int8_ring_fill`` under ``quantize``, else bf16); anything else
-    raises.  bf16 runs on the kernel ``ar_route`` picks for the config and
-    fleet: every step in one cooperative launch of the persistent kernel
-    (``csrc/ar_persistent.cu``, counted in ``ar_generate.launches``; a grid
-    that cannot be co-resident, a build or a launch error raises), or the
-    bf16 launch loop (``csrc/ar_step.cu``, counted in
-    ``ar_generate.loop_launches``).  ``quantize`` runs the int8 launch loop
-    (counted in ``ar_generate.int8_launches``) with ``act_scales`` (L, 1)
+    raises.  It runs on the kernel ``ar_route`` picks for the config, the
+    fleet and the dtype: every step in one cooperative launch of the
+    persistent kernel (``csrc/ar_persistent.cu``, counted in
+    ``ar_generate.launches``, int8 in ``.int8_persistent_launches``; a
+    grid that cannot be co-resident, a build or a launch error raises), or
+    the launch loop (``csrc/ar_step.cu``, counted in
+    ``ar_generate.loop_launches``, int8 in ``.int8_launches``); the
+    config must fit that kernel's tiling (``ar_kernel_constraint_error``
+    with its route).  ``quantize`` runs int8 with ``act_scales`` (L, 1)
     f32 on the carry's device.  Sampling draws one
     64-bit Philox seed from ``generator``; the kernels' Gumbel noise is a
     function of (seed, row, step, class).
@@ -813,7 +963,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                                      act_scales=act_scales)
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate: unsupported device {act_buf.device}")
-    why = ar_kernel_constraint_error(config, quantize)
+    why = ar_kernel_constraint_error(config, quantize, "persistent")
     if why is not None:
         raise NotImplementedError(f"CUDA AR kernel: {why}")
     if mode not in ("argmax", "sampling"):
@@ -844,6 +994,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     for name, t in pk.items():
         if t.device != dev:
             raise ValueError(f"params ({name}) are on {t.device}, not {dev}")
+    ascale = None
     if quantize:
         if act_scales is None:
             raise ValueError("quantize=True needs act_scales (L, 1)")
@@ -851,25 +1002,24 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         _check(ascale, "act_scales", torch.float32, (c.n_layers,), dev)
         if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
             raise ValueError("act_scales must be finite and positive")
+    with torch.cuda.device(dev):
+        route = ar_route(c, B, quantize)
+    why = ar_kernel_constraint_error(c, quantize, route)
+    if why is not None:
+        raise NotImplementedError(f"CUDA AR kernel ({route}): {why}")
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     seed = 0
     if mode == "sampling":
         gdev = generator.device if generator is not None else "cpu"
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=gdev))
-    if quantize:
-        samples = _launch_loop(pk, c, act_buf, ids, h_up, T0, max_n, seed,
-                               mode == "sampling", act_scales.reshape(-1))
-        ar_generate.int8_launches += 1
-    else:
-        with torch.cuda.device(dev):
-            route = ar_route(c, B)
-        samples = _bf16_steps(route, pk, c, act_buf, ids, h_up, T0, max_n,
-                              seed, mode == "sampling")
-        if route == "persistent":
-            ar_generate.launches += 1
-        else:
-            ar_generate.loop_launches += 1
+    samples = _steps(route, pk, c, act_buf, ids, h_up, T0, max_n, seed,
+                     mode == "sampling", ascale)
+    counter = {("persistent", False): "launches",
+               ("loop", False): "loop_launches",
+               ("persistent", True): "int8_persistent_launches",
+               ("loop", True): "int8_launches"}[(route, quantize)]
+    setattr(ar_generate, counter, getattr(ar_generate, counter) + 1)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return samples
@@ -888,51 +1038,64 @@ def _plan_error(err: int) -> str:
 
 #: The bf16 fleets, by kernel size, from which the launch loop is faster
 #: than the persistent kernel at the flagship widths (30 x 512, skip 256),
-#: read in turns on an H100 SXM by ``bin/profile_ar.py --turns`` (PERF.md):
-#: at kernel_size 3 a block of the persistent kernel takes several gate
-#: units of K = 3R + aux one after another once the fleet outgrows the
-#: grid, and from 208 rows (3.4 units a block) the loop is faster.  None:
-#: the persistent kernel wherever it has a cut (kernel_size 2: no slower
-#: than the loop up to 2,048 rows).
+#: read in turns on an H100 SXM by ``bin/profile_ar.py --turns``
+#: (PERF.md): at kernel_size 3 a block of the persistent kernel takes
+#: several gate units of K = 3R + aux one after another once the fleet
+#: outgrows the grid, and from 208 rows (3.4 units a block) the loop is
+#: faster.  None: the persistent kernel wherever it has a cut (kernel_size
+#: 2: no slower than the loop up to 2,048 rows).
 AR_LOOP_FROM_B = {2: None, 3: 208}
 
+#: The same for int8 (``quantize=True``), read in turns by ``bin/profile_ar.py
+#: --quantize --turns`` and chip_smoke.py's [K1 int8*] (PERF.md): at
+#: kernel_size 3 the loop is 1.13-1.19x faster at 208-256 rows, where the
+#: persistent kernel's blocks take gate units unevenly (the persistent
+#: kernel won again at 320 and 384 rows by 5-8% and lost at 512 and 1,024;
+#: one threshold keeps the larger losses away); kernel_size 2: the
+#: persistent kernel is faster up to 2,048 rows
+AR_INT8_LOOP_FROM_B = {2: None, 3: 208}
 
-def ar_route(config, B: int) -> str:
-    """Which bf16 kernel runs a fleet of B rows on the current CUDA device:
-    "loop" (the launch loop of ``csrc/ar_step.cu``) where the persistent
-    kernel has no cut of its stages in shared memory (``ar_plan`` raises,
-    as at kernel_size 3 with n_resch >= 768) or B is at least
-    ``AR_LOOP_FROM_B`` of its kernel size, else "persistent"."""
-    start = AR_LOOP_FROM_B.get(config.kernel_size)
+
+def ar_route(config, B: int, quantize: bool = False) -> str:
+    """Which kernel runs a fleet of B rows on the current CUDA device, bf16
+    or (``quantize``) int8: "loop" (the launch loop of ``csrc/ar_step.cu``)
+    where the persistent kernel has no cut of its stages in shared memory
+    (``ar_plan`` raises, as for bf16 at kernel_size 3 with n_resch >= 768)
+    or B is at least ``AR_LOOP_FROM_B`` (int8: ``AR_INT8_LOOP_FROM_B``) of
+    its kernel size, else "persistent"."""
+    start = (AR_INT8_LOOP_FROM_B if quantize else AR_LOOP_FROM_B).get(
+        config.kernel_size)
     if start is not None and B >= start:
         return "loop"
     try:
-        ar_plan(config, B)
+        ar_plan(config, B, quantize=quantize)
     except ValueError:
         return "loop"
     return "persistent"
 
 
-def _bf16_steps(route: str, pk: dict, config, act_buf, ids, h_up, T0: int,
-                max_n: int, seed: int, sampling: bool) -> torch.Tensor:
-    """bf16 steps on the kernel ``route`` names ("persistent" or "loop")."""
+def _steps(route: str, pk: dict, config, act_buf, ids, h_up, T0: int,
+           max_n: int, seed: int, sampling: bool,
+           ascale: torch.Tensor | None) -> torch.Tensor:
+    """Steps on the kernel ``route`` names ("persistent" or "loop"), int8
+    with the (L,) activation scales ``ascale``, else bf16."""
     if route == "persistent":
         return _persistent(pk, config, act_buf, ids, h_up, T0, max_n, seed,
-                           sampling)
+                           sampling, ascale)
     if route == "loop":
         return _launch_loop(pk, config, act_buf, ids, h_up, T0, max_n, seed,
-                            sampling, None)
+                            sampling, ascale)
     raise ValueError(f"route must be persistent or loop, got {route!r}")
 
 
 def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
-                seed: int, sampling: bool,
+                seed: int, sampling: bool, ascale: torch.Tensor | None = None,
                 phase: torch.Tensor | None = None) -> torch.Tensor:
-    """bf16: every step in one cooperative launch of
-    ``wn_ar_generate_persistent`` on the plan ``ar_plan`` cuts for this
-    fleet; ``ids`` (B, k) updated in place; ``phase`` (grid,
-    ``wn_ar_phase_slots()``) zeroed int64 turns the kernel's phase times on.
-    Returns (B, max_n) int32."""
+    """Every step in one cooperative launch of ``wn_ar_generate_persistent``
+    on the plan ``ar_plan`` cuts for this fleet, bf16, or int8 with the (L,)
+    activation scales ``ascale``; ``ids`` (B, k) updated in place;
+    ``phase`` (grid, ``wn_ar_phase_slots()``) zeroed int64 turns the
+    kernel's phase times on.  Returns (B, max_n) int32."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
@@ -941,24 +1104,38 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     B = ids.shape[0]
     R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
+    quantize = ascale is not None
     with torch.cuda.device(dev):
-        plan = ar_plan(c, B)
+        plan = ar_plan(c, B, quantize=quantize)
     units = pack_ar_units(pk, plan, c)
     _caps, offsets, _total = _buffer_layout(c)
     meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
                         device=dev).T.contiguous()                # (L, 2)
     # the stages' A operands, rows padded as the units hold them in shared
     # memory: the stream and the step's aux column (columns R + A .. stay
-    # zero), the gate, relu(skip) and post1's output
-    pad = AR_A_PAD
-    xs = torch.zeros((B, R + _aux_pad(A) + pad), dtype=bf, device=dev)
-    gs = torch.empty((B, R + pad), dtype=bf, device=dev)
+    # zero), the gate, relu(skip) and post1's output; int8: the stream and
+    # the gate as int8 rows, the aux column in rows of its own (columns A ..
+    # stay zero)
+    pad, Ap = AR_A_PAD, _aux_pad(A)
     sr, h1 = (torch.empty((B, S + pad), dtype=bf, device=dev)
               for _ in range(2))
     of = torch.empty((B, R), dtype=f32, device=dev)
     skip = torch.empty((B, S), dtype=f32, device=dev)
     logits = torch.empty((B, Q), dtype=f32, device=dev)
     samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
+    xs = gs = xq = gq = xa = ainv = None
+    gscale = ginv = ctypes.c_float(0.0)
+    if quantize:
+        xq, gq = (torch.empty((B, R + AR_Q_PAD), dtype=torch.int8, device=dev)
+                  for _ in range(2))
+        xa = torch.zeros((B, Ap + pad), dtype=bf, device=dev)
+        ainv = 1.0 / ascale
+        # f32 scale and its f32 reciprocal, as the plain version takes them
+        gscale = ctypes.c_float(GATE_SCALE)
+        ginv = ctypes.c_float(float(1.0 / torch.tensor(GATE_SCALE, dtype=f32)))
+    else:
+        xs = torch.zeros((B, R + Ap + pad), dtype=bf, device=dev)
+        gs = torch.empty((B, R + pad), dtype=bf, device=dev)
     arr = ar_plan_array(plan)
     plan_arr = (ctypes.c_int * len(arr))(*arr)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -969,12 +1146,13 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
             _ptr(h_up), h_up.shape[1], _ptr(act_buf), _ptr(meta), _ptr(xs),
             _ptr(of), _ptr(skip), _ptr(gs), _ptr(sr), _ptr(h1), _ptr(logits),
             _ptr(ids), _ptr(samples), B, R, S, Q, A, L, c.kernel_size, T0,
-            max_n, int(sampling), seed,
+            max_n, int(sampling), seed, int(quantize), _ptr(xq), _ptr(gq),
+            _ptr(xa), _ptr(ascale), _ptr(ainv), gscale, ginv,
             ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(phase),
             ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"wn_ar_generate_persistent (B={B}) failed: "
-                           f"{_plan_error(err)}")
+        raise RuntimeError(f"wn_ar_generate_persistent ({'int8' if quantize else 'bf16'}, "
+                           f"B={B}) failed: {_plan_error(err)}")
     return samples
 
 
@@ -1065,15 +1243,16 @@ AR_PHASE_STAGES = AR_STAGES + ("sample",)
 
 
 def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
-                   max_n: int) -> dict:
-    """Where a step of the persistent bf16 kernel goes: runs ``max_n``
-    argmax steps (carry updated in place) with the kernel's phase times on
-    and returns, per stage type, the mean microseconds a block with a unit
-    spends per stage asking for its operands, waiting for them, in the
-    products and in the epilogue (the sample stage: all of it), and its
-    units per stage; and the mean wait per grid barrier over all blocks,
-    and the barriers per step.  CUDA only; not counted in
-    ``ar_generate.launches``."""
+                   max_n: int, quantize: bool = False,
+                   act_scales: torch.Tensor | None = None) -> dict:
+    """Where a step of the persistent kernel goes (bf16, or int8 with
+    ``quantize`` and ``act_scales``): runs ``max_n`` argmax steps (carry
+    updated in place) with the kernel's phase times on and returns, per
+    stage type, the mean microseconds a block with a unit spends per stage
+    asking for its operands, waiting for them, in the products and in the
+    epilogue (the sample stage: all of it), and its units per stage; and
+    the mean wait per grid barrier over all blocks, and the barriers per
+    step.  CUDA only; not counted in ``ar_generate``'s launch counts."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
     act_buf, sample_hist, prev = carry
@@ -1082,11 +1261,12 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
         raise ValueError(f"ar_phase_times runs on a CUDA device, not {dev}")
     with torch.cuda.device(dev):
         slots = kernels().wn_ar_phase_slots()
-        grid = ar_plan(config, prev.shape[0])["grid"]
+        grid = ar_plan(config, prev.shape[0], quantize=quantize)["grid"]
     phase = torch.zeros((grid, slots), dtype=torch.int64, device=dev)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     _persistent(pack_ar_weights(params, config), config, act_buf, ids, h_up,
-                T0, max_n, 0, False, phase)
+                T0, max_n, 0, False,
+                act_scales.reshape(-1) if quantize else None, phase)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     ph = phase.cpu().double()
@@ -1106,23 +1286,30 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
 
 
 def ar_generate_on(route: str, params, config, carry, h_up: torch.Tensor,
-                   T0: int, max_n: int) -> torch.Tensor:
-    """bf16 argmax steps on the kernel ``route`` names ("persistent" or
-    "loop"), whichever ``ar_route`` would pick: for holding each against
-    the plain loop and timing the two in turns on one card.  The carry is
-    updated in place; not counted in ``ar_generate``'s launch counts."""
+                   T0: int, max_n: int, quantize: bool = False,
+                   act_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Argmax steps on the kernel ``route`` names ("persistent" or "loop"),
+    bf16 or (``quantize``) int8, whichever ``ar_route`` would pick: for
+    holding each against the plain loop and timing the two in turns on one
+    card.  The carry is updated in place; not counted in ``ar_generate``'s
+    launch counts."""
     act_buf, sample_hist, prev = carry
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate_on runs on a CUDA device, not "
                          f"{act_buf.device}")
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
-    out = _bf16_steps(route, pack_ar_weights(params, config), config,
-                      act_buf, ids, h_up, T0, max_n, 0, False)
+    out = _steps(route, pack_ar_weights(params, config), config, act_buf, ids,
+                 h_up, T0, max_n, 0, False,
+                 act_scales.reshape(-1) if quantize else None)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return out
 
 
+#: Host launch counts of ``ar_generate``, by kernel: the persistent bf16
+#: kernel, the bf16 launch loop, the int8 launch loop and the persistent
+#: int8 kernel (one per call each)
 ar_generate.launches = 0
 ar_generate.loop_launches = 0
 ar_generate.int8_launches = 0
+ar_generate.int8_persistent_launches = 0

@@ -115,7 +115,10 @@ def layer_stack_constraint_error(config) -> str | None:
         return (f"kernel_size={c.kernel_size} (the kernels serve kernel_size "
                 "2 and 3)")
     if c.n_resch % 128 != 0 or c.n_resch > 1024:
-        return f"n_resch={c.n_resch} must be a multiple of 128, <= 1024"
+        # the residual 1x1 runs in 128-column chunks (8 warps x 16 columns)
+        # and the stream's rows are staged whole in shared memory
+        return (f"n_resch={c.n_resch} must be a multiple of 128 (the forward "
+                f"kernel's 128-column residual chunks), <= 1024")
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
     return _smem_error(c, ("forward",))

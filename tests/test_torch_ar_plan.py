@@ -276,3 +276,342 @@ def test_emulated_stages_decode_as_the_plain_loop(kernel_size, B):
     sp = ak.ar_generate_reference(params, cfg, cp, h, T0, n, "argmax")
     assert (se == sp).float().mean().item() >= 0.9
     assert torch.equal(ce[2], se[:, -1])
+
+
+# ---------------------------------------------------------------------------
+# int8 (quantize=True): the plan, the per-unit runs and the stages
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("B", [1, 16, 17, 32, 65, 256, 1000])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_ar_plan_covers_every_output_once(kernel_size, B, width):
+    cfg = _cfg(kernel_size, width)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=True)
+    assert plan["quantize"] and plan["smem"] <= ak.AR_SMEM_MAX
+    R, Ap = cfg.n_resch, -(-cfg.n_aux // 16) * 16
+    w = plan["smem_w"][1]
+    for name, (K, quarters, N) in ak.ar_stage_shapes(cfg, True).items():
+        s = plan["stages"][name]
+        rows, cw = 16 * s["mt"], s["cw"]
+        if name in ("gate", "res"):
+            # int8 weights, (gate) bf16 aux tiles, f32 scales and biases
+            segs = 3 if name == "gate" and kernel_size == 3 else 1
+            gate = name == "gate"
+            assert K == R and s["segs"] == segs
+            run = (segs * K * quarters * cw + (2 * Ap * cw if gate else 0)
+                   + 4 * (segs * quarters * cw + (2 if gate else 1) * cw))
+            a_row = (R + 16 + (2 * (Ap + 8) if gate else 0)
+                     + (2 * R + 16 if gate and kernel_size == 3 else 0))
+            sums = (4 * segs * s["ks"] * rows * quarters * cw
+                    + (4 * rows * cw if gate else 0))
+            assert 1 <= s["ks"] <= K // 32
+        else:
+            run = (K * quarters + 2) * cw * 2
+            a_row = 2 * (K + ak.AR_A_PAD)
+            sums = s["ks"] * rows * quarters * cw * 4
+            assert s["segs"] == 0 and 1 <= s["ks"] <= K // 16
+        assert (s["w"], s["a"], s["p"]) == (run, rows * a_row, sums)
+        assert run <= w and run % 16 == 0
+        assert rows * a_row <= plan["smem_p"] - plan["smem_a"]
+        assert sums <= plan["smem_e"] - plan["smem_p"]
+        assert rows * cw * 4 <= plan["smem"] - plan["smem_e"]
+        seen = np.zeros((B, quarters * N), np.uint8)
+        units = 0
+        for block in range(plan["grid"]):
+            for (r0, r1), cols in ak.ar_stage_units(plan, name, block):
+                assert r1 - r0 <= rows and r0 < r1
+                for c0, c1 in cols:
+                    seen[r0:r1, c0:c1] += 1
+                units += 1
+        assert units == s["units"]
+        assert (seen == 1).all(), name
+
+
+def _unit_run_i8(units, plan, cfg, name, l, grp):
+    """One int8 unit's run in ``pack_ar_units``' layout, read back from its
+    bytes: the int8 weights (segs, R, quarters*cw) with the unit's columns
+    in quarter order, (gate) the aux weights (Ap, cw) bf16, the column
+    scales (segs, quarters*cw) and the biases (f32)."""
+    s = plan["stages"][name]
+    R, Ap = cfg.n_resch, -(-cfg.n_aux // 16) * 16
+    cols, segs = s["quarters"] * s["cw"], s["segs"]
+    run = units[name][l, grp]
+    assert run.dtype == torch.uint8 and run.numel() == s["w"]
+    n8 = segs * R * cols
+    t = run[:n8].view(torch.int8).reshape(segs, R // 32, cols // 16, 2, 2, 8,
+                                          16)
+    # [seg][k chunk][tile][column half][k half][column][k byte]
+    w = t.permute(0, 1, 4, 6, 2, 3, 5).reshape(segs, R, cols)
+    o, aux = n8, None
+    if name == "gate":
+        n = Ap * s["cw"] * 2
+        aux = (run[o:o + n].view(torch.bfloat16)
+               .reshape(Ap // 16, s["cw"] // 16, 16, 16)
+               .permute(0, 2, 1, 3).reshape(Ap, s["cw"]))
+        o += n
+    f = run[o:].view(torch.float32)
+    return w, aux, f[:segs * cols].reshape(segs, cols), f[segs * cols:]
+
+
+def _unpack_i8(units, plan, cfg, name):
+    """Inverse of the int8 per-unit pack: the (L, segs, R, quarters * N)
+    int8 weights and (L, segs, quarters * N) scales with column q * N + g *
+    cw + j, (gate) the (L, Ap, cw * G) aux weights, and the (L, G, nb)
+    biases of each unit."""
+    s = plan["stages"][name]
+    q, cw, G = s["quarters"], s["cw"], s["G"]
+    runs = [[_unit_run_i8(units, plan, cfg, name, l, g) for g in range(G)]
+            for l in range(cfg.n_layers)]
+
+    def quarter_major(x):
+        # (L, G, ..., q * cw) -> (L, ..., q * G * cw)
+        x = x.reshape(*x.shape[:-1], q, cw).movedim(1, -2)
+        return x.reshape(*x.shape[:-3], q * G * cw)
+
+    w = quarter_major(torch.stack([torch.stack([r[0] for r in row])
+                                   for row in runs]))
+    sc = quarter_major(torch.stack([torch.stack([r[2] for r in row])
+                                    for row in runs]))
+    aux = (torch.stack([torch.cat([r[1] for r in row], dim=1)
+                        for row in runs]) if name == "gate" else None)
+    bias = torch.stack([torch.stack([r[3] for r in row]) for row in runs])
+    return w, sc, aux, bias
+
+
+@pytest.mark.parametrize("B", [16, 256])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_pack_ar_units_unpacks_bit_equal(kernel_size, B):
+    cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1)
+    gen = torch.Generator().manual_seed(5)
+    params = P.init_wavenet_params(cfg, gen)
+    for group in ("dil", "aux", "skip", "res"):
+        b = params[group]["b"]
+        params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
+    pk = ak.pack_ar_weights(params, cfg)
+    q = ak.quantize_ar_weights(params, cfg)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=True)
+    units = ak.pack_ar_units(pk, plan, cfg)
+    R, A, L = cfg.n_resch, cfg.n_aux, cfg.n_layers
+    w, sc, aux, bias = _unpack_i8(units, plan, cfg, "gate")
+    if kernel_size == 2:
+        # the past tap interleaved like the current one, weights and scales
+        assert torch.equal(w[:, 0, :, :2 * R], q["w4"][..., :2 * R])
+        assert torch.equal(ak._deinterleave(w[:, 0, :, 2 * R:]),
+                           q["w4"][..., 2 * R:])
+        assert torch.equal(sc[:, 0, :2 * R], q["w4_scale"][:, :2 * R])
+        assert torch.equal(ak._deinterleave(sc[:, 0, 2 * R:]),
+                           q["w4_scale"][:, 2 * R:])
+    else:
+        for j in range(3):
+            blk = slice(j * 2 * R, (j + 1) * 2 * R)
+            assert torch.equal(w[:, j], q["w6"][..., blk])
+            assert torch.equal(sc[:, j], q["w6_scale"][:, blk])
+    # the aux rows over the current tap's columns, zero-padded to tiles
+    assert torch.equal(aux[:, :A], ak._interleave(pk["auxw"]))
+    assert not aux[:, A:].any()
+    # per column group: aux_b of its sigmoid then tanh channels, then dil_b
+    hc = plan["stages"]["gate"]["cw"] // 2
+    for i, key in enumerate(("aux", "dil")):
+        want = params[key]["b"].reshape(L, 2, R // hc, hc).transpose(1, 2)
+        assert torch.equal(bias[..., i * 2 * hc:(i + 1) * 2 * hc],
+                           want.reshape(L, R // hc, 2 * hc))
+    w, sc, _, bias = _unpack_i8(units, plan, cfg, "res")
+    assert torch.equal(w[:, 0], q["wsr"])
+    assert torch.equal(sc[:, 0], q["wsr_scale"])
+    assert torch.equal(bias.reshape(L, -1), pk["srb"])
+    # post1 and post2 are bf16 runs, as in the bf16 plan
+    for name in ("post1", "post2"):
+        got_w, got_b = _unpack(units, plan, name)
+        want_w = pk[name + "_w"][None]
+        assert torch.equal(got_w, want_w)
+        assert torch.equal(got_b, pk[name + "_b"][None])
+
+
+def _emulate_i8(params, cfg, carry, h_up, T0, max_n, plan, scales):
+    """The persistent kernel's int8 argmax steps, stage by stage and unit by
+    unit as csrc/ar_persistent.cu runs them (Q8): each unit's int8 A rows
+    and the weights read back from its packed run through exact integer
+    products, the aux term a bf16 product, then its epilogue's index math
+    and f32 order of sums; post1 and post2 as in ``_emulate``.  Updates
+    the carry in place; returns (B, max_n) int32."""
+    ring, hist, prev = carry
+    R, S, Q, A, L, k = (cfg.n_resch, cfg.n_skipch, cfg.n_quantize,
+                        cfg.n_aux, cfg.n_layers, cfg.kernel_size)
+    B, bf = prev.shape[0], torch.bfloat16
+    pk = ak.pack_ar_weights(params, cfg)
+    units = ak.pack_ar_units(pk, plan, cfg)
+    caps, offs, _ = P._buffer_layout(cfg)
+    asc = scales.reshape(-1).float()
+    ainv = 1.0 / asc
+    gscale = torch.tensor(ak.GATE_SCALE, dtype=torch.float32)
+    ginv = 1.0 / gscale
+    of, skip, logits = (torch.zeros((B, n)) for n in (R, S, Q))
+    xq, gq = torch.zeros((B, R)), torch.zeros((B, R))
+    xa = torch.zeros((B, A), dtype=bf)
+    sr, h1 = (torch.zeros((B, S), dtype=bf) for _ in range(2))
+    ids = torch.cat([hist, prev[:, None]], dim=1).clone()
+    out = torch.zeros((B, max_n), dtype=torch.int32)
+
+    def quant(v):
+        return torch.clamp(torch.round(v), -127, 127)
+
+    def embed(p):
+        v = pk["causal_w"][0][ids[:, 0].long() % Q].float()
+        for j in range(1, k):
+            v = v + pk["causal_w"][j][ids[:, j].long() % Q].float()
+        v = v + pk["causal_b"]
+        of.copy_(v)
+        xq.copy_(quant(v * ainv[0]))
+        xa.copy_(h_up[:, p].to(bf))
+
+    def int8_stage(name, l, p, epi):
+        s = plan["stages"][name]
+        d = cfg.dilations[l]
+        for block in range(plan["grid"]):
+            for (r0, r1), cols in ak.ar_stage_units(plan, name, block):
+                grp = cols[0][0] // s["cw"]
+                w, aux, sc, eb = _unit_run_i8(units, plan, cfg, name, l, grp)
+                if name == "gate":
+                    parts = [xq[r0:r1]] + [
+                        ring[offs[l] + (p - j * d) % (2 * d), r0:r1].float()
+                        for j in range(1, s["segs"])]
+                    za = xa[r0:r1].float() @ aux[:A].float()
+                else:
+                    parts, za = [gq[r0:r1]], None
+                # exact integer sums, as the int32 MMA sums
+                z = [(a.double() @ w[j].double()).float()
+                     for j, a in enumerate(parts)]
+                epi(z, za, sc, eb, grp, r0, r1, s["cw"])
+
+    def bf_stage(name, epi):
+        s = plan["stages"][name]
+        src = {"post1": sr, "post2": h1}[name]
+        for block in range(plan["grid"]):
+            for (r0, r1), cols in ak.ar_stage_units(plan, name, block):
+                grp = cols[0][0] // s["cw"]
+                t, bias = _unit_run(units, plan, name, 0, grp)
+                w = t.permute(0, 2, 1, 3).reshape(t.shape[0] * 16, -1)
+                epi(src[r0:r1].float() @ w.float(), bias, grp, r0, r1,
+                    s["cw"])
+
+    for i in range(max_n):
+        p = T0 - 1 + i
+        embed(p)
+        for l in range(L):
+            d = cfg.dilations[l]
+
+            def gate_epi(z, za, sc, eb, grp, r0, r1, cw):
+                hc = cw // 2
+                ci = torch.arange(hc)
+                c = grp * hc + ci
+                cs = (ci >> 3) * 16 + (ci & 7)
+                ct = cs + 8
+
+                def dq(j, col):
+                    return z[j][:, col] * (asc[l] * sc[j][col])
+                za_s, za_t = za[:, cs] + eb[ci], za[:, ct] + eb[hc + ci]
+                if k == 2:
+                    rr = ring[offs[l] + p % d, r0:r1]
+                    ps, pt = rr[:, c].float(), rr[:, R + c].float()
+                    rr[:, c] = dq(0, cw + cs).to(bf)
+                    rr[:, R + c] = dq(0, cw + ct).to(bf)
+                else:
+                    ps, pt = dq(1, cs) + dq(2, cs), dq(1, ct) + dq(2, ct)
+                zs = dq(0, cs) + ((ps + za_s) + eb[cw + ci])
+                zt = dq(0, ct) + ((pt + za_t) + eb[cw + hc + ci])
+                gq[r0:r1, c] = quant(torch.sigmoid(zs) * torch.tanh(zt)
+                                     * ginv)
+
+            def res_epi(z, za, sc, eb, grp, r0, r1, cw):
+                col = grp * cw + torch.arange(cw)
+                v = z[0] * (gscale * sc[0]) + eb
+                for jj in range(cw):
+                    cc = int(col[jj])
+                    if cc < S:
+                        nv = v[:, jj] + (skip[r0:r1, cc] if l else 0.0)
+                        skip[r0:r1, cc] = nv
+                        if l == L - 1:
+                            sr[r0:r1, cc] = torch.relu(nv).to(bf)
+                    else:
+                        j = cc - S
+                        old = of[r0:r1, j].clone()
+                        of[r0:r1, j] = v[:, jj] + old
+                        if l + 1 < L:
+                            xq[r0:r1, j] = quant(of[r0:r1, j] * ainv[l + 1])
+                        if k == 3:
+                            ring[offs[l] + p % (2 * d), r0:r1, j] = \
+                                quant(old * ainv[l]).to(ring.dtype)
+
+            int8_stage("gate", l, p, gate_epi)
+            int8_stage("res", l, p, res_epi)
+
+        def post1_epi(z, bias, grp, r0, r1, cw):
+            col = grp * cw + torch.arange(cw)
+            h1[r0:r1, col] = torch.relu(z + bias).to(bf)
+
+        def post2_epi(z, bias, grp, r0, r1, cw):
+            col = grp * cw + torch.arange(cw)
+            logits[r0:r1, col] = z + bias
+
+        bf_stage("post1", post1_epi)
+        bf_stage("post2", post2_epi)
+        smp = logits.argmax(dim=1).to(torch.int32)
+        out[:, i] = smp
+        ids = torch.cat([ids[:, 1:], smp[:, None]], dim=1)
+    hist.copy_(ids[:, :-1])
+    prev.copy_(ids[:, -1])
+    return out
+
+
+@pytest.mark.parametrize("B", [5, 37])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_emulated_stages_decode_as_the_plain_int8_loop(kernel_size, B):
+    # small grids make blocks take several units (and row groups split);
+    # the limits are chip_smoke.py's [K1 int8]: the ring written in one
+    # step within 5e-2 of max|ring| with at most a quarter of it differing,
+    # same-state argmax >= 0.97
+    cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1,
+               n_aux=20)
+    gen = torch.Generator().manual_seed(13)
+    params = P.init_wavenet_params(cfg, gen)
+    for group in ("dil", "aux", "skip", "res", "post1", "post2", "causal"):
+        b = params[group]["b"]
+        params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
+    rng = np.random.RandomState(20 + kernel_size)
+    n = 6
+    x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)))
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32)
+    x, h = P._pad_seed(cfg, x, h)
+    T0 = x.shape[1]
+    carry, maxes = P._warmup_state(params, cfg, x, h, collect_act_maxes=True)
+    scales = ak.act_scales_from_maxes(maxes)
+    if kernel_size == 3:
+        carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
+    plan = ak.ar_plan(cfg, B, grid=7, quantize=True)
+    q = dict(quantize=True, act_scales=scales)
+    # the ring slots written by the first step, every layer
+    caps, offs, _ = P._buffer_layout(cfg)
+    rows = torch.tensor([o + (T0 - 1) % c for o, c in zip(offs, caps)])
+    ce, cp = (tuple(t.clone() for t in carry) for _ in range(2))
+    _emulate_i8(params, cfg, ce, h, T0, 1, plan, scales)
+    ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax", **q)
+    want = cp[0][rows].float()
+    diff = (ce[0][rows].float() - want).abs()
+    assert diff.max().item() <= 5e-2 * want.abs().max().item()
+    assert (diff > 0).float().mean().item() <= 0.25
+    agree = []
+    for i in range(n):
+        ce = tuple(t.clone() for t in cp)
+        se = _emulate_i8(params, cfg, ce, h, T0 + i, 1, plan, scales)
+        sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
+                                      i0=i, **q)
+        agree.append((se == sp).float().mean().item())
+    assert np.mean(agree) >= 0.97
+    ce, cp = (tuple(t.clone() for t in carry) for _ in range(2))
+    se = _emulate_i8(params, cfg, ce, h, T0, n, plan, scales)
+    sp = ak.ar_generate_reference(params, cfg, cp, h, T0, n, "argmax", **q)
+    assert (se == sp).float().mean().item() >= 0.9
+    assert torch.equal(ce[2], se[:, -1])

@@ -126,21 +126,15 @@ def test_ar_kernel_matches_plain(dev, B, kernel_size):
     assert not torch.equal(s, sample(1))
 
 
-# the fleets of the bf16 test: one partial row tile, two, two 64-row chunks
-@pytest.mark.parametrize("kernel_size", [2, 3])
-@pytest.mark.parametrize("B", [1, 20, 65])
-def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
-    """K1-int8 against the plain int8 loop on the same carry and scales:
-    the integer products are exact in both and the epilogues round alike,
-    so only the aux sum's order and the sigmoid/tanh differ (an f32 ulp).
-    Where that flips an int8 value, the rest of the row's layers move by
-    int8 quanta: a minority of the ring values a step writes differ, each
-    by a few quanta (max|d| <= 5e-2 of max|ring|, share <= 0.25).
-    kernel_size 3 runs on the int8 ring of ``int8_ring_fill``."""
-    cfg = _cfg(kernel_size=kernel_size)
-    params = _params(cfg, dev, seed=5)
-    rng = np.random.RandomState(5)
-    n = 24
+def _int8_counts():
+    return (ak.ar_generate.int8_persistent_launches,
+            ak.ar_generate.int8_launches)
+
+
+def _int8_carry(params, cfg, dev, B, n, seed):
+    """The cuda warm-up's carry with its calibrated scales (kernel_size 3:
+    the int8 ring of ``int8_ring_fill``)."""
+    rng = np.random.RandomState(seed)
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
                         device=dev)
     h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
@@ -148,18 +142,25 @@ def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
     carry, maxes = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
                                    collect_act_maxes=True, impl="cuda")
     scales = ak.act_scales_from_maxes(maxes)
-    if kernel_size == 3:
+    if cfg.kernel_size == 3:
         carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
-    T0 = x.shape[1]
+    return carry, h, x.shape[1], scales
+
+
+def _int8_same_state(params, cfg, carry, h, T0, scales, n, kernel):
+    """``kernel`` (c, p, steps) against the plain int8 loop step by step
+    from the plain loop's state: the integer products are exact in both
+    and the epilogues round alike, so only the aux sum's order and the
+    sigmoid/tanh differ (an f32 ulp).  Where that flips an int8 value, the
+    rest of the row's layers move by int8 quanta: a minority of the ring
+    values a step writes differ, each by a few quanta (max|d| <= 5e-2 of
+    max|ring|, share <= 0.25); argmax agreement >= 0.97."""
     caps, offs, _ = P._buffer_layout(cfg)
     agree = []
     cp = tuple(t.clone() for t in carry)
     for i in range(n):
         ck = tuple(t.clone() for t in cp)
-        before = ak.ar_generate.int8_launches
-        sk = ak.ar_generate(params, cfg, ck, h, T0 + i, 1, "argmax",
-                            quantize=True, act_scales=scales)
-        assert ak.ar_generate.int8_launches == before + 1
+        sk = kernel(ck, T0 + i, 1)
         sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
                                       i0=i, quantize=True, act_scales=scales)
         p = T0 - 1 + i
@@ -168,11 +169,38 @@ def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
         d = (ck[0][rows].float() - want).abs()
         assert d.max().item() <= 5e-2 * want.abs().max().item()
         assert (d > 0).float().mean().item() <= 0.25
-        rest = torch.ones(ck[0].shape[0], dtype=torch.bool, device=dev)
+        rest = torch.ones(ck[0].shape[0], dtype=torch.bool,
+                          device=ck[0].device)
         rest[rows] = False
         assert torch.equal(ck[0][rest], cp[0][rest])   # other slots untouched
         agree.append((sk == sp).float().mean().item())
     assert np.mean(agree) >= 0.97
+
+
+# the fleets of the bf16 test; each on the int8 kernel ar_route picks
+# (kernel_size 3 from AR_INT8_LOOP_FROM_B rows: the launch loop)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("B", [1, 20, 65, 200, 1000])
+def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
+    """K1-int8 against the plain int8 loop on the same carry and scales
+    (``_int8_same_state``'s limits), counted on the kernel ``ar_route``
+    picks."""
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=5)
+    n = 24
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 5)
+    route = ak.ar_route(cfg, B, quantize=True)
+
+    def kernel(c_, p, steps):
+        before = _int8_counts()
+        out = ak.ar_generate(params, cfg, c_, h, p, steps, "argmax",
+                             quantize=True, act_scales=scales)
+        after = _int8_counts()
+        assert after == ((before[0] + 1, before[1]) if route == "persistent"
+                         else (before[0], before[1] + 1))
+        return out
+
+    _int8_same_state(params, cfg, carry, h, T0, scales, n, kernel)
 
     def sample(seed):
         return ak.ar_generate(params, cfg, tuple(t.clone() for t in carry), h,
@@ -216,14 +244,78 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
     rng = np.random.RandomState(6)
     x = np.full((3, 1), 128, np.int32)
     h = rng.randn(3, 6, cfg.n_aux).astype(np.float32)
-    k1, k1q = ak.ar_generate.launches, ak.ar_generate.int8_launches
+    k1, k1q = ak.ar_generate.launches, _int8_counts()
     k2 = tk.layer_stack_streams.launches
     out = P.batch_fast_generate(params, cfg, x, h, [59, 40, 20],
                                 mode="argmax", quantize=True)
     assert [len(o) for o in out] == [59, 40, 20]
-    assert ak.ar_generate.int8_launches == k1q + 1
+    assert _int8_counts() == (k1q[0] + 1, k1q[1])    # the persistent kernel
     assert ak.ar_generate.launches == k1
     assert tk.layer_stack_streams.launches == k2 + 1
+
+
+# both int8 kernels at one fleet, whichever ar_route picks there: 200 rows
+# (more units than blocks in the persistent kernel)
+@pytest.mark.parametrize("route", ["persistent", "loop"])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_both_int8_kernels_match_plain(dev, kernel_size, route):
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=11)
+    n = 16
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, 200, n, 11)
+    before = _int8_counts()
+    _int8_same_state(params, cfg, carry, h, T0, scales, n,
+                     lambda c_, p, steps: ak.ar_generate_on(
+                         route, params, cfg, c_, h, p, steps, quantize=True,
+                         act_scales=scales))
+    assert _int8_counts() == before      # not counted as the path's
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_ar_int8_kernel_one_launch_per_call(dev, kernel_size):
+    """The int8 route makes one device launch of the AR loop per call at a
+    fleet the persistent kernel serves (the launch loop made 65-66 per
+    step)."""
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=4)
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, 8, 12, 4)
+    assert ak.ar_route(cfg, 8, quantize=True) == "persistent"
+
+    def call():
+        return ak.ar_generate(params, cfg, carry, h, T0, 12, "argmax",
+                              quantize=True, act_scales=scales)
+
+    call()        # the build
+    torch.cuda.synchronize()
+    loop, names, _ = ar_loop_kernels(call)
+    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], (loop, names)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_widths_off_the_tiling_decode_on_the_card(dev, quantize):
+    """The sd-mini recipe's widths (n_resch 32, n_skipch 16): the cuda
+    route pads them to the kernels' multiples and decodes through K2 and
+    K1 on the card (``impl="auto"``), each launched once (chip_smoke.py's
+    [main mini] holds K1 against the plain loop on the padded carry)."""
+    cfg = _cfg(n_resch=32, n_skipch=16, dilation_depth=5, dilation_repeat=1,
+               upsampling_factor=10)
+    params = _params(cfg, dev, seed=12)
+    rng = np.random.RandomState(12)
+    x = np.full((3, 1), 128, np.int32)
+    hf = rng.randn(3, 6, cfg.n_aux).astype(np.float32)
+    n_list = [59, 40, 20]
+    k1, k1q = _bf16_counts(), _int8_counts()
+    k2 = tk.layer_stack_streams.launches
+    out = P.batch_fast_generate(params, cfg, x, hf, n_list, mode="argmax",
+                                quantize=quantize)
+    assert [len(o) for o in out] == n_list
+    assert tk.layer_stack_streams.launches == k2 + 1
+    if quantize:
+        assert _int8_counts() == (k1q[0] + 1, k1q[1])
+        assert _bf16_counts() == k1
+    else:
+        assert _bf16_counts() == (k1[0] + 1, k1[1])
+    assert all(((o >= 0) & (o < cfg.n_quantize)).all() for o in out)
 
 
 def _same_state(params, cfg, carry, h, T0, n, kernel, plain_cfg=None):
@@ -293,7 +385,7 @@ def test_wide_k3_config_runs_on_the_launch_loop(dev):
 
 def test_cuda_path_raises_outside_envelope(dev):
     for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float64"),
-                _cfg(n_resch=1152)):
+                _cfg(n_resch=1152), _cfg(n_aux=97)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
         h = np.zeros((2, 40, cfg.n_aux), np.float32)

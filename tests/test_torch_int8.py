@@ -454,3 +454,71 @@ def test_int8_kernel_size_3_refuses_a_bf16_ring():
         ak.ar_generate(pp, pc, carry, torch.as_tensor(h), x.shape[1], 3,
                        "argmax", quantize=True,
                        act_scales=ak.act_scales_from_maxes(maxes))
+
+
+# ---------------------------------------------------------------------------
+# channel widths off the kernels' tiling: zero-padded on the cuda route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("dtype, quantize", [("float64", False),
+                                             ("bfloat16", True)])
+def test_padded_params_decode_as_the_unpadded(dtype, quantize, kernel_size):
+    # the sd-mini recipe's widths (egs/arctic/sd-mini/run.sh: 32 / 16),
+    # padded as the cuda route pads them (n_resch to the warm-up's 128, a
+    # persistent kernel's n_skipch to 16; and the launch loop's 128),
+    # decode argmax-equal through the plain loop: exact zeros in float64,
+    # and in int8 integer products that gain only zero terms and scales
+    # and activation maxes that stay as they were
+    pc = P.WaveNetConfig(n_quantize=256, n_aux=28, n_resch=32, n_skipch=16,
+                         dilation_depth=5, dilation_repeat=1,
+                         kernel_size=kernel_size, upsampling_factor=0,
+                         compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(17)
+    pp = P.init_wavenet_params(pc, gen)
+    for group in ("dil", "aux", "skip", "res", "post1", "post2", "causal"):
+        b = pp[group]["b"]
+        pp[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
+    rng = np.random.RandomState(kernel_size)
+    B, n = 4, 40
+    x = rng.randint(0, 256, (B, pc.receptive_field))
+    h = rng.randn(B, pc.receptive_field + n, pc.n_aux).astype(np.float32)
+    want = P.batch_fast_generate(pp, pc, x, h, [n] * B, mode="argmax",
+                                 impl="plain", quantize=quantize)
+    for multiple in ((128, 16), (128, 128)):
+        qp, qc = P.pad_params_for_kernels(pp, pc, multiple)
+        assert (qc.n_resch, qc.n_skipch) == multiple
+        assert qc.receptive_field == pc.receptive_field
+        got = P.batch_fast_generate(qp, qc, x, h, [n] * B, mode="argmax",
+                                    impl="plain", quantize=quantize)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    # widths on the multiples are left as they are
+    same = P.pad_params_for_kernels(qp, qc, (16, 16))
+    assert same[0] is qp and same[1] is qc
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_int8_route_per_fleet_size(kernel_size, monkeypatch):
+    # ar_route(..., quantize=True) decides from the int8 plan and the
+    # fleet against AR_INT8_LOOP_FROM_B, before any work
+    pc = P.WaveNetConfig(n_quantize=256, n_aux=28, n_resch=512, n_skipch=256,
+                         dilation_depth=10, dilation_repeat=3,
+                         kernel_size=kernel_size, upsampling_factor=0,
+                         compute_dtype="bfloat16")
+    start = ak.AR_INT8_LOOP_FROM_B[kernel_size]
+    for B in (1, 16, 32, 256, 512, 2048):
+        want = "loop" if start is not None and B >= start else "persistent"
+        assert ak.ar_route(pc, B, quantize=True) == want
+    monkeypatch.setitem(ak.AR_INT8_LOOP_FROM_B, kernel_size, 64)
+    assert ak.ar_route(pc, 63, quantize=True) == "persistent"
+    assert ak.ar_route(pc, 64, quantize=True) == "loop"
+    # the bf16 route keeps its own threshold
+    assert ak.ar_route(pc, 64) == ak.ar_route(pc, 64, quantize=False)
+    # the int8 envelope of each route states its kernel's tiling
+    narrow = P.WaveNetConfig(n_resch=48, n_skipch=48, compute_dtype="bfloat16",
+                             kernel_size=kernel_size)
+    assert ak.ar_kernel_constraint_error(narrow, route="persistent") is None
+    assert "32" in ak.ar_kernel_constraint_error(narrow, True, "persistent")
+    assert "8 warps" in ak.ar_kernel_constraint_error(narrow, True, "loop")

@@ -11,6 +11,7 @@ import torch
 
 import jax
 
+from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
     WaveNetConfig,
     _check_impl,
@@ -158,20 +159,39 @@ def test_check_impl_auto_serves_float32_configs(quantize):
 
 
 @pytest.mark.parametrize("kw, what", [
-    (dict(n_resch=64), "n_resch"),
-    (dict(n_skipch=192), "n_skipch"),
+    (dict(kernel_size=4), "kernel_size"),
+    (dict(n_aux=AUX_MAX + 1), "n_aux"),
     (dict(compute_dtype="float64"), "compute_dtype"),
 ])
 def test_check_impl_auto_raises_outside_the_envelope(kw, what):
     # on a CUDA device auto means the kernels: where an envelope refuses
-    # the config it raises with the envelope's reason, as cuda does, and
-    # never decodes plainly on the card; on the CPU it is plain
+    # the config (and no padding of the channel widths can serve it) it
+    # raises with the envelope's reason, as cuda does, and never decodes
+    # plainly on the card; on the CPU it is plain
     cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
     for impl in ("auto", "cuda"):
         with pytest.raises(NotImplementedError, match=what):
             _check_impl(impl, cfg, torch.device("cuda"), False)
     assert _check_impl("auto", cfg, torch.device("cpu"), False) == "plain"
     assert _check_impl("plain", cfg, torch.device("cuda"), False) == "plain"
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kw", [
+    # the sd-mini recipe's widths (egs/arctic/sd-mini/run.sh)
+    dict(n_resch=32, n_skipch=16, dilation_depth=5, dilation_repeat=1),
+    dict(n_resch=64),
+    dict(n_skipch=192),
+])
+def test_check_impl_serves_widths_off_the_kernels_tiling(kw, quantize):
+    # channel widths off the kernels' multiples are zero-padded to them on
+    # the cuda route, so auto and cuda resolve to the kernels on a CUDA
+    # device (from the envelopes alone: no card is touched)
+    cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
+    for impl in ("auto", "cuda"):
+        assert _check_impl(impl, cfg, torch.device("cuda"), quantize) \
+            == "cuda"
+    assert _check_impl("auto", cfg, torch.device("cpu"), quantize) == "plain"
 
 
 def test_float32_configs_run_on_the_kernels_as_bf16():
