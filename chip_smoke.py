@@ -182,6 +182,51 @@ def main() -> int:
     for ln in ptxas:
         print(f"[device] ptxas: {ln}", flush=True)
 
+    def sass_check():
+        """The stack kernels are tensor-core kernels: ``cuobjdump -sass`` of
+        the built library shows HGMMA (wgmma) in every instance of their
+        product core, csrc/wn_wgmma.cuh's ``wg_kernel<P>``."""
+        import re
+        import shutil
+
+        tool = shutil.which("cuobjdump") or os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+        out = subprocess.run([tool, "-sass", _build.BUILD_INFO["path"]],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise AssertionError(f"cuobjdump failed: {out.stderr[-500:]}")
+        counts, fn = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                fn = name if "wg_kernel" in name else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+
+        def label_of(f):
+            """an instance's problems (two or three where WgBoth runs them
+            as one launch), with their template arguments (the mangled
+            name spells a repeated template by reference: Wgrad's by its
+            arguments alone)"""
+            if "WgradILi" in f:
+                return "+".join("Wgrad" + a for a in re.findall(r"ILi(\d)E", f))
+            return "+".join(n + a for n, a in re.findall(
+                r"(FwdGate|FwdOut|BwdDG|BwdDH|BwdDX)(?:ILb(\d)E)?", f))
+
+        label = {f: label_of(f) for f in counts}
+        print("[sass] HGMMA instructions per product-core instance (cuobjdump "
+              "-sass): " + ", ".join(f"{label[f]} {n}"
+                                     for f, n in sorted(counts.items(),
+                                                        key=lambda i: label[i[0]]))
+              + f" | {card}", flush=True)
+        want = {"FwdGate0", "FwdGate1", "FwdOut", "BwdDG", "BwdDX+BwdDH",
+                "Wgrad0+Wgrad1+Wgrad2"}
+        if set(label.values()) != want or not all(counts.values()):
+            raise AssertionError(f"not every product-core instance runs "
+                                 f"wgmma: {counts}")
+
     def make_params(cfg, seed):
         """Random weights from a seeded generator, with small random
         biases so the bias paths carry real values."""
@@ -228,7 +273,14 @@ def main() -> int:
         tb = nbytes / HBM
         to = ops_bf16 / BF16_RATE + ops_int8 / INT8_RATE
         return dict(bound_ms=1e3 * max(tb, to),
-                    bound_by="bytes" if tb >= to else "operations")
+                    bound_by="bytes" if tb >= to else "operations",
+                    ops=ops_bf16 + ops_int8)
+
+    def rate(bnd, ms):
+        """What a kernel's time reads against its work: TFLOP/s (bf16 and
+        int8 operations alike) and its share of the bound."""
+        return (f"{bnd['ops'] / (ms * 1e9):.1f} TFLOP/s, "
+                f"{bnd['bound_ms'] / ms:.3f} of the bound")
 
     def stack_bound(cfg, B, T, train):
         """K2: stream0 bf16 and h_up f32 in, the layer weights; out the L-1
@@ -296,7 +348,8 @@ def main() -> int:
             name=name + (m["suffix"] if m else ""), route="cuda",
             source="pytorchwavenetvocoder_tpu_torch/csrc/" + source,
             replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, **bnd))
+            plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"]))
 
     #: K1's us/step in this run, by (model, "bf16" or "int8", B), for [K4]
     k1_us: dict = {}
@@ -449,7 +502,7 @@ def main() -> int:
                           for n, r in readings.items())
               + f" (limits rel {tol_rel}, share {tol_share}) | kernel chained "
               f"to the last stream {chain:.3e} (limit {tol_chain}) | kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{ms:.3f} ms ({rate(bnd, ms)}), plain {plain_ms:.3f} ms, bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | {card}",
               flush=True)
         kernel_entry("layer_stack_fwd", m, "layer_stack_fwd.cu",
@@ -1101,7 +1154,8 @@ def main() -> int:
                           for n, r in readings.items())
               + f" (limits rel {tol_rel}, share {tol_share}, st {tol_st}) | "
               f"skip sum vs the plain layers' 1x1s on the kernel's streams "
-              f"{skip_rel:.3e} (limit {tol_skip}) | kernel {ms:.3f} ms, "
+              f"{skip_rel:.3e} (limit {tol_skip}) | kernel {ms:.3f} ms "
+              f"({rate(bnd, ms)}), "
               f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
               f"({bnd['bound_by']}) | {card}", flush=True)
         kernel_entry("layer_stack_fwd_train", m, "layer_stack_fwd.cu",
@@ -1225,7 +1279,8 @@ def main() -> int:
                   + f" | fails {fails(rd) or 'none'}", flush=True)
         print(f"[K3{m['tag']}] limits cos > {tol_cos}, rel < {tol_rel}, skip_w "
               f"rel < {tol_skip_w} | two runs bitwise equal: {bitwise} | "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"kernel {ms:.3f} ms ({rate(bnd, ms)}), plain {plain_ms:.3f} "
+              f"ms, bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | {card}",
               flush=True)
         kernel_entry("layer_stack_bwd", m, "layer_stack_bwd.cu",
@@ -1370,6 +1425,10 @@ def main() -> int:
             losses = [l for _i, l, _s in res["intervals"]]
             secs = [s for _i, _l, s in res["intervals"]]
             fused_ms = 1e3 * float(np.median(secs[2:]))
+            fb, bb = stack_bound(flagship, B_TRAIN, T, True), bwd_bound(
+                flagship, B_TRAIN, T)
+            step_bnd = dict(ops=fb["ops"] + bb["ops"],
+                            bound_ms=fb["bound_ms"] + bb["bound_ms"])
 
             # the plain route at the same point, a few steps
             plain_state = create_train_state(
@@ -1411,7 +1470,8 @@ def main() -> int:
                   f"(B={B_TRAIN}, T={T}, k={flagship.kernel_size}): "
                   f"route {res['route']}, launches {launches}, loss "
                   + " ".join(f"{l:.4f}" for l in losses)
-                  + f" | ms/step fused {fused_ms:.1f}, plain {plain_ms:.1f} | "
+                  + f" | ms/step fused {fused_ms:.1f}, plain {plain_ms:.1f} "
+                  f"(K2 train + K3: {rate(step_bnd, fused_ms)}) | "
                   f"checkpoint decoded: wav {wav.shape}, finite "
                   f"{bool(np.isfinite(wav).all())}, std {float(np.std(wav)):.4f}"
                   f" | resumed at step {res2['start']}, ended at "
@@ -2201,6 +2261,7 @@ def main() -> int:
         if bad:
             raise AssertionError(f"K4 outside its limits: {bad}")
 
+    phase("sass", sass_check)
     phase("K2", lambda: k2(arctic))
     phase("K1", lambda: k1(arctic, 256, 256,
                            {"no_dil_bias": zero_dil_bias(params)}))

@@ -132,26 +132,24 @@ def kernels() -> ctypes.CDLL:
     lib.wn_ar_phase_slots.argtypes = []
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
-        [vp] * 8             # x0 streams h dil_w aux_w zb res_w res_b
+        [vp] * 8             # x0 streams h wgate wres zb res_b g
         + [vp]               # dilations (host int*)
-        + [i32] * 6          # n_run B T R A kernel_size
+        + [i32] * 6          # n_run B T R A64 kernel_size
         + [vp])              # stream
     lib.wn_layer_stack_fwd_train.restype = i32
     lib.wn_layer_stack_fwd_train.argtypes = (
-        [vp] * 12            # x0 streams st skip_sum h dil_w aux_w zb skip_w
-                             # skip_b res_w res_b
+        [vp] * 11            # x0 streams st skip_sum h wgate wout zb res_b
+                             # skip_b g
         + [vp]               # dilations (host int*)
-        + [i32] * 7          # L B T R S A kernel_size
+        + [i32] * 7          # L B T R S A64 kernel_size
         + [vp])              # stream
-    lib.wn_layer_stack_bwd_workspace.restype = ctypes.c_longlong
-    lib.wn_layer_stack_bwd_workspace.argtypes = [i32] * 5   # B T R S A
     lib.wn_layer_stack_bwd.restype = i32
     lib.wn_layer_stack_bwd.argtypes = (
-        [vp] * 9             # x0 streams st dsk h dil_w aux_wp skip_w res_w
-        + [vp]               # dilations (host int*)
+        [vp] * 9             # x0 streams st dsk h dil_w aux_w skip_w res_w
+        + [vp, vp]           # dilations, wgrad plan (host int*)
         + [vp] * 8           # ddil daux dskip_w dres_w dzb dres_b dstream0 dh
-        + [vp] * 3           # dz dx_pp ws
-        + [i32] * 8          # L B T R S A A_pad kernel_size
+        + [vp] * 6           # dz g dx_pp part zb_part rb_part
+        + [i32] * 8          # L B T R S A A64 kernel_size
         + [vp])              # stream
     lib.wn_matmul_chain_plan.restype = i32
     lib.wn_matmul_chain_plan.argtypes = [i32, i32, vp]   # variant B; info

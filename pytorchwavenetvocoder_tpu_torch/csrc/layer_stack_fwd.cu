@@ -10,325 +10,297 @@
 //     wn_layer_stack_fwd_train; plain version ops/train_kernel.py::
 //     ref_layer_stack.
 //
-// Bound on the H100: per layer a (B*T, kR) x (kR, 2R) plus a (B*T, R) x
-// (R, R) bf16 product (and in training a (B*T, R) x (R, S) skip product); at
-// the warm-up's ~10^5 rows and the training windows' ~2 x 10^4 this is
-// tensor-core work.  The bf16 streams, and in training the (B*T, 2R) bf16
-// saves (1.42 GB over 30 layers at the arctic flagship window), are the
-// only device-memory traffic that grows with B*T.  Design: one launch per
-// layer; a block owns 32 time steps of one utterance.  It stages the K taps
-// x[t - m d], m = 0 .. K-1 (zero where t - m d < 0: the causal padding)
-// from the previous layer's stream into shared memory (K, the kernel size,
-// is a template parameter: the kernel_size 2 instance is unchanged by the
-// third tap), computes z in 64-channel chunks (sigmoid and tanh halves)
-// with wmma bf16 tiles and f32 accumulation, adds the aux projection and
-// bias, applies the f32 gate into a bf16 tile that stays in shared memory,
-// then runs the 1x1s on it: in training the skip 1x1, added into the f32
-// skip sum (each block owns its rows, so no two blocks touch one element;
-// layer 0 writes it, later layers read-modify-write), and the residual
-// 1x1, out = bf16(g @ W_res + b_res + x), which the last layer of a
-// training stack skips (its output feeds nothing).  Shared memory grows
-// with K: (K + 1) x 32 x R bf16 tiles, 152 KB at K = 3, R = 512, which
-// keeps kernel_size 3 under Hopper's 227 KB up to R = 768
-// (ops/train_kernel.py::_smem_bytes).  The TPU kernel's ring of tiles,
-// packed int32 pairs and tile cadence were Mosaic constraints and are not
-// carried over.
-#include "wn_common.cuh"
+// Bound on the H100: per layer a (B*T, kR + A) x (kR + A, 2R) plus a
+// (B*T, R) x (R, R) bf16 product (and in training a (B*T, R) x (R, S) skip
+// product); at the warm-up's ~10^5 rows and the training windows' ~2 x
+// 10^4 this is tensor-core work.  The bf16 streams, and in training the
+// (B*T, 2R) bf16 saves, are the only device-memory traffic that grows with
+// B*T.
+//
+// Design: two products per layer on the wgmma + TMA core of wn_wgmma.cuh
+// (persistent blocks over 128-row output tiles: the gate's 256 columns
+// wide, one block an SM; the 1x1s' 128 wide, two blocks an SM, so that one
+// block's epilogue runs beside the other's products), g going through
+// device memory between them:
+//   (1) the gate: A = [x[t] | x[t-d] | (x[t-2d]) | h[t]], each row tile
+//       loaded by TMA at row coordinate t0 - m d of a 3-D (utterance, t,
+//       channel) map, whose zero fill outside [0, T) is the causal padding
+//       (no row crosses into the previous utterance); the aux rows zero-
+//       padded to 64 by the map.  B: the gate weights packed per call
+//       (ops/train_kernel.py::pack_gate_weights), K-major, with the columns
+//       interleaved in groups of 8 so that each thread's accumulators hold
+//       the sigmoid and the tanh pre-activations of the same channels: the
+//       epilogue adds the bias, gates in f32 and writes bf16 g (and in
+//       training the bf16 sigma | tanh saves) from registers;
+//   (2) out = bf16(g @ W_res + b_res + x) and, in training, the skip 1x1
+//       into the f32 skip sum as extra output columns of the same product
+//       (B: [W_res^T ; W_skip^T], packed per call): the block that owns an
+//       element reads, adds and writes it, no atomics.  The last layer of a
+//       training stack runs the skip columns only.
+// g's round trip through device memory costs 2 x rows x R x 2 bytes a
+// layer (201 MB, ~60 us, at the warm-up chunk of 32 x 3,070 rows).  The
+// TPU kernel's ring of tiles, packed int32 pairs and tile cadence were
+// Mosaic constraints and are not carried over.
+#include "wn_wgmma.cuh"
 
-using namespace nvcuda;
+// (1) the gate product of one layer
+template <bool TRAIN>
+struct FwdGate {
+    static constexpr int A_MN = 0, B_MN = 0, BN = 256, BLOCKS = 1;
+    CUtensorMap xmap;    // this layer's input stream, (planes, T, R), rows 128
+    CUtensorMap hmap;    // aux (B, T, A64), rows 128
+    CUtensorMap wmap;    // packed gate weights (layers, 2R, K*R + A64), rows 128
+    const float* zb;     // (2R) dil_b + aux_b
+    bf16* g;             // (B, T, R)
+    bf16* st;            // (B, T, 2R) this layer's sigma | tanh (training)
+    int B, T, R, A64, K, d, l, plane0, ntt, nN;
 
-#define LS_THREADS 256
-#define LS_TM 32          // time steps per block: 2 wmma row tiles
-#define LS_ZC 128         // staged accumulator columns
+    __device__ int items() const { return B * ntt * nN; }
+    __device__ int ksteps(int) const { return (K * R + A64) / WG_BK; }
 
-template <int K>
-static size_t ls_smem_bytes(int R, int A) {
-    return (size_t)(K + 1) * LS_TM * R * sizeof(bf16) // the K taps, gate
-         + (size_t)LS_TM * LS_ZC * sizeof(float)       // accumulator stage
-         + (size_t)LS_TM * A * sizeof(float);          // aux rows
-}
-
-// TRAIN adds the sigma/tanh saves and the skip sum; without it the kernel
-// is the streams-only one the decode warm-up runs.  K: the kernel size.
-template <int K, bool TRAIN>
-__global__ void __launch_bounds__(LS_THREADS) stack_layer_kernel(
-    const bf16* __restrict__ x_in,    // (B, T, R) this layer's input stream
-    bf16* __restrict__ x_out,         // (B, T, R) its output stream
-    const bf16* __restrict__ h,       // (B, T, A)
-    const bf16* __restrict__ dil_w,   // (K, R, 2R): [K-1-m] taps x[t - m d]
-    const bf16* __restrict__ aux_w,   // (A, 2R)
-    const float* __restrict__ zb,     // (2R) dil_b + aux_b
-    const bf16* __restrict__ res_w,   // (R, R)
-    const float* __restrict__ res_b,  // (R)
-    int T, int R, int A, int d,
-    // training mode only
-    bf16* __restrict__ st,            // (B, T, 2R) this layer's sigma | tanh
-    float* __restrict__ skip_sum,     // (B, T, S)
-    const bf16* __restrict__ skip_w,  // (R, S)
-    const float* __restrict__ skip_b, // (S)
-    int S, int first_layer, int do_res) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    bf16* xc = (bf16*)smem;                    // (K, TM, R) x[t - m d]
-    bf16* gs = xc + K * LS_TM * R;             // (TM, R) gate output
-    float* zs = (float*)(gs + LS_TM * R);      // (TM, ZC) accumulators
-    float* hs = zs + LS_TM * LS_ZC;            // (TM, A) aux
-    const int b = blockIdx.y, t0 = blockIdx.x * LS_TM;
-    const int warp = threadIdx.x >> 5;
-    const int R2 = 2 * R;
-    const bf16* xb = x_in + (size_t)b * T * R;
-
-    // stage the K taps, 16-byte vectors, zeros outside [0, T)
-    const int vec = R / 8;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < LS_TM * vec; i += LS_THREADS) {
-        const int r = i / vec, v = i - r * vec, t = t0 + r;
-#pragma unroll
-        for (int m = 0; m < K; ++m) {
-            const int ts = t - m * d;
-            ((uint4*)(xc + ((size_t)m * LS_TM + r) * R))[v] =
-                (t < T && ts >= 0) ? ((const uint4*)(xb + (size_t)ts * R))[v]
-                                   : zero;
+    __device__ void load(int it, int ks, unsigned char* sa, unsigned char* sb,
+                         uint64_t* bar) const {
+        const int rt = it / nN, nt = it - rt * nN;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
+        const int kk = ks * WG_BK;
+        if (kk < K * R) {                 // tap m: x[t - m d]
+            const int m = kk / R;
+            tma_load_3d(sa, &xmap, bar, kk - m * R, t0 - m * d, plane0 + b);
+        } else {
+            tma_load_3d(sa, &hmap, bar, kk - K * R, t0, b);
         }
+        tma_load_3d(sb, &wmap, bar, kk, nt * BN, l);
     }
-    for (int i = threadIdx.x; i < LS_TM * A; i += LS_THREADS) {
-        const int r = i / A, a = i - r * A, t = t0 + r;
-        hs[i] = t < T ? bf2f(h[((size_t)b * T + t) * A + a]) : 0.f;
-    }
-    __syncthreads();
 
-    // gate, 64 channels (128 z columns) per chunk; warp w owns one 16-wide
-    // column tile: sigmoid half for w < 4, tanh half otherwise
-    for (int c = 0; c < R; c += 64) {
-        const int col = warp < 4 ? c + 16 * warp : R + c + 16 * (warp - 4);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-        wmma::fill_fragment(acc[0], 0.f);
-        wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-        for (int k = 0; k < R; k += 16) {
-            // bw[m]: the weight of tap x[t - m d], dil_w[K-1-m]
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw[K];
+    struct Pre {};
+    __device__ void prefetch(int, WgFrag, Pre&) const {}
+
+    // columns 16 i .. 16 i + 7 of the item are the sigmoid pre-activations
+    // of channels nt*BN/2 + 8 i + (0..7), columns 16 i + 8 .. 16 i + 15
+    // their tanh ones
+    __device__ void epilogue(int it, const float (&acc)[BN / 2], WgFrag f, int,
+                             unsigned char*, const Pre&) const {
+        const int rt = it / nN, nt = it - rt * nN;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
 #pragma unroll
-            for (int m = 0; m < K; ++m)
-                wmma::load_matrix_sync(
-                    bw[m], dil_w + ((size_t)(K - 1 - m) * R + k) * R2 + col, R2);
+        for (int i = 0; i < BN / 16; ++i) {
+            const int c = nt * (BN / 2) + 8 * i + f.col;
+            const float bs0 = zb[c], bs1 = zb[c + 1];
+            const float bt0 = zb[R + c], bt1 = zb[R + c + 1];
 #pragma unroll
-            for (int t = 0; t < 2; ++t) {
-#pragma unroll
-                for (int m = 0; m < K; ++m) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                    wmma::load_matrix_sync(
-                        a, xc + ((size_t)m * LS_TM + 16 * t) * R + k, R);
-                    wmma::mma_sync(acc[t], a, bw[m], acc[t]);
+            for (int h = 0; h < 2; ++h) {
+                const int t = t0 + f.row + 8 * h;
+                if (t >= T) continue;
+                const size_t row = (size_t)b * T + t;
+                const float s0 = acc[8 * i + 2 * h] + bs0;
+                const float s1 = acc[8 * i + 2 * h + 1] + bs1;
+                const float u0 = acc[8 * i + 4 + 2 * h] + bt0;
+                const float u1 = acc[8 * i + 4 + 2 * h + 1] + bt1;
+                if constexpr (TRAIN) {
+                    const float sg0 = wn_sigmoid(s0), sg1 = wn_sigmoid(s1);
+                    const float th0 = tanhf(u0), th1 = tanhf(u1);
+                    *(uint32_t*)(g + row * R + c) = bf2_bits(sg0 * th0, sg1 * th1);
+                    bf16* sr = st + row * 2 * R;
+                    *(uint32_t*)(sr + c) = bf2_bits(sg0, sg1);
+                    *(uint32_t*)(sr + R + c) = bf2_bits(th0, th1);
+                } else {
+                    *(uint32_t*)(g + row * R + c) =
+                        bf2_bits(wn_gate(s0, u0), wn_gate(s1, u1));
                 }
             }
         }
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-            wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
-                                    acc[t], LS_ZC, wmma::mem_row_major);
-        __syncthreads();
-        for (int i = threadIdx.x; i < LS_TM * 64; i += LS_THREADS) {
-            const int r = i >> 6, j = i & 63, cc = c + j;
-            float as = 0.f, at = 0.f;
-            for (int a = 0; a < A; ++a) {
-                const float hv = hs[r * A + a];
-                as += hv * bf2f(aux_w[(size_t)a * R2 + cc]);
-                at += hv * bf2f(aux_w[(size_t)a * R2 + R + cc]);
-            }
-            const float s = zs[r * LS_ZC + j] + as + zb[cc];
-            const float tt = zs[r * LS_ZC + 64 + j] + at + zb[R + cc];
-            if constexpr (TRAIN) {
-                const float sg = wn_sigmoid(s), th = tanhf(tt);
-                gs[(size_t)r * R + cc] = f2bf(sg * th);
-                const int t = t0 + r;
-                if (t < T) {
-                    bf16* row = st + ((size_t)b * T + t) * R2;
-                    row[cc] = f2bf(sg);
-                    row[R + cc] = f2bf(th);
-                }
-            } else {
-                gs[(size_t)r * R + cc] = f2bf(wn_gate(s, tt));
-            }
-        }
-        __syncthreads();
+    }
+};
+
+// (2) the residual 1x1 (columns [0, R)) and the skip 1x1 (columns
+// [R, R + S)) on g, over output columns [n_lo, n_lo + 128 nN)
+struct FwdOut {
+    static constexpr int A_MN = 0, B_MN = 0, BN = 128, BLOCKS = 2;
+    CUtensorMap gmap;      // g (B, T, R), rows 128
+    CUtensorMap wmap;      // packed (layers, R + S, R): W_res^T then W_skip^T
+    const bf16* x;         // this layer's input stream (B, T, R)
+    bf16* out;             // its output stream (B, T, R)
+    const float* res_b;    // (R)
+    float* skip;           // (B, T, S) f32 skip sum (training)
+    const float* skip_b;   // (S)
+    int B, T, R, S, l, ntt, n_lo, nN, first;
+
+    __device__ int items() const { return B * ntt * nN; }
+    __device__ int ksteps(int) const { return R / WG_BK; }
+
+    __device__ void load(int it, int ks, unsigned char* sa, unsigned char* sb,
+                         uint64_t* bar) const {
+        const int rt = it / nN, nt = it - rt * nN;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
+        tma_load_3d(sa, &gmap, bar, ks * WG_BK, t0, b);
+        tma_load_3d(sb, &wmap, bar, ks * WG_BK, n_lo + nt * BN, l);
     }
 
-    if constexpr (TRAIN) {
-        // skip 1x1 into the f32 skip sum, 128 columns per chunk
-        for (int c = 0; c < S; c += LS_ZC) {
-            const int col = c + 16 * warp;
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-            wmma::fill_fragment(acc[0], 0.f);
-            wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-            for (int k = 0; k < R; k += 16) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-                wmma::load_matrix_sync(bw, skip_w + (size_t)k * S + col, S);
+    struct Pre {};
+    __device__ void prefetch(int, WgFrag, Pre&) const {}
+
+    __device__ void epilogue(int it, const float (&acc)[64], WgFrag f, int,
+                             unsigned char*, const Pre&) const {
+        const int rt = it / nN, nt = it - rt * nN;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
+        const int n0 = n_lo + nt * BN;
 #pragma unroll
-                for (int t = 0; t < 2; ++t) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                    wmma::load_matrix_sync(a, gs + (size_t)(16 * t) * R + k, R);
-                    wmma::mma_sync(acc[t], a, bw, acc[t]);
-                }
-            }
+        for (int j = 0; j < 16; ++j) {
+            const int n = n0 + 8 * j + f.col;
 #pragma unroll
-            for (int t = 0; t < 2; ++t)
-                wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
-                                        acc[t], LS_ZC, wmma::mem_row_major);
-            __syncthreads();
-            for (int i = threadIdx.x; i < LS_TM * LS_ZC; i += LS_THREADS) {
-                const int r = i >> 7, j = i & (LS_ZC - 1), t = t0 + r, cc = c + j;
-                if (t < T) {
-                    float* dst = skip_sum + ((size_t)b * T + t) * S + cc;
-                    const float v = zs[r * LS_ZC + j] + skip_b[cc];
-                    *dst = first_layer ? v : *dst + v;
+            for (int h = 0; h < 2; ++h) {
+                const int t = t0 + f.row + 8 * h;
+                if (t >= T) continue;
+                const size_t row = (size_t)b * T + t;
+                const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+                if (n0 < R) {
+                    const float2 xv = bits_bf2(*(const uint32_t*)(x + row * R + n));
+                    *(uint32_t*)(out + row * R + n) =
+                        bf2_bits(a0 + res_b[n] + xv.x, a1 + res_b[n + 1] + xv.y);
+                } else {
+                    const int sc = n - R;
+                    float2* dst = (float2*)(skip + row * S + sc);
+                    float2 v = make_float2(a0 + skip_b[sc], a1 + skip_b[sc + 1]);
+                    if (!first) {
+                        const float2 o = *dst;
+                        v = make_float2(o.x + v.x, o.y + v.y);
+                    }
+                    *dst = v;
                 }
             }
-            __syncthreads();
         }
-        if (!do_res) return;    // the last layer's output stream feeds nothing
     }
+};
 
-    // residual 1x1, 128 output columns per chunk; warp w owns 16 of them
-    for (int c = 0; c < R; c += LS_ZC) {
-        const int col = c + 16 * warp;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-        wmma::fill_fragment(acc[0], 0.f);
-        wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-        for (int k = 0; k < R; k += 16) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-            wmma::load_matrix_sync(bw, res_w + (size_t)k * R + col, R);
-#pragma unroll
-            for (int t = 0; t < 2; ++t) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, gs + (size_t)(16 * t) * R + k, R);
-                wmma::mma_sync(acc[t], a, bw, acc[t]);
-            }
-        }
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-            wmma::store_matrix_sync(zs + (size_t)(16 * t) * LS_ZC + 16 * warp,
-                                    acc[t], LS_ZC, wmma::mem_row_major);
-        __syncthreads();
-        for (int i = threadIdx.x; i < LS_TM * LS_ZC; i += LS_THREADS) {
-            const int r = i >> 7, j = i & (LS_ZC - 1), t = t0 + r, cc = c + j;
-            if (t < T) {
-                const float v = zs[r * LS_ZC + j] + res_b[cc]
-                              + bf2f(xc[(size_t)r * R + cc]);
-                x_out[((size_t)b * T + t) * R + cc] = f2bf(v);
-            }
-        }
-        __syncthreads();
-    }
+struct FwdMaps {
+    CUtensorMap x0, xs, h, wg, g, wo;
+};
+
+// the maps of one call: x0 (B, T, R), streams (n_str, B, T, R), h (B, T,
+// A64), the packed weights of n_w layers, g (B, T, R)
+static int fwd_maps(FwdMaps& m, const void* x0, const void* streams, int n_str,
+                    const void* h, const void* wgate, const void* wout, int n_w,
+                    int n_out, const void* g, int B, int T, int R, int A64, int K) {
+    int e;
+    if ((e = wg_map(&m.x0, x0, R, T, B, WG_BM))) return e;
+    if (n_str > 0 && (e = wg_map(&m.xs, streams, R, T, (long long)n_str * B, WG_BM)))
+        return e;
+    if ((e = wg_map(&m.h, h, A64, T, B, WG_BM))) return e;
+    if ((e = wg_map(&m.wg, wgate, (long long)K * R + A64, 2 * R, n_w,
+                    FwdGate<true>::BN)))
+        return e;
+    if ((e = wg_map(&m.g, g, R, T, B, WG_BM))) return e;
+    return wg_map(&m.wo, wout, R, n_out, n_w, FwdOut::BN);
 }
 
-// Runs layers 0 .. n_run-1 on `stream`: layer l reads stream l (x0 for
-// l = 0, else streams[l-1]) and writes streams[l]; streams is
-// (n_run, B, T, R).  dilations is a host array of n_run ints; dil_w is
-// (n_run.., K, R, 2R).  Returns cudaGetLastError() (0 = success).
-template <int K>
-static int run_fwd(const void* x0, void* streams, const void* h,
-                   const void* dil_w, const void* aux_w, const void* zb,
-                   const void* res_w, const void* res_b, const int* dilations,
-                   int n_run, int B, int T, int R, int A, cudaStream_t st) {
-    const size_t smem = ls_smem_bytes<K>(R, A);
-    cudaError_t e = cudaFuncSetAttribute(
-        stack_layer_kernel<K, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const size_t stream_sz = (size_t)B * T * R;
-    const dim3 grid((T + LS_TM - 1) / LS_TM, B);
-    for (int l = 0; l < n_run; ++l) {
-        const bf16* in = l == 0 ? (const bf16*)x0
-                                : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
-        bf16* out = (bf16*)streams + (size_t)l * stream_sz;
-        stack_layer_kernel<K, false><<<grid, LS_THREADS, smem, st>>>(
-            in, out, (const bf16*)h,
-            (const bf16*)dil_w + (size_t)l * K * R * 2 * R,
-            (const bf16*)aux_w + (size_t)l * A * 2 * R,
-            (const float*)zb + (size_t)l * 2 * R,
-            (const bf16*)res_w + (size_t)l * R * R,
-            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l],
-            nullptr, nullptr, nullptr, nullptr, 0, 0, 0);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return (int)cudaGetLastError();
+template <bool TRAIN>
+static FwdGate<TRAIN> gate_problem(const FwdMaps& m, int l, int d, const void* zb,
+                                   void* g, void* st, int B, int T, int R, int A64,
+                                   int K) {
+    FwdGate<TRAIN> p;
+    p.xmap = l == 0 ? m.x0 : m.xs;
+    p.hmap = m.h;
+    p.wmap = m.wg;
+    p.zb = (const float*)zb + (size_t)l * 2 * R;
+    p.g = (bf16*)g;
+    p.st = (bf16*)st;
+    p.B = B; p.T = T; p.R = R; p.A64 = A64; p.K = K; p.d = d; p.l = l;
+    p.plane0 = l == 0 ? 0 : (l - 1) * B;
+    p.ntt = (T + WG_BM - 1) / WG_BM;
+    p.nN = 2 * R / p.BN;
+    return p;
 }
 
-// The training forward: runs all L layers.  Layer l reads stream l (x0 for
-// l = 0, else streams[l-1]), writes streams[l] for l < L-1 (streams is
-// (L-1, B, T, R)), its sigma | tanh saves into st[l] (st is (L, B, T, 2R)),
-// and adds its skip 1x1 into skip_sum (B, T, S) f32.
-template <int K>
-static int run_fwd_train(
-    const void* x0, void* streams, void* st_v, void* skip_sum, const void* h,
-    const void* dil_w, const void* aux_w, const void* zb, const void* skip_w,
-    const void* skip_b, const void* res_w, const void* res_b,
-    const int* dilations, int L, int B, int T, int R, int S, int A,
-    cudaStream_t cs) {
-    const size_t smem = ls_smem_bytes<K>(R, A);
-    cudaError_t e = cudaFuncSetAttribute(
-        stack_layer_kernel<K, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const size_t stream_sz = (size_t)B * T * R;
-    const dim3 grid((T + LS_TM - 1) / LS_TM, B);
-    for (int l = 0; l < L; ++l) {
-        const bf16* in = l == 0 ? (const bf16*)x0
-                                : (const bf16*)streams + (size_t)(l - 1) * stream_sz;
-        bf16* out = l < L - 1 ? (bf16*)streams + (size_t)l * stream_sz : nullptr;
-        stack_layer_kernel<K, true><<<grid, LS_THREADS, smem, cs>>>(
-            in, out, (const bf16*)h,
-            (const bf16*)dil_w + (size_t)l * K * R * 2 * R,
-            (const bf16*)aux_w + (size_t)l * A * 2 * R,
-            (const float*)zb + (size_t)l * 2 * R,
-            (const bf16*)res_w + (size_t)l * R * R,
-            (const float*)res_b + (size_t)l * R, T, R, A, dilations[l],
-            (bf16*)st_v + (size_t)l * 2 * stream_sz, (float*)skip_sum,
-            (const bf16*)skip_w + (size_t)l * R * S,
-            (const float*)skip_b + (size_t)l * S, S, l == 0, l < L - 1);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return (int)cudaGetLastError();
+static int check_fwd_shape(int B, int T, int R, int A64, int K) {
+    if ((K != 2 && K != 3) || B < 1 || T < 1 || R % FwdOut::BN != 0 || A64 < WG_BK
+        || A64 % WG_BK != 0)
+        return (int)cudaErrorInvalidValue;
+    return 0;
 }
 
-// The streams-only forward (run_fwd) at kernel size K (2 or 3; any other
-// returns cudaErrorInvalidValue).
+// The streams-only forward: layers 0 .. n_run-1 on `stream`.  Layer l reads
+// stream l (x0 for l = 0, else streams[l-1]) and writes streams[l];
+// streams is (n_run, B, T, R) bf16.  h: (B, T, A64) bf16, zero past n_aux;
+// wgate: (n_run, 2R, K*R + A64) and wres: (n_run, R, R) bf16, packed by
+// ops/train_kernel.py; zb (n_run, 2R) and res_b (n_run, R) f32; g: (B, T,
+// R) bf16 scratch; dilations: a host array of n_run ints.  Returns
+// cudaGetLastError() (0 = success).
 extern "C" int wn_layer_stack_fwd(
-    const void* x0, void* streams, const void* h, const void* dil_w,
-    const void* aux_w, const void* zb, const void* res_w, const void* res_b,
-    const void* dilations_v, int n_run, int B, int T, int R, int A, int K,
-    void* stream) {
-    const int* dil = (const int*)dilations_v;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (K == 2)
-        return run_fwd<2>(x0, streams, h, dil_w, aux_w, zb, res_w, res_b, dil,
-                          n_run, B, T, R, A, st);
-    if (K == 3)
-        return run_fwd<3>(x0, streams, h, dil_w, aux_w, zb, res_w, res_b, dil,
-                          n_run, B, T, R, A, st);
-    return (int)cudaErrorInvalidValue;
-}
-
-// The training forward (run_fwd_train) at kernel size K (2 or 3).
-extern "C" int wn_layer_stack_fwd_train(
-    const void* x0, void* streams, void* st_v, void* skip_sum, const void* h,
-    const void* dil_w, const void* aux_w, const void* zb, const void* skip_w,
-    const void* skip_b, const void* res_w, const void* res_b,
-    const void* dilations_v, int L, int B, int T, int R, int S, int A, int K,
+    const void* x0, void* streams, const void* h, const void* wgate,
+    const void* wres, const void* zb, const void* res_b, void* g,
+    const void* dilations_v, int n_run, int B, int T, int R, int A64, int K,
     void* stream) {
     const int* dil = (const int*)dilations_v;
     cudaStream_t cs = (cudaStream_t)stream;
-    if (K == 2)
-        return run_fwd_train<2>(x0, streams, st_v, skip_sum, h, dil_w, aux_w,
-                                zb, skip_w, skip_b, res_w, res_b, dil, L, B,
-                                T, R, S, A, cs);
-    if (K == 3)
-        return run_fwd_train<3>(x0, streams, st_v, skip_sum, h, dil_w, aux_w,
-                                zb, skip_w, skip_b, res_w, res_b, dil, L, B,
-                                T, R, S, A, cs);
-    return (int)cudaErrorInvalidValue;
+    int e;
+    if ((e = check_fwd_shape(B, T, R, A64, K))) return e;
+    if (n_run < 1) return 0;
+    FwdMaps m;
+    if ((e = fwd_maps(m, x0, streams, n_run, h, wgate, wres, n_run, R, g, B, T, R,
+                      A64, K)))
+        return e;
+    const size_t ss = (size_t)B * T * R;
+    const int ntt = (T + WG_BM - 1) / WG_BM;
+    for (int l = 0; l < n_run; ++l) {
+        const FwdGate<false> pg = gate_problem<false>(m, l, dil[l], zb, g, nullptr,
+                                                      B, T, R, A64, K);
+        if ((e = wg_launch(pg, pg.B * pg.ntt * pg.nN, cs))) return e;
+        FwdOut po;
+        po.gmap = m.g;
+        po.wmap = m.wo;
+        po.x = l == 0 ? (const bf16*)x0 : (const bf16*)streams + (l - 1) * ss;
+        po.out = (bf16*)streams + l * ss;
+        po.res_b = (const float*)res_b + (size_t)l * R;
+        po.skip = nullptr;
+        po.skip_b = nullptr;
+        po.B = B; po.T = T; po.R = R; po.S = 0; po.l = l; po.ntt = ntt;
+        po.n_lo = 0; po.nN = R / po.BN; po.first = 0;
+        if ((e = wg_launch(po, B * ntt * po.nN, cs))) return e;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The training forward: all L layers.  Layer l reads stream l (x0 for
+// l = 0, else streams[l-1]), writes streams[l] for l < L-1 (streams is
+// (L-1, B, T, R)), its sigma | tanh saves into st[l] (st is (L, B, T, 2R)),
+// and adds its skip 1x1 into skip_sum (B, T, S) f32.  wout: (L, R + S, R)
+// packed [W_res^T ; W_skip^T]; skip_b (L, S) f32; the rest as
+// wn_layer_stack_fwd.
+extern "C" int wn_layer_stack_fwd_train(
+    const void* x0, void* streams, void* st, void* skip_sum, const void* h,
+    const void* wgate, const void* wout, const void* zb, const void* res_b,
+    const void* skip_b, void* g, const void* dilations_v, int L, int B, int T,
+    int R, int S, int A64, int K, void* stream) {
+    const int* dil = (const int*)dilations_v;
+    cudaStream_t cs = (cudaStream_t)stream;
+    int e;
+    if ((e = check_fwd_shape(B, T, R, A64, K))) return e;
+    if (L < 1 || S < FwdOut::BN || S % FwdOut::BN != 0)
+        return (int)cudaErrorInvalidValue;
+    FwdMaps m;
+    if ((e = fwd_maps(m, x0, streams, L - 1, h, wgate, wout, L, R + S, g, B, T, R,
+                      A64, K)))
+        return e;
+    const size_t ss = (size_t)B * T * R;
+    const int ntt = (T + WG_BM - 1) / WG_BM;
+    for (int l = 0; l < L; ++l) {
+        const FwdGate<true> pg = gate_problem<true>(
+            m, l, dil[l], zb, g, (bf16*)st + (size_t)l * 2 * ss, B, T, R, A64, K);
+        if ((e = wg_launch(pg, pg.B * pg.ntt * pg.nN, cs))) return e;
+        FwdOut po;
+        po.gmap = m.g;
+        po.wmap = m.wo;
+        po.x = l == 0 ? (const bf16*)x0 : (const bf16*)streams + (l - 1) * ss;
+        po.out = l < L - 1 ? (bf16*)streams + l * ss : nullptr;
+        po.res_b = (const float*)res_b + (size_t)l * R;
+        po.skip = (float*)skip_sum;
+        po.skip_b = (const float*)skip_b + (size_t)l * S;
+        po.B = B; po.T = T; po.R = R; po.S = S; po.l = l; po.ntt = ntt;
+        // the last layer's output stream feeds nothing: its skip columns only
+        po.n_lo = l < L - 1 ? 0 : R;
+        po.nN = ((l < L - 1 ? R : 0) + S) / po.BN;
+        po.first = l == 0;
+        if ((e = wg_launch(po, B * ntt * po.nN, cs))) return e;
+    }
+    return (int)cudaGetLastError();
 }

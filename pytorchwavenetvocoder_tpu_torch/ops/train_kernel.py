@@ -37,14 +37,17 @@ the (k, R, 2R) gate weight multiplies x[t - (k-1-j) d], causal zeros before
 t = 0.
 
 What bounds the kernels on the H100: per layer the forward is a
-(B*T, kR) x (kR, 2R), a (B*T, R) x (R, R) and in training a (B*T, R) x
-(R, S) bf16 product, and the backward about twice that; at the warm-up's
-10^5 rows and the training windows' 2 x 10^4 this is tensor-core work.  The
-bf16 streams and saves are the only device-memory traffic that grows with
-B*T (2.1 GB written and read back per flagship training window).  The
-kernels' own source notes give their designs.  No ring of tiles, no packed
-int32 pairs, no tile-count cadence: those were Mosaic constraints of the
-TPU kernels.
+(B*T, kR + A) x (kR + A, 2R), a (B*T, R) x (R, R) and in training a
+(B*T, R) x (R, S) bf16 product, and the backward about twice that; at the
+warm-up's 10^5 rows and the training windows' 2 x 10^4 this is tensor-core
+work.  Both kernels run every product on one wgmma + TMA core
+(``csrc/wn_wgmma.cuh``: persistent blocks, 128-row output tiles, a ring of
+TMA-fed shared-memory stages, epilogues from registers); the host side
+below packs the forward's weights once per call (``pack_gate_weights``,
+``pack_out_weights``) and plans the backward's weight-gradient row chunks
+(``wgrad_plan``).  The kernels' own source notes give their designs.  No
+VMEM ring of tiles, no packed int32 pairs, no tile-count cadence: those
+were Mosaic constraints of the TPU kernels.
 """
 
 from __future__ import annotations
@@ -56,12 +59,17 @@ import torch.nn.functional as F
 
 from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 
-#: Shared memory one block can use on Hopper (227 KB).
-SMEM_MAX = 232448
+#: The kernels' product core (csrc/wn_wgmma.cuh): 128-row output tiles
+#: (``WG_BM``) 128 columns wide (256 for the gate: ``WIDE_N``), 64-deep ring
+#: stages (``WG_BK``), 64-row blocks of the weight gradients' K, and the
+#: count of items a weight-gradient launch aims for (``wgrad_plan``).
+TILE_M, TILE_N, WIDE_N, TILE_K, WGRAD_ROWS, WGRAD_TARGET = \
+    128, 128, 256, 64, 64, 264
 
-#: Rows of the kernels' row tiles and columns of their staged accumulators
-#: (``LS_TM``/``BW_TM`` and ``LS_ZC``/``BW_ZC`` in csrc/).
-_TM, _ZC = 32, 128
+#: The widest residual stream the stack kernels take, as before their
+#: redesign: nothing in them depends on it, and no wider one has run on
+#: the card.
+MAX_RESCH = 1024
 
 #: The layer weights in the order ``FusedLayerStack`` takes them.
 _WEIGHT_KEYS = ("dil_w", "dil_b", "aux_w", "aux_b", "skip_w", "skip_b",
@@ -84,27 +92,18 @@ KERNEL_SIZES = (2, 3)
 
 
 def _smem_bytes(config) -> dict:
-    """Dynamic shared memory of each stack kernel's block (the
-    ``*_smem_bytes`` functions of csrc/): the forward stages k taps of x
-    and the gate tile, the backward's dx pass k tiles of dz."""
-    R, S, A, k = config.n_resch, config.n_skipch, config.n_aux, config.kernel_size
-    stage = _TM * _ZC * 4
-    return {
-        "forward": (k + 1) * _TM * R * 2 + stage + _TM * A * 4,
-        "backward dz pass": _TM * (3 * R + S) * 2 + stage + 4 * _ZC * 4,
-        "backward dx pass": k * _TM * 2 * R * 2 + stage,
-    }
-
-
-def _smem_error(config, kernels) -> str | None:
-    for kernel in kernels:
-        n = _smem_bytes(config)[kernel]
-        if n > SMEM_MAX:
-            return (f"the {kernel} kernel needs {n} bytes of shared memory "
-                    f"per block at n_resch={config.n_resch}, n_skipch="
-                    f"{config.n_skipch}, kernel_size={config.kernel_size}; "
-                    f"Hopper allows {SMEM_MAX}")
-    return None
+    """Dynamic shared memory of a stack kernel's block (``WgRing::SMEM`` in
+    csrc/wn_wgmma.cuh), by item width: the same for every config, as the
+    ring streams K.  Three or six stages of a 16 KB A and a 16 KB B tile
+    (two blocks on an SM, or one), or four of a 16 KB A and a 32 KB B tile,
+    their barriers, 8 KB of epilogue column sums and 1 KB of alignment
+    slack."""
+    def ring(bn, stages):
+        return (1024 + stages * (TILE_M + bn) * TILE_K * 2 + 2 * stages * 8
+                + 2 * 8 * TILE_N * 4)
+    return {"128-column items, two blocks an SM": ring(TILE_N, 3),
+            "128-column items, one block an SM": ring(TILE_N, 6),
+            "256-column items": ring(WIDE_N, 4)}
 
 
 def layer_stack_constraint_error(config) -> str | None:
@@ -114,14 +113,13 @@ def layer_stack_constraint_error(config) -> str | None:
     if c.kernel_size not in KERNEL_SIZES:
         return (f"kernel_size={c.kernel_size} (the kernels serve kernel_size "
                 "2 and 3)")
-    if c.n_resch % 128 != 0 or c.n_resch > 1024:
-        # the residual 1x1 runs in 128-column chunks (8 warps x 16 columns)
-        # and the stream's rows are staged whole in shared memory
-        return (f"n_resch={c.n_resch} must be a multiple of 128 (the forward "
-                f"kernel's 128-column residual chunks), <= 1024")
+    if c.n_resch % TILE_N != 0 or c.n_resch > MAX_RESCH:
+        # the residual 1x1's output tiles and the gate's (2R) are 128 wide
+        return (f"n_resch={c.n_resch} must be a multiple of {TILE_N} (the "
+                f"kernels' {TILE_N}-column output tiles), <= {MAX_RESCH}")
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
-    return _smem_error(c, ("forward",))
+    return None
 
 
 def fused_train_constraint_error(config, T: int) -> str | None:
@@ -130,12 +128,12 @@ def fused_train_constraint_error(config, T: int) -> str | None:
     why = layer_stack_constraint_error(config)
     if why is not None:
         return why
-    if config.n_skipch % 128 != 0:
-        return (f"n_skipch={config.n_skipch} must be a multiple of 128 "
-                "(the kernels' 128-column output chunks)")
+    if config.n_skipch % TILE_N != 0:
+        return (f"n_skipch={config.n_skipch} must be a multiple of {TILE_N} "
+                f"(the kernels' {TILE_N}-column output tiles)")
     if T < 1:
         return f"window T={T} is empty"
-    return _smem_error(config, ("backward dz pass", "backward dx pass"))
+    return None
 
 
 def supports_fused_train(config, T: int) -> bool:
@@ -333,6 +331,81 @@ def ref_layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the kernels' host-side plan: packed weights, tiles, row chunks
+# ---------------------------------------------------------------------------
+
+
+def gate_column_order(R: int) -> torch.Tensor:
+    """Column order of the packed gate weights: packed column p holds
+    column ``perm[p]`` of the (.., 2R) [sigmoid | tanh] gate.  Packed columns
+    16 q .. 16 q + 7 are the sigmoid columns of channels 8 q .. 8 q + 7 and
+    16 q + 8 .. 16 q + 15 their tanh columns, so a thread's wgmma
+    accumulators (8-column groups) hold both halves of its channels."""
+    p = torch.arange(2 * R)
+    q, w = p // 16, p % 16
+    return torch.where(w < 8, 8 * q + w, R + 8 * q + w - 8)
+
+
+def aux_width(n_aux: int) -> int:
+    """n_aux padded to the K step: the aux rows' K segment of the gate."""
+    return -(-n_aux // TILE_K) * TILE_K
+
+
+def pack_gate_weights(lw, config, n_layers: int | None = None) -> torch.Tensor:
+    """The gate product's B operand for the first ``n_layers`` layers:
+    (n, 2R, K) bf16, K-major, K = k R + aux_width(n_aux): rows in
+    ``gate_column_order``, columns the taps x[t], x[t - d], (x[t - 2d])
+    (dil_w[k-1], dil_w[k-2], ...) then the aux rows, zero past n_aux."""
+    c = config
+    R, A, k = c.n_resch, c.n_aux, c.kernel_size
+    n = c.n_layers if n_layers is None else n_layers
+    w = lw["dil_w"]                                       # (L, k, R, 2R)
+    cat = torch.zeros((n, k * R + aux_width(A), 2 * R), dtype=torch.bfloat16,
+                      device=w.device)
+    for m in range(k):
+        cat[:, m * R:(m + 1) * R] = w[:n, k - 1 - m]
+    cat[:, k * R:k * R + A] = lw["aux_w"][:n]
+    perm = gate_column_order(R).to(w.device)
+    # one strided gather: (n, 2R, K), contiguous
+    return torch.index_select(cat.transpose(1, 2), 1, perm)
+
+
+def pack_out_weights(lw, config, train: bool,
+                     n_layers: int | None = None) -> torch.Tensor:
+    """The second product's B operand: (n, R, R) bf16 W_res^T, or in
+    training (n, R + S, R), [W_res^T ; W_skip^T], K-major."""
+    n = config.n_layers if n_layers is None else n_layers
+    R, S = config.n_resch, config.n_skipch
+    res_w = lw["res_w"]
+    out = torch.empty((n, R + (S if train else 0), R), dtype=torch.bfloat16,
+                      device=res_w.device)
+    out[:, :R] = res_w[:n].transpose(1, 2)
+    if train:
+        out[:, R:] = lw["skip_w"][:n].transpose(1, 2)
+    return out
+
+
+def wgrad_products(config) -> list:
+    """(M, N, item width) of the three weight-gradient products of a layer:
+    x^T [dz[t + m d]]_m, h^T dz, g^T [bf16(dskip) | dout]."""
+    R, S, A, k = config.n_resch, config.n_skipch, config.n_aux, \
+        config.kernel_size
+    return [(R, k * 2 * R, TILE_N), (A, 2 * R, TILE_N), (R, S + R, TILE_N)]
+
+
+def wgrad_plan(B: int, T: int, M: int, N: int, bn: int = TILE_N) -> tuple:
+    """(chunks, row blocks per chunk) of a weight-gradient product (M, N)
+    with ``bn``-column items over the B x ceil(T / 64) row blocks: enough
+    items to fill the card (a fixed target, so the summation order does not
+    depend on the device)."""
+    blocks = B * -(-T // WGRAD_ROWS)
+    tiles = -(-M // TILE_M) * (N // bn)
+    chunks = max(1, min(-(-WGRAD_TARGET // tiles), blocks))
+    per = -(-blocks // chunks)
+    return -(-blocks // per), per
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -344,7 +417,8 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def _cuda_stack_inputs(fn: str, config, stream0: torch.Tensor,
                        h_up: torch.Tensor, why: str | None):
     """Check a CUDA call of the stack kernels; returns (B, T, h as bf16
-    (B, T, A))."""
+    (B, T, aux_width(A)), zero past A: the TMA maps want 16-byte rows and
+    the gate's K segment a whole 64)."""
     if why is not None:
         raise NotImplementedError(f"{fn}: the CUDA kernel does not serve this "
                                   f"config: {why}")
@@ -360,7 +434,9 @@ def _cuda_stack_inputs(fn: str, config, stream0: torch.Tensor,
             or not h_up.is_floating_point()):
         raise ValueError(f"h_up must be float (B={B}, >= {T}, A={A}) on "
                          f"{dev}; got {tuple(h_up.shape)} {h_up.device}")
-    return B, T, h_up[:, :T].to(torch.bfloat16).contiguous()
+    h64 = torch.zeros((B, T, aux_width(A)), dtype=torch.bfloat16, device=dev)
+    h64[..., :A] = h_up[:, :T]
+    return B, T, h64
 
 
 def _on_device(dev, **tensors):
@@ -398,25 +474,25 @@ def layer_stack_streams(lw, config, stream0: torch.Tensor,
 
     c = config
     dev = stream0.device
-    R, A, L = c.n_resch, c.n_aux, c.n_layers
+    R, L = c.n_resch, c.n_layers
     n_run = L - 1
     if n_run == 0:
         return [stream0]
     bf, f32 = torch.bfloat16, torch.float32
-    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
-    aux_w = lw["aux_w"].to(bf).contiguous()                  # (L, A, 2R)
-    zb = (lw["dil_b"] + lw["aux_b"]).to(f32).contiguous()    # (L, 2R)
-    res_w = lw["res_w"].to(bf).contiguous()                  # (L, R, R)
-    res_b = lw["res_b"].to(f32).contiguous()                 # (L, R)
-    _on_device(dev, dil_w=dil_w, aux_w=aux_w, res_w=res_w)
+    wgate = pack_gate_weights(lw, c, n_run)      # (n_run, 2R, kR + A64)
+    wres = pack_out_weights(lw, c, False, n_run)  # (n_run, R, R)
+    zb = (lw["dil_b"] + lw["aux_b"])[:n_run].to(f32).contiguous()
+    res_b = lw["res_b"][:n_run].to(f32).contiguous()
+    _on_device(dev, wgate=wgate, wres=wres, zb=zb, res_b=res_b)
     out = torch.empty((n_run, B, T, R), dtype=bf, device=dev)
+    g = torch.empty((B, T, R), dtype=bf, device=dev)
     dils = (ctypes.c_int * L)(*c.dilations)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_layer_stack_fwd(
-            _ptr(stream0), _ptr(out), _ptr(h_b), _ptr(dil_w), _ptr(aux_w),
-            _ptr(zb), _ptr(res_w), _ptr(res_b),
-            ctypes.cast(dils, ctypes.c_void_p), n_run, B, T, R, A,
+            _ptr(stream0), _ptr(out), _ptr(h_b), _ptr(wgate), _ptr(wres),
+            _ptr(zb), _ptr(res_b), _ptr(g),
+            ctypes.cast(dils, ctypes.c_void_p), n_run, B, T, R, h_b.shape[2],
             c.kernel_size, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_fwd failed: CUDA error {err}")
@@ -447,28 +523,26 @@ def layer_stack_fwd_train(lw, config, stream0: torch.Tensor,
 
     c = config
     dev = stream0.device
-    R, S, A, L = c.n_resch, c.n_skipch, c.n_aux, c.n_layers
+    R, S, L = c.n_resch, c.n_skipch, c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
-    dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
-    aux_w = lw["aux_w"].to(bf).contiguous()                  # (L, A, 2R)
-    zb = (lw["dil_b"] + lw["aux_b"]).to(f32).contiguous()    # (L, 2R)
-    skip_w = lw["skip_w"].to(bf).contiguous()                # (L, R, S)
-    skip_b = lw["skip_b"].to(f32).contiguous()               # (L, S)
-    res_w = lw["res_w"].to(bf).contiguous()                  # (L, R, R)
-    res_b = lw["res_b"].to(f32).contiguous()                 # (L, R)
-    _on_device(dev, dil_w=dil_w, aux_w=aux_w, skip_w=skip_w, res_w=res_w)
+    wgate = pack_gate_weights(lw, c)                      # (L, 2R, kR + A64)
+    wout = pack_out_weights(lw, c, True)                  # (L, R + S, R)
+    zb = (lw["dil_b"] + lw["aux_b"]).to(f32).contiguous()  # (L, 2R)
+    res_b = lw["res_b"].to(f32).contiguous()               # (L, R)
+    skip_b = lw["skip_b"].to(f32).contiguous()             # (L, S)
+    _on_device(dev, wgate=wgate, wout=wout, zb=zb, res_b=res_b, skip_b=skip_b)
     streams = torch.empty((L - 1, B, T, R), dtype=bf, device=dev)
     st = torch.empty((L, B, T, 2 * R), dtype=bf, device=dev)
     skip_sum = torch.empty((B, T, S), dtype=f32, device=dev)
+    g = torch.empty((B, T, R), dtype=bf, device=dev)
     dils = (ctypes.c_int * L)(*c.dilations)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_layer_stack_fwd_train(
-            _ptr(stream0), _ptr(streams), _ptr(st), _ptr(skip_sum),
-            _ptr(h_b), _ptr(dil_w), _ptr(aux_w), _ptr(zb), _ptr(skip_w),
-            _ptr(skip_b), _ptr(res_w), _ptr(res_b),
-            ctypes.cast(dils, ctypes.c_void_p), L, B, T, R, S, A,
-            c.kernel_size, ctypes.c_void_p(stream))
+            _ptr(stream0), _ptr(streams), _ptr(st), _ptr(skip_sum), _ptr(h_b),
+            _ptr(wgate), _ptr(wout), _ptr(zb), _ptr(res_b), _ptr(skip_b),
+            _ptr(g), ctypes.cast(dils, ctypes.c_void_p), L, B, T, R, S,
+            h_b.shape[2], c.kernel_size, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_fwd_train failed: CUDA error {err}")
     layer_stack_fwd_train.launches += 1
@@ -515,35 +589,43 @@ def layer_stack_bwd(lw, config, x0: torch.Tensor, streams: torch.Tensor,
         raise ValueError(f"dskip must be float (B, T, S)=({B}, {T}, {S}) on "
                          f"{dev}; got {tuple(dskip.shape)} {dskip.device}")
     dsk = dskip.to(bf).contiguous()
-    A_pad = -(-A // 16) * 16
+    k = c.kernel_size
     dil_w = lw["dil_w"].to(bf).contiguous()                  # (L, k, R, 2R)
-    aux_wp = torch.zeros((L, A_pad, 2 * R), dtype=bf, device=dev)
-    aux_wp[:, :A] = lw["aux_w"].to(bf)                       # zero-padded rows
+    aux_w = lw["aux_w"].to(bf).contiguous()                  # (L, A, 2R)
     skip_w = lw["skip_w"].to(bf).contiguous()                # (L, R, S)
     res_w = lw["res_w"].to(bf).contiguous()                  # (L, R, R)
-    _on_device(dev, dil_w=dil_w, skip_w=skip_w, res_w=res_w)
+    _on_device(dev, dil_w=dil_w, aux_w=aux_w, skip_w=skip_w, res_w=res_w)
 
     def empty(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    ddil, daux = empty(L, c.kernel_size, R, 2 * R), empty(L, A, 2 * R)
+    ddil, daux = empty(L, k, R, 2 * R), empty(L, A, 2 * R)
     dskip_w, dres_w = empty(L, R, S), empty(L, R, R)
     dzb, dres_b = empty(L, 2 * R), empty(L, R)
     dstream0 = empty(B, T, R, dtype=bf)
     dh = torch.zeros((B, T, A), dtype=f32, device=dev)
-    lib = kernels()
-    dz, dx_pp = empty(B, T, 2 * R, dtype=bf), empty(2, B, T, R, dtype=bf)
-    ws = empty(lib.wn_layer_stack_bwd_workspace(B, T, R, S, A))
+    # the x, h and g weight-gradient products' row chunks
+    products = wgrad_products(c)
+    plan = [wgrad_plan(B, T, M, N, bn) for M, N, bn in products]
+    part = empty(sum(ch * M * N for (ch, _), (M, N, _) in zip(plan,
+                                                             products)))
+    n_rt = B * -(-T // TILE_M)                               # row tiles
+    zb_part, rb_part = empty(n_rt, 2 * R), empty(n_rt, R)
+    dz, g = empty(B, T, 2 * R, dtype=bf), empty(B, T, R, dtype=bf)
+    dx_pp = empty(2, B, T, R, dtype=bf)
     dils = (ctypes.c_int * L)(*c.dilations)
+    plan_c = (ctypes.c_int * 6)(*[v for p in plan for v in p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.wn_layer_stack_bwd(
+        err = kernels().wn_layer_stack_bwd(
             _ptr(x0), _ptr(streams), _ptr(st), _ptr(dsk), _ptr(h_b),
-            _ptr(dil_w), _ptr(aux_wp), _ptr(skip_w), _ptr(res_w),
-            ctypes.cast(dils, ctypes.c_void_p), _ptr(ddil), _ptr(daux),
+            _ptr(dil_w), _ptr(aux_w), _ptr(skip_w), _ptr(res_w),
+            ctypes.cast(dils, ctypes.c_void_p),
+            ctypes.cast(plan_c, ctypes.c_void_p), _ptr(ddil), _ptr(daux),
             _ptr(dskip_w), _ptr(dres_w), _ptr(dzb), _ptr(dres_b),
-            _ptr(dstream0), _ptr(dh), _ptr(dz), _ptr(dx_pp), _ptr(ws),
-            L, B, T, R, S, A, A_pad, c.kernel_size, ctypes.c_void_p(stream))
+            _ptr(dstream0), _ptr(dh), _ptr(dz), _ptr(g), _ptr(dx_pp),
+            _ptr(part), _ptr(zb_part), _ptr(rb_part), L, B, T, R, S, A,
+            h_b.shape[2], k, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_bwd failed: CUDA error {err}")
     layer_stack_bwd.launches += 1

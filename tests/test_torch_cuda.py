@@ -50,12 +50,17 @@ def _params(cfg, dev, seed=0):
     return params
 
 
-@pytest.mark.parametrize("kernel_size", [2, 3])
-def test_layer_stack_kernel_matches_plain(dev, kernel_size):
-    cfg = _cfg(kernel_size=kernel_size)
-    params = _params(cfg, dev)
-    rng = np.random.RandomState(0)
-    B, T = 3, 700   # T not a multiple of the kernel's 32-row tile
+# (kernel_size, B, T, dilation_depth, dilation_repeat): T not a multiple
+# of the kernels' 128-row tiles (700, 1,001), B = 3, a window shorter than
+# one tile (50), and dilations up to 512, larger than a tile (depth 10: one
+# repeat of 10 layers, near the 8 layers the limits below were set at)
+STACK_SHAPES = [(2, 3, 700, 4, 2), (3, 3, 700, 4, 2), (2, 1, 1001, 10, 1),
+                (3, 3, 1001, 10, 1), (2, 3, 50, 4, 2)]
+
+
+def _check_streams(cfg, params, B, T, seed=0):
+    rng = np.random.RandomState(seed)
+    dev = params["dil"]["w"].device
     s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
                          dtype=torch.bfloat16, device=dev)
     h = torch.as_tensor(rng.randn(B, T, cfg.n_aux), dtype=torch.float32,
@@ -71,6 +76,25 @@ def test_layer_stack_kernel_matches_plain(dev, kernel_size):
         d = (got[l].float() - want.float()).abs()
         assert d.max().item() <= 1e-2 * want.float().abs().max().item()
         assert (d > 0).float().mean().item() <= 1e-2
+
+
+@pytest.mark.parametrize("kernel_size, B, T, depth, repeat", STACK_SHAPES)
+def test_layer_stack_kernel_matches_plain(dev, kernel_size, B, T, depth,
+                                          repeat):
+    cfg = _cfg(kernel_size=kernel_size, dilation_depth=depth,
+               dilation_repeat=repeat)
+    _check_streams(cfg, _params(cfg, dev), B, T)
+
+
+def test_layer_stack_kernel_at_sd_minis_padded_widths(dev):
+    """The sd-mini recipe's widths (n_resch 32, n_skipch 16, 5 layers) as
+    the cuda route pads them (``kernel_multiples``,
+    ``pad_params_for_kernels``) through the warm-up kernel."""
+    cfg = _cfg(n_resch=32, n_skipch=16, dilation_depth=5, dilation_repeat=1)
+    params, pc = P.pad_params_for_kernels(_params(cfg, dev), cfg,
+                                          P.kernel_multiples(cfg, 8))
+    assert pc.n_resch == 128 and tk.layer_stack_constraint_error(pc) is None
+    _check_streams(pc, params, 8, cfg.receptive_field)
 
 
 def _bf16_counts():
@@ -494,14 +518,25 @@ def _cos_rel(want, got):
     return cos, rel
 
 
-@pytest.mark.parametrize("kernel_size", [2, 3])
-def test_train_kernels_match_plain(dev, kernel_size):
-    """K2 training mode and K3 at a ragged T (not a multiple of the 32-row
-    tile) and B=3, against their plain versions on the same inputs."""
-    cfg = _cfg(kernel_size=kernel_size)
+@pytest.mark.parametrize("kernel_size, B, T, depth, repeat", STACK_SHAPES)
+def test_train_kernels_match_plain(dev, kernel_size, B, T, depth, repeat):
+    """K2 training mode and K3 at ragged T (not a multiple of the 128-row
+    tile), B=3, dilations past a tile, against their plain versions on the
+    same inputs; K3 bitwise equal over two runs."""
+    _check_train(_cfg(kernel_size=kernel_size, dilation_depth=depth,
+                      dilation_repeat=repeat), dev, B, T)
+
+
+def test_train_kernels_at_widths_the_first_kernels_refused(dev):
+    """kernel_size 3 at n_resch 640 (the first kernels' staged dz tiles
+    stopped kernel_size 3 training at 512)."""
+    _check_train(_cfg(kernel_size=3, n_resch=640, n_skipch=256,
+                      dilation_depth=3), dev, 2, 300)
+
+
+def _check_train(cfg, dev, B, T):
     params = _params(cfg, dev, seed=4)
     rng = np.random.RandomState(4)
-    B, T = 3, 700
     s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
                          dtype=torch.bfloat16, device=dev)
     h = torch.as_tensor(rng.randn(B, T, cfg.n_aux), dtype=torch.float32,
