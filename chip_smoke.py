@@ -68,7 +68,22 @@ the model it runs:
    through ``batch_fast_generate(impl="auto")`` in bf16 and in int8, K2
    and K1 on the card, then K1 on the padded carry against the plain loop
    by [K1]'s limits;
-12. [K4] (after the ljspeech phases): the serial matmul-chain probe.  The
+12. (after the ljspeech phases) data parallel over processes, two ranks
+   sharing the one card (the plumbing, not the scaling): [main dp2],
+   ``bin/decode.py``'s ``main`` with ``--n_devices 2 --device cuda:0
+   --mode argmax`` on 12 arctic utterances (feature files through a small
+   h5py stand-in where h5py is missing), each rank on the kernels, every
+   wav written once and byte-equal to a one-process decode of that rank's
+   own fleet; [train dp], 3 fused steps at the arctic window: a 1-rank
+   NCCL group bitwise equal to the step outside a group, 2 gloo ranks on
+   ``cuda:0`` on a global batch of 2 x 23,040 bitwise equal to each other
+   after every step and, at the first step, within [train]'s limits of one
+   process on the global batch (loss, gradient cosines; control: one
+   row's own gradient); [convert], the arctic weights as a reference
+   ``torch.save`` checkpoint through ``bin/convert_checkpoint.py
+   --direction to_jax``, decoded with ``impl="auto"`` argmax-equal to the
+   same weights loaded directly;
+13. [K4]: the serial matmul-chain probe.  The
    main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
    split; one cooperative launch per chain run); then every variant at
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
@@ -111,10 +126,130 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def main() -> int:
+# An h5py stand-in for the [main dp2] phase where h5py is not installed (a
+# GPU machine may come without it): ``bin/decode.py`` reads its features
+# and stats through ``utils/hdf5.py``, which needs only ``h5py.File`` as a
+# context manager with ``in``, ``[path][()]``, ``[path].shape``, ``del``
+# and ``create_dataset``.  Datasets are pickled numpy arrays under the
+# file's name: a test double for the file format, not HDF5.
+_H5PY_STAND_IN = """
+import os, pickle
+
+class _Dataset:
+    def __init__(self, a):
+        self._a, self.shape = a, a.shape
+
+    def __getitem__(self, key):
+        return self._a[key]
+
+class File:
+    def __init__(self, name, mode="r"):
+        self.name, self.mode, self.data = name, mode, {}
+        if os.path.exists(name):
+            with open(name, "rb") as f:
+                self.data = pickle.load(f)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.mode != "r":
+            with open(self.name, "wb") as f:
+                pickle.dump(self.data, f)
+
+    def __contains__(self, key):
+        return key in self.data
+
+    def __getitem__(self, key):
+        return _Dataset(self.data[key])
+
+    def __delitem__(self, key):
+        del self.data[key]
+
+    def create_dataset(self, key, data):
+        self.data[key] = data
+"""
+
+
+def _dp_train_rank(info, conf: dict, params: dict, batches: list, lr: float,
+                   first_grads: bool, deterministic: bool) -> dict:
+    """One rank of [train dp] (module level: ``spawn_local`` starts it by
+    name in a fresh interpreter): ``make_train_step`` on this rank's rows
+    (``shard_rows``) of each global batch, from the numpy params tree
+    ``params`` on the rank's device.  Returns per step the loss, a digest
+    of the params' bytes and the host ms (synchronized), the first step's
+    gradients (as the optimizer applied them) where ``first_grads``, the
+    route and the K2-train/K3 launches.  ``deterministic`` turns on
+    PyTorch's deterministic algorithms (the input embedding's gradient is
+    a scatter-add)."""
+    import hashlib
+
     import numpy as np
     import torch
 
+    from pytorchwavenetvocoder_tpu_torch.convert import params_from_jax
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNetConfig
+    from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        shard_rows,
+    )
+    from pytorchwavenetvocoder_tpu_torch.parallel.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = WaveNetConfig(**conf)
+        state = create_train_state(cfg, lr=lr, params=params_from_jax(
+            params, info.device))
+        step = make_train_step(cfg, lr=lr, n_devices=info.world)
+        out = dict(rank=info.rank, device=str(info.device), losses=[],
+                   digests=[], ms=[])
+        tk.layer_stack_fwd_train.launches = 0
+        tk.layer_stack_bwd.launches = 0
+        for i, batch in enumerate(batches):
+            mine = shard_rows(tuple(batch), info.rank, info.world)
+            torch.cuda.synchronize(info.device)
+            t0 = time.time()
+            state, loss = step(state, *mine)
+            out["losses"].append(float(loss))
+            torch.cuda.synchronize(info.device)
+            out["ms"].append(1e3 * (time.time() - t0))
+            h = hashlib.sha256()
+            for leaves in state.params.values():
+                for t in leaves.values():
+                    h.update(t.detach().cpu().numpy().tobytes())
+            out["digests"].append(h.hexdigest())
+            if i == 0 and first_grads:
+                out["grads"] = {g: torch.cat([t.grad.flatten().double()
+                                              for t in leaves.values()])
+                                .cpu().numpy()
+                                for g, leaves in state.params.items()}
+        out["route"] = step.route
+        out["launches"] = {"layer_stack_fwd_train":
+                           tk.layer_stack_fwd_train.launches,
+                           "layer_stack_bwd": tk.layer_stack_bwd.launches}
+        return out
+    finally:
+        if deterministic:
+            torch.use_deterministic_algorithms(False)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import numpy as np
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--rank-per-card", action="store_true",
+                        help="run only the data-parallel phases, one rank "
+                             "on each card (a machine with 2+ cards)")
+    per_card = parser.parse_args(argv).rank_per_card
     t_start = time.time()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
@@ -365,11 +500,11 @@ def main() -> int:
     def read_launches():
         """The decode kernels' launch counts since reset_launches, by
         kernel base name (the kernels line's)."""
-        return {"ar_persistent": ak.ar_generate.launches,
-                "ar_step": ak.ar_generate.loop_launches,
-                "ar_step_int8": ak.ar_generate.int8_launches,
-                "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
-                "layer_stack_fwd": tk.layer_stack_streams.launches}
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import (
+            decode_launches,
+        )
+
+        return decode_launches()
 
     def set_launches(m, launches):
         """Launch counts of a main-path run, by kernel base name."""
@@ -641,7 +776,7 @@ def main() -> int:
         against the plain loop over n_wide steps."""
         cfg, prm, B = m["cfg"], m["params"], m["fleet"]
         carry, h, T0 = fleet_carry(cfg, prm, B, n, 1)
-        route = ak.ar_route(cfg, B)
+        route = ak.ar_route(cfg, B, device=dev)
         other = "loop" if route == "persistent" else "persistent"
         names = {"persistent": "persistent", "loop": "launch loop"}
 
@@ -685,7 +820,7 @@ def main() -> int:
             for r_ in ("persistent", "loop", "loop", "persistent"):
                 got[r_].append(1e3 * time_ms(fns[r_]) / n_t)
             turns[b_t] = {r_: min(v) for r_, v in got.items()}
-            turns[b_t]["route"] = ak.ar_route(cfg, b_t)
+            turns[b_t]["route"] = ak.ar_route(cfg, b_t, device=dev)
             k1_us[(m["name"], "bf16", b_t)] = turns[b_t][turns[b_t]["route"]]
             if b_t in (B, 256):    # where a persistent step's time goes
                 phases[b_t] = ak.ar_phase_times(prm, cfg, c_t, h_t, T_t, n_t)
@@ -738,10 +873,10 @@ def main() -> int:
                                  f"(device kernels traced: "
                                  f"{sorted(set(traced))})")
         wide = m.get("wide")
-        if not wide or ak.ar_route(cfg, wide) == route:
+        if not wide or ak.ar_route(cfg, wide, device=dev) == route:
             return
         # the wide fleet's kernel at its own B, from the sliced carry
-        w_route = ak.ar_route(cfg, wide)
+        w_route = ak.ar_route(cfg, wide, device=dev)
         (c_w, h_w), T_w = slice_carry(big_carry, big_h, wide), T_big
         del big_carry, big_h
         runs = {"kernel": lambda c_, i0, steps: ak.ar_generate(
@@ -903,7 +1038,7 @@ def main() -> int:
             finally:
                 ak.ar_generate_reference = real_ref
             launches = read_launches()
-            route = ak.ar_route(cfg, B, quantize)
+            route = ak.ar_route(cfg, B, quantize, device=dev)
             k1_name = ("ar_persistent" if route == "persistent"
                        else "ar_step") + ("_int8" if quantize else "")
             set_launches(m, {k1_name: launches[k1_name]} if wide else
@@ -1557,7 +1692,7 @@ def main() -> int:
         w_tensor["q_wsr"], w_tensor["q_wsr_scale"] = per_tensor(pk["wsr"])
         # the kernel ar_route picks at this fleet, and the other int8 kernel
         # held the same way
-        route = ak.ar_route(cfg, B, quantize=True)
+        route = ak.ar_route(cfg, B, quantize=True, device=dev)
         other = "loop" if route == "persistent" else "persistent"
         names = {"persistent": "persistent", "loop": "launch loop"}
 
@@ -1663,7 +1798,7 @@ def main() -> int:
                     lambda r_=r_: fns[r_](c_q, 0, n_t))
                 got[r_].append(1e3 * time_ms(fn) / n_t)
             turns[b_t] = {r_: min(v) for r_, v in got.items()}
-            turns[b_t]["route"] = ak.ar_route(cfg, b_t, quantize=True)
+            turns[b_t]["route"] = ak.ar_route(cfg, b_t, quantize=True, device=dev)
             k1_us[(m["name"], "int8", b_t)] = turns[b_t][turns[b_t]["route"]]
             if b_t in (B, 256):    # where a persistent int8 step's time goes
                 phases[b_t] = ak.ar_phase_times(prm, cfg, c_q, h_t, T_t, n_t,
@@ -1680,7 +1815,7 @@ def main() -> int:
         # the plain int8 version over n_wide steps (control: one weight
         # scale per tensor)
         wide = m.get("wide")
-        w_route = ak.ar_route(cfg, wide, quantize=True) if wide else route
+        w_route = ak.ar_route(cfg, wide, quantize=True, device=dev) if wide else route
         wide_rd = None
         if w_route != route:
             c_w, h_w = slice_carry(big_q, big_h, wide)
@@ -1922,7 +2057,7 @@ def main() -> int:
             finally:
                 ak.ar_generate_reference = real_ref
             launches = read_launches()
-            route = ak.ar_route(cfg, B, quantize=True)
+            route = ak.ar_route(cfg, B, quantize=True, device=dev)
             k1_name = {"persistent": "ar_persistent_int8",
                        "loop": "ar_step_int8"}[route]
             set_launches(m, {k1_name: launches[k1_name]})
@@ -2034,9 +2169,9 @@ def main() -> int:
         n_list = [int(f) * cfg.upsampling_factor - 1 for f in frames]
         lines, problems = [], []
         for quantize in (False, True):
-            mult = kernel_multiples(cfg, B, quantize)
+            mult = kernel_multiples(cfg, B, quantize, dev)
             kp, kc = pad_params_for_kernels(prm, cfg, mult)
-            route = ak.ar_route(kc, B, quantize)
+            route = ak.ar_route(kc, B, quantize, device=dev)
             k1_name = {("persistent", False): "ar_persistent",
                        ("loop", False): "ar_step",
                        ("persistent", True): "ar_persistent_int8",
@@ -2106,7 +2241,341 @@ def main() -> int:
         if problems:
             raise AssertionError("; ".join(problems))
 
-    # ---- 12. K4: the serial matmul-chain probe ------------------------------
+    # ---- 12. data parallel and the reference-checkpoint bridge ------------
+    def main_dp(m, n_ranks=2, per_card=False, n_utts=12):
+        """bin/decode.py's main with --n_devices n_ranks --mode argmax,
+        the ranks sharing cuda:0 (--device cuda:0) or, ``per_card``, one on
+        each card (--device cuda): each rank decoding its stripe of the
+        utterances (i % n_ranks == rank) in fleets of ceil(B / n_ranks) on
+        the kernels; every wav written once and byte-equal to a one-process
+        decode on cuda:0 of that rank's own fleet (same utterances, same
+        fleet size: ar_plan cuts by the fleet's row tiles, so another fleet
+        may sum in another order)."""
+        import math
+
+        from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+        from pytorchwavenetvocoder_tpu_torch.parallel import distributed
+        from pytorchwavenetvocoder_tpu_torch.utils import write_hdf5
+
+        cfg, A = m["cfg"], m["cfg"].n_aux
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            stand_in = None
+            try:
+                import h5py  # noqa: F401
+
+                h5_note = "h5py"
+            except ImportError:
+                # the ranks inherit sys.path, so they import it too
+                stand_in = os.path.join(tmp, "stand_in")
+                os.makedirs(os.path.join(stand_in, "h5py"))
+                with open(os.path.join(stand_in, "h5py", "__init__.py"),
+                          "w") as f:
+                    f.write(_H5PY_STAND_IN)
+                sys.path.insert(0, stand_in)
+                h5_note = "no h5py here: the feature files are the smoke's " \
+                    "h5py stand-in"
+            try:
+                write_bundle(cfg, m["params"], tmp)
+                ckpt = os.path.join(tmp, "checkpoint-0.pkl")
+                r = np.random.RandomState(7)
+                frames = r.randint(20, 41, n_utts)
+                stats = os.path.join(tmp, "stats.h5")
+                write_hdf5(stats, "/world/mean", r.randn(A) * 0.1)
+                write_hdf5(stats, "/world/scale", 1.0 + 0.1 * r.rand(A))
+                featdir = os.path.join(tmp, "feats")
+                ids = [f"utt{i:02d}" for i in range(n_utts)]
+                for i, nf in zip(ids, frames):
+                    write_hdf5(os.path.join(featdir, i + ".h5"), "/world",
+                               r.randn(nf, A).astype(np.float32))
+                common = ["--stats", stats, "--checkpoint", ckpt,
+                          "--config", tmp, "--mode", "argmax", "--fs",
+                          str(m["fs"]), "--verbose", "0"]
+                out = os.path.join(tmp, "wav")
+                # the CLI's ranks stopped after 300 s: a hung rank fails
+                # the phase, not the smoke
+                spawn = distributed.spawn_local
+                distributed.spawn_local = lambda *a, **k: spawn(
+                    *a, **dict(k, deadline_s=300))
+                try:
+                    res = decode_cli.main(common + [
+                        "--feats", featdir, "--outdir", out, "--batch_size",
+                        str(n_utts), "--n_devices", str(n_ranks), "--device",
+                        "cuda" if per_card else "cuda:0"])
+                finally:
+                    distributed.spawn_local = spawn
+                ranks = res["ranks"]
+                fleet_b = math.ceil(n_utts / n_ranks)
+                route = ak.ar_route(cfg, fleet_b, device=dev)
+                k1_name = "ar_persistent" if route == "persistent" \
+                    else "ar_step"
+                # each rank's own fleet decoded by one process
+                feats = sorted(os.path.join(featdir, i + ".h5") for i in ids)
+                diff, refs = [], []
+                for rk in ranks:
+                    scp = os.path.join(tmp, f"rank{rk['rank']}.scp")
+                    with open(scp, "w") as f:
+                        f.write("\n".join(feats[rk["rank"]::n_ranks]) + "\n")
+                    ref_out = os.path.join(tmp, f"ref{rk['rank']}")
+                    refs.append(decode_cli.main(common + [
+                        "--feats", scp, "--outdir", ref_out, "--batch_size",
+                        str(fleet_b), "--device", "cuda:0"]))
+                    for name in os.listdir(ref_out):
+                        with open(os.path.join(ref_out, name), "rb") as f:
+                            want = f.read()
+                        with open(os.path.join(out, name), "rb") as f:
+                            if f.read() != want:
+                                diff.append(name)
+            finally:
+                if stand_in is not None:
+                    sys.path.remove(stand_in)
+                    sys.modules.pop("h5py", None)
+            written = sorted(os.listdir(out))
+        per_rank = "; ".join(
+            f"rank {rk['rank']} ({rk['device']}): {rk['n_utts']} utts, "
+            f"{rk['n_samples']} samples in {rk['seconds']:.3f} s = "
+            f"{rk['n_samples'] / rk['seconds']:.0f} samples/s, launches "
+            f"{ {k: v for k, v in rk['launches'].items() if v} }"
+            for rk in ranks)
+        busiest = max(rk["seconds"] for rk in ranks)
+        if per_card:    # correctness only: no multi-card speed is reported
+            per_rank = "; ".join(
+                f"rank {rk['rank']} ({rk['device']}): {rk['n_utts']} utts, "
+                f"launches {dict((k, v) for k, v in rk['launches'].items() if v)}"
+                for rk in ranks)
+            speed = "speed not reported"
+        else:
+            speed = (f"aggregate {res['n_samples']} samples: "
+                     f"{res['n_samples'] / busiest:.0f} samples/s over the "
+                     f"busier rank's decode, "
+                     f"{res['n_samples'] / res['wall_seconds']:.0f} over the "
+                     f"run's {res['wall_seconds']:.1f} s wall (ranks' start "
+                     f"and model load included) | one-process decodes of "
+                     f"each rank's fleet: "
+                     + ", ".join(f"{x['n_samples'] / x['seconds']:.0f}"
+                                 for x in refs) + " samples/s")
+        where = (f"--device cuda, one rank per card" if per_card else
+                 f"--device cuda:0, {n_ranks} ranks sharing one card "
+                 f"(plumbing, not scaling)")
+        print(f"[main dp{n_ranks}] {m['name']} bin/decode.py main --n_devices "
+              f"{n_ranks} --mode argmax, {where}: {n_utts} utts, frames "
+              f"{frames.min()}-{frames.max()}, fleets of {fleet_b} "
+              f"({route} K1) | {per_rank} | {speed}, wavs differing {diff} | "
+              f"{h5_note} | {card}", flush=True)
+        want_dev = [f"cuda:{r if per_card else 0}" for r in range(n_ranks)]
+        if [rk["device"] for rk in ranks] != want_dev:
+            raise AssertionError(f"ranks on {[rk['device'] for rk in ranks]}"
+                                 f", not {want_dev}")
+        if written != sorted(i + ".wav" for i in ids) or \
+                res["n_utts"] != n_utts:
+            raise AssertionError(f"not every utterance written once: "
+                                 f"{written}, {res['n_utts']} decoded")
+        for rk in ranks:
+            n_b = len(rk["batches"])
+            ar = sum(v for k, v in rk["launches"].items()
+                     if k.startswith("ar_"))
+            if (not n_b or rk["launches"][k1_name] != n_b or ar != n_b
+                    or rk["launches"]["layer_stack_fwd"] < n_b):
+                raise AssertionError(f"rank {rk['rank']} not on the "
+                                     f"kernels: {rk['launches']}, {n_b} "
+                                     f"fleets")
+        if diff or sum(x["n_utts"] for x in refs) != n_utts:
+            raise AssertionError(f"rank wavs differ from one-process decodes "
+                                 f"of the same fleets: {diff}")
+
+    def train_dp(m, n_ranks=2, per_card=False, n_steps=3, lr=1e-3):
+        """Data-parallel training at the flagship width and window: a
+        1-rank NCCL group takes n_steps fused steps bitwise equal to the
+        step outside a group; n_ranks ranks on a global batch of n_ranks x
+        T (gloo ranks sharing cuda:0, or, ``per_card``, NCCL ranks one on
+        each card) stay bitwise equal to each other after every step, and
+        their first step agrees with one process on the global batch by
+        [train]'s limits (loss and gradients; Adam's first update is about
+        lr * sign(g), so params are compared through the gradients that
+        made them)."""
+        from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+            RankInfo,
+            spawn_local,
+        )
+
+        cfg = m["cfg"]
+        T = t_train(m)
+        init = {g: {n: t.numpy() for n, t in leaves.items()}
+                for g, leaves in init_wavenet_params(
+                    cfg, torch.Generator().manual_seed(1)).items()}
+        conf = cfg.to_dict()
+        wins = [train_window(m, 41 + i) for i in range(n_ranks * n_steps)]
+        one = [(x, h, t) for (x, h), t in wins[:n_steps]]
+        glob = [tuple(np.concatenate(parts) for parts in zip(*(
+            (x, h, t) for (x, h), t in wins[n_ranks * i:n_ranks * (i + 1)])))
+            for i in range(n_steps)]
+        me = RankInfo.alone(dev)
+        where = ("NCCL ranks, one per card" if per_card else
+                 f"gloo ranks on cuda:0 ({n_ranks} ranks sharing one card)")
+
+        # part 1: outside a group (twice: the comparison needs the step
+        # reproducible, so PyTorch's deterministic algorithms are on) and
+        # as the one rank of an NCCL group
+        ref_a = _dp_train_rank(me, conf, init, one, lr, True, True)
+        ref_b = _dp_train_rank(me, conf, init, one, lr, False, True)
+        torch.cuda.empty_cache()
+        [nccl] = spawn_local(1, _dp_train_rank,
+                             (conf, init, one, lr, False, True),
+                             device_arg="cuda:0", backend="nccl",
+                             timeout_s=120, deadline_s=300)
+        # part 2: the ranks, each one row of n_ranks x T
+        ranks = spawn_local(n_ranks, _dp_train_rank,
+                            (conf, init, glob, lr, True, False),
+                            device_arg="cuda" if per_card else "cuda:0",
+                            backend="nccl" if per_card else "gloo",
+                            timeout_s=120, deadline_s=300)
+        single = _dp_train_rank(me, conf, init, glob, lr, True, False)
+        torch.cuda.empty_cache()
+
+        def agreement(a, b):
+            """(|loss_a - loss_b| / loss_b, per-group gradient cosine) of
+            the first step"""
+            return (abs(a["losses"][0] - b["losses"][0]) / abs(b["losses"][0]),
+                    {g: float(a["grads"][g] @ b["grads"][g]
+                              / (np.linalg.norm(a["grads"][g])
+                                 * np.linalg.norm(b["grads"][g]) + 1e-30))
+                     for g in a["grads"]})
+
+        tol_loss, tol_cos = 1e-3, 0.99      # [train]'s fused-vs-plain limits
+
+        def fails(a):
+            bad = ["loss"] if not a[0] < tol_loss else []
+            return bad + [g for g, c in a[1].items() if not c > tol_cos]
+
+        agree = agreement(ranks[0], single)
+        # control: one row's own gradient, as a rank without the all-reduce
+        # would apply it
+        control = agreement(ref_a, single)
+        equal = all(r["digests"] == ranks[0]["digests"]
+                    and r["losses"] == ranks[0]["losses"] for r in ranks)
+        if per_card:    # correctness only: no multi-card speed is reported
+            ms = "ms/step not reported"
+        else:
+            ms = "ms/step (median of steps 2-" + str(n_steps) + ") " + \
+                ", ".join(f"{n} {float(np.median(r['ms'][1:])):.1f}"
+                          for n, r in [(f"rank {r['rank']}", r)
+                                       for r in ranks]
+                          + [("1 NCCL rank", nccl), ("no group B=1", ref_a),
+                             (f"no group B={n_ranks}", single)])
+        print(f"[train dp{f'{n_ranks} per card' if per_card else ''}] "
+              f"{m['name']} "
+              f"{n_steps} fused steps, T={T}, lr {lr}: 1-rank NCCL group vs "
+              f"no group: losses "
+              + " ".join(f"{v:.6f}" for v in nccl["losses"])
+              + f", params bitwise equal every step "
+              f"{nccl['digests'] == ref_a['digests']} (no group twice: "
+              f"{ref_a['digests'] == ref_b['digests']}) | {n_ranks} {where} "
+              f"on {[r['device'] for r in ranks]}, global batch {n_ranks} x "
+              f"{T}: losses "
+              + " ".join(f"{v:.6f}" for v in ranks[0]["losses"])
+              + f", ranks bitwise equal every step {equal}, first step vs "
+              f"one process on the global batch: loss |d|/loss "
+              f"{agree[0]:.3e}, grad cos "
+              + ", ".join(f"{g} {c:.6f}" for g, c in agree[1].items())
+              + f", fails {fails(agree) or 'none'}; control (one row's own "
+              f"gradient): loss {control[0]:.3e}, min cos "
+              f"{min(control[1].values()):.4f}, fails "
+              f"{fails(control) or 'none'} (limits loss {tol_loss}, cos "
+              f"{tol_cos}) | {ms} | launches per rank "
+              f"{[r['launches'] for r in ranks + [nccl]]} | {card}",
+              flush=True)
+        want_dev = [f"cuda:{r if per_card else 0}" for r in range(n_ranks)]
+        if [r["device"] for r in ranks] != want_dev:
+            raise AssertionError(f"ranks on {[r['device'] for r in ranks]}, "
+                                 f"not {want_dev}")
+        for r in ranks + [nccl, ref_a, single]:
+            if r["route"] != "fused" or set(r["launches"].values()) != {
+                    len(r["losses"])}:
+                raise AssertionError(f"not one K2-train/K3 launch per fused "
+                                     f"step: {r['route']}, {r['launches']}")
+            if not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"loss not finite: {r['losses']}")
+        if ref_a["digests"] != ref_b["digests"]:
+            raise AssertionError("the step outside a group is not "
+                                 "reproducible: no bitwise comparison")
+        if nccl["digests"] != ref_a["digests"] or \
+                nccl["losses"] != ref_a["losses"]:
+            raise AssertionError("the 1-rank NCCL group's steps are not the "
+                                 "bits of the step outside a group")
+        if not equal:
+            raise AssertionError("the ranks' params drifted apart")
+        if fails(agree):
+            raise AssertionError(f"{n_ranks}-rank first step off one process "
+                                 f"on the global batch: {agree}")
+        if not fails(control):
+            raise AssertionError("the limits pass the control")
+
+    def convert_path(m, n_utts=4, frames=10):
+        """The reference-checkpoint bridge: the arctic params in the
+        reference's layout (``torch.save`` checkpoint and Namespace
+        model.conf) through bin/convert_checkpoint.py --direction to_jax;
+        the bundle decoded by bin/decode.py's loader with impl="auto" on
+        the card (K2 and K1) is argmax-equal to the same weights loaded
+        directly."""
+        import argparse
+
+        from pytorchwavenetvocoder_tpu_torch import convert as pconv
+        from pytorchwavenetvocoder_tpu_torch.bin import convert_checkpoint
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import load_model
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            WaveNet,
+            _kernel_config,
+        )
+
+        cfg = m["cfg"]
+        sd = pconv.torch_state_dict_from_params(m["params"], cfg)
+        conf = argparse.Namespace(**pconv.torch_conf_dict_from_config(cfg),
+                                  lr=1e-4)
+        r = np.random.RandomState(12)
+        h = r.randn(n_utts, frames, cfg.n_aux).astype(np.float32)
+        x = np.full((n_utts, 1), 128, np.int32)
+        n_list = [frames * cfg.upsampling_factor - 1 - 7 * b
+                  for b in range(n_utts)]
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            ref = os.path.join(tmp, "reference")
+            os.makedirs(ref)
+            torch.save({"model": sd, "iterations": 7},
+                       os.path.join(ref, "checkpoint-7.pkl"))
+            torch.save(conf, os.path.join(ref, "model.conf"))
+            outdir = os.path.join(tmp, "bundle")
+            path = convert_checkpoint.main([
+                "--checkpoint", os.path.join(ref, "checkpoint-7.pkl"),
+                "--config", os.path.join(ref, "model.conf"), "--outdir",
+                outdir, "--direction", "to_jax", "--verbose", "0"])
+            model, _conf = load_model(path, outdir, dev)
+        rcfg = pconv.config_from_torch_conf(conf)
+        direct = WaveNet(rcfg, params=pconv.params_from_torch_state_dict(
+            sd, rcfg), device=dev)
+        same = all(torch.equal(model.params[g][n], t)
+                   for g, leaves in direct.params.items()
+                   for n, t in leaves.items())
+        reset_launches()
+        got = model.batch_fast_generate(x, h, n_list, mode="argmax",
+                                        impl="auto")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = direct.batch_fast_generate(x, h, n_list, mode="argmax",
+                                          impl="auto")
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        route = ak.ar_route(_kernel_config(rcfg), n_utts, device=dev)
+        k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+        print(f"[convert] {m['name']} reference state dict ({len(sd)} "
+              f"tensors) -> bin/convert_checkpoint.py --direction to_jax -> "
+              f"bundle ({model.config.compute_dtype} conf) decoded with "
+              f"impl=auto: {n_utts} utts x {max(n_list)} steps argmax-equal "
+              f"to the weights loaded directly: {equal}, params bit-equal "
+              f"{same}, launches {launches} | {card}", flush=True)
+        if not (equal and same):
+            raise AssertionError(f"converted bundle decodes differently: "
+                                 f"argmax equal {equal}, params equal {same}")
+        if launches[k1_name] != 1 or launches["layer_stack_fwd"] < 1:
+            raise AssertionError(f"not decoded on the kernels: {launches}")
+
+    # ---- 13. K4: the serial matmul-chain probe ------------------------------
     def k4():
         from pytorchwavenetvocoder_tpu_torch.bin import (
             matmul_chain_probe as probe,
@@ -2261,39 +2730,54 @@ def main() -> int:
         if bad:
             raise AssertionError(f"K4 outside its limits: {bad}")
 
-    phase("sass", sass_check)
-    phase("K2", lambda: k2(arctic))
-    phase("K1", lambda: k1(arctic, 256, 256,
-                           {"no_dil_bias": zero_dil_bias(params)}))
-    phase("K1 chi2", chi2)
-    phase("main", lambda: main_path(arctic))
-    phase("main f32", lambda: main_f32(arctic))
-    phase("K2 train", lambda: k2_train(arctic))
-    phase("K3", lambda: k3(arctic))
-    phase("train", lambda: train_path(arctic))
-    phase("K1 int8", lambda: k1_int8(arctic, 256, 256))
-    phase("int8 track", lambda: int8_track(arctic, 8, 0.8))
-    phase("K1 int8 chi2", chi2_int8)
-    phase("main int8", lambda: main_int8(arctic))
-    phase("main mini", main_mini)
-    # the ljspeech flagship (kernel_size 3): fewer plain-loop steps, the
-    # plain k=3 loop taking ~10 ms a step
-    phase("K2 k3", lambda: k2(ljs))
-    phase("K1 k3", lambda: k1(ljs, 256, 128,
-                              {"lag_2d_dropped": drop_lag_2d(ljs["params"]),
-                               "lags_swapped": swap_lags(ljs["params"])}))
-    phase("K1 int8 k3", lambda: k1_int8(ljs, 256, 128))
-    phase("int8 track k3", lambda: int8_track(ljs, 10, 0.7))
-    phase("main k3", lambda: main_path(ljs))
-    phase("main wide k3", lambda: main_path(ljs, wide=True))
-    phase("main int8 k3", lambda: main_int8(ljs))
-    phase("main int8 wide k3", lambda: main_path(ljs, wide=True,
-                                                 quantize=True))
-    phase("K2 train k3", lambda: k2_train(ljs))
-    phase("K3 k3", lambda: k3(ljs))
-    phase("train k3", lambda: train_path(ljs))
-    # the probe last, beside K1's times from this run
-    phase("K4", k4)
+    if per_card:
+        # one rank on each card: correctness of the device placement and
+        # of NCCL across cards (no speed is reported)
+        n = torch.cuda.device_count()
+        if n < 2:
+            _fail(f"--rank-per-card needs two or more cards; found {n}")
+        phase(f"main dp{n} per card",
+              lambda: main_dp(arctic, n, per_card=True))
+        phase(f"train dp{n} per card",
+              lambda: train_dp(arctic, n, per_card=True))
+    else:
+        phase("sass", sass_check)
+        phase("K2", lambda: k2(arctic))
+        phase("K1", lambda: k1(arctic, 256, 256,
+                               {"no_dil_bias": zero_dil_bias(params)}))
+        phase("K1 chi2", chi2)
+        phase("main", lambda: main_path(arctic))
+        phase("main f32", lambda: main_f32(arctic))
+        phase("K2 train", lambda: k2_train(arctic))
+        phase("K3", lambda: k3(arctic))
+        phase("train", lambda: train_path(arctic))
+        phase("K1 int8", lambda: k1_int8(arctic, 256, 256))
+        phase("int8 track", lambda: int8_track(arctic, 8, 0.8))
+        phase("K1 int8 chi2", chi2_int8)
+        phase("main int8", lambda: main_int8(arctic))
+        phase("main mini", main_mini)
+        # the ljspeech flagship (kernel_size 3): fewer plain-loop steps, the
+        # plain k=3 loop taking ~10 ms a step
+        phase("K2 k3", lambda: k2(ljs))
+        phase("K1 k3", lambda: k1(ljs, 256, 128,
+                                  {"lag_2d_dropped": drop_lag_2d(ljs["params"]),
+                                   "lags_swapped": swap_lags(ljs["params"])}))
+        phase("K1 int8 k3", lambda: k1_int8(ljs, 256, 128))
+        phase("int8 track k3", lambda: int8_track(ljs, 10, 0.7))
+        phase("main k3", lambda: main_path(ljs))
+        phase("main wide k3", lambda: main_path(ljs, wide=True))
+        phase("main int8 k3", lambda: main_int8(ljs))
+        phase("main int8 wide k3", lambda: main_path(ljs, wide=True,
+                                                     quantize=True))
+        phase("K2 train k3", lambda: k2_train(ljs))
+        phase("K3 k3", lambda: k3(ljs))
+        phase("train k3", lambda: train_path(ljs))
+        # data parallel over processes and the reference-checkpoint bridge
+        phase("main dp2", lambda: main_dp(arctic))
+        phase("train dp", lambda: train_dp(arctic))
+        phase("convert", lambda: convert_path(arctic))
+        # the probe last, beside K1's times from this run
+        phase("K4", k4)
     if failures:
         _fail(f"phases failed: {failures}")
     print(f"[smoke] all phases passed in {time.time() - t_start:.1f} s, the "

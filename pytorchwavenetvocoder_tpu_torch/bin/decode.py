@@ -10,14 +10,27 @@ runs through the port's hand-written kernels (``--impl auto`` or
 batch runs on a prefetch thread and mu-law decode + wav writing for the
 previous batch on a writer thread, overlapping the device.
 
+Several devices: one decode process (rank) per device, each decoding the
+utterances ``i`` with ``i % world == rank`` in fleets of
+``ceil(batch_size / world)`` (``--batch_size`` counts the utterances in
+flight over all devices, as in the JAX CLI), sampling from a generator
+seeded by ``(seed, rank)``; the ranks share nothing and need no
+collectives.  ``--n_devices N`` starts the N ranks here
+(``parallel/distributed.py::spawn_local``; ``--device cuda`` puts rank r on
+``cuda:r``, ``cuda:K`` puts them all on one card, ``cpu`` on the CPU); a
+launcher (torchrun, srun) starts them itself, one process per rank.
+
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.decode --feats ...
---stats ... --checkpoint ... --config ... --outdir ... [--device cuda]``.
+--stats ... --checkpoint ... --config ... --outdir ... [--device cuda]
+[--n_devices N]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import logging
+import math
 import os
 import queue
 import threading
@@ -43,10 +56,13 @@ def get_parser() -> argparse.ArgumentParser:
                         help="directory to save generated wavs")
     parser.add_argument("--fs", default=16000, type=int)
     parser.add_argument("--batch_size", default=32, type=int,
-                        help="number of utterances decoded in lockstep")
+                        help="number of utterances decoded in lockstep, over "
+                             "all devices")
     parser.add_argument("--n_devices", "--n_gpus", dest="n_devices",
                         default=1, type=int,
-                        help="only 1: multi-GPU decode is not yet ported")
+                        help="decode ranks started here, one per device "
+                             "(see --device); under a launcher (torchrun, "
+                             "srun) the launcher's world")
     parser.add_argument("--mode", default="sampling",
                         choices=["sampling", "argmax"])
     parser.add_argument("--impl", default="auto",
@@ -55,7 +71,9 @@ def get_parser() -> argparse.ArgumentParser:
                              "(bf16), plain = plain PyTorch, "
                              "auto = cuda on a CUDA device, else plain")
     parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device to decode on (cuda, cuda:1, cpu)")
+                        help="torch device to decode on (cuda, cuda:1, cpu); "
+                             "with several ranks: cuda = rank r on cuda:r, "
+                             "cuda:K = every rank on that card, cpu")
     parser.add_argument("--quantize", default=False, action="store_true",
                         help="int8 decode: int8 weights with "
                              "one scale per output column, activation scales "
@@ -88,13 +106,28 @@ def load_model(checkpoint: str, config_path: str, device):
     return model, conf
 
 
+def decode_launches() -> dict:
+    """The decode kernels' launch counts in this process, by kernel: the
+    bf16 and int8 AR kernels (persistent and launch loop) and the warm-up
+    layer stack."""
+    from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
+    from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
+
+    return {"ar_persistent": ak.ar_generate.launches,
+            "ar_step": ak.ar_generate.loop_launches,
+            "ar_step_int8": ak.ar_generate.int8_launches,
+            "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
+            "layer_stack_fwd": tk.layer_stack_streams.launches}
+
+
 def decode_batches(model, batches, outdir: str, mode: str = "sampling",
                    impl: str = "auto",
                    generator: torch.Generator | None = None,
                    fs: int = 16000, intervals: int | None = None,
-                   quantize: bool = False) -> dict:
+                   quantize: bool = False, ranks_on_device: int = 1) -> dict:
     """Decode every ``(feat_ids, (x, h, n_samples))`` batch and write
-    ``<outdir>/<feat_id>.wav`` (int8 decode with ``quantize``).
+    ``<outdir>/<feat_id>.wav`` (int8 decode with ``quantize``;
+    ``ranks_on_device`` decode processes share the model's device).
 
     Wav writing runs on a bounded writer thread, overlapping the next
     fleet's decode.  Returns totals: utterances, samples, decode seconds
@@ -135,7 +168,8 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
             start = time.time()
             samples_list = model.batch_fast_generate(
                 x, h, list(n_samples), intervals=intervals, mode=mode,
-                generator=generator, impl=impl, quantize=quantize)
+                generator=generator, impl=impl, quantize=quantize,
+                ranks_on_device=ranks_on_device)
             elapsed = time.time() - start
             n_gen = sum(int(n) for n in n_samples)
             records.append(dict(n_utts=len(feat_ids), n_samples=n_gen,
@@ -163,14 +197,22 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
                 seconds=sum(r["seconds"] for r in records), batches=records)
 
 
-def main(argv=None) -> dict:
-    args = get_parser().parse_args(argv)
-    configure_logging(args.verbose)
-    echo_args(args)
-    if args.n_devices != 1:
-        raise NotImplementedError("--n_devices > 1 (multi-GPU decode) is not "
-                                  "yet ported to the PyTorch package")
+def rank_generator(seed: int, rank: int, world: int) -> torch.Generator:
+    """The sampling generator of decode rank ``rank`` of ``world``: seeded
+    by ``seed`` alone in a one-process run, else from ``(seed, rank)``
+    through ``np.random.SeedSequence`` (as ``models/wavenet.py``'s
+    sub-fleets), so no two ranks draw the same noise."""
+    if world == 1:
+        return torch.Generator().manual_seed(seed)
+    state = np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
 
+
+def decode_rank(info, args, feat_list: list) -> dict:
+    """One rank's decode: the utterances ``feat_list[rank::world]`` in
+    fleets of ``ceil(batch_size / world)`` on the rank's device (``info``,
+    a ``parallel.distributed.RankInfo``).  Returns ``decode_batches``'
+    record with the rank, its device and its kernel launches."""
     from pytorchwavenetvocoder_tpu_torch.data.generator import decode_generator
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
     from pytorchwavenetvocoder_tpu_torch.ops.scaler import (
@@ -179,12 +221,13 @@ def main(argv=None) -> dict:
     )
     from pytorchwavenetvocoder_tpu_torch.utils import (
         BackgroundGenerator,
-        find_files,
         read_hdf5,
-        read_txt,
     )
 
-    device = torch.device(args.device)
+    rank, world, device = info.rank, info.world, info.device
+    if rank > 0:
+        logging.getLogger().setLevel(max(logging.WARNING,
+                                         logging.getLogger().level))
     model, conf = load_model(args.checkpoint, args.config, device)
     config = model.config
 
@@ -193,15 +236,13 @@ def main(argv=None) -> dict:
     scaler.mean_ = read_hdf5(args.stats, "/" + feature_type + "/mean")
     scaler.scale_ = read_hdf5(args.stats, "/" + feature_type + "/scale")
 
-    if os.path.isdir(args.feats):
-        feat_list = sorted(find_files(args.feats, "*.h5"))
-    else:
-        feat_list = read_txt(args.feats)
-    logging.info("number of utterances = %d", len(feat_list))
-
+    mine = feat_list[rank::world]
+    fleet = math.ceil(args.batch_size / world)
+    logging.info("rank %d/%d on %s decodes %d utterances in fleets of %d.",
+                 rank, world, device, len(mine), fleet)
     batches = decode_generator(
-        feat_list,
-        batch_size=args.batch_size,
+        mine,
+        batch_size=fleet,
         feature_type=feature_type,
         wav_transform=lambda x: encode_mu_law(x, config.n_quantize),
         feat_transform=feature_transform(
@@ -210,11 +251,79 @@ def main(argv=None) -> dict:
         use_upsampling_layer=conf.get("use_upsampling_layer", True),
         use_speaker_code=conf.get("use_speaker_code", False),
     )
-    generator = torch.Generator().manual_seed(args.seed)
-    return decode_batches(model, BackgroundGenerator(batches, max_prefetch=2),
-                          args.outdir, mode=args.mode, impl=args.impl,
-                          generator=generator, fs=args.fs,
-                          intervals=args.intervals, quantize=args.quantize)
+    before = decode_launches()
+    res = decode_batches(model, BackgroundGenerator(batches, max_prefetch=2),
+                         args.outdir, mode=args.mode, impl=args.impl,
+                         generator=rank_generator(args.seed, rank, world),
+                         fs=args.fs, intervals=args.intervals,
+                         quantize=args.quantize,
+                         ranks_on_device=info.ranks_on_device)
+    after = decode_launches()
+    return dict(res, rank=rank, device=str(device),
+                launches={k: after[k] - before[k] for k in after})
+
+
+def _decode_rank_entry(info, args, feat_list: list) -> dict:
+    from pytorchwavenetvocoder_tpu_torch.bin.common import configure_logging
+
+    configure_logging(args.verbose)
+    return decode_rank(info, args, feat_list)
+
+
+def main(argv=None) -> dict:
+    """Decode ``--feats`` into ``--outdir``; returns the totals over the
+    ranks (utterances, samples, decode seconds), the wall seconds of the
+    whole run, and each rank's ``decode_rank`` record under ``ranks``
+    (under a launcher: this process's rank only)."""
+    args = get_parser().parse_args(argv)
+    configure_logging(args.verbose)
+    echo_args(args)
+
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        RankInfo,
+        initialize_distributed,
+        rank_device,
+        spawn_local,
+    )
+    from pytorchwavenetvocoder_tpu_torch.utils import find_files, read_txt
+
+    start = time.time()
+    if args.n_devices < 1:
+        raise ValueError(f"--n_devices must be >= 1, got {args.n_devices}")
+    if os.path.isdir(args.feats):
+        feat_list = sorted(find_files(args.feats, "*.h5"))
+    else:
+        feat_list = read_txt(args.feats)
+    logging.info("number of utterances = %d", len(feat_list))
+
+    # decode ranks run no collectives: no process group (backend None)
+    info = initialize_distributed(args.device, backend=None)
+    if info is not None:
+        if args.n_devices not in (1, info.world):
+            raise ValueError(f"--n_devices {args.n_devices}, but the "
+                             f"launcher started {info.world} ranks")
+        ranks = [decode_rank(info, args, feat_list)]
+    elif args.n_devices > 1:
+        rank_device(args.device, 0, args.n_devices)   # refuse before building
+        if torch.device(args.device).type == "cuda" and args.impl != "plain":
+            # one nvcc build here, not one per rank (host only: no CUDA)
+            from pytorchwavenetvocoder_tpu_torch._build import build_kernels
+
+            build_kernels()
+        # by import path: when this file runs as __main__, its functions
+        # pickle under that name, which the spawned ranks cannot resolve
+        self = importlib.import_module("pytorchwavenetvocoder_tpu_torch.bin"
+                                       ".decode")
+        ranks = spawn_local(args.n_devices, self._decode_rank_entry,
+                            (args, feat_list), device_arg=args.device,
+                            backend=None)
+    else:
+        ranks = [decode_rank(RankInfo.alone(args.device), args, feat_list)]
+    return dict(n_utts=sum(r["n_utts"] for r in ranks),
+                n_samples=sum(r["n_samples"] for r in ranks),
+                seconds=sum(r["seconds"] for r in ranks),
+                batches=[b for r in ranks for b in r["batches"]],
+                wall_seconds=time.time() - start, ranks=ranks)
 
 
 if __name__ == "__main__":

@@ -4,21 +4,31 @@
 
 Same flags and on-disk contract: an expdir holding ``model.conf`` (JSON)
 and ``checkpoint-<iter>.pkl`` / ``checkpoint-final.pkl``, which the port's
-and the JAX package's decoders and trainers both read.  One device
-(``--device``, default cuda); on a CUDA device with a bf16 config the layer
-stack runs through the fused training kernels (``--fused auto``), else
-through the plain PyTorch path.  ``--n_devices`` / ``--model_parallel``
-above 1 raise: multi-GPU training is not yet ported.
+and the JAX package's decoders and trainers both read.  On a CUDA device
+(``--device``, default cuda) with a bf16 config the layer stack runs
+through the fused training kernels (``--fused auto``), else through the
+plain PyTorch path.
+
+Data parallel: one rank per device (``parallel/distributed.py``), each
+reading ``wav_list[rank::world]`` in batches of ``batch_size / world``
+from the same ``--seed``, the gradients averaged over the ranks every step
+(``parallel/train.py``), rank 0 writing the checkpoints and the log.
+``--n_devices N`` starts the N ranks here; a launcher (torchrun, srun)
+starts them itself.  ``--dist_backend`` picks the collectives: NCCL where
+each rank has its own GPU, gloo on the CPU or where ranks share one card
+(``--device cuda:K``).  ``--model_parallel`` above 1 raises: tensor
+parallelism is not ported.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.train --waveforms ...
---feats ... --stats ... --expdir ... [--device cuda]``.  ``train_loop``
-takes any iterator of ``((x, h), t)`` numpy batches, so a caller can train
-from memory without feature files.
+--feats ... --stats ... --expdir ... [--device cuda] [--n_devices N]``.
+``train_loop`` takes any iterator of ``((x, h), t)`` numpy batches, so a
+caller can train from memory without feature files.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import logging
 import os
 import sys
@@ -110,7 +120,15 @@ def get_parser() -> argparse.ArgumentParser:
                              "--expdir (preemption recovery)")
     parser.add_argument("--n_devices", "--n_gpus", dest="n_devices",
                         default=1, type=int,
-                        help="only 1: multi-GPU training is not yet ported")
+                        help="data-parallel ranks started here, one per "
+                             "device (see --device); under a launcher "
+                             "(torchrun, srun) the launcher's world")
+    parser.add_argument("--dist_backend", default="auto",
+                        choices=["auto", "nccl", "gloo"],
+                        help="collectives of the ranks: auto = nccl where "
+                             "each rank has its own GPU, gloo on the CPU; "
+                             "ranks sharing one GPU (--device cuda:K) need "
+                             "gloo")
     parser.add_argument("--model_parallel", default=1, type=int,
                         help="only 1: tensor parallelism is not yet ported")
     parser.add_argument("--compute_dtype", default="bfloat16",
@@ -131,7 +149,9 @@ def get_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler trace of iterations "
                              "10..20 to this directory")
     parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device to train on (cuda, cuda:1, cpu)")
+                        help="torch device to train on (cuda, cuda:1, cpu); "
+                             "with several ranks: cuda = rank r on cuda:r, "
+                             "cuda:K = every rank on that card, cpu")
     parser.add_argument("--verbose", default=1, type=int)
     return parser
 
@@ -155,14 +175,15 @@ def model_config(args):
     )
 
 
-def _remat(args) -> bool:
+def _remat(args, world: int) -> bool:
     if args.remat != "auto":
         return args.remat == "true"
     if args.batch_length <= 0:
         # utterance-batch mode: lengths are unbounded (a 10 s utterance is
         # 160k samples), so recompute defensively
         return True
-    return args.batch_size * args.batch_length // max(args.n_devices, 1) > 30000
+    # the rows one rank holds
+    return args.batch_size * args.batch_length // world > 30000
 
 
 def train_loop(config, batches, expdir: str, args, device) -> dict:
@@ -171,10 +192,13 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
 
     ``args`` carries the trainer's flags (``get_parser()``): lr,
     weight_decay, batch_length, batch_size, iters, checkpoint_interval,
-    intervals, seed, resume, n_devices, model_parallel, fused, remat,
-    profile_dir.  The loss accumulates on the device and is read once per
-    ``intervals`` steps.  Checkpoints go to ``expdir`` every
-    ``checkpoint_interval`` steps and at the end (``checkpoint-final.pkl``).
+    intervals, seed, resume, model_parallel, fused, remat, profile_dir.
+    The loss accumulates on the device and is read once per ``intervals``
+    steps.  Checkpoints go to ``expdir`` every ``checkpoint_interval``
+    steps and at the end (``checkpoint-final.pkl``).  In a process group
+    (one rank per device) ``batches`` holds this rank's rows, the steps
+    are data-parallel, rank 0 writes the checkpoints and alone takes the
+    profiler trace.
 
     Returns ``{"state", "start", "route", "intervals"}``: the final
     TrainState, the iteration training started from, the route of the
@@ -188,16 +212,22 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
         restore_train_state,
         save_checkpoint,
     )
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        rank,
+        world_size,
+    )
 
     device = torch.device(device)
-    remat = _remat(args)
+    world = world_size()
+    remat = _remat(args, world)
     if remat:
         logging.info("remat enabled (large per-device batch).")
     fused = {"auto": None, "true": True, "false": False}[args.fused]
     step_fn = make_train_step(config, lr=args.lr,
                               weight_decay=args.weight_decay, remat=remat,
-                              fused=fused, n_devices=args.n_devices,
+                              fused=fused, n_devices=world,
                               model_parallel=args.model_parallel)
+    profile_dir = args.profile_dir if rank() == 0 else None
     state = create_train_state(config, lr=args.lr,
                                weight_decay=args.weight_decay,
                                generator=torch.Generator().manual_seed(args.seed),
@@ -224,14 +254,14 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
     sync()
     interval_start = time.time()
     for i in range(start, args.iters):
-        if args.profile_dir and i == start + 10:
+        if profile_dir and i == start + 10:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=acts)
             profiler.start()
         if profiler is not None and i == start + 20:
-            _stop_trace(profiler, args.profile_dir)
+            _stop_trace(profiler, profile_dir)
             profiler = None
         (batch_x, batch_h), batch_t = next(batches)
         if args.batch_length <= 0:
@@ -265,7 +295,7 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
     if profiler is not None:
         # fewer than 10 iterations remained after the trace started: write
         # what it holds rather than lose it
-        _stop_trace(profiler, args.profile_dir)
+        _stop_trace(profiler, profile_dir)
     save_checkpoint(expdir, state, final=True)
     logging.info("final checkpoint created.")
     return dict(state=state, start=start, route=step_fn.route,
@@ -281,10 +311,72 @@ def _stop_trace(profiler, profile_dir: str) -> None:
 
 
 def main(argv=None) -> dict:
+    """Train from ``--waveforms``/``--feats`` into ``--expdir``; returns
+    ``train_loop``'s record.  With several ranks started here each rank's
+    record (without its state) is under ``ranks`` and rank 0's keys are on
+    top; under a launcher, this process's record."""
     args = get_parser().parse_args(argv)
     configure_logging(args.verbose)
     echo_args(args)
 
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        RankInfo,
+        initialize_distributed,
+        shutdown,
+        spawn_local,
+    )
+
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            f"--model_parallel {args.model_parallel}: tensor parallelism is "
+            "not yet ported to the PyTorch package (ROADMAP.md Queue 1 "
+            "item 8)")
+    if args.n_devices < 1:
+        raise ValueError(f"--n_devices must be >= 1, got {args.n_devices}")
+    info = initialize_distributed(args.device, args.dist_backend)
+    if info is not None:
+        try:
+            if args.n_devices not in (1, info.world):
+                raise ValueError(f"--n_devices {args.n_devices}, but the "
+                                 f"launcher started {info.world} ranks")
+            return train_rank(info, args)
+        finally:
+            shutdown()
+    if args.n_devices > 1:
+        _check_batch(args, args.n_devices)
+        # by import path: when this file runs as __main__, its functions
+        # pickle under that name, which the spawned ranks cannot resolve
+        self = importlib.import_module("pytorchwavenetvocoder_tpu_torch.bin"
+                                       ".train")
+        ranks = spawn_local(args.n_devices, self._train_rank_entry, (args,),
+                            device_arg=args.device,
+                            backend=args.dist_backend)
+        return dict(ranks[0], ranks=ranks)
+    return train_rank(RankInfo.alone(args.device), args)
+
+
+def _check_batch(args, world: int) -> None:
+    """Every rank trains on ``batch_size / world`` rows: refuse a batch the
+    world does not divide (utterance mode trains one utterance a step)."""
+    effective = args.batch_size if args.batch_length > 0 else 1
+    if effective % world:
+        mode = " (utterance mode)" if args.batch_length <= 0 else ""
+        raise ValueError(
+            f"a batch of {effective} rows{mode} is not divisible by the "
+            f"{world} ranks: each rank trains on batch_size / n_devices "
+            "rows, so --batch_size must be a multiple of the ranks")
+
+
+def _train_rank_entry(info, args) -> dict:
+    configure_logging(args.verbose)
+    res = train_rank(info, args)
+    state = res.pop("state")
+    return dict(res, rank=info.rank, step=state.step)
+
+
+def train_rank(info, args) -> dict:
+    """One rank's training (``info``, its ``RankInfo``): the corpus strided
+    over the ranks, this rank's share of the batch, ``train_loop``."""
     from pytorchwavenetvocoder_tpu_torch.data import train_generator
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
     from pytorchwavenetvocoder_tpu_torch.ops.scaler import (
@@ -298,6 +390,11 @@ def main(argv=None) -> dict:
         read_txt,
     )
 
+    rank, world = info.rank, info.world
+    _check_batch(args, world)
+    if rank > 0:       # the ranks log the same all-reduced losses
+        logging.getLogger().setLevel(max(logging.WARNING,
+                                         logging.getLogger().level))
     os.makedirs(args.expdir, exist_ok=True)
     np.random.seed(args.seed)
     config = model_config(args)
@@ -336,12 +433,17 @@ def main(argv=None) -> dict:
                       len(feat_list))
         sys.exit(1)
     logging.info("number of training data = %d.", len(wav_list))
+    # each rank loads only its own rows of the global batch (the JAX CLI's
+    # per-process striding)
+    wav_list, feat_list = wav_list[rank::world], feat_list[rank::world]
+    if not wav_list:
+        raise ValueError(f"fewer training files than the {world} ranks")
 
     batches = train_generator(
         wav_list, feat_list,
         receptive_field=config.receptive_field,
         batch_length=args.batch_length if args.batch_length > 0 else None,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size // world,
         feature_type=args.feature_type,
         wav_transform=lambda x: encode_mu_law(x, args.n_quantize),
         feat_transform=feature_transform(
@@ -352,7 +454,7 @@ def main(argv=None) -> dict:
         use_speaker_code=args.use_speaker_code,
         seed=args.seed,
     )
-    return train_loop(config, batches, args.expdir, args, args.device)
+    return train_loop(config, batches, args.expdir, args, info.device)
 
 
 if __name__ == "__main__":

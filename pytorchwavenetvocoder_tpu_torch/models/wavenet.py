@@ -673,19 +673,20 @@ def _least_padded(config: WaveNetConfig, quantize: bool) -> WaveNetConfig:
 
 
 def kernel_multiples(config: WaveNetConfig, B: int,
-                     quantize: bool = False) -> tuple:
+                     quantize: bool = False, device=None) -> tuple:
     """The least (n_resch, n_skipch) multiples the cuda route's kernels
     need for a fleet of B rows: the warm-up's n_resch multiple, and the
     multiples of the AR kernel ``ar_route`` picks for the config so padded
     (the persistent kernel's 16-column groups, or the launch loop's 128-deep
-    K splits).  Asks the current CUDA device's plan."""
+    K splits).  Asks the plan of the CUDA ``device`` (default an H100's)."""
     from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
         AR_MULTIPLES,
         ar_route,
     )
 
     c = _least_padded(config, quantize)
-    mr, ms = AR_MULTIPLES[(ar_route(c, B, quantize), quantize)]
+    mr, ms = AR_MULTIPLES[(ar_route(c, B, quantize, device=device),
+                           quantize)]
     return math.lcm(STREAMS_RESCH_MULTIPLE, mr), ms
 
 
@@ -781,18 +782,21 @@ def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
     return max(loop, fill + h_up)
 
 
-def _decode_hbm_budget(device: torch.device) -> float:
+def _decode_hbm_budget(device: torch.device,
+                       ranks_on_device: int = 1) -> float:
     """Device bytes one decode fleet may take: ``WNV_DECODE_HBM_BUDGET``
     when set, else 3/4 of the free memory ``torch.cuda.mem_get_info``
-    reports on a CUDA device (headroom for the weights and the warm-up),
-    unbounded elsewhere (a CPU fleet splits only under a set budget)."""
+    reports on a CUDA device (headroom for the weights and the warm-up)
+    over the ``ranks_on_device`` decode processes that share it (each
+    reads the same free memory), unbounded elsewhere (a CPU fleet splits
+    only under a set budget)."""
     env = os.environ.get("WNV_DECODE_HBM_BUDGET")
     if env:
         return float(env)
     if device.type != "cuda":
         return float("inf")
     free, _total = torch.cuda.mem_get_info(device)
-    return 0.75 * float(free)
+    return 0.75 * float(free) / max(1, ranks_on_device)
 
 
 def _sub_generator(generator: torch.Generator, seed: int,
@@ -808,7 +812,7 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
                         generator: torch.Generator | None = None,
                         impl: str = "auto", intervals: int | None = None,
                         quantize: bool = False,
-                        device=None):
+                        device=None, ranks_on_device: int = 1):
     """Batched fast AR generation (reference ``batch_fast_generate``,
     `wavenet.py:397-511`).
 
@@ -836,6 +840,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         (``int8_ring_fill``), and the loop runs int8 (the K1 int8 kernel on
         cuda).  A config int8 decode does not serve raises.
       device: where to decode; default the device of the params.
+      ranks_on_device: decode processes sharing ``device`` (the fleet's
+        memory budget is split between them).
 
     A fleet whose buffers (``_fleet_hbm_bytes``) exceed
     ``_decode_hbm_budget`` is decoded as sequential sub-fleets of equal
@@ -859,7 +865,7 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         # multiples of their tiling at this fleet's size (zero lanes)
         c = _kernel_config(c)
         params, c = pad_params_for_kernels(
-            params, c, kernel_multiples(c, len(x), quantize))
+            params, c, kernel_multiples(c, len(x), quantize, device))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
@@ -869,7 +875,7 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         if forced > 0:
             chunk_B = min(forced, B_fleet)
         else:
-            budget = _decode_hbm_budget(device)
+            budget = _decode_hbm_budget(device, ranks_on_device)
             est = _fleet_hbm_bytes(c, B_fleet, int(max(n_samples_list)),
                                    quantize)
             chunk_B = (B_fleet if est <= budget
@@ -885,7 +891,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
                 outs.extend(batch_fast_generate(
                     params, c, x[sl], h[sl], n_list[sl], mode,
                     _sub_generator(generator, seed, i), impl=impl,
-                    intervals=intervals, quantize=quantize, device=device))
+                    intervals=intervals, quantize=quantize, device=device,
+                    ranks_on_device=ranks_on_device))
             return outs
 
     x = torch.as_tensor(x, dtype=torch.int64, device=device)
@@ -1038,8 +1045,9 @@ class WaveNet(nn.Module):
 
     def batch_fast_generate(self, x, h, n_samples_list, intervals=None,
                             mode="sampling", generator=None, impl="auto",
-                            quantize=False):
+                            quantize=False, ranks_on_device=1):
         return batch_fast_generate(self.params, self.config, x, h,
                                    n_samples_list, mode, generator,
                                    impl=impl, intervals=intervals,
-                                   quantize=quantize, device=self.device)
+                                   quantize=quantize, device=self.device,
+                                   ranks_on_device=ranks_on_device)

@@ -726,21 +726,21 @@ def _align256(n: int) -> int:
 
 
 def ar_plan(config, B: int, grid: int | None = None,
-            quantize: bool = False) -> dict:
+            quantize: bool = False, device=None) -> dict:
     """The persistent kernel's launch plan for a fleet of B rows, bf16 or
     (``quantize``) int8: per weighted stage (``AR_STAGES``) its cut
-    (``_cut``), the grid (one block per SM: ``grid``, default the current
-    CUDA device's SM count, else an H100's 132) and the shared-memory
-    layout: two weight buffers, the A rows, the warps' sums, the
-    epilogues' operands.  Raises ValueError where no cut fits.
+    (``_cut``), the grid (one block per SM: ``grid``, default the SM count
+    of the CUDA ``device`` the kernel will run on, else an H100's 132) and
+    the shared-memory layout: two weight buffers, the A rows, the warps'
+    sums, the epilogues' operands.  Raises ValueError where no cut fits.
     ``csrc/ar_persistent.cu`` checks the same plan again before it
     launches."""
     if B < 1:
         raise ValueError(f"B must be >= 1, got {B}")
     if grid is None:
-        grid = (torch.cuda.get_device_properties(
-            torch.cuda.current_device()).multi_processor_count
-            if torch.cuda.is_available() else H100_SMS)
+        device = torch.device("cpu" if device is None else device)
+        grid = (torch.cuda.get_device_properties(device).multi_processor_count
+                if device.type == "cuda" else H100_SMS)
     row_tiles = -(-B // 16)
     for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
         stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max)
@@ -1002,8 +1002,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         _check(ascale, "act_scales", torch.float32, (c.n_layers,), dev)
         if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
             raise ValueError("act_scales must be finite and positive")
-    with torch.cuda.device(dev):
-        route = ar_route(c, B, quantize)
+    route = ar_route(c, B, quantize, device=dev)
     why = ar_kernel_constraint_error(c, quantize, route)
     if why is not None:
         raise NotImplementedError(f"CUDA AR kernel ({route}): {why}")
@@ -1027,6 +1026,15 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
 
 def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _same_device(fn: str, dev: torch.device, **tensors) -> None:
+    """Raise unless every tensor given (None skipped) lies on ``dev``: a
+    kernel launches on its carry's device and reads every pointer there."""
+    for name, t in tensors.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, the carry on "
+                             f"{dev}")
 
 
 def _plan_error(err: int) -> str:
@@ -1056,19 +1064,20 @@ AR_LOOP_FROM_B = {2: None, 3: 208}
 AR_INT8_LOOP_FROM_B = {2: None, 3: 208}
 
 
-def ar_route(config, B: int, quantize: bool = False) -> str:
-    """Which kernel runs a fleet of B rows on the current CUDA device, bf16
-    or (``quantize``) int8: "loop" (the launch loop of ``csrc/ar_step.cu``)
-    where the persistent kernel has no cut of its stages in shared memory
-    (``ar_plan`` raises, as for bf16 at kernel_size 3 with n_resch >= 768)
-    or B is at least ``AR_LOOP_FROM_B`` (int8: ``AR_INT8_LOOP_FROM_B``) of
-    its kernel size, else "persistent"."""
+def ar_route(config, B: int, quantize: bool = False, device=None) -> str:
+    """Which kernel runs a fleet of B rows on the CUDA ``device`` (default:
+    an H100's grid), bf16 or (``quantize``) int8: "loop" (the launch loop
+    of ``csrc/ar_step.cu``) where the persistent kernel has no cut of its
+    stages in shared memory (``ar_plan`` raises, as for bf16 at
+    kernel_size 3 with n_resch >= 768) or B is at least ``AR_LOOP_FROM_B``
+    (int8: ``AR_INT8_LOOP_FROM_B``) of its kernel size, else
+    "persistent"."""
     start = (AR_INT8_LOOP_FROM_B if quantize else AR_LOOP_FROM_B).get(
         config.kernel_size)
     if start is not None and B >= start:
         return "loop"
     try:
-        ar_plan(config, B, quantize=quantize)
+        ar_plan(config, B, quantize=quantize, device=device)
     except ValueError:
         return "loop"
     return "persistent"
@@ -1105,8 +1114,7 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
     quantize = ascale is not None
-    with torch.cuda.device(dev):
-        plan = ar_plan(c, B, quantize=quantize)
+    plan = ar_plan(c, B, quantize=quantize, device=dev)
     units = pack_ar_units(pk, plan, c)
     _caps, offsets, _total = _buffer_layout(c)
     meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
@@ -1259,9 +1267,12 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
     dev = act_buf.device
     if dev.type != "cuda":
         raise ValueError(f"ar_phase_times runs on a CUDA device, not {dev}")
+    _same_device("ar_phase_times", dev, h_up=h_up, sample_hist=sample_hist,
+                 prev=prev)
     with torch.cuda.device(dev):
         slots = kernels().wn_ar_phase_slots()
-        grid = ar_plan(config, prev.shape[0], quantize=quantize)["grid"]
+    grid = ar_plan(config, prev.shape[0], quantize=quantize,
+                   device=dev)["grid"]
     phase = torch.zeros((grid, slots), dtype=torch.int64, device=dev)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     _persistent(pack_ar_weights(params, config), config, act_buf, ids, h_up,
@@ -1297,6 +1308,9 @@ def ar_generate_on(route: str, params, config, carry, h_up: torch.Tensor,
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate_on runs on a CUDA device, not "
                          f"{act_buf.device}")
+    _same_device("ar_generate_on", act_buf.device, h_up=h_up,
+                 sample_hist=sample_hist, prev=prev,
+                 act_scales=act_scales if quantize else None)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     out = _steps(route, pack_ar_weights(params, config), config, act_buf, ids,
                  h_up, T0, max_n, 0, False,

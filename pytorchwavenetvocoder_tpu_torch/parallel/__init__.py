@@ -1,5 +1,5 @@
-"""Training on one device, and the model bundle's checkpoints and model.conf
-(multi-GPU is not yet ported)."""
+"""Training, on one device or data-parallel over one process per device,
+and the model bundle's checkpoints and model.conf."""
 
 from pytorchwavenetvocoder_tpu_torch.parallel.checkpoint import (  # noqa: F401
     find_latest_checkpoint,
@@ -8,6 +8,14 @@ from pytorchwavenetvocoder_tpu_torch.parallel.checkpoint import (  # noqa: F401
     restore_train_state,
     save_checkpoint,
     save_model_conf,
+)
+from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (  # noqa: F401
+    RankInfo,
+    all_reduce_mean,
+    initialize_distributed,
+    rank_device,
+    shard_rows,
+    spawn_local,
 )
 from pytorchwavenetvocoder_tpu_torch.parallel.train import (  # noqa: F401
     TrainState,

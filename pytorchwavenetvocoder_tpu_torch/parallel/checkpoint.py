@@ -32,6 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from pytorchwavenetvocoder_tpu_torch.parallel.distributed import barrier, rank
+
 #: Module roots whose classes load as ``OpaqueState``.
 _OPAQUE_ROOTS = ("optax", "jax", "jaxlib", "flax", "chex")
 _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float",
@@ -91,23 +93,34 @@ def save_checkpoint(checkpoint_dir: str, state, iterations: int | None = None,
     a truncated pickle under the final name.  A final checkpoint gets an
     ``.iter`` sidecar with its iteration count, which
     ``find_latest_checkpoint`` reads without unpickling the payload.
+
+    In a process group only rank 0 writes (the ranks hold the same state),
+    and every rank waits at a barrier until the file is in place; every
+    rank returns the path.
     """
+    if iterations is None:
+        iterations = int(state.step)
+    name = "checkpoint-final.pkl" if final else f"checkpoint-{iterations}.pkl"
+    path = os.path.join(checkpoint_dir, name)
+    if rank() == 0:
+        _write_checkpoint(path, state, iterations, final)
+    barrier()
+    return path
+
+
+def _write_checkpoint(path: str, state, iterations: int, final: bool) -> None:
     from pytorchwavenetvocoder_tpu_torch.convert import (
         adam_moments_to_jax,
         params_to_jax,
     )
 
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    if iterations is None:
-        iterations = int(state.step)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
         "model": params_to_jax(state.params),
         "optimizer": {"adam_moments": adam_moments_to_jax(state.optimizer,
                                                           state.params)},
         "iterations": int(iterations),
     }
-    name = "checkpoint-final.pkl" if final else f"checkpoint-{iterations}.pkl"
-    path = os.path.join(checkpoint_dir, name)
     tmp = path + ".tmp"
     if final and os.path.exists(path + ".iter"):
         # drop the stale sidecar first so a crash between the two renames
@@ -124,7 +137,6 @@ def save_checkpoint(checkpoint_dir: str, state, iterations: int | None = None,
             f.write(str(int(iterations)))
         os.replace(iter_tmp, path + ".iter")
     logging.info("%d-iter checkpoint created.", iterations)
-    return path
 
 
 def _find_adam_state(opt):
@@ -225,9 +237,12 @@ def find_latest_checkpoint(checkpoint_dir: str) -> str | None:
 
 
 def save_model_conf(expdir: str, conf: dict[str, Any]) -> str:
-    """Write model.conf (JSON) next to the checkpoints."""
-    os.makedirs(expdir, exist_ok=True)
+    """Write model.conf (JSON) next to the checkpoints: rank 0 writes, the
+    ranks of a process group meet at a barrier after it."""
     path = os.path.join(expdir, "model.conf")
-    with open(path, "w") as f:
-        json.dump(conf, f, indent=2, sort_keys=True, default=str)
+    if rank() == 0:
+        os.makedirs(expdir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(conf, f, indent=2, sort_keys=True, default=str)
+    barrier()
     return path

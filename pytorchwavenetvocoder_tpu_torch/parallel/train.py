@@ -1,4 +1,4 @@
-"""The training step on one device.
+"""The training step, on one device or data-parallel over ranks.
 
 Counterpart of ``pytorchwavenetvocoder_tpu/parallel/train.py`` (reference
 training inner loop, `train.py:527-539`): Adam and a cross-entropy with the
@@ -6,8 +6,11 @@ first ``receptive_field`` positions masked out of the loss
 (`train.py:534-536`), weight decay as torch-Adam L2 on the gradient.  The
 layer stack runs through the fused CUDA training kernels
 (``ops/train_kernel.py::FusedLayerStack``) or the plain PyTorch forward
-with autograd.  Data and tensor parallelism are not yet ported: a request
-for more than one device raises.
+with autograd.  In a process group (``parallel/distributed.py``, one rank
+per device) each rank takes the gradient of its rows and the ranks average
+the gradients before the optimizer step, as the JAX step's ``pmean`` over
+the ``data`` axis.  Tensor parallelism is not ported: a request for it
+raises.
 """
 
 from __future__ import annotations
@@ -102,11 +105,33 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
     holds, as the JAX package does for its TPU backend.  ``step_fn.route``
     names the route of the last step ("fused" or "plain"); a change of
     route is logged.
+
+    Data parallel: in a process group (``torch.distributed`` initialized,
+    one rank per device, each with its own rows of the global batch) the
+    step averages every param gradient over the ranks
+    (``all_reduce_mean``, in ``param_leaves`` order, the loss in the same
+    bucket) between the backward and ``opt.step()``, so every rank applies
+    the same update; the loss returned is the mean of the ranks' losses
+    (the JAX step's ``pmean``).  ``n_devices`` must equal the group's size
+    (1 outside a group).  ``model_parallel > 1`` raises: tensor parallelism
+    is not ported (ROADMAP.md Queue 1 item 8).
     """
-    if n_devices > 1 or model_parallel > 1:
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        all_reduce_mean,
+        world_size,
+    )
+
+    if model_parallel > 1:
         raise NotImplementedError(
-            f"n_devices={n_devices}, model_parallel={model_parallel}: "
-            "multi-device training is not yet ported to the PyTorch package")
+            f"model_parallel={model_parallel}: tensor parallelism is not "
+            "yet ported to the PyTorch package (ROADMAP.md Queue 1 item 8)")
+    if n_devices != world_size():
+        raise ValueError(
+            f"n_devices={n_devices}, but this process is in a group of "
+            f"{world_size()} rank(s): data parallelism runs one rank per "
+            "device (bin/train.py --n_devices, torchrun, or "
+            "parallel/distributed.py::spawn_local)")
+    data_parallel = torch.distributed.is_initialized()
     rf = config.receptive_field
     if bf16_intermediates is None:
         bf16_intermediates = config.dtype == torch.bfloat16
@@ -144,9 +169,17 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
                                  fused=on_fused)
         loss = masked_ce_loss(logits, bt, rf)
         loss.backward()
+        loss = loss.detach()
+        if data_parallel:
+            leaves = [t for _g, _n, t in param_leaves(state.params)]
+            for t in leaves:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            loss = loss.clone()
+            all_reduce_mean([t.grad for t in leaves] + [loss])
         opt.step()
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     step_fn.route = None
     return step_fn

@@ -92,7 +92,7 @@ def test_layer_stack_kernel_at_sd_minis_padded_widths(dev):
     ``pad_params_for_kernels``) through the warm-up kernel."""
     cfg = _cfg(n_resch=32, n_skipch=16, dilation_depth=5, dilation_repeat=1)
     params, pc = P.pad_params_for_kernels(_params(cfg, dev), cfg,
-                                          P.kernel_multiples(cfg, 8))
+                                          P.kernel_multiples(cfg, 8, device=dev))
     assert pc.n_resch == 128 and tk.layer_stack_constraint_error(pc) is None
     _check_streams(pc, params, 8, cfg.receptive_field)
 
@@ -113,7 +113,7 @@ def _bf16_counts():
 def test_ar_kernel_matches_plain(dev, B, kernel_size):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=1)
-    route = ak.ar_route(cfg, B)
+    route = ak.ar_route(cfg, B, device=dev)
     rng = np.random.RandomState(1)
     n = 24
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
@@ -213,7 +213,7 @@ def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
     params = _params(cfg, dev, seed=5)
     n = 24
     carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 5)
-    route = ak.ar_route(cfg, B, quantize=True)
+    route = ak.ar_route(cfg, B, quantize=True, device=dev)
 
     def kernel(c_, p, steps):
         before = _int8_counts()
@@ -303,7 +303,7 @@ def test_ar_int8_kernel_one_launch_per_call(dev, kernel_size):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=4)
     carry, h, T0, scales = _int8_carry(params, cfg, dev, 8, 12, 4)
-    assert ak.ar_route(cfg, 8, quantize=True) == "persistent"
+    assert ak.ar_route(cfg, 8, quantize=True, device=dev) == "persistent"
 
     def call():
         return ak.ar_generate(params, cfg, carry, h, T0, 12, "argmax",
@@ -393,7 +393,7 @@ def test_wide_k3_config_runs_on_the_launch_loop(dev):
     against the plain loop, and decoded through ``batch_fast_generate``."""
     cfg = _cfg(kernel_size=3, n_resch=768)
     params = _params(cfg, dev, seed=10)
-    assert ak.ar_route(cfg, 1) == "loop"
+    assert ak.ar_route(cfg, 1, device=dev) == "loop"
     n = 16
     carry, h, T0 = _random_carry(params, cfg, dev, 20, n, 10)
     _same_state(params, cfg, carry, h, T0, n,
@@ -625,3 +625,47 @@ def test_matmul_chain_kernel_matches_plain(dev, variant, B):
         assert rel <= 2e-2 and (d > 0).float().mean().item() <= 0.25
     else:
         assert rel <= 3e-2, rel
+
+
+def test_two_gloo_ranks_on_one_card_stay_bitwise_equal(dev):
+    """Data parallel on the card: 2 gloo ranks sharing cuda:0, 3 fused
+    steps on their halves of a global batch of 2 x 700; after every step
+    both ranks hold the same params, bit for bit, on the fused route."""
+    from _torch_dp_ranks import dp_digests, np_tree
+
+    from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+        spawn_local,
+    )
+
+    cfg = _cfg()
+    params = np_tree(P.init_wavenet_params(cfg, torch.Generator()
+                                           .manual_seed(0)))
+    r = np.random.RandomState(0)
+    batches = [(r.randint(0, 256, (2, 700)).astype(np.int32),
+                r.randn(2, 700, cfg.n_aux).astype(np.float32),
+                r.randint(0, 256, (2, 700)).astype(np.int32))
+               for _ in range(3)]
+    ranks = spawn_local(2, dp_digests, (cfg.to_dict(), params, batches, 1e-3,
+                                        0.0, True),
+                        device_arg="cuda:0", backend="gloo", timeout_s=120,
+                        deadline_s=300)
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]
+    assert all(r["route"] == "fused" for r in ranks)
+    assert ranks[0]["digests"] == ranks[1]["digests"]
+    assert len(set(ranks[0]["digests"])) == 3
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert np.isfinite(ranks[0]["losses"]).all()
+
+
+def test_one_rank_per_card_refuses_more_ranks_than_cards(dev, tmp_path):
+    """--device cuda puts rank r on cuda:r: on a one-card machine two ranks
+    are refused, naming the device count, before any rank starts."""
+    from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("checks a one-card machine")
+    with pytest.raises(ValueError, match=r"device_count\(\) is 1"):
+        decode_cli.main(["--feats", str(tmp_path), "--stats", "-",
+                         "--checkpoint", "-", "--config", "-", "--outdir",
+                         str(tmp_path / "wav"), "--n_devices", "2",
+                         "--device", "cuda", "--verbose", "0"])

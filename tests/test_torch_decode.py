@@ -76,8 +76,11 @@ def test_port_decode_sampling_runs_and_refuses_unported_flags(tmp_path):
     res = torch_decode.main(common + ["--outdir", out, "--mode", "sampling",
                                       "--intervals", "7"])
     assert res["n_utts"] == 3 and len(os.listdir(out)) == 3
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_decode.main(common + ["--outdir", out, "--n_devices", "2"])
+    # a rank per CUDA device: more ranks than devices (none here) raise,
+    # naming the count, before any rank starts
+    with pytest.raises(ValueError, match="device_count"):
+        torch_decode.main(common[:-2] + ["--outdir", out, "--n_devices", "2",
+                                         "--device", "cuda"])
     # --quantize decodes kernel_size 2 and 3 (tests/test_torch_int8.py);
     # int8 with kernel_size 4 is refused, by name, before any work
     ckpt4, expdir4, stats4, featdir4 = _bundle(tmp_path / "k4", kernel_size=4)

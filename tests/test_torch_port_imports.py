@@ -32,26 +32,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
+    # every module of the port, walked (not listed): none may load JAX, optax
+    # or the JAX package
     code = (
-        "import sys\n"
-        "import pytorchwavenetvocoder_tpu_torch\n"
-        "import pytorchwavenetvocoder_tpu_torch.bin.decode\n"
-        "import pytorchwavenetvocoder_tpu_torch.bin.train\n"
-        "import pytorchwavenetvocoder_tpu_torch.parallel.train\n"
-        "import pytorchwavenetvocoder_tpu_torch.parallel.checkpoint\n"
-        "from pytorchwavenetvocoder_tpu_torch.data import train_generator\n"
-        "from pytorchwavenetvocoder_tpu_torch.ops import FusedLayerStack\n"
-        "import pytorchwavenetvocoder_tpu_torch.ops.ar_kernel\n"
-        "import pytorchwavenetvocoder_tpu_torch.ops.train_kernel\n"
-        "import pytorchwavenetvocoder_tpu_torch.ops.matmul_chain\n"
-        "import pytorchwavenetvocoder_tpu_torch.bin.matmul_chain_probe\n"
-        "import pytorchwavenetvocoder_tpu_torch.parallel\n"
-        "import pytorchwavenetvocoder_tpu_torch.data\n"
-        "import pytorchwavenetvocoder_tpu_torch.convert\n"
+        "import importlib, pkgutil, sys\n"
+        "import pytorchwavenetvocoder_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'bin.decode', 'bin.train', 'bin.convert_checkpoint', "
+        "'bin.profile_ar', 'bin.profile_stack', 'bin.matmul_chain_probe', "
+        "'parallel.distributed', 'parallel.train', 'parallel.checkpoint', "
+        "'convert', 'ops.ar_kernel', 'ops.train_kernel', "
+        "'ops.matmul_chain', 'data.generator'}\n"
+        "missing = {n for n in need if pkg.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'pytorchwavenetvocoder_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(names), sorted(missing), bad)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -173,9 +173,13 @@ def test_step_routes_and_refusals():
     fused = ptr.make_train_step(pc, lr=1e-3, fused=True)
     _, loss = fused(ps, bx, bh, bt)
     assert fused.route == "fused" and np.isfinite(float(loss))
-    for kw in (dict(n_devices=2), dict(model_parallel=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ptr.make_train_step(pc, **kw)
+    # data parallelism runs one rank per device: outside a process group
+    # of two ranks, two devices are refused; tensor parallelism is not
+    # ported
+    with pytest.raises(ValueError, match="group of 1 rank"):
+        ptr.make_train_step(pc, n_devices=2)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ptr.make_train_step(pc, model_parallel=2)
 
 
 def test_port_checkpoint_resumes_in_jax(tmp_path):

@@ -144,7 +144,8 @@ def test_train_cli_resumes_latest(tmp_path):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--n_devices", "2"], NotImplementedError, "not yet ported"),
+    # each rank trains batch_size / n_devices rows
+    (["--n_devices", "2", "--batch_size", "3"], ValueError, "not divisible"),
     (["--model_parallel", "2"], NotImplementedError, "not yet ported"),
     (["--fused", "true", "--compute_dtype", "float32"], ValueError,
      "bfloat16"),
