@@ -82,8 +82,23 @@ the model it runs:
    row's own gradient); [convert], the arctic weights as a reference
    ``torch.save`` checkpoint through ``bin/convert_checkpoint.py
    --direction to_jax``, decoded with ``impl="auto"`` argmax-equal to the
-   same weights loaded directly;
-13. [K4]: the serial matmul-chain probe.  The
+   same weights loaded directly; [dp clamp], ``bin/decode.py``'s ``main``
+   with ``--n_devices 2 --device cuda`` on the one card: clamped to one
+   process with the JAX CLI's warning, wavs byte-equal to the one-process
+   decode, one K1 launch per fleet;
+13. [quality]: the arctic recipe (egs/arctic/sd/run.sh stages 0-6) through
+   the port's own CLIs at the flagship's full width: a Klatt corpus of 64
+   training and 8 eval utterances (``eval/klatt.py``, seed 0);
+   ``feature_extract`` (world, host DSP, 8 processes), ``calc_stats``,
+   ``noise_shaping --inv true`` as processes under the h5py stand-in;
+   ``bin/train.py --device cuda`` 6,000 fused steps at --batch_length 8000
+   (K2 train and K3 launched once a step); ``bin/decode.py --device cuda``
+   of the eval set as one fleet of 8, bf16 and ``--quantize`` (K2 and the
+   persistent K1 / K1-int8 once each); ``noise_shaping --inv false``;
+   ``eval_mcd`` of the restored, both raw decodes and a white-noise
+   baseline; the JAX flagship int8 gate: restored bf16 MCD < 0.8 x white
+   noise, int8 raw < bf16 raw + 0.4 dB;
+14. [K4]: the serial matmul-chain probe.  The
    main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
    split; one cooperative launch per chain run); then every variant at
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
@@ -110,6 +125,7 @@ Needs torch (CUDA build), numpy, scipy and the CUDA toolkit; no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -126,14 +142,20 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-# An h5py stand-in for the [main dp2] phase where h5py is not installed (a
-# GPU machine may come without it): ``bin/decode.py`` reads its features
-# and stats through ``utils/hdf5.py``, which needs only ``h5py.File`` as a
-# context manager with ``in``, ``[path][()]``, ``[path].shape``, ``del``
-# and ``create_dataset``.  Datasets are pickled numpy arrays under the
-# file's name: a test double for the file format, not HDF5.
+# An h5py stand-in for the phases that read and write .h5 files ([main dp2],
+# [dp clamp], [quality]) where h5py is not installed (a GPU machine may come
+# without it): the CLIs read and write their features and stats through
+# ``utils/hdf5.py``, which needs only ``h5py.File`` as a context manager with
+# ``in``, ``[path][()]``, ``[path].shape``, ``del`` and ``create_dataset``,
+# and writes into existing files.  Datasets are pickled numpy arrays under
+# the file's name, keyed by their path with one leading "/" (h5py reads
+# "world/mean" and "/world/mean" alike): a test double for the file format,
+# not HDF5.
 _H5PY_STAND_IN = """
 import os, pickle
+
+def _key(path):
+    return "/" + path.lstrip("/")
 
 class _Dataset:
     def __init__(self, a):
@@ -158,17 +180,43 @@ class File:
                 pickle.dump(self.data, f)
 
     def __contains__(self, key):
-        return key in self.data
+        return _key(key) in self.data
 
     def __getitem__(self, key):
-        return _Dataset(self.data[key])
+        return _Dataset(self.data[_key(key)])
 
     def __delitem__(self, key):
-        del self.data[key]
+        del self.data[_key(key)]
 
     def create_dataset(self, key, data):
-        self.data[key] = data
+        self.data[_key(key)] = data
 """
+
+
+@contextlib.contextmanager
+def _h5py_where_missing(tmp: str, root: str):
+    """Put the h5py stand-in on ``sys.path`` (under ``tmp``) where h5py is
+    not installed; yields the environment for subprocesses (PYTHONPATH with
+    the stand-in and the repository) and a note for the printed lines.
+    Spawned ranks inherit ``sys.path`` and import it too."""
+    try:
+        import h5py  # noqa: F401
+
+        stand_in, note = None, "h5py"
+    except ImportError:
+        stand_in = os.path.join(tmp, "stand_in")
+        os.makedirs(os.path.join(stand_in, "h5py"))
+        with open(os.path.join(stand_in, "h5py", "__init__.py"), "w") as f:
+            f.write(_H5PY_STAND_IN)
+        sys.path.insert(0, stand_in)
+        note = "no h5py here: the .h5 files are the smoke's h5py stand-in"
+    path = [p for p in (stand_in, root, os.environ.get("PYTHONPATH")) if p]
+    try:
+        yield dict(os.environ, PYTHONPATH=os.pathsep.join(path)), note
+    finally:
+        if stand_in is not None:
+            sys.path.remove(stand_in)
+            sys.modules.pop("h5py", None)
 
 
 def _dp_train_rank(info, conf: dict, params: dict, batches: list, lr: float,
@@ -246,10 +294,16 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--quality-sweep", action="store_true",
+                        help="run only [quality], trained to 9,000 steps, "
+                             "with the int8 - bf16 MCD of its checkpoints "
+                             "at 3,000, 6,000 and 9,000 over sampling seeds "
+                             "(the record behind its 6,000 steps)")
     parser.add_argument("--rank-per-card", action="store_true",
                         help="run only the data-parallel phases, one rank "
                              "on each card (a machine with 2+ cards)")
-    per_card = parser.parse_args(argv).rank_per_card
+    opts = parser.parse_args(argv)
+    per_card = opts.rank_per_card
     t_start = time.time()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
@@ -2242,6 +2296,41 @@ def main(argv=None) -> int:
             raise AssertionError("; ".join(problems))
 
     # ---- 12. data parallel and the reference-checkpoint bridge ------------
+    def dp_inputs(m, tmp, n_utts):
+        """A bundle of the model's weights, its stats and ``n_utts`` feature
+        files of 20-40 random frames under ``tmp``: bin/decode.py's
+        arguments but --feats, --outdir and the devices; the feature dir,
+        the utterance ids and their frame counts."""
+        from pytorchwavenetvocoder_tpu_torch.utils import write_hdf5
+
+        A = m["cfg"].n_aux
+        write_bundle(m["cfg"], m["params"], tmp)
+        r = np.random.RandomState(7)
+        frames = r.randint(20, 41, n_utts)
+        stats = os.path.join(tmp, "stats.h5")
+        write_hdf5(stats, "/world/mean", r.randn(A) * 0.1)
+        write_hdf5(stats, "/world/scale", 1.0 + 0.1 * r.rand(A))
+        featdir = os.path.join(tmp, "feats")
+        ids = [f"utt{i:02d}" for i in range(n_utts)]
+        for i, nf in zip(ids, frames):
+            write_hdf5(os.path.join(featdir, i + ".h5"), "/world",
+                       r.randn(nf, A).astype(np.float32))
+        common = ["--stats", stats, "--checkpoint",
+                  os.path.join(tmp, "checkpoint-0.pkl"), "--config", tmp,
+                  "--mode", "argmax", "--fs", str(m["fs"]), "--verbose", "0"]
+        return common, featdir, ids, frames
+
+    def differing_wavs(want_dir, got_dir):
+        """The wavs of ``want_dir`` whose bytes differ in ``got_dir``."""
+        diff = []
+        for name in sorted(os.listdir(want_dir)):
+            with open(os.path.join(want_dir, name), "rb") as f:
+                want = f.read()
+            with open(os.path.join(got_dir, name), "rb") as f:
+                if f.read() != want:
+                    diff.append(name)
+        return diff
+
     def main_dp(m, n_ranks=2, per_card=False, n_utts=12):
         """bin/decode.py's main with --n_devices n_ranks --mode argmax,
         the ranks sharing cuda:0 (--device cuda:0) or, ``per_card``, one on
@@ -2255,80 +2344,41 @@ def main(argv=None) -> int:
 
         from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
         from pytorchwavenetvocoder_tpu_torch.parallel import distributed
-        from pytorchwavenetvocoder_tpu_torch.utils import write_hdf5
 
-        cfg, A = m["cfg"], m["cfg"].n_aux
-        with tempfile.TemporaryDirectory(dir=root) as tmp:
-            stand_in = None
+        cfg = m["cfg"]
+        with tempfile.TemporaryDirectory(dir=root) as tmp, \
+                _h5py_where_missing(tmp, root) as (_env, h5_note):
+            common, featdir, ids, frames = dp_inputs(m, tmp, n_utts)
+            out = os.path.join(tmp, "wav")
+            # the CLI's ranks stopped after 300 s: a hung rank fails
+            # the phase, not the smoke
+            spawn = distributed.spawn_local
+            distributed.spawn_local = lambda *a, **k: spawn(
+                *a, **dict(k, deadline_s=300))
             try:
-                import h5py  # noqa: F401
-
-                h5_note = "h5py"
-            except ImportError:
-                # the ranks inherit sys.path, so they import it too
-                stand_in = os.path.join(tmp, "stand_in")
-                os.makedirs(os.path.join(stand_in, "h5py"))
-                with open(os.path.join(stand_in, "h5py", "__init__.py"),
-                          "w") as f:
-                    f.write(_H5PY_STAND_IN)
-                sys.path.insert(0, stand_in)
-                h5_note = "no h5py here: the feature files are the smoke's " \
-                    "h5py stand-in"
-            try:
-                write_bundle(cfg, m["params"], tmp)
-                ckpt = os.path.join(tmp, "checkpoint-0.pkl")
-                r = np.random.RandomState(7)
-                frames = r.randint(20, 41, n_utts)
-                stats = os.path.join(tmp, "stats.h5")
-                write_hdf5(stats, "/world/mean", r.randn(A) * 0.1)
-                write_hdf5(stats, "/world/scale", 1.0 + 0.1 * r.rand(A))
-                featdir = os.path.join(tmp, "feats")
-                ids = [f"utt{i:02d}" for i in range(n_utts)]
-                for i, nf in zip(ids, frames):
-                    write_hdf5(os.path.join(featdir, i + ".h5"), "/world",
-                               r.randn(nf, A).astype(np.float32))
-                common = ["--stats", stats, "--checkpoint", ckpt,
-                          "--config", tmp, "--mode", "argmax", "--fs",
-                          str(m["fs"]), "--verbose", "0"]
-                out = os.path.join(tmp, "wav")
-                # the CLI's ranks stopped after 300 s: a hung rank fails
-                # the phase, not the smoke
-                spawn = distributed.spawn_local
-                distributed.spawn_local = lambda *a, **k: spawn(
-                    *a, **dict(k, deadline_s=300))
-                try:
-                    res = decode_cli.main(common + [
-                        "--feats", featdir, "--outdir", out, "--batch_size",
-                        str(n_utts), "--n_devices", str(n_ranks), "--device",
-                        "cuda" if per_card else "cuda:0"])
-                finally:
-                    distributed.spawn_local = spawn
-                ranks = res["ranks"]
-                fleet_b = math.ceil(n_utts / n_ranks)
-                route = ak.ar_route(cfg, fleet_b, device=dev)
-                k1_name = "ar_persistent" if route == "persistent" \
-                    else "ar_step"
-                # each rank's own fleet decoded by one process
-                feats = sorted(os.path.join(featdir, i + ".h5") for i in ids)
-                diff, refs = [], []
-                for rk in ranks:
-                    scp = os.path.join(tmp, f"rank{rk['rank']}.scp")
-                    with open(scp, "w") as f:
-                        f.write("\n".join(feats[rk["rank"]::n_ranks]) + "\n")
-                    ref_out = os.path.join(tmp, f"ref{rk['rank']}")
-                    refs.append(decode_cli.main(common + [
-                        "--feats", scp, "--outdir", ref_out, "--batch_size",
-                        str(fleet_b), "--device", "cuda:0"]))
-                    for name in os.listdir(ref_out):
-                        with open(os.path.join(ref_out, name), "rb") as f:
-                            want = f.read()
-                        with open(os.path.join(out, name), "rb") as f:
-                            if f.read() != want:
-                                diff.append(name)
+                res = decode_cli.main(common + [
+                    "--feats", featdir, "--outdir", out, "--batch_size",
+                    str(n_utts), "--n_devices", str(n_ranks), "--device",
+                    "cuda" if per_card else "cuda:0"])
             finally:
-                if stand_in is not None:
-                    sys.path.remove(stand_in)
-                    sys.modules.pop("h5py", None)
+                distributed.spawn_local = spawn
+            ranks = res["ranks"]
+            fleet_b = math.ceil(n_utts / n_ranks)
+            route = ak.ar_route(cfg, fleet_b, device=dev)
+            k1_name = "ar_persistent" if route == "persistent" \
+                else "ar_step"
+            # each rank's own fleet decoded by one process
+            feats = sorted(os.path.join(featdir, i + ".h5") for i in ids)
+            diff, refs = [], []
+            for rk in ranks:
+                scp = os.path.join(tmp, f"rank{rk['rank']}.scp")
+                with open(scp, "w") as f:
+                    f.write("\n".join(feats[rk["rank"]::n_ranks]) + "\n")
+                ref_out = os.path.join(tmp, f"ref{rk['rank']}")
+                refs.append(decode_cli.main(common + [
+                    "--feats", scp, "--outdir", ref_out, "--batch_size",
+                    str(fleet_b), "--device", "cuda:0"]))
+                diff += differing_wavs(ref_out, out)
             written = sorted(os.listdir(out))
         per_rank = "; ".join(
             f"rank {rk['rank']} ({rk['device']}): {rk['n_utts']} utts, "
@@ -2381,6 +2431,343 @@ def main(argv=None) -> int:
         if diff or sum(x["n_utts"] for x in refs) != n_utts:
             raise AssertionError(f"rank wavs differ from one-process decodes "
                                  f"of the same fleets: {diff}")
+
+    def dp_clamp(m, n_utts=12):
+        """bin/decode.py's main with --n_devices 2 --device cuda on a host
+        with one card: clamped to one process on it with the JAX CLI's
+        warning (JAX clamps to its local devices), its wavs byte-equal to
+        the one-process decode, one K1 launch per fleet."""
+        import logging
+
+        from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+
+        n_cards = torch.cuda.device_count()
+        if n_cards != 1:
+            raise AssertionError(f"[dp clamp] needs one card, found {n_cards}")
+        route = ak.ar_route(m["cfg"], n_utts, device=dev)
+        k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+        warned = []
+
+        class Catch(logging.Handler):
+            def emit(self, record):
+                warned.append(record.getMessage())
+
+        catch = Catch(logging.WARNING)
+        with tempfile.TemporaryDirectory(dir=root) as tmp, \
+                _h5py_where_missing(tmp, root) as (_env, h5_note):
+            common, featdir, ids, _ = dp_inputs(m, tmp, n_utts)
+            logging.getLogger().addHandler(catch)
+            try:
+                res = decode_cli.main(common + [
+                    "--feats", featdir, "--outdir", os.path.join(tmp, "wav"),
+                    "--batch_size", str(n_utts), "--n_devices", "2",
+                    "--device", "cuda"])
+            finally:
+                logging.getLogger().removeHandler(catch)
+            one = decode_cli.main(common + [
+                "--feats", featdir, "--outdir", os.path.join(tmp, "one"),
+                "--batch_size", str(n_utts), "--device", "cuda"])
+            diff = differing_wavs(os.path.join(tmp, "one"),
+                                  os.path.join(tmp, "wav"))
+            written = sorted(os.listdir(os.path.join(tmp, "wav")))
+        ranks = res["ranks"]
+        want = "requested 2 devices but only 1 available."
+        print(f"[dp clamp] {m['name']} bin/decode.py main --n_devices 2 "
+              f"--device cuda on {n_cards} card: {len(ranks)} process(es) on "
+              f"{[rk['device'] for rk in ranks]}, warning "
+              f"{[w for w in warned if 'devices' in w]}, {res['n_utts']} utts "
+              f"in {[len(rk['batches']) for rk in ranks]} fleet(s), launches "
+              f"{ {k: v for k, v in ranks[0]['launches'].items() if v} } "
+              f"({route} K1), wavs differing from the one-process decode "
+              f"{diff} | {h5_note} | {card}", flush=True)
+        if len(ranks) != 1 or ranks[0]["device"] not in ("cuda", "cuda:0") \
+                or want not in warned:
+            raise AssertionError(f"not clamped to one process with the "
+                                 f"warning: {ranks}, {warned}")
+        n_b = len(ranks[0]["batches"])
+        ar = sum(v for k, v in ranks[0]["launches"].items()
+                 if k.startswith("ar_"))
+        if not n_b or ranks[0]["launches"][k1_name] != n_b or ar != n_b:
+            raise AssertionError(f"not one {k1_name} launch per fleet: "
+                                 f"{ranks[0]['launches']}, {n_b} fleets")
+        if diff or written != sorted(i + ".wav" for i in ids) or \
+                one["n_utts"] != n_utts:
+            raise AssertionError(f"clamped wavs differ from the one-process "
+                                 f"decode: {diff}, written {written}")
+
+    def quality(m, n_train=64, n_eval=8, iters=6000, jobs=8, sweep=()):
+        """The arctic recipe (egs/arctic/sd/run.sh stages 0-6) through the
+        port's own CLIs on the card, at the flagship's full width, and the
+        JAX package's flagship int8 gate (scripts/tpu_flagship_int8_gate.sh)
+        on the model it trains: a Klatt corpus (eval/klatt.py, seed 0, 3-7
+        syllables) of n_train + n_eval utterances; feature_extract (world,
+        host DSP, --n_jobs), calc_stats, noise_shaping --inv true; train
+        --device cuda (fused K2 train + K3) for ``iters`` steps at
+        --batch_length 8000 (6,000, twice the JAX gate's: at 3,000 this
+        model decodes several tenths of a dB worse in int8 than in bf16,
+        ``--quality-sweep``); decode --device cuda of the eval set as one
+        fleet, bf16 and --quantize (K2 warm-up, persistent K1 / K1-int8);
+        noise_shaping --inv false on the bf16 wavs; eval_mcd of the restored
+        wavs, both raw decodes and a white-noise baseline against the
+        wav_hpf references.  Gate: (a) restored bf16 MCD < 0.8 x the white
+        noise's; (b) int8 raw MCD < bf16 raw + 0.4 dB.  ``sweep``: pairs
+        (step, sampling seeds); the checkpoint of each step is decoded with
+        each seed in bf16 and int8 and their raw MCDs printed."""
+        from pytorchwavenetvocoder_tpu_torch import native
+        from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+        from pytorchwavenetvocoder_tpu_torch.bin import train as train_cli
+        from pytorchwavenetvocoder_tpu_torch.eval.klatt import make_corpus
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav, write_wav
+
+        t_phase = time.time()
+        native_lib = str(_build.build_native())
+        fs, cfg = m["fs"], m["cfg"]
+        sets = {"tr_slt": n_train, "ev_slt": n_eval}
+        seconds = {}
+
+        def lst(path, names):
+            with open(path, "w") as f:
+                f.write("".join(n + "\n" for n in names))
+            return path
+
+        def ls(d, ext=".wav"):
+            return sorted(os.path.join(d, n) for n in os.listdir(d)
+                          if n.endswith(ext))
+
+        def clis(env, *calls):
+            """Run the port's CLIs as processes, all at once (each is
+            (module, args)); their stdouts, or a failure with the tails of
+            their errors."""
+            procs = [subprocess.Popen(
+                [sys.executable, "-m",
+                 f"pytorchwavenetvocoder_tpu_torch.bin.{mod}", *args,
+                 "--verbose", "0"], env=env, cwd=root, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                for mod, args in calls]
+            outs, bad = [], []
+            for (mod, _), p in zip(calls, procs):
+                try:
+                    out, err = p.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    out, err = p.communicate()
+                outs.append(out)
+                if p.returncode != 0:
+                    bad.append(f"{mod} exited {p.returncode}: {err[-3000:]}")
+            if bad:
+                raise AssertionError("; ".join(bad))
+            return outs
+
+        def timed(key, fn):
+            t0 = time.time()
+            out = fn()
+            seconds[key] = time.time() - t0
+            return out
+
+        with tempfile.TemporaryDirectory(dir=root) as work, \
+                _h5py_where_missing(work, root) as (env, h5_note):
+            env = dict(env, WNDSP_LIB=native_lib)
+            w = lambda *p: os.path.join(work, *p)   # noqa: E731
+            # stage 0: the corpus, split as the recipe splits arctic (the
+            # last utterances held out)
+            timed("corpus", lambda: make_corpus(
+                w("downloads"), n_train + n_eval, fs=fs, seed=0,
+                n_syllables=(3, 7)))
+            names = sorted(os.listdir(w("downloads")))
+            split = {"tr_slt": names[:n_train], "ev_slt": names[n_train:]}
+            for st in sets:
+                os.makedirs(w("data", st))
+                lst(w("data", st, "wav.scp"),
+                    [w("downloads", n) for n in split[st]])
+            # stage 1: features (both sets at once, --n_jobs each)
+            timed("feature_extract", lambda: clis(env, *[
+                ("feature_extract", [
+                    "--waveforms", w("data", st, "wav.scp"), "--wavdir",
+                    w("wav_hpf", st), "--hdf5dir", w("hdf5", st), "--fs",
+                    str(fs), "--shiftms", "5", "--feature_type", "world",
+                    "--minf0", "120", "--maxf0", "275", "--mcep_dim", "24",
+                    "--mcep_alpha", "0.41", "--highpass_cutoff", "70",
+                    "--fftl", "1024", "--device", "host", "--n_jobs",
+                    str(jobs)]) for st in sets]))
+            for st in sets:
+                lst(w("data", st, "wav_hpf.scp"), ls(w("wav_hpf", st)))
+                lst(w("data", st, "feats.scp"), ls(w("hdf5", st), ".h5"))
+            stats = w("data", "tr_slt", "stats.h5")
+            ns_flags = ["--stats", stats, "--feature_type", "world", "--fs",
+                        str(fs), "--shiftms", "5", "--mcep_dim_start", "2",
+                        "--mcep_dim_end", "27", "--mcep_alpha", "0.41",
+                        "--mag", "0.5", "--n_jobs", str(jobs)]
+            # stages 2 and 3: stats, noise weighting
+            timed("calc_stats", lambda: clis(env, ("calc_stats", [
+                "--feats", w("data", "tr_slt", "feats.scp"), "--stats",
+                stats, "--feature_type", "world"])))
+            timed("noise_shaping_inv", lambda: clis(env, ("noise_shaping", [
+                "--waveforms", w("data", "tr_slt", "wav_hpf.scp"),
+                "--outdir", w("wav_nwf", "tr_slt"), "--inv", "true",
+                *ns_flags])))
+            lst(w("data", "tr_slt", "wav_nwf.scp"),
+                ls(w("wav_nwf", "tr_slt")))
+            # stage 4: train, on the card (fused K2 train + K3)
+            expdir = w("exp", "tr_arctic_quality")
+            tk.layer_stack_fwd_train.launches = 0
+            tk.layer_stack_bwd.launches = 0
+            tr = timed("train", lambda: train_cli.main([
+                "--waveforms", w("data", "tr_slt", "wav_nwf.scp"),
+                "--feats", w("data", "tr_slt", "feats.scp"), "--stats",
+                stats, "--expdir", expdir, "--feature_type", "world",
+                "--n_quantize", "256", "--n_aux", str(cfg.n_aux),
+                "--n_resch", str(cfg.n_resch), "--n_skipch",
+                str(cfg.n_skipch), "--dilation_depth",
+                str(cfg.dilation_depth), "--dilation_repeat",
+                str(cfg.dilation_repeat), "--kernel_size",
+                str(cfg.kernel_size), "--lr",
+                "1e-4", "--weight_decay", "0.0", "--iters", str(iters),
+                "--batch_length", "8000", "--batch_size", "1",
+                "--checkpoint_interval",
+                str(min([iters] + [step for step, _ in sweep])),
+                "--intervals", "100",
+                "--upsampling_factor", str(cfg.upsampling_factor),
+                "--use_upsampling_layer", "true", "--device", "cuda",
+                "--verbose", "0"]))
+            train_launches = {
+                "layer_stack_fwd_train": tk.layer_stack_fwd_train.launches,
+                "layer_stack_bwd": tk.layer_stack_bwd.launches}
+            # stage 5: decode the eval set as one fleet, bf16 and int8
+            dec_flags = ["--feats", w("data", "ev_slt", "feats.scp"),
+                         "--stats", stats, "--checkpoint",
+                         os.path.join(expdir, "checkpoint-final.pkl"),
+                         "--config", expdir, "--fs", str(fs), "--batch_size",
+                         str(n_eval), "--device", "cuda", "--verbose", "0"]
+            decodes = {}
+            for kind, extra in (("bf16", []), ("int8", ["--quantize"])):
+                reset_launches()
+                res = timed("decode_" + kind, lambda: decode_cli.main(
+                    dec_flags + ["--outdir", w("wav_" + kind), *extra]))
+                decodes[kind] = dict(res, launches=read_launches())
+            swept = []
+            for step, seeds in sweep:
+                ckpt = os.path.join(expdir, f"checkpoint-{step}.pkl")
+                for seed in seeds:
+                    for kind, extra in (("bf16", []),
+                                        ("int8", ["--quantize"])):
+                        d = f"sweep_{step}_{seed}_{kind}"
+                        flags = list(dec_flags)
+                        flags[flags.index("--checkpoint") + 1] = ckpt
+                        decode_cli.main(flags + [
+                            "--outdir", w(d), "--seed", str(seed), *extra])
+                        swept.append(d)
+            # stage 6: noise restoration of the bf16 wavs
+            timed("noise_shaping_restore", lambda: clis(env, (
+                "noise_shaping", ["--waveforms", w("wav_bf16"), "--outdir",
+                                  w("wav_nsf"), "--inv", "false",
+                                  *ns_flags])))
+            # the white-noise baseline, as the JAX gate makes it
+            rng = np.random.RandomState(0)
+            os.makedirs(w("noise"))
+            for path in ls(w("wav_nsf")):
+                x, _ = read_wav(w("wav_hpf", "ev_slt", os.path.basename(path)))
+                write_wav(w("noise", os.path.basename(path)),
+                          (rng.randn(len(x)) * x.std()).astype(np.float32), fs)
+            scored = ("wav_nsf", "wav_bf16", "wav_int8", "noise", *swept)
+            outs = timed("eval_mcd", lambda: sum((clis(env, *[
+                ("eval_mcd", ["--gen", w(d), "--ref",
+                              w("data", "ev_slt", "wav_hpf.scp"), "--out",
+                              w(d + ".mcd.txt"), "--n_jobs", "2"])
+                for d in scored[i:i + 4]]) for i in range(0, len(scored), 4)),
+                []))
+            mcd = {}
+            for d, out in zip(scored, outs):
+                line = [ln for ln in out.splitlines()
+                        if ln.startswith("mean_mcd_db ")][-1].split()
+                if int(line[3]) != n_eval:
+                    raise AssertionError(f"eval_mcd scored {line[3]} of "
+                                         f"{n_eval} in {d}")
+                mcd[d] = float(line[1])
+            # the decoded wavs: every eval utterance, finite, not silent,
+            # as long as the reference less one sample
+            bad_wavs = []
+            for d in ("wav_bf16", "wav_int8", "wav_nsf"):
+                for path in ls(w(d)):
+                    y, _ = read_wav(path)
+                    x, _ = read_wav(w("wav_hpf", "ev_slt",
+                                      os.path.basename(path)))
+                    if not (np.isfinite(y).all() and y.std() > 0
+                            and abs(len(y) - len(x)) <= cfg.upsampling_factor):
+                        bad_wavs.append(f"{d}/{os.path.basename(path)}")
+                if len(ls(w(d))) != n_eval:
+                    bad_wavs.append(f"{d}: {len(ls(w(d)))} wavs")
+            corpus_s = sum(len(read_wav(p)[0]) for p in ls(w("downloads"))) / fs
+        ms_step = [1e3 * sec for _, _, sec in tr["intervals"]]
+        steady = ms_step[1:] or ms_step
+        losses = [loss for _, loss, _ in tr["intervals"]]
+        print(f"[quality] {m['name']} recipe stages 0-3 through the port's "
+              f"CLIs: Klatt corpus {n_train} + {n_eval} utterances, "
+              f"{corpus_s:.1f} s at {fs} Hz; host DSP library {native_lib} "
+              f"(this process: {native.lib_path()}); "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()
+                          if k in ("corpus", "feature_extract", "calc_stats",
+                                   "noise_shaping_inv"))
+              + f" | {h5_note} | {card}", flush=True)
+        print(f"[quality] train --device cuda, flagship {cfg.n_resch}/"
+              f"{cfg.n_skipch} x {cfg.n_layers} layers, bf16, "
+              f"--batch_length 8000, {iters} iters in {seconds['train']:.1f} "
+              f"s: route {tr['route']}, {sum(steady) / len(steady):.2f} "
+              f"ms/step (mean of the 100-step intervals after the first; "
+              f"first {ms_step[0]:.2f}), loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, launches {train_launches} | {card}",
+              flush=True)
+        for kind, d in decodes.items():
+            print(f"[quality] decode --device cuda {kind}: {d['n_utts']} "
+                  f"utts as one fleet of {n_eval}, {d['n_samples']} samples "
+                  f"in {d['seconds']:.3f} s = "
+                  f"{d['n_samples'] / d['seconds']:.0f} samples/s, launches "
+                  f"{ {k: v for k, v in d['launches'].items() if v} } | "
+                  f"{card}", flush=True)
+        for step, seeds in sweep:
+            pairs = [(seed, mcd[f"sweep_{step}_{seed}_bf16"],
+                      mcd[f"sweep_{step}_{seed}_int8"]) for seed in seeds]
+            print(f"[quality sweep] checkpoint {step}: raw MCD bf16 / int8 "
+                  f"(int8 - bf16) by sampling seed: " + "; ".join(
+                      f"{seed}: {b:.4f} / {q:.4f} ({q - b:+.4f})"
+                      for seed, b, q in pairs) + f" | {card}", flush=True)
+        gate_a = mcd["wav_nsf"] < 0.8 * mcd["noise"]
+        gate_b = mcd["wav_int8"] < mcd["wav_bf16"] + 0.4
+        print(f"[quality] MCD (eval_mcd, DTW, mean over {n_eval}): restored "
+              f"bf16 {mcd['wav_nsf']:.4f} dB, white noise {mcd['noise']:.4f} "
+              f"dB (gate a: < 0.8 x = {0.8 * mcd['noise']:.4f}: "
+              f"{'pass' if gate_a else 'FAIL'}); raw bf16 "
+              f"{mcd['wav_bf16']:.4f} dB, raw int8 {mcd['wav_int8']:.4f} dB, "
+              f"delta {mcd['wav_int8'] - mcd['wav_bf16']:+.4f} (gate b: < "
+              f"+0.4: {'pass' if gate_b else 'FAIL'}) | {card}", flush=True)
+        print(f"[quality] phase {time.time() - t_phase:.1f} s: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+              + f" | {card}", flush=True)
+        problems = []
+        if tr["route"] != "fused" or set(train_launches.values()) != {iters}:
+            problems.append(f"training not on the fused kernels: route "
+                            f"{tr['route']}, launches {train_launches}")
+        for kind, key in (("bf16", ak.ar_route(cfg, n_eval, device=dev)),
+                          ("int8", ak.ar_route(cfg, n_eval, device=dev,
+                                               quantize=True))):
+            k1 = ("ar_persistent" if key == "persistent" else "ar_step") \
+                + ("_int8" if kind == "int8" else "")
+            got = decodes[kind]["launches"]
+            if got[k1] != 1 or got["layer_stack_fwd"] < 1 or \
+                    sum(v for k, v in got.items() if k.startswith("ar_")) != 1:
+                problems.append(f"{kind} decode not on one {k1} launch and "
+                                f"the warm-up kernel: {got}")
+        if bad_wavs:
+            problems.append(f"decoded wavs missing, silent, not finite or of "
+                            f"the wrong length: {bad_wavs}")
+        if not gate_a:
+            problems.append(f"the model did not learn: restored bf16 MCD "
+                            f"{mcd['wav_nsf']:.4f} >= 0.8 x white noise "
+                            f"{mcd['noise']:.4f}")
+        if not gate_b:
+            problems.append(f"int8 degraded MCD: {mcd['wav_int8']:.4f} >= "
+                            f"bf16 {mcd['wav_bf16']:.4f} + 0.4")
+        if problems:
+            raise AssertionError("; ".join(problems))
 
     def train_dp(m, n_ranks=2, per_card=False, n_steps=3, lr=1e-3):
         """Data-parallel training at the flagship width and window: a
@@ -2730,7 +3117,11 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"K4 outside its limits: {bad}")
 
-    if per_card:
+    if opts.quality_sweep:
+        phase("quality sweep", lambda: quality(
+            arctic, iters=9000, sweep=((3000, (1, 2, 3, 4)), (6000, (1, 2)),
+                                       (9000, (1, 2)))))
+    elif per_card:
         # one rank on each card: correctness of the device placement and
         # of NCCL across cards (no speed is reported)
         n = torch.cuda.device_count()
@@ -2776,6 +3167,10 @@ def main(argv=None) -> int:
         phase("main dp2", lambda: main_dp(arctic))
         phase("train dp", lambda: train_dp(arctic))
         phase("convert", lambda: convert_path(arctic))
+        # a host with fewer cards than --n_devices asks for, and the recipe
+        # end to end on the card with its quality gate
+        phase("dp clamp", lambda: dp_clamp(arctic))
+        phase("quality", lambda: quality(arctic))
         # the probe last, beside K1's times from this run
         phase("K4", k4)
     if failures:

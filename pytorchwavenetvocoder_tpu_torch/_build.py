@@ -7,6 +7,10 @@ The build runs at first use, from the sources in this checkout only, into
 ``build/torch_kernels/`` beside the package; the library's name carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Importing this module builds nothing.
+
+``build_native`` builds the host DSP library (``native/wndsp.cc``, read
+from the checkout) into the same directory with ``native/Makefile``'s
+flags, for ``native.py`` to find where ``make -C native`` was not run.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+NATIVE_SRC = PKG_DIR.parent / "native" / "wndsp.cc"
+#: native/Makefile's flags; -ffp-contract=off keeps the library's rounding
+#: equal to the numpy reference's (no FMA contraction).
+NATIVE_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -95,6 +103,33 @@ def build_kernels() -> Path:
             o.unlink(missing_ok=True)
     BUILD_INFO.update(path=str(lib), seconds=time.time() - t0,
                       log="".join(logs))
+    return lib
+
+
+def native_lib_path() -> Path:
+    """Where ``build_native`` puts the host DSP library of this checkout's
+    ``native/wndsp.cc`` (the name carries a hash of the source and flags)."""
+    digest = hashlib.sha1(" ".join(NATIVE_FLAGS).encode())
+    digest.update(NATIVE_SRC.read_bytes())
+    return BUILD_DIR / f"libwndsp_{digest.hexdigest()[:12]}.so"
+
+
+def build_native() -> Path:
+    """Compile ``native/wndsp.cc`` with the host C++ compiler (``CXX``, else
+    ``g++``) unless a build of the same source exists; returns its path."""
+    lib = native_lib_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *NATIVE_FLAGS, "-o", str(tmp),
+           str(NATIVE_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native build failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
     return lib
 
 

@@ -17,8 +17,8 @@ flight over all devices, as in the JAX CLI), sampling from a generator
 seeded by ``(seed, rank)``; the ranks share nothing and need no
 collectives.  ``--n_devices N`` starts the N ranks here
 (``parallel/distributed.py::spawn_local``; ``--device cuda`` puts rank r on
-``cuda:r``, ``cuda:K`` puts them all on one card, ``cpu`` on the CPU); a
-launcher (torchrun, srun) starts them itself, one process per rank.
+``cuda:r``, N cut to the cards there are, ``cuda:K`` puts them all on one
+card, ``cpu`` on the CPU); a launcher (torchrun, srun) starts them itself, one process per rank.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.decode --feats ...
 --stats ... --checkpoint ... --config ... --outdir ... [--device cuda]
@@ -281,6 +281,7 @@ def main(argv=None) -> dict:
 
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
         RankInfo,
+        clamp_ranks,
         initialize_distributed,
         rank_device,
         spawn_local,
@@ -298,13 +299,15 @@ def main(argv=None) -> dict:
 
     # decode ranks run no collectives: no process group (backend None)
     info = initialize_distributed(args.device, backend=None)
+    n_devices = clamp_ranks(args.n_devices, args.device) if info is None \
+        else info.world
     if info is not None:
         if args.n_devices not in (1, info.world):
             raise ValueError(f"--n_devices {args.n_devices}, but the "
                              f"launcher started {info.world} ranks")
         ranks = [decode_rank(info, args, feat_list)]
-    elif args.n_devices > 1:
-        rank_device(args.device, 0, args.n_devices)   # refuse before building
+    elif n_devices > 1:
+        rank_device(args.device, 0, n_devices)   # refuse before building
         if torch.device(args.device).type == "cuda" and args.impl != "plain":
             # one nvcc build here, not one per rank (host only: no CUDA)
             from pytorchwavenetvocoder_tpu_torch._build import build_kernels
@@ -314,7 +317,7 @@ def main(argv=None) -> dict:
         # pickle under that name, which the spawned ranks cannot resolve
         self = importlib.import_module("pytorchwavenetvocoder_tpu_torch.bin"
                                        ".decode")
-        ranks = spawn_local(args.n_devices, self._decode_rank_entry,
+        ranks = spawn_local(n_devices, self._decode_rank_entry,
                             (args, feat_list), device_arg=args.device,
                             backend=None)
     else:

@@ -13,8 +13,10 @@ Data parallel: one rank per device (``parallel/distributed.py``), each
 reading ``wav_list[rank::world]`` in batches of ``batch_size / world``
 from the same ``--seed``, the gradients averaged over the ranks every step
 (``parallel/train.py``), rank 0 writing the checkpoints and the log.
-``--n_devices N`` starts the N ranks here; a launcher (torchrun, srun)
-starts them itself.  ``--dist_backend`` picks the collectives: NCCL where
+``--n_devices N`` starts the N ranks here, as the JAX CLI does on one
+host: N cut to the cards there are with ``--device cuda``, and one rank,
+with a warning, where N does not divide the batch; a launcher (torchrun,
+srun) starts them itself.  ``--dist_backend`` picks the collectives: NCCL where
 each rank has its own GPU, gloo on the CPU or where ranks share one card
 (``--device cuda:K``).  ``--model_parallel`` above 1 raises: tensor
 parallelism is not ported.
@@ -321,6 +323,7 @@ def main(argv=None) -> dict:
 
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
         RankInfo,
+        clamp_ranks,
         initialize_distributed,
         shutdown,
         spawn_local,
@@ -342,13 +345,21 @@ def main(argv=None) -> dict:
             return train_rank(info, args)
         finally:
             shutdown()
-    if args.n_devices > 1:
-        _check_batch(args, args.n_devices)
+    n_devices = clamp_ranks(args.n_devices, args.device)
+    effective = args.batch_size if args.batch_length > 0 else 1
+    if n_devices > 1 and effective % n_devices:
+        # each rank trains batch_size / n_devices rows (JAX bin/train.py's
+        # single-host fallback)
+        logging.warning("batch size %d not divisible by %d devices; "
+                        "falling back to single device.", effective,
+                        n_devices)
+        n_devices = 1
+    if n_devices > 1:
         # by import path: when this file runs as __main__, its functions
         # pickle under that name, which the spawned ranks cannot resolve
         self = importlib.import_module("pytorchwavenetvocoder_tpu_torch.bin"
                                        ".train")
-        ranks = spawn_local(args.n_devices, self._train_rank_entry, (args,),
+        ranks = spawn_local(n_devices, self._train_rank_entry, (args,),
                             device_arg=args.device,
                             backend=args.dist_backend)
         return dict(ranks[0], ranks=ranks)
@@ -357,7 +368,8 @@ def main(argv=None) -> dict:
 
 def _check_batch(args, world: int) -> None:
     """Every rank trains on ``batch_size / world`` rows: refuse a batch the
-    world does not divide (utterance mode trains one utterance a step)."""
+    world a launcher started does not divide (utterance mode trains one
+    utterance a step), as JAX refuses it on a multi-host mesh."""
     effective = args.batch_size if args.batch_length > 0 else 1
     if effective % world:
         mode = " (utterance mode)" if args.batch_length <= 0 else ""

@@ -255,10 +255,17 @@ def input_embed(x_ids: torch.Tensor, params: Params,
 
 
 def _gate(z: torch.Tensor, za: torch.Tensor, R: int) -> torch.Tensor:
-    """sigmoid(z_s + za_s) * tanh(z_t + za_t) over fused 2R channels."""
+    """sigmoid(z_s + za_s) * tanh(z_t + za_t) over fused 2R channels.
+
+    The sigmoid is JAX's own form, 1 / (1 + exp(-s)): ``torch.sigmoid``'s
+    vectorised CPU body and its scalar tail round ~4% of inputs an ulp
+    apart, and which elements fall in a tail depends on how the intra-op
+    threads split the tensor, so its result (and the int8 calibration
+    maxes taken from it) would depend on the thread count; ``exp``, the
+    add and the division round alike in both."""
     s = z[..., :R] + za[..., :R]
     t = z[..., R:] + za[..., R:]
-    return torch.sigmoid(s) * torch.tanh(t)
+    return 1.0 / (1.0 + torch.exp(-s)) * torch.tanh(t)
 
 
 def _post_stack(params: Params, skip_sum: torch.Tensor, dt) -> torch.Tensor:

@@ -11,12 +11,15 @@ program, the port runs one process per device with ``torch.distributed``:
 - ``spawn_local`` starts the ranks itself where the caller asked for
   ``--n_devices N`` and no launcher did: the single-host mesh of the JAX
   CLIs;
+- ``clamp_ranks`` cuts ``--n_devices N`` with ``--device cuda`` to the
+  cards this host has, with a warning, as the JAX CLIs cut it to their
+  local devices;
 - ``rank_device`` maps ``--device`` to a rank's device, ``choose_backend``
   picks the collective backend, ``all_reduce_mean`` is ``pmean`` and
   ``shard_rows`` is ``shard_global_batch``.
 
-A refusal raises with its reason: no request for N devices is served by
-fewer, and nothing falls back to the CPU.
+Any other refusal raises with its reason, and nothing falls back to the
+CPU: a host with no card at all refuses ``--device cuda``.
 """
 
 from __future__ import annotations
@@ -87,6 +90,21 @@ def launcher_env(env=None) -> tuple[int, int, int, int] | None:
         return (int(env["SLURM_PROCID"]), world,
                 int(env.get("SLURM_LOCALID", 0)), local_world)
     return None
+
+
+def clamp_ranks(n: int, device_arg: str) -> int:
+    """The ranks ``--n_devices n`` starts on this host: with ``--device cuda``
+    (a rank per card) at most ``torch.cuda.device_count()``, with the JAX
+    train CLI's warning; else ``n``.  A host with no card is not clamped:
+    ``rank_device`` refuses it."""
+    dev = torch.device(device_arg)
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count()
+        if 0 < count < n:
+            logging.warning("requested %d devices but only %d available.",
+                            n, count)
+            return count
+    return n
 
 
 def rank_device(device_arg: str, local_rank: int,

@@ -657,15 +657,28 @@ def test_two_gloo_ranks_on_one_card_stay_bitwise_equal(dev):
     assert np.isfinite(ranks[0]["losses"]).all()
 
 
-def test_one_rank_per_card_refuses_more_ranks_than_cards(dev, tmp_path):
+def test_one_rank_per_card_refuses_more_ranks_than_cards(dev, tmp_path,
+                                                         monkeypatch, caplog):
     """--device cuda puts rank r on cuda:r: on a one-card machine two ranks
-    are refused, naming the device count, before any rank starts."""
+    are clamped to one process on the card with the JAX CLI's warning (no
+    rank spawned); a card index past the count is still refused, naming the
+    device count, before any rank starts."""
     from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+    from pytorchwavenetvocoder_tpu_torch.parallel import distributed
 
     if torch.cuda.device_count() != 1:
         pytest.skip("checks a one-card machine")
+    argv = ["--feats", str(tmp_path), "--stats", "-", "--checkpoint", "-",
+            "--config", "-", "--outdir", str(tmp_path / "wav"),
+            "--n_devices", "2", "--verbose", "0"]
+    seen = []
+    monkeypatch.setattr(distributed, "spawn_local", lambda *a, **k:
+                        pytest.fail("spawned ranks for a clamped run"))
+    monkeypatch.setattr(decode_cli, "decode_rank", lambda info, args, feats:
+                        seen.append(info) or dict(n_utts=0, n_samples=0,
+                                                  seconds=0.0, batches=[]))
+    decode_cli.main(argv + ["--device", "cuda"])
+    assert [(i.world, i.device.type) for i in seen] == [(1, "cuda")]
+    assert "requested 2 devices but only 1 available." in caplog.text
     with pytest.raises(ValueError, match=r"device_count\(\) is 1"):
-        decode_cli.main(["--feats", str(tmp_path), "--stats", "-",
-                         "--checkpoint", "-", "--config", "-", "--outdir",
-                         str(tmp_path / "wav"), "--n_devices", "2",
-                         "--device", "cuda", "--verbose", "0"])
+        decode_cli.main(argv + ["--device", "cuda:1"])

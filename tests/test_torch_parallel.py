@@ -366,17 +366,65 @@ def test_all_reduce_mean_and_shard_rows_outside_a_group():
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--batch_size", "3"], ValueError, "not divisible by the 2 ranks"),
-    (["--batch_length", "0"], ValueError, "utterance mode"),
+    # a batch the 2 ranks do not divide (utterance mode: 1) trains on one
+    # rank with the JAX CLI's warning (error None), as JAX does on one host
+    (["--batch_size", "3"], None, "batch size 3 not divisible by 2 devices"),
+    (["--batch_length", "0"], None, "batch size 1 not divisible by 2 devices"),
     (["--dist_backend", "nccl"], ValueError, "nccl needs CUDA"),
+    # no card at all is not a clamp to fewer cards
     (["--device", "cuda"], ValueError, "device_count"),
     (["--model_parallel", "2"], NotImplementedError, "Queue 1 item 8"),
 ])
-def test_train_cli_refuses_before_any_rank_starts(tmp_path, extra, error,
-                                                  match):
+def test_train_cli_refuses_before_any_rank_starts(tmp_path, caplog, extra,
+                                                  error, match):
+    argv = _train_argv(tmp_path, "--iters", "1", "--n_devices", "2", *extra)
+    if error is None:
+        res = torch_train.main(argv)
+        assert "ranks" not in res and res["state"].step == 1
+        assert match in caplog.text and "falling back to single" in caplog.text
+        return
     with pytest.raises(error, match=match):
-        torch_train.main(_train_argv(tmp_path, "--iters", "1",
-                                     "--n_devices", "2", *extra))
+        torch_train.main(argv)
+
+
+def test_clamp_ranks_cuts_cuda_ranks_to_the_cards(monkeypatch, caplog):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert D.clamp_ranks(4, "cuda") == 2
+    assert "requested 4 devices but only 2 available." in caplog.text
+    assert D.clamp_ranks(2, "cuda") == 2
+    assert D.clamp_ranks(4, "cuda:1") == 4     # one card shared: no clamp
+    assert D.clamp_ranks(4, "cpu") == 4
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert D.clamp_ranks(4, "cuda") == 4       # rank_device refuses it
+
+
+@pytest.mark.parametrize("cli", ["train", "decode"])
+def test_clis_clamp_cuda_ranks_to_the_cards(tmp_path, monkeypatch, caplog,
+                                            cli):
+    """``--n_devices 2 --device cuda`` on a host with one card runs one
+    process on it, with the warning; no rank is spawned."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(D, "spawn_local", lambda *a, **k: pytest.fail(
+        "spawned ranks for a clamped run"))
+    seen = []
+    if cli == "train":
+        monkeypatch.setattr(torch_train, "train_rank",
+                            lambda info, args: seen.append(info) or {})
+        torch_train.main(_train_argv(tmp_path, "--iters", "1", "--n_devices",
+                                     "2", "--device", "cuda"))
+    else:
+        monkeypatch.setattr(
+            torch_decode, "decode_rank", lambda info, args, feats: seen.append(
+                info) or dict(n_utts=0, n_samples=0, seconds=0.0, batches=[]))
+        os.makedirs(tmp_path / "feats")
+        torch_decode.main(["--feats", str(tmp_path / "feats"), "--stats", "s",
+                           "--checkpoint", "c", "--config", "c",
+                           "--outdir", str(tmp_path),
+                           "--n_devices", "2", "--device", "cuda",
+                           "--verbose", "0"])
+    assert [(i.rank, i.world, i.device) for i in seen] == \
+        [(0, 1, torch.device("cuda"))]
+    assert "requested 2 devices but only 1 available." in caplog.text
 
 
 def test_decode_memory_budget_is_split_between_ranks_on_a_card(monkeypatch):

@@ -45,12 +45,36 @@ def test_port_imports_no_jax():
         "'bin.profile_ar', 'bin.profile_stack', 'bin.matmul_chain_probe', "
         "'parallel.distributed', 'parallel.train', 'parallel.checkpoint', "
         "'convert', 'ops.ar_kernel', 'ops.train_kernel', "
-        "'ops.matmul_chain', 'data.generator'}\n"
+        "'ops.matmul_chain', 'data.generator', 'native', 'bin.calc_stats', "
+        "'bin.noise_shaping', 'bin.feature_extract', 'bin.eval_mcd', "
+        "'dsp.world', 'dsp.harvest', 'eval.mcd', 'eval.klatt'}\n"
         "missing = {n for n in need if pkg.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'pytorchwavenetvocoder_tpu')]\n"
         "print(len(names), sorted(missing), bad)\n"
         "sys.exit(1 if bad or missing else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_host_clis_start_without_torch():
+    """The recipe's host CLIs (each stage a process of its own) import no
+    torch: the package's and ``ops``' names load at first use."""
+    code = (
+        "import sys\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.feature_extract\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.calc_stats\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.noise_shaping\n"
+        "import pytorchwavenetvocoder_tpu_torch.bin.eval_mcd\n"
+        "import pytorchwavenetvocoder_tpu_torch as pkg\n"
+        "assert 'torch' not in sys.modules, 'torch imported'\n"
+        "from pytorchwavenetvocoder_tpu_torch.ops import StandardScaler\n"
+        "assert 'torch' not in sys.modules, 'torch imported by ops'\n"
+        "from pytorchwavenetvocoder_tpu_torch.ops import FusedLayerStack\n"
+        "assert pkg.WaveNetConfig.__module__.endswith('models.wavenet')\n"
+        "assert pkg.encode_mu_law is not None and 'torch' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -144,13 +144,22 @@ def test_train_cli_resumes_latest(tmp_path):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    # each rank trains batch_size / n_devices rows
-    (["--n_devices", "2", "--batch_size", "3"], ValueError, "not divisible"),
+    # each rank trains batch_size / n_devices rows: a batch the ranks do not
+    # divide trains on one rank, with the JAX CLI's warning (error None)
+    (["--n_devices", "2", "--batch_size", "3"], None,
+     "batch size 3 not divisible by 2 devices; falling back to single "
+     "device."),
     (["--model_parallel", "2"], NotImplementedError, "not yet ported"),
     (["--fused", "true", "--compute_dtype", "float32"], ValueError,
      "bfloat16"),
     (["--fused", "true"], ValueError, "envelope"),   # 16 channels
 ])
-def test_train_cli_refuses(tmp_path, extra, error, match):
+def test_train_cli_refuses(tmp_path, caplog, extra, error, match):
+    argv = _train_argv(tmp_path, "--iters", "1", *extra)
+    if error is None:
+        res = torch_train.main(argv)
+        assert "ranks" not in res and res["state"].step == 1
+        assert match in caplog.text
+        return
     with pytest.raises(error, match=match):
-        torch_train.main(_train_argv(tmp_path, "--iters", "1", *extra))
+        torch_train.main(argv)
