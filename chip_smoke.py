@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper): the decode and
-training paths, and the serial matmul-chain probe.
+training paths, the feature extraction, and the serial matmul-chain probe.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -86,7 +86,18 @@ the model it runs:
    with ``--n_devices 2 --device cuda`` on the one card: clamped to one
    process with the JAX CLI's warning, wavs byte-equal to the one-process
    decode, one K1 launch per fleet;
-13. [quality]: the arctic recipe (egs/arctic/sd/run.sh stages 0-6) through
+13. [features]: the recipes' feature extraction (``bin/feature_extract.py``)
+   on the host (``--n_jobs 8``, processes) and on the card (``--device
+   cuda``, float64; ``--f0_device torch``) at their full settings, on Klatt
+   corpora of 24 utterances at 16,000 and 22,050 Hz: arctic-sd and
+   ljspeech-sd world (uv and f0 bit-equal with host F0, mcep within 4e-4 of
+   the host path, codeap within 4e-4 of the host D4C with extended-precision
+   smoothing; device F0 against the host Harvest), ljspeech-sd-melspc, and
+   arctic-sd-melspc's mcep (within 1e-5 of the host path); device Harvest at
+   the largest bucket and on the JAX hardware test's tones; seconds, frames
+   per second and peak device memory of each run, and the float32 analyses
+   read against the same references;
+14. [quality]: the arctic recipe (egs/arctic/sd/run.sh stages 0-6) through
    the port's own CLIs at the flagship's full width: a Klatt corpus of 64
    training and 8 eval utterances (``eval/klatt.py``, seed 0);
    ``feature_extract`` (world, host DSP, 8 processes), ``calc_stats``,
@@ -98,7 +109,7 @@ the model it runs:
    ``eval_mcd`` of the restored, both raw decodes and a white-noise
    baseline; the JAX flagship int8 gate: restored bf16 MCD < 0.8 x white
    noise, int8 raw < bf16 raw + 0.4 dB;
-14. [K4]: the serial matmul-chain probe.  The
+15. [K4]: the serial matmul-chain probe.  The
    main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
    split; one cooperative launch per chain run); then every variant at
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
@@ -217,6 +228,56 @@ def _h5py_where_missing(tmp: str, root: str):
         if stand_in is not None:
             sys.path.remove(stand_in)
             sys.modules.pop("h5py", None)
+
+
+def _prefiltered(path: str):
+    """A wav as ``bin/feature_extract.py`` reads it: float64, 70 Hz high-pass
+    (the recipes' ``--highpass_cutoff``)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from pytorchwavenetvocoder_tpu_torch.dsp.filters import low_cut_filter
+
+    fs, x = wavfile.read(path)
+    return low_cut_filter(np.asarray(x, np.float64), fs, cutoff=70)
+
+
+def _world_reference(task):
+    """[features]' host reference for one wav (module level: a spawned pool
+    runs it): the host Harvest F0 track (``extract_f0``, as the world path
+    takes it) and the host D4C (``dsp/d4c.py``) of the world path's frames
+    with its smoothing in extended precision (np.longdouble, 64-bit
+    mantissa).  The host's float64 smoothing subtracts one offset, the
+    least value over the utterance's voiced frames, and cancels a quiet
+    frame's values away; 11 more bits keep them.  Returns (f0, codeap, the
+    mask of frames with a sample: D4C of an all-zero frame is 0/0)."""
+    import numpy as np
+
+    from pytorchwavenetvocoder_tpu_torch.dsp import cheaptrick, d4c
+    from pytorchwavenetvocoder_tpu_torch.dsp.f0 import extract_f0
+    from pytorchwavenetvocoder_tpu_torch.dsp.world import _centered_frames
+
+    path, fs, shiftms, minf0, maxf0, fftl = task
+    x = _prefiltered(path)
+    hop = int(fs * shiftms / 1000.0)
+    n = len(x) // hop + 1
+    f0 = extract_f0(x, fs, minf0=minf0, maxf0=maxf0, shiftms=shiftms)[:n]
+    f0 = np.pad(f0, (0, n - len(f0)))
+    frames = _centered_frames(x, fftl, hop, n)
+
+    def smooth(signal, width_hz, fs, fftl):
+        s = signal.astype(np.longdouble)
+        off = s.min() - 1.0
+        return (cheaptrick._linear_smoothing(
+            s - off, 1.5 * width_hz.astype(np.longdouble), fs, fftl)
+            + off).astype(np.float64)
+
+    prev, d4c._smooth = d4c._smooth, smooth
+    try:
+        return (f0, d4c.d4c(frames, f0, fs, fftl),
+                np.abs(frames).max(axis=1) > 0)
+    finally:
+        d4c._smooth = prev
 
 
 def _dp_train_rank(info, conf: dict, params: dict, batches: list, lr: float,
@@ -2495,6 +2556,325 @@ def main(argv=None) -> int:
             raise AssertionError(f"clamped wavs differ from the one-process "
                                  f"decode: {diff}, written {written}")
 
+    def features(n_utts=24, jobs=8):
+        """The recipes' feature extraction through ``bin/feature_extract.py``
+        on the host and on the card (float64 there, Harvest float32), at
+        their full feature settings: Klatt corpora (eval/klatt.py, seed 0, 3-7 syllables) of
+        ``n_utts`` utterances at 16,000 and 22,050 Hz; the host path as
+        processes (``--device host --n_jobs 8``, under the h5py stand-in),
+        the device path through the CLI's ``main`` in this process (its
+        counters and peak device memory are read here; a process of its own
+        would add the torch import to every reading).
+
+        World (arctic-sd, ljspeech-sd) with host F0: the uv and f0 columns
+        bit-equal to the host path's, mcep within max |d| <= 4e-4 of it (the
+        JAX package's contract on its chip), codeap within 4e-4 of the host
+        D4C with its smoothing in extended precision (``_world_reference``;
+        the host path's own float64 D4C loses up to ~0.1 dB to cancellation,
+        ROADMAP Queue 3) on every frame with a sample (D4C of an all-zero
+        frame is 0/0).  With ``--f0_device torch``: the uv column agrees on
+        > 0.98 of each utterance's frames, no utterance is routed to the
+        host Harvest, and the device's raw F0 tracks (``harvest_torch_many``
+        on the same signals, as the CLI calls it) against the host
+        Harvest's: per utterance voicing > 0.98 and relative f0 on frames
+        voiced in both median < 1e-4, and of all those frames < 0.5% off by
+        more than 1% (on speech a few frames' contour picks another
+        candidate a few % away, as the host's complex64 filter bank or the
+        device's float32 rounds a threshold, so the JAX hardware test's
+        max < 0.01 is held on its own vibrato tones instead, and at the
+        largest bucket: 4 x 30 s, 262,144 samples at 8 kHz).  melspc
+        (ljspeech-sd-melspc) and mcep (arctic-sd-melspc's noise-shaping
+        mcep): max |d| <= 1e-5, float64 on both sides and one float32
+        rounding apart in storage.  The float32 analyses of the same signals
+        are timed and read against the same references, unchecked."""
+        import multiprocessing
+
+        from pytorchwavenetvocoder_tpu_torch.bin import (
+            feature_extract as fe_cli,
+        )
+        from pytorchwavenetvocoder_tpu_torch.dsp import torch_dsp as td
+        from pytorchwavenetvocoder_tpu_torch.dsp.harvest import harvest
+        from pytorchwavenetvocoder_tpu_torch.dsp.harvest_torch import (
+            harvest_torch_many,
+        )
+        from pytorchwavenetvocoder_tpu_torch.eval.klatt import make_corpus
+        from pytorchwavenetvocoder_tpu_torch.utils import read_hdf5
+
+        t_phase = time.time()
+        native_lib = str(_build.build_native())
+        settings = [
+            # (name, fs, feature_type, flags), from the recipes' run.sh
+            ("arctic-sd world", 16000, "world",
+             ["--shiftms", "5", "--fftl", "1024", "--mcep_dim", "24",
+              "--mcep_alpha", "0.41", "--minf0", "120", "--maxf0", "275"]),
+            ("ljspeech-sd world", 22050, "world",
+             ["--shiftms", "5", "--fftl", "1024", "--mcep_dim", "34",
+              "--mcep_alpha", "0.455", "--minf0", "40", "--maxf0", "400"]),
+            ("ljspeech-sd-melspc", 22050, "melspc",
+             ["--shiftms", "11.61", "--fftl", "1024", "--mspc_dim", "80"]),
+            ("arctic-sd-melspc mcep", 16000, "mcep",
+             ["--shiftms", "5", "--fftl", "1024", "--mcep_dim", "24",
+              "--mcep_alpha", "0.41"]),
+        ]
+
+        def maxd(got, want, rows=None):
+            """max |got - want| over the utterances, on ``rows`` of each
+            where given"""
+            rows = rows or [slice(None)] * len(got)
+            return max(float(np.abs(g[r].astype(np.float64) - b[r]).max())
+                       for g, b, r in zip(got, want, rows))
+
+        def f0_agreement(got, want):
+            """(worst voicing agreement, worst median and max relative f0
+            on frames voiced in both, over the utterances; the share of all
+            frames voiced in both that are off by more than 1%)"""
+            agree, med, worst, rels = [], [0.0], [0.0], []
+            for g, h in zip(got, want):
+                vg, vh = g > 0, h > 0
+                agree.append((vg == vh).mean())
+                rel = np.abs(g[vg & vh] - h[vg & vh]) / h[vg & vh]
+                rels.append(rel)
+                if len(rel):
+                    med.append(np.median(rel))
+                    worst.append(rel.max())
+            rels = np.concatenate(rels)
+            return (min(agree), max(med), max(worst),
+                    float((rels > 0.01).mean()) if len(rels) else 0.0)
+
+        def f0_text(a, corpus=False):
+            return (f"voicing agreement {a[0]:.4f} (> 0.98), relative f0 "
+                    f"median {a[1]:.3e} (< 1e-4), max {a[2]:.3e} "
+                    + ("(unchecked), frames off by > 1% "
+                       f"{100 * a[3]:.3f}% (< 0.5%)" if corpus
+                       else "(< 0.01)"))
+
+        def f0_ok(a, corpus=False):
+            return a[0] > 0.98 and a[1] < 1e-4 and (
+                a[3] < 0.005 if corpus else a[2] < 0.01)
+
+        problems, lines = [], []
+        with tempfile.TemporaryDirectory(dir=root) as work, \
+                _h5py_where_missing(work, root) as (env, h5_note), \
+                multiprocessing.get_context("spawn").Pool(jobs) as pool:
+            env = dict(env, WNDSP_LIB=native_lib)
+            w = lambda *p: os.path.join(work, *p)   # noqa: E731
+            wavs, xs = {}, {}
+            for fs in (16000, 22050):
+                make_corpus(w(f"wav{fs}"), n_utts, fs=fs, seed=0,
+                            n_syllables=(3, 7))
+                wavs[fs] = [w(f"wav{fs}", n)
+                            for n in sorted(os.listdir(w(f"wav{fs}")))]
+                with open(w(f"wav{fs}.scp"), "w") as f:
+                    f.write("".join(p + "\n" for p in wavs[fs]))
+                xs[fs] = [_prefiltered(p) for p in wavs[fs]]
+
+            def read_all(d, ft):
+                return [read_hdf5(os.path.join(d, n), "/" + ft)
+                        for n in sorted(os.listdir(d))]
+
+            for name, fs, ft, flags in settings:
+                opt = {k[2:]: v for k, v in zip(flags[::2], flags[1::2])}
+                shiftms, fftl = float(opt["shiftms"]), int(opt["fftl"])
+                base = ["--waveforms", w(f"wav{fs}.scp"), "--fs", str(fs),
+                        "--feature_type", ft, "--highpass_cutoff", "70",
+                        "--save_wav", "false", "--verbose", "0", *flags]
+                tag = name.replace(" ", "_")
+                if ft == "world":
+                    # the host references, on the host's cores meanwhile
+                    minf0, maxf0 = float(opt["minf0"]), float(opt["maxf0"])
+                    refs = pool.map_async(_world_reference, [
+                        (p, fs, shiftms, minf0, maxf0, fftl)
+                        for p in wavs[fs]])
+                t0 = time.time()
+                p = subprocess.run(
+                    [sys.executable, "-m",
+                     "pytorchwavenetvocoder_tpu_torch.bin.feature_extract",
+                     *base, "--hdf5dir", w(tag, "host"), "--device", "host",
+                     "--n_jobs", str(jobs)], env=env, cwd=root, text=True,
+                    capture_output=True, timeout=600)
+                host_s = time.time() - t0
+                if p.returncode != 0:
+                    raise AssertionError(f"{name}: host feature_extract "
+                                         f"exited {p.returncode}: "
+                                         f"{p.stderr[-3000:]}")
+                host = read_all(w(tag, "host"), ft)
+                n_frames = sum(len(a) for a in host)
+                parts = [f"host --n_jobs {jobs} {host_s:.2f} s "
+                         f"({n_frames / host_s:.0f} frames/s)"]
+                if ft == "world":
+                    refs = refs.get(timeout=600)
+                    f0_ref = [r[0] for r in refs]
+                    cod_ref = [r[1] for r in refs]
+                    live = [r[2] for r in refs]
+                    n_mc = int(opt["mcep_dim"]) + 1
+                    mc, cod = slice(2, 2 + n_mc), slice(2 + n_mc, None)
+                    parts.append(
+                        f"the host path's own codeap against the exact D4C: "
+                        f"max |d| "
+                        f"{maxd([h[:, cod] for h in host], cod_ref, live):.3e}"
+                        f" ({sum(int((~m).sum()) for m in live)} all-zero "
+                        f"frames left out)")
+                for f0_device in (["host", "torch"] if ft == "world"
+                                  else [None]):
+                    extra = ["--f0_device", f0_device] if f0_device else []
+                    label = "cuda" + (f" --f0_device {f0_device}"
+                                      if f0_device else "")
+                    out = w(tag, f"cuda_{f0_device}")
+                    routed = harvest_torch_many.host_utterances
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.time()
+                    fe_cli.main(base + ["--hdf5dir", out, "--device", "cuda",
+                                        *extra])
+                    torch.cuda.synchronize()
+                    dev_s = time.time() - t0
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                    got = read_all(out, ft)
+                    shapes = [a.shape for a in got] == [a.shape for a in host]
+                    if not shapes or len(got) != n_utts or not all(
+                            np.isfinite(a).all() for a in got):
+                        problems.append(f"{name} {label}: {len(got)} files, "
+                                        f"shapes equal {shapes}, or not "
+                                        f"finite")
+                        continue
+                    if ft != "world":
+                        d = maxd(got, host)
+                        check, ok = f"max |d| {d:.3e} (bound 1e-5)", d <= 1e-5
+                    elif f0_device == "host":
+                        same = all(np.array_equal(g[:, :2], h[:, :2])
+                                   for g, h in zip(got, host))
+                        dm = maxd([g[:, mc] for g in got],
+                                  [h[:, mc] for h in host])
+                        dc = maxd([g[:, cod] for g in got], cod_ref, live)
+                        dch = maxd([g[:, cod] for g in got],
+                                   [h[:, cod] for h in host])
+                        check = (f"uv and f0 bit-equal {same}, max |d| mcep "
+                                 f"{dm:.3e} (host path), codeap {dc:.3e} "
+                                 f"(exact D4C; the host path: {dch:.3e}) "
+                                 f"(bounds 4e-4)")
+                        ok = same and dm <= 4e-4 and dc <= 4e-4
+                    else:
+                        # the CLI's uv column, and the raw tracks of the same
+                        # call on the same signals against the host's
+                        uv = min((g[:, 0] == h[:, 0]).mean()
+                                 for g, h in zip(got, host))
+                        raw, raw64 = (harvest_torch_many(
+                            xs[fs], fs, f0_floor=minf0, f0_ceil=maxf0,
+                            shiftms=shiftms, device=dev, dtype=dt)
+                            for dt in (torch.float32, torch.float64))
+                        a, a64 = (f0_agreement(r, f0_ref) for r in (raw, raw64))
+                        routed = harvest_torch_many.host_utterances - routed
+                        check = (f"uv column agreement {uv:.4f} (> 0.98), "
+                                 f"raw F0 {f0_text(a, True)}, host-routed "
+                                 f"utterances {routed}; in float64 "
+                                 f"(unchecked): {f0_text(a64, True)}")
+                        ok = uv > 0.98 and f0_ok(a, True) and routed == 0
+                    if not ok:
+                        problems.append(f"{name} {label}: {check}")
+                    parts.append(f"{label} {dev_s:.2f} s "
+                                 f"({n_frames / dev_s:.0f} frames/s, peak "
+                                 f"device memory {peak:.0f} MiB): {check}")
+                # the same analyses in float32 (the JAX package's dtype), read
+                # against the same references: not checked
+                t0 = time.time()
+                if ft == "world":
+                    f32 = td.world_analyze_torch_many(
+                        xs[fs], fs, shiftms=shiftms, minf0=minf0,
+                        maxf0=maxf0, fftl=fftl, mcep_dim=int(opt["mcep_dim"]),
+                        mcep_alpha=float(opt["mcep_alpha"]), device=dev,
+                        dtype=torch.float32)
+                    f32_text = (
+                        f"max |d| mcep "
+                        f"{maxd([a[:, mc] for a in f32], [h[:, mc] for h in host]):.3e}"
+                        f" (host path), codeap "
+                        f"{maxd([a[:, cod] for a in f32], cod_ref, live):.3e}"
+                        f" (exact D4C)")
+                else:
+                    shiftl = int(shiftms * fs * 0.001)
+                    f32 = []
+                    for x in xs[fs]:
+                        xt = torch.as_tensor(x, dtype=torch.float32,
+                                             device=dev)
+                        if ft == "melspc":
+                            m = td.melspectrogram_torch(
+                                xt / 32768, fs, fftl, shiftl,
+                                int(opt["mspc_dim"]), 0, fs // 2, 1.0)
+                            f32.append(np.log10(np.maximum(
+                                1e-10, m.double().cpu().numpy())))
+                        else:
+                            f32.append(td.stft_mcep_torch(
+                                xt, fftl, shiftl, int(opt["mcep_dim"]),
+                                float(opt["mcep_alpha"])).double().cpu()
+                                .numpy())
+                    f32_text = f"max |d| {maxd(f32, host):.3e} (host path)"
+                torch.cuda.synchronize()
+                parts.append(f"the float32 analyses {time.time() - t0:.2f} s"
+                             + (" (host F0 included)" if ft == "world"
+                                else "") + f": {f32_text}, unchecked")
+                lines.append(f"[features] {name} ({fs} Hz, {n_utts} utts, "
+                             f"{sum(map(len, xs[fs])) / fs:.1f} s of audio, "
+                             f"{n_frames} frames; {' '.join(flags)}): "
+                             + "; ".join(parts) + f" | {h5_note} | {card}")
+
+            # Harvest at the largest bucket (262,144 samples at 8 kHz, four
+            # utterances a batch): ljspeech-sd's f0 range, 4 x 30 s
+            rng = np.random.default_rng(0)
+            t = np.arange(30 * 22050) / 22050
+            long = []
+            for k in range(4):
+                ph = 2 * np.pi * np.cumsum(
+                    (110 + 20 * k) * (1 + 0.05 * np.sin(2 * np.pi * 3 * t))
+                ) / 22050
+                long.append(8000 * (np.sin(ph) + 0.3 * np.sin(2 * ph) + 0.05
+                                    * rng.standard_normal(len(t))))
+            routed = harvest_torch_many.host_utterances
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            got = harvest_torch_many(long, 22050, 40, 400, device=dev)
+            torch.cuda.synchronize()
+            dev_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            routed = harvest_torch_many.host_utterances - routed
+            t0 = time.time()
+            want = pool.starmap(harvest, [(x, 22050, 40, 400) for x in long])
+            host_s = time.time() - t0
+            a = f0_agreement(got, want)
+            lines.append(f"[features] Harvest at the largest bucket (4 x 30 s "
+                         f"at 22,050 Hz, f0 40-400, bucket 262,144): device "
+                         f"{dev_s:.2f} s (the bank built in this call), peak "
+                         f"device memory {peak:.0f} MiB; host {host_s:.2f} s "
+                         f"({jobs} processes); {f0_text(a)}, host-routed "
+                         f"{routed} | {card}")
+            if not f0_ok(a) or routed:
+                problems.append(f"largest bucket: {f0_text(a)}, host-routed "
+                                f"{routed}")
+            # the JAX package's hardware test of its device Harvest
+            # (tests/test_tpu_hardware.py::test_device_harvest_tracks_host_on_
+            # hardware): three vibrato tones, its bounds
+            rng = np.random.RandomState(0)
+            tones = []
+            for sec, f0, nz in [(2.0, 120.0, 0.05), (1.3, 190.0, 0.1),
+                                (0.9, 250.0, 0.02)]:
+                t = np.arange(int(sec * 16000)) / 16000
+                ph = 2 * np.pi * np.cumsum(
+                    f0 * (1 + 0.05 * np.sin(2 * np.pi * 3 * t))) / 16000
+                tones.append(np.sin(ph) + 0.3 * np.sin(2 * ph)
+                             + nz * rng.standard_normal(len(t)))
+            a = f0_agreement(harvest_torch_many(tones, 16000, 71, 400,
+                                                device=dev),
+                             pool.starmap(harvest, [(x, 16000, 71, 400)
+                                                    for x in tones]))
+            lines.append(f"[features] Harvest on the JAX hardware test's "
+                         f"vibrato tones (2.0, 1.3, 0.9 s at 16,000 Hz, f0 "
+                         f"71-400): {f0_text(a)} | {card}")
+            if not f0_ok(a):
+                problems.append(f"tones: {f0_text(a)}")
+        for ln in lines:
+            print(ln, flush=True)
+        print(f"[features] phase {time.time() - t_phase:.1f} s | {card}",
+              flush=True)
+        if problems:
+            raise AssertionError("; ".join(problems))
+
     def quality(m, n_train=64, n_eval=8, iters=6000, jobs=8, sweep=()):
         """The arctic recipe (egs/arctic/sd/run.sh stages 0-6) through the
         port's own CLIs on the card, at the flagship's full width, and the
@@ -3170,6 +3550,8 @@ def main(argv=None) -> int:
         # a host with fewer cards than --n_devices asks for, and the recipe
         # end to end on the card with its quality gate
         phase("dp clamp", lambda: dp_clamp(arctic))
+        # the recipes' feature extraction on the host and on the card
+        phase("features", features)
         phase("quality", lambda: quality(arctic))
         # the probe last, beside K1's times from this run
         phase("K4", k4)

@@ -16,7 +16,15 @@ available here; this package provides the consumed surfaces:
 - filters:    FIR high-pass / low-pass (scipy-backed, reference semantics)
 
 Host (numpy/scipy) code, copied from the JAX package's ``dsp`` package with
-its imports pointed here; the device DSP is not ported yet.
+its imports pointed here.  The device DSP, the counterpart of the JAX
+package's ``jax_dsp`` and ``harvest_jax``, is in two submodules that import
+torch and are not imported here (the host CLIs start without torch):
+
+- torch_dsp:     STFT, mel-spectrogram, freqt, sp2mc, UELS mcep, MLSA,
+                 CheapTrick, D4C and the batched WORLD analysis on a torch
+                 device (``feature_extract --device cuda``)
+- harvest_torch: Harvest F0's candidate and refinement stages on a torch
+                 device (``feature_extract --f0_device torch``)
 """
 
 from pytorchwavenetvocoder_tpu_torch.dsp.filters import (  # noqa: F401

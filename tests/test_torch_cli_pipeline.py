@@ -1,8 +1,8 @@
 """The port's preprocessing CLIs (``feature_extract``, ``calc_stats``,
 ``noise_shaping``) against the JAX package's on the same Klatt wavs: the
 same h5 datasets, bit for bit, and byte-identical wav files, once on the
-native DSP library and once on the numpy path; the refusals of the device
-DSP; and the arctic recipe's stage order through the port's CLIs on the
+native DSP library and once on the numpy path; the device DSP paths the
+CLI refuses; and the arctic recipe's stage order through the port's CLIs on the
 CPU at tiny widths (plumbing: every stage writes its outputs, the MCD
 report parses; no learning is asserted)."""
 
@@ -122,13 +122,23 @@ def test_preprocessing_clis_write_what_the_jax_clis_write(
         assert files == _files(want / d), d
 
 
-@pytest.mark.parametrize("flags", [["--device", "cuda"],
-                                   ["--device", "torch"],
-                                   ["--device", "jax"],
-                                   ["--f0_device", "jax"]])
-def test_feature_extract_refuses_the_device_dsp(corpus, tmp_path, flags):
+@pytest.mark.parametrize("flags, why", [
+    (["--device", "jax"], "expected host or a torch device"),
+    # no card here: the device path raises, it does not fall back
+    (["--device", "cuda"], "no such CUDA device"),
+    (["--f0_device", "torch"], "requires a torch --device"),
+    (["--device", "cpu", "--f0_device", "torch", "--feature_type",
+      "melspc"], "--feature_type world"),
+])
+def test_feature_extract_refuses_the_device_dsp(corpus, tmp_path, flags,
+                                                why, monkeypatch):
+    """The device paths the port does not serve refuse before any file is
+    written: a device that is not host or a torch device, a CUDA device the
+    machine lacks, and --f0_device torch without a torch --device or
+    outside world features (as the JAX CLI refuses --f0_device jax)."""
     root, _ = corpus
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=why):
         p_feature_extract.main(["--waveforms", str(root / "wav.scp"),
                                 "--hdf5dir", str(tmp_path / "h"),
                                 "--verbose", "0", *flags])

@@ -132,8 +132,15 @@ def test_native_binding_is_bit_equal_to_jax(name, wndsp_lib, monkeypatch,
 
 
 def test_dsp_package_exports_the_jax_host_surface():
-    """The port's ``dsp`` package exports the JAX one's names, less the
-    device DSP (``harvest_jax``, ``jax_dsp``: not ported)."""
+    """The port's ``dsp`` package exports the JAX one's host names; its
+    device DSP (``torch_dsp``, ``harvest_torch``, the counterparts of
+    ``jax_dsp`` and ``harvest_jax``) exists but is not imported with the
+    package, which would import torch into the host CLIs."""
+    import importlib.util
+    import os
+    import subprocess
+    import sys
+
     import pytorchwavenetvocoder_tpu.dsp as jdsp
 
     # the package name is bound by the packages' own submodule imports
@@ -142,6 +149,17 @@ def test_dsp_package_exports_the_jax_host_surface():
     have = {n for n in vars(p_dsp) if not n.startswith("_")}
     assert want <= have
     assert not {"harvest_jax", "jax_dsp", "pytorchwavenetvocoder_tpu"} & have
+    for name in ("torch_dsp", "harvest_torch"):
+        assert importlib.util.find_spec(p_dsp.__name__ + "." + name), name
+    code = ("import sys, pytorchwavenetvocoder_tpu_torch.dsp as d\n"
+            "print(sorted(m for m in sys.modules if m.endswith(("
+            "'torch_dsp', 'harvest_torch')) or m == 'torch'))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
 
 def test_native_library_is_found_in_the_port_build_dir(monkeypatch,

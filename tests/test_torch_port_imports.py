@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
         "'convert', 'ops.ar_kernel', 'ops.train_kernel', "
         "'ops.matmul_chain', 'data.generator', 'native', 'bin.calc_stats', "
         "'bin.noise_shaping', 'bin.feature_extract', 'bin.eval_mcd', "
-        "'dsp.world', 'dsp.harvest', 'eval.mcd', 'eval.klatt'}\n"
+        "'dsp.world', 'dsp.harvest', 'dsp.torch_dsp', 'dsp.harvest_torch', "
+        "'eval.mcd', 'eval.klatt'}\n"
         "missing = {n for n in need if pkg.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'pytorchwavenetvocoder_tpu')]\n"
