@@ -15,16 +15,18 @@ the model it runs:
 2. [K2]: the warm-up layer-stack kernel against its plain PyTorch version
    at the main path's shape (the fleet's warm-up chunk: 32 x 3,070 arctic,
    16 x 6,139 ljspeech), with both times;
-3. [K1]: the AR sample-loop kernels against their plain version at the
-   fleet's B: the bf16 kernel ``ops/ar_kernel.py::ar_route`` picks there
-   (the persistent kernel: one cooperative launch per call) and the other
-   one (the launch loop), each by the ring after one step, same-state
-   argmax agreement and trajectories; both times, the AR-loop device
-   kernels of one call counted by ``torch.profiler`` (must be 1), and the
-   two bf16 kernels in turns at B = 16 to 512, where ar_route's threshold
-   is read; ljspeech also holds the kernel of its wide fleet (B = 256, the
-   launch loop) the same way; [K1 chi2], a chi-square test of the
-   Gumbel-max sampler (on a narrow config, B = 16,384);
+3. [K1]: the AR sample-loop kernel (one cooperative launch per call)
+   against its plain version at the fleet's B, with both of its gate
+   designs: the one ``ops/ar_kernel.py::ar_gate`` picks there (the gate
+   cut into units at the recipes' fleets) and the other (the streamed
+   gate), each by the ring after one step, same-state argmax agreement
+   and trajectories; both times, the AR-loop device kernels of one call
+   counted by ``torch.profiler`` (must be 1), the two gate designs in
+   turns at B = 16 to 512, where ``AR_STREAM_FROM_B`` is read, and the
+   phase times per stage at the fleet's B and at 256; ljspeech also holds
+   the streamed gate of its wide fleet (B = 256) and of B = 512 the same
+   way; [K1 chi2], a chi-square test of the Gumbel-max sampler (on a
+   narrow config, B = 16,384);
 4. [main]: the decode path: a flagship checkpoint (random weights from a
    seeded generator) written as a bundle, loaded back through the port's
    loaders and decoded by ``bin/decode.py``'s ``decode_batches`` as a fleet
@@ -33,7 +35,7 @@ the model it runs:
    float32-conf bundle of the same weights with ``impl="auto"`` (run as
    the bf16 conf: K2 and K1 once per fleet), and K1 on the float32 conf's
    carry against the plain loop; [main wide k3], a ljspeech fleet of 256
-   short utterances, on the bf16 launch loop;
+   short utterances, on the streamed gate (one launch per call);
 5. [K2 train]: K2 in training mode (the sigma/tanh saves and the skip sum)
    against its plain version at the flagship training window (B=1, T =
    23,040 arctic, 21,120 ljspeech), each layer on the kernel's own input
@@ -49,17 +51,17 @@ the model it runs:
    decodes, and ``--resume latest``;
 8. [K1 int8]: K1's int8 variant against the plain int8 version on the same
    carry and warm-up-calibrated scales (kernel_size 3: the int8 ring): the
-   int8 kernel ``ar_route(..., quantize=True)`` picks (the persistent
-   kernel: one cooperative launch per call, counted by ``torch.profiler``)
-   and the other one (the int8 launch loop), both timed; the two int8
-   kernels in turns at B = 16 to 512, where the int8 threshold is read,
-   with the bf16 K1 beside them at the fleet's B and at 256; the
-   persistent int8 kernel's phase times per stage;
+   int8 gate design ``ar_gate(..., quantize=True)`` picks (one cooperative
+   launch per call, counted by ``torch.profiler``) and the other one, both
+   timed; the two in turns at B = 16 to 512, where the int8 threshold is
+   read, with the bf16 K1 beside them at the fleet's B and at 256; the
+   int8 kernel's phase times per stage; ljspeech also holds the streamed
+   int8 gate at B = 256 and 512;
 9. [int8 track]: the JAX package's own int8 gate (int8 against bf16,
    argmax, B=8 x 400 steps through ``batch_fast_generate``); [K1 int8
    chi2], a chi-square test of the int8 path's sampler on fixed logits;
 10. [main int8]: ``decode_batches(..., quantize=True)`` on phase 4's
-   bundle and fleet, with the int8 K1 ``ar_route`` picks launched once and
+   bundle and fleet, with the int8 K1 launched once and
    the warm-up kernel once per warm-up chunk, then a short fleet under a
    forced ``WNV_DECODE_HBM_BUDGET`` split into sub-fleets, each row equal
    to its sub-fleet decoded alone;
@@ -116,7 +118,7 @@ the model it runs:
    bitwise equal), timed at 1,000 steps, the plain chain and the plain
    chain captured as one CUDA graph at 20; spine, full, int8 and int8raw at
    K1's fleet sizes (16, 32, 256) beside K1's us/step from this run (the
-   kernel ``ar_route`` picks, bf16 and int8); and the 60 grid barriers
+   gate design ``ar_gate`` picks, bf16 and int8); and the 60 grid barriers
    per step alone.
 
 Every check is also read against controls, variants of the plain version
@@ -435,7 +437,10 @@ def main(argv=None) -> int:
     def sass_check():
         """The stack kernels are tensor-core kernels: ``cuobjdump -sass`` of
         the built library shows HGMMA (wgmma) in every instance of their
-        product core, csrc/wn_wgmma.cuh's ``wg_kernel<P>``."""
+        product core, csrc/wn_wgmma.cuh's ``wg_kernel<P>``; and so does
+        every instance of K1 with the streamed gate
+        (``ar_persistent_kernel<k, int8, true>``: HGMMA, and for int8 the
+        integer IGMMA too)."""
         import re
         import shutil
 
@@ -446,14 +451,24 @@ def main(argv=None) -> int:
         if out.returncode != 0:
             raise AssertionError(f"cuobjdump failed: {out.stderr[-500:]}")
         counts, fn = {}, None
+        ar, ar_fn = {}, None     # K1's instances: (k, int8, streamed) -> counts
         for line in out.stdout.splitlines():
             if "Function :" in line:
                 name = line.split("Function :")[1].strip()
                 fn = name if "wg_kernel" in name else None
                 if fn:
                     counts[fn] = 0
+                got = re.search(r"ar_persistent_kernelILi(\d)ELb(\d)ELb(\d)E",
+                                name)
+                ar_fn = tuple(int(g) for g in got.groups()) if got else None
+                if ar_fn:
+                    ar[ar_fn] = {"HGMMA": 0, "IGMMA": 0}
             elif fn and "HGMMA" in line:
                 counts[fn] += 1
+            elif ar_fn:
+                for op in ("HGMMA", "IGMMA"):
+                    if op in line:
+                        ar[ar_fn][op] += 1
 
         def label_of(f):
             """an instance's problems (two or three where WgBoth runs them
@@ -471,11 +486,21 @@ def main(argv=None) -> int:
                                      for f, n in sorted(counts.items(),
                                                         key=lambda i: label[i[0]]))
               + f" | {card}", flush=True)
+        print("[sass] K1 instances (kernel_size, int8, streamed gate): "
+              + ", ".join(f"{key} HGMMA {v['HGMMA']} IGMMA {v['IGMMA']}"
+                          for key, v in sorted(ar.items())) + f" | {card}",
+              flush=True)
         want = {"FwdGate0", "FwdGate1", "FwdOut", "BwdDG", "BwdDX+BwdDH",
                 "Wgrad0+Wgrad1+Wgrad2"}
         if set(label.values()) != want or not all(counts.values()):
             raise AssertionError(f"not every product-core instance runs "
                                  f"wgmma: {counts}")
+        streamed = {key: v for key, v in ar.items() if key[2]}
+        if len(streamed) != 4 or not all(
+                v["HGMMA"] and (v["IGMMA"] or not key[1])
+                for key, v in streamed.items()):
+            raise AssertionError(f"not every streamed-gate instance of K1 "
+                                 f"runs wgmma: {ar}")
 
     def make_params(cfg, seed):
         """Random weights from a seeded generator, with small random
@@ -505,7 +530,7 @@ def main(argv=None) -> int:
                   params=make_params(flag, 1234), fleet=32, train_frames=288,
                   batch_length=20000, fs=16000, rs=np.random.RandomState(0))
     # wide: a fleet of the JAX package's bench size (256, bench.py), which
-    # ar_route gives the other bf16 kernel than the recipes' fleet
+    # ar_gate gives the other gate design than the recipes' fleet
     ljs = dict(name="ljspeech", tag=" k3", suffix="_k3", cfg=lj, wide=256,
                params=make_params(lj, 4321), fleet=16, train_frames=192,
                batch_length=15000, fs=22050, rs=np.random.RandomState(10))
@@ -607,8 +632,6 @@ def main(argv=None) -> int:
     def reset_launches():
         """Every decode kernel's launch count to 0, before a path's run."""
         ak.ar_generate.launches = 0
-        ak.ar_generate.loop_launches = 0
-        ak.ar_generate.int8_launches = 0
         ak.ar_generate.int8_persistent_launches = 0
         tk.layer_stack_streams.launches = 0
 
@@ -874,39 +897,61 @@ def main(argv=None) -> int:
         return ((ring[:, :b].contiguous(), hist[:b].contiguous(),
                  prev[:b].contiguous()), h[:b].contiguous())
 
-    #: the fleets at which [K1*] time both bf16 kernels in turns: the main
+    #: the fleets at which [K1*] time both gate designs in turns: the main
     #: paths' (16, 32), the JAX package's bench fleet (256) and sizes
-    #: between and beyond, on both sides of ar_route's threshold
+    #: between and beyond, on both sides of AR_STREAM_FROM_B
     K1_TURN_B = (16, 32, 64, 128, 192, 256, 512)
+    GATE_NAMES = {"units": "gate cut into units", "stream": "streamed gate"}
+
+    def k1_entry(gate, quantize=False):
+        """The kernels line's name of K1 with this gate design."""
+        return ("ar_persistent" + ("_stream" if gate == "stream" else "")
+                + ("_int8" if quantize else ""))
+
+    def k1_phase_line(tag, phases):
+        return (f"{tag} where a step of the persistent kernel goes, us per "
+                f"stage (its phase times; means over the blocks with a unit, "
+                f"the barrier wait over all blocks): " + "; ".join(
+                    f"B={b_} ({ph['design']} gate): " + ", ".join(
+                        f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
+                                    else f"ask {v['ask']:.2f} wait "
+                                    f"{v['wait']:.2f} products "
+                                    f"{v['products']:.2f} epilogue "
+                                    f"{v['epilogue']:.2f} units "
+                                    f"{v['units']:.2f}")
+                        for st, v in ph.items()
+                        if st not in ("barrier", "design"))
+                    + f", barrier {ph['barrier']['wait']:.2f} x "
+                    f"{ph['barrier']['per_step']:.0f}/step"
+                    for b_, ph in phases.items()) + f" | {card}")
 
     def k1(m, n, n_check, controls, n_big=64, n_wide=64):
         """K1 against the plain loop from the same carry at the fleet's B,
-        both bf16 kernels (the one ar_route picks, and the other one held
+        both gate designs (the one ar_gate picks, and the other one held
         the same way): the ring after one step, same-state argmax over
-        n_check steps, trajectories over n_check steps; the picked kernel
+        n_check steps, trajectories over n_check steps; the picked design
         timed over n steps and its device launches in one call counted by
-        the profiler; both kernels in turns at K1_TURN_B (n_big steps at
-        the sizes other than the fleet's); and, where the model has a wide
-        fleet (m["wide"]) on the other kernel, that kernel at it, held
-        against the plain loop over n_wide steps."""
+        the profiler; both in turns at K1_TURN_B (n_big steps at the sizes
+        other than the fleet's); and, where the model has a wide fleet
+        (m["wide"], the streamed gate), the kernel at it and at twice it,
+        held against the plain loop over n_wide steps."""
         cfg, prm, B = m["cfg"], m["params"], m["fleet"]
         carry, h, T0 = fleet_carry(cfg, prm, B, n, 1)
-        route = ak.ar_route(cfg, B, device=dev)
-        other = "loop" if route == "persistent" else "persistent"
-        names = {"persistent": "persistent", "loop": "launch loop"}
+        gate = ak.ar_gate(cfg, B, device=dev)
+        other = "stream" if gate == "units" else "units"
 
         def kernel(c_, i0, steps):
             return ak.ar_generate(prm, cfg, c_, h, T0 + i0, steps, "argmax")
 
-        def on(r_, h_, T_):
+        def on(g_, h_, T_):
             return lambda c_, i0, steps: ak.ar_generate_on(
-                r_, prm, cfg, c_, h_, T_ + i0, steps)
+                g_, prm, cfg, c_, h_, T_ + i0, steps)
 
         def plain(p_, h_, T_):
             return lambda c_, i0, steps: ak.ar_generate_reference(
                 p_, cfg, c_, h_, T_, steps, "argmax", i0=i0)
 
-        runs = {"kernel": kernel, names[other]: on(other, h, T0)}
+        runs = {"kernel": kernel, GATE_NAMES[other]: on(other, h, T0)}
         runs.update({c: plain(p_, h, T0) for c, p_ in controls.items()})
         readings = k1_readings(cfg, prm, carry, h, T0, n_check, runs)
         # per-call times, n steps each
@@ -915,11 +960,11 @@ def main(argv=None) -> int:
             prm, cfg, carry, h, T0, n, "argmax"), reps=1)
         bnd = ar_bound(cfg, B, n, False)
         # the device kernels of the AR loop in one call of n steps: one
-        # cooperative launch (the launch loop makes 65-66 per step)
+        # cooperative launch
         loop_kernels, traced, traces = ar_loop_kernels(
             lambda: kernel(carry, 0, n))
-        # both bf16 kernels in turns (persistent, loop, loop, persistent;
-        # best of each) from one carry of the largest fleet, sliced
+        # both gate designs in turns (units, stream, stream, units; best of
+        # each) from one carry of the largest fleet, sliced
         turns, phases = {}, {}
         big_carry, big_h, T_big = fleet_carry(cfg, prm, max(K1_TURN_B), n_big,
                                               2)
@@ -929,90 +974,82 @@ def main(argv=None) -> int:
             else:
                 (c_t, h_t), T_t, n_t = (slice_carry(big_carry, big_h, b_t),
                                         T_big, n_big)
-            fns = {r_: (lambda r_=r_: ak.ar_generate_on(
-                r_, prm, cfg, c_t, h_t, T_t, n_t)) for r_ in names}
-            got = {r_: [] for r_ in fns}
-            for r_ in ("persistent", "loop", "loop", "persistent"):
-                got[r_].append(1e3 * time_ms(fns[r_]) / n_t)
-            turns[b_t] = {r_: min(v) for r_, v in got.items()}
-            turns[b_t]["route"] = ak.ar_route(cfg, b_t, device=dev)
-            k1_us[(m["name"], "bf16", b_t)] = turns[b_t][turns[b_t]["route"]]
-            if b_t in (B, 256):    # where a persistent step's time goes
-                phases[b_t] = ak.ar_phase_times(prm, cfg, c_t, h_t, T_t, n_t)
+            fns = {g_: (lambda g_=g_: ak.ar_generate_on(
+                g_, prm, cfg, c_t, h_t, T_t, n_t)) for g_ in ak.AR_GATES}
+            got = {g_: [] for g_ in fns}
+            for g_ in ("units", "stream", "stream", "units"):
+                got[g_].append(1e3 * time_ms(fns[g_]) / n_t)
+            turns[b_t] = {g_: min(v) for g_, v in got.items()}
+            turns[b_t]["gate"] = ak.ar_gate(cfg, b_t, device=dev)
+            k1_us[(m["name"], "bf16", b_t)] = turns[b_t][turns[b_t]["gate"]]
+            if b_t in (B, 256):    # where a step's time goes
+                phases[b_t] = dict(ak.ar_phase_times(prm, cfg, c_t, h_t, T_t,
+                                                     n_t),
+                                   design=turns[b_t]["gate"])
             if b_t != B:
                 del c_t, h_t
         bb = ar_bound(cfg, 256, n_big, False)
-        big = (" | us/step, best of two in turns (persistent / launch "
-               "loop, * = the one ar_route picks): " + ", ".join(
-                   f"B={b_} {t_['persistent']:.1f}"
-                   f"{'*' if t_['route'] == 'persistent' else ''} / "
-                   f"{t_['loop']:.1f}{'*' if t_['route'] == 'loop' else ''}"
+        big = (" | us/step, best of two in turns (gate cut into units / "
+               "streamed gate, * = the one ar_gate picks): " + ", ".join(
+                   f"B={b_} {t_['units']:.1f}"
+                   f"{'*' if t_['gate'] == 'units' else ''} / "
+                   f"{t_['stream']:.1f}{'*' if t_['gate'] == 'stream' else ''}"
                    for b_, t_ in turns.items())
                + f" (B != {B}: over {n_big} steps); bound at B=256 x "
                f"{n_big}: {bb['bound_ms']:.3f} ms ({bb['bound_by']}) | AR-loop "
-               f"device kernels in one call of {n} steps ({route}): "
+               f"device kernels in one call of {n} steps: "
                f"{len(loop_kernels)} {sorted(set(loop_kernels))} (device "
                f"kernels in each trace taken: {traces})")
         print(f"[K1{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, argmax, "
-              f"{n_check} steps vs the plain version (kernel: the {route} "
-              f"kernel ar_route picks): " + k1_line(readings, n_check)
+              f"{n_check} steps vs the plain version (kernel: the "
+              f"{GATE_NAMES[gate]}, ar_gate's): " + k1_line(readings, n_check)
               + f" | B={B} x {n} steps: kernel {ms:.2f} "
               f"ms ({1e3 * ms / n:.1f} us/step), plain {plain_ms:.2f} ms "
               f"({1e3 * plain_ms / n:.1f} us/step), bound "
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}){big} | {card}",
               flush=True)
-        print(f"[K1{m['tag']}] {m['name']} where a step of the persistent "
-              f"kernel goes, us per stage (its phase times; means over the "
-              f"blocks with a unit, the barrier wait over all blocks): "
-              + "; ".join(
-                  f"B={b_}: " + ", ".join(
-                      f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
-                                  else f"ask {v['ask']:.2f} wait {v['wait']:.2f}"
-                                  f" products {v['products']:.2f} epilogue "
-                                  f"{v['epilogue']:.2f} units {v['units']:.2f}")
-                      for st, v in ph.items() if st != "barrier")
-                  + f", barrier {ph['barrier']['wait']:.2f} x "
-                  f"{ph['barrier']['per_step']:.0f}/step"
-                  for b_, ph in phases.items()) + f" | {card}", flush=True)
-        entry = {"persistent": ("ar_persistent", "ar_persistent.cu"),
-                 "loop": ("ar_step", "ar_step.cu")}
-        kernel_entry(entry[route][0], m, entry[route][1],
+        print(k1_phase_line(f"[K1{m['tag']}] {m['name']}", phases), flush=True)
+        kernel_entry(k1_entry(gate), m, "ar_persistent.cu",
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      readings["kernel"][3], ms, plain_ms, bnd)
-        k1_check(readings, controls, n_check, f"K1 ({route})")
-        if route == "persistent" and (len(loop_kernels) != 1 or
-                                      "ar_persistent_kernel" not in
-                                      loop_kernels[0]):
+        k1_check(readings, controls, n_check, f"K1 ({gate})")
+        if len(loop_kernels) != 1 or "ar_persistent_kernel" not in \
+                loop_kernels[0]:
             raise AssertionError(f"one call of {n} steps ran the AR-loop "
                                  f"kernels {loop_kernels}, not one launch "
                                  f"(device kernels traced: "
                                  f"{sorted(set(traced))})")
         wide = m.get("wide")
-        if not wide or ak.ar_route(cfg, wide, device=dev) == route:
+        if not wide:
             return
-        # the wide fleet's kernel at its own B, from the sliced carry
-        w_route = ak.ar_route(cfg, wide, device=dev)
-        (c_w, h_w), T_w = slice_carry(big_carry, big_h, wide), T_big
-        del big_carry, big_h
-        runs = {"kernel": lambda c_, i0, steps: ak.ar_generate(
-            prm, cfg, c_, h_w, T_w + i0, steps, "argmax")}
-        runs.update({c: plain(p_, h_w, T_w) for c, p_ in controls.items()})
-        rd = k1_readings(cfg, prm, c_w, h_w, T_w, n_wide, runs)
-        ms_w = time_ms(lambda: runs["kernel"](c_w, 0, n_big))
-        plain_w = time_ms(lambda: ak.ar_generate_reference(
-            prm, cfg, c_w, h_w, T_w, n_big, "argmax"), reps=1)
-        bnd_w = ar_bound(cfg, wide, n_big, False)
-        print(f"[K1{m['tag']}] {m['name']} wide fleet B={wide}, argmax, "
-              f"{n_wide} steps vs the plain version (kernel: the {w_route} "
-              f"kernel ar_route picks): " + k1_line(rd, n_wide)
-              + f" | B={wide} x {n_big} steps: kernel {ms_w:.2f} ms "
-              f"({1e3 * ms_w / n_big:.1f} us/step), plain {plain_w:.2f} ms, "
-              f"bound {bnd_w['bound_ms']:.3f} ms ({bnd_w['bound_by']}) | "
-              f"{card}", flush=True)
-        kernel_entry(entry[w_route][0], m, entry[w_route][1],
-                     "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
-                     rd["kernel"][3], ms_w, plain_w, bnd_w)
-        k1_check(rd, controls, n_wide, f"K1 ({w_route}, B={wide})")
+        # the wide fleets' streamed gate at their own B, from the sliced
+        # carry: the JAX package's bench fleet and twice it
+        for b_w in (wide, 2 * wide):
+            w_gate = ak.ar_gate(cfg, b_w, device=dev)
+            (c_w, h_w), T_w = slice_carry(big_carry, big_h, b_w), T_big
+            runs = {"kernel": lambda c_, i0, steps, h_w=h_w: ak.ar_generate(
+                prm, cfg, c_, h_w, T_w + i0, steps, "argmax")}
+            runs.update({c: plain(p_, h_w, T_w) for c, p_ in controls.items()})
+            rd = k1_readings(cfg, prm, c_w, h_w, T_w, n_wide, runs)
+            ms_w = time_ms(lambda: runs["kernel"](c_w, 0, n_big))
+            plain_w = time_ms(lambda: ak.ar_generate_reference(
+                prm, cfg, c_w, h_w, T_w, n_big, "argmax"), reps=1)
+            bnd_w = ar_bound(cfg, b_w, n_big, False)
+            print(f"[K1{m['tag']}] {m['name']} wide fleet B={b_w}, argmax, "
+                  f"{n_wide} steps vs the plain version (kernel: the "
+                  f"{GATE_NAMES[w_gate]}, ar_gate's): " + k1_line(rd, n_wide)
+                  + f" | B={b_w} x {n_big} steps: kernel {ms_w:.2f} ms "
+                  f"({1e3 * ms_w / n_big:.1f} us/step), plain {plain_w:.2f} "
+                  f"ms, bound {bnd_w['bound_ms']:.3f} ms ({bnd_w['bound_by']}) "
+                  f"| {card}", flush=True)
+            if b_w == wide:
+                kernel_entry(k1_entry(w_gate), m, "ar_persistent.cu",
+                             "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                             rd["kernel"][3], ms_w, plain_w, bnd_w)
+            if w_gate != "stream":
+                raise AssertionError(f"B={b_w} runs the {w_gate} gate")
+            k1_check(rd, controls, n_wide, f"K1 ({w_gate}, B={b_w})")
+            del c_w, h_w
 
     def chi2():
         from scipy.stats import chi2 as chi2_dist
@@ -1081,8 +1118,9 @@ def main(argv=None) -> int:
     def main_path(m, wide=False, quantize=False):
         """The decode path at the model's fleet (or, with ``wide``, at its
         wide fleet m["wide"] of short utterances), bf16 or (``quantize``)
-        int8: the kernel ar_route picks for that fleet launched once, K2
-        launched, the plain loop never run."""
+        int8: K1 launched once (the gate design ar_gate picks for that
+        fleet; the wide fleet's streamed), K2 launched, the plain loop never
+        run."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _pad_aux_to,
@@ -1153,11 +1191,12 @@ def main(argv=None) -> int:
             finally:
                 ak.ar_generate_reference = real_ref
             launches = read_launches()
-            route = ak.ar_route(cfg, B, quantize, device=dev)
-            k1_name = ("ar_persistent" if route == "persistent"
-                       else "ar_step") + ("_int8" if quantize else "")
-            set_launches(m, {k1_name: launches[k1_name]} if wide else
-                         {k1_name: launches[k1_name],
+            gate = ak.ar_gate(cfg, B, quantize, device=dev)
+            k1_name = "ar_persistent" + ("_int8" if quantize else "")
+            # the kernels line names the streamed gate's K1 apart
+            set_launches(m, {k1_entry(gate, quantize): launches[k1_name]}
+                         if wide else
+                         {k1_entry(gate, quantize): launches[k1_name],
                           "layer_stack_fwd": launches["layer_stack_fwd"]})
 
             bad = []
@@ -1184,7 +1223,7 @@ def main(argv=None) -> int:
             max_n = max(n_list)
             print(f"[main{' int8' if quantize else ''}{' wide' if wide else ''}"
                   f"{m['tag']}] {m['name']} "
-                  f"decode_batches ({route} K1): {B} utts, "
+                  f"decode_batches (K1, {GATE_NAMES[gate]}): {B} utts, "
                   f"frames {frames.min()}-{frames.max()} at {m['fs']} Hz, "
                   f"{res['n_samples']} samples in {res['seconds']:.3f} s = "
                   f"{res['n_samples'] / res['seconds']:.0f} samples/s, "
@@ -1200,7 +1239,8 @@ def main(argv=None) -> int:
             if (launches[k1_name] != 1
                     or sum(v for k, v in launches.items()
                            if k.startswith("ar_")) != 1
-                    or launches["layer_stack_fwd"] < 1 or plain_runs[0]):
+                    or launches["layer_stack_fwd"] < 1 or plain_runs[0]
+                    or (wide and gate != "stream")):
                 raise AssertionError(f"not one {k1_name} launch, K2 launched "
                                      f"and no plain loop: {launches}, plain "
                                      f"{plain_runs[0]}")
@@ -1277,8 +1317,8 @@ def main(argv=None) -> int:
                                  f"{bad[:4]}")
         if not spread or not np.isfinite(spread):
             raise AssertionError(f"degenerate output wav (std {spread})")
-        if launches != {"ar_persistent": 1, "ar_step": 0, "ar_step_int8": 0,
-                        "ar_persistent_int8": 0, "layer_stack_fwd": 1} \
+        if launches != {"ar_persistent": 1, "ar_persistent_int8": 0,
+                        "layer_stack_fwd": 1} \
                 or plain_runs[0]:
             raise AssertionError(f"not one K1 and one K2 launch on the float32 "
                                  f"bundle's fleet: {launches}, plain "
@@ -1805,19 +1845,18 @@ def main(argv=None) -> int:
         w_tensor = dict(wq)
         w_tensor["q_wz"], w_tensor["q_wz_scale"] = per_tensor(pk[gk])
         w_tensor["q_wsr"], w_tensor["q_wsr_scale"] = per_tensor(pk["wsr"])
-        # the kernel ar_route picks at this fleet, and the other int8 kernel
+        # the gate design ar_gate picks at this fleet, and the other one
         # held the same way
-        route = ak.ar_route(cfg, B, quantize=True, device=dev)
-        other = "loop" if route == "persistent" else "persistent"
-        names = {"persistent": "persistent", "loop": "launch loop"}
+        gate = ak.ar_gate(cfg, B, quantize=True, device=dev)
+        other = "stream" if gate == "units" else "units"
 
-        def on(r_, c_h=None):
+        def on(g_, c_h=None):
             h_, T_, s_ = c_h or (h, T0, scales)
             return lambda c_, i0, steps: ak.ar_generate_on(
-                r_, prm, cfg, c_, h_, T_ + i0, steps, quantize=True,
+                g_, prm, cfg, c_, h_, T_ + i0, steps, quantize=True,
                 act_scales=s_)
 
-        runs = {"kernel": kernel, names[other]: on(other),
+        runs = {"kernel": kernel, GATE_NAMES[other]: on(other),
                 "per_tensor": plain_loop(cfg, w_tensor, True, h, T0, scales)}
         if cfg.kernel_size == 2:
             w_gate = dict(wq, q_gate_scale=scales[:, 0].clone())
@@ -1829,7 +1868,7 @@ def main(argv=None) -> int:
             runs["lag_2d_dropped"] = plain_loop(
                 cfg, ak._step_weights(drop_lag_2d(prm), cfg, quantize=True),
                 True, h, T0, scales)
-        controls = [c for c in runs if c not in ("kernel", names[other])]
+        controls = [c for c in runs if c not in ("kernel", GATE_NAMES[other])]
 
         def int8_readings(carry_, h_, T_, s_, runs_, n_check_):
             """Each of ``runs_`` against the plain int8 version from the
@@ -1882,13 +1921,13 @@ def main(argv=None) -> int:
             act_scales=scales), reps=1)
         bnd = ar_bound(cfg, B, n, True)
         # the device kernels of the AR loop in one call of n steps: one
-        # cooperative launch (the launch loop makes 65-66 per step)
+        # cooperative launch
         loop_kernels, traced, traces = ar_loop_kernels(
             lambda: kernel(carry, 0, n))
-        # both int8 kernels in turns (persistent, loop, loop, persistent;
+        # both int8 gate designs in turns (units, stream, stream, units;
         # best of each) at K1_TURN_B from one carry of the largest fleet,
-        # sliced, and the bf16 K1 (the kernel ar_route picks) beside them
-        # at the fleet's B and at 256; the plain int8 version at 256
+        # sliced, and the bf16 K1 (ar_gate's design) beside them at the
+        # fleet's B and at 256; the plain int8 version at 256
         big_bf, big_h, T_big, big_s = fleet_carry(cfg, prm, max(K1_TURN_B),
                                                   n_big, 2, scales=True)
         big_q = int8_carry(cfg, big_bf, big_s)
@@ -1901,8 +1940,8 @@ def main(argv=None) -> int:
                 (c_q, h_t), T_t, s_t, n_t = (slice_carry(big_q, big_h, b_t),
                                              T_big, big_s, n_big)
                 c_bf = slice_carry(big_bf, big_h, b_t)[0]
-            fns = {r_: on(r_, (h_t, T_t, s_t)) for r_ in names}
-            order = ["persistent", "loop", "loop", "persistent"]
+            fns = {g_: on(g_, (h_t, T_t, s_t)) for g_ in ak.AR_GATES}
+            order = ["units", "stream", "stream", "units"]
             if b_t in (B, 256):
                 fns["bf16"] = lambda: ak.ar_generate(prm, cfg, c_bf, h_t, T_t,
                                                      n_t, "argmax")
@@ -1913,11 +1952,13 @@ def main(argv=None) -> int:
                     lambda r_=r_: fns[r_](c_q, 0, n_t))
                 got[r_].append(1e3 * time_ms(fn) / n_t)
             turns[b_t] = {r_: min(v) for r_, v in got.items()}
-            turns[b_t]["route"] = ak.ar_route(cfg, b_t, quantize=True, device=dev)
-            k1_us[(m["name"], "int8", b_t)] = turns[b_t][turns[b_t]["route"]]
-            if b_t in (B, 256):    # where a persistent int8 step's time goes
-                phases[b_t] = ak.ar_phase_times(prm, cfg, c_q, h_t, T_t, n_t,
-                                                quantize=True, act_scales=s_t)
+            turns[b_t]["gate"] = ak.ar_gate(cfg, b_t, quantize=True,
+                                            device=dev)
+            k1_us[(m["name"], "int8", b_t)] = turns[b_t][turns[b_t]["gate"]]
+            if b_t in (B, 256):    # where an int8 step's time goes
+                phases[b_t] = dict(ak.ar_phase_times(
+                    prm, cfg, c_q, h_t, T_t, n_t, quantize=True,
+                    act_scales=s_t), design=turns[b_t]["gate"])
             if b_t == 256:
                 n_p = 16
                 plain_big = 1e3 * time_ms(lambda: ak.ar_generate_reference(
@@ -1925,22 +1966,21 @@ def main(argv=None) -> int:
                     act_scales=s_t), reps=1) / n_p
             if b_t != B:
                 del c_q, c_bf, h_t
-        # where the model has a wide fleet (m["wide"]) on the other int8
-        # kernel: that kernel at it, from the sliced carry, held against
-        # the plain int8 version over n_wide steps (control: one weight
-        # scale per tensor)
+        # where the model has a wide fleet (m["wide"], the streamed gate):
+        # the kernel at it and at twice it, from the sliced carry, held
+        # against the plain int8 version over n_wide steps (control: one
+        # weight scale per tensor)
         wide = m.get("wide")
-        w_route = ak.ar_route(cfg, wide, quantize=True, device=dev) if wide else route
-        wide_rd = None
-        if w_route != route:
-            c_w, h_w = slice_carry(big_q, big_h, wide)
+        wide_rd = {}
+        for b_w in ((wide, 2 * wide) if wide else ()):
+            c_w, h_w = slice_carry(big_q, big_h, b_w)
 
-            def at_wide(c_, i0, steps):
+            def at_wide(c_, i0, steps, h_w=h_w):
                 return ak.ar_generate(prm, cfg, c_, h_w, T_big + i0, steps,
                                       "argmax", quantize=True,
                                       act_scales=big_s)
 
-            wide_rd = int8_readings(
+            rd = int8_readings(
                 c_w, h_w, T_big, big_s,
                 {"kernel": at_wide,
                  "per_tensor": plain_loop(cfg, w_tensor, True, h_w, T_big,
@@ -1949,7 +1989,8 @@ def main(argv=None) -> int:
             plain_w = time_ms(lambda: ak.ar_generate_reference(
                 prm, cfg, c_w, h_w, T_big, n_big, "argmax", quantize=True,
                 act_scales=big_s), reps=1)
-            bnd_w = ar_bound(cfg, wide, n_big, True)
+            wide_rd[b_w] = (rd, ms_w, plain_w, ar_bound(cfg, b_w, n_big, True),
+                            ak.ar_gate(cfg, b_w, quantize=True, device=dev))
             del c_w, h_w
         del big_bf, big_q, big_h
         # limits: kernel and plain take the same integer products and round
@@ -1974,7 +2015,7 @@ def main(argv=None) -> int:
 
         print(f"[K1 int8{m['tag']}] {m['name']} B={B} k={cfg.kernel_size}, "
               f"argmax, {n_check} steps vs the plain int8 version on the same "
-              f"carry and scales (kernel: the {route} kernel ar_route picks): "
+              f"carry and scales (kernel: the {GATE_NAMES[gate]}, ar_gate's): "
               + "; ".join(f"{c} ring written in step 1 max|d|/max|ring| "
                           f"{r[0]:.3e}, differing share {r[1]:.3e}, "
                           f"same-state agreement {r[2]:.4f}, share agreeing "
@@ -1984,63 +2025,51 @@ def main(argv=None) -> int:
               + f" (limits ring {ring_tol}, ring share {share_tol}, "
               f"same-state {step_floor}, trajectory {floor:.2f}) | B={B} x "
               f"{n} steps: kernel {ms:.2f} ms ({1e3 * ms / n:.1f} us/step), "
-              f"{names[other]} {other_ms:.2f} ms ({1e3 * other_ms / n:.1f} "
+              f"{GATE_NAMES[other]} {other_ms:.2f} ms ({1e3 * other_ms / n:.1f} "
               f"us/step), plain int8 {plain_ms:.2f} ms ({1e3 * plain_ms / n:.1f} "
               f"us/step), bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) "
-              f"| AR-loop device kernels in one call of {n} steps ({route}): "
+              f"| AR-loop device kernels in one call of {n} steps: "
               f"{len(loop_kernels)} {sorted(set(loop_kernels))} (device "
               f"kernels in each trace taken: {traces}) | {card}", flush=True)
         print(f"[K1 int8{m['tag']}] {m['name']} us/step, best of two in turns "
-              f"(int8 persistent / int8 launch loop, * = the one ar_route "
-              f"picks; bf16 K1 beside them): " + ", ".join(
-                  f"B={b_} {t_['persistent']:.1f}"
-                  f"{'*' if t_['route'] == 'persistent' else ''} / "
-                  f"{t_['loop']:.1f}{'*' if t_['route'] == 'loop' else ''}"
+              f"(int8 gate cut into units / int8 streamed gate, * = the one "
+              f"ar_gate picks; bf16 K1 beside them): " + ", ".join(
+                  f"B={b_} {t_['units']:.1f}"
+                  f"{'*' if t_['gate'] == 'units' else ''} / "
+                  f"{t_['stream']:.1f}{'*' if t_['gate'] == 'stream' else ''}"
                   + (f" (bf16 {t_['bf16']:.1f})" if "bf16" in t_ else "")
                   for b_, t_ in turns.items())
               + f" (B != {B}: over {n_big} steps); plain int8 at B=256 "
               f"{plain_big:.1f} | {card}", flush=True)
-        print(f"[K1 int8{m['tag']}] {m['name']} where a step of the persistent "
-              f"int8 kernel goes, us per stage (its phase times; means over "
-              f"the blocks with a unit, the barrier wait over all blocks): "
-              + "; ".join(
-                  f"B={b_}: " + ", ".join(
-                      f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
-                                  else f"ask {v['ask']:.2f} wait {v['wait']:.2f}"
-                                  f" products {v['products']:.2f} epilogue "
-                                  f"{v['epilogue']:.2f} units {v['units']:.2f}")
-                      for st, v in ph.items() if st != "barrier")
-                  + f", barrier {ph['barrier']['wait']:.2f} x "
-                  f"{ph['barrier']['per_step']:.0f}/step"
-                  for b_, ph in phases.items()) + f" | {card}", flush=True)
-        entry = {"persistent": ("ar_persistent_int8", "ar_persistent.cu"),
-                 "loop": ("ar_step_int8", "ar_step.cu")}
-        kernel_entry(entry[route][0], m, entry[route][1],
+        print(k1_phase_line(f"[K1 int8{m['tag']}] {m['name']} (int8)", phases),
+              flush=True)
+        kernel_entry(k1_entry(gate, True), m, "ar_persistent.cu",
                      "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
                      readings["kernel"][4], ms, plain_ms, bnd)
-        if wide_rd is not None:
-            print(f"[K1 int8{m['tag']}] {m['name']} wide fleet B={wide}, "
+        for b_w, (rd, ms_w, plain_w, bnd_w, w_gate) in wide_rd.items():
+            print(f"[K1 int8{m['tag']}] {m['name']} wide fleet B={b_w}, "
                   f"argmax, {n_wide} steps vs the plain int8 version (kernel: "
-                  f"the {w_route} kernel ar_route picks): "
+                  f"the {GATE_NAMES[w_gate]}, ar_gate's): "
                   + "; ".join(f"{c} ring written in step 1 max|d|/max|ring| "
                               f"{r[0]:.3e}, differing share {r[1]:.3e}, "
                               f"same-state agreement {r[2]:.4f}, share "
                               f"agreeing up to each row's first divergence "
                               f"{r[3]:.4f}, fails {fails(r, n_wide) or 'none'}"
-                              for c, r in wide_rd.items())
-                  + f" | B={wide} x {n_big} steps: kernel {ms_w:.2f} ms "
+                              for c, r in rd.items())
+                  + f" | B={b_w} x {n_big} steps: kernel {ms_w:.2f} ms "
                   f"({1e3 * ms_w / n_big:.1f} us/step), plain int8 "
                   f"{plain_w:.2f} ms, bound {bnd_w['bound_ms']:.3f} ms "
                   f"({bnd_w['bound_by']}) | {card}", flush=True)
-            kernel_entry(entry[w_route][0], m, entry[w_route][1],
-                         "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
-                         wide_rd["kernel"][4], ms_w, plain_w, bnd_w)
-            if fails(wide_rd["kernel"], n_wide) or not fails(
-                    wide_rd["per_tensor"], n_wide):
-                raise AssertionError(f"K1-int8 ({w_route}, B={wide}) outside "
+            if b_w == wide:
+                kernel_entry(k1_entry(w_gate, True), m, "ar_persistent.cu",
+                             "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                             rd["kernel"][4], ms_w, plain_w, bnd_w)
+            if w_gate != "stream" or fails(rd["kernel"], n_wide) or not fails(
+                    rd["per_tensor"], n_wide):
+                raise AssertionError(f"K1-int8 ({w_gate}, B={b_w}) outside "
                                      f"its limits or its control inside "
-                                     f"them: {wide_rd}")
-        bad = {c: fails(readings[c]) for c in ("kernel", names[other])
+                                     f"them: {rd}")
+        bad = {c: fails(readings[c]) for c in ("kernel", GATE_NAMES[other])
                if fails(readings[c])}
         if bad:
             raise AssertionError(f"K1-int8 outside its limits: {bad}, "
@@ -2048,9 +2077,8 @@ def main(argv=None) -> int:
         blind = [c for c in controls if not fails(readings[c])]
         if blind:
             raise AssertionError(f"K1-int8 limits pass the controls {blind}")
-        if route == "persistent" and (len(loop_kernels) != 1 or
-                                      "ar_persistent_kernel" not in
-                                      loop_kernels[0]):
+        if len(loop_kernels) != 1 or "ar_persistent_kernel" not in \
+                loop_kernels[0]:
             raise AssertionError(f"one int8 call of {n} steps ran the AR-loop "
                                  f"kernels {loop_kernels}, not one launch "
                                  f"(device kernels traced: "
@@ -2072,8 +2100,7 @@ def main(argv=None) -> int:
         x = np.full((B, 1), 128, np.int32)
         h = r.randn(B, cfg.receptive_field + n, cfg.n_aux).astype(np.float32)
         def int8_calls():
-            return (ak.ar_generate.int8_launches
-                    + ak.ar_generate.int8_persistent_launches)
+            return ak.ar_generate.int8_persistent_launches
 
         k1q = int8_calls()
         ref = batch_fast_generate(prm, cfg, x, h, [n] * B, mode="argmax",
@@ -2172,10 +2199,10 @@ def main(argv=None) -> int:
             finally:
                 ak.ar_generate_reference = real_ref
             launches = read_launches()
-            route = ak.ar_route(cfg, B, quantize=True, device=dev)
-            k1_name = {"persistent": "ar_persistent_int8",
-                       "loop": "ar_step_int8"}[route]
-            set_launches(m, {k1_name: launches[k1_name]})
+            k1_name = "ar_persistent_int8"
+            set_launches(m, {k1_entry(ak.ar_gate(cfg, B, quantize=True,
+                                                 device=dev), True):
+                             launches[k1_name]})
             bad, spread = [], None
             for b, n in enumerate(n_list):
                 wav, _fs = read_wav(os.path.join(outdir, ids[b] + ".wav"))
@@ -2198,7 +2225,7 @@ def main(argv=None) -> int:
         warm_s = time.time() - tw
         del xt, ht
         print(f"[main int8{m['tag']}] {m['name']} decode_batches(quantize=True"
-              f", {route} K1-int8): {B} utts, frames "
+              f", K1-int8): {B} utts, frames "
               f"{frames.min()}-{frames.max()}, {res['n_samples']} samples in "
               f"{res['seconds']:.3f} s = {res['n_samples'] / res['seconds']:.0f}"
               f" samples/s, {1e6 * res['seconds'] / max_n:.1f} us/step "
@@ -2214,7 +2241,7 @@ def main(argv=None) -> int:
         want = dict({k: 0 for k in launches}, layer_stack_fwd=chunks)
         want[k1_name] = 1
         if launches != want or plain_runs[0]:
-            raise AssertionError(f"not one {k1_name} launch ({route} K1-int8) "
+            raise AssertionError(f"not one {k1_name} launch (K1-int8) "
                                  f"and one K2 launch per warm-up chunk: "
                                  f"{launches}")
 
@@ -2232,8 +2259,7 @@ def main(argv=None) -> int:
             reset_launches()
             capped = model.batch_fast_generate(x2, h2, n2, mode="argmax",
                                                quantize=True)
-            n_capped = (ak.ar_generate.int8_launches
-                        + ak.ar_generate.int8_persistent_launches)
+            n_capped = ak.ar_generate.int8_persistent_launches
         finally:
             del os.environ["WNV_DECODE_HBM_BUDGET"]
         alone = []
@@ -2284,13 +2310,9 @@ def main(argv=None) -> int:
         n_list = [int(f) * cfg.upsampling_factor - 1 for f in frames]
         lines, problems = [], []
         for quantize in (False, True):
-            mult = kernel_multiples(cfg, B, quantize, dev)
+            mult = kernel_multiples(cfg, quantize)
             kp, kc = pad_params_for_kernels(prm, cfg, mult)
-            route = ak.ar_route(kc, B, quantize, device=dev)
-            k1_name = {("persistent", False): "ar_persistent",
-                       ("loop", False): "ar_step",
-                       ("persistent", True): "ar_persistent_int8",
-                       ("loop", True): "ar_step_int8"}[(route, quantize)]
+            k1_name = "ar_persistent" + ("_int8" if quantize else "")
             plain_runs = [0]
             real_ref = ak.ar_generate_reference
 
@@ -2343,7 +2365,7 @@ def main(argv=None) -> int:
                 f"{sum(n_list) / secs:.0f} samples/s, "
                 f"{1e6 * secs / max(n_list):.1f} us/step ({max(n_list)} steps, "
                 f"warm-up included), launches {launches}, plain loop runs "
-                f"{plain_runs[0]}; K1 ({route}) on the padded carry vs the "
+                f"{plain_runs[0]}; K1 on the padded carry vs the "
                 f"plain loop, {n_check} steps: " + k1_line(rd, n_check))
             try:
                 k1_check(rd, ["no_dil_bias"], n_check,
@@ -2425,9 +2447,7 @@ def main(argv=None) -> int:
                 distributed.spawn_local = spawn
             ranks = res["ranks"]
             fleet_b = math.ceil(n_utts / n_ranks)
-            route = ak.ar_route(cfg, fleet_b, device=dev)
-            k1_name = "ar_persistent" if route == "persistent" \
-                else "ar_step"
+            k1_name = "ar_persistent"
             # each rank's own fleet decoded by one process
             feats = sorted(os.path.join(featdir, i + ".h5") for i in ids)
             diff, refs = [], []
@@ -2470,7 +2490,7 @@ def main(argv=None) -> int:
         print(f"[main dp{n_ranks}] {m['name']} bin/decode.py main --n_devices "
               f"{n_ranks} --mode argmax, {where}: {n_utts} utts, frames "
               f"{frames.min()}-{frames.max()}, fleets of {fleet_b} "
-              f"({route} K1) | {per_rank} | {speed}, wavs differing {diff} | "
+              f"(K1) | {per_rank} | {speed}, wavs differing {diff} | "
               f"{h5_note} | {card}", flush=True)
         want_dev = [f"cuda:{r if per_card else 0}" for r in range(n_ranks)]
         if [rk["device"] for rk in ranks] != want_dev:
@@ -2505,8 +2525,7 @@ def main(argv=None) -> int:
         n_cards = torch.cuda.device_count()
         if n_cards != 1:
             raise AssertionError(f"[dp clamp] needs one card, found {n_cards}")
-        route = ak.ar_route(m["cfg"], n_utts, device=dev)
-        k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+        k1_name = "ar_persistent"
         warned = []
 
         class Catch(logging.Handler):
@@ -2539,7 +2558,7 @@ def main(argv=None) -> int:
               f"{[w for w in warned if 'devices' in w]}, {res['n_utts']} utts "
               f"in {[len(rk['batches']) for rk in ranks]} fleet(s), launches "
               f"{ {k: v for k, v in ranks[0]['launches'].items() if v} } "
-              f"({route} K1), wavs differing from the one-process decode "
+              f"(K1), wavs differing from the one-process decode "
               f"{diff} | {h5_note} | {card}", flush=True)
         if len(ranks) != 1 or ranks[0]["device"] not in ("cuda", "cuda:0") \
                 or want not in warned:
@@ -3126,11 +3145,8 @@ def main(argv=None) -> int:
         if tr["route"] != "fused" or set(train_launches.values()) != {iters}:
             problems.append(f"training not on the fused kernels: route "
                             f"{tr['route']}, launches {train_launches}")
-        for kind, key in (("bf16", ak.ar_route(cfg, n_eval, device=dev)),
-                          ("int8", ak.ar_route(cfg, n_eval, device=dev,
-                                               quantize=True))):
-            k1 = ("ar_persistent" if key == "persistent" else "ar_step") \
-                + ("_int8" if kind == "int8" else "")
+        for kind in ("bf16", "int8"):
+            k1 = "ar_persistent" + ("_int8" if kind == "int8" else "")
             got = decodes[kind]["launches"]
             if got[k1] != 1 or got["layer_stack_fwd"] < 1 or \
                     sum(v for k, v in got.items() if k.startswith("ar_")) != 1:
@@ -3328,8 +3344,7 @@ def main(argv=None) -> int:
         want = direct.batch_fast_generate(x, h, n_list, mode="argmax",
                                           impl="auto")
         equal = all(np.array_equal(a, b) for a, b in zip(got, want))
-        route = ak.ar_route(_kernel_config(rcfg), n_utts, device=dev)
-        k1_name = "ar_persistent" if route == "persistent" else "ar_step"
+        k1_name = "ar_persistent"
         print(f"[convert] {m['name']} reference state dict ({len(sd)} "
               f"tensors) -> bin/convert_checkpoint.py --direction to_jax -> "
               f"bundle ({model.config.compute_dtype} conf) decoded with "

@@ -34,8 +34,8 @@ NATIVE_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: The kernels' limit on n_aux (``AR_AUX_MAX`` in csrc/ar_step.cu sizes the
-#: AR kernel's shared aux rows; the layer-stack kernel is held to the same).
+#: The kernels' limit on n_aux (the AR and layer-stack kernels are held to
+#: the one limit the first AR kernel's shared aux rows set).
 AUX_MAX = 96
 
 #: What the last ``build_kernels`` call did: library path, seconds spent
@@ -138,19 +138,6 @@ def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build_kernels()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wn_ar_generate.restype = i32
-    lib.wn_ar_generate.argtypes = (
-        [vp] * 11            # wz wsr auxw zb srb causal_w causal_b p1w p1b p2w p2b
-        + [vp, vp, vp]       # ring, offsets (host int*), caps (host int*)
-        + [vp, i32]          # h_up, its time length
-        + [vp] * 11          # za out_f32 out_bf16 g proj skip skip_relu h1 logits
-                             # ids samples
-        + [i32] * 9          # B R S Q A L T0 max_n sampling
-        + [ctypes.c_uint64]  # seed
-        + [i32] + [vp] * 6   # quantize; wzs wsrs ascale ainv out_i8 g_i8
-        + [ctypes.c_float] * 2    # gscale ginv
-        + [i32, vp, vp]      # kernel_size, lag, lag_meta
-        + [vp])              # stream
     lib.wn_ar_generate_persistent.restype = i32
     lib.wn_ar_generate_persistent.argtypes = (
         [vp] * 4             # the gate, res, post1, post2 packs (per unit)
@@ -162,6 +149,8 @@ def kernels() -> ctypes.CDLL:
         + [ctypes.c_uint64]  # seed
         + [i32] + [vp] * 5   # int8; xq gq xa ascale ainv
         + [ctypes.c_float] * 2    # gscale ginv
+        + [vp] * 4           # zb auxb dilb gate_scales (the streamed gate)
+        + [i32]              # ring rows (total_cap * B)
         + [vp, vp, vp])      # plan (host int*), phase times, stream
     lib.wn_ar_phase_slots.restype = i32
     lib.wn_ar_phase_slots.argtypes = []

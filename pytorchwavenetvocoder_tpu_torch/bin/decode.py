@@ -108,14 +108,11 @@ def load_model(checkpoint: str, config_path: str, device):
 
 def decode_launches() -> dict:
     """The decode kernels' launch counts in this process, by kernel: the
-    bf16 and int8 AR kernels (persistent and launch loop) and the warm-up
-    layer stack."""
+    bf16 and int8 AR kernel and the warm-up layer stack."""
     from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
     from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
 
     return {"ar_persistent": ak.ar_generate.launches,
-            "ar_step": ak.ar_generate.loop_launches,
-            "ar_step_int8": ak.ar_generate.int8_launches,
             "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
             "layer_stack_fwd": tk.layer_stack_streams.launches}
 

@@ -7,18 +7,15 @@ argmax steps of ``ops/ar_kernel.py::ar_generate`` and prints, per CUDA
 kernel, its launches and device microseconds per step (the wrapper's
 per-call work, such as packing the weights, spread over the steps), the
 device-busy sum and the host clock per step.  bf16, and int8 with
-``--quantize``, run on the kernel ``ar_route`` picks for the fleet: the
-persistent kernel runs the steps in one launch, whose device microseconds
-per step it names on a line of their own, followed by its phase times
-per stage; on the launch loop the table has one row per kernel of the
-step.
+``--quantize``: the persistent kernel runs the steps in one launch, whose
+device microseconds per step it names on a line of their own, followed by
+its phase times per stage.
 
-``--turns B1,B2,...`` times the two kernels instead (int8 with
-``--quantize``), the persistent kernel and the launch loop, in turns
-(persistent, loop, loop, persistent; best of each, CUDA events) at each
+``--turns B1,B2,...`` times the kernel's two gate designs instead (int8
+with ``--quantize``), the gate cut into units and the streamed gate, in
+turns (units, stream, stream, units; best of each, CUDA events) at each
 fleet size, from one carry of the largest sliced, and names the one
-``ar_route`` picks: where its ``AR_LOOP_FROM_B`` (``AR_INT8_LOOP_FROM_B``)
-threshold is read.
+``ar_gate`` picks: where ``AR_STREAM_FROM_B`` is read.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.profile_ar --model
 ljspeech --batch 16 [--quantize]``, or ``... --model ljspeech --turns
@@ -107,8 +104,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--quantize", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--turns", default="",
-                        help="comma-separated fleet sizes: time both "
-                        "kernels (int8 with --quantize) in turns at each "
+                        help="comma-separated fleet sizes: time both gate "
+                        "designs (int8 with --quantize) in turns at each "
                         "instead of profiling")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -144,7 +141,7 @@ def main(argv=None) -> dict:
     if turn_b:
         return turns(params, cfg, carry, h, T0, n, turn_b, args.model, smi,
                      **q)
-    persistent = ak.ar_route(cfg, B, args.quantize) == "persistent"
+    gate = ak.ar_gate(cfg, B, args.quantize)
     ak.ar_generate(params, cfg, carry, h, T0, n, "argmax", **q)   # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -167,36 +164,32 @@ def main(argv=None) -> dict:
     busy = sum(us for _c, us in rows.values())
     print(f"[profile_ar] {args.model} k={cfg.kernel_size} B={B} "
           f"{'int8' if args.quantize else 'bf16'} x {n} steps "
-          f"({'persistent kernel' if persistent else 'launch loop'}) | {smi}")
+          f"(gate: {gate}) | {smi}")
     for key, (count, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:9.2f} us/step  {count / n:6.1f} launches/step  "
               f"{key[:90]}")
-    if persistent:
-        loop = [(c, us) for key, (c, us) in rows.items()
-                if "ar_persistent_kernel" in key]
-        print(f"  the AR loop: {sum(c for c, _ in loop)} launch(es) of "
-              f"ar_persistent_kernel for {n} steps, "
-              f"{sum(us for _, us in loop):.2f} us/step of device time")
+    loop = [(c, us) for key, (c, us) in rows.items()
+            if "ar_persistent_kernel" in key]
+    print(f"  the AR loop: {sum(c for c, _ in loop)} launch(es) of "
+          f"ar_persistent_kernel for {n} steps, "
+          f"{sum(us for _, us in loop):.2f} us/step of device time")
     print(f"  device busy {busy:.1f} us/step, host clock {host_us:.1f} "
           f"us/step, idle share {1 - busy / host_us:.3f}")
-    phases = None
-    if persistent:
-        # where a step of the persistent kernel goes, from its phase times
-        phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n,
-                                   **q)
-        print("  us per stage (means over the blocks with a unit):")
-        for st, v in phases.items():
-            print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
-                                               for k, x in v.items()))
+    # where a step of the persistent kernel goes, from its phase times
+    phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n, **q)
+    print("  us per stage (means over the blocks with a unit):")
+    for st, v in phases.items():
+        print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
+                                           for k, x in v.items()))
     return dict(rows=rows, busy_us=busy, host_us=host_us, phases=phases)
 
 
 def turns(params, cfg, carry, h, T0: int, n: int, sizes: list, model: str,
           smi: str, quantize: bool = False,
           act_scales: torch.Tensor | None = None) -> dict:
-    """Both kernels (bf16, or int8 with ``quantize``) in turns at each fleet
-    size of ``sizes``, n argmax steps a call, from the first rows of
-    ``carry``; returns {B: {route: us/step, "route": ar_route's pick}}."""
+    """Both gate designs (bf16, or int8 with ``quantize``) in turns at each
+    fleet size of ``sizes``, n argmax steps a call, from the first rows of
+    ``carry``; returns {B: {gate: us/step, "gate": ar_gate's pick}}."""
     def us_per_step(fn):
         fn()
         torch.cuda.synchronize()
@@ -214,18 +207,18 @@ def turns(params, cfg, carry, h, T0: int, n: int, sizes: list, model: str,
         c_b = tuple(t[:, :b].contiguous() if i == 0 else t[:b].contiguous()
                     for i, t in enumerate(carry))
         h_b = h[:b].contiguous()
-        got = {"persistent": [], "loop": []}
-        for route in ("persistent", "loop", "loop", "persistent"):
-            got[route].append(us_per_step(lambda: ak.ar_generate_on(
-                route, params, cfg, c_b, h_b, T0, n, quantize, act_scales)))
-        out[b] = {r: min(v) for r, v in got.items()}
-        out[b]["route"] = ak.ar_route(cfg, b, quantize)
+        got = {"units": [], "stream": []}
+        for gate in ("units", "stream", "stream", "units"):
+            got[gate].append(us_per_step(lambda: ak.ar_generate_on(
+                gate, params, cfg, c_b, h_b, T0, n, quantize, act_scales)))
+        out[b] = {g: min(v) for g, v in got.items()}
+        out[b]["gate"] = ak.ar_gate(cfg, b, quantize)
         print(f"[profile_ar turns] {model} k={cfg.kernel_size} "
               f"{'int8' if quantize else 'bf16'} B={b}: "
-              f"persistent {out[b]['persistent']:.1f} us/step, launch loop "
-              f"{out[b]['loop']:.1f} (ratio "
-              f"{out[b]['persistent'] / out[b]['loop']:.3f}), ar_route picks "
-              f"{out[b]['route']} | {smi}", flush=True)
+              f"gate cut into units {out[b]['units']:.1f} us/step, streamed "
+              f"{out[b]['stream']:.1f} (ratio "
+              f"{out[b]['stream'] / out[b]['units']:.3f}), ar_gate picks "
+              f"{out[b]['gate']} | {smi}", flush=True)
     return out
 
 

@@ -4,10 +4,9 @@
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
 // (the fused Pallas TPU kernel) in bf16 and in its int8 path
 // (quantize=True) at kernel_size 2 and 3; the plain PyTorch version is
-// ops/ar_kernel.py::ar_generate_reference.  The fleets and configs for
-// which ops/ar_kernel.py::ar_route picks the launch loop of csrc/ar_step.cu
-// run there (large fleets, where a block takes several gate units in turn;
-// configs with no cut of the stages).
+// ops/ar_kernel.py::ar_generate_reference.  Every fleet and config runs
+// here: with its streamed gate this kernel was faster than a loop of
+// 65-66 launches a step at every fleet measured (PERF.md).
 //
 // Bounds on the H100.  Each step reads the whole bf16 weight pack,
 // L * R * (2kR + S + R) * 2 bytes (86.5 MB at 30 x 512 with k = 2, 118.0 MB
@@ -16,8 +15,50 @@
 // the layer's input) and skip/res (which needs the gate), then the post
 // stack and the sample, 2L + 3 = 63 stages at L = 30, each ended by a grid
 // barrier (~1.08 us each on this card, ops/matmul_chain.py::barrier_chain):
-// ~68 us of barriers per step.  The launch loop of csrc/ar_step.cu pays
-// one launch and its gap per stage instead.
+// ~68 us of barriers per step.  At wide fleets the gate stage's operands
+// bound it: a unit that holds all of K = 3R + aux of its rows and columns
+// in shared memory is small (32 rows x 16 columns at K = 1,584), so a
+// block took several in turn, each waiting for its own copies, and the
+// rows were read again for every column group.
+//
+// The gate stage runs one of two designs (ST, the kernel's template
+// parameter; ops/ar_kernel.py::ar_plan picks, AR_STREAM_FROM_B):
+//  - "units" (small fleets, where each block takes one unit at most):
+//    wstage below, the units of the other stages;
+//  - "stream" (gate_produce / gate_consume): a unit is 64 m rows (m = 1,
+//    the two consumer warpgroups splitting its columns, or m = 2, a 64-row
+//    wgmma slab each) x cw gate columns, and streams its K instead of
+//    holding it: K in chunks of 128 bytes (64 bf16, 128 int8 values)
+//    through a ring of 2-4 shared-memory stages, one producer warp filling
+//    it (a TMA load of the chunk's A tile from a 2-D map of the stream, of
+//    the raw ring's lagged slot (kernel_size 3: slot s of a layer is B
+//    rows of the (total_cap * B, R) ring) or of the int8 aux rows, and a
+//    bulk copy of its W tile, packed and swizzled on the host) on
+//    full/empty mbarriers, two consumer warpgroups running wgmma (bf16
+//    m64nNk16 into f32; int8 m64nNk32 into s32, exact, one sum per int8
+//    product, and the aux product in bf16) with the sums in registers.
+//    The epilogue works from the registers: the columns keep
+//    pack_ar_weights' interleave by 8, so a thread holds the sigmoid and
+//    the tanh of its channels (as K2's FwdGate); the ring tap, the biases,
+//    the aux term, the int8 rounding (__fmul_rn / __fadd_rn) and the
+//    kernel_size 2 write-over of the projection for step p + d keep
+//    wstage's order.  The plan takes the cut whose units fit the grid
+//    (one a block) with the fewest A and W bytes: bf16 k=3 at B=256 is 64
+//    rows x 32 columns, 128 units.  The ring lies over buffer 0 and the
+//    regions after it (buffer 1 holds the res stage's weights, asked for
+//    during the gate stage); the other stages' generic writes to that
+//    shared memory are fenced to the async proxy before the next gate.
+//    No cluster is used: the A tiles of the units that share rows are
+//    read once each (a cluster's TMA multicast would share them; not
+//    tried).  What bounds it on an H100 (PERF.md): at B=256 the
+//    gate stage takes ~10 us a layer (bf16 k=3, 128 units of ~300 KB from
+//    L2 each, ~39 MB a stage, L2 bandwidth), the res stage ~8 us and the
+//    63 barriers ~2.7 us each.
+//  The two designs are separate instances: the streamed one's block has
+//  a 9th warp (the producer), and ptxas gives a block of 288 threads at
+//  most 168 registers a thread, under which the int8 stages spill (on one
+//  shared instance the small fleets ran 5-12% slower); the units instance
+//  keeps 256 threads and none of the streamed code.
 //
 // Design (the machinery of K4, csrc/matmul_chain.cu, shared through
 // wn_hopper.cuh):
@@ -46,9 +87,10 @@
 //  - post1 (ReLU/1x1), post2 (1x1 to logits), then the sample stage: one
 //    warp per row takes the argmax (ties to the lowest index) or the
 //    Gumbel-max with the Philox4x32-10 noise of (seed, row, step, class)
-//    that csrc/ar_step.cu draws, shifts the ids, and embeds them;
-//  - units, as in K4: a row group of at most 64 rows x a column group, each
-//    taking all of K, so no block needs another's sums; a block takes a
+//    (wn_hopper.cuh::gumbel_noise), shifts the ids, and embeds them;
+//  - units (the other stages, and the gate of small fleets), as in K4: a
+//    row group of at most 64 rows x a column group, each taking all of K,
+//    so no block needs another's sums; a block takes a
 //    contiguous run of a stage's units (column group major, so consecutive
 //    units share their weight slice and fetch it once), so any fleet size
 //    runs (B = 16,384 takes thousands of units a stage); 8 warps split the
@@ -122,12 +164,15 @@
 
 #include "wn_common.cuh"
 #include "wn_hopper.cuh"
+#include "wn_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 using namespace nvcuda;
 
-#define AP_THREADS 256
+#define AP_THREADS 256   // the workers: every stage's threads (the two wgmma
+                         // consumer warpgroups of the streamed gate)
 #define AP_WARPS (AP_THREADS / 32)
+#define AP_BLOCK (AP_THREADS + 32)   // and the streamed gate's TMA producer warp
 #define AP_ACC 4          // independent sums per warp
 #define AP_PAD 8          // bf16 elements of padding per A row in shared memory
 #define AP_MT_MAX 4       // row tiles of a unit at most
@@ -148,7 +193,43 @@ struct ApStage {
     int run;               // bytes of a unit's packed weights
 };
 
+// The streamed gate's cut (ops/ar_kernel.py::_stream_cut): a unit is AP_SLAB
+// * m rows x cw gate columns of each quarter, its K walked in chunks of
+// AP_CHUNK bytes through a ring of `stages` shared-memory stages.
+#define AP_SLAB 64        // rows of a wgmma slab
+#define AP_CHUNK 128      // bytes of K per ring stage: 64 bf16 or 128 int8
+#define AP_RING_MAX 4
+
+struct ApStream {
+    int on;                // 1: the gate stage streams K (gate_produce/consume)
+    int m;                 // slabs per unit: 1 (the two consumer warpgroups
+                           // split its columns) or 2 (a slab each)
+    int cw;                // gate columns of each quarter per unit
+    int nw;                // columns of each consumer warpgroup (wgmma N)
+    int G, rb, units;      // column groups, row blocks, units
+    int stages;            // ring stages
+    int ring;              // the ring's offset in dynamic shared memory
+                           // (rounded up to 1024 in the kernel)
+    int nx, nl, na, nc;    // K chunks: the stream's, each lag's, the int8 aux
+                           // rows', all
+    int a_bytes, w_bytes;  // a ring stage's A tile and W tile
+    long long run;         // bytes of a unit's packed weights (nc W tiles)
+};
+
 struct ApArgs {
+    // the streamed gate's A operands as TMA maps (128-byte swizzle, boxes of
+    // 128 bytes x AP_SLAB * m rows): mx the stream (bf16: xs, [x | aux];
+    // int8: xq), mr the raw ring as (total_cap * B) rows (kernel_size 3),
+    // ma the int8 path's aux rows (xa)
+    CUtensorMap mx, mr, ma;
+    ApStream sg;
+    // the streamed gate's epilogue operands, f32 in channel order
+    // ([sigmoid R | tanh R] per layer): bf16 zb = dil_b + aux_b; int8 aux_b,
+    // dil_b and the column scales of each int8 product (L, 2 or 3, 2R)
+    const float* zb;
+    const float* auxb;
+    const float* dilb;
+    const float* gsc;
     // packed per unit: [L][G] runs.  bf16: [K/16][ntu][16][16] tiles, then
     // the unit's cw f32 biases.  int8 gate and res: per segment
     // [K/32][ntu][512] bytes (unit_pack_i8), then (gate) the aux rows'
@@ -432,7 +513,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
             float zt = psum(Ps, ks, rows, cols, ml, ct);
             if constexpr (KS == 2) {
                 // the ring tap this block read before the products (every
-                // read of the unit precedes the __syncthreads before this
+                // read of the unit precedes the workers' barrier before this
                 // epilogue), then the projection for step p + d over it
                 const bf16* tap = (const bf16*)Es + (size_t)ml * cw;
                 zs += bf2f(tap[ci]);
@@ -520,7 +601,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
         if (ph) t[0] = now_ns();
-        __syncthreads();   // the previous unit's tiles, sums and operands are consumed
+        consumers_sync();   // the previous unit's tiles, sums and operands are consumed
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
             issue_a<KS, T>(a, smem, bars, l, p, u, lane);
@@ -593,11 +674,11 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                                             acc[i], cols, wmma::mem_row_major);
         }
         cp_async_wait();   // this thread's epilogue operands
-        __syncthreads();
+        consumers_sync();
         if (ph) t[3] = now_ns();
         epilogue<KS, T>(a, Ps, Es, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
         if (a.phase != nullptr) {
-            __syncthreads();   // every thread's epilogue
+            consumers_sync();   // every thread's epilogue
             if (ph) {
                 t[4] = now_ns();
                 for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
@@ -784,7 +865,7 @@ static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
         unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
         if (ph) t[0] = now_ns();
-        __syncthreads();
+        consumers_sync();
         if (warp == 0) {
             if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
             issue_a_q8<KS, T>(a, smem, bars, l, p, u, lane);
@@ -892,11 +973,11 @@ static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
             }
         }
         cp_async_wait();
-        __syncthreads();
+        consumers_sync();
         if (ph) t[3] = now_ns();
         epilogue_q8<KS, T>(a, Ps, Pa, Es, sc, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
         if (a.phase != nullptr) {
-            __syncthreads();
+            consumers_sync();
             if (ph) {
                 t[4] = now_ns();
                 for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
@@ -906,6 +987,335 @@ static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
     }
     if (ph) ph[4] += 1;
     fence_proxy_async();
+}
+
+// ---- the streamed gate stage ------------------------------------------------
+
+// order this thread's generic-proxy accesses of shared memory before later
+// async-proxy writes to it (the streamed gate's TMA into a ring that lies
+// over the other stages' regions)
+static __device__ __forceinline__ void fence_proxy_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a thread's place in the ring: the stage and the parity of its next use
+struct ApRing {
+    int stage;
+    unsigned phase;
+};
+
+static __device__ __forceinline__ void ring_next(ApRing& r, int stages) {
+    if (++r.stage == stages) { r.stage = 0; r.phase ^= 1; }
+}
+
+// The units block blockIdx.x takes in the streamed gate stage, and unit u's
+// column group and first row (units column group major, as wstage's).
+static __device__ __forceinline__ void stream_unit(const ApStream& s, int u, int* grp,
+                                                   int* r0) {
+    *grp = u / s.rb;
+    *r0 = (u - *grp * s.rb) * AP_SLAB * s.m;
+}
+
+// The producer (one lane of the extra warp): for each of the block's units
+// and each K chunk, wait for the ring stage to be free, then one TMA load
+// of the chunk's A tile (the stream, a lagged ring slot, or the int8 aux
+// rows) and one bulk copy of its W tile (the unit's packed run holds the
+// chunks' tiles in order, swizzled as TMA would), completing on the
+// stage's full barrier.
+template <int KS, bool Q8>
+static __device__ void gate_produce(const ApArgs& a, unsigned char* ring, uint64_t* full,
+                                    uint64_t* empty, ApRing& rp, int l, int p) {
+    const ApStream& s = a.sg;
+    const int u0 = unit_begin(s.units, blockIdx.x), u1 = unit_begin(s.units, blockIdx.x + 1);
+    int o = 0, d = 1;
+    if constexpr (KS == 3) {
+        o = __ldg(a.meta + 2 * l);
+        d = __ldg(a.meta + 2 * l + 1);
+    }
+    constexpr int XE = Q8 ? AP_CHUNK : AP_CHUNK / 2;   // elements of a chunk
+    const int sb = s.a_bytes + s.w_bytes;
+    for (int u = u0; u < u1; ++u) {
+        int grp, r0;
+        stream_unit(s, u, &grp, &r0);
+        const unsigned char* w = a.w[AP_GATE] + ((size_t)l * s.G + grp) * s.run;
+        for (int c = 0; c < s.nc; ++c) {
+            wg_wait(&empty[rp.stage], rp.phase ^ 1);
+            unsigned char* st = ring + (size_t)rp.stage * sb;
+            uint64_t* bar = &full[rp.stage];
+            mbar_expect(bar, (unsigned)sb);
+            if (c < s.nx) {
+                tma_load_2d(st, &a.mx, bar, c * XE, r0);
+            } else if (KS == 3 && c < s.nx + 2 * s.nl) {
+                // lag j d: slot (p - j d) mod 2d of the layer, B rows from r0
+                const int j = (c - s.nx) / s.nl, cc = c - s.nx - j * s.nl;
+                const int slot = o + ((p - (j + 1) * d) % (2 * d) + 2 * d) % (2 * d);
+                tma_load_2d(st, &a.mr, bar, cc * XE, slot * a.B + r0);
+            } else {
+                tma_load_2d(st, &a.ma, bar, (c - s.nx - 2 * s.nl) * (AP_CHUNK / 2), r0);
+            }
+            bulk_copy(st + s.a_bytes, w + (size_t)c * s.w_bytes, (unsigned)s.w_bytes, bar);
+            ring_next(rp, s.stages);
+        }
+    }
+}
+
+template <int N>
+static __device__ __forceinline__ void mma_bf16(float (&d)[N / 2], uint64_t da,
+                                                uint64_t db) {
+    if constexpr (N == 16) wgmma_bf16_n16(d, da, db, 1);
+    else if constexpr (N == 32) wgmma_bf16_n32(d, da, db, 1);
+    else if constexpr (N == 64) wgmma_bf16_n64(d, da, db, 1);
+    else wgmma_128<0, 0>(d, da, db, 1);
+}
+
+template <int N>
+static __device__ __forceinline__ void mma_s8x(int (&d)[N / 2], uint64_t da, uint64_t db) {
+    if constexpr (N == 16) wgmma_s8_n16(d, da, db, 1);
+    else if constexpr (N == 32) wgmma_s8_n32(d, da, db, 1);
+    else if constexpr (N == 64) wgmma_s8_n64(d, da, db, 1);
+    else wgmma_s8_n128(d, da, db, 1);
+}
+
+// the four k steps of one 128-byte chunk: A (64 rows) and B (N rows), both
+// K-major tiles of 128-byte rows in the 128-byte swizzle
+template <int N>
+static __device__ __forceinline__ void chunk_bf16(float (&d)[N / 2], const unsigned char* sa,
+                                                  const unsigned char* sb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_bf16<N>(d, wg_operand<0>(sa, kk), wg_operand<0>(sb, kk));
+}
+
+template <int N>
+static __device__ __forceinline__ void chunk_s8(int (&d)[N / 2], const unsigned char* sa,
+                                                const unsigned char* sb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_s8x<N>(d, wg_operand<0>(sa, kk), wg_operand<0>(sb, kk));
+}
+
+static __device__ __forceinline__ void st_bf2(bf16* p, float lo, float hi) {
+    *(uint32_t*)p = bf2_bits(lo, hi);
+}
+
+// The consumers (the two warpgroups of the workers): per unit, the K
+// chunks from the ring through wgmma into registers (bf16: one f32 sum;
+// int8: an s32 sum per int8 product and an f32 sum of the aux product),
+// then the gate from the registers.  Accumulator d[4 j + e] of a thread is
+// row (warp % 4) * 16 + lane / 4 (+ 8 for e >= 2) of its slab, column
+// 8 j + 2 (lane % 4) + (e & 1) of its NW: per 16 columns 8 sigmoid then
+// the same 8 channels' tanh (pack_ar_weights' interleave), so the thread
+// holds both of each of its channels; at kernel_size 2 the past tap's NW/2
+// columns follow the current tap's, in the same order.
+template <int KS, bool Q8, int NW>
+static __device__ void gate_consume(const ApArgs& a, unsigned char* ring, uint64_t* full,
+                                    uint64_t* empty, ApRing& rp, int l, int p) {
+    const ApStream& s = a.sg;
+    const int u0 = unit_begin(s.units, blockIdx.x), u1 = unit_begin(s.units, blockIdx.x + 1);
+    const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int R = a.R, sb = s.a_bytes + s.w_bytes;
+    constexpr int CWP = KS == 2 ? NW / 2 : NW;   // the warpgroup's gate columns
+    constexpr int NQ = CWP / 16;                 // its groups of 8 channels
+    constexpr int NA = NW / 2;                   // a sum's accumulators
+    const int row_in = (warp & 3) * 16 + (lane >> 2);
+    unsigned long long* ph = a.phase != nullptr && threadIdx.x == 0
+        ? a.phase + (size_t)blockIdx.x * AP_PH + AP_GATE * AP_PH_STAGE : nullptr;
+    unsigned long long t[5] = {0, 0, 0, 0, 0};
+    bf16* slot = nullptr;      // kernel_size 2: the ring slot read and written
+    if constexpr (KS == 2) {
+        const int o = __ldg(a.meta + 2 * l), d = __ldg(a.meta + 2 * l + 1);
+        slot = a.ring + ((size_t)o + p % d) * a.B * 2 * R;
+    }
+    for (int u = u0; u < u1; ++u) {
+        if (ph) t[0] = now_ns();
+        int grp, r0;
+        stream_unit(s, u, &grp, &r0);
+        const int rbase = r0 + (s.m == 2 ? wg * AP_SLAB : 0) + row_in;
+        // this thread's first channel: 8 q + {0, 1} on from it per group q
+        const int chb = grp * (s.cw / 2) + (s.m == 1 ? wg * (s.cw / 4) : 0)
+                      + 2 * (lane & 3);
+        // the epilogue's operands read from device memory before the
+        // products: kernel_size 2's ring taps (the projections written d
+        // steps ago), bf16's biases
+        uint32_t tap[NQ][2][2];
+        float2 bias[NQ][2];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+            const int ch = chb + 8 * q;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int b = rbase + 8 * h;
+                if (KS == 2 && b < a.B) {
+                    const bf16* rr = slot + (size_t)b * 2 * R + ch;
+                    tap[q][h][0] = *(const uint32_t*)rr;
+                    tap[q][h][1] = *(const uint32_t*)(rr + R);
+                } else {
+                    tap[q][h][0] = tap[q][h][1] = 0u;
+                }
+            }
+            if constexpr (!Q8) {
+                bias[q][0] = __ldg((const float2*)(a.zb + (size_t)l * 2 * R + ch));
+                bias[q][1] = __ldg((const float2*)(a.zb + (size_t)l * 2 * R + R + ch));
+            }
+        }
+        if (ph) t[1] = now_ns();
+        // the sums: bf16 acc; int8 the current tap (and at kernel_size 3
+        // the lags d, 2d) in s32, the aux product in f32
+        float acc[NA];
+        int q0[NA], q1[KS == 3 && Q8 ? NA : 1], q2[KS == 3 && Q8 ? NA : 1];
+#pragma unroll
+        for (int i = 0; i < NA; ++i) { acc[i] = 0.f; q0[i] = 0; }
+        if constexpr (KS == 3 && Q8) {
+#pragma unroll
+            for (int i = 0; i < NA; ++i) { q1[i] = 0; q2[i] = 0; }
+        }
+        int prev = -1;
+        for (int c = 0; c < s.nc; ++c) {
+            wg_wait(&full[rp.stage], rp.phase);
+            if (ph && c == 0) t[2] = now_ns();
+            const unsigned char* st = ring + (size_t)rp.stage * sb;
+            const unsigned char* sa = st + (s.m == 2 ? wg * AP_SLAB * AP_CHUNK : 0);
+            const unsigned char* sw = st + s.a_bytes + (s.m == 1 ? wg * NW * AP_CHUNK : 0);
+            wgmma_fence();
+            if constexpr (!Q8) {
+                chunk_bf16<NW>(acc, sa, sw);
+            } else if constexpr (KS == 3) {
+                if (c < s.nx) chunk_s8<NW>(q0, sa, sw);
+                else if (c < s.nx + s.nl) chunk_s8<NW>(q1, sa, sw);
+                else if (c < s.nx + 2 * s.nl) chunk_s8<NW>(q2, sa, sw);
+                else chunk_bf16<NW>(acc, sa, sw);
+            } else {
+                if (c < s.nx) chunk_s8<NW>(q0, sa, sw);
+                else chunk_bf16<NW>(acc, sa, sw);
+            }
+            wgmma_commit();
+            if (prev >= 0) {
+                wgmma_wait<1>();
+                if (lane == 0) mbar_arrive(&empty[prev]);
+            }
+            prev = rp.stage;
+            ring_next(rp, s.stages);
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (ph) t[3] = now_ns();
+
+        const float as = Q8 ? __ldg(a.ascale + l) : 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+            const int ch = chb + 8 * q;
+            const int js = 2 * q, jt = js + 1;       // its sigmoid and tanh columns
+            const int ps_ = CWP / 8 + js, pt_ = ps_ + 1;   // kernel_size 2: the past tap's
+            float2 ab[2], db[2], sc[3][2];
+            if constexpr (Q8) {
+                const size_t r = (size_t)l * 2 * R + ch;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    ab[e] = __ldg((const float2*)(a.auxb + r + e * R));
+                    db[e] = __ldg((const float2*)(a.dilb + r + e * R));
+                }
+                constexpr int NSEG = KS == 2 ? 2 : 3;
+#pragma unroll
+                for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e)
+                        sc[g][e] = __ldg((const float2*)(a.gsc + ((size_t)l * NSEG + g) * 2 * R
+                                                         + e * R + ch));
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int b = rbase + 8 * h;
+                if (b >= a.B) continue;
+                float g[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int is = 4 * js + 2 * h + e, it = 4 * jt + 2 * h + e;
+                    const float tps = KS == 2 ? (e ? bits_bf2(tap[q][h][0]).y
+                                                   : bits_bf2(tap[q][h][0]).x) : 0.f;
+                    const float tpt = KS == 2 ? (e ? bits_bf2(tap[q][h][1]).y
+                                                   : bits_bf2(tap[q][h][1]).x) : 0.f;
+                    if constexpr (!Q8) {
+                        // (sum + ring tap) + bias, as wstage's epilogue
+                        float zs = acc[is], zt = acc[it];
+                        if constexpr (KS == 2) { zs += tps; zt += tpt; }
+                        const float bs = e ? bias[q][0].y : bias[q][0].x;
+                        const float bt = e ? bias[q][1].y : bias[q][1].x;
+                        g[e] = wn_gate(zs + bs, zt + bt);
+                    } else {
+                        // epilogue_q8's order: za = aux + aux_b; z = cur +
+                        // ((past + za) + dil_b), each product dequantized by
+                        // (activation scale x column scale)
+                        const float abs_ = e ? ab[0].y : ab[0].x, abt = e ? ab[1].y : ab[1].x;
+                        const float dbs = e ? db[0].y : db[0].x, dbt = e ? db[1].y : db[1].x;
+                        const float za_s = __fadd_rn(acc[is], abs_);
+                        const float za_t = __fadd_rn(acc[it], abt);
+                        float ps, pt;
+                        if constexpr (KS == 2) {
+                            ps = tps;
+                            pt = tpt;
+                        } else {
+                            ps = __fadd_rn(__fmul_rn((float)q1[is], __fmul_rn(as, e ? sc[1][0].y : sc[1][0].x)),
+                                           __fmul_rn((float)q2[is], __fmul_rn(as, e ? sc[2][0].y : sc[2][0].x)));
+                            pt = __fadd_rn(__fmul_rn((float)q1[it], __fmul_rn(as, e ? sc[1][1].y : sc[1][1].x)),
+                                           __fmul_rn((float)q2[it], __fmul_rn(as, e ? sc[2][1].y : sc[2][1].x)));
+                        }
+                        const float zs = __fadd_rn(__fmul_rn((float)q0[is], __fmul_rn(as, e ? sc[0][0].y : sc[0][0].x)),
+                                                   __fadd_rn(__fadd_rn(ps, za_s), dbs));
+                        const float zt = __fadd_rn(__fmul_rn((float)q0[it], __fmul_rn(as, e ? sc[0][1].y : sc[0][1].x)),
+                                                   __fadd_rn(__fadd_rn(pt, za_t), dbt));
+                        g[e] = __fmul_rn(wn_gate(zs, zt), a.ginv);
+                    }
+                }
+                if constexpr (KS == 2) {
+                    // the projection for step p + d over the tap just read
+                    // (this thread read it, before the products)
+                    bf16* rr = slot + (size_t)b * 2 * R + ch;
+                    const int i0 = 4 * ps_ + 2 * h, i1 = 4 * pt_ + 2 * h;
+                    if constexpr (!Q8) {
+                        st_bf2(rr, acc[i0], acc[i0 + 1]);
+                        st_bf2(rr + R, acc[i1], acc[i1 + 1]);
+                    } else {
+                        st_bf2(rr, __fmul_rn((float)q0[i0], __fmul_rn(as, sc[1][0].x)),
+                               __fmul_rn((float)q0[i0 + 1], __fmul_rn(as, sc[1][0].y)));
+                        st_bf2(rr + R, __fmul_rn((float)q0[i1], __fmul_rn(as, sc[1][1].x)),
+                               __fmul_rn((float)q0[i1 + 1], __fmul_rn(as, sc[1][1].y)));
+                    }
+                }
+                if constexpr (!Q8) {
+                    st_bf2(a.gs + (size_t)b * a.gs_ld + ch, g[0], g[1]);
+                } else {
+                    char2 v;
+                    v.x = quant_i8(g[0]);
+                    v.y = quant_i8(g[1]);
+                    *(char2*)(a.gq + (size_t)b * a.q_ld + ch) = v;
+                }
+            }
+        }
+        if (a.phase != nullptr) {
+            consumers_sync();   // every thread's epilogue
+            if (ph) {
+                t[4] = now_ns();
+                for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
+                ph[5] += 1;
+            }
+        }
+    }
+    if (ph && u0 < u1) ph[4] += 1;
+}
+
+// The streamed gate stage on the consumers, at the plan's warpgroup width.
+template <int KS, bool Q8>
+static __device__ void gate_consume_at(const ApArgs& a, unsigned char* ring,
+                                       uint64_t* full, uint64_t* empty, ApRing& rp,
+                                       int l, int p) {
+    switch (a.sg.nw) {
+    case 16:   // kernel_size 2 splits a warpgroup's columns between two taps
+        if constexpr (KS == 3) gate_consume<KS, Q8, 16>(a, ring, full, empty, rp, l, p);
+        break;
+    case 32: gate_consume<KS, Q8, 32>(a, ring, full, empty, rp, l, p); break;
+    case 64: gate_consume<KS, Q8, 64>(a, ring, full, empty, rp, l, p); break;
+    default:   // int8 at kernel_size 3: 64 at most (check_stream)
+        if constexpr (!(Q8 && KS == 3)) gate_consume<KS, Q8, 128>(a, ring, full, empty, rp, l, p);
+        break;
+    }
 }
 
 // One warp per row: the argmax of the logits (plus the Gumbel noise in
@@ -943,7 +1353,7 @@ static __device__ void sample_stage(const ApArgs& a, int step, int p) {
     }
     fence_proxy_async();
     if (a.phase != nullptr) {
-        __syncthreads();
+        consumers_sync();
         if (threadIdx.x == 0) {
             unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH
                                      + AP_NSTAGES * AP_PH_STAGE;
@@ -965,45 +1375,88 @@ static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_grou
     }
 }
 
-template <int KS, bool Q8>
-__global__ void __launch_bounds__(AP_THREADS, 1) ar_persistent_kernel(ApArgs a) {
+// ST: the gate stage streamed (AP_BLOCK threads, the producer warp too),
+// else cut into units (AP_THREADS; the instance then holds none of the
+// streamed gate's code, whose registers would otherwise cap it: ptxas
+// gives a block of 288 threads at most 168 registers a thread, 65,536 /
+// 384, and the int8 stages then spill).
+template <int KS, bool Q8, bool ST>
+__global__ void __launch_bounds__(ST ? AP_BLOCK : AP_THREADS, 1)
+ar_persistent_kernel(const __grid_constant__ ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ __align__(8) uint64_t bar[3];
+    __shared__ __align__(8) uint64_t rbar[2 * AP_RING_MAX];   // full, then empty
     cg::grid_group grid = cg::this_grid();
     ApBars bars = {bar, {0u, 0u, 0u}};
+    constexpr bool stream = ST;
+    uint64_t* full = rbar;
+    uint64_t* empty = rbar + AP_RING_MAX;
+    // the streamed gate's ring: 1024-aligned for the 128-byte swizzle
+    unsigned char* ring = smem + ((smem_addr(smem) + a.sg.ring + 1023) & ~1023u)
+                        - smem_addr(smem);
+    ApRing rp = {0, 0u};
     if (threadIdx.x == 0) {
         for (int i = 0; i < 3; ++i) mbar_init(bar + i);
+        if constexpr (ST) {
+            for (int i = 0; i < AP_RING_MAX; ++i) {
+                mbar_init_count(full + i, 1);
+                mbar_init_count(empty + i, AP_WARPS);
+            }
+        }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
+    const bool worker = !ST || threadIdx.x < AP_THREADS;
     // the first step's embed and aux column, from the carry's ids
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int b = blockIdx.x * AP_WARPS + warp; b < a.B; b += gridDim.x * AP_WARPS) {
-        int id[KS];
+    if (worker) {
+        for (int b = blockIdx.x * AP_WARPS + warp; b < a.B; b += gridDim.x * AP_WARPS) {
+            int id[KS];
 #pragma unroll
-        for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
-        embed_row<KS, Q8>(a, b, id, a.T0 - 1, lane);
+            for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
+            embed_row<KS, Q8>(a, b, id, a.T0 - 1, lane);
+        }
+        fence_proxy_async();
+        if (threadIdx.x == 0 && !stream) prefetch(a, smem, bars, AP_GATE, 0);
     }
-    fence_proxy_async();
-    if (threadIdx.x == 0) prefetch(a, smem, bars, AP_GATE, 0);
     timed_sync(a, grid);
+    // the stage after which the next gate's weights are asked for: none
+    // when the gate streams them itself
+    const int gate_next = stream ? -1 : AP_GATE;
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
         for (int l = 0; l < a.L; ++l) {
-            const int Tn = l + 1 < a.L ? AP_GATE : AP_POST1, ln = l + 1 < a.L ? l + 1 : 0;
-            if constexpr (Q8) wstage_q8<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
-            else wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+            const int Tn = l + 1 < a.L ? gate_next : AP_POST1, ln = l + 1 < a.L ? l + 1 : 0;
+            if constexpr (ST) {
+                if (threadIdx.x == AP_THREADS) {
+                    gate_produce<KS, Q8>(a, ring, full, empty, rp, l, p);
+                } else if (worker) {
+                    if (threadIdx.x == 0) prefetch(a, smem, bars, AP_RES, l);
+                    gate_consume_at<KS, Q8>(a, ring, full, empty, rp, l, p);
+                    fence_proxy_async();
+                }
+            } else {
+                if constexpr (Q8) wstage_q8<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+                else wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+            }
             timed_sync(a, grid);
-            if constexpr (Q8) wstage_q8<KS, AP_RES>(a, bars, l, p, Tn, ln);
-            else wstage<KS, AP_RES>(a, bars, l, p, Tn, ln);
+            if (worker) {
+                if constexpr (Q8) wstage_q8<KS, AP_RES>(a, bars, l, p, Tn, ln);
+                else wstage<KS, AP_RES>(a, bars, l, p, Tn, ln);
+                // the next gate's TMA writes over this stage's shared memory
+                if constexpr (ST) fence_proxy_async_smem();
+            }
             timed_sync(a, grid);
         }
-        wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
+        if (worker) wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
         timed_sync(a, grid);
         // the next step's first gate weights: buffer 0, free since post1
-        wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? AP_GATE : -1, 0);
+        if (worker) wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? gate_next : -1, 0);
         timed_sync(a, grid);
-        sample_stage<KS, Q8>(a, i, p);
+        if (worker) {
+            sample_stage<KS, Q8>(a, i, p);
+            if constexpr (ST) fence_proxy_async_smem();
+        }
         if (i + 1 < a.max_n) timed_sync(a, grid);
     }
 }
@@ -1030,11 +1483,63 @@ static void stage_shape(int T, int K_, bool q8, int R, int S, int Q, int Ap,
     }
 }
 
-static const void* kernel_fn(int K, bool q8) {
-    if (q8) return K == 2 ? (const void*)ar_persistent_kernel<2, true>
-                          : (const void*)ar_persistent_kernel<3, true>;
-    return K == 2 ? (const void*)ar_persistent_kernel<2, false>
-                  : (const void*)ar_persistent_kernel<3, false>;
+template <bool ST>
+static const void* kernel_fn_(int K, bool q8) {
+    if (q8) return K == 2 ? (const void*)ar_persistent_kernel<2, true, ST>
+                          : (const void*)ar_persistent_kernel<3, true, ST>;
+    return K == 2 ? (const void*)ar_persistent_kernel<2, false, ST>
+                  : (const void*)ar_persistent_kernel<3, false, ST>;
+}
+
+// the instance for the plan's gate design, and its block
+static const void* kernel_fn(int K, bool q8, bool stream) {
+    return stream ? kernel_fn_<true>(K, q8) : kernel_fn_<false>(K, q8);
+}
+
+static int block_threads(bool stream) { return stream ? AP_BLOCK : AP_THREADS; }
+
+// Check the plan (ops/ar_kernel.py::ar_plan, as ar_plan_array lays it out)
+// against the shapes and the card, and fill the stages.  0, or -1 (the grid
+// cannot be co-resident), -2 (no cooperative launch), -3 (a plan that does
+// not cut the stages or fit its shared memory), or a CUDA error.
+// The streamed gate's cut (plan[19..27]: on, m, cw, nw, stages, ring, nx,
+// nl, na) checked against the shapes and filled in; 0 or -3.
+static int check_stream(const int* plan, ApArgs* a, int K_, bool q8, int wcap, int smem) {
+    ApStream& s = a->sg;
+    s.on = plan[19];
+    if (!s.on) return 0;
+    s.m = plan[20];
+    s.cw = plan[21];
+    s.nw = plan[22];
+    s.stages = plan[23];
+    s.ring = plan[24];
+    s.nx = plan[25];
+    s.nl = plan[26];
+    s.na = plan[27];
+    const int R = a->R, quarters = K_ == 2 ? 2 : 1;
+    // (int8 at kernel_size 3 keeps four sums of nw / 2 registers a thread)
+    const bool nw_ok = s.nw == 16 || s.nw == 32 || s.nw == 64
+                    || (s.nw == 128 && !(q8 && K_ == 3));
+    if ((s.m != 1 && s.m != 2) || !nw_ok || s.cw < 16 || (2 * R) % s.cw
+        || s.nw * (s.m == 1 ? 2 : 1) != quarters * s.cw || (s.nw / quarters) % 16)
+        return -3;
+    const int nx = q8 ? (R + AP_CHUNK - 1) / AP_CHUNK : (R + a->Ap + 63) / 64;
+    const int nl = K_ == 3 ? (q8 ? nx : (R + 63) / 64) : 0;
+    const int na = q8 ? (a->Ap + 63) / 64 : 0;
+    if (s.nx != nx || s.nl != nl || s.na != na) return -3;
+    s.nc = nx + 2 * nl + na;
+    s.G = 2 * R / s.cw;
+    s.rb = (a->B + AP_SLAB * s.m - 1) / (AP_SLAB * s.m);
+    s.units = s.G * s.rb;
+    s.a_bytes = AP_SLAB * s.m * AP_CHUNK;
+    s.w_bytes = quarters * s.cw * AP_CHUNK;
+    s.run = (long long)s.nc * s.w_bytes;
+    // the ring lies over buffer 0 and the regions after it, never over
+    // buffer 1 (the res stage's weights, asked for during the gate stage)
+    if (s.stages < 2 || s.stages > AP_RING_MAX || s.ring < wcap
+        || (long long)s.ring + 1024 + (long long)s.stages * (s.a_bytes + s.w_bytes) > smem)
+        return -3;
+    return 0;
 }
 
 // Check the plan (ops/ar_kernel.py::ar_plan, as ar_plan_array lays it out)
@@ -1050,13 +1555,18 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
     a->smem_a = plan[4];
     a->smem_p = plan[5];
     a->smem_e = plan[6];
-    const int wcap = a->smem_w[1];
-    if (a->smem_w[0] != 0 || wcap < 0 || a->smem_a != 2 * wcap
+    // weight buffers of wcap bytes: 0 then 1, or with a streamed gate 1
+    // then 0 (the ring over 0 and on)
+    const bool stream = plan[19] != 0;
+    const int wcap = a->smem_w[stream ? 0 : 1];
+    if (a->smem_w[stream ? 1 : 0] != 0 || wcap < 0 || a->smem_a != 2 * wcap
         || a->smem_p < a->smem_a || a->smem_e < a->smem_p || *smem < a->smem_e
         || *grid < 1 || a->R % (q8 ? 32 : 16) || a->S % 16 || a->Q % 16
         || a->Ap % 16 || a->Ap < a->A)
         return -3;
+    if (check_stream(plan, a, K_, q8, wcap, *smem) != 0) return -3;
     for (int T = 0; T < AP_NSTAGES; ++T) {
+        if (T == AP_GATE && stream) continue;
         ApStage& s = a->st[T];
         stage_shape(T, K_, q8, a->R, a->S, a->Q, a->Ap, &s);
         s.cw = plan[7 + 3 * T];
@@ -1096,13 +1606,27 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return (int)e;
     if (!coop) return -2;
-    const void* fn = kernel_fn(K_, q8);
+    const void* fn = kernel_fn(K_, q8, stream);
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, AP_THREADS, *smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, block_threads(stream),
+                                                      *smem);
     if (e != cudaSuccess) return (int)e;
     if ((long long)bps * sms < *grid) return -1;
     return 0;
+}
+
+// The streamed gate's TMA maps over this call's arrays (rows of 128-byte
+// boxes, AP_SLAB * m rows each): 0 or a CUDA error.
+static int stream_maps(ApArgs* a, int K_, bool q8, const void* ring, int ring_rows) {
+    const int rows = AP_SLAB * a->sg.m, R = a->R;
+    int e = q8 ? wg_map_2d(&a->mx, a->xq, 1, R, a->B, a->q_ld, rows)
+               : wg_map_2d(&a->mx, a->xs, 2, R + a->Ap, a->B, 2LL * a->xs_ld, rows);
+    if (e == 0 && K_ == 3)
+        e = wg_map_2d(&a->mr, ring, q8 ? 1 : 2, R, ring_rows, (long long)R * (q8 ? 1 : 2),
+                      rows);
+    if (e == 0 && q8) e = wg_map_2d(&a->ma, a->xa, 2, a->Ap, a->B, 2LL * a->xa_ld, rows);
+    return e;
 }
 
 extern "C" {
@@ -1124,8 +1648,12 @@ extern "C" {
 // ar_plan_array.  phase: null, or (grid, wn_ar_phase_slots()) zeroed u64
 // that the run adds nanoseconds and counts to (AP_PH_STAGE slots per
 // stage type: gate, res, post1, post2, sample; then the barrier waits and
-// their count; thread 0, globaltimer).  Returns 0, a negative plan error
-// (check_plan) or a CUDA error.
+// their count; thread 0, globaltimer).  The streamed gate (plan[19] set)
+// also takes ring_rows = total_cap * B (its TMA map of a kernel_size 3
+// ring) and, f32 (L, 2R) in channel order, zb (bf16) or auxb, dilb and gsc
+// (int8: (L, 2 or 3, 2R), the column scales of the current tap and the
+// past tap, or of the current tap and the lags d and 2d).  Returns 0, a
+// negative plan error (check_plan) or a CUDA error.
 int wn_ar_generate_persistent(
     const void* w_gate, const void* w_res, const void* w_post1, const void* w_post2,
     const void* causal_w, const void* causal_b, const void* h_up, int h_T,
@@ -1134,10 +1662,11 @@ int wn_ar_generate_persistent(
     int S, int Q, int A, int L, int K, int T0, int max_n, int sampling,
     unsigned long long seed, int q8, void* xq, void* gq, void* xa,
     const void* ascale, const void* ainv, float gscale, float ginv,
-    const void* plan, void* phase, void* stream) {
+    const void* zb, const void* auxb, const void* dilb, const void* gsc,
+    int ring_rows, const void* plan, void* phase, void* stream) {
     if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
     if (B < 1 || max_n < 1 || L < 1) return -3;
-    ApArgs a;
+    ApArgs a{};
     a.w[AP_GATE] = (const unsigned char*)w_gate;
     a.w[AP_RES] = (const unsigned char*)w_res;
     a.w[AP_POST1] = (const unsigned char*)w_post1;
@@ -1163,6 +1692,10 @@ int wn_ar_generate_persistent(
     a.ainv = (const float*)ainv;
     a.gscale = gscale;
     a.ginv = ginv;
+    a.zb = (const float*)zb;
+    a.auxb = (const float*)auxb;
+    a.dilb = (const float*)dilb;
+    a.gsc = (const float*)gsc;
     a.B = B;
     a.Mt = (B + 15) / 16;
     a.R = R;
@@ -1185,9 +1718,16 @@ int wn_ar_generate_persistent(
     int grid = 0, smem = 0;
     const int err = check_plan((const int*)plan, &a, K, q8 != 0, &grid, &smem);
     if (err != 0) return err;
+    if (a.sg.on) {
+        if ((q8 ? (!gsc || !auxb || !dilb) : !zb) || (K == 3 && ring_rows < B))
+            return -3;
+        const int me = stream_maps(&a, K, q8 != 0, ring, ring_rows);
+        if (me != 0) return me;
+    }
     void* args[] = {&a};
-    cudaError_t e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0), dim3(grid),
-                                                dim3(AP_THREADS), args, smem,
+    const bool st = a.sg.on != 0;
+    cudaError_t e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0, st), dim3(grid),
+                                                dim3(block_threads(st)), args, smem,
                                                 (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();

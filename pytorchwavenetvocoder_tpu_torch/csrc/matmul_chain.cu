@@ -15,8 +15,8 @@
 // small B.  The operations (86.5 MFLOP x B per step for split) bound it
 // only at large B.  Between the stages sits a grid-wide barrier, and that
 // barrier is the term this probe exists to expose: the one-kernel floor
-// of the AR loop (csrc/ar_step.cu), which today launches ~60 kernels per
-// step.
+// of the AR loop (csrc/ar_persistent.cu, one cooperative launch per call,
+// 63 grid barriers a step).
 //
 // Design:
 //  - one launch with cudaLaunchCooperativeKernel, one block per SM (checked

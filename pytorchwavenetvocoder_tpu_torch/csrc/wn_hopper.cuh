@@ -1,8 +1,7 @@
 // Hopper helpers shared by the persistent kernels (csrc/matmul_chain.cu,
-// csrc/ar_persistent.cu) and the AR launch loop (csrc/ar_step.cu): bulk
-// copies into shared memory completing on mbarriers, the proxy fence their
-// writers need, 16-byte cp.async copies, and the counter-based
-// Philox4x32-10 Gumbel noise of the AR samplers.
+// csrc/ar_persistent.cu): bulk copies into shared memory completing on
+// mbarriers, the proxy fence their writers need, 16-byte cp.async copies,
+// and the counter-based Philox4x32-10 Gumbel noise of the AR sampler.
 #pragma once
 
 #include <stdint.h>

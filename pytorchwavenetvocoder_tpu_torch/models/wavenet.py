@@ -631,7 +631,7 @@ def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
 
         kc = _least_padded(_kernel_config(config), quantize)
         for why in (layer_stack_constraint_error(kc),
-                    ar_kernel_constraint_error(kc, quantize, "persistent")):
+                    ar_kernel_constraint_error(kc, quantize)):
             if why is not None:
                 raise NotImplementedError(
                     f"the CUDA decode kernels do not serve this config: {why}")
@@ -650,8 +650,8 @@ def _kernel_config(config: WaveNetConfig) -> WaveNetConfig:
 
 
 #: The n_resch multiple the warm-up kernel needs (``csrc/layer_stack_fwd.cu``
-#: runs its residual 1x1 in 128-column chunks, 8 warps x 16); every AR
-#: route's n_resch multiple (``ops/ar_kernel.py::AR_MULTIPLES``) divides it
+#: runs its residual 1x1 in 128-column chunks, 8 warps x 16); the AR
+#: kernel's n_resch multiples (``ops/ar_kernel.py::AR_MULTIPLES``) divide it
 STREAMS_RESCH_MULTIPLE = 128
 
 
@@ -670,30 +670,18 @@ def _padded_config(config: WaveNetConfig, multiple: tuple) -> WaveNetConfig:
 
 
 def _least_padded(config: WaveNetConfig, quantize: bool) -> WaveNetConfig:
-    """``config`` padded to the least multiples any cuda route needs: the
-    warm-up's n_resch multiple and the persistent AR kernel's n_skipch
-    multiple (the launch loop's are coarser)."""
+    """``config`` padded to the least multiples the cuda route needs: the
+    warm-up's n_resch multiple and the AR kernel's n_skipch multiple."""
+    return _padded_config(config, kernel_multiples(config, quantize))
+
+
+def kernel_multiples(config: WaveNetConfig, quantize: bool = False) -> tuple:
+    """The least (n_resch, n_skipch) multiples the cuda route's kernels
+    need: the warm-up's n_resch multiple (which the AR kernel's divides)
+    and the AR kernel's 16-column groups."""
     from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import AR_MULTIPLES
 
-    return _padded_config(config, (STREAMS_RESCH_MULTIPLE,
-                                   AR_MULTIPLES[("persistent", quantize)][1]))
-
-
-def kernel_multiples(config: WaveNetConfig, B: int,
-                     quantize: bool = False, device=None) -> tuple:
-    """The least (n_resch, n_skipch) multiples the cuda route's kernels
-    need for a fleet of B rows: the warm-up's n_resch multiple, and the
-    multiples of the AR kernel ``ar_route`` picks for the config so padded
-    (the persistent kernel's 16-column groups, or the launch loop's 128-deep
-    K splits).  Asks the plan of the CUDA ``device`` (default an H100's)."""
-    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
-        AR_MULTIPLES,
-        ar_route,
-    )
-
-    c = _least_padded(config, quantize)
-    mr, ms = AR_MULTIPLES[(ar_route(c, B, quantize, device=device),
-                           quantize)]
+    mr, ms = AR_MULTIPLES[quantize]
     return math.lcm(STREAMS_RESCH_MULTIPLE, mr), ms
 
 
@@ -763,26 +751,30 @@ def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
     ``_fleet_hbm_bytes``, `models/wavenet.py:859-877`, counted for this
     port's buffers).  In the loop: the ring carry (bf16; int8 rows for
     int8 at kernel_size 3, JAX `ops/ar_kernel.py:469`), the f32 sample-rate
-    aux, the AR kernel's (B, L*2R) f32 aux scratch, its lag scratch at
-    kernel_size 3 (two (Bp, R) rows per layer, Bp = B rounded up to 16)
-    and the int32 output.  int8 at kernel_size 3 has a second peak, while
+    aux, the AR kernel's per-row scratch (``ops/ar_kernel.py::_persistent``:
+    the stream in f32, the skip sum, the logits and the ids; bf16: the
+    stream with its aux column, the gate, relu(skip) and post1's output,
+    rows padded by 8 elements; int8: the int8 stream and gate, rows padded
+    by 16 bytes, the aux column) and the int32 output.  int8 at
+    kernel_size 3 has a second peak, while
     ``int8_ring_fill`` converts the ring: the bf16 ring, the int8 ring, the
     f32 copy of the largest layer's ring and the aux; the larger of the two
     counts.  The warm-up's temporaries are bounded on their own, by
     ``_warmup_chunk``."""
     c = config
-    k, R, L = c.kernel_size, c.n_resch, c.n_layers
+    k, R, S = c.kernel_size, c.n_resch, c.n_skipch
     need_T = c.receptive_field + 1 + max_n
     slots = (k - 1) * sum(c.dilations)
     rw = 2 * R if k == 2 else R
     raw_int8 = quantize and k > 2
     ring = slots * B * rw * (1 if raw_int8 else 2)
     h_up = B * need_T * c.n_aux * 4
-    za = B * L * 2 * R * 4
-    Bp = -(-B // 16) * 16
-    lag = 0 if k == 2 else L * 2 * Bp * R * (1 if raw_int8 else 2)
+    Ap = -(-c.n_aux // 16) * 16
+    row = (R + S + c.n_quantize + k) * 4 + 2 * (S + 8) * 2
+    row += (2 * (R + 16) + (Ap + 8) * 2 if quantize
+            else (R + Ap + 8) * 2 + (R + 8) * 2)
     out = B * max_n * 4
-    loop = ring + h_up + za + lag + out
+    loop = ring + h_up + B * row + out
     if not raw_int8:
         return loop
     fill = ring + slots * B * R * 2 + (k - 1) * max(c.dilations) * B * R * 4
@@ -869,10 +861,10 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     impl = _check_impl(impl, c, device, quantize)
     if impl == "cuda":
         # the kernels' config: bf16, the channel widths padded to the
-        # multiples of their tiling at this fleet's size (zero lanes)
+        # multiples of their tiling (zero lanes)
         c = _kernel_config(c)
-        params, c = pad_params_for_kernels(
-            params, c, kernel_multiples(c, len(x), quantize, device))
+        params, c = pad_params_for_kernels(params, c,
+                                           kernel_multiples(c, quantize))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 

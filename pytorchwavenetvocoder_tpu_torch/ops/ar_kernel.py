@@ -22,9 +22,8 @@ there).
 ``ar_generate_reference`` is that math in plain PyTorch (the step of
 ``_scan_chunk``, `models/wavenet.py:700-763` of the JAX package), for any
 config and dtype, on any device.  ``ar_generate`` is the wrapper: a CPU
-carry goes to the plain version, a CUDA carry to the kernel ``ar_route``
-picks (bf16 or int8: ``csrc/ar_persistent.cu`` or the launch loop of
-``csrc/ar_step.cu``), or it raises.
+carry goes to the plain version, a CUDA carry to the kernel
+(``csrc/ar_persistent.cu``, bf16 or int8), or it raises.
 
 int8 (``quantize=True``) is the JAX kernel's int8 path
 (`ops/ar_kernel.py:480-485, 557-576, 707-800` there): the current- and
@@ -54,12 +53,10 @@ cooperative launch: per step L gate stages (bf16: the aux term an extra K
 of the product; int8: integer products and a bf16 aux product), L res
 stages, post1, post2 and the sample stage, with a grid barrier after
 each; a stage is cut into units by ``ar_plan``, each unit's weights packed
-into one run by ``pack_ar_units``.  The launch loop (``_launch_loop``) is
-a C++ step loop of 65-66 launches per step (one per layer product, with
-the embed, aux, lag gather, post and sample launches), ``wmma`` tiles
-with f32 (bf16) or int32 (int8) accumulation; it runs where ``ar_route``
-says the persistent kernel has no cut of its stages or is the slower of
-the two.
+by ``pack_ar_units``.  The gate stage runs one of two designs
+(``ar_gate``): small fleets cut it into units that each hold all of K in
+shared memory; larger ones stream K through a TMA ring into wgmma, one
+64-row unit a block.
 """
 
 from __future__ import annotations
@@ -84,8 +81,8 @@ KERNEL_SIZES = (2, 3)
 
 
 def int8_constraint_error(config) -> str | None:
-    """Why int8 decode (``quantize=True``) can NOT run this config, on any
-    route (None when it can)."""
+    """Why int8 decode (``quantize=True``) can NOT run this config, on the
+    card or the CPU (None when it can)."""
     c = config
     if c.kernel_size not in KERNEL_SIZES:
         return (f"int8 decode serves kernel_size 2 and 3 (as the JAX int8 "
@@ -96,31 +93,19 @@ def int8_constraint_error(config) -> str | None:
     return None
 
 
-#: The channel multiples (n_resch, n_skipch) each AR kernel's tiling
-#: needs, by route (``ar_route``): the persistent kernel cuts its products
-#: into 16-deep k tiles and 16-column groups (int8: n_resch in 32-deep k
-#: chunks of m16n8k32, and an odd number of 16-byte chunks per padded
-#: row, so ldmatrix's rows fall on distinct banks); the launch loop's
-#: ``ksplit_gemm*`` splits K/16 tiles over 8 warps, K being n_resch or
-#: n_skipch.  ``models/wavenet.py::pad_params_for_kernels`` pads a config
-#: up to them.
-AR_MULTIPLES = {("persistent", False): (16, 16), ("persistent", True): (32, 16),
-                ("loop", False): (128, 128), ("loop", True): (128, 128)}
-
-_MULTIPLE_WHY = {
-    "persistent": "the persistent kernel cuts its products into 16-deep k "
-                  "tiles and 16-column groups",
-    "loop": "the launch loop's ksplit_gemm splits K/16 tiles over 8 warps",
-}
+#: The channel multiples (n_resch, n_skipch) the AR kernel's tiling needs,
+#: by ``quantize``: it cuts its products into 16-deep k tiles and
+#: 16-column groups (int8: n_resch in 32-deep k chunks of m16n8k32, and an
+#: odd number of 16-byte chunks per padded row, so ldmatrix's rows fall on
+#: distinct banks).  ``models/wavenet.py::pad_params_for_kernels`` pads a
+#: config up to them.
+AR_MULTIPLES = {False: (16, 16), True: (32, 16)}
 
 
-def ar_kernel_constraint_error(config, quantize: bool = False,
-                               route: str | None = None) -> str | None:
+def ar_kernel_constraint_error(config, quantize: bool = False
+                               ) -> str | None:
     """Why the CUDA AR kernel can NOT run this config (None when it can);
-    ``quantize`` asks about its int8 variant, ``route`` about one kernel
-    ("persistent" or "loop", ``ar_route``'s names) and its tiling.  None
-    asks about every kernel ``ar_route`` may pick for some fleet, so the
-    launch loop's channel multiples hold."""
+    ``quantize`` asks about its int8 variant."""
     c = config
     if quantize:
         why = int8_constraint_error(c)
@@ -139,13 +124,11 @@ def ar_kernel_constraint_error(config, quantize: bool = False,
         return f"n_quantize={c.n_quantize} must be a multiple of 16"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
-    if route not in (None, "persistent", "loop"):
-        raise ValueError(f"route must be persistent or loop, got {route!r}")
-    mr, ms = AR_MULTIPLES[(route or "loop", quantize)]
+    mr, ms = AR_MULTIPLES[quantize]
     for name, v, m in (("n_resch", c.n_resch, mr), ("n_skipch", c.n_skipch, ms)):
         if v % m != 0:
-            return (f"{name}={v} must be a multiple of {m}: "
-                    f"{_MULTIPLE_WHY[route or 'loop']}"
+            return (f"{name}={v} must be a multiple of {m}: the kernel cuts "
+                    f"its products into 16-deep k tiles and 16-column groups"
                     + (" (int8: 32-deep m16n8k32 products)"
                        if quantize and m == 32 else ""))
     return None
@@ -725,22 +708,111 @@ def _align256(n: int) -> int:
     return (n + 255) & ~255
 
 
-def ar_plan(config, B: int, grid: int | None = None,
-            quantize: bool = False, device=None) -> dict:
-    """The persistent kernel's launch plan for a fleet of B rows, bf16 or
-    (``quantize``) int8: per weighted stage (``AR_STAGES``) its cut
-    (``_cut``), the grid (one block per SM: ``grid``, default the SM count
-    of the CUDA ``device`` the kernel will run on, else an H100's 132) and
-    the shared-memory layout: two weight buffers, the A rows, the warps'
-    sums, the epilogues' operands.  Raises ValueError where no cut fits.
-    ``csrc/ar_persistent.cu`` checks the same plan again before it
-    launches."""
-    if B < 1:
-        raise ValueError(f"B must be >= 1, got {B}")
-    if grid is None:
-        device = torch.device("cpu" if device is None else device)
-        grid = (torch.cuda.get_device_properties(device).multi_processor_count
-                if device.type == "cuda" else H100_SMS)
+# ---------------------------------------------------------------------------
+# the streamed gate (csrc/ar_persistent.cu: gate_produce, gate_consume)
+# ---------------------------------------------------------------------------
+
+#: Rows of a wgmma slab: a streamed gate unit is 64 * m rows (m slabs)
+AR_SLAB = 64
+
+#: Bytes of K a ring stage carries: 64 bf16 or 128 int8 values per row,
+#: one 128-byte swizzled row of a TMA box
+AR_CHUNK = 128
+
+#: The consumer warpgroups' wgmma widths (N) the kernel is built for
+AR_STREAM_NW = (16, 32, 64, 128)
+
+#: Accumulator registers a consumer thread may keep: NW/2 for each of its
+#: sums (bf16 one; int8 the current tap's, the aux product's and at
+#: kernel_size 3 the two lags'), so int8 is 64 wide at most at
+#: kernel_size 3
+AR_STREAM_ACC = 128
+
+
+def _stream_sums(kernel_size: int, quantize: bool) -> int:
+    return (4 if kernel_size == 3 else 2) if quantize else 1
+
+#: Ring stages the plan tries, most first
+AR_RING_STAGES = (4, 3, 2)
+
+
+def _stream_chunks(config, quantize: bool) -> tuple:
+    """The streamed gate's K chunks (nx, nl, na): of the stream's A rows
+    (bf16 [x | aux], int8 x), of each lagged ring row (kernel_size 3), of
+    the int8 path's bf16 aux rows; each segment zero-filled to whole chunks
+    (the TMA boxes past a row's end read zeros)."""
+    c = config
+    R, Ap, k = c.n_resch, _aux_pad(c.n_aux), c.kernel_size
+    if quantize:
+        nx = -(-R // AR_CHUNK)
+        return nx, nx if k == 3 else 0, -(-Ap // (AR_CHUNK // 2))
+    half = AR_CHUNK // 2
+    return -(-(R + Ap) // half), -(-R // half) if k == 3 else 0, 0
+
+
+def _stream_cut(config, quantize: bool, B: int, grid: int, ring_max: int):
+    """The streamed gate's cut of a fleet of B rows: a unit is ``m``
+    64-row slabs (1: the two consumer warpgroups split its columns; 2: a
+    slab each) x ``cw`` gate columns of each quarter, each warpgroup ``nw``
+    columns wide.  Among the cuts whose sums fit the registers and whose
+    ring (two stages at least) fits ``ring_max`` bytes: the fewest units a
+    block (units <= grid where any cut gives that; blocks then differ by one
+    unit at most), then the fewest A and W bytes a unit.  None where no cut
+    fits."""
+    c = config
+    R, k = c.n_resch, c.kernel_size
+    quarters, N = (2 if k == 2 else 1), 2 * R
+    nx, nl, na = _stream_chunks(c, quantize)
+    best = None
+    for m in (1, 2):
+        for nw in AR_STREAM_NW:
+            cwp = nw // quarters                  # a warpgroup's gate columns
+            cw = cwp * (2 if m == 1 else 1)
+            if (cwp % 16 or N % cw
+                    or _stream_sums(k, quantize) * nw // 2 > AR_STREAM_ACC):
+                continue
+            stage = AR_SLAB * m * AR_CHUNK + quarters * cw * AR_CHUNK
+            stages = next((n for n in AR_RING_STAGES
+                           if 1024 + n * stage <= ring_max), None)
+            if stages is None:
+                continue
+            G, rb = N // cw, -(-B // (AR_SLAB * m))
+            units = G * rb
+            key = (-(-units // grid), AR_SLAB * m + quarters * cw, m)
+            if best is None or key < best[0]:
+                nc = nx + 2 * nl + na
+                best = (key, dict(
+                    stream=True, quarters=quarters, N=N, m=m, cw=cw, nw=nw,
+                    G=G, rb=rb, units=units, stages=stages, nx=nx, nl=nl,
+                    na=na, nc=nc, a_bytes=AR_SLAB * m * AR_CHUNK,
+                    w_bytes=quarters * cw * AR_CHUNK,
+                    run=nc * quarters * cw * AR_CHUNK))
+    return None if best is None else best[1]
+
+
+#: The gate designs ``ar_plan`` chooses between ("units": the gate cut
+#: into units that each hold all of K in shared memory, wstage; "stream":
+#: the streamed gate)
+AR_GATES = ("units", "stream")
+
+#: The fleets, by (kernel_size, quantize), from which the streamed gate is
+#: the faster of the two at the flagship widths (30 x 512, skip 256), read
+#: in turns on an H100 SXM (700 W) by chip_smoke.py's [K1*] and [K1 int8*]
+#: (PERF.md), µs/step at 64-256 steps a call, units / stream: bf16 k=2 B=32
+#: 305.4 / 313.1, 64 385.3 / 369.6; bf16 k=3 B=64 502.6 / 609.8, 128 800.1 /
+#: 664.9; int8 k=2 B=128 369.7 / 390.8, 192 471.3 / 439.6; int8 k=3 B=128
+#: 492.5 / 524.8, 192 601.6 / 575.5.  Below them a block's unit of the gate
+#: cut into units is small (16-48 rows) and the 64-row slab wastes most of
+#: its products; above, the streamed gate wins at every fleet measured (to
+#: 1,024 rows at k=3, 2,048 at k=2).  Wherever the gate cut into units
+#: gives a block more than one unit, or has no cut (bf16 k=3 at n_resch >=
+#: 768), it streams.
+AR_STREAM_FROM_B = {(2, False): 64, (3, False): 128, (2, True): 192,
+                    (3, True): 192}
+
+
+def _plan_units(config, quantize, B, grid):
+    """The plan with the gate cut into units (``_cut_stages``), or None."""
     row_tiles = -(-B // 16)
     for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
         stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max)
@@ -753,24 +825,113 @@ def ar_plan(config, B: int, grid: int | None = None,
                         quantize=quantize, smem_w=(0, w), smem_a=2 * w,
                         smem_p=2 * w + a, smem_e=2 * w + a + p,
                         smem=2 * w + a + p + e)
+    return None
+
+
+def _plan_stream(config, quantize, B, grid):
+    """The plan with the streamed gate, or None: res, post1 and post2 cut
+    as ``_cut_stages`` cuts them (res first, the posts within its regions
+    where they fit there); the shared memory laid out as [buffer 1 |
+    buffer 0 | A rows | sums | epilogue operands], the gate's ring over
+    buffer 0 and what follows it (buffer 1 holds the res stage's weights,
+    asked for during the gate stage)."""
+    row_tiles = -(-B // 16)
+    shapes = ar_stage_shapes(config, quantize)
+    for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
+        stages = {}
+        for name in ("res", "post1", "post2"):
+            K, q, N = shapes[name]
+            args = (K, q, N, _unit_bytes(config, name, quantize), row_tiles,
+                    grid)
+            r = stages.get("res")
+            stages[name] = ((_cut(*args, min(w_max, r["w"]),
+                                  min(a_max, r["a"]), r["p"]) if r else None)
+                            or _cut(*args, w_max, a_max))
+            if stages[name] is None:
+                break
+        else:
+            w, a, p, e = (max(_align256(s[key]) for s in stages.values())
+                          for key in ("w", "a", "p", "e"))
+            if 2 * w + a + p + e > AR_SMEM_MAX:
+                continue
+            gate = _stream_cut(config, quantize, B, grid, AR_SMEM_MAX - w)
+            if gate is None:
+                continue
+            ring = w + 1024 + gate["stages"] * (gate["a_bytes"]
+                                                + gate["w_bytes"])
+            return dict(grid=grid, B=B, row_tiles=row_tiles,
+                        stages=dict(gate=gate, **stages), quantize=quantize,
+                        smem_w=(w, 0), smem_a=2 * w, smem_p=2 * w + a,
+                        smem_e=2 * w + a + p, smem_ring=w,
+                        smem=max(2 * w + a + p + e, ring))
+    return None
+
+
+def ar_plan(config, B: int, grid: int | None = None,
+            quantize: bool = False, device=None,
+            gate: str | None = None) -> dict:
+    """The persistent kernel's launch plan for a fleet of B rows, bf16 or
+    (``quantize``) int8: per weighted stage (``AR_STAGES``) its cut, the
+    grid (one block per SM: ``grid``, default the SM count of the CUDA
+    ``device`` the kernel will run on, else an H100's 132) and the
+    shared-memory layout: two weight buffers, the A rows, the warps' sums,
+    the epilogues' operands, and with a streamed gate its ring.
+
+    The gate stage is cut one of two ways (``AR_GATES``): into units that
+    each hold all of K in shared memory (``_cut``) below
+    ``AR_STREAM_FROM_B`` rows where that cut gives every block one unit at
+    most, else streamed (``_stream_cut``: 64-row slabs, K walked through a
+    TMA ring into wgmma).  ``gate`` names one of the two for measurements
+    that set them side by side.  Raises ValueError where
+    no cut fits.  ``csrc/ar_persistent.cu`` checks the same plan again
+    before it launches."""
+    if B < 1:
+        raise ValueError(f"B must be >= 1, got {B}")
+    if gate not in (None,) + AR_GATES:
+        raise ValueError(f"gate must be one of {AR_GATES}, got {gate!r}")
+    if grid is None:
+        device = torch.device("cpu" if device is None else device)
+        grid = (torch.cuda.get_device_properties(device).multi_processor_count
+                if device.type == "cuda" else H100_SMS)
+    plan = None
+    if gate == "units" or (
+            gate is None
+            and B < AR_STREAM_FROM_B[(config.kernel_size, quantize)]):
+        plan = _plan_units(config, quantize, B, grid)
+        if (gate is None and plan is not None
+                and plan["stages"]["gate"]["units"] > grid):
+            plan = None
+    if plan is None and gate != "units":
+        plan = _plan_stream(config, quantize, B, grid)
+    if plan is not None:
+        return plan
     desc = ", ".join(f"{n} K={K} x {q * N}"
                      for n, (K, q, N) in ar_stage_shapes(config,
                                                          quantize).items())
     raise ValueError(f"the persistent AR kernel has no cut of its "
                      f"{'int8 ' if quantize else ''}stages ({desc}) whose "
                      f"weight slices, A rows and sums fit a block's "
-                     f"{AR_SMEM_MAX} bytes of shared memory")
+                     f"{AR_SMEM_MAX} bytes of shared memory"
+                     + (f" with the gate {gate}" if gate else ""))
 
 
 def ar_plan_array(plan: dict) -> list:
     """The plan as the int array ``wn_ar_generate_persistent`` takes: grid,
     smem, the two weight buffers', the A rows', the sums' and the epilogue
-    operands' offsets, then per stage cw, mt, ks."""
+    operands' offsets, then per stage cw, mt, ks (zeros for a streamed
+    gate), then the streamed gate's on, m, cw, nw, ring stages, ring offset,
+    nx, nl, na (zeros when off)."""
     out = [plan["grid"], plan["smem"], *plan["smem_w"], plan["smem_a"],
            plan["smem_p"], plan["smem_e"]]
     for name in AR_STAGES:
         s = plan["stages"][name]
-        out += [s["cw"], s["mt"], s["ks"]]
+        out += [0, 0, 0] if s.get("stream") else [s["cw"], s["mt"], s["ks"]]
+    g = plan["stages"]["gate"]
+    if g.get("stream"):
+        out += [1, g["m"], g["cw"], g["nw"], g["stages"], plan["smem_ring"],
+                g["nx"], g["nl"], g["na"]]
+    else:
+        out += [0] * 9
     return out
 
 
@@ -782,9 +943,14 @@ def ar_stage_units(plan: dict, stage: str, block: int):
     s, grid = plan["stages"][stage], plan["grid"]
     u0, u1 = block * s["units"] // grid, (block + 1) * s["units"] // grid
     for u in range(u0, u1):
-        grp, rgi = divmod(u, s["rg"])
-        r0 = rgi * 16 * s["mt"]
-        r1 = min(r0 + 16 * s["mt"], plan["B"])
+        if s.get("stream"):
+            grp, rbi = divmod(u, s["rb"])
+            r0 = rbi * AR_SLAB * s["m"]
+            r1 = min(r0 + AR_SLAB * s["m"], plan["B"])
+        else:
+            grp, rgi = divmod(u, s["rg"])
+            r0 = rgi * 16 * s["mt"]
+            r1 = min(r0 + 16 * s["mt"], plan["B"])
         yield ((r0, r1), [(q * s["N"] + grp * s["cw"],
                            q * s["N"] + (grp + 1) * s["cw"])
                           for q in range(s["quarters"])])
@@ -810,7 +976,10 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
     over the current tap's cw columns, then the f32 column scales of each
     segment's quarters * cw columns, then the f32 biases: the gate's aux_b,
     then dil_b (each of the unit's sigmoid channels, then its tanh
-    channels), the res stage's srb."""
+    channels), the res stage's srb.
+
+    A streamed gate (``plan["stages"]["gate"]["stream"]``) packs its run
+    per chunk instead (``_pack_stream``), and int8 adds "gate_scales"."""
     from pytorchwavenetvocoder_tpu_torch.ops.matmul_chain import _pack_units
 
     c = config
@@ -839,28 +1008,34 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
         return torch.cat([t.contiguous().view(u8) for t in parts], dim=-1)
 
     out = {}
+    stream = st["gate"].get("stream", False)
+    if stream:
+        out.update(_pack_stream(pk, st["gate"], c, auxw, plan["quantize"]))
     if plan["quantize"]:
         q = _quantize_pack(pk)
         gk = _gate_key(k)
-        if k == 2:
-            segs = [torch.cat([q["w4"][..., :2 * R],
-                               _interleave(q["w4"][..., 2 * R:])], dim=-1)]
-            scales = [torch.cat([q["w4_scale"][:, :2 * R],
-                                 _interleave(q["w4_scale"][:, 2 * R:])], dim=-1)]
-        else:
-            segs = [q[gk][..., j * 2 * R:(j + 1) * 2 * R] for j in range(3)]
-            scales = [q[gk + "_scale"][:, j * 2 * R:(j + 1) * 2 * R]
-                      for j in range(3)]
-        s = st["gate"]
-        tiles = torch.stack([_pack_units_i8(w, s["quarters"], s["cw"])
-                             for w in segs], dim=2)
-        G = tiles.shape[1]
-        out["gate"] = cat_bytes(
-            tiles.reshape(L, G, -1),
-            _pack_units(auxw, 1, s["cw"]).reshape(L, G, -1),
-            torch.cat([per_unit(sc, s["quarters"], s["cw"]) for sc in scales],
-                      dim=-1),
-            by_group(pk["auxb"]), by_group(pk["dilb"]))
+        if not stream:
+            if k == 2:
+                segs = [torch.cat([q["w4"][..., :2 * R],
+                                   _interleave(q["w4"][..., 2 * R:])], dim=-1)]
+                scales = [torch.cat([q["w4_scale"][:, :2 * R],
+                                     _interleave(q["w4_scale"][:, 2 * R:])],
+                                    dim=-1)]
+            else:
+                segs = [q[gk][..., j * 2 * R:(j + 1) * 2 * R]
+                        for j in range(3)]
+                scales = [q[gk + "_scale"][:, j * 2 * R:(j + 1) * 2 * R]
+                          for j in range(3)]
+            s = st["gate"]
+            tiles = torch.stack([_pack_units_i8(w, s["quarters"], s["cw"])
+                                 for w in segs], dim=2)
+            G = tiles.shape[1]
+            out["gate"] = cat_bytes(
+                tiles.reshape(L, G, -1),
+                _pack_units(auxw, 1, s["cw"]).reshape(L, G, -1),
+                torch.cat([per_unit(sc, s["quarters"], s["cw"])
+                           for sc in scales], dim=-1),
+                by_group(pk["auxb"]), by_group(pk["dilb"]))
         s = st["res"]
         G_res = s["G"]
         out["res"] = cat_bytes(
@@ -869,26 +1044,102 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
         bf_stages = (("post1", pk["post1_w"][None], pk["post1_b"][None]),
                      ("post2", pk["post2_w"][None], pk["post2_b"][None]))
     else:
-        if k == 2:
-            w4 = pk["w4"]
-            cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
-            past = torch.cat([_interleave(w4[..., 2 * R:]),
-                              torch.zeros_like(auxw)], dim=1)
-            gate = torch.cat([cur, past], dim=-1)          # (L, R + Ap, 4R)
-        else:
-            w6 = pk["w6"]
-            gate = torch.cat([w6[..., :2 * R], auxw, w6[..., 2 * R:4 * R],
-                              w6[..., 4 * R:]], dim=1)     # (L, 3R + Ap, 2R)
-        bf_stages = (("gate", gate, by_group(pk["zb"]).reshape(L, -1)),
-                     ("res", pk["wsr"], pk["srb"]),
+        bf_stages = (("res", pk["wsr"], pk["srb"]),
                      ("post1", pk["post1_w"][None], pk["post1_b"][None]),
                      ("post2", pk["post2_w"][None], pk["post2_b"][None]))
+        if not stream:
+            gate = torch.cat(_gate_rows(pk, c, auxw), dim=1)
+            bf_stages = (("gate", gate, by_group(pk["zb"]).reshape(L, -1)),
+                         ) + bf_stages
     for name, w, b in bf_stages:
         s = st[name]
         tiles = _pack_units(w, s["quarters"], s["cw"])
         Lw, G = tiles.shape[:2]
         bias = b.reshape(Lw, G, s["cw"]).contiguous().view(torch.bfloat16)
         out[name] = torch.cat([tiles.reshape(Lw, G, -1), bias], dim=-1)
+    return out
+
+
+def _gate_rows(pk: dict, config, auxw: torch.Tensor) -> list:
+    """The bf16 gate's weight rows in the order of its A rows, as segments
+    (``ar_stage_shapes``): kernel_size 2 one, [x | aux] rows x [current |
+    past] columns (each interleaved; the aux rows zero under the past tap),
+    (L, R + Ap, 4R); kernel_size 3 three, [W_cur; aux] (L, R + Ap, 2R), then
+    W_d and W_2d (L, R, 2R)."""
+    R = config.n_resch
+    if config.kernel_size == 2:
+        w4 = pk["w4"]
+        cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
+        past = torch.cat([_interleave(w4[..., 2 * R:]),
+                          torch.zeros_like(auxw)], dim=1)
+        return [torch.cat([cur, past], dim=-1)]
+    w6 = pk["w6"]
+    return [torch.cat([w6[..., :2 * R], auxw], dim=1), w6[..., 2 * R:4 * R],
+            w6[..., 4 * R:]]
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, 128) bytes -> the 128-byte swizzle that TMA writes and
+    wgmma's descriptors read: in row r the 16-byte chunk j lies at chunk
+    j ^ (r % 8) (the tiles start on 1024-byte boundaries).  Its own
+    inverse."""
+    n = t.shape[-2]
+    r = torch.arange(n, device=t.device)
+    idx = torch.arange(8, device=t.device)[None, :] ^ (r[:, None] % 8)
+    t = t.reshape(*t.shape[:-1], 8, 16)
+    return t[..., r[:, None], idx, :].reshape(*t.shape[:-2], 128)
+
+
+def _stream_tiles(w: torch.Tensor, s: dict) -> torch.Tensor:
+    """One K segment of a streamed gate, (Lw, K, quarters * N) bf16 or int8
+    with column q * N + c, -> (Lw, G, K chunks, quarters * cw, 128) uint8:
+    per unit and chunk its W tile, the unit's columns in the consumer
+    warpgroups' order (m = 1: the first half of each quarter's cw, then the
+    second; m = 2: each quarter's cw) as rows of the chunk's 128 bytes of
+    K (K zero-padded to whole chunks), swizzled (``_swizzle128``)."""
+    Lw, K, _ = w.shape
+    depth = AR_CHUNK // w.element_size()
+    kc = -(-K // depth)
+    if kc * depth != K:
+        w = torch.cat([w, w.new_zeros((Lw, kc * depth - K, w.shape[-1]))],
+                      dim=1)
+    q, G, P = s["quarters"], s["G"], 2 if s["m"] == 1 else 1
+    t = w.reshape(Lw, kc, depth, q, G, P, s["cw"] // P)
+    t = t.permute(0, 4, 1, 5, 3, 6, 2).reshape(Lw, G, kc, q * s["cw"], depth)
+    return _swizzle128(t.contiguous().view(torch.uint8))
+
+
+def _pack_stream(pk: dict, s: dict, config, auxw: torch.Tensor,
+                 quantize: bool) -> dict:
+    """The streamed gate's packs: "gate", per layer and column group the
+    unit's run, its chunks' W tiles in the order the producer streams them
+    (the stream's rows, the lags d and 2d, the int8 path's bf16 aux rows),
+    (L, G, nc * quarters * cw * 128) uint8; int8 also "gate_scales", the
+    column scales of each int8 product (current tap, then the past tap or
+    the lags d and 2d) in channel order ([sigmoid R | tanh R]), (L, 2 or
+    3, 2R) f32."""
+    R, k = config.n_resch, config.kernel_size
+    L = auxw.shape[0]
+    if not quantize:
+        segs = _gate_rows(pk, config, auxw)
+        out = {}
+    else:
+        q = _quantize_pack(pk)
+        if k == 2:
+            w4, sc = q["w4"], q["w4_scale"]
+            segs = [torch.cat([w4[..., :2 * R], _interleave(w4[..., 2 * R:])],
+                              dim=-1),
+                    torch.cat([auxw, torch.zeros_like(auxw)], dim=-1)]
+            scales = [_deinterleave(sc[:, :2 * R]), sc[:, 2 * R:]]
+        else:
+            w6, sc = q["w6"], q["w6_scale"]
+            blk = [slice(j * 2 * R, (j + 1) * 2 * R) for j in range(3)]
+            segs = [w6[..., b] for b in blk] + [auxw]
+            scales = [_deinterleave(sc[:, b]) for b in blk]
+        out = {"gate_scales": torch.stack(scales, dim=1).contiguous()}
+    tiles = torch.cat([_stream_tiles(w, s) for w in segs], dim=2)
+    assert tiles.shape[2] == s["nc"]
+    out["gate"] = tiles.reshape(L, s["G"], -1)
     return out
 
 
@@ -920,15 +1171,6 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _tile16(w: torch.Tensor) -> torch.Tensor:
-    """(..., K, N) -> the int8 kernel's tile layout: 16 x 16 tiles stored
-    whole, row-major over tiles ([K/16][N/16][16][16]), so every ``wmma``
-    operand load is one aligned 256-byte block."""
-    *lead, K, N = w.shape
-    return (w.reshape(*lead, K // 16, 16, N // 16, 16).transpose(-3, -2)
-            .contiguous())
-
-
 def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                 max_n: int, mode: str,
                 generator: torch.Generator | None = None,
@@ -943,16 +1185,13 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     projection-forwarded ``(total_cap, B, 2R)`` ring at kernel_size 2, the
     raw ``(total_cap, B, R)`` ring at kernel_size 3 (int8 from
     ``int8_ring_fill`` under ``quantize``, else bf16); anything else
-    raises.  It runs on the kernel ``ar_route`` picks for the config, the
-    fleet and the dtype: every step in one cooperative launch of the
-    persistent kernel (``csrc/ar_persistent.cu``, counted in
-    ``ar_generate.launches``, int8 in ``.int8_persistent_launches``; a
-    grid that cannot be co-resident, a build or a launch error raises), or
-    the launch loop (``csrc/ar_step.cu``, counted in
-    ``ar_generate.loop_launches``, int8 in ``.int8_launches``); the
-    config must fit that kernel's tiling (``ar_kernel_constraint_error``
-    with its route).  ``quantize`` runs int8 with ``act_scales`` (L, 1)
-    f32 on the carry's device.  Sampling draws one
+    raises.  Every step runs in one cooperative launch of the persistent
+    kernel (``csrc/ar_persistent.cu``, counted in ``ar_generate.launches``,
+    int8 in ``.int8_persistent_launches``; a plan that does not fit, a
+    grid that cannot be co-resident, a build or a launch error raises), on
+    the plan ``ar_plan`` cuts for the config, the fleet and the dtype.
+    ``quantize`` runs int8 with ``act_scales`` (L, 1) f32 on the carry's
+    device.  Sampling draws one
     64-bit Philox seed from ``generator``; the kernels' Gumbel noise is a
     function of (seed, row, step, class).
     """
@@ -963,7 +1202,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
                                      act_scales=act_scales)
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate: unsupported device {act_buf.device}")
-    why = ar_kernel_constraint_error(config, quantize, "persistent")
+    why = ar_kernel_constraint_error(config, quantize)
     if why is not None:
         raise NotImplementedError(f"CUDA AR kernel: {why}")
     if mode not in ("argmax", "sampling"):
@@ -1002,22 +1241,15 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         _check(ascale, "act_scales", torch.float32, (c.n_layers,), dev)
         if not bool(torch.isfinite(ascale).all() and (ascale > 0).all()):
             raise ValueError("act_scales must be finite and positive")
-    route = ar_route(c, B, quantize, device=dev)
-    why = ar_kernel_constraint_error(c, quantize, route)
-    if why is not None:
-        raise NotImplementedError(f"CUDA AR kernel ({route}): {why}")
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     seed = 0
     if mode == "sampling":
         gdev = generator.device if generator is not None else "cpu"
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=gdev))
-    samples = _steps(route, pk, c, act_buf, ids, h_up, T0, max_n, seed,
-                     mode == "sampling", ascale)
-    counter = {("persistent", False): "launches",
-               ("loop", False): "loop_launches",
-               ("persistent", True): "int8_persistent_launches",
-               ("loop", True): "int8_launches"}[(route, quantize)]
+    samples = _persistent(pk, c, act_buf, ids, h_up, T0, max_n, seed,
+                          mode == "sampling", ascale)
+    counter = "int8_persistent_launches" if quantize else "launches"
     setattr(ar_generate, counter, getattr(ar_generate, counter) + 1)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
@@ -1044,67 +1276,24 @@ def _plan_error(err: int) -> str:
             }.get(err, f"CUDA error {err}")
 
 
-#: The bf16 fleets, by kernel size, from which the launch loop is faster
-#: than the persistent kernel at the flagship widths (30 x 512, skip 256),
-#: read in turns on an H100 SXM by ``bin/profile_ar.py --turns``
-#: (PERF.md): at kernel_size 3 a block of the persistent kernel takes
-#: several gate units of K = 3R + aux one after another once the fleet
-#: outgrows the grid, and from 208 rows (3.4 units a block) the loop is
-#: faster.  None: the persistent kernel wherever it has a cut (kernel_size
-#: 2: no slower than the loop up to 2,048 rows).
-AR_LOOP_FROM_B = {2: None, 3: 208}
-
-#: The same for int8 (``quantize=True``), read in turns by ``bin/profile_ar.py
-#: --quantize --turns`` and chip_smoke.py's [K1 int8*] (PERF.md): at
-#: kernel_size 3 the loop is 1.13-1.19x faster at 208-256 rows, where the
-#: persistent kernel's blocks take gate units unevenly (the persistent
-#: kernel won again at 320 and 384 rows by 5-8% and lost at 512 and 1,024;
-#: one threshold keeps the larger losses away); kernel_size 2: the
-#: persistent kernel is faster up to 2,048 rows
-AR_INT8_LOOP_FROM_B = {2: None, 3: 208}
-
-
-def ar_route(config, B: int, quantize: bool = False, device=None) -> str:
-    """Which kernel runs a fleet of B rows on the CUDA ``device`` (default:
-    an H100's grid), bf16 or (``quantize``) int8: "loop" (the launch loop
-    of ``csrc/ar_step.cu``) where the persistent kernel has no cut of its
-    stages in shared memory (``ar_plan`` raises, as for bf16 at
-    kernel_size 3 with n_resch >= 768) or B is at least ``AR_LOOP_FROM_B``
-    (int8: ``AR_INT8_LOOP_FROM_B``) of its kernel size, else
-    "persistent"."""
-    start = (AR_INT8_LOOP_FROM_B if quantize else AR_LOOP_FROM_B).get(
-        config.kernel_size)
-    if start is not None and B >= start:
-        return "loop"
-    try:
-        ar_plan(config, B, quantize=quantize, device=device)
-    except ValueError:
-        return "loop"
-    return "persistent"
-
-
-def _steps(route: str, pk: dict, config, act_buf, ids, h_up, T0: int,
-           max_n: int, seed: int, sampling: bool,
-           ascale: torch.Tensor | None) -> torch.Tensor:
-    """Steps on the kernel ``route`` names ("persistent" or "loop"), int8
-    with the (L,) activation scales ``ascale``, else bf16."""
-    if route == "persistent":
-        return _persistent(pk, config, act_buf, ids, h_up, T0, max_n, seed,
-                           sampling, ascale)
-    if route == "loop":
-        return _launch_loop(pk, config, act_buf, ids, h_up, T0, max_n, seed,
-                            sampling, ascale)
-    raise ValueError(f"route must be persistent or loop, got {route!r}")
+def ar_gate(config, B: int, quantize: bool = False, device=None) -> str:
+    """The gate design (``AR_GATES``) ``ar_plan`` runs a fleet of B rows
+    with, bf16 or (``quantize``) int8, on the CUDA ``device`` (default an
+    H100's grid): "units" or "stream"."""
+    plan = ar_plan(config, B, quantize=quantize, device=device)
+    return "stream" if plan["stages"]["gate"].get("stream") else "units"
 
 
 def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
                 seed: int, sampling: bool, ascale: torch.Tensor | None = None,
-                phase: torch.Tensor | None = None) -> torch.Tensor:
+                phase: torch.Tensor | None = None,
+                gate: str | None = None) -> torch.Tensor:
     """Every step in one cooperative launch of ``wn_ar_generate_persistent``
-    on the plan ``ar_plan`` cuts for this fleet, bf16, or int8 with the (L,)
-    activation scales ``ascale``; ``ids`` (B, k) updated in place;
-    ``phase`` (grid, ``wn_ar_phase_slots()``) zeroed int64 turns the
-    kernel's phase times on.  Returns (B, max_n) int32."""
+    on the plan ``ar_plan`` cuts for this fleet (``gate``: its gate design,
+    default the plan's rule), bf16, or int8 with the (L,) activation scales
+    ``ascale``; ``ids`` (B, k) updated in place; ``phase`` (grid,
+    ``wn_ar_phase_slots()``) zeroed int64 turns the kernel's phase times
+    on.  Returns (B, max_n) int32."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
@@ -1114,9 +1303,9 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
     quantize = ascale is not None
-    plan = ar_plan(c, B, quantize=quantize, device=dev)
+    plan = ar_plan(c, B, quantize=quantize, device=dev, gate=gate)
     units = pack_ar_units(pk, plan, c)
-    _caps, offsets, _total = _buffer_layout(c)
+    _caps, offsets, total_cap = _buffer_layout(c)
     meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
                         device=dev).T.contiguous()                # (L, 2)
     # the stages' A operands, rows padded as the units hold them in shared
@@ -1156,93 +1345,14 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
             _ptr(ids), _ptr(samples), B, R, S, Q, A, L, c.kernel_size, T0,
             max_n, int(sampling), seed, int(quantize), _ptr(xq), _ptr(gq),
             _ptr(xa), _ptr(ascale), _ptr(ainv), gscale, ginv,
+            _ptr(None if quantize else pk["zb"]),
+            *(_ptr(pk[n] if quantize else None) for n in ("auxb", "dilb")),
+            _ptr(units.get("gate_scales")), total_cap * B,
             ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(phase),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate_persistent ({'int8' if quantize else 'bf16'}, "
                            f"B={B}) failed: {_plan_error(err)}")
-    return samples
-
-
-def _launch_loop(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
-                 seed: int, sampling: bool,
-                 ascale: torch.Tensor | None) -> torch.Tensor:
-    """The launch loop of ``wn_ar_generate`` (csrc/ar_step.cu, 65-66
-    launches per step from C++): int8 with the (L,) activation scales
-    ``ascale``, or bf16 with ``ascale`` None.  ``ids`` (B, k) updated in
-    place.  Returns (B, max_n) int32."""
-    from pytorchwavenetvocoder_tpu_torch._build import kernels
-    from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
-
-    c = config
-    dev = act_buf.device
-    B = ids.shape[0]
-    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
-    k = c.kernel_size
-    caps, offsets, _total_cap = _buffer_layout(c)
-    bf, f32 = torch.bfloat16, torch.float32
-    quantize = ascale is not None
-    gk = _gate_key(k)
-
-    Bp = -(-B // 16) * 16   # wmma row tiles of 16; pad rows stay zero
-
-    def scratch(rows, cols, dtype):
-        return torch.zeros((rows, cols), dtype=dtype, device=dev)
-
-    if quantize:
-        q = _quantize_pack(pk)
-        wz, wsr = _tile16(q[gk]), _tile16(q["wsr"])
-        wzs, wsrs, ainv = q[gk + "_scale"], q["wsr_scale"], 1.0 / ascale
-        # the activation rows in the same 16 x 16 tile layout: (Bp, R)
-        out_q, g_q = scratch(Bp, R, torch.int8), scratch(Bp, R, torch.int8)
-        out_bf16 = g_bf16 = None
-        # f32 scale and its f32 reciprocal, as the plain version takes them
-        gscale = ctypes.c_float(GATE_SCALE)
-        ginv = ctypes.c_float(float(1.0 / torch.tensor(GATE_SCALE, dtype=f32)))
-    else:
-        wz, wsr = pk[gk], pk["wsr"]
-        out_bf16, g_bf16 = scratch(Bp, R, bf), scratch(Bp, R, bf)
-        wzs = wsrs = ainv = out_q = g_q = None
-        gscale = ginv = ctypes.c_float(0.0)
-    za = torch.empty((B, L * 2 * R), dtype=f32, device=dev)
-    out_f32 = scratch(Bp, R, f32)
-    proj = lag = lag_meta = None
-    if k == 2:
-        proj = torch.empty((B, 2 * R), dtype=bf, device=dev)
-    else:
-        # every layer's two lagged ring rows, gathered at each step's start:
-        # bf16 rows, or int8 16 x 16 tiles; pad rows stay zero
-        lag = scratch(L * 2 * Bp, R, act_buf.dtype)
-        lag_meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
-                                device=dev).T.contiguous()      # (L, 2)
-    skip = torch.empty((B, S), dtype=f32, device=dev)
-    skip_relu, h1 = scratch(Bp, S, bf), scratch(Bp, S, bf)
-    logits = torch.empty((B, Q), dtype=f32, device=dev)
-    samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
-    offs_arr = (ctypes.c_int * L)(*offsets)
-    caps_arr = (ctypes.c_int * L)(*caps)
-    ptr = _ptr
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = kernels().wn_ar_generate(
-            ptr(wz), ptr(wsr), ptr(pk["auxw"]), ptr(pk["zb"]),
-            ptr(pk["srb"]), ptr(pk["causal_w"]), ptr(pk["causal_b"]),
-            ptr(pk["post1_w"]), ptr(pk["post1_b"]), ptr(pk["post2_w"]),
-            ptr(pk["post2_b"]), ptr(act_buf),
-            ctypes.cast(offs_arr, ctypes.c_void_p),
-            ctypes.cast(caps_arr, ctypes.c_void_p),
-            ptr(h_up), h_up.shape[1], ptr(za), ptr(out_f32), ptr(out_bf16),
-            ptr(g_bf16), ptr(proj), ptr(skip), ptr(skip_relu), ptr(h1),
-            ptr(logits),
-            ptr(ids), ptr(samples), B, R, S, Q, A, L, T0, max_n,
-            int(sampling), seed,
-            int(quantize), ptr(wzs), ptr(wsrs), ptr(ascale), ptr(ainv),
-            ptr(out_q), ptr(g_q), gscale, ginv,
-            k, ptr(lag), ptr(lag_meta),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"wn_ar_generate failed: CUDA error {err}")
     return samples
 
 
@@ -1252,7 +1362,8 @@ AR_PHASE_STAGES = AR_STAGES + ("sample",)
 
 def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
                    max_n: int, quantize: bool = False,
-                   act_scales: torch.Tensor | None = None) -> dict:
+                   act_scales: torch.Tensor | None = None,
+                   gate: str | None = None) -> dict:
     """Where a step of the persistent kernel goes (bf16, or int8 with
     ``quantize`` and ``act_scales``): runs ``max_n`` argmax steps (carry
     updated in place) with the kernel's phase times on and returns, per
@@ -1260,7 +1371,8 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
     asking for its operands, waiting for them, in the products and in the
     epilogue (the sample stage: all of it), and its units per stage; and
     the mean wait per grid barrier over all blocks, and the barriers per
-    step.  CUDA only; not counted in ``ar_generate``'s launch counts."""
+    step.  ``gate`` picks the gate design as ``ar_plan``'s does.  CUDA
+    only; not counted in ``ar_generate``'s launch counts."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
     act_buf, sample_hist, prev = carry
@@ -1271,13 +1383,13 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
                  prev=prev)
     with torch.cuda.device(dev):
         slots = kernels().wn_ar_phase_slots()
-    grid = ar_plan(config, prev.shape[0], quantize=quantize,
-                   device=dev)["grid"]
+    grid = ar_plan(config, prev.shape[0], quantize=quantize, device=dev,
+                   gate=gate)["grid"]
     phase = torch.zeros((grid, slots), dtype=torch.int64, device=dev)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
     _persistent(pack_ar_weights(params, config), config, act_buf, ids, h_up,
                 T0, max_n, 0, False,
-                act_scales.reshape(-1) if quantize else None, phase)
+                act_scales.reshape(-1) if quantize else None, phase, gate)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     ph = phase.cpu().double()
@@ -1296,14 +1408,14 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
     return out
 
 
-def ar_generate_on(route: str, params, config, carry, h_up: torch.Tensor,
+def ar_generate_on(gate: str, params, config, carry, h_up: torch.Tensor,
                    T0: int, max_n: int, quantize: bool = False,
                    act_scales: torch.Tensor | None = None) -> torch.Tensor:
-    """Argmax steps on the kernel ``route`` names ("persistent" or "loop"),
-    bf16 or (``quantize``) int8, whichever ``ar_route`` would pick: for
-    holding each against the plain loop and timing the two in turns on one
-    card.  The carry is updated in place; not counted in ``ar_generate``'s
-    launch counts."""
+    """Argmax steps of the kernel with the gate design ``gate``
+    (``AR_GATES``), bf16 or (``quantize``) int8, whichever ``ar_gate``
+    would pick: for holding each against the plain loop and timing the two
+    in turns on one card.  The carry is updated in place; not counted in
+    ``ar_generate``'s launch counts."""
     act_buf, sample_hist, prev = carry
     if act_buf.device.type != "cuda":
         raise ValueError(f"ar_generate_on runs on a CUDA device, not "
@@ -1312,18 +1424,17 @@ def ar_generate_on(route: str, params, config, carry, h_up: torch.Tensor,
                  sample_hist=sample_hist, prev=prev,
                  act_scales=act_scales if quantize else None)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1).contiguous()
-    out = _steps(route, pack_ar_weights(params, config), config, act_buf, ids,
-                 h_up, T0, max_n, 0, False,
-                 act_scales.reshape(-1) if quantize else None)
+    if gate not in AR_GATES:
+        raise ValueError(f"gate must be one of {AR_GATES}, got {gate!r}")
+    out = _persistent(pack_ar_weights(params, config), config, act_buf, ids,
+                      h_up, T0, max_n, 0, False,
+                      act_scales.reshape(-1) if quantize else None, gate=gate)
     sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return out
 
 
-#: Host launch counts of ``ar_generate``, by kernel: the persistent bf16
-#: kernel, the bf16 launch loop, the int8 launch loop and the persistent
-#: int8 kernel (one per call each)
+#: Host launch counts of ``ar_generate``: the persistent kernel's bf16 and
+#: int8 launches (one per call each)
 ar_generate.launches = 0
-ar_generate.loop_launches = 0
-ar_generate.int8_launches = 0
 ar_generate.int8_persistent_launches = 0

@@ -29,17 +29,70 @@ def _cfg(kernel_size, width, **kw):
     return P.WaveNetConfig(**base)
 
 
+def _covered_once(plan, name, B, cols, rows_max):
+    """Every (row, column) of stage ``name`` computed by exactly one unit of
+    the blocks' runs; returns the units."""
+    seen = np.zeros((B, cols), np.uint8)
+    units = 0
+    for block in range(plan["grid"]):
+        for (r0, r1), cs in ak.ar_stage_units(plan, name, block):
+            assert r1 - r0 <= rows_max and r0 < r1
+            for c0, c1 in cs:
+                seen[r0:r1, c0:c1] += 1
+            units += 1
+    assert (seen == 1).all(), name
+    return units
+
+
+def _check_stream(plan, cfg, quantize):
+    """A streamed gate's cut: its chunks, ring and unit count agree with the
+    shapes, and the ring lies in shared memory after buffer 1."""
+    s = plan["stages"]["gate"]
+    R, k = cfg.n_resch, cfg.kernel_size
+    Ap = -(-cfg.n_aux // 16) * 16
+    quarters = 2 if k == 2 else 1
+    assert s["stream"] and (s["quarters"], s["N"]) == (quarters, 2 * R)
+    assert s["m"] in (1, 2) and s["nw"] in ak.AR_STREAM_NW
+    assert ak._stream_sums(k, quantize) * s["nw"] // 2 <= ak.AR_STREAM_ACC
+    assert s["nw"] * (2 if s["m"] == 1 else 1) == quarters * s["cw"]
+    assert (s["nw"] // quarters) % 16 == 0
+    if quantize:
+        want = (-(-R // 128), -(-R // 128) if k == 3 else 0, -(-Ap // 64))
+    else:
+        want = (-(-(R + Ap) // 64), -(-R // 64) if k == 3 else 0, 0)
+    assert (s["nx"], s["nl"], s["na"]) == want
+    assert s["nc"] == s["nx"] + 2 * s["nl"] + s["na"]
+    assert s["a_bytes"] == 64 * s["m"] * 128
+    assert s["w_bytes"] == quarters * s["cw"] * 128
+    assert s["run"] == s["nc"] * s["w_bytes"]
+    assert s["units"] == (2 * R // s["cw"]) * -(-plan["B"] // (64 * s["m"]))
+    w = plan["smem_w"][0]
+    assert plan["smem_w"][1] == 0 and plan["smem_a"] == 2 * w
+    assert plan["smem_ring"] == w and 2 <= s["stages"] <= 4
+    assert (w + 1024 + s["stages"] * (s["a_bytes"] + s["w_bytes"])
+            <= plan["smem"] <= ak.AR_SMEM_MAX)
+    units = _covered_once(plan, "gate", plan["B"], quarters * 2 * R,
+                          64 * s["m"])
+    assert units == s["units"]
+
+
 @pytest.mark.parametrize("width", sorted(WIDTHS))
-@pytest.mark.parametrize("B", [1, 15, 16, 17, 65, 200, 256, 1000, 16384])
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 65, 200, 208, 256, 320, 512,
+                               1000, 16384])
 @pytest.mark.parametrize("kernel_size", [2, 3])
 def test_ar_plan_covers_every_output_once(kernel_size, B, width):
     cfg = _cfg(kernel_size, width)
     plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS)
     assert plan["smem"] <= ak.AR_SMEM_MAX
-    w = plan["smem_w"][1]
+    stream = plan["stages"]["gate"].get("stream", False)
+    w = plan["smem_w"][0 if stream else 1]
     assert plan["smem_a"] == 2 * w
+    if stream:
+        _check_stream(plan, cfg, False)
     for name, (K, quarters, N) in ak.ar_stage_shapes(cfg).items():
         s = plan["stages"][name]
+        if s.get("stream"):
+            continue
         assert (s["K"], s["quarters"], s["N"]) == (K, quarters, N)
         # each region holds the stage's largest unit
         assert (K * quarters + 2) * s["cw"] * 2 <= w
@@ -61,6 +114,75 @@ def test_ar_plan_covers_every_output_once(kernel_size, B, width):
                 units += 1
         assert units == s["units"]
         assert (seen == 1).all(), name
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("B", [1, 15, 64, 65, 130, 16384])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_stream_plan_covers_every_output_once(kernel_size, B, width,
+                                              quantize):
+    # the streamed gate asked for at any fleet: 64-row slabs over ragged
+    # fleets, and blocks that take several units where the grid is short
+    cfg = _cfg(kernel_size, width)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=quantize,
+                      gate="stream")
+    _check_stream(plan, cfg, quantize)
+    for name in ("res", "post1", "post2"):
+        K, quarters, N = ak.ar_stage_shapes(cfg, quantize)[name]
+        s = plan["stages"][name]
+        assert _covered_once(plan, name, B, quarters * N,
+                             16 * s["mt"]) == s["units"]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("B", [208, 256, 320, 512, 1000])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_stream_plan_fits_the_grid_evenly(kernel_size, B, width, quantize):
+    # no more units than blocks, so no block takes a second unit while
+    # others wait at the barrier, and every stage's shared memory fits
+    cfg = _cfg(kernel_size, width)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=quantize,
+                      gate="stream")
+    s = plan["stages"]["gate"]
+    per = [len(list(ak.ar_stage_units(plan, "gate", b)))
+           for b in range(plan["grid"])]
+    assert s["units"] <= plan["grid"] and sum(per) == s["units"]
+    assert max(per) - min(per) <= 1
+    assert plan["smem"] <= ak.AR_SMEM_MAX
+    _check_stream(plan, cfg, quantize)
+
+
+def test_stream_cut_takes_the_fewest_bytes_that_fit_the_grid():
+    # bf16 kernel_size 3 at the JAX package's fleet of 256: 64 rows x 32
+    # gate columns, 4 row blocks x 32 column groups = 128 units, one a
+    # block; each reads (64 + 32) x K x 2 bytes (K = 3R + Ap)
+    cfg = _cfg(3, "flagship")
+    s = ak.ar_plan(cfg, 256, grid=ak.H100_SMS, gate="stream")["stages"]["gate"]
+    assert (s["m"], s["cw"], s["nw"], s["units"]) == (1, 32, 16, 128)
+    for B in (208, 512, 1000):
+        got = ak.ar_plan(cfg, B, grid=ak.H100_SMS, gate="stream")
+        g = got["stages"]["gate"]
+        # every other cut that fits the grid reads at least as many bytes
+        for m in (1, 2):
+            for cw in (32, 64, 128, 256):
+                units = (1024 // cw) * -(-B // (64 * m))
+                if units <= ak.H100_SMS and cw // (2 if m == 1 else 1) <= 128:
+                    assert 64 * g["m"] + g["cw"] <= 64 * m + cw
+
+
+@pytest.mark.parametrize("n_resch", [768, 1024])
+@pytest.mark.parametrize("B", [1, 16, 256])
+def test_wide_resch_k3_has_a_persistent_plan(n_resch, B):
+    # K = 3R + Ap no longer caps the gate's cut: it streams
+    cfg = _cfg(3, "flagship", n_resch=n_resch)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS)
+    assert plan["stages"]["gate"]["stream"]
+    assert plan["smem"] <= ak.AR_SMEM_MAX
+    with pytest.raises(ValueError, match="no cut"):
+        ak.ar_plan(cfg, B, grid=ak.H100_SMS, gate="units")
+    _check_stream(plan, cfg, False)
 
 
 def _unit_run(units, plan, name, l, grp):
@@ -90,7 +212,59 @@ def _unpack(units, plan, name):
     return w.permute(0, 1, 3, 2, 4).reshape(L, KT * 16, q * G * cw), bias
 
 
-@pytest.mark.parametrize("B", [16, 256])
+def _stream_unit_w(units, plan, cfg, l, grp):
+    """A streamed gate unit's run read back: per K segment (the stream's
+    rows, the lags d and 2d, the int8 path's bf16 aux rows) its weights,
+    (K of the segment, quarters * cw) with column q * cw + j in quarter
+    order, bf16 or int8 as packed (the chunks unswizzled, the zero rows
+    past each segment's K checked and cut)."""
+    s = plan["stages"]["gate"]
+    R, k = cfg.n_resch, cfg.kernel_size
+    Ap = -(-cfg.n_aux // 16) * 16
+    q, cw = s["quarters"], s["cw"]
+    P = 2 if s["m"] == 1 else 1
+    ncols = q * cw
+    run = units["gate"][l, grp]
+    assert run.dtype == torch.uint8 and run.numel() == s["run"]
+    tiles = ak._swizzle128(run.reshape(s["nc"], ncols, 128))
+    if plan["quantize"]:
+        segs = [(s["nx"], R, torch.int8)] * (3 if k == 3 else 1) \
+            + [(s["na"], Ap, torch.bfloat16)]
+    else:
+        segs = [(s["nx"], R + Ap, torch.bfloat16)] \
+            + [(s["nl"], R, torch.bfloat16)] * (2 if k == 3 else 0)
+    out, c0 = [], 0
+    for nch, K, dt in segs:
+        t = tiles[c0:c0 + nch].contiguous().view(dt)     # (nch, ncols, depth)
+        c0 += nch
+        w = t.permute(0, 2, 1).reshape(-1, ncols)           # (nch * depth, ncols)
+        assert not w[K:].float().any()
+        # columns in the warpgroups' order (part, quarter, j) -> (quarter,
+        # part, j)
+        w = w[:K].reshape(K, P, q, cw // P).transpose(1, 2).reshape(K, ncols)
+        out.append(w)
+    assert c0 == s["nc"]
+    return out
+
+
+def _stream_unpack(units, plan, cfg):
+    """Every streamed unit read back (``_stream_unit_w``) as whole
+    segments, (L, K, quarters * N) each with column q * N + c."""
+    s = plan["stages"]["gate"]
+    L, G, q, cw = cfg.n_layers, s["G"], s["quarters"], s["cw"]
+    per = [[_stream_unit_w(units, plan, cfg, l, g) for g in range(G)]
+           for l in range(L)]
+    segs = []
+    for i in range(len(per[0][0])):
+        t = torch.stack([torch.stack([per[l][g][i] for g in range(G)])
+                         for l in range(L)])          # (L, G, K, q * cw)
+        K = t.shape[2]
+        segs.append(t.reshape(L, G, K, q, cw).permute(0, 2, 3, 1, 4)
+                    .reshape(L, K, q * G * cw))
+    return segs
+
+
+@pytest.mark.parametrize("B", [16, 256, 1000])
 @pytest.mark.parametrize("kernel_size", [2, 3])
 def test_pack_ar_units_unpacks_bit_equal(kernel_size, B):
     cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1)
@@ -100,12 +274,17 @@ def test_pack_ar_units_unpacks_bit_equal(kernel_size, B):
     units = ak.pack_ar_units(pk, plan, cfg)
     R, A = cfg.n_resch, cfg.n_aux
     Ap = -(-A // 16) * 16
-    gate, zb = _unpack(units, plan, "gate")
-    # the gate's biases: per column group, its sigmoid channels' zb, then
-    # its tanh channels'
-    hc = plan["stages"]["gate"]["cw"] // 2
-    assert torch.equal(zb, pk["zb"].reshape(-1, 2, R // hc, hc)
-                       .transpose(1, 2).reshape(zb.shape))
+    if plan["stages"]["gate"].get("stream"):
+        # the streamed gate's chunks hold the same rows; its biases are
+        # pack_ar_weights' zb, read in channel order
+        gate = torch.cat(_stream_unpack(units, plan, cfg), dim=1)
+    else:
+        gate, zb = _unpack(units, plan, "gate")
+        # the gate's biases: per column group, its sigmoid channels' zb,
+        # then its tanh channels'
+        hc = plan["stages"]["gate"]["cw"] // 2
+        assert torch.equal(zb, pk["zb"].reshape(-1, 2, R // hc, hc)
+                           .transpose(1, 2).reshape(zb.shape))
     aux = ak._interleave(pk["auxw"])
     if kernel_size == 2:
         w4 = pk["w4"]
@@ -171,8 +350,16 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
                     a = torch.cat(parts, dim=1)
                 else:
                     a = {"res": gs, "post1": sr, "post2": h1}[name][r0:r1]
-                t, bias = _unit_run(units, plan, name, l, grp)
-                w = t.permute(0, 2, 1, 3).reshape(t.shape[0] * 16, -1)
+                if s.get("stream"):
+                    # the unit's chunks read back; its biases zb of its
+                    # sigmoid then tanh channels
+                    w = torch.cat(_stream_unit_w(units, plan, cfg, l, grp))
+                    hc = s["cw"] // 2
+                    ch = grp * hc + torch.arange(hc)
+                    bias = torch.cat([pk["zb"][l, ch], pk["zb"][l, R + ch]])
+                else:
+                    t, bias = _unit_run(units, plan, name, l, grp)
+                    w = t.permute(0, 2, 1, 3).reshape(t.shape[0] * 16, -1)
                 epi(a.float() @ w.float(), bias, grp, r0, r1, s["cw"])
 
     for i in range(max_n):
@@ -235,9 +422,10 @@ def _emulate(params, cfg, carry, h_up, T0, max_n, plan):
     return out
 
 
+@pytest.mark.parametrize("gate", ak.AR_GATES)
 @pytest.mark.parametrize("B", [5, 37])
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_emulated_stages_decode_as_the_plain_loop(kernel_size, B):
+def test_emulated_stages_decode_as_the_plain_loop(kernel_size, B, gate):
     # small grids make blocks take several units (and row groups split)
     cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1,
                n_aux=20)
@@ -254,7 +442,7 @@ def test_emulated_stages_decode_as_the_plain_loop(kernel_size, B):
     x, h = P._pad_seed(cfg, x, h)
     T0 = x.shape[1]
     carry = P._warmup_state(params, cfg, x, h)
-    plan = ak.ar_plan(cfg, B, grid=7)
+    plan = ak.ar_plan(cfg, B, grid=7, gate=gate)
     # the ring after one step, every layer's written slot included
     ce, cp = (tuple(t.clone() for t in carry) for _ in range(2))
     _emulate(params, cfg, ce, h, T0, 1, plan)
@@ -284,16 +472,21 @@ def test_emulated_stages_decode_as_the_plain_loop(kernel_size, B):
 
 
 @pytest.mark.parametrize("width", sorted(WIDTHS))
-@pytest.mark.parametrize("B", [1, 16, 17, 32, 65, 256, 1000])
+@pytest.mark.parametrize("B", [1, 16, 17, 32, 65, 208, 256, 320, 512, 1000])
 @pytest.mark.parametrize("kernel_size", [2, 3])
 def test_int8_ar_plan_covers_every_output_once(kernel_size, B, width):
     cfg = _cfg(kernel_size, width)
     plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=True)
     assert plan["quantize"] and plan["smem"] <= ak.AR_SMEM_MAX
     R, Ap = cfg.n_resch, -(-cfg.n_aux // 16) * 16
-    w = plan["smem_w"][1]
+    stream = plan["stages"]["gate"].get("stream", False)
+    w = plan["smem_w"][0 if stream else 1]
+    if stream:
+        _check_stream(plan, cfg, True)
     for name, (K, quarters, N) in ak.ar_stage_shapes(cfg, True).items():
         s = plan["stages"][name]
+        if s.get("stream"):
+            continue
         rows, cw = 16 * s["mt"], s["cw"]
         if name in ("gate", "res"):
             # int8 weights, (gate) bf16 aux tiles, f32 scales and biases
@@ -380,9 +573,10 @@ def _unpack_i8(units, plan, cfg, name):
     return w, sc, aux, bias
 
 
+@pytest.mark.parametrize("gate", ak.AR_GATES)
 @pytest.mark.parametrize("B", [16, 256])
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_int8_pack_ar_units_unpacks_bit_equal(kernel_size, B):
+def test_int8_pack_ar_units_unpacks_bit_equal(kernel_size, B, gate):
     cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1)
     gen = torch.Generator().manual_seed(5)
     params = P.init_wavenet_params(cfg, gen)
@@ -391,9 +585,54 @@ def test_int8_pack_ar_units_unpacks_bit_equal(kernel_size, B):
         params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
     pk = ak.pack_ar_weights(params, cfg)
     q = ak.quantize_ar_weights(params, cfg)
-    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=True)
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=True, gate=gate)
     units = ak.pack_ar_units(pk, plan, cfg)
     R, A, L = cfg.n_resch, cfg.n_aux, cfg.n_layers
+    if gate == "stream":
+        _check_stream_i8(units, plan, cfg, pk, q)
+    else:
+        _check_units_gate_i8(units, plan, cfg, pk, q, params)
+    w, sc, _, bias = _unpack_i8(units, plan, cfg, "res")
+    assert torch.equal(w[:, 0], q["wsr"])
+    assert torch.equal(sc[:, 0], q["wsr_scale"])
+    assert torch.equal(bias.reshape(L, -1), pk["srb"])
+    # post1 and post2 are bf16 runs, as in the bf16 plan
+    for name in ("post1", "post2"):
+        got_w, got_b = _unpack(units, plan, name)
+        want_w = pk[name + "_w"][None]
+        assert torch.equal(got_w, want_w)
+        assert torch.equal(got_b, pk[name + "_b"][None])
+
+
+def _check_stream_i8(units, plan, cfg, pk, q):
+    """The streamed int8 gate's runs and scales hold ``_quantize_pack``'s
+    weights and column scales and the bf16 aux rows."""
+    R, A, k = cfg.n_resch, cfg.n_aux, cfg.kernel_size
+    segs = _stream_unpack(units, plan, cfg)
+    aux, gsc = segs.pop(), units["gate_scales"]
+    if k == 2:
+        # one int8 product over [current | past], the past tap interleaved
+        # like the current one; scales in channel order
+        assert len(segs) == 1 and gsc.shape[1] == 2
+        assert torch.equal(segs[0][..., :2 * R], q["w4"][..., :2 * R])
+        assert torch.equal(ak._deinterleave(segs[0][..., 2 * R:]),
+                           q["w4"][..., 2 * R:])
+        assert torch.equal(gsc[:, 0], ak._deinterleave(q["w4_scale"][:, :2 * R]))
+        assert torch.equal(gsc[:, 1], q["w4_scale"][:, 2 * R:])
+        assert not aux[..., 2 * R:].any()
+    else:
+        assert len(segs) == 3 and gsc.shape[1] == 3
+        for j in range(3):
+            blk = slice(j * 2 * R, (j + 1) * 2 * R)
+            assert torch.equal(segs[j], q["w6"][..., blk])
+            assert torch.equal(gsc[:, j], ak._deinterleave(q["w6_scale"][:, blk]))
+    assert torch.equal(aux[:, :A, :2 * R], ak._interleave(pk["auxw"]))
+    assert not aux[:, A:].any()
+
+
+def _check_units_gate_i8(units, plan, cfg, pk, q, params):
+    """The int8 gate's per-unit runs (the gate cut into units)."""
+    R, A, L, kernel_size = cfg.n_resch, cfg.n_aux, cfg.n_layers, cfg.kernel_size
     w, sc, aux, bias = _unpack_i8(units, plan, cfg, "gate")
     if kernel_size == 2:
         # the past tap interleaved like the current one, weights and scales
@@ -417,16 +656,28 @@ def test_int8_pack_ar_units_unpacks_bit_equal(kernel_size, B):
         want = params[key]["b"].reshape(L, 2, R // hc, hc).transpose(1, 2)
         assert torch.equal(bias[..., i * 2 * hc:(i + 1) * 2 * hc],
                            want.reshape(L, R // hc, 2 * hc))
-    w, sc, _, bias = _unpack_i8(units, plan, cfg, "res")
-    assert torch.equal(w[:, 0], q["wsr"])
-    assert torch.equal(sc[:, 0], q["wsr_scale"])
-    assert torch.equal(bias.reshape(L, -1), pk["srb"])
-    # post1 and post2 are bf16 runs, as in the bf16 plan
-    for name in ("post1", "post2"):
-        got_w, got_b = _unpack(units, plan, name)
-        want_w = pk[name + "_w"][None]
-        assert torch.equal(got_w, want_w)
-        assert torch.equal(got_b, pk[name + "_b"][None])
+
+
+def _stream_run_i8(units, plan, cfg, pk, l, grp):
+    """A streamed int8 gate unit as ``_unit_run_i8`` gives a unit's run:
+    the int8 weights (segs, R, quarters*cw), the aux weights over the
+    current tap's cw columns, the column scales (segs, quarters*cw) in
+    the units' interleaved order (from "gate_scales", channel order) and
+    the biases [aux_b, dil_b], each of the unit's sigmoid then tanh
+    channels."""
+    s = plan["stages"]["gate"]
+    R, cw = cfg.n_resch, s["cw"]
+    segs = _stream_unit_w(units, plan, cfg, l, grp)
+    aux = segs.pop()[:, :cw]
+    gsc = units["gate_scales"][l]
+    cols = slice(grp * cw, (grp + 1) * cw)
+    il = [ak._interleave(gsc[j])[cols] for j in range(gsc.shape[0])]
+    sc = torch.stack([torch.cat(il)] if cfg.kernel_size == 2 else il)
+    hc = cw // 2
+    ch = grp * hc + torch.arange(hc)
+    eb = torch.cat([pk[key][l, c] for key in ("auxb", "dilb")
+                    for c in (ch, R + ch)])
+    return torch.stack(segs), aux, sc, eb
 
 
 def _emulate_i8(params, cfg, carry, h_up, T0, max_n, plan, scales):
@@ -472,11 +723,16 @@ def _emulate_i8(params, cfg, carry, h_up, T0, max_n, plan, scales):
         for block in range(plan["grid"]):
             for (r0, r1), cols in ak.ar_stage_units(plan, name, block):
                 grp = cols[0][0] // s["cw"]
-                w, aux, sc, eb = _unit_run_i8(units, plan, cfg, name, l, grp)
+                if s.get("stream"):
+                    w, aux, sc, eb = _stream_run_i8(units, plan, cfg, pk, l,
+                                                    grp)
+                else:
+                    w, aux, sc, eb = _unit_run_i8(units, plan, cfg, name, l,
+                                                  grp)
                 if name == "gate":
                     parts = [xq[r0:r1]] + [
                         ring[offs[l] + (p - j * d) % (2 * d), r0:r1].float()
-                        for j in range(1, s["segs"])]
+                        for j in range(1, w.shape[0])]
                     za = xa[r0:r1].float() @ aux[:A].float()
                 else:
                     parts, za = [gq[r0:r1]], None
@@ -565,9 +821,11 @@ def _emulate_i8(params, cfg, carry, h_up, T0, max_n, plan, scales):
     return out
 
 
+@pytest.mark.parametrize("gate", ak.AR_GATES)
 @pytest.mark.parametrize("B", [5, 37])
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_int8_emulated_stages_decode_as_the_plain_int8_loop(kernel_size, B):
+def test_int8_emulated_stages_decode_as_the_plain_int8_loop(kernel_size, B,
+                                                             gate):
     # small grids make blocks take several units (and row groups split);
     # the limits are chip_smoke.py's [K1 int8]: the ring written in one
     # step within 5e-2 of max|ring| with at most a quarter of it differing,
@@ -590,7 +848,7 @@ def test_int8_emulated_stages_decode_as_the_plain_int8_loop(kernel_size, B):
     scales = ak.act_scales_from_maxes(maxes)
     if kernel_size == 3:
         carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
-    plan = ak.ar_plan(cfg, B, grid=7, quantize=True)
+    plan = ak.ar_plan(cfg, B, grid=7, quantize=True, gate=gate)
     q = dict(quantize=True, act_scales=scales)
     # the ring slots written by the first step, every layer
     caps, offs, _ = P._buffer_layout(cfg)

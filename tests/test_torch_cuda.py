@@ -92,28 +92,28 @@ def test_layer_stack_kernel_at_sd_minis_padded_widths(dev):
     ``pad_params_for_kernels``) through the warm-up kernel."""
     cfg = _cfg(n_resch=32, n_skipch=16, dilation_depth=5, dilation_repeat=1)
     params, pc = P.pad_params_for_kernels(_params(cfg, dev), cfg,
-                                          P.kernel_multiples(cfg, 8, device=dev))
+                                          P.kernel_multiples(cfg))
     assert pc.n_resch == 128 and tk.layer_stack_constraint_error(pc) is None
     _check_streams(pc, params, 8, cfg.receptive_field)
 
 
 def _bf16_counts():
-    return ak.ar_generate.launches, ak.ar_generate.loop_launches
+    return ak.ar_generate.launches
 
 
 # B=1: one partial row tile; 20: two tiles, the second partial; 65: a
-# partial last tile of one row; 200 and 1000: more units than blocks, so
-# blocks loop over units (1000: over several row groups of one column
-# group, and its last row group partial); kernel_size 3 (raw rings, the lag
-# rows read straight from the ring) at each.  Each fleet runs on the kernel
-# ``ar_route`` picks (kernel_size 3 from AR_LOOP_FROM_B rows: the launch
-# loop); ``test_both_bf16_kernels_match_plain`` holds the other one.
+# partial last 64-row slab; 200 and 1000: the streamed gate's slabs over
+# several blocks, the other stages' units more than blocks (1000: several
+# row groups of one column group, its last row group partial);
+# kernel_size 3 (raw rings, the lag rows read straight from the ring) at
+# each.  Each fleet runs on the gate design ``ar_gate`` picks (streamed
+# from AR_STREAM_FROM_B rows); ``test_both_bf16_kernels_match_plain``
+# holds both at one fleet.
 @pytest.mark.parametrize("kernel_size", [2, 3])
 @pytest.mark.parametrize("B", [1, 20, 65, 200, 1000])
 def test_ar_kernel_matches_plain(dev, B, kernel_size):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=1)
-    route = ak.ar_route(cfg, B, device=dev)
     rng = np.random.RandomState(1)
     n = 24
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
@@ -129,9 +129,7 @@ def test_ar_kernel_matches_plain(dev, B, kernel_size):
         ck = tuple(t.clone() for t in cp)
         before = _bf16_counts()
         sk = ak.ar_generate(params, cfg, ck, h, T0 + i, 1, "argmax")
-        after = _bf16_counts()
-        assert after == ((before[0] + 1, before[1]) if route == "persistent"
-                         else (before[0], before[1] + 1))
+        assert _bf16_counts() == before + 1
         sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
                                       i0=i)
         ring = (ck[0].float() - cp[0].float()).abs().max().item()
@@ -151,8 +149,7 @@ def test_ar_kernel_matches_plain(dev, B, kernel_size):
 
 
 def _int8_counts():
-    return (ak.ar_generate.int8_persistent_launches,
-            ak.ar_generate.int8_launches)
+    return ak.ar_generate.int8_persistent_launches
 
 
 def _int8_carry(params, cfg, dev, B, n, seed):
@@ -201,27 +198,23 @@ def _int8_same_state(params, cfg, carry, h, T0, scales, n, kernel):
     assert np.mean(agree) >= 0.97
 
 
-# the fleets of the bf16 test; each on the int8 kernel ar_route picks
-# (kernel_size 3 from AR_INT8_LOOP_FROM_B rows: the launch loop)
+# the fleets of the bf16 test; each on the int8 gate design ar_gate picks
+# (streamed from AR_STREAM_FROM_B rows)
 @pytest.mark.parametrize("kernel_size", [2, 3])
 @pytest.mark.parametrize("B", [1, 20, 65, 200, 1000])
 def test_ar_int8_kernel_matches_plain(dev, B, kernel_size):
     """K1-int8 against the plain int8 loop on the same carry and scales
-    (``_int8_same_state``'s limits), counted on the kernel ``ar_route``
-    picks."""
+    (``_int8_same_state``'s limits), counted once per call."""
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=5)
     n = 24
     carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 5)
-    route = ak.ar_route(cfg, B, quantize=True, device=dev)
 
     def kernel(c_, p, steps):
         before = _int8_counts()
         out = ak.ar_generate(params, cfg, c_, h, p, steps, "argmax",
                              quantize=True, act_scales=scales)
-        after = _int8_counts()
-        assert after == ((before[0] + 1, before[1]) if route == "persistent"
-                         else (before[0], before[1] + 1))
+        assert _int8_counts() == before + 1
         return out
 
     _int8_same_state(params, cfg, carry, h, T0, scales, n, kernel)
@@ -273,16 +266,17 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
     out = P.batch_fast_generate(params, cfg, x, h, [59, 40, 20],
                                 mode="argmax", quantize=True)
     assert [len(o) for o in out] == [59, 40, 20]
-    assert _int8_counts() == (k1q[0] + 1, k1q[1])    # the persistent kernel
+    assert _int8_counts() == k1q + 1
     assert ak.ar_generate.launches == k1
     assert tk.layer_stack_streams.launches == k2 + 1
 
 
-# both int8 kernels at one fleet, whichever ar_route picks there: 200 rows
-# (more units than blocks in the persistent kernel)
-@pytest.mark.parametrize("route", ["persistent", "loop"])
+# both int8 gate designs at one fleet, whichever ar_gate picks there: 200
+# rows (the streamed gate's slabs, more units than blocks in the cut into
+# units)
+@pytest.mark.parametrize("gate", ak.AR_GATES)
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_both_int8_kernels_match_plain(dev, kernel_size, route):
+def test_both_int8_kernels_match_plain(dev, kernel_size, gate):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=11)
     n = 16
@@ -290,20 +284,22 @@ def test_both_int8_kernels_match_plain(dev, kernel_size, route):
     before = _int8_counts()
     _int8_same_state(params, cfg, carry, h, T0, scales, n,
                      lambda c_, p, steps: ak.ar_generate_on(
-                         route, params, cfg, c_, h, p, steps, quantize=True,
+                         gate, params, cfg, c_, h, p, steps, quantize=True,
                          act_scales=scales))
     assert _int8_counts() == before      # not counted as the path's
 
 
+@pytest.mark.parametrize("B", [8, 256])
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_ar_int8_kernel_one_launch_per_call(dev, kernel_size):
-    """The int8 route makes one device launch of the AR loop per call at a
-    fleet the persistent kernel serves (the launch loop made 65-66 per
+def test_ar_int8_kernel_one_launch_per_call(dev, kernel_size, B):
+    """The int8 route makes one device launch of the AR loop per call, with
+    either gate design (the launch loop it replaced made 65-66 per
     step)."""
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=4)
-    carry, h, T0, scales = _int8_carry(params, cfg, dev, 8, 12, 4)
-    assert ak.ar_route(cfg, 8, quantize=True, device=dev) == "persistent"
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, B, 12, 4)
+    assert ak.ar_gate(cfg, B, quantize=True, device=dev) == (
+        "units" if B == 8 else "stream")
 
     def call():
         return ak.ar_generate(params, cfg, carry, h, T0, 12, "argmax",
@@ -335,10 +331,10 @@ def test_widths_off_the_tiling_decode_on_the_card(dev, quantize):
     assert [len(o) for o in out] == n_list
     assert tk.layer_stack_streams.launches == k2 + 1
     if quantize:
-        assert _int8_counts() == (k1q[0] + 1, k1q[1])
+        assert _int8_counts() == k1q + 1
         assert _bf16_counts() == k1
     else:
-        assert _bf16_counts() == (k1[0] + 1, k1[1])
+        assert _bf16_counts() == k1 + 1
     assert all(((o >= 0) & (o < cfg.n_quantize)).all() for o in out)
 
 
@@ -370,30 +366,30 @@ def _random_carry(params, cfg, dev, B, n, seed):
     return carry, h, x.shape[1]
 
 
-# both bf16 kernels at one fleet, whichever ar_route picks there: 200 rows
-# (more units than blocks in the persistent kernel)
-@pytest.mark.parametrize("route", ["persistent", "loop"])
+# both bf16 gate designs at one fleet, whichever ar_gate picks there: 200
+# rows (the streamed gate's slabs, more units than blocks in the cut into
+# units)
+@pytest.mark.parametrize("gate", ak.AR_GATES)
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_both_bf16_kernels_match_plain(dev, kernel_size, route):
+def test_both_bf16_kernels_match_plain(dev, kernel_size, gate):
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=9)
     n = 16
     carry, h, T0 = _random_carry(params, cfg, dev, 200, n, 9)
     before = _bf16_counts()
     _same_state(params, cfg, carry, h, T0, n,
-                lambda c_, p, steps: ak.ar_generate_on(route, params, cfg, c_,
+                lambda c_, p, steps: ak.ar_generate_on(gate, params, cfg, c_,
                                                        h, p, steps))
     assert _bf16_counts() == before      # not counted as the path's
 
 
-def test_wide_k3_config_runs_on_the_launch_loop(dev):
-    """kernel_size 3 at n_resch=768: no cut of the persistent kernel's
-    stages fits shared memory, so ``ar_route`` sends every fleet to the
-    bf16 launch loop, which serves it as before the persistent kernel; held
+def test_wide_k3_config_runs_on_the_streamed_gate(dev):
+    """kernel_size 3 at n_resch=768: no cut of the gate into units fits
+    shared memory (K = 3R + aux), so every fleet's gate streams K; held
     against the plain loop, and decoded through ``batch_fast_generate``."""
     cfg = _cfg(kernel_size=3, n_resch=768)
     params = _params(cfg, dev, seed=10)
-    assert ak.ar_route(cfg, 1, device=dev) == "loop"
+    assert ak.ar_gate(cfg, 1, device=dev) == "stream"
     n = 16
     carry, h, T0 = _random_carry(params, cfg, dev, 20, n, 10)
     _same_state(params, cfg, carry, h, T0, n,
@@ -404,7 +400,7 @@ def test_wide_k3_config_runs_on_the_launch_loop(dev):
     hf = np.random.RandomState(10).randn(2, 40, cfg.n_aux).astype(np.float32)
     out = P.batch_fast_generate(params, cfg, x, hf, [30, 12], mode="argmax")
     assert [len(o) for o in out] == [30, 12]
-    assert _bf16_counts() == (before[0], before[1] + 1)
+    assert _bf16_counts() == before + 1
 
 
 def test_cuda_path_raises_outside_envelope(dev):
@@ -417,14 +413,16 @@ def test_cuda_path_raises_outside_envelope(dev):
             P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda")
 
 
+@pytest.mark.parametrize("B", [8, 256])
 @pytest.mark.parametrize("kernel_size", [2, 3])
-def test_ar_kernel_one_launch_per_call(dev, kernel_size):
+def test_ar_kernel_one_launch_per_call(dev, kernel_size, B):
     """The bf16 route makes one device launch of the AR loop per call,
-    whatever the number of steps (the launch loop made 65-66 per step)."""
+    whatever the number of steps and the gate design (the launch loop it
+    replaced made 65-66 per step)."""
     cfg = _cfg(kernel_size=kernel_size)
     params = _params(cfg, dev, seed=4)
     rng = np.random.RandomState(4)
-    B, n = 8, 12
+    n = 12
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
                         device=dev)
     h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
@@ -478,7 +476,7 @@ def test_float32_bundle_decodes_through_k1(dev, tmp_path):
     decode_batches(model, [(ids, (x, h, n_list))], str(tmp_path / "wav"),
                    mode="sampling", impl="auto", fs=16000,
                    generator=torch.Generator().manual_seed(1))
-    assert _bf16_counts() == (k1[0] + 1, k1[1])
+    assert _bf16_counts() == k1 + 1
     assert tk.layer_stack_streams.launches == k2 + 1
     for b, n in enumerate(n_list):
         wav, _fs = read_wav(str(tmp_path / "wav" / f"u{b}.wav"))

@@ -440,14 +440,16 @@ def test_capped_sampling_is_seeded(monkeypatch):
 
 def test_fleet_bytes_hand_count(monkeypatch):
     """The flagship fleet of 32 x 8,000 samples: ring 3,069 slots x 32 rows
-    x 1,024 bf16; f32 aux over 3,071 + 8,000 positions x 28; the (32,
-    30 x 1,024) f32 aux scratch; the int32 output."""
+    x 1,024 bf16; f32 aux over 3,071 + 8,000 positions x 28; the AR
+    kernel's scratch per row (f32 stream 512, skip 256, logits 256, ids 2;
+    bf16 relu(skip) and post1's output 2 x 264, the stream with its aux
+    column 512 + 32 + 8, the gate 520); the int32 output."""
     cfg = P.WaveNetConfig(compute_dtype="bfloat16")
     ring = 3069 * 32 * 1024 * 2
     h_up = 32 * (3070 + 1 + 8000) * 28 * 4
-    za = 32 * 30 * 1024 * 4
+    scratch = 32 * ((512 + 256 + 256 + 2) * 4 + (2 * 264 + 552 + 520) * 2)
     out = 32 * 8000 * 4
-    assert P._fleet_hbm_bytes(cfg, 32, 8000) == ring + h_up + za + out
+    assert P._fleet_hbm_bytes(cfg, 32, 8000) == ring + h_up + scratch + out
     monkeypatch.delenv("WNV_DECODE_HBM_BUDGET", raising=False)
     assert P._decode_hbm_budget(torch.device("cpu")) == float("inf")
     monkeypatch.setenv("WNV_DECODE_HBM_BUDGET", "1e6")
@@ -457,23 +459,27 @@ def test_fleet_bytes_hand_count(monkeypatch):
 def test_fleet_bytes_hand_count_int8_kernel_size_3():
     """The ljspeech flagship fleet of 16 x 11,000 samples in int8: the loop
     holds the int8 ring (6,138 slots x 16 rows x 512), the f32 aux over
-    6,139 + 1 + 11,000 positions x 39, the (16, 30 x 1,024) f32 aux scratch,
-    the int8 lag scratch (30 x 2 x 16 x 512) and the int32 output; the ring
-    fill holds the bf16 ring, the int8 ring and the f32 copy of the largest
-    layer's ring (2 x 512 slots) beside the aux.  The fill is the peak."""
+    6,139 + 1 + 11,000 positions x 39, the AR kernel's scratch per row (f32
+    stream 512, skip 256, logits 256, ids 3; bf16 relu(skip) and post1's
+    output 2 x 264; the int8 stream and gate 2 x 528 bytes, the bf16 aux
+    column 48 + 8) and the int32 output; the ring fill holds the bf16 ring,
+    the int8 ring and the f32 copy of the largest layer's ring (2 x 512
+    slots) beside the aux.  The fill is the peak."""
     cfg = P.WaveNetConfig(n_aux=39, kernel_size=3, upsampling_factor=110,
                           compute_dtype="bfloat16")
     slots = 2 * 3069
     h_up = 16 * (6139 + 1 + 11000) * 39 * 4
-    loop = (slots * 16 * 512 + h_up + 16 * 30 * 1024 * 4
-            + 30 * 2 * 16 * 512 + 16 * 11000 * 4)
+    f32 = (512 + 256 + 256 + 3) * 4 + 2 * 264 * 2
+    loop = (slots * 16 * 512 + h_up + 16 * (f32 + 2 * 528 + 56 * 2)
+            + 16 * 11000 * 4)
     fill = slots * 16 * 512 * 3 + 1024 * 16 * 512 * 4 + h_up
     assert fill > loop
     assert P._fleet_hbm_bytes(cfg, 16, 11000, quantize=True) == fill
-    # bf16 at kernel_size 3: the bf16 ring and a bf16 lag scratch
+    # bf16 at kernel_size 3: the bf16 ring, the bf16 stream with its aux
+    # column (512 + 48 + 8) and the gate (520)
     assert P._fleet_hbm_bytes(cfg, 16, 11000) == (
-        slots * 16 * 512 * 2 + h_up + 16 * 30 * 1024 * 4
-        + 30 * 2 * 16 * 512 * 2 + 16 * 11000 * 4)
+        slots * 16 * 512 * 2 + h_up + 16 * (f32 + (568 + 520) * 2)
+        + 16 * 11000 * 4)
 
 
 def test_int8_ring_fill_matches_jax_formula():
@@ -523,8 +529,8 @@ def test_int8_kernel_size_3_refuses_a_bf16_ring():
                                              ("bfloat16", True)])
 def test_padded_params_decode_as_the_unpadded(dtype, quantize, kernel_size):
     # the sd-mini recipe's widths (egs/arctic/sd-mini/run.sh: 32 / 16),
-    # padded as the cuda route pads them (n_resch to the warm-up's 128, a
-    # persistent kernel's n_skipch to 16; and the launch loop's 128),
+    # padded as the cuda route pads them (n_resch to the warm-up's 128,
+    # n_skipch to the AR kernel's 16; and to 128),
     # decode argmax-equal through the plain loop: exact zeros in float64,
     # and in int8 integer products that gain only zero terms and scales
     # and activation maxes that stay as they were
@@ -558,24 +564,26 @@ def test_padded_params_decode_as_the_unpadded(dtype, quantize, kernel_size):
 
 @pytest.mark.parametrize("kernel_size", [2, 3])
 def test_int8_route_per_fleet_size(kernel_size, monkeypatch):
-    # ar_route(..., quantize=True) decides from the int8 plan and the
-    # fleet against AR_INT8_LOOP_FROM_B, before any work
+    # the int8 kernel's gate design, decided from the int8 plan and the
+    # fleet against AR_STREAM_FROM_B, before any work
     pc = P.WaveNetConfig(n_quantize=256, n_aux=28, n_resch=512, n_skipch=256,
                          dilation_depth=10, dilation_repeat=3,
                          kernel_size=kernel_size, upsampling_factor=0,
                          compute_dtype="bfloat16")
-    start = ak.AR_INT8_LOOP_FROM_B[kernel_size]
+    start = ak.AR_STREAM_FROM_B[(kernel_size, True)]
     for B in (1, 16, 32, 256, 512, 2048):
-        want = "loop" if start is not None and B >= start else "persistent"
-        assert ak.ar_route(pc, B, quantize=True) == want
-    monkeypatch.setitem(ak.AR_INT8_LOOP_FROM_B, kernel_size, 64)
-    assert ak.ar_route(pc, 63, quantize=True) == "persistent"
-    assert ak.ar_route(pc, 64, quantize=True) == "loop"
-    # the bf16 route keeps its own threshold
-    assert ak.ar_route(pc, 64) == ak.ar_route(pc, 64, quantize=False)
-    # the int8 envelope of each route states its kernel's tiling
+        want = "stream" if B >= start else "units"
+        assert ak.ar_gate(pc, B, quantize=True) == want
+    monkeypatch.setitem(ak.AR_STREAM_FROM_B, (kernel_size, True), 64)
+    assert ak.ar_gate(pc, 63, quantize=True) == "units"
+    assert ak.ar_gate(pc, 64, quantize=True) == "stream"
+    # the bf16 gate keeps its own threshold
+    assert ak.ar_gate(pc, 64) == ak.ar_gate(pc, 64, quantize=False)
+    # the int8 envelope states the kernel's tiling
     narrow = P.WaveNetConfig(n_resch=48, n_skipch=48, compute_dtype="bfloat16",
                              kernel_size=kernel_size)
-    assert ak.ar_kernel_constraint_error(narrow, route="persistent") is None
-    assert "32" in ak.ar_kernel_constraint_error(narrow, True, "persistent")
-    assert "8 warps" in ak.ar_kernel_constraint_error(narrow, True, "loop")
+    assert ak.ar_kernel_constraint_error(narrow) is None
+    assert "32" in ak.ar_kernel_constraint_error(narrow, True)
+    assert "16-deep k tiles" in ak.ar_kernel_constraint_error(
+        P.WaveNetConfig(n_resch=40, n_skipch=48, compute_dtype="bfloat16",
+                        kernel_size=kernel_size), True)

@@ -452,7 +452,7 @@ def test_launch_plans_take_the_callers_device():
     assert ak.ar_plan(cfg, 32)["grid"] == ak.H100_SMS
     assert ak.ar_plan(cfg, 32, device="cpu")["grid"] == ak.H100_SMS
     assert ak.ar_plan(cfg, 32, grid=7)["grid"] == 7
-    assert ak.ar_route(cfg, 32, device=torch.device("cpu")) == "persistent"
+    assert ak.ar_gate(cfg, 32, device=torch.device("cpu")) == "units"
     with pytest.raises(ValueError, match="h_up is on meta, the carry on cpu"):
         ak._same_device("ar_generate_on", torch.device("cpu"),
                         h_up=torch.zeros(1, device="meta"), prev=None)

@@ -136,7 +136,7 @@ def test_kernel_envelopes_name_what_is_out():
     assert "compute_dtype" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="float64"))
     assert "n_resch" in ar_kernel_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", n_resch=96))
+        WaveNetConfig(compute_dtype="bfloat16", n_resch=100))
     assert "n_aux" in layer_stack_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_aux=200))
     # the int8 variant: the bf16 envelope, kernel_size 2 or 3, n_resch <= 1024
@@ -235,29 +235,36 @@ def test_float32_configs_run_on_the_kernels_as_bf16():
 
 
 @pytest.mark.parametrize("kw, B, route", [
-    (dict(kernel_size=2), 32, "persistent"),
-    (dict(kernel_size=2), 1024, "persistent"),
-    (dict(kernel_size=3), 16, "persistent"),
-    (dict(kernel_size=3), 4096, "loop"),
-    # no cut of the persistent kernel's stages fits shared memory
-    (dict(kernel_size=3, n_resch=768), 1, "loop"),
-    (dict(kernel_size=3, n_resch=1024), 16, "loop"),
+    (dict(kernel_size=2), 32, "units"),
+    (dict(kernel_size=2), 1024, "stream"),
+    (dict(kernel_size=3), 16, "units"),
+    (dict(kernel_size=3), 4096, "stream"),
+    # no cut of the gate into units fits shared memory: it streams
+    (dict(kernel_size=3, n_resch=768), 1, "stream"),
+    (dict(kernel_size=3, n_resch=1024), 16, "stream"),
 ])
 def test_ar_route_from_the_plan_and_the_fleet(kw, B, route):
-    # decided from what the wrapper can see before any work: whether
-    # ar_plan cuts the stages, and the fleet against AR_LOOP_FROM_B
+    # one kernel (the launch loop is gone); its gate design is decided from
+    # what the wrapper can see before any work: whether the gate has a cut
+    # into units, and the fleet against AR_STREAM_FROM_B
     from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
-        AR_LOOP_FROM_B,
-        ar_route,
+        AR_STREAM_FROM_B,
+        H100_SMS,
+        _plan_units,
+        ar_gate,
     )
 
     cfg = WaveNetConfig(**dict(dict(compute_dtype="bfloat16", n_resch=512,
                                     n_skipch=256), **kw))
-    assert ar_route(cfg, B) == route
-    start = AR_LOOP_FROM_B[cfg.kernel_size]
-    if start is not None and route == "persistent":
-        assert ar_route(cfg, start) == "loop"
-        assert ar_route(cfg, start - 1) == "persistent"
+    assert ar_gate(cfg, B) == route
+    start = AR_STREAM_FROM_B[(cfg.kernel_size, False)]
+    if route == "units":
+        assert ar_gate(cfg, start) == "stream"
+        # below the threshold: the cut into units wherever it gives every
+        # block one unit at most
+        units = _plan_units(cfg, False, start - 1, H100_SMS)
+        one_each = units["stages"]["gate"]["units"] <= H100_SMS
+        assert ar_gate(cfg, start - 1) == ("units" if one_each else "stream")
 
 
 def test_wrapper_refuses_other_devices():
