@@ -117,9 +117,11 @@ the model it runs:
    B=128 against the plain chain over 2 steps (int8raw exact, two runs
    bitwise equal), timed at 1,000 steps, the plain chain and the plain
    chain captured as one CUDA graph at 20; spine, full, int8 and int8raw at
-   K1's fleet sizes (16, 32, 256) beside K1's us/step from this run (the
-   gate design ``ar_gate`` picks, bf16 and int8); and the 60 grid barriers
-   per step alone.
+   16-512 rows beside K1's us/step from this run (the gate design
+   ``ar_gate`` picks, bf16 and int8), with whether spine and full sit
+   below K1 bf16 k=2; the waits alone, the 60 grid barriers a step of the
+   earlier design and this kernel's counter waits; and the kernel's phase
+   times per unit.
 
 Every check is also read against controls, variants of the plain version
 that a broken kernel would resemble (gate bias dropped, gate in bf16, the
@@ -440,7 +442,8 @@ def main(argv=None) -> int:
         product core, csrc/wn_wgmma.cuh's ``wg_kernel<P>``; and so does
         every instance of K1 with the streamed gate
         (``ar_persistent_kernel<k, int8, true>``: HGMMA, and for int8 the
-        integer IGMMA too)."""
+        integer IGMMA too); and every instance of K4
+        (``matmul_chain_kernel<variant>``): HGMMA (bf16) or IGMMA (int8)."""
         import re
         import shutil
 
@@ -452,6 +455,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"cuobjdump failed: {out.stderr[-500:]}")
         counts, fn = {}, None
         ar, ar_fn = {}, None     # K1's instances: (k, int8, streamed) -> counts
+        mc_ops = ("HGMMA", "IGMMA")
+        chain, mc_fn = {}, None  # K4's instances: variant -> counts
         for line in out.stdout.splitlines():
             if "Function :" in line:
                 name = line.split("Function :")[1].strip()
@@ -463,12 +468,20 @@ def main(argv=None) -> int:
                 ar_fn = tuple(int(g) for g in got.groups()) if got else None
                 if ar_fn:
                     ar[ar_fn] = {"HGMMA": 0, "IGMMA": 0}
+                got = re.search(r"matmul_chain_kernelILi(\d)EEv", name)
+                mc_fn = int(got.group(1)) if got else None
+                if mc_fn is not None:
+                    chain[mc_fn] = dict.fromkeys(mc_ops, 0)
             elif fn and "HGMMA" in line:
                 counts[fn] += 1
             elif ar_fn:
                 for op in ("HGMMA", "IGMMA"):
                     if op in line:
                         ar[ar_fn][op] += 1
+            elif mc_fn is not None:
+                for op in mc_ops:
+                    if op in line:
+                        chain[mc_fn][op] += 1
 
         def label_of(f):
             """an instance's problems (two or three where WgBoth runs them
@@ -490,6 +503,19 @@ def main(argv=None) -> int:
               + ", ".join(f"{key} HGMMA {v['HGMMA']} IGMMA {v['IGMMA']}"
                           for key, v in sorted(ar.items())) + f" | {card}",
               flush=True)
+        from pytorchwavenetvocoder_tpu_torch.ops import matmul_chain as mc
+
+        print("[sass] K4 instances: " + ", ".join(
+            f"{mc.VARIANTS[v]} " + " ".join(f"{op} {n}" for op, n in c.items())
+            for v, c in sorted(chain.items())) + f" | {card}", flush=True)
+        # every variant's instance streams its products into HGMMA (bf16)
+        # or IGMMA (int8)
+        chain_bad = [(v, chain.get(i)) for i, v in enumerate(mc.VARIANTS)
+                     if i not in chain or not chain[i][
+                         "IGMMA" if v in mc.INT8_VARIANTS else "HGMMA"]]
+        if chain_bad:
+            raise AssertionError(f"K4 instances without their tensor-core "
+                                 f"instructions: {chain_bad}")
         want = {"FwdGate0", "FwdGate1", "FwdOut", "BwdDG", "BwdDX+BwdDH",
                 "Wgrad0+Wgrad1+Wgrad2"}
         if set(label.values()) != want or not all(counts.values()):
@@ -3462,7 +3488,7 @@ def main(argv=None) -> int:
                   f"({bnd['bound_by']}) | {card}", flush=True)
             if v == "split":
                 entry = (mabs, ms20, plain20, bnd, graph20)
-            if v in ("spine", "full", "int8", "int8raw"):
+            if v in ("split", "spine", "full", "int8", "int8raw"):
                 weights[v] = w
             del got, again, want
         # the bound above counts each weight once per call; a chain that
@@ -3470,36 +3496,49 @@ def main(argv=None) -> int:
         print("[K4] the weights read once per step at 3.35 TB/s: " + ", ".join(
             f"{v} {1e6 * mc.weight_bytes(v) / HBM:.1f}" for v in mc.VARIANTS)
             + " us/step", flush=True)
-        # at K1's fleet sizes, beside K1's own us/step from this run
-        rows = []
-        for b in (16, 32, 256):
+        # at K1's fleet sizes, beside K1's own us/step from this run; K4
+        # bounds K1 where spine and full run below K1 bf16 k=2
+        rows, floor_missed = [], []
+        for b in (16, 32, 64, 128, 256, 512):
             x = torch.randn((b, R), device=dev).to(bf)
-            us = {v: 1e3 * time_ms(lambda: mc.matmul_chain(x, w, v, 500),
-                                   reps=1) / 500 for v, w in weights.items()}
+            us = {v: 1e3 * time_ms(
+                lambda v=v: mc.matmul_chain(x, weights[v], v, 500),
+                reps=1) / 500 for v in ("spine", "full", "int8", "int8raw")}
             k1 = [f"{name} {route} {t:.1f}" for (name, route, bb), t in
                   sorted(k1_us.items()) if bb == b]
-            rows.append(f"B={b}: " + ", ".join(f"{v} {t:.1f}"
-                                               for v, t in us.items())
-                        + f" (K1 in this run: {', '.join(k1) or 'not run'})")
-        barrier_us = 1e3 * time_ms(lambda: mc.barrier_chain(n_time),
-                                   reps=1) / n_time
+            k1_bf = k1_us.get(("arctic", "bf16", b))
+            if k1_bf is not None and not (us["spine"] < k1_bf
+                                          and us["full"] < k1_bf):
+                floor_missed.append(b)
+            rows.append(f"B={b}: " + ", ".join(
+                f"{v} {t:.1f}" for v, t in us.items())
+                + f" (K1 in this run: {', '.join(k1) or 'not run'})")
+        # the waits alone: the earlier design's 60 grid barriers a step, and
+        # this kernel's counter waits on split's B=128 plan
+        barrier_us = {mode: 1e3 * time_ms(
+            lambda mode=mode: mc.barrier_chain(n_time, dev, mode=mode),
+            reps=1) / n_time for mode in mc.BARRIER_MODES}
         # where a stage's time goes: the kernel's own phase times
         phases = []
-        for v, b in (("spine", 16), ("int8", 16), ("spine", 128)):
+        for v, b in (("spine", 16), ("int8", 16), ("spine", 128),
+                     ("split", 128), ("spine", 256)):
             x = torch.randn((b, R), device=dev).to(bf)
             ph = probe.phase_times(x, weights[v], v, 200)
             phases.append(f"{v} B={b}: " + ", ".join(
                 f"{k} {t:.2f}" for k, t in ph.items()))
         print(f"[K4] chain us/step at K1's fleets: " + "; ".join(rows)
-              + f" | the 60 grid barriers per step alone: {barrier_us:.1f} "
-              f"us/step | main path (bin/matmul_chain_probe.py {B} {n_time} "
-              f"split): {res['us_per_step']:.1f} us/step, launches "
-              f"{launches} | phase {time.time() - t_phase:.1f} s | {card}",
-              flush=True)
-        print("[K4] where a stage's time goes, us per stage (the kernel's "
-              "phase times, 200 steps; means over the blocks with a unit, "
-              "the barrier wait over all blocks): " + "; ".join(phases)
-              + f" | {card}", flush=True)
+              + f" | K4 below K1 bf16 k=2 (spine and full) at every fleet: "
+              f"{not floor_missed} (missed at {floor_missed or 'none'}) | "
+              f"the waits alone, us/step: 60 grid barriers "
+              f"{barrier_us['grid']:.1f}, the counter waits of split B={B}'s "
+              f"units {barrier_us['counter']:.1f} | main path "
+              f"(bin/matmul_chain_probe.py {B} {n_time} split): "
+              f"{res['us_per_step']:.1f} us/step, launches {launches} | "
+              f"phase {time.time() - t_phase:.1f} s | {card}", flush=True)
+        print("[K4] where a stage's time goes, us per unit (the kernel's "
+              "phase times, 200 steps; means over the units; the producer "
+              "asks and polls a unit ahead of the consumers): "
+              + "; ".join(phases) + f" | {card}", flush=True)
         mabs, ms20, plain20, bnd, graph20 = entry
         kernel_entry("matmul_chain", None, "matmul_chain.cu",
                      "scripts/matmul_chain_probe.py:38", mabs, ms20, plain20,

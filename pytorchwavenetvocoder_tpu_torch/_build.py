@@ -176,11 +176,19 @@ def kernels() -> ctypes.CDLL:
         + [i32] * 8          # L B T R S A A64 kernel_size
         + [vp])              # stream
     lib.wn_matmul_chain_plan.restype = i32
-    lib.wn_matmul_chain_plan.argtypes = [i32, i32, vp]   # variant B; info
+    lib.wn_matmul_chain_plan.argtypes = [vp]      # info (the card's caps)
     lib.wn_matmul_chain.restype = i32
     lib.wn_matmul_chain.argtypes = (
-        [vp] * 7             # x0 w1 w2 (packed per unit) wsc y workspace
-                             # phase times
+        [vp] * 8             # x0 w1 w2 (packed per unit) wsc y workspace
+                             # counters phase times
+        + [vp]               # plan (host int32)
         + [i32] * 3          # variant B n_steps
         + [vp])              # stream
+    lib.wn_matmul_chain_barrier.restype = i32
+    lib.wn_matmul_chain_barrier.argtypes = (
+        [i32] * 3            # mode variant B
+        + [vp, vp]           # plan (host int32), counters
+        + [i32, vp])         # n_steps stream
+    lib.wn_cuda_error_string.restype = ctypes.c_char_p
+    lib.wn_cuda_error_string.argtypes = [i32]
     return lib

@@ -32,8 +32,10 @@ bf16 x bf16 -> f32 or int8 x int8 -> int32):
 with the script: bf16-valued operands multiplied in f32, int8 ones in f64
 (exact: every sum stays below 2^53).  ``matmul_chain`` is the wrapper: a
 CPU carry goes to the plain version, a CUDA carry to the kernel
-(``csrc/matmul_chain.cu``, one cooperative launch for all steps and
-layers), or it raises; it counts its launches in ``.launches``.
+(``csrc/matmul_chain.cu``, one launch for all steps and layers), or it
+raises; it counts its launches in ``.launches``.  ``chain_plan`` cuts the
+kernel's work (its units and ring) from the variant, B and the card's SM
+count, so the cut can be checked off the card.
 
 The bf16 chains grow without bound (the split carry reaches ~700 after two
 steps at B=8 from randn inputs) and leave bf16's range after some tens of
@@ -43,6 +45,8 @@ steps: values are checked at a few steps, long runs are timed only.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import numpy as np
 import torch
@@ -64,8 +68,8 @@ VARIANT_WEIGHTS = {
 VARIANTS = tuple(VARIANT_WEIGHTS)
 INT8_VARIANTS = ("int8", "int8raw")
 
-#: The kernel's range of B: the AR loop's fleets (up to 256 rows)
-B_MAX = 256
+#: The kernel's range of B (the AR loop's fleets run to 2,048 rows)
+B_MAX = 1024
 
 _SHAPES = {
     "wc": ((L, R, 2 * R), torch.bfloat16),
@@ -244,11 +248,175 @@ def matmul_chain_reference(x0: torch.Tensor, weights: dict, variant: str,
     return acc
 
 
+# ---------------------------------------------------------------------------
+# the kernel's plan (csrc/matmul_chain.cu checks it again before it launches)
+# ---------------------------------------------------------------------------
+
+#: Rows of a unit (a slab, one wgmma M), and bytes of K a ring stage
+#: carries (64 bf16 or 128 int8 values of a row: one 128-byte swizzled row
+#: of a TMA box)
+MC_SLAB, MC_CHUNK = 64, 128
+
+#: The consumer warpgroups' wgmma widths (N) the kernel is built for
+MC_NW = (16, 32, 64, 128)
+
+#: Dynamic shared memory a block may take (227 KB), ring stages at most
+MC_SMEM_MAX, MC_RING_MAX = 232448, 16
+
+#: Bytes the kernel adds to the ring and the scratch: the 1,024-byte
+#: alignment of the ring and its full/empty mbarriers
+_SMEM_FIXED = 1024 + 2 * MC_RING_MAX * 8
+
+#: The H100 SXM's SMs, and the blocks a plan made off the card assumes can
+#: be co-resident (the card's own are read by ``device_caps``)
+H100_SMS = 132
+H100_CAPS = {"sms": H100_SMS, "cooperative": True, "blocks": H100_SMS}
+
+
+def _products(variant: str) -> list:
+    """(K, N, quarters) of the two products: the first's A is ``a1`` (the
+    carry; split and merged take [out | out], K = 2R), the second's ``a2``
+    (the gate g, or bf16(z) for full and dual)."""
+    q8 = variant in INT8_VARIANTS
+    k1 = 2 * R if variant in ("split", "merged") else R
+    n1 = 4 * R if q8 else 2 * R
+    wide = variant in ("full", "dual")
+    return [(k1, n1, 4 if q8 else 1), (2 * R if wide else R,
+                                       R if wide else S + R, 1)]
+
+
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _rows(variant: str, B: int) -> tuple:
+    """(Mp, Mh): padded rows and dual's padded half (0 otherwise).  Pad rows
+    are zeros and stay zeros.  dual pads each half to slabs, so that no row
+    group straddles the two."""
+    if variant == "dual":
+        mh = _round(B - B // 2, MC_SLAB)
+        return 2 * mh, mh
+    return _round(B, MC_SLAB), 0
+
+
+def _cut(K, N, q, esz, rg, grid):
+    """The cut of one product: columns of each quarter per unit (cw, a power
+    of two from 8, so a unit's columns are all dead or all live) whose wgmma
+    width (nw = q cw) the kernel is built for; among those, the fewest units
+    a block, then the narrowest unit (the fewest bytes it reads)."""
+    Nq, nc = N // q, K * esz // MC_CHUNK
+    best = None
+    for cw in (8, 16, 32, 64, 128, 256, 512):
+        if Nq % cw or q * cw not in MC_NW:
+            continue
+        G = Nq // cw
+        units = rg * G
+        key = (-(-units // grid), cw)
+        if best is None or key < best[0]:
+            best = (key, dict(K=K, N=N, quarters=q, Nq=Nq, cw=cw, nw=q * cw,
+                              G=G, units=units, nc=nc,
+                              w_bytes=q * cw * MC_CHUNK))
+    return best[1]
+
+
+def _ring(prods, esz, budget) -> tuple:
+    """(group, stages, stage bytes) of the ring: a stage carries ``group``
+    consecutive 128-byte K chunks of A and W (one TMA box and one bulk copy:
+    each request costs its issuing lane ~0.2 us, so fewer, larger ones), a
+    unit's positions nc / group even (the two warpgroups' halves of K).  The
+    largest group whose ring holds three stages (two units' positions where
+    they fit, so a unit's first W tiles are asked for while the one before
+    it runs), else chunks one by one."""
+    for group in (4, 2, 1):
+        if (any(p["nc"] % (2 * group) for p in prods)
+                or (R * esz // MC_CHUNK) % group):
+            continue
+        stage = group * (MC_SLAB + max(p["nw"] for p in prods)) * MC_CHUNK
+        positions = max(p["nc"] for p in prods) // group
+        stages = min(MC_RING_MAX, 2 * positions, budget // stage)
+        if stages >= min(3, 2 * positions) or group == 1:
+            return group, stages, stage
+    raise AssertionError("group 1 always returns")
+
+
+def chain_plan(variant: str, B: int, device=None, *,
+               caps: dict | None = None) -> dict:
+    """The kernel's plan for (variant, B): padded rows, rows and row groups,
+    each product's cut (columns per unit and quarter, the wgmma width,
+    column groups, units, K chunks), the grid, units per block, the ring's
+    stages, shared memory, the counter targets and the workspace.
+
+    ``caps``: the card's SM count, cooperative launch and co-resident
+    blocks (default ``device_caps(device)`` on a CUDA device, else
+    ``H100_CAPS``).  Raises ValueError where nothing fits."""
+    _check_variant(variant)
+    if not (1 <= B <= B_MAX) or (variant == "dual" and B < 2):
+        raise ValueError(f"B={B} outside the kernel's range 1..{B_MAX} "
+                         f"(dual: 2..{B_MAX})")
+    if caps is None:
+        dev = torch.device("cpu" if device is None else device)
+        caps = device_caps(dev) if dev.type == "cuda" else H100_CAPS
+    if not caps["cooperative"]:
+        raise ValueError("the device has no cooperative launch")
+    cap = caps["blocks"]
+    if cap < 1:
+        raise ValueError("no block of the chain kernel fits the card")
+    Mp, Mh = _rows(variant, B)
+    rows = MC_SLAB
+    rg = Mp // rows
+    esz = 1 if variant in INT8_VARIANTS else 2
+    prods = [_cut(K, N, q, esz, rg, cap) for K, N, q in _products(variant)]
+    grid = min(cap, max(p["units"] for p in prods))
+    # counter targets a layer: the producers' column groups (the second
+    # product waits for the first's, the next layer's first for the second's)
+    prods[0]["target"], prods[1]["target"] = prods[1]["G"], prods[0]["G"]
+    # the sums' meeting place, and the epilogue's operands (the rows' old
+    # state at the unit's columns, int8's column scales)
+    scratch = 256 * max(p["nw"] for p in prods)
+    epi = max(rows * p["cw"] * 4
+              + (4 * p["quarters"] * p["cw"] if variant == "int8" else 0)
+              for p in prods)
+    group, stages, stage = _ring(prods, esz,
+                                 MC_SMEM_MAX - _SMEM_FIXED - scratch - epi)
+    if stages < 2:
+        raise ValueError(f"no ring of two stages fits {variant} B={B}")
+    a_bytes = rows * MC_CHUNK * group
+    smem = _SMEM_FIXED + stages * stage + scratch + epi
+    K2 = prods[1]["K"]
+    ws, off = {}, 0
+    for name, nbytes in (("a1", Mp * R * esz), ("a2", Mp * K2 * esz),
+                         ("st", Mp * R * 4), ("sink", Mp * R * 4),
+                         ("dead", Mp * (R + S) * 4)):
+        ws[name] = off
+        off += _round(nbytes, 256)
+    ws["total"] = off
+    return dict(variant=variant, B=B, Mp=Mp, Mh=Mh, rows=rows, rg=rg,
+                grid=grid, group=group, stages=stages, a_bytes=a_bytes,
+                stage_bytes=stage, scratch=scratch, epi=epi, smem=smem,
+                products=prods,
+                units_per_block=max(-(-p["units"] // grid) for p in prods),
+                init_target=grid, counters=2 * rg + 1, workspace=ws)
+
+
+def plan_array(plan: dict) -> torch.Tensor:
+    """The plan as the kernel's host int32 array (``check_plan`` in
+    csrc/matmul_chain.cu reads it in this order)."""
+    head = [plan[k] for k in ("Mp", "Mh", "rows", "rg", "grid", "group",
+                              "stages", "a_bytes", "stage_bytes", "scratch",
+                              "epi", "smem")]
+    ws = [plan["workspace"][k] for k in ("a1", "a2", "st", "sink", "dead",
+                                         "total")]
+    prods = [p[k] for p in plan["products"]
+             for k in ("K", "N", "quarters", "cw", "nw", "G", "nc")]
+    return torch.tensor(head + ws + prods, dtype=torch.int32)
+
+
 def _pack_units(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
-    """(L, K, N) -> per layer and column group, the unit's slice as one run
+    """(L, K, N) -> per layer and column group the unit's slice as one run
     of 16 x 16 tiles ([L][G][K/16][quarters * cw/16][16][16]): the columns
-    ``q * N/quarters + g * cw + (0 .. cw)`` of every quarter q, as the
-    kernel's units read them (one bulk copy each)."""
+    ``q * N/quarters + g * cw + (0 .. cw)`` of every quarter q, one bulk
+    copy each: how K1's units (``ops/ar_kernel.py::pack_ar_units``) read
+    their weights."""
     Lw, K, N = w.shape
     G = N // (quarters * cw)
     t = w.reshape(Lw, K, quarters, G, cw).permute(0, 3, 1, 2, 4)
@@ -256,54 +424,107 @@ def _pack_units(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
     return t.permute(0, 1, 2, 4, 3, 5).contiguous()
 
 
-def pack_chain_weights(weights: dict, variant: str, cw1: int, cw2: int):
-    """Both products' weights packed per unit for the kernel, for column
-    groups of ``cw1`` and ``cw2`` columns (``chain_plan``'s cw1, cw2).  The
-    int8 first product's units span its four R-wide quarters."""
-    _check_variant(variant)
-    names = VARIANT_WEIGHTS[variant]
-    if variant == "split":      # [wc; wp], K = 2R, as merged's wm
-        w1, w2 = torch.cat([weights["wc"], weights["wp"]], dim=1), weights["ws"]
-    else:
-        w1, w2 = weights[names[0]], weights[names[1]]
-    quarters = 4 if variant in INT8_VARIANTS else 1
-    return _pack_units(w1, quarters, cw1), _pack_units(w2, 1, cw2)
+def product_weights(weights: dict, variant: str) -> tuple:
+    """The two products' (L, K, N) weights: split's first is [wc; wp]
+    (K = 2R, as merged's wm), int8's w1 spans the four quarters."""
+    first, second = {"split": ("wc", "ws"), "merged": ("wm", "ws"),
+                     "spine": ("wc", "ws"), "full": ("wc", "wb"),
+                     "dual": ("wc", "wb"), "int8": ("w1", "w2"),
+                     "int8raw": ("w1", "w2")}[variant]
+    w1 = (torch.cat([weights["wc"], weights["wp"]], dim=1)
+          if variant == "split" else weights[first])
+    return w1, weights[second]
 
+
+def _pack_product(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
+    """(L, K, N) bf16 or int8 -> per layer and column group the unit's run,
+    (L, G, K chunks * quarters * cw * 128) uint8: per 128-byte K chunk (64
+    bf16 or 128 int8 values) one W tile, the unit's columns ``q * N /
+    quarters + g * cw + c`` as its rows in (q, c) order, each row the
+    chunk's K values, in the 128-byte swizzle TMA gives the A tiles
+    (``ar_kernel._swizzle128``)."""
+    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import _swizzle128
+
+    Lw, K, N = w.shape
+    depth = MC_CHUNK // w.element_size()
+    G = N // (quarters * cw)
+    t = w.reshape(Lw, K // depth, depth, quarters, G, cw)
+    t = t.permute(0, 4, 1, 3, 5, 2).reshape(Lw, G, K // depth, quarters * cw,
+                                            depth)
+    return _swizzle128(t.contiguous().view(torch.uint8)).reshape(Lw, G, -1)
+
+
+def pack_chain_weights(weights: dict, variant: str, plan: dict):
+    """Both products' weights (``product_weights``) packed per unit for the
+    plan's cut (``_pack_product``)."""
+    _check_variant(variant)
+    w1, w2 = product_weights(weights, variant)
+    p1, p2 = plan["products"]
+    return (_pack_product(w1, p1["quarters"], p1["cw"]),
+            _pack_product(w2, p2["quarters"], p2["cw"]))
+
+
+#: The last pack: (variant, the cuts, weakrefs and versions of the weights,
+#: the packed pair); a call on the same weights and cut reuses it
+_PACK_CACHE: list = []
+
+
+def _packed(weights: dict, variant: str, plan: dict):
+    names = VARIANT_WEIGHTS[variant]
+    key = (variant, tuple((p["quarters"], p["cw"]) for p in plan["products"]))
+    if _PACK_CACHE:
+        k, refs, versions, packed = _PACK_CACHE[0]
+        if (k == key and all(r() is weights[n] for r, n in zip(refs, names))
+                and versions == tuple(weights[n]._version for n in names)):
+            return packed
+    packed = pack_chain_weights(weights, variant, plan)
+    _PACK_CACHE[:] = [(key, [weakref.ref(weights[n]) for n in names],
+                       tuple(weights[n]._version for n in names), packed)]
+    return packed
+
+
+#: Phase-time slots a block (``MC_PHASES`` in csrc/matmul_chain.cu)
+PHASE_SLOTS = 10
 
 #: The kernel's variant ids (``MC_*`` in csrc/matmul_chain.cu)
 _VARIANT_ID = {v: i for i, v in enumerate(VARIANTS)}
 
 
-def _plan(variant_id: int, B: int, dev) -> dict:
+def device_caps(device=None) -> dict:
+    """The CUDA device's SM count, whether it has cooperative launches, and
+    the blocks of the chain kernel that can be co-resident (at its block and
+    full shared memory)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _device_caps(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_caps(index: int) -> dict:
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
-    info = (ctypes.c_longlong * 13)()
-    with torch.cuda.device(dev):
-        err = kernels().wn_matmul_chain_plan(variant_id, B,
-                                             ctypes.cast(info, ctypes.c_void_p))
+    info = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(index):
+        err = kernels().wn_matmul_chain_plan(
+            ctypes.cast(info, ctypes.c_void_p))
     if err != 0:
-        raise RuntimeError(f"wn_matmul_chain_plan(B={B}) failed: "
+        raise RuntimeError(f"wn_matmul_chain_plan failed: "
                            f"{_plan_error(err)}")
-    keys = ("workspace", "grid", "max_blocks_per_sm", "smem", "rows", "ks1",
-            "groups1", "cw1", "rg1", "ks2", "groups2", "cw2", "rg2")
-    return dict(zip(keys, (int(v) for v in info)))
-
-
-def chain_plan(variant: str, B: int, device=None) -> dict:
-    """The kernel's launch plan for (variant, B) on a CUDA device: workspace
-    bytes, grid blocks (one per SM), the card's co-resident limit, shared
-    memory, padded rows, and for each product its warps' K split, column
-    groups, columns per group and row groups.  Raises where the grid cannot
-    be co-resident."""
-    _check_variant(variant)
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    return _plan(_VARIANT_ID[variant], B, dev)
+    sms, coop, blocks = (int(v) for v in info)
+    return {"sms": sms, "cooperative": bool(coop), "blocks": blocks}
 
 
 def _plan_error(err: int) -> str:
-    return {-1: "the grid cannot be co-resident (no block fits an SM)",
-            -2: "the device has no cooperative launch",
-            -3: "B outside the kernel's range"}.get(err, f"CUDA error {err}")
+    if err == -1:
+        return "the grid cannot be co-resident"
+    if err == -2:
+        return "the device has no cooperative launch"
+    if err == -3:
+        return "the plan does not cut the products or fit shared memory"
+    from pytorchwavenetvocoder_tpu_torch._build import kernels
+
+    text = kernels().wn_cuda_error_string(err)
+    return f"CUDA error {err} ({text.decode() if text else '?'})"
 
 
 def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
@@ -312,17 +533,19 @@ def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
     """The chain: the CUDA kernel for a CUDA ``x0``, the plain version for
     a CPU one.  Returns the (B, R) bf16 carry after ``n_steps`` steps.
 
-    On CUDA ``x0`` must be contiguous bf16 (B, R) with 1 <= B <= 256 (2 <=
-    B for ``dual``), the variant's weights contiguous on the same device
-    with the script's shapes and dtypes; anything else raises.  One
-    cooperative launch runs every step and layer, one block per SM; if the
-    card cannot hold that grid co-resident, or the launch fails, it
-    raises.  The weights are packed per unit for the
-    launch's plan (``pack_chain_weights``) on every call.  ``phases``, a
-    zeroed int64 (grid, 8) tensor on the device, turns on the kernel's
-    phase times: per block, nanoseconds spent asking for a stage's
-    operands, waiting for them, in the products, in the sums and epilogue,
-    the stages with a unit, then the barrier waits and their count.
+    On CUDA ``x0`` must be contiguous bf16 (B, R) with 1 <= B <= 1,024 (2
+    <= B for ``dual``), the variant's weights contiguous on the same device
+    with the script's shapes and dtypes; anything else raises.  One launch
+    runs every step and layer on ``chain_plan``'s cut; a grid the card
+    cannot hold co-resident, or a launch that fails, raises.  The weights are packed
+    per unit (``pack_chain_weights``; the last pack is reused for the same
+    weights and cut).  ``phases``, a zeroed int64 (grid, ``PHASE_SLOTS``)
+    tensor on the device, turns on the kernel's phase times: per block,
+    nanoseconds the producer spent asking for its units' operands, the
+    consumers' waits for a unit's first chunk, its products and its
+    epilogue (to its arrival), the units, then the producer's counter
+    waits, their count and their polls, then the first chunk's arrival to
+    the last one's and the producer's issue time after its polls.
     """
     _check_variant(variant)
     if x0.device.type == "cpu":
@@ -335,13 +558,9 @@ def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
         raise ValueError(f"x0 must be contiguous bf16 (B, {R}); got "
                          f"{tuple(x0.shape)} {x0.dtype}")
     B = x0.shape[0]
-    if not (1 <= B <= B_MAX) or (variant == "dual" and B < 2):
-        raise ValueError(f"B={B} outside the kernel's range 1..{B_MAX} "
-                         f"(dual: 2..{B_MAX})")
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    names = VARIANT_WEIGHTS[variant]
-    for name in names:
+    for name in VARIANT_WEIGHTS[variant]:
         shape, dtype = _SHAPES[name]
         t = weights.get(name)
         if t is None:
@@ -355,14 +574,18 @@ def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
     plan = chain_plan(variant, B, dev)
-    ws = torch.empty(plan["workspace"], dtype=torch.uint8, device=dev)
-    y = torch.empty((B, R), dtype=torch.bfloat16, device=dev)
-    w1, w2 = pack_chain_weights(weights, variant, plan["cw1"], plan["cw2"])
-    wsc = weights["wsc"] if variant == "int8" else None
     if phases is not None and (
             phases.device != dev or phases.dtype != torch.int64
-            or tuple(phases.shape) != (plan["grid"], 8)):
-        raise ValueError(f"phases must be int64 ({plan['grid']}, 8) on {dev}")
+            or tuple(phases.shape) != (plan["grid"], PHASE_SLOTS)):
+        raise ValueError(f"phases must be int64 ({plan['grid']}, "
+                         f"{PHASE_SLOTS}) on {dev}")
+    w1, w2 = _packed(weights, variant, plan)
+    ws = torch.empty(plan["workspace"]["total"], dtype=torch.uint8,
+                     device=dev)
+    ctr = torch.zeros(plan["counters"], dtype=torch.int32, device=dev)
+    y = torch.empty((B, R), dtype=torch.bfloat16, device=dev)
+    wsc = weights["wsc"] if variant == "int8" else None
+    arr = plan_array(plan)
 
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
@@ -370,8 +593,8 @@ def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_matmul_chain(
-            ptr(x0), ptr(w1), ptr(w2), ptr(wsc), ptr(y), ptr(ws),
-            ptr(phases), _VARIANT_ID[variant], B, n_steps,
+            ptr(x0), ptr(w1), ptr(w2), ptr(wsc), ptr(y), ptr(ws), ptr(ctr),
+            ptr(phases), ptr(arr), _VARIANT_ID[variant], B, n_steps,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_matmul_chain ({variant}, B={B}) failed: "
@@ -382,25 +605,41 @@ def matmul_chain(x0: torch.Tensor, weights: dict, variant: str,
 
 matmul_chain.launches = 0
 
+#: barrier_chain's modes: "grid", the 60 grid barriers a step of the
+#: chain's earlier design (cooperative_groups grid.sync()); "counter",
+#: this kernel's waits: each block arrives on its units' row-group
+#: counters and polls the previous product's, with nothing between
+BARRIER_MODES = ("grid", "counter")
 
-def barrier_chain(n_steps: int, device="cuda") -> None:
-    """The kernel's launch and its 60 grid barriers per step with no
-    product in between (``MC_SYNC``): what the barrier chain alone costs on
-    the card, the floor under every variant.  CUDA only; not a port of
-    anything, so not counted in ``matmul_chain.launches``."""
+
+def barrier_chain(n_steps: int, device="cuda", mode: str = "grid",
+                  variant: str = "split", B: int = 128) -> None:
+    """What the waits between the chain's products cost alone, the floor
+    under every variant: ``mode`` "grid" launches one block per SM and
+    runs 60 ``grid.sync()`` a step; "counter" runs the plan of (variant,
+    B)'s units, arrivals and counter waits with no loads, products or
+    epilogues.  CUDA only; not a port of anything, so not counted in
+    ``matmul_chain.launches``."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"barrier_chain runs on a CUDA device, not {dev}")
-    plan_id, B = len(VARIANTS), 16
-    ws = torch.empty(_plan(plan_id, B, dev)["workspace"],
-                     dtype=torch.uint8, device=dev)
+    if mode not in BARRIER_MODES:
+        raise ValueError(f"mode must be one of {BARRIER_MODES}, got {mode!r}")
+    arr = ctr = None
+    if mode == "counter":
+        plan = chain_plan(variant, B, dev)
+        arr = plan_array(plan)
+        ctr = torch.zeros(plan["counters"], dtype=torch.int32, device=dev)
     null = ctypes.c_void_p(0)
     with torch.cuda.device(dev):
-        err = kernels().wn_matmul_chain(
-            null, null, null, null, null, ctypes.c_void_p(ws.data_ptr()),
-            null, plan_id, B, n_steps,
+        err = kernels().wn_matmul_chain_barrier(
+            BARRIER_MODES.index(mode), _VARIANT_ID[variant], B,
+            null if arr is None else ctypes.c_void_p(arr.data_ptr()),
+            null if ctr is None else ctypes.c_void_p(ctr.data_ptr()),
+            n_steps,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"barrier_chain failed: {_plan_error(err)}")
+        raise RuntimeError(f"barrier_chain ({mode}) failed: "
+                           f"{_plan_error(err)}")

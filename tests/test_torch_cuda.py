@@ -594,11 +594,10 @@ def test_fused_train_raises_outside_envelope(dev):
             tk.layer_stack_fwd_train(tk.layer_weights(params), cfg, s0, h)
 
 
-# B=20: two row tiles, the second partial (dual: halves of 10, each padded
-# to its own tile); B=1: one row (dual: two, one per half); B=200: 13 row
-# tiles, cut into 13 row groups; all at two steps, where the bf16 chains
-# are still finite
-@pytest.mark.parametrize("B", [1, 20, 200])
+# B=1, 20, 63 (one padded slab; dual: halves of 1, 10 and 32, each padded
+# to its own), 64, 200, 512 and 1,024 (1, 4, 8 and 16 slabs; 200 a partial
+# one); all at two steps, where the bf16 chains are still finite
+@pytest.mark.parametrize("B", [1, 20, 63, 64, 200, 512, 1024])
 @pytest.mark.parametrize("variant", mc.VARIANTS)
 def test_matmul_chain_kernel_matches_plain(dev, variant, B):
     B = max(B, 2) if variant == "dual" else B
@@ -623,6 +622,30 @@ def test_matmul_chain_kernel_matches_plain(dev, variant, B):
         assert rel <= 2e-2 and (d > 0).float().mean().item() <= 0.25
     else:
         assert rel <= 3e-2, rel
+
+
+# A wait that let a unit read rows before their writers arrived changes
+# integers, which int8raw carries to the end: 200 steps (12,000 dependent
+# products) bit-equal to the plain chain, on one padded slab (16), two slabs
+# (128), four (256) and sixteen, with two units a block (1,024)
+@pytest.mark.parametrize("B", [16, 128, 256, 1024])
+def test_matmul_chain_int8raw_exact_over_200_steps(dev, B):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    w = mc.make_chain_weights("int8raw", gen, dev)
+    x0 = (torch.randn((B, mc.R), generator=gen, device=dev) * 40).to(
+        torch.bfloat16)
+    got = mc.matmul_chain(x0, w, "int8raw", 200)
+    want = mc.matmul_chain_reference(x0, w, "int8raw", 200)
+    assert torch.equal(got, want)
+    assert (want.float().abs() > 0).float().mean().item() > 0.5
+
+
+def test_matmul_chain_barrier_modes_run(dev):
+    for mode in mc.BARRIER_MODES:
+        mc.barrier_chain(20, dev, mode=mode)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="mode"):
+        mc.barrier_chain(2, dev, mode="spin")
 
 
 def test_two_gloo_ranks_on_one_card_stay_bitwise_equal(dev):

@@ -154,29 +154,210 @@ def test_weights_have_the_script_shapes_and_bytes(variant):
     assert mc.step_ops(variant, 4) == want
 
 
-@pytest.mark.parametrize("variant, cw1, cw2", [("split", 16, 32),
-                                               ("int8", 16, 64)])
-def test_packed_units_hold_the_unit_columns(variant, cw1, cw2):
-    # the kernel's unit (layer l, column group g) reads one run of tiles:
-    # [K/16][quarters * cw/16][16][16] over columns q * N/quarters + g * cw
+#: the fleets the plan is pinned at: one row, a 16-row tile and one row
+#: past it, one row short of a slab and a slab, K1's fleets, B with a
+#: partial slab, and the kernel's largest
+PLAN_B = (1, 16, 17, 63, 64, 128, 200, 256, 512, 1024)
+
+
+def _allowed_cws(Nq, q):
+    """the columns per quarter the kernel takes for a unit (powers of two,
+    so a unit's columns are all dead or all live, whose wgmma width q cw is
+    one of 16-128)"""
+    return [cw for cw in (8, 16, 32, 64, 128, 256, 512)
+            if Nq % cw == 0 and q * cw in mc.MC_NW]
+
+
+def _check_plan(plan, variant, B, caps):
+    grid, rows, rg, Mp = plan["grid"], plan["rows"], plan["rg"], plan["Mp"]
+    assert Mp >= B and Mp == rows * rg and rows == mc.MC_SLAB
+    assert 1 <= grid <= caps["blocks"]
+    esz = 1 if variant in mc.INT8_VARIANTS else 2
+    shapes = mc._products(variant)
+    upb = 1
+    for pr, (K, N, q) in zip(plan["products"], shapes):
+        assert (pr["K"], pr["N"], pr["quarters"]) == (K, N, q)
+        assert pr["nc"] == K * esz // mc.MC_CHUNK and pr["nc"] % 2 == 0
+        # every live and dead column of every row, exactly once
+        seen = torch.zeros((Mp, N), dtype=torch.int32)
+        Nq, cw, G = N // q, pr["cw"], pr["G"]
+        assert pr["units"] == rg * G and G * cw == Nq
+        for u in range(pr["units"]):
+            rgi, g = divmod(u, G)
+            for qq in range(q):
+                c0 = qq * Nq + g * cw
+                seen[rgi * rows:(rgi + 1) * rows, c0:c0 + cw] += 1
+        assert bool((seen == 1).all())
+        # the cut is the kernel's, with the fewest units a block, then
+        # the narrowest
+        cws = _allowed_cws(Nq, q)
+        assert cw in cws and mc.S % cw == 0 and pr["nw"] == q * cw
+        least = min(-(-rg * Nq // c // grid) for c in cws)
+        assert -(-pr["units"] // grid) == least
+        assert cw == min(c for c in cws if -(-rg * Nq // c // grid) == least)
+        upb = max(upb, least)
+    assert plan["units_per_block"] == upb
+    # the ring and the buffers fit the 227 KB a block may take
+    p1, p2 = plan["products"]
+    group = plan["group"]
+    assert group in (1, 2, 4)
+    assert all(p["nc"] % (2 * group) == 0 for p in (p1, p2))
+    assert plan["a_bytes"] == rows * mc.MC_CHUNK * group
+    assert plan["stage_bytes"] >= plan["a_bytes"] + group * max(p1["w_bytes"],
+                                                                p2["w_bytes"])
+    assert plan["stage_bytes"] % 1024 == 0
+    assert 2 <= plan["stages"] <= mc.MC_RING_MAX
+    assert plan["scratch"] >= 256 * max(p1["nw"], p2["nw"])
+    epi = max(rows * p["cw"] * 4 + (16 * p["quarters"] * p["cw"] // 4
+                                    if variant == "int8" else 0)
+              for p in (p1, p2))
+    assert plan["epi"] >= epi
+    assert plan["smem"] == (1024 + 2 * mc.MC_RING_MAX * 8 + plan["stages"]
+                            * plan["stage_bytes"] + plan["scratch"]
+                            + plan["epi"])
+    assert plan["smem"] <= 227 * 1024
+    # the counter targets are the producers' column groups
+    assert p2["target"] == p1["G"] and p1["target"] == p2["G"]
+    assert plan["init_target"] == grid and plan["counters"] == 2 * rg + 1
+    # dual's halves are cut alike: no row group straddles the two
+    if variant == "dual":
+        Mh = plan["Mh"]
+        assert Mp == 2 * Mh and Mh >= B - B // 2
+        assert Mh % rows == 0 and rg == 2 * (Mh // rows)
+    else:
+        assert plan["Mh"] == 0
+    arr = mc.plan_array(plan)
+    assert arr.dtype == torch.int32 and arr.numel() == 32
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("variant", mc.VARIANTS)
+def test_chain_plan_covers_every_column_once(variant, B):
+    B = max(B, 2) if variant == "dual" else B
+    plan = mc.chain_plan(variant, B, caps=mc.H100_CAPS)
+    _check_plan(plan, variant, B, mc.H100_CAPS)
+    # units per block: 1 wherever the grid allows; int8 at 1,024 rows
+    # needs 256 first-product units of 64 rows x 32 channels x 4 quarters
+    # (the widest wgmma, 128 columns)
+    assert plan["units_per_block"] == (
+        2 if variant in mc.INT8_VARIANTS and B == 1024 else 1)
+
+
+# a card that holds fewer blocks co-resident than the H100's 132 (another
+# part, or a kernel that needs more registers): the plan cuts for the grid
+# it can have, and a card with no cooperative launch or no room is refused
+@pytest.mark.parametrize("blocks", [64, 100])
+@pytest.mark.parametrize("variant, B", [("split", 128), ("spine", 256),
+                                        ("int8", 128), ("full", 512),
+                                        ("int8raw", 1024), ("dual", 200)])
+def test_chain_plan_fits_a_smaller_card(variant, B, blocks):
+    caps = dict(mc.H100_CAPS, blocks=blocks)
+    plan = mc.chain_plan(variant, B, caps=caps)
+    _check_plan(plan, variant, B, caps)
+    assert plan["grid"] <= blocks
+    with pytest.raises(ValueError, match="cooperative"):
+        mc.chain_plan(variant, B, caps=dict(caps, cooperative=False))
+    with pytest.raises(ValueError, match="fits"):
+        mc.chain_plan(variant, B, caps=dict(caps, blocks=0))
+
+
+def _unswizzle(tile: torch.Tensor) -> torch.Tensor:
+    """(n, 128) bytes of a swizzled tile -> row-major: row r's 16-byte
+    chunk j lies at chunk j ^ (r % 8)"""
+    n = tile.shape[0]
+    out = torch.empty_like(tile)
+    for r in range(n):
+        for j in range(8):
+            out[r, 16 * j:16 * j + 16] = tile[r, 16 * (j ^ (r % 8)):
+                                              16 * (j ^ (r % 8)) + 16]
+    return out
+
+
+@pytest.mark.parametrize("variant, B", [("split", 16), ("split", 128),
+                                        ("int8", 16), ("int8", 256),
+                                        ("full", 200)])
+def test_packed_units_hold_the_unit_columns(variant, B):
+    # the kernel's unit (layer l, column group g) reads one run: per
+    # 128-byte K chunk a W tile whose row q * cw + c is column q * N /
+    # quarters + g * cw + c, the chunk's K values, in the 128-byte swizzle
     w = mc.make_chain_weights(variant, torch.Generator().manual_seed(1))
-    p1, p2 = mc.pack_chain_weights(w, variant, cw1, cw2)
-    full1 = (torch.cat([w["wc"], w["wp"]], dim=1) if variant == "split"
-             else w["w1"])
-    quarters = 4 if variant == "int8" else 1
-    for packed, ref, q, cw in ((p1, full1, quarters, cw1),
-                               (p2, w["ws" if variant == "split" else "w2"],
-                                1, cw2)):
+    plan = mc.chain_plan(variant, B, caps=mc.H100_CAPS)
+    p1, p2 = mc.pack_chain_weights(w, variant, plan)
+    ref1, ref2 = mc.product_weights(w, variant)
+    if variant == "split":
+        assert torch.equal(ref1, torch.cat([w["wc"], w["wp"]], dim=1))
+    for packed, ref, pr in ((p1, ref1, plan["products"][0]),
+                            (p2, ref2, plan["products"][1])):
         Lw, K, N = ref.shape
-        G = N // (q * cw)
-        assert packed.shape == (Lw, G, K // 16, q * cw // 16, 16, 16)
+        q, cw, G, nc = pr["quarters"], pr["cw"], pr["G"], pr["nc"]
+        esz = ref.element_size()
+        depth = mc.MC_CHUNK // esz
+        assert packed.dtype == torch.uint8
+        assert packed.shape == (Lw, G, nc * q * cw * mc.MC_CHUNK)
+        tiles = packed.view(Lw, G, nc, q * cw, 8, 16)
+        raw = ref.contiguous().view(torch.uint8)       # (Lw, K, N * esz)
         rng = np.random.RandomState(0)
-        for _ in range(50):
+        for _ in range(100):
             l, g, k = rng.randint(Lw), rng.randint(G), rng.randint(K)
             qq, cc = rng.randint(q), rng.randint(cw)
-            col, lc = qq * (N // q) + g * cw + cc, qq * cw + cc
-            assert packed[l, g, k // 16, lc // 16, k % 16, lc % 16] == \
-                ref[l, k, col]
+            col, r = qq * (N // q) + g * cw + cc, qq * cw + cc
+            kb = (k % depth) * esz                     # byte of the row
+            h = (kb // 16) ^ (r % 8)
+            got = tiles[l, g, k // depth, r, h, kb % 16:kb % 16 + esz]
+            assert torch.equal(got, raw[l, k, col * esz:(col + 1) * esz])
+
+
+@pytest.mark.parametrize("variant, B", [("split", 128), ("spine", 16),
+                                        ("int8raw", 64)])
+def test_unit_sums_from_the_ring_match_the_plain_products(variant, B):
+    # one unit of each product as the kernel forms it: ring position p of
+    # np = nc / group holds the group of K chunks (p // 2 + (p % 2) np / 2)
+    # * group + i (A columns mod R for the first product: [out | out]) and
+    # their unswizzled W tiles; the even positions sum the first half of K,
+    # the odd ones the second (split: out @ wc, out @ wp), against the plain
+    # products in float64
+    gen = torch.Generator().manual_seed(5)
+    w = mc.make_chain_weights(variant, gen)
+    plan = mc.chain_plan(variant, B, caps=mc.H100_CAPS)
+    packs = mc.pack_chain_weights(w, variant, plan)
+    q8 = variant in mc.INT8_VARIANTS
+    rows = plan["rows"]
+    if q8:
+        A = [torch.randint(-127, 128, (rows, mc.R), generator=gen,
+                           dtype=torch.int8)] * 2
+    else:
+        A = [torch.randn((rows, mc.R), generator=gen).to(torch.bfloat16)] * 2
+    l = 3
+    for i, (packed, ref) in enumerate(zip(packs,
+                                          mc.product_weights(w, variant))):
+        pr = plan["products"][i]
+        q, cw, G, nc = pr["quarters"], pr["cw"], pr["G"], pr["nc"]
+        esz = 1 if q8 else 2
+        depth = mc.MC_CHUNK // esz
+        dt = torch.int8 if q8 else torch.bfloat16
+        g = G - 1
+        run = packed[l, g].view(nc, q * cw, mc.MC_CHUNK)
+        halves = [torch.zeros((rows, q * cw), dtype=torch.float64)
+                  for _ in range(2)]
+        group = plan["group"]
+        np_ = nc // group
+        for p in range(np_):
+            for gi in range(group):
+                c = (p // 2 + (p % 2) * (np_ // 2)) * group + gi
+                Wt = _unswizzle(run[c]).view(dt).double()      # (q cw, depth)
+                a0 = (c * depth) % mc.R if i == 0 else c * depth
+                At = A[i][:, a0:a0 + depth].double()
+                halves[p % 2] += At @ Wt.T
+        cols = torch.cat([torch.arange(qq * (ref.shape[2] // q) + g * cw,
+                                       qq * (ref.shape[2] // q) + (g + 1) * cw)
+                          for qq in range(q)])
+        Ak = (torch.cat([A[i], A[i]], dim=1) if ref.shape[1] == 2 * mc.R
+              else A[i]).double()
+        K = ref.shape[1]
+        first = Ak[:, :K // 2] @ ref[l, :K // 2, cols].double()
+        second = Ak[:, K // 2:] @ ref[l, K // 2:, cols].double()
+        torch.testing.assert_close(halves[0], first, rtol=1e-12, atol=1e-9)
+        torch.testing.assert_close(halves[1], second, rtol=1e-12, atol=1e-9)
 
 
 def test_weights_from_numpy_refuse_other_shapes():
