@@ -81,7 +81,15 @@ the model it runs:
    ``cuda:0`` on a global batch of 2 x 23,040 bitwise equal to each other
    after every step and, at the first step, within [train]'s limits of one
    process on the global batch (loss, gradient cosines; control: one
-   row's own gradient); [convert], the arctic weights as a reference
+   row's own gradient); [train tp], tensor parallel: 2 gloo ranks on
+   ``cuda:0`` as data 1 x model 2 (``--model_parallel 2``), each holding
+   its shards (res.w (30, 512, 256)), 3 plain steps on windows of 144
+   frames (T = 11,520), the replicated leaves and the losses bitwise equal
+   across the ranks after every step, the first step's loss and gathered
+   per-leaf gradients within [train]'s limits of one process on the plain
+   route (control: the lagged tap dropped), rank 0's checkpoint equal to
+   the gathered params and decoded on the kernels, ms/step and peak device
+   memory of each rank and of one process; [convert], the arctic weights as a reference
    ``torch.save`` checkpoint through ``bin/convert_checkpoint.py
    --direction to_jax``, decoded with ``impl="auto"`` argmax-equal to the
    same weights loaded directly; [dp clamp], ``bin/decode.py``'s ``main``
@@ -110,7 +118,12 @@ the model it runs:
    persistent K1 / K1-int8 once each); ``noise_shaping --inv false``;
    ``eval_mcd`` of the restored, both raw decodes and a white-noise
    baseline; the JAX flagship int8 gate: restored bf16 MCD < 0.8 x white
-   noise, int8 raw < bf16 raw + 0.4 dB;
+   noise, int8 raw < bf16 raw + 0.4 dB; [recipe], the port's own
+   ``egs_torch/arctic/sd/run.sh --stage 123456 --iters 50 --batch_length
+   8000`` at full width, copied out of the tree, on a Klatt corpus of 16 +
+   4 utterances: every stage's log ends with code 0, the training takes
+   the fused route, 4 wavs are decoded, the MCD report is finite, and each
+   stage's seconds;
 15. [K4]: the serial matmul-chain probe.  The
    main path is ``bin/matmul_chain_probe.py``'s entry (B=128, 1,000 steps,
    split; one cooperative launch per chain run); then every variant at
@@ -350,6 +363,83 @@ def _dp_train_rank(info, conf: dict, params: dict, batches: list, lr: float,
     finally:
         if deterministic:
             torch.use_deterministic_algorithms(False)
+
+
+def _tp_train_rank(info, conf: dict, params: dict, batches: list, lr: float,
+                   ckpt_dir: str) -> dict:
+    """One rank of [train tp] (module level: ``spawn_local`` starts it by
+    name): ``make_train_step(model_parallel=2)`` (the plain route) on this
+    rank's shards of the numpy params tree ``params`` (``shard_params``)
+    and on the rows of its data index of each global batch.  Returns its
+    shard shapes, per step the loss, the host ms (synchronized) and a
+    digest of the replicated leaves; the first step's gathered gradients
+    (rank 0); the peak device memory; and, after writing the final
+    checkpoint into ``ckpt_dir`` (gathered, rank 0 writing), a digest of
+    the gathered params."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pytorchwavenetvocoder_tpu_torch.convert import params_to_jax
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNetConfig
+    from pytorchwavenetvocoder_tpu_torch.parallel.checkpoint import (
+        save_checkpoint,
+    )
+    from pytorchwavenetvocoder_tpu_torch.parallel.mesh import (
+        gather_params,
+        shard_params,
+    )
+    from pytorchwavenetvocoder_tpu_torch.parallel.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = WaveNetConfig(**conf)
+    step = make_train_step(cfg, lr=lr, n_devices=info.world,
+                           model_parallel=2)
+    grid = step.grid
+    state = create_train_state(cfg, lr=lr, params=shard_params(
+        params, grid, info.device))
+    out = dict(rank=info.rank, device=str(info.device), losses=[], ms=[],
+               replicated=[], coords=(grid.data_index, grid.model_index),
+               shapes={f"{g}.{n}": tuple(t.shape)
+                       for g, leaves in state.params.items()
+                       for n, t in leaves.items()})
+    torch.cuda.reset_peak_memory_stats(info.device)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize(info.device)
+        t0 = time.time()
+        state, loss = step(state, *grid.rows(tuple(batch)))
+        out["losses"].append(float(loss))
+        torch.cuda.synchronize(info.device)
+        out["ms"].append(1e3 * (time.time() - t0))
+        h = hashlib.sha256()
+        for g, leaves in state.params.items():
+            for n, t in leaves.items():
+                if (g, n) not in grid.layout:
+                    h.update(t.detach().cpu().numpy().tobytes())
+        out["replicated"].append(h.hexdigest())
+        if i == 0:
+            grads = gather_params({g: {n: t.grad for n, t in leaves.items()}
+                                   for g, leaves in state.params.items()},
+                                  grid)
+            if info.rank == 0:
+                out["grads"] = {f"{g}.{n}": t.float().flatten().cpu()
+                                .numpy() for g, leaves in grads.items()
+                                for n, t in leaves.items()}
+            del grads
+    out["route"] = step.route
+    out["max_memory"] = torch.cuda.max_memory_allocated(info.device)
+    save_checkpoint(ckpt_dir, state, final=True, grid=grid)
+    full = params_to_jax(gather_params(state.params, grid))
+    h = hashlib.sha256()
+    for leaves in full.values():
+        for v in leaves.values():
+            h.update(np.ascontiguousarray(v).tobytes())
+    out["gathered"] = h.hexdigest()
+    return out
 
 
 def main(argv=None) -> int:
@@ -2920,6 +3010,109 @@ def main(argv=None) -> int:
         if problems:
             raise AssertionError("; ".join(problems))
 
+    def recipe(m, n_train=16, n_eval=4, iters=50, jobs=8):
+        """The port's arctic/sd recipe (egs_torch/arctic/sd/run.sh, copied
+        to a temporary directory, PRJ_ROOT the repository) run as a user
+        runs it: ``--stage 123456 --iters 50 --batch_length 8000`` at the
+        flagship's full width on the card, on a Klatt corpus of n_train +
+        n_eval utterances laid out in data/ as stage 0 would (the h5py
+        stand-in where h5py is missing).  Every stage's log under exp/
+        ends with code 0, the train log names the fused route, n_eval wavs
+        are decoded and the MCD report is finite; each stage's seconds are
+        read from its banner's arrival."""
+        import re
+        import shutil
+        import threading
+
+        from pytorchwavenetvocoder_tpu_torch.eval.klatt import make_corpus
+
+        t_phase = time.time()
+        native_lib = str(_build.build_native())
+        with tempfile.TemporaryDirectory(dir=root) as work, \
+                _h5py_where_missing(work, root) as (env, h5_note):
+            rdir = os.path.join(work, "sd")
+            shutil.copytree(os.path.join(root, "egs_torch", "arctic", "sd"),
+                            rdir)
+            corpus = os.path.join(work, "corpus")
+            make_corpus(corpus, n_train + n_eval, fs=m["fs"], seed=0,
+                        n_syllables=(2, 4))
+            names = sorted(os.listdir(corpus))
+            for st, chosen in (("tr_slt", names[:n_train]),
+                               ("ev_slt", names[n_train:])):
+                os.makedirs(os.path.join(rdir, "data", st))
+                with open(os.path.join(rdir, "data", st, "wav.scp"), "w") as f:
+                    f.write("".join(os.path.join(corpus, n) + "\n"
+                                    for n in chosen))
+            env = dict(env, PRJ_ROOT=root, WNDSP_LIB=native_lib)
+            cmd = ["bash", "./run.sh", "--stage", "123456", "--iters",
+                   str(iters), "--batch_length", "8000",
+                   "--decode_batch_size", str(n_eval), "--n_jobs", str(jobs),
+                   "--eval_mcd", "true"]
+            proc = subprocess.Popen(cmd, cwd=rdir, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+            watchdog = threading.Timer(600, proc.kill)
+            watchdog.start()
+            marks, tail = [], []
+            t_run = time.time()
+            try:
+                for line in proc.stdout:
+                    tail = (tail + [line])[-40:]
+                    got = re.match(r"=+ stage (\d) : (.*?) =+$", line.strip())
+                    if got:
+                        marks.append((f"{got.group(1)} {got.group(2)}",
+                                      time.time()))
+                rc = proc.wait()
+            finally:
+                watchdog.cancel()
+            t_end = time.time()
+            stage_s = [(name, (marks[i + 1][1] if i + 1 < len(marks)
+                               else t_end) - t)
+                       for i, (name, t) in enumerate(marks)]
+            if rc != 0:
+                raise AssertionError(f"run.sh exited {rc}: "
+                                     + "".join(tail)[-3000:])
+            exp = os.path.join(rdir, "exp")
+            logs = sorted(os.path.join(d, f) for d, _, fs in os.walk(exp)
+                          for f in fs if f.endswith(".log"))
+            bad = []
+            for log in logs:
+                with open(log) as f:
+                    last = f.read().rstrip().splitlines()[-1]
+                if "# Ended (code 0)" not in last:
+                    bad.append(f"{os.path.relpath(log, exp)}: {last}")
+            [expdir] = [os.path.join(exp, d) for d in os.listdir(exp)
+                        if d.startswith("tr_")]
+            with open(os.path.join(expdir, "log", "tr_slt.log")) as f:
+                fused_route = "train step route: fused" in f.read()
+            wavs = sorted(n for n in os.listdir(os.path.join(expdir, "wav"))
+                          if n.endswith(".wav"))
+            with open(os.path.join(expdir, "wav_nsf", "mcd.txt")) as f:
+                lines = f.read().splitlines()
+            per_utt = [float(ln.split()[1]) for ln in lines
+                       if not ln.startswith("#")]
+            mean_line = lines[-1]
+        print(f"[recipe] {m['name']} egs_torch/arctic/sd/run.sh "
+              + " ".join(cmd[2:]) + f" on {n_train} + {n_eval} Klatt "
+              f"utterances: exit {rc}, {len(logs)} logs, not ending with code "
+              f"0: {bad or 'none'} | train route fused {fused_route} | "
+              f"{len(wavs)} wavs decoded | MCD {mean_line.strip()} | stage "
+              f"seconds " + ", ".join(f"{n} {t:.1f}" for n, t in stage_s)
+              + f" | run.sh {t_end - t_run:.1f} s, phase "
+              f"{time.time() - t_phase:.1f} s | {h5_note} | {card}",
+              flush=True)
+        if bad or len(logs) < 7:
+            raise AssertionError(f"stage logs: {len(logs)}, failed {bad}")
+        if not fused_route:
+            raise AssertionError("the recipe's training did not take the "
+                                 "fused route")
+        if len(wavs) != n_eval:
+            raise AssertionError(f"{len(wavs)} wavs decoded, not {n_eval}")
+        if len(per_utt) != n_eval or not np.isfinite(per_utt).all():
+            raise AssertionError(f"MCD report: {lines}")
+        if [n.split()[0] for n, _ in stage_s] != list("1234566"):
+            raise AssertionError(f"stages run: {[n for n, _ in stage_s]}")
+
     def quality(m, n_train=64, n_eval=8, iters=6000, jobs=8, sweep=()):
         """The arctic recipe (egs/arctic/sd/run.sh stages 0-6) through the
         port's own CLIs on the card, at the flagship's full width, and the
@@ -3318,6 +3511,204 @@ def main(argv=None) -> int:
         if not fails(control):
             raise AssertionError("the limits pass the control")
 
+    def train_tp(m, n_ranks=2, per_card=False, n_steps=3, lr=1e-3,
+                 frames=144):
+        """Tensor-parallel training at the flagship width: ranks in model
+        groups of 2 (data n_ranks/2 x model 2; gloo ranks sharing cuda:0,
+        or, ``per_card``, NCCL ranks one on each card), each holding its
+        shards, n_steps plain steps on windows of ``frames`` frames (144:
+        half [train]'s 288, T = 11,520; at 288 the phase took 65 s on an
+        H100, past its ~60 s); the replicated leaves
+        bitwise equal across the ranks after every step; the first step's
+        loss and gathered per-leaf gradients within [train]'s limits of one
+        process (the plain route, on the global batch; control: that
+        process with the lagged tap dropped); rank 0's checkpoint equal to
+        the gathered params and decoded on the kernels by bin/decode.py;
+        ms/step and peak device memory of each rank and of one process."""
+        import hashlib
+
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import (
+            decode_batches,
+            load_model,
+        )
+        from pytorchwavenetvocoder_tpu_torch.convert import params_from_jax
+        from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
+        from pytorchwavenetvocoder_tpu_torch.parallel import (
+            create_train_state,
+            load_checkpoint,
+            make_train_step,
+            save_model_conf,
+            spawn_local,
+        )
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        cfg = m["cfg"]
+        m = dict(m, train_frames=frames)
+        T = t_train(m)
+        n_data = n_ranks // 2
+        init = {g: {n: t.numpy() for n, t in leaves.items()}
+                for g, leaves in init_wavenet_params(
+                    cfg, torch.Generator().manual_seed(1)).items()}
+        conf = cfg.to_dict()
+        wins = [train_window(m, 51 + i) for i in range(n_data * n_steps)]
+        glob = [tuple(np.concatenate(parts) for parts in zip(*(
+            (x, h, t) for (x, h), t in wins[n_data * i:n_data * (i + 1)])))
+            for i in range(n_steps)]
+        where = ("NCCL ranks, one per card" if per_card else
+                 f"gloo ranks on cuda:0 ({n_ranks} ranks sharing one card)")
+        with tempfile.TemporaryDirectory(dir=root) as expdir:
+            t0 = time.time()
+            ranks = spawn_local(n_ranks, _tp_train_rank,
+                                (conf, init, glob, lr, expdir),
+                                device_arg="cuda" if per_card else "cuda:0",
+                                backend="nccl" if per_card else "gloo",
+                                timeout_s=300, deadline_s=900)
+            tp_seconds = time.time() - t0
+
+            # one process, the plain route, on the global batch
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = create_train_state(cfg, lr=lr, params=params_from_jax(
+                init, dev))
+            step = make_train_step(cfg, lr=lr, fused=False)
+            one = dict(losses=[], ms=[])
+            for i, batch in enumerate(glob):
+                torch.cuda.synchronize()
+                t1 = time.time()
+                state, loss = step(state, *batch)
+                one["losses"].append(float(loss))
+                torch.cuda.synchronize()
+                one["ms"].append(1e3 * (time.time() - t1))
+                if i == 0:
+                    one["grads"] = {f"{g}.{n}": t.grad.float().flatten()
+                                    .cpu().numpy()
+                                    for g, leaves in state.params.items()
+                                    for n, t in leaves.items()}
+            one["max_memory"] = torch.cuda.max_memory_allocated(dev)
+            del state, step
+            # control: the same process with the lagged tap dropped
+            ctrl_params = params_from_jax(init, dev)
+            with torch.no_grad():
+                ctrl_params["dil"]["w"][:, 0] = 0.0
+            ctrl = create_train_state(cfg, lr=lr, params=ctrl_params)
+            ctrl_step = make_train_step(cfg, lr=lr, fused=False)
+            ctrl, ctrl_loss = ctrl_step(ctrl, *glob[0])
+            control = dict(losses=[float(ctrl_loss)], grads={
+                f"{g}.{n}": t.grad.float().flatten().cpu().numpy()
+                for g, leaves in ctrl.params.items()
+                for n, t in leaves.items()})
+            del ctrl, ctrl_step, ctrl_params
+            torch.cuda.empty_cache()
+
+            def agreement(a, b):
+                """(|loss_a - loss_b| / loss_b, per-leaf gradient cosine)
+                of the first step"""
+                def cos(u, v):
+                    u, v = u.astype(np.float64), v.astype(np.float64)
+                    return float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v)
+                                          + 1e-30))
+
+                return (abs(a["losses"][0] - b["losses"][0])
+                        / abs(b["losses"][0]),
+                        {k: cos(a["grads"][k], b["grads"][k])
+                         for k in b["grads"]})
+
+            tol_loss, tol_cos = 1e-3, 0.99      # [train]'s limits
+
+            def fails(a):
+                bad = ["loss"] if not a[0] < tol_loss else []
+                return bad + [k for k, c in a[1].items() if not c > tol_cos]
+
+            agree = agreement(ranks[0], one)
+            ctrl_agree = agreement(control, one)
+            equal = all(r["replicated"] == ranks[0]["replicated"]
+                        and r["losses"] == ranks[0]["losses"] for r in ranks)
+            # rank 0's checkpoint is the gathered params, and the decoder
+            # reads it: one short utterance on the kernels
+            ckpt = os.path.join(expdir, "checkpoint-final.pkl")
+            payload = load_checkpoint(ckpt)
+            h = hashlib.sha256()
+            for leaves in payload["model"].values():
+                for v in leaves.values():
+                    h.update(np.ascontiguousarray(v).tobytes())
+            ckpt_equal = h.hexdigest() == ranks[0]["gathered"] and all(
+                r["gathered"] == ranks[0]["gathered"] for r in ranks)
+            save_model_conf(expdir, dict(conf, feature_type="world",
+                                         use_upsampling_layer=True,
+                                         use_speaker_code=False))
+            model, _conf = load_model(ckpt, expdir, dev)
+            ak.ar_generate.launches = 0
+            h_dec = np.random.RandomState(34).randn(
+                1, 10, cfg.n_aux).astype(np.float32)
+            x_dec = np.asarray(encode_mu_law(np.zeros(1), 256),
+                               np.int32)[None]
+            n_dec = 10 * cfg.upsampling_factor - 1
+            decode_batches(model, [(["utt"], (x_dec, h_dec, [n_dec]))],
+                           os.path.join(expdir, "wav"), mode="sampling",
+                           impl="auto",
+                           generator=torch.Generator().manual_seed(3))
+            dec_launches = ak.ar_generate.launches
+            wav, _fs = read_wav(os.path.join(expdir, "wav", "utt.wav"))
+            del model
+        res_w = ranks[0]["shapes"]["res.w"]
+        ms = ("ms/step not reported" if per_card else
+              "ms/step (median of steps 2-" + str(n_steps) + ") "
+              + ", ".join(f"rank {r['rank']} "
+                          f"{float(np.median(r['ms'][1:])):.1f}"
+                          for r in ranks)
+              + f", one process (plain) {float(np.median(one['ms'][1:])):.1f}"
+              + " | peak device memory GB "
+              + ", ".join(f"rank {r['rank']} {r['max_memory'] / 1e9:.2f}"
+                          for r in ranks)
+              + f", one process {one['max_memory'] / 1e9:.2f}")
+        print(f"[train tp{f'{n_ranks} per card' if per_card else ''}] "
+              f"{m['name']} {n_steps} plain steps, T={T}, lr {lr}, data "
+              f"{n_data} x model 2, {where} on "
+              f"{[r['device'] for r in ranks]} (grid {[r['coords'] for r in ranks]}): "
+              f"losses " + " ".join(f"{v:.6f}" for v in ranks[0]["losses"])
+              + f" (one process " + " ".join(f"{v:.6f}" for v in
+                                            one["losses"])
+              + f"), replicated leaves and losses bitwise equal across ranks "
+              f"every step {equal}, res.w shard {res_w}, first step vs one "
+              f"process: loss |d|/loss {agree[0]:.3e}, min grad cos "
+              f"{min(agree[1].values()):.6f} "
+              f"({min(agree[1], key=agree[1].get)}), fails "
+              f"{fails(agree) or 'none'}; control (lagged tap dropped): loss "
+              f"{ctrl_agree[0]:.3e}, min cos {min(ctrl_agree[1].values()):.4f}"
+              f", fails {len(fails(ctrl_agree))} (limits loss {tol_loss}, cos "
+              f"{tol_cos}) | checkpoint == gathered params {ckpt_equal}, "
+              f"decoded on the kernels: K1 launches {dec_launches}, wav "
+              f"{wav.shape}, finite {bool(np.isfinite(wav).all())} | {ms} | "
+              f"phase {time.time() - t0:.1f} s (ranks {tp_seconds:.1f}) | "
+              f"{card}", flush=True)
+        want_dev = [f"cuda:{r if per_card else 0}" for r in range(n_ranks)]
+        if [r["device"] for r in ranks] != want_dev:
+            raise AssertionError(f"ranks on {[r['device'] for r in ranks]}, "
+                                 f"not {want_dev}")
+        for r in ranks:
+            if r["route"] != "plain" or not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"rank {r['rank']}: route {r['route']}, "
+                                     f"losses {r['losses']}")
+            if r["shapes"]["res.w"] != (cfg.n_layers, cfg.n_resch,
+                                        cfg.n_resch // 2):
+                raise AssertionError(f"rank {r['rank']} holds res.w "
+                                     f"{r['shapes']['res.w']}")
+        if not equal:
+            raise AssertionError("the ranks' replicated leaves or losses "
+                                 "drifted apart")
+        if fails(agree):
+            raise AssertionError(f"tensor-parallel first step off one "
+                                 f"process: {agree}")
+        if not fails(ctrl_agree):
+            raise AssertionError("the limits pass the control")
+        if not ckpt_equal:
+            raise AssertionError("rank 0's checkpoint is not the gathered "
+                                 "params")
+        if dec_launches != 1 or not np.isfinite(wav).all() or \
+                wav.shape != (n_dec,):
+            raise AssertionError(f"the checkpoint's decode: K1 launches "
+                                 f"{dec_launches}, wav {wav.shape}")
+
     def convert_path(m, n_utts=4, frames=10):
         """The reference-checkpoint bridge: the arctic params in the
         reference's layout (``torch.save`` checkpoint and Namespace
@@ -3565,6 +3956,8 @@ def main(argv=None) -> int:
               lambda: main_dp(arctic, n, per_card=True))
         phase(f"train dp{n} per card",
               lambda: train_dp(arctic, n, per_card=True))
+        phase(f"train tp{n - n % 2} per card",
+              lambda: train_tp(arctic, n - n % 2, per_card=True))
     else:
         phase("sass", sass_check)
         phase("K2", lambda: k2(arctic))
@@ -3600,6 +3993,7 @@ def main(argv=None) -> int:
         # data parallel over processes and the reference-checkpoint bridge
         phase("main dp2", lambda: main_dp(arctic))
         phase("train dp", lambda: train_dp(arctic))
+        phase("train tp", lambda: train_tp(arctic))
         phase("convert", lambda: convert_path(arctic))
         # a host with fewer cards than --n_devices asks for, and the recipe
         # end to end on the card with its quality gate
@@ -3607,6 +4001,8 @@ def main(argv=None) -> int:
         # the recipes' feature extraction on the host and on the card
         phase("features", features)
         phase("quality", lambda: quality(arctic))
+        # the port's own recipe, as a user runs it
+        phase("recipe", lambda: recipe(arctic))
         # the probe last, beside K1's times from this run
         phase("K4", k4)
     if failures:

@@ -10,16 +10,22 @@ through the fused training kernels (``--fused auto``), else through the
 plain PyTorch path.
 
 Data parallel: one rank per device (``parallel/distributed.py``), each
-reading ``wav_list[rank::world]`` in batches of ``batch_size / world``
-from the same ``--seed``, the gradients averaged over the ranks every step
-(``parallel/train.py``), rank 0 writing the checkpoints and the log.
-``--n_devices N`` starts the N ranks here, as the JAX CLI does on one
-host: N cut to the cards there are with ``--device cuda``, and one rank,
-with a warning, where N does not divide the batch; a launcher (torchrun,
-srun) starts them itself.  ``--dist_backend`` picks the collectives: NCCL where
-each rank has its own GPU, gloo on the CPU or where ranks share one card
-(``--device cuda:K``).  ``--model_parallel`` above 1 raises: tensor
-parallelism is not ported.
+reading ``wav_list[d::n_data]`` in batches of ``batch_size / n_data``
+from the same ``--seed`` (d its data index), the gradients averaged over
+the data axis every step (``parallel/train.py``), rank 0 writing the
+checkpoints and the log.  ``--n_devices N`` starts the N ranks here, as
+the JAX CLI does on one host: N cut to the cards there are with
+``--device cuda``, and one rank, with a warning, where N does not divide
+the batch; a launcher (torchrun, srun) starts them itself.
+``--dist_backend`` picks the collectives: NCCL where each rank has its own
+GPU, gloo on the CPU or where ranks share one card (``--device cuda:K``).
+
+Tensor parallel: ``--model_parallel M`` ranks per model group
+(``parallel/mesh.py``; the N ranks are N / M data x M model), each holding
+its shards of the layer weights and Adam moments, on the plain route.  As
+in JAX, misfits are errors: M must divide N (and, under a launcher, the
+ranks of each host), the data axis N / M must divide the batch, and
+``--fused true`` is refused.
 
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.train --waveforms ...
 --feats ... --stats ... --expdir ... [--device cuda] [--n_devices N]``.
@@ -132,7 +138,10 @@ def get_parser() -> argparse.ArgumentParser:
                              "ranks sharing one GPU (--device cuda:K) need "
                              "gloo")
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="only 1: tensor parallelism is not yet ported")
+                        help="ranks per tensor-parallel group: layer "
+                             "weights' channel dims + Adam moments shard "
+                             "over the group (plain path only; "
+                             "n_devices/model_parallel stay data-parallel)")
     parser.add_argument("--compute_dtype", default="bfloat16",
                         choices=["float32", "bfloat16"],
                         help="matmul dtype (accumulation stays f32)")
@@ -198,21 +207,27 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
     The loss accumulates on the device and is read once per ``intervals``
     steps.  Checkpoints go to ``expdir`` every ``checkpoint_interval``
     steps and at the end (``checkpoint-final.pkl``).  In a process group
-    (one rank per device) ``batches`` holds this rank's rows, the steps
-    are data-parallel, rank 0 writes the checkpoints and alone takes the
-    profiler trace.
+    (one rank per device) ``batches`` holds the rows of this rank's data
+    index, the steps are data-parallel (and tensor-parallel where
+    ``model_parallel`` > 1: the state holds this rank's shards, and the
+    checkpoints are gathered), rank 0 writes the checkpoints and alone
+    takes the profiler trace.
 
     Returns ``{"state", "start", "route", "intervals"}``: the final
     TrainState, the iteration training started from, the route of the
     last step ("fused" or "plain"), and per interval ``(iteration, mean
     loss, seconds per step)``.
     """
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+        init_wavenet_params,
+    )
     from pytorchwavenetvocoder_tpu_torch.parallel import (
         create_train_state,
         find_latest_checkpoint,
         make_train_step,
         restore_train_state,
         save_checkpoint,
+        shard_params,
     )
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
         rank,
@@ -229,18 +244,22 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
                               weight_decay=args.weight_decay, remat=remat,
                               fused=fused, n_devices=world,
                               model_parallel=args.model_parallel)
+    grid = step_fn.grid
     profile_dir = args.profile_dir if rank() == 0 else None
+    params = init_wavenet_params(
+        config, torch.Generator().manual_seed(args.seed), device)
+    if grid is not None:
+        # this rank's shards of the layer weights (and so of their moments)
+        params = shard_params(params, grid, device)
     state = create_train_state(config, lr=args.lr,
-                               weight_decay=args.weight_decay,
-                               generator=torch.Generator().manual_seed(args.seed),
-                               device=device)
+                               weight_decay=args.weight_decay, params=params)
     resume = args.resume
     if resume == "latest":
         resume = find_latest_checkpoint(expdir)
         if resume is None:
             logging.info("no checkpoint in %s; starting fresh.", expdir)
     if resume:
-        restore_train_state(resume, state)
+        restore_train_state(resume, state, grid)
         logging.info("restored from %d-iter checkpoint %s.", state.step, resume)
     start = state.step
 
@@ -292,13 +311,13 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
             interval_start = time.time()
 
         if (i + 1) % args.checkpoint_interval == 0:
-            save_checkpoint(expdir, state, iterations=i + 1)
+            save_checkpoint(expdir, state, iterations=i + 1, grid=grid)
 
     if profiler is not None:
         # fewer than 10 iterations remained after the trace started: write
         # what it holds rather than lose it
         _stop_trace(profiler, profile_dir)
-    save_checkpoint(expdir, state, final=True)
+    save_checkpoint(expdir, state, final=True, grid=grid)
     logging.info("final checkpoint created.")
     return dict(state=state, start=start, route=step_fn.route,
                 intervals=intervals)
@@ -329,25 +348,43 @@ def main(argv=None) -> dict:
         spawn_local,
     )
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: tensor parallelism is "
-            "not yet ported to the PyTorch package (ROADMAP.md Queue 1 "
-            "item 8)")
     if args.n_devices < 1:
         raise ValueError(f"--n_devices must be >= 1, got {args.n_devices}")
+    mp = args.model_parallel
+    if mp < 1:
+        raise ValueError(f"--model_parallel must be >= 1, got {mp}")
     info = initialize_distributed(args.device, args.dist_backend)
     if info is not None:
         try:
             if args.n_devices not in (1, info.world):
                 raise ValueError(f"--n_devices {args.n_devices}, but the "
                                  f"launcher started {info.world} ranks")
+            if info.local_world % mp or info.world % mp:
+                raise ValueError(
+                    f"--model_parallel {mp} must divide the {info.local_world}"
+                    f" ranks of this host (model groups must not straddle "
+                    "hosts)")
+            if mp > 1 and args.fused == "true":
+                raise ValueError(_FUSED_TP)
             return train_rank(info, args)
         finally:
             shutdown()
     n_devices = clamp_ranks(args.n_devices, args.device)
     effective = args.batch_size if args.batch_length > 0 else 1
-    if n_devices > 1 and effective % n_devices:
+    if mp > 1:
+        # tensor parallelism was asked for: misfits are errors, not
+        # fallbacks (the JAX CLI's checks, in its order)
+        if n_devices % mp:
+            raise ValueError(f"--model_parallel {mp} must divide the "
+                             f"{n_devices} devices.")
+        if effective % (n_devices // mp):
+            raise ValueError(
+                f"batch size {effective} (1 in utterance mode) must divide "
+                f"the {n_devices // mp}-device data axis "
+                "(n_devices/model_parallel).")
+        if args.fused == "true":
+            raise ValueError(_FUSED_TP)
+    elif n_devices > 1 and effective % n_devices:
         # each rank trains batch_size / n_devices rows (JAX bin/train.py's
         # single-host fallback)
         logging.warning("batch size %d not divisible by %d devices; "
@@ -366,17 +403,23 @@ def main(argv=None) -> dict:
     return train_rank(RankInfo.alone(args.device), args)
 
 
-def _check_batch(args, world: int) -> None:
-    """Every rank trains on ``batch_size / world`` rows: refuse a batch the
-    world a launcher started does not divide (utterance mode trains one
-    utterance a step), as JAX refuses it on a multi-host mesh."""
+_FUSED_TP = ("--fused true is incompatible with --model_parallel > 1 (the "
+             "fused CUDA kernels are one-device programs).")
+
+
+def _check_batch(args, n_data: int) -> None:
+    """Every rank trains on ``batch_size / n_data`` rows (``n_data``, the
+    data axis: the ranks over ``--model_parallel``): refuse a batch the
+    data axis of a launcher's world does not divide (utterance mode trains
+    one utterance a step), as JAX refuses it on a multi-host mesh."""
     effective = args.batch_size if args.batch_length > 0 else 1
-    if effective % world:
+    if effective % n_data:
         mode = " (utterance mode)" if args.batch_length <= 0 else ""
         raise ValueError(
             f"a batch of {effective} rows{mode} is not divisible by the "
-            f"{world} ranks: each rank trains on batch_size / n_devices "
-            "rows, so --batch_size must be a multiple of the ranks")
+            f"{n_data}-rank data axis: each rank trains on batch_size / "
+            "(n_devices / model_parallel) rows, so --batch_size must be a "
+            "multiple of the data axis")
 
 
 def _train_rank_entry(info, args) -> dict:
@@ -388,7 +431,8 @@ def _train_rank_entry(info, args) -> dict:
 
 def train_rank(info, args) -> dict:
     """One rank's training (``info``, its ``RankInfo``): the corpus strided
-    over the ranks, this rank's share of the batch, ``train_loop``."""
+    over the data axis, the share of the batch of this rank's data index
+    (the ranks of a model group read the same rows), ``train_loop``."""
     from pytorchwavenetvocoder_tpu_torch.data import train_generator
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
     from pytorchwavenetvocoder_tpu_torch.ops.scaler import (
@@ -402,8 +446,12 @@ def train_rank(info, args) -> dict:
         read_txt,
     )
 
-    rank, world = info.rank, info.world
-    _check_batch(args, world)
+    from pytorchwavenetvocoder_tpu_torch.parallel.mesh import grid_coords
+
+    rank = info.rank
+    n_data = info.world // args.model_parallel
+    data_index, _ = grid_coords(rank, args.model_parallel)
+    _check_batch(args, n_data)
     if rank > 0:       # the ranks log the same all-reduced losses
         logging.getLogger().setLevel(max(logging.WARNING,
                                          logging.getLogger().level))
@@ -445,17 +493,19 @@ def train_rank(info, args) -> dict:
                       len(feat_list))
         sys.exit(1)
     logging.info("number of training data = %d.", len(wav_list))
-    # each rank loads only its own rows of the global batch (the JAX CLI's
-    # per-process striding)
-    wav_list, feat_list = wav_list[rank::world], feat_list[rank::world]
+    # each rank loads only the rows of its data index (the JAX CLI's
+    # per-process striding); a model group's ranks draw the same batches
+    wav_list = wav_list[data_index::n_data]
+    feat_list = feat_list[data_index::n_data]
     if not wav_list:
-        raise ValueError(f"fewer training files than the {world} ranks")
+        raise ValueError(f"fewer training files than the {n_data}-rank "
+                         "data axis")
 
     batches = train_generator(
         wav_list, feat_list,
         receptive_field=config.receptive_field,
         batch_length=args.batch_length if args.batch_length > 0 else None,
-        batch_size=args.batch_size // world,
+        batch_size=args.batch_size // n_data,
         feature_type=args.feature_type,
         wav_transform=lambda x: encode_mu_law(x, args.n_quantize),
         feat_transform=feature_transform(

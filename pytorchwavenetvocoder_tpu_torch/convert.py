@@ -47,10 +47,10 @@ def params_to_jax(params: Params) -> dict:
             for group, leaves in params.items()}
 
 
-def adam_moments_to_jax(optimizer: torch.optim.Optimizer,
-                        params: Params) -> dict:
-    """torch Adam's per-parameter state -> ``{"count", "mu", "nu"}`` with
-    params-shaped numpy trees (zeros and count 0 before the first step)."""
+def adam_moments(optimizer: torch.optim.Optimizer, params: Params):
+    """torch Adam's per-parameter state -> ``(count, mu, nu)``: the step
+    count and params-shaped trees of the moment tensors (zeros and count 0
+    before the first step)."""
     mu: dict = {}
     nu: dict = {}
     count = 0
@@ -58,11 +58,19 @@ def adam_moments_to_jax(optimizer: torch.optim.Optimizer,
         s = optimizer.state.get(p, {})
         if s:
             count = int(s["step"])
-        mu.setdefault(g, {})[n] = _to_numpy(s["exp_avg"] if s
-                                            else torch.zeros_like(p))
-        nu.setdefault(g, {})[n] = _to_numpy(s["exp_avg_sq"] if s
-                                            else torch.zeros_like(p))
-    return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}
+        mu.setdefault(g, {})[n] = s["exp_avg"] if s else torch.zeros_like(p)
+        nu.setdefault(g, {})[n] = (s["exp_avg_sq"] if s
+                                   else torch.zeros_like(p))
+    return count, mu, nu
+
+
+def adam_moments_to_jax(optimizer: torch.optim.Optimizer,
+                        params: Params) -> dict:
+    """torch Adam's per-parameter state -> ``{"count", "mu", "nu"}`` with
+    params-shaped numpy trees (zeros and count 0 before the first step)."""
+    count, mu, nu = adam_moments(optimizer, params)
+    return {"count": np.asarray(count, np.int32), "mu": params_to_jax(mu),
+            "nu": params_to_jax(nu)}
 
 
 def adam_moments_from_jax(optimizer: torch.optim.Optimizer, params: Params,

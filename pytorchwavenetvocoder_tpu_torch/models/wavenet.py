@@ -169,6 +169,26 @@ def init_wavenet_params(config: WaveNetConfig,
     return params
 
 
+def param_shapes(config: WaveNetConfig) -> dict:
+    """``{group: {name: shape}}`` of ``init_wavenet_params(config)``'s
+    leaves, without making them."""
+    c = config
+    Q, A, R, S = c.n_quantize, c.n_aux, c.n_resch, c.n_skipch
+    L, k = c.n_layers, c.kernel_size
+    shapes = {
+        "causal": {"w": (k, Q, R), "b": (R,)},
+        "dil": {"w": (L, k, R, 2 * R), "b": (L, 2 * R)},
+        "aux": {"w": (L, A, 2 * R), "b": (L, 2 * R)},
+        "skip": {"w": (L, R, S), "b": (L, S)},
+        "res": {"w": (L, R, R), "b": (L, R)},
+        "post1": {"w": (S, S), "b": (S,)},
+        "post2": {"w": (S, Q), "b": (Q,)},
+    }
+    if c.upsampling_factor > 0:
+        shapes["upsampling"] = {"w": (c.upsampling_factor,), "b": ()}
+    return shapes
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -212,12 +232,13 @@ def _shift_time(x: torch.Tensor, shift: int) -> torch.Tensor:
     return F.pad(x[:, : x.shape[1] - shift], (0, 0, shift, 0))
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
                 dilation: int, out_dtype=None) -> torch.Tensor:
     """Dilated causal conv as per-tap shifted matmuls.
 
     x (B, T, C), w (k, C, O) -> (B, T, O); positions before t=0 are zero
     (torch Conv1d zero padding + right trim, `wavenet.py:104,118-121`).
+    ``b`` None adds no bias (a row-parallel partial sum).
     """
     k = w.shape[0]
     T = x.shape[1]
@@ -227,17 +248,22 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if shift >= T:
             continue
         y = y + _dot(_shift_time(x, shift), w[j], out_dtype)
+    if b is None:
+        return y
     return y + (b.to(out_dtype) if out_dtype is not None else b)
 
 
 def input_embed(x_ids: torch.Tensor, params: Params,
-                config: WaveNetConfig) -> torch.Tensor:
+                config: WaveNetConfig, tp=None) -> torch.Tensor:
     """One-hot + causal k-conv on class ids (reference ``_preprocess``,
     `wavenet.py:513-516`), as row gathers.
 
     A one-hot matmul picks exactly one weight row per output, so the
     gather ``w[j][ids]`` gives the identical values.  Ids are wrapped mod Q
-    (`wavenet.py:88`); taps reaching before t=0 contribute zero.
+    (`wavenet.py:88`); taps reaching before t=0 contribute zero.  Under
+    tensor parallelism (``tp``, a ``parallel/mesh.py::Grid`` whose residual
+    width is sharded) ``causal.w`` holds this rank's output columns and
+    the replicated ``causal.b`` is added as their slice.
     """
     c = config
     acc = c.acc_dtype
@@ -251,7 +277,10 @@ def input_embed(x_ids: torch.Tensor, params: Params,
         if shift >= T:
             continue
         y = y + _shift_time(w[j][ids], shift)
-    return (y + params["causal"]["b"]).to(acc)
+    b = params["causal"]["b"]
+    if tp is not None and tp.split_r:
+        b = tp.part(b, 0)
+    return (y + b).to(acc)
 
 
 def _gate(z: torch.Tensor, za: torch.Tensor, R: int) -> torch.Tensor:
@@ -268,24 +297,41 @@ def _gate(z: torch.Tensor, za: torch.Tensor, R: int) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-s)) * torch.tanh(t)
 
 
-def _post_stack(params: Params, skip_sum: torch.Tensor, dt) -> torch.Tensor:
+def _post_stack(params: Params, skip_sum: torch.Tensor, dt,
+                tp=None) -> torch.Tensor:
     """ReLU -> 1x1 -> ReLU -> 1x1 to Q logits (reference ``_postprocess``,
-    `wavenet.py:518-523`)."""
+    `wavenet.py:518-523`).  With the skip width sharded (``tp``) post1 is
+    row-parallel: the partial products are summed over the model group
+    before ``post1.b``."""
     post = torch.relu(skip_sum)
-    post = torch.relu(_dot(post.to(dt), params["post1"]["w"].to(dt))
-                      + params["post1"]["b"])
+    y = _dot(post.to(dt), params["post1"]["w"].to(dt))
+    if tp is not None and tp.split_s:
+        y = tp.sum(y)
+    post = torch.relu(y + params["post1"]["b"])
     return (_dot(post.to(dt), params["post2"]["w"].to(dt))
             + params["post2"]["b"])
 
 
 def _residual_layer(params: Params, config: WaveNetConfig, l: int, d: int,
-                    out: torch.Tensor, h: torch.Tensor, mm_dt):
+                    out: torch.Tensor, h: torch.Tensor, mm_dt, tp=None):
     """Residual layer l (dilation d): input stream ``out``, aux ``h`` (in the
     compute dtype) -> (output stream, gate output g).  ``mm_dt`` (bf16 or
-    None) is the dtype the big matmul outputs are materialized in."""
+    None) is the dtype the big matmul outputs are materialized in.
+
+    Tensor parallel (``tp``, residual width sharded): ``out`` and the res
+    product's columns are this rank's, the gate product is row-parallel:
+    its partial sums (f32, or f64) are summed over the model group, then
+    cast to ``mm_dt`` and given ``dil.b`` once.  The returned g is the skip
+    product's input (``Grid.fan_out``)."""
     dt = config.dtype
-    z = causal_conv(out.to(dt), params["dil"]["w"][l].to(dt),
-                    params["dil"]["b"][l], d, out_dtype=mm_dt)
+    if tp is not None and tp.split_r:
+        z = tp.sum(causal_conv(out.to(dt), params["dil"]["w"][l].to(dt),
+                               None, d))
+        b = params["dil"]["b"][l]
+        z = z.to(mm_dt) + b.to(mm_dt) if mm_dt is not None else z + b
+    else:
+        z = causal_conv(out.to(dt), params["dil"]["w"][l].to(dt),
+                        params["dil"]["b"][l], d, out_dtype=mm_dt)
     za = _dot(h, params["aux"]["w"][l].to(dt), mm_dt)
     za = za + (params["aux"]["b"][l].to(mm_dt) if mm_dt is not None
                else params["aux"]["b"][l])
@@ -293,19 +339,20 @@ def _residual_layer(params: Params, config: WaveNetConfig, l: int, d: int,
         z = z.float()
         za = za.float()
     g = _gate(z, za, config.n_resch).to(dt)
+    g_res, g = (g, g) if tp is None else tp.fan_out(g)
     res_w = params["res"]["w"][l].to(dt)
     res_b = params["res"]["b"][l]
     if mm_dt is not None:
-        return _dot(g, res_w, mm_dt) + res_b.to(mm_dt) + out, g
-    return _dot(g, res_w) + res_b + out, g
+        return _dot(g_res, res_w, mm_dt) + res_b.to(mm_dt) + out, g
+    return _dot(g_res, res_w) + res_b + out, g
 
 
 def _stack_inputs(params: Params, config: WaveNetConfig, x: torch.Tensor,
-                  h: torch.Tensor, bf16_intermediates: bool):
+                  h: torch.Tensor, bf16_intermediates: bool, tp=None):
     """(input stream, aux in the compute dtype, mm_dt) for the layer loop."""
     dt = config.dtype
     mm_dt = dt if bf16_intermediates and dt == torch.bfloat16 else None
-    out = input_embed(x, params, config)
+    out = input_embed(x, params, config, tp)
     if mm_dt is not None:
         out = out.to(dt)
     return out, h.to(dt), mm_dt
@@ -315,7 +362,7 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
                     x: torch.Tensor, h: torch.Tensor,
                     remat: bool = False,
                     bf16_intermediates: bool = False,
-                    fused: bool = False) -> torch.Tensor:
+                    fused: bool = False, tp=None) -> torch.Tensor:
     """Training forward: (B, T) ids + (B, T', A) aux -> (B, T, Q) logits.
 
     Mirrors reference ``forward`` (`wavenet.py:212-241`).  If
@@ -336,8 +383,17 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
     inside ``fused_train_constraint_error``, or it raises.  Numerics match
     ``bf16_intermediates=True`` up to where bf16 rounding lands (the saved
     sigma/tanh instead of the gate inputs).
+
+    ``tp`` (a ``parallel/mesh.py::Grid``) runs the plain stack tensor
+    parallel over its model group on this rank's shards of the params
+    (``mesh.model_pspec``): the residual stream and the skip sum stay
+    sharded, the gate and the logits are replicated.  Without it one
+    process runs as before.
     """
     c = config
+    if fused and tp is not None:
+        raise ValueError("fused=True runs one device: tensor parallelism "
+                         "takes the plain path")
     if fused:
         from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
             fused_layer_stack,
@@ -363,10 +419,10 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
 
     if c.upsampling_factor > 0:
         h = upsample_aux(params, c, h)
-    out, h, mm_dt = _stack_inputs(params, c, x, h, bf16_intermediates)
+    out, h, mm_dt = _stack_inputs(params, c, x, h, bf16_intermediates, tp)
 
     def layer(l, d, out, skip_sum, h):
-        out, g = _residual_layer(params, c, l, d, out, h, mm_dt)
+        out, g = _residual_layer(params, c, l, d, out, h, mm_dt, tp)
         # skip stays f32: it is the L-term accumulator
         skip = _dot(g, params["skip"]["w"][l].to(c.dtype)) + params["skip"]["b"][l]
         return out, (skip if skip_sum is None else skip_sum + skip)
@@ -378,7 +434,7 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
                 layer, l, d, out, skip_sum, h, use_reentrant=False)
         else:
             out, skip_sum = layer(l, d, out, skip_sum, h)
-    return _post_stack(params, skip_sum, c.dtype)
+    return _post_stack(params, skip_sum, c.dtype, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Training, on one device or data-parallel over one process per device,
-and the model bundle's checkpoints and model.conf."""
+"""Training, on one device or data- and tensor-parallel over one process
+per device, and the model bundle's checkpoints and model.conf."""
 
 from pytorchwavenetvocoder_tpu_torch.parallel.checkpoint import (  # noqa: F401
     find_latest_checkpoint,
@@ -16,6 +16,14 @@ from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (  # noqa: F401
     rank_device,
     shard_rows,
     spawn_local,
+)
+from pytorchwavenetvocoder_tpu_torch.parallel.mesh import (  # noqa: F401
+    Grid,
+    gather_params,
+    grid_coords,
+    make_grid,
+    model_pspec,
+    shard_params,
 )
 from pytorchwavenetvocoder_tpu_torch.parallel.train import (  # noqa: F401
     TrainState,

@@ -84,7 +84,7 @@ def load_model_conf(path: str) -> dict[str, Any]:
 
 
 def save_checkpoint(checkpoint_dir: str, state, iterations: int | None = None,
-                    final: bool = False) -> str:
+                    final: bool = False, grid=None) -> str:
     """Write ``checkpoint-<iter>.pkl`` (or ``checkpoint-final.pkl``) from a
     ``parallel.train.TrainState``.
 
@@ -94,31 +94,49 @@ def save_checkpoint(checkpoint_dir: str, state, iterations: int | None = None,
     ``.iter`` sidecar with its iteration count, which
     ``find_latest_checkpoint`` reads without unpickling the payload.
 
-    In a process group only rank 0 writes (the ranks hold the same state),
-    and every rank waits at a barrier until the file is in place; every
-    rank returns the path.
+    In a process group only rank 0 writes, and every rank waits at a
+    barrier until the file is in place; every rank returns the path.
+    Without a tensor-parallel ``grid`` (``parallel/mesh.py``) the ranks hold
+    the same state; with one, the ranks of data index 0 first gather the
+    params and both Adam moments over their model group
+    (``mesh.gather_params``), so the file is the one a single process
+    would write.
     """
+    from pytorchwavenetvocoder_tpu_torch.convert import adam_moments
+
     if iterations is None:
         iterations = int(state.step)
     name = "checkpoint-final.pkl" if final else f"checkpoint-{iterations}.pkl"
     path = os.path.join(checkpoint_dir, name)
+    params = state.params
+    moments = None
+    if grid is None or grid.data_index == 0:
+        moments = adam_moments(state.optimizer, params)
+    if grid is not None and grid.data_index == 0:
+        from pytorchwavenetvocoder_tpu_torch.parallel.mesh import (
+            gather_params,
+        )
+
+        count, mu, nu = moments
+        params = gather_params(params, grid)
+        moments = (count, gather_params(mu, grid), gather_params(nu, grid))
     if rank() == 0:
-        _write_checkpoint(path, state, iterations, final)
+        _write_checkpoint(path, params, moments, iterations, final)
     barrier()
     return path
 
 
-def _write_checkpoint(path: str, state, iterations: int, final: bool) -> None:
-    from pytorchwavenetvocoder_tpu_torch.convert import (
-        adam_moments_to_jax,
-        params_to_jax,
-    )
+def _write_checkpoint(path: str, params, moments, iterations: int,
+                      final: bool) -> None:
+    from pytorchwavenetvocoder_tpu_torch.convert import params_to_jax
 
+    count, mu, nu = moments
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
-        "model": params_to_jax(state.params),
-        "optimizer": {"adam_moments": adam_moments_to_jax(state.optimizer,
-                                                          state.params)},
+        "model": params_to_jax(params),
+        "optimizer": {"adam_moments": {"count": np.asarray(count, np.int32),
+                                       "mu": params_to_jax(mu),
+                                       "nu": params_to_jax(nu)}},
         "iterations": int(iterations),
     }
     tmp = path + ".tmp"
@@ -153,22 +171,31 @@ def _find_adam_state(opt):
     return None
 
 
-def restore_train_state(path: str, state):
+def restore_train_state(path: str, state, grid=None):
     """Restore params, Adam moments and step from ``path`` into a
     ``parallel.train.TrainState`` of the same model (in place; returns it).
 
     ``payload["optimizer"]`` may be ``{"adam_moments": {count, mu, nu}}``
     (this package's checkpoints, or the JAX ``convert_checkpoint``'s), a
     JAX optax state (its ``ScaleByAdamState`` is read by position), or
-    None (the optimizer stays fresh).
+    None (the optimizer stays fresh).  With a tensor-parallel ``grid`` the
+    state holds this rank's shards: the full tree is read and the params
+    and moments are cut to them (``Grid.local``).
     """
     from pytorchwavenetvocoder_tpu_torch.convert import (
         adam_moments_from_jax,
         param_leaves,
     )
 
+    def local(tree):
+        if grid is None:
+            return tree
+        return {g: {n: grid.local(g, n, np.asarray(v))
+                    for n, v in leaves.items()}
+                for g, leaves in tree.items()}
+
     payload = load_checkpoint(path)
-    model = payload["model"]
+    model = local(payload["model"])
     with torch.no_grad():
         for g, n, t in param_leaves(state.params):
             t.copy_(torch.as_tensor(np.asarray(model[g][n])))
@@ -183,7 +210,8 @@ def restore_train_state(path: str, state):
             raise ValueError(f"{path}: no Adam state in its optimizer entry")
     if moments is not None:
         count, mu, nu = moments[:3]
-        adam_moments_from_jax(state.optimizer, state.params, count, mu, nu)
+        adam_moments_from_jax(state.optimizer, state.params, count, local(mu),
+                              local(nu))
         logging.info("restored Adam moments (count=%d).", int(np.asarray(count)))
     state.step = int(payload["iterations"])
     return state

@@ -19,7 +19,8 @@ program, the port runs one process per device with ``torch.distributed``:
   ``shard_rows`` is ``shard_global_batch``.
 
 Any other refusal raises with its reason, and nothing falls back to the
-CPU: a host with no card at all refuses ``--device cuda``.
+CPU: a host with no card at all refuses ``--device cuda``.  The model axis
+(tensor parallelism) is ``parallel/mesh.py``, over the same ranks.
 """
 
 from __future__ import annotations
@@ -346,25 +347,26 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> None:
-    """``pmean`` in place: every tensor becomes its mean over the ranks.
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """``pmean`` in place: every tensor becomes its mean over the ranks of
+    ``group`` (default: all of them).
 
     The tensors go into one flat bucket per dtype (in their order), one
-    all-reduce sums each bucket, it is divided by the world size and copied
-    back.  Every rank ends with the same bits.  Outside a process group it
-    leaves the tensors as they are."""
+    all-reduce sums each bucket, it is divided by the group's size and
+    copied back.  Every rank ends with the same bits.  Outside a process
+    group it leaves the tensors as they are."""
     if not dist.is_initialized():
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        bucket = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(bucket, op=dist.ReduceOp.SUM)
+    for same in by_dtype.values():
+        bucket = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
         bucket.div_(world)
         offset = 0
-        for t in group:
+        for t in same:
             n = t.numel()
             t.copy_(bucket[offset:offset + n].view_as(t))
             offset += n

@@ -1,4 +1,4 @@
-"""The training step, on one device or data-parallel over ranks.
+"""The training step, on one device, or data- and tensor-parallel over ranks.
 
 Counterpart of ``pytorchwavenetvocoder_tpu/parallel/train.py`` (reference
 training inner loop, `train.py:527-539`): Adam and a cross-entropy with the
@@ -9,8 +9,10 @@ layer stack runs through the fused CUDA training kernels
 with autograd.  In a process group (``parallel/distributed.py``, one rank
 per device) each rank takes the gradient of its rows and the ranks average
 the gradients before the optimizer step, as the JAX step's ``pmean`` over
-the ``data`` axis.  Tensor parallelism is not ported: a request for it
-raises.
+the ``data`` axis.  With ``model_parallel > 1`` the ranks form JAX's
+(data, model) grid (``parallel/mesh.py``): each holds its model index's
+shards of the params and Adam moments and runs the plain forward tensor
+parallel over its model group.
 """
 
 from __future__ import annotations
@@ -113,24 +115,45 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
     bucket) between the backward and ``opt.step()``, so every rank applies
     the same update; the loss returned is the mean of the ranks' losses
     (the JAX step's ``pmean``).  ``n_devices`` must equal the group's size
-    (1 outside a group).  ``model_parallel > 1`` raises: tensor parallelism
-    is not ported (ROADMAP.md Queue 1 item 8).
+    (1 outside a group), which is data x model.
+
+    Tensor parallel: ``model_parallel`` > 1 ranks per model group, which
+    must divide the group's size (JAX ``make_mesh``), build the grid
+    (``mesh.make_grid``, collective: every rank calls this function), kept
+    as ``step_fn.grid`` (None at 1).  The state holds this rank's shards
+    (``mesh.shard_params``); the ranks of a model group take the same rows
+    (``Grid.rows``).  The route is the plain one (``fused=None``), and
+    ``fused=True`` raises, as in JAX.  After the backward the gradients of
+    the replicated leaves used as a slice (``causal.b``) are summed over
+    the model group, then every gradient and the loss are averaged over
+    the data group only; Adam runs on the shards (elementwise: the full
+    update's shards).
     """
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
         all_reduce_mean,
         world_size,
     )
+    from pytorchwavenetvocoder_tpu_torch.parallel.mesh import (
+        make_grid,
+        sliced_replicated,
+    )
 
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: tensor parallelism is not "
-            "yet ported to the PyTorch package (ROADMAP.md Queue 1 item 8)")
     if n_devices != world_size():
         raise ValueError(
             f"n_devices={n_devices}, but this process is in a group of "
             f"{world_size()} rank(s): data parallelism runs one rank per "
             "device (bin/train.py --n_devices, torchrun, or "
             "parallel/distributed.py::spawn_local)")
+    if model_parallel < 1 or n_devices % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} must divide the "
+                         f"{n_devices} device(s) (data x model)")
+    if model_parallel > 1 and fused:
+        # the fused kernels are one-device programs: the model axis would
+        # leave their gradients divergent across it
+        raise ValueError(
+            f"fused=True requires a model axis of 1 (got model_parallel="
+            f"{model_parallel}): tensor parallelism runs the plain route")
+    grid = make_grid(config, model_parallel) if model_parallel > 1 else None
     data_parallel = torch.distributed.is_initialized()
     rf = config.receptive_field
     if bf16_intermediates is None:
@@ -139,6 +162,8 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
     def use_fused(device: torch.device, T: int) -> bool:
         if fused is not None:
             return fused
+        if grid is not None:
+            return False
         from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
             supports_fused_train,
         )
@@ -166,7 +191,7 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
         logits = wavenet_forward(state.params, config, bx, bh,
                                  remat=remat and not on_fused,
                                  bf16_intermediates=bf16_intermediates,
-                                 fused=on_fused)
+                                 fused=on_fused, tp=grid)
         loss = masked_ce_loss(logits, bt, rf)
         loss.backward()
         loss = loss.detach()
@@ -176,10 +201,19 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
             loss = loss.clone()
-            all_reduce_mean([t.grad for t in leaves] + [loss])
+            if grid is None:
+                all_reduce_mean([t.grad for t in leaves] + [loss])
+            else:
+                for g, n in sliced_replicated(grid):
+                    torch.distributed.all_reduce(
+                        state.params[g][n].grad, group=grid.model_group)
+                if grid.n_data > 1:
+                    all_reduce_mean([t.grad for t in leaves] + [loss],
+                                    group=grid.data_group)
         opt.step()
         state.step += 1
         return state, loss
 
     step_fn.route = None
+    step_fn.grid = grid
     return step_fn

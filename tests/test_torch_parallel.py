@@ -373,7 +373,11 @@ def test_all_reduce_mean_and_shard_rows_outside_a_group():
     (["--dist_backend", "nccl"], ValueError, "nccl needs CUDA"),
     # no card at all is not a clamp to fewer cards
     (["--device", "cuda"], ValueError, "device_count"),
-    (["--model_parallel", "2"], NotImplementedError, "Queue 1 item 8"),
+    # tensor parallelism asked for: misfits are errors (the JAX CLI's)
+    (["--model_parallel", "3"], ValueError,
+     "--model_parallel 3 must divide the 2 devices"),
+    (["--n_devices", "4", "--model_parallel", "2", "--batch_size", "3"],
+     ValueError, "batch size 3 .* must divide the 2-device data axis"),
 ])
 def test_train_cli_refuses_before_any_rank_starts(tmp_path, caplog, extra,
                                                   error, match):

@@ -174,12 +174,14 @@ def test_step_routes_and_refusals():
     _, loss = fused(ps, bx, bh, bt)
     assert fused.route == "fused" and np.isfinite(float(loss))
     # data parallelism runs one rank per device: outside a process group
-    # of two ranks, two devices are refused; tensor parallelism is not
-    # ported
+    # of two ranks, two devices are refused; so is a model axis that does
+    # not divide the devices (JAX's make_mesh), fused or not
     with pytest.raises(ValueError, match="group of 1 rank"):
         ptr.make_train_step(pc, n_devices=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ptr.make_train_step(pc, model_parallel=2)
+    for fused in (None, True):
+        with pytest.raises(ValueError, match="model_parallel=2 must divide "
+                                             "the 1 device"):
+            ptr.make_train_step(pc, model_parallel=2, fused=fused)
 
 
 def test_port_checkpoint_resumes_in_jax(tmp_path):

@@ -149,7 +149,8 @@ def test_train_cli_resumes_latest(tmp_path):
     (["--n_devices", "2", "--batch_size", "3"], None,
      "batch size 3 not divisible by 2 devices; falling back to single "
      "device."),
-    (["--model_parallel", "2"], NotImplementedError, "not yet ported"),
+    (["--n_devices", "2", "--model_parallel", "2", "--fused", "true"],
+     ValueError, "--fused true is incompatible with --model_parallel > 1"),
     (["--fused", "true", "--compute_dtype", "float32"], ValueError,
      "bfloat16"),
     (["--fused", "true"], ValueError, "envelope"),   # 16 channels
