@@ -70,6 +70,18 @@ the model it runs:
    through ``batch_fast_generate(impl="auto")`` in bf16 and in int8, K2
    and K1 on the card, then K1 on the padded carry against the plain loop
    by [K1]'s limits;
+11a. (after the ljspeech phases) [main melspc sc] and [train melspc sc]: a
+   speaker-coded 128-band mel model, ljspeech-sd-melspc's widths
+   (egs/ljspeech/sd-melspc/run.sh:45-63, upsampling 256 from its 11.61 ms
+   shift at 22,050 Hz) with mspc_dim 128 and the speaker-code column:
+   n_aux 129, past the 96 aux rows the first AR kernel took.  Decode: K2
+   held as [K2] holds it, K1 bf16 and int8 (both gate designs) against the
+   plain loops from one carry, a fleet of 16 speaker-coded utterances of
+   50-100 frames through ``decode_batches`` in bf16 and int8 (K1 and K2
+   launched once each, no plain loop).  Training: [K2 train], [K3] and
+   [train] at B=1, T=20,992 (82 frames).  Each times its kernels in turns
+   with the recipe as it ships it (n_aux 80: the same widths, its own
+   seeded weights);
 12. (after the ljspeech phases) data parallel over processes, two ranks
    sharing the one card (the plumbing, not the scaling): [main dp2],
    ``bin/decode.py``'s ``main`` with ``--n_devices 2 --device cuda:0
@@ -489,13 +501,17 @@ def main(argv=None) -> int:
     failures: list[str] = []
     kernels_out: list[dict] = []
 
+    phase_s: dict = {}
+
     def phase(name, fn):
+        t_phase = time.time()
         try:
             fn()
         except Exception:
             traceback.print_exc()
             failures.append(name)
             print(f"[{name}] FAILED", flush=True)
+        phase_s[name] = time.time() - t_phase
 
     def time_ms(fn, reps=3):
         fn()
@@ -650,6 +666,23 @@ def main(argv=None) -> int:
     ljs = dict(name="ljspeech", tag=" k3", suffix="_k3", cfg=lj, wide=256,
                params=make_params(lj, 4321), fleet=16, train_frames=192,
                batch_length=15000, fs=22050, rs=np.random.RandomState(10))
+    # A speaker-coded 128-band mel model: ljspeech-sd-melspc's widths
+    # (egs/ljspeech/sd-melspc/run.sh:45-63) with mspc_dim 128 and the
+    # speaker-code column, n_aux 129; and the recipe as it ships it (n_aux
+    # 80), timed beside it.  Upsampling int(11.61 ms x 22,050 / 1000 + 0.5)
+    # = 256 (its shift, :36, :236); its --batch_length 15000 window is
+    # (15,000 + 6,139) // 256 = 82 frames.
+    mel_cfg = dataclasses.replace(lj, n_aux=129, upsampling_factor=256)
+    mel80_cfg = dataclasses.replace(mel_cfg, n_aux=80)
+    melsc = dict(name="ljspeech-sd-melspc 128 + speaker code",
+                 tag=" melspc sc", suffix="_melspc_sc", cfg=mel_cfg,
+                 params=make_params(mel_cfg, 5678), fleet=16, train_frames=82,
+                 batch_length=15000, fs=22050, rs=np.random.RandomState(20),
+                 speaker_code=True)
+    mel80 = dict(melsc, name="ljspeech-sd-melspc", tag=" melspc",
+                 suffix="_melspc", cfg=mel80_cfg,
+                 params=make_params(mel80_cfg, 5678),
+                 rs=np.random.RandomState(21), speaker_code=False)
     params = arctic["params"]
     bf = torch.bfloat16
 
@@ -1214,13 +1247,13 @@ def main(argv=None) -> int:
     # ---- 4. main path -----------------------------------------------------
     fleet: dict = {}   # per model: the loaded bundle and the fleet, for [main int8]
 
-    def write_bundle(cfg, prm, tmp):
+    def write_bundle(cfg, prm, tmp, speaker_code=False):
         """A checkpoint bundle (model.conf, checkpoint-0.pkl) of ``prm``
         under ``cfg`` in ``tmp``, loaded back through bin/decode.py."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import load_model
 
         conf = dict(cfg.to_dict(), use_upsampling_layer=True,
-                    feature_type="world", use_speaker_code=False)
+                    feature_type="world", use_speaker_code=speaker_code)
         with open(os.path.join(tmp, "model.conf"), "w") as f:
             json.dump(conf, f)
         tree = {g: {k: v.cpu().numpy() for k, v in leaves.items()}
@@ -1236,7 +1269,10 @@ def main(argv=None) -> int:
         wide fleet m["wide"] of short utterances), bf16 or (``quantize``)
         int8: K1 launched once (the gate design ar_gate picks for that
         fleet; the wide fleet's streamed), K2 launched, the plain loop never
-        run."""
+        run.  A speaker-coded model (m["speaker_code"]) takes n_aux - 1
+        feature dims, standardized, and its utterance's code in the last
+        column, which the scaler passes through (bin/decode.py's conf
+        ``use_speaker_code``)."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
         from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
             _pad_aux_to,
@@ -1250,14 +1286,16 @@ def main(argv=None) -> int:
         from pytorchwavenetvocoder_tpu_torch.utils import read_wav
 
         cfg, prm, uf = m["cfg"], m["params"], m["cfg"].upsampling_factor
+        sc = int(m.get("speaker_code", False))
         with tempfile.TemporaryDirectory(dir=root) as tmp:
-            model = write_bundle(cfg, prm, tmp)
+            model = write_bundle(cfg, prm, tmp, speaker_code=bool(sc))
 
             B = m["wide"] if wide else m["fleet"]
             r = np.random.RandomState(5)
             frames = r.randint(8, 13, B) if wide else r.randint(50, 101, B)
-            mean = r.randn(cfg.n_aux) * 0.1
-            scale = 1.0 + 0.1 * r.rand(cfg.n_aux)
+            n_feat = cfg.n_aux - sc
+            mean = r.randn(n_feat) * 0.1
+            scale = 1.0 + 0.1 * r.rand(n_feat)
             scaler = StandardScaler()
             try:        # the bundle's third file, where h5py is installed
                 import h5py  # noqa: F401
@@ -1276,10 +1314,16 @@ def main(argv=None) -> int:
             except ImportError:
                 stats_note = "no h5py here: the scaler stays in memory"
             scaler.mean_, scaler.scale_ = mean, scale
-            tf = feature_transform(scaler, n_extra=0)
+            tf = feature_transform(scaler, n_extra=sc)
             h = np.zeros((B, frames.max(), cfg.n_aux), np.float32)
             for b, nf in enumerate(frames):
-                h[b, :nf] = tf(r.randn(nf, cfg.n_aux))
+                feats = r.randn(nf, n_feat)
+                if sc:      # the generator's tiled /speaker_code column
+                    feats = np.concatenate([feats, np.full((nf, 1), b % 4)],
+                                           axis=1)
+                h[b, :nf] = tf(feats)
+            if sc and not np.array_equal(h[:, 0, -1], np.arange(B) % 4):
+                raise AssertionError("the scaler moved the speaker codes")
             x = np.tile(np.asarray(encode_mu_law(np.zeros(1), 256),
                                    np.int32)[None], (B, 1))
             n_list = [int(nf) * uf - 1 for nf in frames]
@@ -1900,6 +1944,202 @@ def main(argv=None) -> int:
             if res2["start"] != n_steps or res2["state"].step != n_steps + 2:
                 raise AssertionError(f"resume started at {res2['start']}, "
                                      f"ended at {res2['state'].step}")
+
+    # ---- 7a. the speaker-coded 128-band mel model --------------------------
+    def turns(fns, reps=3):
+        """ms of each of ``fns`` timed in turns (a, b, b, a), best of two."""
+        keys = list(fns)
+        got = {k_: [] for k_ in keys}
+        for k_ in keys + keys[::-1]:
+            got[k_].append(time_ms(fns[k_], reps=reps))
+        return {k_: min(v) for k_, v in got.items()}
+
+    def k2_melspc(m, base):
+        """[K2] on the speaker-coded model (held, timed, its kernels-line
+        entry), then its time in turns with ``base``'s at the fleet's
+        warm-up chunk."""
+        k2(m)
+        fns, bnds = {}, {}
+        for mm in (m, base):
+            cfg = mm["cfg"]
+            B, T = mm["fleet"], cfg.receptive_field
+            r = np.random.RandomState(44)
+            x = torch.as_tensor(r.randint(0, 256, (B, T)), device=dev)
+            hh = torch.as_tensor(r.randn(B, T, cfg.n_aux).astype(np.float32),
+                                 device=dev)
+            s0 = input_embed(x, mm["params"], cfg).to(bf).contiguous()
+            lw = tk.layer_weights(mm["params"])
+            fns[cfg.n_aux] = (lambda lw=lw, cfg=cfg, s0=s0, hh=hh:
+                              tk.layer_stack_streams(lw, cfg, s0, hh))
+            bnds[cfg.n_aux] = stack_bound(cfg, B, T, train=False)
+        t = turns(fns)
+        print(f"[K2{m['tag']}] in turns (best of two) at B={m['fleet']} "
+              f"T={m['cfg'].receptive_field}: " + ", ".join(
+                  f"n_aux {a} {t[a]:.3f} ms ({rate(bnds[a], t[a])}; bound "
+                  f"{bnds[a]['bound_ms']:.3f} ms, {bnds[a]['bound_by']})"
+                  for a in t) + f" | {card}", flush=True)
+
+    def k1_melspc(m, base, quantize, wide, n=64, n_check=32, n_time=256,
+                  n_big=64):
+        """K1 (bf16, or int8 with ``quantize``) of the speaker-coded model
+        against the plain loop (int8: the plain int8 loop on the same
+        scales) from one carry at the fleet's B: both gate designs and the
+        lag-2d control, with [K1]'s readings over ``n_check`` steps (int8:
+        the ring within [K1 int8]'s 5e-2); the design ar_gate picks timed
+        over ``n`` steps beside the plain loop, its device launches in one
+        call counted; then its us/step in turns with ``base``'s at the
+        fleet (``n_time`` steps) and at 256 rows (``n_big``).  ``wide``:
+        per model (by n_aux) the cuda warm-up's carry of 256 rows, its aux
+        and its int8 scales, which every carry here is cut from."""
+        cfg, prm, B = m["cfg"], m["params"], m["fleet"]
+        what = "int8" if quantize else "bf16"
+        tag = f"[K1{' int8' if quantize else ''}{m['tag']}]"
+
+        def carry_of(mm, b_):
+            """The first b_ rows of the model's 256-row carry as their own
+            (a copy: the kernel updates its carry in place); int8: with its
+            scales, and at kernel_size 3 the int8 ring."""
+            c256, h256, T_, sc_ = wide[mm["cfg"].n_aux]
+            c_, h_ = slice_carry(clone(c256), h256, b_)
+            if not quantize:
+                return c_, h_, T_, {}
+            return (int8_carry(mm["cfg"], c_, sc_), h_, T_,
+                    dict(quantize=True, act_scales=sc_))
+
+        carry, h, T0, q = carry_of(m, B)
+        gate = ak.ar_gate(cfg, B, quantize, device=dev)
+        ctrl = drop_lag_2d(prm)
+        runs = {g_: (lambda c_, i0, steps, g_=g_: ak.ar_generate_on(
+                    g_, prm, cfg, c_, h, T0 + i0, steps, **q))
+                for g_ in ak.AR_GATES}
+        runs["lag_2d_dropped"] = lambda c_, i0, steps: \
+            ak.ar_generate_reference(ctrl, cfg, c_, h, T0, steps, "argmax",
+                                     i0=i0, **q)
+        readings = k1_readings(cfg, prm, carry, h, T0, n_check, runs, **q)
+        ring_tol = 5e-2 if quantize else K1_RING_TOL
+
+        def fails(r):
+            floor = 0.1 * 256 / n_check
+            return [c for c, bad in (("ring", not r[0] <= ring_tol),
+                                     ("same-state", not r[1] >= K1_STEP_FLOOR),
+                                     ("trajectory", not r[2] >= floor)) if bad]
+
+        def kernel():
+            return ak.ar_generate(prm, cfg, carry, h, T0, n, "argmax", **q)
+
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: ak.ar_generate_reference(
+            prm, cfg, carry, h, T0, n, "argmax", **q), reps=1)
+        bnd = ar_bound(cfg, B, n, quantize)
+        loop_kernels, traced, _ = ar_loop_kernels(kernel)
+        del carry, h
+        us = {}
+        for b_t, n_t in ((B, n_time), (256, n_big)):
+            fns = {}
+            for mm in (m, base):
+                c_t, h_t, T_t, q_t = carry_of(mm, b_t)
+                fns[mm["cfg"].n_aux] = (
+                    lambda mm=mm, c_t=c_t, h_t=h_t, T_t=T_t, n_t=n_t, q_t=q_t:
+                    ak.ar_generate(mm["params"], mm["cfg"], c_t, h_t, T_t, n_t,
+                                   "argmax", **q_t))
+            us[b_t] = {a: 1e3 * v / n_t for a, v in turns(fns, reps=1).items()}
+            us[b_t]["bound"] = {mm["cfg"].n_aux: 1e3 * ar_bound(
+                mm["cfg"], b_t, n_t, quantize)["bound_ms"] / n_t
+                for mm in (m, base)}
+            us[b_t]["gate"] = ak.ar_gate(cfg, b_t, quantize, device=dev)
+            k1_us[(m["name"], what, b_t)] = us[b_t][cfg.n_aux]
+            del fns
+        print(f"{tag} {m['name']} B={B} k={cfg.kernel_size} n_aux "
+              f"{cfg.n_aux}, argmax, {n_check} steps vs the plain "
+              f"{'int8 ' if quantize else ''}loop (ar_gate's: the "
+              f"{GATE_NAMES[gate]}): " + "; ".join(
+                  f"{c} ring after 1 step max|d|/max|ring| {r[0]:.3e}, "
+                  f"same-state agreement {r[1]:.4f}, share agreeing up to "
+                  f"each row's first divergence {r[2]:.4f}, fails "
+                  f"{fails(r) or 'none'}" for c, r in readings.items())
+              + f" (limits ring {ring_tol}, same-state {K1_STEP_FLOOR}, "
+              f"trajectory {0.1 * 256 / n_check:.2f}) | B={B} x {n} steps: "
+              f"kernel {ms:.2f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | us/step in "
+              f"turns (best of two) with n_aux {base['cfg'].n_aux}: " + "; ".join(
+                  f"B={b_} ({GATE_NAMES[u['gate']]}, {st_} steps) " + ", ".join(
+                      f"n_aux {a} {u[a]:.1f} (bound {u['bound'][a]:.2f})"
+                      for a in u['bound'])
+                  for (b_, u), st_ in zip(us.items(), (n_time, n_big)))
+              + f" | AR-loop device kernels in one call of {n} steps: "
+              f"{len(loop_kernels)} {sorted(set(loop_kernels))} | {card}",
+              flush=True)
+        kernel_entry(k1_entry(gate, quantize), m, "ar_persistent.cu",
+                     "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                     readings[gate][3], ms, plain_ms, bnd)
+        bad = {g_: fails(readings[g_]) for g_ in ak.AR_GATES
+               if fails(readings[g_])}
+        if bad:
+            raise AssertionError(f"K1 {what} outside its limits: {bad}")
+        if not fails(readings["lag_2d_dropped"]):
+            raise AssertionError(f"K1 {what} limits pass the control")
+        if len(loop_kernels) != 1 or "ar_persistent_kernel" not in \
+                loop_kernels[0]:
+            raise AssertionError(f"one call of {n} steps ran the AR-loop "
+                                 f"kernels {loop_kernels} (device kernels "
+                                 f"traced: {sorted(set(traced))})")
+
+    def main_melspc(m, base):
+        """[main melspc sc]: K2 and K1 (bf16, int8) of the speaker-coded
+        model held to their plain versions and timed beside ``base``, then
+        its fleet of speaker-coded utterances through decode_batches in
+        bf16 and in int8 (main_path)."""
+        k2_melspc(m, base)
+        wide = {mm["cfg"].n_aux: fleet_carry(mm["cfg"], mm["params"], 256, 256,
+                                             seed, scales=True)
+                for mm, seed in ((m, 41), (base, 42))}
+        for quantize in (False, True):
+            k1_melspc(m, base, quantize, wide)
+        del wide
+        main_path(m)
+        main_path(m, quantize=True)
+
+    def train_melspc(m, base):
+        """[train melspc sc]: [K2 train], [K3] and [train] on the
+        speaker-coded model, then K2 train and K3 timed in turns with
+        ``base``'s at the training window."""
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
+            upsample_aux,
+        )
+
+        k2_train(m)
+        k3(m)
+        train_path(m)
+        train_saves.clear()
+        fwd, bwd, bnds = {}, {}, {}
+        for mm in (m, base):
+            cfg, T = mm["cfg"], t_train(mm)
+            a = cfg.n_aux
+            (x, hh), _t = train_window(mm, 51)
+            s0 = input_embed(torch.as_tensor(x, device=dev).long(),
+                             mm["params"], cfg).to(bf).contiguous()
+            h_up = upsample_aux(mm["params"], cfg, torch.as_tensor(hh,
+                                                                   device=dev))
+            lw = tk.layer_weights(mm["params"])
+            _skip, streams, st = tk.layer_stack_fwd_train(lw, cfg, s0, h_up)
+            dskip = 1e-3 * torch.randn((B_TRAIN, T, cfg.n_skipch), device=dev,
+                                       generator=torch.Generator(
+                                           device=dev).manual_seed(52))
+            fwd[a] = (lambda lw=lw, cfg=cfg, s0=s0, h_up=h_up:
+                      tk.layer_stack_fwd_train(lw, cfg, s0, h_up))
+            bwd[a] = (lambda lw=lw, cfg=cfg, s0=s0, streams=streams, st=st,
+                      h_up=h_up, dskip=dskip: tk.layer_stack_bwd(
+                          lw, cfg, s0, streams, st, h_up, dskip))
+            bnds[a] = (stack_bound(cfg, B_TRAIN, T, train=True),
+                       bwd_bound(cfg, B_TRAIN, T))
+        tf_, tb_ = turns(fwd), turns(bwd)
+        print(f"[train{m['tag']}] K2 train and K3 in turns (best of two) at "
+              f"B={B_TRAIN} T={t_train(m)}: " + "; ".join(
+                  f"n_aux {a} K2 train {tf_[a]:.3f} ms ({rate(bnds[a][0], tf_[a])}"
+                  f"; bound {bnds[a][0]['bound_ms']:.3f} ms), K3 {tb_[a]:.3f} ms "
+                  f"({rate(bnds[a][1], tb_[a])}; bound "
+                  f"{bnds[a][1]['bound_ms']:.3f} ms)" for a in tf_)
+              + f" | {card}", flush=True)
 
     # ---- 8. K1-int8 vs plain int8, and against the bf16 K1 -----------------
     def plain_loop(cfg, weights, quantize, h, T0, scales):
@@ -3990,6 +4230,9 @@ def main(argv=None) -> int:
         phase("K2 train k3", lambda: k2_train(ljs))
         phase("K3 k3", lambda: k3(ljs))
         phase("train k3", lambda: train_path(ljs))
+        # conditioning past 96 aux rows: a speaker-coded 128-band mel model
+        phase("main melspc sc", lambda: main_melspc(melsc, mel80))
+        phase("train melspc sc", lambda: train_melspc(melsc, mel80))
         # data parallel over processes and the reference-checkpoint bridge
         phase("main dp2", lambda: main_dp(arctic))
         phase("train dp", lambda: train_dp(arctic))
@@ -4005,6 +4248,8 @@ def main(argv=None) -> int:
         phase("recipe", lambda: recipe(arctic))
         # the probe last, beside K1's times from this run
         phase("K4", k4)
+    print("[smoke] seconds by phase: " + ", ".join(
+        f"{n_} {t_:.1f}" for n_, t_ in phase_s.items()), flush=True)
     if failures:
         _fail(f"phases failed: {failures}")
     print(f"[smoke] all phases passed in {time.time() - t_start:.1f} s, the "

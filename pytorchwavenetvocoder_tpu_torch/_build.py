@@ -34,9 +34,13 @@ NATIVE_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: The kernels' limit on n_aux (the AR and layer-stack kernels are held to
-#: the one limit the first AR kernel's shared aux rows set).
-AUX_MAX = 96
+#: The widest aux input (n_aux) the AR and layer-stack kernels take: the
+#: widest they were held to on the card (tests/test_torch_cuda.py), and the
+#: widest the JAX kernels were checked to take at the flagship widths.  No
+#: kernel depends on it: K1 streams the aux rows as more K (or cuts its
+#: units under wider caps, ops/ar_kernel.py::AR_W_WIDE), K2 as more 64-deep
+#: K steps, and K3 cuts dh and the aux weight gradient into 128-column tiles.
+AUX_MAX = 1024
 
 #: What the last ``build_kernels`` call did: library path, seconds spent
 #: compiling (0 when reused), and nvcc's output (ptxas register/spill report).

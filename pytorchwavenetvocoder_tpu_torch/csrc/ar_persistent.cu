@@ -1498,12 +1498,9 @@ static const void* kernel_fn(int K, bool q8, bool stream) {
 
 static int block_threads(bool stream) { return stream ? AP_BLOCK : AP_THREADS; }
 
-// Check the plan (ops/ar_kernel.py::ar_plan, as ar_plan_array lays it out)
-// against the shapes and the card, and fill the stages.  0, or -1 (the grid
-// cannot be co-resident), -2 (no cooperative launch), -3 (a plan that does
-// not cut the stages or fit its shared memory), or a CUDA error.
 // The streamed gate's cut (plan[19..27]: on, m, cw, nw, stages, ring, nx,
-// nl, na) checked against the shapes and filled in; 0 or -3.
+// nl, na) checked against the shapes and filled in; 0 or -3.  wcap: where
+// buffer 0 starts, after buffer 1.
 static int check_stream(const int* plan, ApArgs* a, int K_, bool q8, int wcap, int smem) {
     ApStream& s = a->sg;
     s.on = plan[19];
@@ -1555,16 +1552,19 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
     a->smem_a = plan[4];
     a->smem_p = plan[5];
     a->smem_e = plan[6];
-    // weight buffers of wcap bytes: 0 then 1, or with a streamed gate 1
-    // then 0 (the ring over 0 and on)
+    // the two weight buffers, then the A rows: 0 then 1, or with a streamed
+    // gate 1 then 0 (the ring over 0 and on); cap: each buffer's bytes
     const bool stream = plan[19] != 0;
-    const int wcap = a->smem_w[stream ? 0 : 1];
-    if (a->smem_w[stream ? 1 : 0] != 0 || wcap < 0 || a->smem_a != 2 * wcap
+    const int lo = stream ? 1 : 0, hi = 1 - lo;
+    int cap[2];
+    cap[lo] = a->smem_w[hi] - a->smem_w[lo];
+    cap[hi] = a->smem_a - a->smem_w[hi];
+    if (a->smem_w[lo] != 0 || cap[lo] < 0 || cap[hi] < 0
         || a->smem_p < a->smem_a || a->smem_e < a->smem_p || *smem < a->smem_e
         || *grid < 1 || a->R % (q8 ? 32 : 16) || a->S % 16 || a->Q % 16
         || a->Ap % 16 || a->Ap < a->A)
         return -3;
-    if (check_stream(plan, a, K_, q8, wcap, *smem) != 0) return -3;
+    if (check_stream(plan, a, K_, q8, a->smem_w[0], *smem) != 0) return -3;
     for (int T = 0; T < AP_NSTAGES; ++T) {
         if (T == AP_GATE && stream) continue;
         ApStage& s = a->st[T];
@@ -1595,7 +1595,7 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
         }
         s.run = (int)wbytes;
         const long long ebytes = rows * s.cw * 4;
-        if (wbytes > wcap || abytes > a->smem_p - a->smem_a
+        if (wbytes > cap[T & 1] || abytes > a->smem_p - a->smem_a
             || pbytes > a->smem_e - a->smem_p
             || ebytes > *smem - a->smem_e)
             return -3;

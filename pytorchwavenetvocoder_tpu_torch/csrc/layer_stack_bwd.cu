@@ -24,8 +24,9 @@
 //       dz = bf16(ds | dt) and g = bf16(s t), and sums ds | dt over its
 //       128 rows (warp shuffles, then the 8 warps in a fixed order) into
 //       per-tile partials of the bias gradient; the top layer has no dout;
-//   (b) the dh partial bf16(dz @ aux_w^T), added in f32 into dh (the
-//       weights' rows past n_aux read as zeros from the map);
+//   (b) the dh partial bf16(dz @ aux_w^T), added in f32 into dh, in
+//       128-column tiles of n_aux (the weights' rows past n_aux read as
+//       zeros from the map);
 //   (c) dx = sum over m < K of dz[t + m d] @ W_{K-1-m}^T + dout: the taps
 //       loaded by TMA at row coordinate t0 + m d, zeros past the window's
 //       end from the map's fill; rounded to bf16 into a ping-pong buffer,
@@ -177,22 +178,24 @@ struct BwdDG {
     }
 };
 
-// (b) dh += bf16(dz @ aux_w^T), n_aux <= 128 output columns
+// (b) dh += bf16(dz @ aux_w^T): an item is a 128-row tile x one of the
+// nA = ceil(n_aux / 128) 128-column tiles of dh (the column tile fastest)
 struct BwdDH {
     static constexpr int A_MN = 0, B_MN = 0, BN = 128, BLOCKS = 2;
     CUtensorMap dz_map;     // (B, T, 2R), rows 128
     CUtensorMap auxw_map;   // aux_w (L, A, 2R), rows 128
     float* dh;              // (B, T, A)
-    int B, T, R, A, l, ntt;
+    int B, T, R, A, l, ntt, nA;
 
-    __device__ int items() const { return B * ntt; }
+    __device__ int items() const { return B * ntt * nA; }
     __device__ int ksteps(int) const { return 2 * R / WG_BK; }
 
     __device__ void load(int it, int ks, unsigned char* sa, unsigned char* sb,
                          uint64_t* bar) const {
-        const int b = it / ntt, t0 = (it - b * ntt) * WG_BM;
+        const int rt = it / nA, at = it - rt * nA;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
         tma_load_3d(sa, &dz_map, bar, ks * WG_BK, t0, b);
-        tma_load_3d(sb, &auxw_map, bar, ks * WG_BK, 0, l);
+        tma_load_3d(sb, &auxw_map, bar, ks * WG_BK, at * BN, l);
     }
 
     struct Pre {};
@@ -200,12 +203,13 @@ struct BwdDH {
 
     __device__ void epilogue(int it, const float (&acc)[64], WgFrag f, int,
                              unsigned char*, const Pre&) const {
-        const int b = it / ntt, t0 = (it - b * ntt) * WG_BM;
+        const int rt = it / nA, at = it - rt * nA;
+        const int b = rt / ntt, t0 = (rt - b * ntt) * WG_BM;
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-                const int n = 8 * j + f.col + (q & 1);
+                const int n = at * BN + 8 * j + f.col + (q & 1);
                 const int t = t0 + f.row + 8 * (q >> 1);
                 if (n < A && t < T) dh[((size_t)b * T + t) * A + n] += bf_round(acc[4 * j + q]);
             }
@@ -268,7 +272,8 @@ struct BwdDX {
 
 // (d) part[z] (+ offsets) = A^T B over the row blocks of chunk z; A and B
 // are (t, channel) tiles read MN-major.  KIND 0: x^T [dz[t + m d]]_m, N =
-// K 2R, part (K, R, 2R); 1: h^T dz, M = n_aux, part (A, 2R); 2: g^T
+// K 2R, part (K, R, 2R); 1: h^T dz, M = n_aux in ceil(n_aux / 128) row
+// tiles (h's columns past A64 read as zeros), part (A, 2R); 2: g^T
 // [bf16(dskip) | dout], N = S + R, part (R, S) then (R, R).
 enum { WG_X = 0, WG_H = 1, WG_G = 2 };
 
@@ -458,8 +463,7 @@ extern "C" int wn_layer_stack_bwd(
     const int* plan = (const int*)plan_v;
     cudaStream_t cs = (cudaStream_t)stream;
     if ((K != 2 && K != 3) || L < 1 || B < 1 || T < 1 || R % 128 != 0
-        || S % 128 != 0 || S < 128 || A < 1 || A > 128 || A64 < A
-        || A64 % WG_BK != 0)
+        || S % 128 != 0 || S < 128 || A < 1 || A64 < A || A64 % WG_BK != 0)
         return (int)cudaErrorInvalidValue;
     const int ntt = (T + WG_BM - 1) / WG_BM, ntb = (T + 63) / 64;
     const int n_rt = B * ntt, R2 = 2 * R;
@@ -523,8 +527,9 @@ extern "C" int wn_layer_stack_bwd(
         BwdDH& ph = pxh.p2;
         ph.dz_map = dz_r; ph.auxw_map = auxw; ph.dh = (float*)dh_v;
         ph.B = B; ph.T = T; ph.R = R; ph.A = A; ph.l = l; ph.ntt = ntt;
+        ph.nA = (A + ph.BN - 1) / ph.BN;
         pxh.n1 = n_rt * px.nN;
-        if ((e = wg_launch(pxh, pxh.n1 + n_rt, cs))) return e;
+        if ((e = wg_launch(pxh, pxh.n1 + n_rt * ph.nA, cs))) return e;
 
         // (d): the three weight gradients, one launch, each into its own
         // partials
@@ -541,7 +546,8 @@ extern "C" int wn_layer_stack_bwd(
         wh.part = part_h; wh.zstride = (long long)A * R2;
         wh.B = B; wh.T = T; wh.R = R; wh.S = S; wh.A = A; wh.K = K; wh.d = 0;
         wh.a_plane0 = 0; wh.b2_plane0 = 0; wh.ntb = ntb;
-        wh.nM = 1; wh.nN = R2 / wh.BN; wh.chunks = plan[2]; wh.rbpc = plan[3];
+        wh.nM = (A + WG_BM - 1) / WG_BM; wh.nN = R2 / wh.BN; wh.chunks = plan[2];
+        wh.rbpc = plan[3];
         wgg.a_map = g_w; wgg.b_map = dsk_w; wgg.b2_map = pp_w;
         wgg.part = part_g; wgg.zstride = (long long)R * (S + R);
         wgg.B = B; wgg.T = T; wgg.R = R; wgg.S = S; wgg.A = A; wgg.K = K; wgg.d = 0;

@@ -554,6 +554,15 @@ AR_W_CAPS = (80 * 1024, 64 * 1024, 48 * 1024)
 AR_A_CAPS = (104 * 1024, 64 * 1024)
 AR_P_MAX = 32 * 1024
 
+#: The aux rows the caps above were set for (the first AR kernel's limit).
+#: Wider ones grow the gate's K (R + Ap, or 3R + Ap) past them: a gate cut
+#: into units then takes a weight slice of up to ``AR_W_WIDE`` in buffer
+#: 0, and buffer 1 (res, post2) is cut to ``AR_W1_CAPS`` instead of the
+#: gate's size, so that the two buffers and the gate's A rows still fit
+AR_AUX_TUNED = 96
+AR_W_WIDE = (160 * 1024, 128 * 1024, 96 * 1024)
+AR_W1_CAPS = (32 * 1024, 16 * 1024)
+
 #: Dynamic shared memory a block of the persistent kernel may take: the
 #: H100's 232,448 bytes less 1 KB for its static mbarriers
 AR_SMEM_MAX = 232448 - 1024
@@ -684,11 +693,12 @@ def _a_row(name: str, K: int, kernel_size: int) -> int:
 
 
 def _cut_stages(config, quantize: bool, row_tiles: int, grid: int,
-                w_max: int, a_max: int):
+                w_max: int, a_max: int, w1_max: int | None = None):
     """Every stage's cut under the caps: the gate first (the largest K);
     the other stages within the gate's weight slice, A rows and sums where
     they fit there (larger ones would only grow the regions), else within
-    the caps.  None where a stage has no cut."""
+    the caps; ``w1_max``: the weight slices of buffer 1's stages (res,
+    post2) at most that.  None where a stage has no cut."""
     stages = {}
     for name, (K, q, N) in ar_stage_shapes(config, quantize).items():
         args = (K, q, N, _unit_bytes(config, name, quantize), row_tiles, grid)
@@ -696,9 +706,11 @@ def _cut_stages(config, quantize: bool, row_tiles: int, grid: int,
             stages[name] = _cut(*args, w_max, a_max)
         else:
             g = stages["gate"]
-            stages[name] = (_cut(*args, min(w_max, g["w"]), min(a_max, g["a"]),
+            cap = (w_max if w1_max is None or name == "post1"
+                   else min(w_max, w1_max))
+            stages[name] = (_cut(*args, min(cap, g["w"]), min(a_max, g["a"]),
                                  g["p"])
-                            or _cut(*args, w_max, a_max))
+                            or _cut(*args, cap, a_max))
         if stages[name] is None:
             return None
     return stages
@@ -812,19 +824,33 @@ AR_STREAM_FROM_B = {(2, False): 64, (3, False): 128, (2, True): 192,
 
 
 def _plan_units(config, quantize, B, grid):
-    """The plan with the gate cut into units (``_cut_stages``), or None."""
+    """The plan with the gate cut into units (``_cut_stages``), or None:
+    two weight buffers of the largest slice; past ``AR_AUX_TUNED`` aux
+    rows, where those caps give no plan, buffer 0 (gate, post1) and buffer
+    1 (res, post2) each of its own stages' largest slice, under the wide
+    caps (``AR_W_WIDE``, ``AR_W1_CAPS``)."""
     row_tiles = -(-B // 16)
-    for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
-        stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max)
+    tries = [(w, a, None) for w in AR_W_CAPS for a in AR_A_CAPS]
+    if _aux_pad(config.n_aux) > AR_AUX_TUNED:
+        tries += [(w, a, w1) for w1 in AR_W1_CAPS for w in AR_W_WIDE
+                  for a in AR_A_CAPS]
+    for w_max, a_max, w1_max in tries:
+        stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max,
+                             w1_max)
         if stages is None:
             continue
-        w, a, p, e = (max(_align256(s[key]) for s in stages.values())
-                      for key in ("w", "a", "p", "e"))
-        if 2 * w + a + p + e <= AR_SMEM_MAX:
+        a, p, e = (max(_align256(s[key]) for s in stages.values())
+                   for key in ("a", "p", "e"))
+        w0, w1 = (max(_align256(stages[n]["w"]) for n in names)
+                  for names in (("gate", "post1"), ("res", "post2")))
+        if w1_max is None:
+            w0 = w1 = max(w0, w1)
+        if w0 + w1 + a + p + e <= AR_SMEM_MAX:
+            wa = w0 + w1
             return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
-                        quantize=quantize, smem_w=(0, w), smem_a=2 * w,
-                        smem_p=2 * w + a, smem_e=2 * w + a + p,
-                        smem=2 * w + a + p + e)
+                        quantize=quantize, smem_w=(0, w0), smem_a=wa,
+                        smem_p=wa + a, smem_e=wa + a + p,
+                        smem=wa + a + p + e)
     return None
 
 

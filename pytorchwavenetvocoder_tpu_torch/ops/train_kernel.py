@@ -66,10 +66,10 @@ from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 TILE_M, TILE_N, WIDE_N, TILE_K, WGRAD_ROWS, WGRAD_TARGET = \
     128, 128, 256, 64, 64, 264
 
-#: The widest residual stream the stack kernels take, as before their
-#: redesign: nothing in them depends on it, and no wider one has run on
-#: the card.
-MAX_RESCH = 1024
+#: The widest residual stream the stack kernels take: nothing in them
+#: depends on it, and none wider has been held to the plain versions on the
+#: card (tests/test_torch_cuda.py: n_resch 1,152 and 2,048, k = 2 and 3).
+MAX_RESCH = 2048
 
 #: The layer weights in the order ``FusedLayerStack`` takes them.
 _WEIGHT_KEYS = ("dil_w", "dil_b", "aux_w", "aux_b", "skip_w", "skip_b",

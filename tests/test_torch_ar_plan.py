@@ -873,3 +873,182 @@ def test_int8_emulated_stages_decode_as_the_plain_int8_loop(kernel_size, B,
     sp = ak.ar_generate_reference(params, cfg, cp, h, T0, n, "argmax", **q)
     assert (se == sp).float().mean().item() >= 0.9
     assert torch.equal(ce[2], se[:, -1])
+
+
+# ---------------------------------------------------------------------------
+# conditioning past the 96 aux rows the caps were set for
+# ---------------------------------------------------------------------------
+
+#: the flagship windows the recipes train on (arctic-sd k=2, ljspeech-sd k=3)
+FLAGSHIP_T = {2: 23040, 3: 21120}
+
+
+def _buffer_caps(plan):
+    """The two weight buffers' bytes as csrc/ar_persistent.cu's check_plan
+    reads them from the offsets: [buffer 0 | buffer 1 | A rows], or with a
+    streamed gate [buffer 1 | buffer 0 | A rows]."""
+    lo = 1 if plan["stages"]["gate"].get("stream") else 0
+    w = plan["smem_w"]
+    caps = [0, 0]
+    caps[lo] = w[1 - lo] - w[lo]
+    caps[1 - lo] = plan["smem_a"] - w[1 - lo]
+    assert w[lo] == 0 and min(caps) >= 0
+    return caps
+
+
+def _kernel_bytes(cfg, name, s, quantize):
+    """(weight run, A rows, sums, epilogue operands) of a unit of stage
+    ``name`` as check_plan computes them."""
+    R, Ap, k = cfg.n_resch, -(-cfg.n_aux // 16) * 16, cfg.kernel_size
+    K, quarters, _N = ak.ar_stage_shapes(cfg, quantize)[name]
+    rows, cw = 16 * s["mt"], s["cw"]
+    cols = quarters * cw
+    gate = name == "gate"
+    if s["segs"]:
+        w = (s["segs"] * K * cols + (2 * Ap * cw if gate else 0)
+             + 4 * (s["segs"] * cols + (2 if gate else 1) * cw))
+        a = rows * (R + 16 + (2 * (Ap + 8) if gate else 0)
+                    + (2 * R + 16 if gate and k == 3 else 0))
+        p = 4 * s["segs"] * s["ks"] * rows * cols + (4 * rows * cw if gate
+                                                     else 0)
+    else:
+        w = (K * cols + 2 * cw) * 2
+        a = rows * (K + (2 if gate and k == 3 else 1) * ak.AR_A_PAD) * 2
+        p = 4 * s["ks"] * rows * cols
+    return w, a, p, rows * cw * 4
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_every_aux_width_has_a_plan_of_each_design(kernel_size):
+    """At the flagship widths every n_aux 1..AUX_MAX is in the envelope of
+    K1 (bf16, int8), K2 and K3, and every fleet 16-512 has a plan of each
+    gate design, bf16 and int8, within a block's shared memory.  The plans
+    depend on n_aux through its whole 16-row tiles only (``_aux_pad``), so
+    the 64 widths 16, 32, .. AUX_MAX are every plan there is."""
+    from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
+    from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
+
+    T = FLAGSHIP_T[kernel_size]
+    for n_aux in range(1, AUX_MAX + 1):
+        cfg = _cfg(kernel_size, "flagship", n_aux=n_aux)
+        assert ak.ar_kernel_constraint_error(cfg) is None, n_aux
+        assert ak.ar_kernel_constraint_error(cfg, quantize=True) is None
+        assert tk.layer_stack_constraint_error(cfg) is None, n_aux
+        assert tk.fused_train_constraint_error(cfg, T) is None, n_aux
+    for Ap in range(16, AUX_MAX + 1, 16):
+        cfg = _cfg(kernel_size, "flagship", n_aux=Ap)
+        for quantize in (False, True):
+            for gate in ak.AR_GATES:
+                for B in (16, 32, 64, 128, 256, 512):
+                    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS,
+                                      quantize=quantize, gate=gate)
+                    assert plan["smem"] <= ak.AR_SMEM_MAX
+                    caps = _buffer_caps(plan)
+                    for name in ak.AR_STAGES:
+                        s = plan["stages"][name]
+                        if not s.get("stream"):
+                            assert s["w"] <= caps[ak.AR_STAGES.index(name)
+                                                  & 1], (Ap, B, name)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+@pytest.mark.parametrize("n_aux", [129, 1024])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_wide_aux_plans_cover_every_output_once(kernel_size, n_aux, gate,
+                                                quantize):
+    """A speaker-coded 128-band mel (n_aux 129) and AUX_MAX at the flagship
+    widths, B 16-512, each gate design, bf16 and int8: each unit's bytes
+    are the kernel's own count and fit its region (a wide units gate's
+    buffers each of its own stages' size), and every output of every stage
+    is computed by exactly one unit."""
+    cfg = _cfg(kernel_size, "flagship", n_aux=n_aux)
+    for B in (16, 32, 64, 128, 256, 512):
+        plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=quantize,
+                          gate=gate)
+        assert plan["smem"] <= ak.AR_SMEM_MAX
+        caps = _buffer_caps(plan)
+        if gate == "stream":
+            _check_stream(plan, cfg, quantize)
+        for i, (name, (K, quarters, N)) in enumerate(
+                ak.ar_stage_shapes(cfg, quantize).items()):
+            s = plan["stages"][name]
+            if s.get("stream"):
+                continue
+            w, a, p, e = _kernel_bytes(cfg, name, s, quantize)
+            assert (s["w"], s["a"], s["p"], s["e"]) == (w, a, p, e), name
+            assert w <= caps[i & 1] and a <= plan["smem_p"] - plan["smem_a"]
+            assert p <= plan["smem_e"] - plan["smem_p"]
+            assert e <= plan["smem"] - plan["smem_e"]
+            assert _covered_once(plan, name, B, quarters * N,
+                                 16 * s["mt"]) == s["units"]
+
+
+def _wide_aux_decode(kernel_size, B, gate, quantize, seed):
+    """n_aux 129 at the narrow width, 3 layers: the emulated stages (bf16
+    or int8) against the plain loop, with the limits of the n_aux 20 tests
+    above (same-state argmax >= 0.97; bf16 ring within 2e-2 of max|ring|,
+    int8 within 5e-2 with at most a quarter of the written slots apart)."""
+    cfg = _cfg(kernel_size, "narrow", dilation_depth=3, dilation_repeat=1,
+               n_aux=129)
+    gen = torch.Generator().manual_seed(seed)
+    params = P.init_wavenet_params(cfg, gen)
+    for group in ("dil", "aux", "skip", "res", "post1", "post2", "causal"):
+        b = params[group]["b"]
+        params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
+    rng = np.random.RandomState(seed + kernel_size)
+    n = 6
+    x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)))
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32)
+    x, h = P._pad_seed(cfg, x, h)
+    T0 = x.shape[1]
+    plan = ak.ar_plan(cfg, B, grid=7, quantize=quantize, gate=gate)
+    caps, offs, _ = P._buffer_layout(cfg)
+    rows = torch.tensor([o + (T0 - 1) % c for o, c in zip(offs, caps)])
+    if quantize:
+        carry, maxes = P._warmup_state(params, cfg, x, h,
+                                       collect_act_maxes=True)
+        scales = ak.act_scales_from_maxes(maxes)
+        if kernel_size == 3:
+            carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
+        q = dict(quantize=True, act_scales=scales)
+
+        def emulate(c_, p, steps):
+            return _emulate_i8(params, cfg, c_, h, p, steps, plan, scales)
+    else:
+        carry = P._warmup_state(params, cfg, x, h)
+        q = {}
+
+        def emulate(c_, p, steps):
+            return _emulate(params, cfg, c_, h, p, steps, plan)
+    ce, cp = (tuple(t.clone() for t in carry) for _ in range(2))
+    emulate(ce, T0, 1)
+    ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax", **q)
+    want = cp[0][rows].float()
+    diff = (ce[0][rows].float() - want).abs()
+    assert diff.max().item() <= (5e-2 if quantize else 2e-2) * \
+        want.abs().max().item()
+    if quantize:
+        assert (diff > 0).float().mean().item() <= 0.25
+    agree = []
+    for i in range(n):
+        ce = tuple(t.clone() for t in cp)
+        se = emulate(ce, T0 + i, 1)
+        sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
+                                      i0=i, **q)
+        agree.append((se == sp).float().mean().item())
+    assert np.mean(agree) >= 0.97
+
+
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_wide_aux_emulated_stages_decode_as_the_plain_loop(kernel_size, gate):
+    _wide_aux_decode(kernel_size, 37, gate, False, 31)
+
+
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_wide_aux_int8_emulated_stages_decode_as_the_plain_int8_loop(
+        kernel_size, gate):
+    _wide_aux_decode(kernel_size, 37, gate, True, 33)

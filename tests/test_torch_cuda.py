@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 from pytorchwavenetvocoder_tpu_torch.bin.profile_ar import ar_loop_kernels
 from pytorchwavenetvocoder_tpu_torch.models import wavenet as P
 from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
@@ -58,7 +59,7 @@ STACK_SHAPES = [(2, 3, 700, 4, 2), (3, 3, 700, 4, 2), (2, 1, 1001, 10, 1),
                 (3, 3, 1001, 10, 1), (2, 3, 50, 4, 2)]
 
 
-def _check_streams(cfg, params, B, T, seed=0):
+def _check_streams(cfg, params, B, T, seed=0, share=1e-2):
     rng = np.random.RandomState(seed)
     dev = params["dil"]["w"].device
     s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
@@ -75,7 +76,7 @@ def _check_streams(cfg, params, B, T, seed=0):
         # one layer on the same input: a bf16 ulp where sums round apart
         d = (got[l].float() - want.float()).abs()
         assert d.max().item() <= 1e-2 * want.float().abs().max().item()
-        assert (d > 0).float().mean().item() <= 1e-2
+        assert (d > 0).float().mean().item() <= share
 
 
 @pytest.mark.parametrize("kernel_size, B, T, depth, repeat", STACK_SHAPES)
@@ -404,13 +405,119 @@ def test_wide_k3_config_runs_on_the_streamed_gate(dev):
 
 
 def test_cuda_path_raises_outside_envelope(dev):
-    for cfg in (_cfg(kernel_size=4), _cfg(compute_dtype="float64"),
-                _cfg(n_resch=1152), _cfg(n_aux=97)):
+    # n_resch 1,152 in int8 (INT8_MAX_RESCH); bf16 decodes it
+    for cfg, quantize in ((_cfg(kernel_size=4), False),
+                          (_cfg(compute_dtype="float64"), False),
+                          (_cfg(n_resch=1152), True),
+                          (_cfg(n_aux=AUX_MAX + 1), False)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
         h = np.zeros((2, 40, cfg.n_aux), np.float32)
         with pytest.raises(NotImplementedError):
-            P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda")
+            P.batch_fast_generate(params, cfg, x, h, [10, 10], impl="cuda",
+                                  quantize=quantize)
+
+
+def _wide_share(cfg):
+    """The share of elements a layer may flip by a bf16 ulp against the
+    plain layer at the gate's K = kR + aux_width(n_aux): a flip needs the
+    two f32 sums to straddle a rounding boundary, and their difference
+    grows with the terms summed (the card read 3.4-6.0e-6 x K for K 1,600
+    to 6,208), so 1e-5 x K, and the other tests' 1e-2 below K = 1,000."""
+    K = cfg.kernel_size * cfg.n_resch + tk.aux_width(cfg.n_aux)
+    return max(1e-2, 1e-5 * K)
+
+
+#: K3's gradients where the aux or residual width is past the other tests':
+#: chip_smoke.py [K3]'s relative limit (its cosine limit is 0.9999; these
+#: keep 0.99999), as the dz flips above feed eight layers of bf16 dx
+WIDE_GRAD_REL = 3e-2
+
+
+# conditioning wider than the first AR kernel's 96 rows: one past it, a
+# 128-band mel with a speaker-code column (129), 256 and AUX_MAX; fleets
+# 16 and 64 (gate units) and 256 (streamed), each gate design at each
+WIDE_AUX = [97, 129, 256, AUX_MAX]
+
+
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+@pytest.mark.parametrize("B", [16, 64, 256])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("n_aux", WIDE_AUX)
+def test_ar_kernels_at_wide_aux_match_plain(dev, n_aux, kernel_size, B, gate):
+    """K1 in bf16 and int8 with the aux rows past 96 (the warm-up's K2 on
+    the same width first), both gate designs, against the plain loops
+    with the [K1] and int8 limits."""
+    cfg = _cfg(kernel_size=kernel_size, n_aux=n_aux)
+    params = _params(cfg, dev, seed=13)
+    n = 6
+    carry, h, T0 = _random_carry(params, cfg, dev, B, n, 13)
+    _same_state(params, cfg, carry, h, T0, n,
+                lambda c_, p, steps: ak.ar_generate_on(gate, params, cfg, c_,
+                                                       h, p, steps))
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 13)
+    _int8_same_state(params, cfg, carry, h, T0, scales, n,
+                     lambda c_, p, steps: ak.ar_generate_on(
+                         gate, params, cfg, c_, h, p, steps, quantize=True,
+                         act_scales=scales))
+
+
+@pytest.mark.parametrize("B", [16, 20])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_units_gate_on_the_wide_caps_matches_plain(dev, kernel_size, B):
+    """The flagship widths at AUX_MAX rows: no regular cap fits the bf16
+    gate cut into units (a unit's slice of K = R + Ap or 3R + Ap rows), so
+    its plan sizes the two weight buffers apart (``AR_W_WIDE``,
+    ``AR_W1_CAPS``); held to the plain loop with [K1]'s limits, on the
+    design ``ar_gate`` picks there."""
+    cfg = _cfg(kernel_size=kernel_size, n_aux=AUX_MAX, n_resch=512,
+               n_skipch=256)
+    plan = ak.ar_plan(cfg, B, device=dev)
+    w = plan["smem_w"]
+    assert ak.ar_gate(cfg, B, device=dev) == "units"
+    assert w[0] == 0 and w[1] != plan["smem_a"] - w[1]      # two sizes
+    params = _params(cfg, dev, seed=17)
+    n = 6
+    carry, h, T0 = _random_carry(params, cfg, dev, B, n, 17)
+    _same_state(params, cfg, carry, h, T0, n,
+                lambda c_, p, steps: ak.ar_generate(params, cfg, c_, h, p,
+                                                    steps, "argmax"))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_ar_kernel_one_launch_per_call_at_wide_aux(dev, kernel_size,
+                                                   quantize):
+    """n_aux 129 (a speaker-coded 128-band mel): ``batch_fast_generate``
+    with ``impl="auto"`` on the card runs K2 once and K1 once, one device
+    launch of the AR loop."""
+    cfg = _cfg(kernel_size=kernel_size, n_aux=129, upsampling_factor=10)
+    params = _params(cfg, dev, seed=14)
+    rng = np.random.RandomState(14)
+    x = np.full((3, 1), 128, np.int32)
+    hf = rng.randn(3, 6, cfg.n_aux).astype(np.float32)
+    k1 = _int8_counts() if quantize else _bf16_counts()
+    k2 = tk.layer_stack_streams.launches
+    out = P.batch_fast_generate(params, cfg, x, hf, [59, 40, 20],
+                                mode="argmax", quantize=quantize)
+    assert [len(o) for o in out] == [59, 40, 20]
+    assert (_int8_counts() if quantize else _bf16_counts()) == k1 + 1
+    assert tk.layer_stack_streams.launches == k2 + 1
+    B, n = 16, 12
+    if quantize:
+        carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 14)
+    else:
+        carry, h, T0 = _random_carry(params, cfg, dev, B, n, 14)
+        scales = None
+
+    def call():
+        return ak.ar_generate(params, cfg, carry, h, T0, n, "argmax",
+                              quantize=quantize, act_scales=scales)
+
+    call()
+    torch.cuda.synchronize()
+    loop, names, _ = ar_loop_kernels(call)
+    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], (loop, names)
 
 
 @pytest.mark.parametrize("B", [8, 256])
@@ -532,7 +639,34 @@ def test_train_kernels_at_widths_the_first_kernels_refused(dev):
                       dilation_depth=3), dev, 2, 300)
 
 
-def _check_train(cfg, dev, B, T):
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("n_aux", WIDE_AUX)
+def test_stack_kernels_at_wide_aux_match_plain(dev, n_aux, kernel_size):
+    """K2 (streams and training) and K3 with the aux rows past 96: the
+    gate's aux K steps, K3's dh and aux weight gradient in
+    ceil(n_aux / 128) column and row tiles."""
+    cfg = _cfg(kernel_size=kernel_size, n_aux=n_aux)
+    params = _params(cfg, dev, seed=15)
+    _check_streams(cfg, params, 3, 700, seed=15, share=_wide_share(cfg))
+    _check_train(cfg, dev, 2, 700, share=_wide_share(cfg),
+                 grad_rel=WIDE_GRAD_REL)
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("n_resch", [1152, 2048])
+def test_stack_kernels_at_wide_resch_match_plain(dev, n_resch, kernel_size):
+    """K2 (streams and training) and K3 past n_resch 1,024, to MAX_RESCH:
+    what lets the bf16 decode take n_resch 1,152, as the JAX K1 does."""
+    assert n_resch <= tk.MAX_RESCH
+    cfg = _cfg(kernel_size=kernel_size, n_resch=n_resch, n_skipch=256,
+               dilation_depth=3)
+    params = _params(cfg, dev, seed=16)
+    _check_streams(cfg, params, 2, 300, seed=16, share=_wide_share(cfg))
+    _check_train(cfg, dev, 2, 300, share=_wide_share(cfg),
+                 grad_rel=WIDE_GRAD_REL)
+
+
+def _check_train(cfg, dev, B, T, share=1e-2, grad_rel=1e-2):
     params = _params(cfg, dev, seed=4)
     rng = np.random.RandomState(4)
     s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
@@ -553,14 +687,14 @@ def _check_train(cfg, dev, B, T):
         s, t = tk._ref_gate(lw, l, d, x, hb)
         want = torch.cat([s, t], -1).to(torch.bfloat16).float()
         diff = (st[l].float() - want).abs()
-        assert diff.max().item() <= 2 ** -8 and (diff > 0).float().mean() <= 1e-2
+        assert diff.max().item() <= 2 ** -8 and (diff > 0).float().mean() <= share
         g = (s * t).to(torch.bfloat16)
         skip_ref += P._dot(g, lw["skip_w"][l].to(torch.bfloat16)) + lw["skip_b"][l]
         if l < cfg.n_layers - 1:
             want = tk._ref_res(lw, l, g, x).float()
             diff = (streams[l].float() - want).abs()
             assert diff.max().item() <= 1e-2 * want.abs().max().item()
-            assert (diff > 0).float().mean().item() <= 1e-2
+            assert (diff > 0).float().mean().item() <= share
             x = streams[l]
     assert _cos_rel(skip_ref, skip)[1] <= 1e-2
     # K3 on the kernel's saves: only summation order differs; dz flips by a
@@ -573,7 +707,7 @@ def _check_train(cfg, dev, B, T):
     for name, want, mine in pairs:
         assert mine.dtype == want.dtype and mine.shape == want.shape, name
         cos, rel = _cos_rel(want, mine)
-        assert cos > 0.99999 and rel < 1e-2, (name, cos, rel)
+        assert cos > 0.99999 and rel < grad_rel, (name, cos, rel)
     # no atomics: a second run is bitwise equal
     again = tk.layer_stack_bwd(lw, cfg, s0, streams, st, h, dskip)
     for k in got[0]:

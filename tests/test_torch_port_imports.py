@@ -137,8 +137,16 @@ def test_kernel_envelopes_name_what_is_out():
         WaveNetConfig(compute_dtype="float64"))
     assert "n_resch" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", n_resch=100))
-    assert "n_aux" in layer_stack_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", n_aux=200))
+    # every aux width to AUX_MAX (a speaker-coded 128-band mel model is
+    # 129); the first past it is refused
+    for n_aux in (97, 129, 200, AUX_MAX):
+        wide = WaveNetConfig(compute_dtype="bfloat16", n_aux=n_aux)
+        assert layer_stack_constraint_error(wide) is None
+        assert ar_kernel_constraint_error(wide) is None
+        assert ar_kernel_constraint_error(wide, quantize=True) is None
+    past = WaveNetConfig(compute_dtype="bfloat16", n_aux=AUX_MAX + 1)
+    assert "n_aux" in layer_stack_constraint_error(past)
+    assert "n_aux" in ar_kernel_constraint_error(past)
     # the int8 variant: the bf16 envelope, kernel_size 2 or 3, n_resch <= 1024
     assert ar_kernel_constraint_error(flag, quantize=True) is None
     why = ar_kernel_constraint_error(
@@ -154,7 +162,7 @@ def test_kernel_envelopes_name_what_is_out():
 
 
 @pytest.mark.parametrize("kw, what", [
-    (dict(n_resch=1152), "n_resch"),          # only the warm-up kernel refuses
+    (dict(n_resch=2176), "n_resch"),          # only the warm-up kernel refuses
     (dict(kernel_size=4), "kernel_size"),
     (dict(compute_dtype="float64"), "compute_dtype"),
 ])

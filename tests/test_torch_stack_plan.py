@@ -260,3 +260,89 @@ def test_split_row_weight_gradients_equal_the_plain_backward(k):
             err = (v - want).abs().max().item()
             assert err <= 1e-5 * want.abs().max().item(), (l, name, err)
         _, dout, _ = tk.ref_layer_bwd(lw, l, d, x, st[l], hb, dsk, dout)
+
+
+# n_aux past one 128-column tile: one past the first AR kernel's 96 (97), a
+# speaker-coded 128-band mel (129), 257 and the widest the kernels take
+WIDE_AUX = [97, 129, 257, 1024]
+
+
+def _aux_tiles(A):
+    """K3's 128-column tiles of n_aux (``BwdDH``'s nA, ``Wgrad<WG_H>``'s
+    nM)."""
+    return -(-A // tk.TILE_N)
+
+
+@pytest.mark.parametrize("A", WIDE_AUX)
+@pytest.mark.parametrize("B, T", [(1, 21120), (3, 700), (2, 50)])
+def test_dh_items_cover_every_output_once(B, T, A):
+    """K3's dh product: item it = (row tile rt, aux tile at), the aux tile
+    fastest; each writes rows [t0, t0 + 128) and columns [128 at,
+    128 at + 128) of dh, those past T and past n_aux masked out."""
+    ntt, nA = -(-T // tk.TILE_M), _aux_tiles(A)
+    cov = np.zeros((B, T, A), np.int32)
+    for it in range(B * ntt * nA):
+        rt, at = divmod(it, nA)
+        b, t0 = rt // ntt, (rt % ntt) * tk.TILE_M
+        cov[b, t0:t0 + tk.TILE_M, at * tk.TILE_N:(at + 1) * tk.TILE_N] += 1
+    assert (cov == 1).all()
+
+
+@pytest.mark.parametrize("A", WIDE_AUX)
+@pytest.mark.parametrize("B, T", [(1, 21120), (3, 700)])
+def test_daux_items_cover_every_output_once(B, T, A):
+    """K3's aux weight gradient h^T dz: per chunk z its items (z, mt, nt)
+    cover the (n_aux, 2R) partial once, rows past n_aux masked out, and
+    the plan (sized by M = n_aux) gives every row block to one chunk."""
+    cfg = _cfg(n_aux=A, n_resch=512, n_skipch=256)
+    M, N, bn = tk.wgrad_products(cfg)[1]
+    assert M == A
+    chunks, per = tk.wgrad_plan(B, T, M, N, bn)
+    nM, nN = _aux_tiles(A), N // bn
+    cov = np.zeros((chunks, M, N), np.int32)
+    for it in range(chunks * nM * nN):
+        z, r = divmod(it, nM * nN)
+        mt, nt = divmod(r, nN)
+        cov[z, mt * tk.TILE_M:(mt + 1) * tk.TILE_M,
+            nt * bn:(nt + 1) * bn] += 1
+    assert (cov == 1).all()
+    nb = -(-T // tk.WGRAD_ROWS)
+    assert (chunks - 1) * per < B * nb <= chunks * per
+
+
+@pytest.mark.parametrize("A", WIDE_AUX)
+def test_tiled_dh_product_is_the_plain_dh(A):
+    """The dh partial as K3 forms it, in float64: per (row tile, aux tile)
+    item bf16(dz @ aux_w^T) over the tile's 128 columns (the weights' rows
+    past n_aux read as zeros), added into dh; it equals the plain
+    backward's per-layer partial."""
+    cfg = _cfg(n_aux=A, dilation_depth=2, dilation_repeat=1)
+    lw = _weights(cfg, 9)
+    R, B, T = cfg.n_resch, 2, 300
+    rng = np.random.RandomState(9)
+    h = torch.as_tensor(rng.randn(B, T, A)).to(BF)
+    x = torch.as_tensor(rng.randn(B, T, R)).to(BF)
+    st = torch.sigmoid(torch.as_tensor(rng.randn(B, T, 2 * R))).to(BF)
+    dsk = torch.as_tensor(rng.randn(B, T, cfg.n_skipch)).to(BF)
+    # the plain layer's dh partial, from its own dz
+    _, _, want = tk.ref_layer_bwd(lw, 0, 1, x, st, h, dsk,
+                                  torch.zeros_like(x))
+    s, t = st[..., :R].float(), st[..., R:].float()
+    dg = P._dot(dsk, lw["skip_w"][0].to(BF).T)
+    dz = torch.cat([dg * t * s * (1 - s), dg * s * (1 - t * t)], -1).to(BF)
+    ntt, nA = -(-T // tk.TILE_M), _aux_tiles(A)
+    wpad = torch.zeros((nA * tk.TILE_N, 2 * R), dtype=torch.float64)
+    wpad[:A] = lw["aux_w"][0].to(BF).double()
+    dh = torch.zeros((B, T, A), dtype=torch.float64)
+    for it in range(B * ntt * nA):
+        rt, at = divmod(it, nA)
+        b, t0 = rt // ntt, (rt % ntt) * tk.TILE_M
+        rows = slice(t0, min(T, t0 + tk.TILE_M))
+        cols = slice(at * tk.TILE_N, (at + 1) * tk.TILE_N)
+        part = dz[b, rows].double() @ wpad[cols].T
+        n = min(A, cols.stop) - cols.start
+        dh[b, rows, cols.start:cols.start + n] += \
+            part[:, :n].float().to(BF).double()
+    err = (dh - want.double()).abs().max().item()
+    # the same bf16 rounding of f32 sums taken in another order: an ulp
+    assert err <= 2 ** -7 * want.double().abs().max().item(), err

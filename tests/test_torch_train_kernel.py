@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from pytorchwavenetvocoder_tpu.models import wavenet as J
 from pytorchwavenetvocoder_tpu.ops import train_kernel as jtk
 
+from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 from pytorchwavenetvocoder_tpu_torch.convert import params_from_jax
 from pytorchwavenetvocoder_tpu_torch.models import wavenet as P
 from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
@@ -228,9 +229,15 @@ def test_fused_constraint_is_hoppers():
     for kw, what in ((dict(kernel_size=4), "kernel_size"),
                      (dict(n_skipch=96), "n_skipch"),
                      (dict(n_resch=96), "n_resch"),
-                     (dict(n_aux=200), "n_aux")):
+                     (dict(n_aux=AUX_MAX + 1), "n_aux"),
+                     (dict(n_resch=tk.MAX_RESCH + 128), "n_resch")):
         cfg = P.WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
         assert what in tk.fused_train_constraint_error(cfg, 20000), kw
+    # every aux width to AUX_MAX, and residual streams to MAX_RESCH
+    for kw in (dict(n_aux=200), dict(n_aux=AUX_MAX),
+               dict(n_resch=1152), dict(n_resch=tk.MAX_RESCH)):
+        cfg = P.WaveNetConfig(**dict(dict(compute_dtype="bfloat16"), **kw))
+        assert tk.fused_train_constraint_error(cfg, 20000) is None, kw
     assert "empty" in tk.fused_train_constraint_error(flag, 0)
     # the ljspeech flagship (egs/ljspeech/sd/run.sh) fits, at both aux widths
     for n_aux in (39, 80):
