@@ -82,6 +82,17 @@ the model it runs:
    [train] at B=1, T=20,992 (82 frames).  Each times its kernels in turns
    with the recipe as it ships it (n_aux 80: the same widths, its own
    seeded weights);
+11b. [K1 wide resch]: K1 bf16 and int8 past n_resch 1,024, at 1,152 and
+   2,048 (K2's MAX_RESCH) on both flagships (n_skipch 256, 30 layers: only
+   the residual width changes, seeded weights on the card): at fleets 16
+   and 256 (the larger from the smaller's ring, its own ids and aux) the
+   design ``ar_gate`` picks against the plain loop by [K1]'s readings
+   (int8: the plain int8 loop, whose integer products are float64 sums
+   rounded once, on the same scales; ring within 5e-2) with a control at
+   16 (gate bias dropped, or the lag-2d tap), both times, and the us/step
+   in turns with the n_resch 512 flagship; then each model's fleet of 16
+   short utterances through ``decode_batches(impl="auto")`` in bf16 and
+   int8 (K1 launched once, finite wavs);
 12. (after the ljspeech phases) data parallel over processes, two ranks
    sharing the one card (the plumbing, not the scaling): [main dp2],
    ``bin/decode.py``'s ``main`` with ``--n_devices 2 --device cuda:0
@@ -107,7 +118,11 @@ the model it runs:
    same weights loaded directly; [dp clamp], ``bin/decode.py``'s ``main``
    with ``--n_devices 2 --device cuda`` on the one card: clamped to one
    process with the JAX CLI's warning, wavs byte-equal to the one-process
-   decode, one K1 launch per fleet;
+   decode, one K1 launch per fleet; [launcher], two ``bin/decode.py``
+   processes started as a launcher starts two hosts (``WORLD_SIZE`` 2,
+   ``LOCAL_WORLD_SIZE`` 1, no process group) on the one card, each
+   decoding its stripe of the list on K1, their wavs together byte-equal
+   to one process's argmax decode of the same bundle and list;
 13. [features]: the recipes' feature extraction (``bin/feature_extract.py``)
    on the host (``--n_jobs 8``, processes) and on the card (``--device
    cuda``, float64; ``--f0_device torch``) at their full settings, on Klatt
@@ -230,6 +245,20 @@ class File:
 
     def create_dataset(self, key, data):
         self.data[_key(key)] = data
+"""
+
+
+#: A decode process under a launcher: ``bin/decode.py``'s main on the
+#: arguments after the first, then its rank's record written as JSON to the
+#: first (the rank, its device, utterances, fleets and kernel launches).
+_LAUNCHED_DECODE = """
+import json, sys
+from pytorchwavenetvocoder_tpu_torch.bin import decode
+rk = decode.main(sys.argv[2:])["ranks"][0]
+with open(sys.argv[1], "w") as f:
+    json.dump(dict(rank=rk["rank"], device=str(rk["device"]),
+                   n_utts=rk["n_utts"], fleets=len(rk["batches"]),
+                   launches=rk["launches"]), f)
 """
 
 
@@ -513,8 +542,9 @@ def main(argv=None) -> int:
             print(f"[{name}] FAILED", flush=True)
         phase_s[name] = time.time() - t_phase
 
-    def time_ms(fn, reps=3):
-        fn()
+    def time_ms(fn, reps=3, warm=True):
+        if warm:
+            fn()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
@@ -965,38 +995,50 @@ def main(argv=None) -> int:
     def clone(carry):
         return tuple(t.clone() for t in carry)
 
+    def ring_absmax(a, b=None, slots=256):
+        """max |a| (or max |a - b|) over a ring in f32, ``slots`` ring
+        slots at a time (a whole ring in f32 is 13 GB at n_resch 2,048 and
+        256 rows)."""
+        return max(((a[i:i + slots].float() - b[i:i + slots].float())
+                    if b is not None else a[i:i + slots].float()
+                    ).abs().max().item() for i in range(0, a.shape[0], slots))
+
     def k1_readings(cfg, prm, carry, h, T0, n_check, runs, plain_cfg=None,
-                    **plain_kw):
+                    plain=None, **plain_kw):
         """Each of ``runs`` ((carry, i0, steps) -> samples) against the
         plain loop (on ``plain_cfg``, default ``cfg``; ``plain_kw``: int8's
-        quantize and act_scales) from the same carry:
+        quantize and act_scales; ``plain``: that loop as such a run, e.g.
+        ``plain_loop`` on weights cast once) from the same carry:
         the ring after one step over max|ring| (and its max|d|), same-state
         argmax agreement over n_check steps, and the share of (row, step)
         before each row's first divergence over n_check steps."""
         pcfg = plain_cfg or cfg
+        if plain is None:
+            def plain(c_, i0, steps):
+                return ak.ar_generate_reference(prm, pcfg, c_, h, T0, steps,
+                                                "argmax", i0=i0, **plain_kw)
         # the ring after one step: every layer's written slot depends on
         # the whole chain of the step before it
         cp = clone(carry)
-        ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax", **plain_kw)
-        ring_max = cp[0].float().abs().max().item()
+        plain(cp, 0, 1)
+        ring_max = ring_absmax(cp[0])
         ring = {}
         for name, run in runs.items():
             c_ = clone(carry)
             run(c_, 0, 1)
-            ring[name] = (c_[0].float() - cp[0].float()).abs().max().item()
+            ring[name] = ring_absmax(c_[0], cp[0])
+            del c_
         # argmax step by step from the same state: each step, every run
         # starts from the plain version's carry
         cp, same = clone(carry), {name: [] for name in runs}
         for i in range(n_check):
             outs = {name: run(clone(cp), i, 1) for name, run in runs.items()}
-            sp = ak.ar_generate_reference(prm, pcfg, cp, h, T0, 1, "argmax",
-                                          i0=i, **plain_kw)
+            sp = plain(cp, i, 1)
             for name, smp in outs.items():
                 same[name].append((smp[:, 0] == sp[:, 0]).cpu().numpy())
         # argmax trajectories over n_check steps from the same carry: the
         # share of (row, step) before each row's first divergence
-        sp = ak.ar_generate_reference(prm, pcfg, clone(carry), h, T0, n_check,
-                                      "argmax", **plain_kw).cpu().numpy()
+        sp = plain(clone(carry), 0, n_check).cpu().numpy()
         readings = {}
         for name, run in runs.items():
             agree = run(clone(carry), 0, n_check).cpu().numpy() == sp
@@ -2140,6 +2182,271 @@ def main(argv=None) -> int:
                   f"({rate(bnds[a][1], tb_[a])}; bound "
                   f"{bnds[a][1]['bound_ms']:.3f} ms)" for a in tf_)
               + f" | {card}", flush=True)
+
+    # ---- 11b. K1 past n_resch 1,024 ------------------------------------------
+    #: residual widths past the first int8 route's 1,024: 9 x 128 and K2's
+    #: MAX_RESCH
+    WIDE_RESCH = (1152, tk.MAX_RESCH)
+
+    def params_on_card(cfg, seed):
+        """make_params' weights drawn on the card (a CUDA generator): the
+        widest model here has 0.8 G weights."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        prm = init_wavenet_params(cfg, gen, device=dev)
+        for group in ("dil", "aux", "skip", "res", "post1", "post2", "causal"):
+            b = prm[group]["b"]
+            prm[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen,
+                                                 device=dev)
+        return prm
+
+    def tile_carry(carry, h, b, seed):
+        """A carry of b rows from a smaller fleet's: its ring rows repeated,
+        each row with its own random ids and aux (any ring is a state that
+        the kernel and the plain loop both continue), where a warm-up of b
+        rows would cost more than the checks."""
+        ring, hist, prev = carry
+        idx = torch.arange(b, device=dev) % prev.shape[0]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ids = torch.randint(0, 256, (b, hist.shape[1] + 1), generator=g,
+                            device=dev, dtype=torch.int32)
+        hh = torch.randn((b,) + tuple(h.shape[1:]), generator=g, device=dev)
+        return ((ring[:, idx].contiguous(), ids[:, :-1].contiguous(),
+                 ids[:, -1].contiguous()), hh)
+
+    def wide_resch_fleet(m, prm, quantize, B=16, seed=63):
+        """``m``'s fleet of B short utterances (4-6 frames) through
+        decode_batches(impl="auto") on a model held in memory (a bundle of
+        the widest would be 3 GB on disk): K1 launched once, no plain loop,
+        wavs of the right length and finite.  Returns the launches."""
+        from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
+        from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNet
+        from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
+        from pytorchwavenetvocoder_tpu_torch.utils import read_wav
+
+        cfg = m["cfg"]
+        model = WaveNet(cfg, params=prm, device=dev)
+        r = np.random.RandomState(seed)
+        frames = r.randint(4, 7, B)
+        h = r.randn(B, frames.max(), cfg.n_aux).astype(np.float32)
+        x = np.tile(np.asarray(encode_mu_law(np.zeros(1), 256),
+                               np.int32)[None], (B, 1))
+        n_list = [int(nf) * cfg.upsampling_factor - 1 for nf in frames]
+        ids = [f"utt{b:02d}" for b in range(B)]
+        plain_runs = [0]
+        real_ref = ak.ar_generate_reference
+
+        def counted_ref(*a, **k):
+            plain_runs[0] += 1
+            return real_ref(*a, **k)
+
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            ak.ar_generate_reference = counted_ref
+            reset_launches()
+            try:
+                res = decode_batches(model, [(ids, (x, h, n_list))], tmp,
+                                     mode="argmax", impl="auto", fs=m["fs"],
+                                     quantize=quantize)
+                torch.cuda.synchronize()
+            finally:
+                ak.ar_generate_reference = real_ref
+            launches = read_launches()
+            wavs = [read_wav(os.path.join(tmp, i + ".wav"))[0] for i in ids]
+        k1_name = "ar_persistent" + ("_int8" if quantize else "")
+        bad = [(i, w.shape, n) for i, w, n in zip(ids, wavs, n_list)
+               if w.shape != (n,) or not np.isfinite(w).all()]
+        if (bad or launches[k1_name] != 1 or plain_runs[0]
+                or sum(v for k, v in launches.items()
+                       if k.startswith("ar_")) != 1):
+            raise AssertionError(f"{m['name']} {'int8' if quantize else 'bf16'}"
+                                 f" fleet: wavs {bad[:4]}, launches "
+                                 f"{launches}, plain loop runs {plain_runs[0]}")
+        return launches[k1_name], res
+
+    def k3_768(flag_bf, flag_h, flag_T, n_time, fleets):
+        """K1 bf16 on the ljspeech flagship at n_resch 768 (no cut of the
+        gate into units fits: every fleet streams), which the card tests
+        hold to the plain loop: its us/step in turns with n_resch 512 at
+        ``fleets`` (``flag_*``: the 512 flagship's carry at the first)."""
+        cfg = dataclasses.replace(ljs["cfg"], n_resch=768)
+        prm = params_on_card(cfg, 7768)
+        c_, h_, T0 = fleet_carry(cfg, prm, fleets[0], n_time, 67)
+        parts = []
+        for B in fleets:
+            if B == fleets[0]:
+                (c_b, h_b), (fc, fh) = (c_, h_), (clone(flag_bf), flag_h)
+            else:
+                c_b, h_b = tile_carry(c_, h_, B, 68)
+                fc, fh = tile_carry(flag_bf, flag_h, B, 68)
+            us = {k_: 1e3 * v / n_time for k_, v in turns({
+                768: lambda: ak.ar_generate(prm, cfg, c_b, h_b, T0, n_time,
+                                            "argmax"),
+                512: lambda: ak.ar_generate(ljs["params"], ljs["cfg"], fc, fh,
+                                            flag_T, n_time, "argmax")},
+                reps=1).items()}
+            bnd = ar_bound(cfg, B, n_time, False)
+            parts.append(f"B={B} ({GATE_NAMES[ak.ar_gate(cfg, B, device=dev)]}"
+                         f"): n_resch 768 {us[768]:.1f} (bound "
+                         f"{1e3 * bnd['bound_ms'] / n_time:.2f}), 512 "
+                         f"{us[512]:.1f}")
+            del c_b, h_b, fc, fh
+        print(f"[K1 wide resch] {ljs['name']} n_resch 768 k=3 bf16, us/step "
+              f"in turns (best of two, {n_time} steps): " + "; ".join(parts)
+              + f" | {card}", flush=True)
+
+    def k1_wide_resch(n_check=48, n_time=32, fleets=(16, 256)):
+        """[K1 wide resch]: K1 in bf16 and int8 at n_resch 1,152 and 2,048
+        on both flagships (n_skipch 256, 30 layers), by [K1]'s readings
+        against the plain loop over ``n_check`` steps at each of
+        ``fleets`` (int8: the plain int8 loop on the same scales, the ring
+        within [K1 int8]'s 5e-2), a control at the first fleet; the kernel
+        timed over ``n_time`` steps in turns with the n_resch 512 flagship
+        (kernel, flagship, flagship, kernel; best of two), the plain loop
+        once at the first fleet; then each model's fleet through
+        decode_batches (``wide_resch_fleet``)."""
+        bad, t_part = [], {"set-up": 0.0, "checks": 0.0, "timing": 0.0,
+                           "fleets": 0.0}
+        for base, ctrl_of in ((arctic, zero_dil_bias), (ljs, drop_lag_2d)):
+            t0 = time.time()
+            # the flagship's carries at each fleet, for the turns
+            flag_bf, flag_h, flag_T, flag_s = fleet_carry(
+                base["cfg"], base["params"], fleets[0], n_time, 64,
+                scales=True)
+            t_part["set-up"] += time.time() - t0
+            for R in WIDE_RESCH:
+                t0 = time.time()
+                cfg = dataclasses.replace(base["cfg"], n_resch=R)
+                m = dict(base, name=f"{base['name']} n_resch {R}",
+                         tag=f" r{R}{base['tag']}",
+                         suffix=f"_r{R}{base['suffix']}", cfg=cfg,
+                         fleet=fleets[0])
+                prm = params_on_card(cfg, 7000 + R + cfg.kernel_size)
+                c_bf, h16, T0, scales = fleet_carry(
+                    cfg, prm, fleets[0], max(n_check, n_time), 65,
+                    scales=True)
+                t_part["set-up"] += time.time() - t0
+                for quantize in (False, True):
+                    what = "int8" if quantize else "bf16"
+                    q = dict(quantize=True, act_scales=scales) if quantize \
+                        else {}
+                    # the plain loop and the control on weights cast once
+                    # (ar_generate_reference casts them every call)
+                    w_plain = ak._step_weights(prm, cfg, quantize)
+                    s_ = scales if quantize else None
+                    q_flag = dict(quantize=True, act_scales=flag_s) \
+                        if quantize else {}
+                    ring_tol = 5e-2 if quantize else K1_RING_TOL
+                    floor = 0.1 * 256 / n_check
+                    line, entry = [], None
+                    for B in fleets:
+                        t0 = time.time()
+                        if B == fleets[0]:
+                            carry, h = clone(c_bf), h16
+                            fc, fh = clone(flag_bf), flag_h
+                        else:
+                            carry, h = tile_carry(c_bf, h16, B, 66)
+                            fc, fh = tile_carry(flag_bf, flag_h, B, 66)
+                        if quantize:
+                            carry = int8_carry(cfg, carry, scales)
+                            fc = int8_carry(base["cfg"], fc, flag_s)
+                        gate = ak.ar_gate(cfg, B, quantize, device=dev)
+
+                        def kernel(c_, i0, steps, h=h):
+                            return ak.ar_generate(prm, cfg, c_, h, T0 + i0,
+                                                  steps, "argmax", **q)
+
+                        runs = {"kernel": kernel}
+                        if B == fleets[0]:
+                            runs["control"] = plain_loop(
+                                cfg, ak._step_weights(ctrl_of(prm), cfg,
+                                                      quantize),
+                                quantize, h, T0, s_)
+                        rd = k1_readings(
+                            cfg, prm, carry, h, T0, n_check, runs,
+                            plain=plain_loop(cfg, w_plain, quantize, h, T0,
+                                             s_))
+                        del runs
+                        fails = {c: [n for n, b_ in (
+                            ("ring", not r[0] <= ring_tol),
+                            ("same-state", not r[1] >= K1_STEP_FLOOR),
+                            ("trajectory", not r[2] >= floor)) if b_]
+                            for c, r in rd.items()}
+                        t_part["checks"] += time.time() - t0
+                        t0 = time.time()
+                        # the plain loop once, at the first fleet (the
+                        # kernels line's): its kernels ran in the checks
+                        plain_ms = time_ms(
+                            lambda: ak.ar_generate_reference(
+                                prm, cfg, carry, h, T0, n_time, "argmax",
+                                **q), reps=1, warm=False) \
+                            if B == fleets[0] else None
+                        bnd = ar_bound(cfg, B, n_time, quantize)
+                        us = {k_: 1e3 * v / n_time for k_, v in turns({
+                            R: lambda: kernel(carry, 0, n_time),
+                            512: lambda: ak.ar_generate(
+                                base["params"], base["cfg"], fc, fh, flag_T,
+                                n_time, "argmax", **q_flag)}, reps=1).items()}
+                        flag_bnd = ar_bound(base["cfg"], B, n_time, quantize)
+                        ms = us[R] * n_time / 1e3
+                        k1_us[(m["name"], what, B)] = us[R]
+                        t_part["timing"] += time.time() - t0
+                        line.append(
+                            f"B={B} ({GATE_NAMES[gate]}): " + "; ".join(
+                                f"{c} ring after 1 step max|d|/max|ring| "
+                                f"{r[0]:.3e}, same-state agreement "
+                                f"{r[1]:.4f}, share agreeing up to each "
+                                f"row's first divergence {r[2]:.4f}, fails "
+                                f"{fails[c] or 'none'}" for c, r in rd.items())
+                            + f" | x {n_time} steps: kernel {ms:.2f} ms, "
+                            + (f"plain {plain_ms:.2f} ms, " if plain_ms
+                               else "") + f"bound "
+                            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) | "
+                            f"us/step in turns (best of two): n_resch {R} "
+                            f"{us[R]:.1f} (bound "
+                            f"{1e3 * bnd['bound_ms'] / n_time:.2f}), n_resch "
+                            f"512 {us[512]:.1f} (bound "
+                            f"{1e3 * flag_bnd['bound_ms'] / n_time:.2f})")
+                        if fails["kernel"]:
+                            bad.append((m["name"], what, B, fails["kernel"]))
+                        if "control" in fails and not fails["control"]:
+                            bad.append((m["name"], what, B,
+                                        "the limits pass the control"))
+                        if entry is None:
+                            entry = (gate, rd["kernel"][3], ms, plain_ms, bnd)
+                        del carry, h, fc, fh
+                    del w_plain
+                    print(f"[K1 wide resch] {m['name']} k={cfg.kernel_size} "
+                          f"{what}, argmax, {n_check} steps vs the plain "
+                          f"{'int8 ' if quantize else ''}loop (limits ring "
+                          f"{ring_tol}, same-state {K1_STEP_FLOOR}, "
+                          f"trajectory {0.1 * 256 / n_check:.2f}; control: "
+                          f"{ctrl_of.__name__}): " + " || ".join(line)
+                          + f" | {card}", flush=True)
+                    gate, err, ms, plain_ms, bnd = entry
+                    kernel_entry(k1_entry(gate, quantize), m,
+                                 "ar_persistent.cu",
+                                 "pytorchwavenetvocoder_tpu/ops/ar_kernel.py:347",
+                                 err, ms, plain_ms, bnd)
+                    t0 = time.time()
+                    n_k1, res = wide_resch_fleet(m, prm, quantize)
+                    set_launches(m, {k1_entry(gate, quantize): n_k1})
+                    t_part["fleets"] += time.time() - t0
+                    print(f"[K1 wide resch] {m['name']} {what} decode_batches "
+                          f"(K1, {GATE_NAMES[gate]}): {res['n_utts']} utts, "
+                          f"{res['n_samples']} samples in "
+                          f"{res['seconds']:.3f} s, K1 launches {n_k1} | "
+                          f"{card}", flush=True)
+                del prm, c_bf, h16, scales
+                torch.cuda.empty_cache()
+            if base is ljs:
+                t0 = time.time()
+                k3_768(flag_bf, flag_h, flag_T, n_time, fleets)
+                t_part["timing"] += time.time() - t0
+            del flag_bf, flag_h, flag_s
+        print("[K1 wide resch] seconds by part: " + ", ".join(
+            f"{k_} {v:.1f}" for k_, v in t_part.items()), flush=True)
+        if bad:
+            raise AssertionError(f"K1 past n_resch 1,024 outside its limits: "
+                                 f"{bad}")
 
     # ---- 8. K1-int8 vs plain int8, and against the bf16 K1 -----------------
     def plain_loop(cfg, weights, quantize, h, T0, scales):
@@ -4182,6 +4489,92 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"K4 outside its limits: {bad}")
 
+    def launcher(m, n_utts=4):
+        """[launcher]: two ``bin/decode.py`` processes started as a launcher
+        starts two hosts of one rank each (RANK, WORLD_SIZE 2, LOCAL_RANK
+        0, LOCAL_WORLD_SIZE 1, MASTER_ADDR and MASTER_PORT; decode ranks
+        join no process group), both on the one card (--device cuda: each
+        host's rank 0 on cuda:0): host r decodes the utterances i % 2 == r
+        on K1, and the two output directories together hold, byte for
+        byte, the wavs of one process's argmax decode of the same bundle
+        and list.  Fleets of one utterance in both runs (--batch_size 2
+        over two ranks, and 1), so each wav comes from the same fleet."""
+        import socket
+
+        from pytorchwavenetvocoder_tpu_torch.bin import decode as decode_cli
+
+        with tempfile.TemporaryDirectory(dir=root) as tmp, \
+                _h5py_where_missing(tmp, root) as (env, h5_note):
+            common, featdir, ids, frames = dp_inputs(m, tmp, n_utts)
+            one = os.path.join(tmp, "wav_one")
+            res = decode_cli.main(common + ["--feats", featdir, "--outdir",
+                                            one, "--batch_size", "1",
+                                            "--device", "cuda:0"])
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            procs, outs = [], []
+            t0 = time.time()
+            for r in range(2):
+                env_r = dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                             LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                             MASTER_PORT=str(port))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _LAUNCHED_DECODE,
+                     os.path.join(tmp, f"host{r}.json")] + common
+                    + ["--feats", featdir, "--outdir",
+                       os.path.join(tmp, f"wav_host{r}"), "--batch_size", "2",
+                       "--device", "cuda"],
+                    env=env_r, cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+            try:
+                outs = [p.communicate(timeout=300)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.time() - t0
+            failed = [(r, p.returncode, o[-2000:])
+                      for r, (p, o) in enumerate(zip(procs, outs))
+                      if p.returncode != 0]
+            if failed:
+                raise AssertionError(f"launched decode processes failed: "
+                                     f"{failed}")
+            recs = []
+            for r in range(2):
+                with open(os.path.join(tmp, f"host{r}.json")) as f:
+                    recs.append(json.load(f))
+            names = [i + ".wav" for i in ids]
+            written = [sorted(os.listdir(os.path.join(tmp, f"wav_host{r}")))
+                       for r in range(2)]
+            diff = [n for r in range(2) for n in differing_wavs(
+                os.path.join(tmp, f"wav_host{r}"), one)]
+        one_launch = res["ranks"][0]["launches"]
+        print(f"[launcher] {m['name']} two bin/decode.py processes as two "
+              f"hosts (WORLD_SIZE 2, LOCAL_WORLD_SIZE 1, --device cuda, "
+              f"--batch_size 2: fleets of 1) on the one card, {n_utts} utts "
+              f"of {frames.min()}-{frames.max()} frames: " + "; ".join(
+                  f"host {rc['rank']} ({rc['device']}): {rc['n_utts']} utts "
+                  f"in {rc['fleets']} fleets, wrote {w}, launches "
+                  f"{ {k: v for k, v in rc['launches'].items() if v} }"
+                  for rc, w in zip(recs, written))
+              + f" | {wall:.1f} s wall for both | one process (--batch_size "
+              f"1): {res['n_utts']} utts, launches "
+              f"{ {k: v for k, v in one_launch.items() if v} } | wavs "
+              f"differing from it {diff} | {h5_note} | {card}", flush=True)
+        for r, rc in enumerate(recs):
+            if (rc["rank"] != r or rc["device"] != "cuda:0"
+                    or written[r] != sorted(names[r::2])
+                    or rc["launches"]["ar_persistent"] != rc["fleets"]
+                    or rc["fleets"] != len(names[r::2])
+                    or rc["launches"]["layer_stack_fwd"] < rc["fleets"]):
+                raise AssertionError(f"host {r} did not decode its stripe on "
+                                     f"the kernels: {rc}, wrote {written[r]}")
+        if diff or one_launch["ar_persistent"] != n_utts:
+            raise AssertionError(f"the hosts' wavs differ from one process's: "
+                                 f"{diff} (one process: {one_launch})")
+
     if opts.quality_sweep:
         phase("quality sweep", lambda: quality(
             arctic, iters=9000, sweep=((3000, (1, 2, 3, 4)), (6000, (1, 2)),
@@ -4233,6 +4626,8 @@ def main(argv=None) -> int:
         # conditioning past 96 aux rows: a speaker-coded 128-band mel model
         phase("main melspc sc", lambda: main_melspc(melsc, mel80))
         phase("train melspc sc", lambda: train_melspc(melsc, mel80))
+        # past n_resch 1,024, bf16 and int8, on both flagships' depth
+        phase("K1 wide resch", k1_wide_resch)
         # data parallel over processes and the reference-checkpoint bridge
         phase("main dp2", lambda: main_dp(arctic))
         phase("train dp", lambda: train_dp(arctic))
@@ -4241,6 +4636,8 @@ def main(argv=None) -> int:
         # a host with fewer cards than --n_devices asks for, and the recipe
         # end to end on the card with its quality gate
         phase("dp clamp", lambda: dp_clamp(arctic))
+        # two decode processes started as a launcher starts two hosts
+        phase("launcher", lambda: launcher(arctic))
         # the recipes' feature extraction on the host and on the card
         phase("features", features)
         phase("quality", lambda: quality(arctic))

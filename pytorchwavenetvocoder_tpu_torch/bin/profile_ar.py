@@ -17,9 +17,12 @@ turns (units, stream, stream, units; best of each, CUDA events) at each
 fleet size, from one carry of the largest sliced, and names the one
 ``ar_gate`` picks: where ``AR_STREAM_FROM_B`` is read.
 
+``--n_resch`` sets the residual width (default the flagships' 512; the
+kernels take it to 2,048).
+
 Run: ``python -m pytorchwavenetvocoder_tpu_torch.bin.profile_ar --model
-ljspeech --batch 16 [--quantize]``, or ``... --model ljspeech --turns
-128,192,256 [--quantize]``.
+ljspeech --batch 16 [--quantize] [--n_resch 2048]``, or ``... --model
+ljspeech --turns 128,192,256 [--quantize]``.
 """
 
 from __future__ import annotations
@@ -103,6 +106,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--steps", type=int, default=32)
     parser.add_argument("--quantize", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--n_resch", type=int, default=512)
     parser.add_argument("--turns", default="",
                         help="comma-separated fleet sizes: time both gate "
                         "designs (int8 with --quantize) in turns at each "
@@ -114,8 +118,9 @@ def main(argv=None) -> dict:
     if turn_b:
         args.batch = max(turn_b)
     dev = torch.device("cuda:0")
-    cfg = WaveNetConfig(n_resch=512, n_skipch=256, dilation_depth=10,
-                        dilation_repeat=3, compute_dtype="bfloat16",
+    cfg = WaveNetConfig(n_resch=args.n_resch, n_skipch=256,
+                        dilation_depth=10, dilation_repeat=3,
+                        compute_dtype="bfloat16",
                         **MODELS[args.model])
     params = init_wavenet_params(cfg, torch.Generator().manual_seed(args.seed),
                                  dev)
@@ -162,7 +167,8 @@ def main(argv=None) -> dict:
         if dev_us > 0 and on_device and e.key != "Activity Buffer Request":
             rows[e.key] = (e.count, dev_us / n)
     busy = sum(us for _c, us in rows.values())
-    print(f"[profile_ar] {args.model} k={cfg.kernel_size} B={B} "
+    print(f"[profile_ar] {args.model} n_resch {cfg.n_resch} "
+          f"k={cfg.kernel_size} B={B} "
           f"{'int8' if args.quantize else 'bf16'} x {n} steps "
           f"(gate: {gate}) | {smi}")
     for key, (count, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):

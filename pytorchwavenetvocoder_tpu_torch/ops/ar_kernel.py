@@ -31,7 +31,9 @@ past-tap pack and the skip/res pack in int8 with one f32 scale per output
 column (``quantize_ar_weights``), the residual stream quantized at a static
 per-layer activation scale calibrated from the warm-up
 (``act_scales_from_maxes``), the gate at exactly 1/127; the integer
-products are dequantized by (activation scale x column scale).  The aux
+products, summed exactly and rounded once to f32 at any n_resch
+(``int8_product``: the kernels' s32 sums, JAX's int32 accumulation), are
+dequantized by (activation scale x column scale).  The aux
 projection, the input conv and the post stack stay bf16.  At kernel_size 2
 the ring keeps the bf16 projection of the int8 product; at kernel_size 3
 it keeps the int8 rows, and each lagged tap is an integer product of a
@@ -69,12 +71,6 @@ import torch
 from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
 
 
-#: int8 decode's own limit on n_resch: the integer products are f32
-#: matmuls of int8 values in the plain version, exact while every partial
-#: sum stays below 2^24 (K * 127^2 < 2^24 for K = n_resch <= 1040)
-INT8_MAX_RESCH = 1024
-
-
 #: The kernel sizes the AR kernel serves, bf16 and int8 (the JAX kernel's,
 #: `ops/ar_kernel.py:82` there): projection-forwarded rings at 2, raw at 3
 KERNEL_SIZES = (2, 3)
@@ -82,14 +78,14 @@ KERNEL_SIZES = (2, 3)
 
 def int8_constraint_error(config) -> str | None:
     """Why int8 decode (``quantize=True``) can NOT run this config, on the
-    card or the CPU (None when it can)."""
+    card or the CPU (None when it can).  Any n_resch: the plain loop's
+    integer products are exact at every width (``int8_product``); the
+    cuda route's widths are the bf16 route's (K2's ``MAX_RESCH``, K1's
+    plan)."""
     c = config
     if c.kernel_size not in KERNEL_SIZES:
         return (f"int8 decode serves kernel_size 2 and 3 (as the JAX int8 "
                 f"kernel does); got kernel_size={c.kernel_size}")
-    if c.n_resch > INT8_MAX_RESCH:
-        return (f"int8 decode needs n_resch <= {INT8_MAX_RESCH} (exact f32 "
-                f"sums of the int8 products); got {c.n_resch}")
     return None
 
 
@@ -157,11 +153,11 @@ def _sample(logits: torch.Tensor, mode: str,
 def _step_weights(params, config, quantize: bool = False) -> dict:
     """The per-step weight views the plain loop consumes, cast once.
 
-    ``quantize`` adds the int8 packs of ``quantize_ar_weights`` (as f32
-    values, for exact f32 matmuls: ``q_wz`` is the gate pack of either
-    kernel size) and the gate's scale; the rest is then taken in bf16 with
-    f32 biases, as the JAX kernel's int8 path takes it whatever the compute
-    dtype.
+    ``quantize`` adds the int8 packs of ``quantize_ar_weights`` (as
+    integer-valued float64, the operands of ``int8_product``: ``q_wz`` is
+    the gate pack of either kernel size) and the gate's scale; the rest is
+    then taken in bf16 with f32 biases, as the JAX kernel's int8 path takes
+    it whatever the compute dtype.
     """
     c = config
     if quantize:
@@ -191,10 +187,24 @@ def _step_weights(params, config, quantize: bool = False) -> dict:
             w[key] = w[key].float()
         q = quantize_ar_weights(params, c)
         gk = _gate_key(k)
-        w.update(q_wz=q[gk].float(), q_wz_scale=q[gk + "_scale"],
-                 q_wsr=q["wsr"].float(), q_wsr_scale=q["wsr_scale"],
+        w.update(q_wz=q[gk].double(), q_wz_scale=q[gk + "_scale"],
+                 q_wsr=q["wsr"].double(), q_wsr_scale=q["wsr_scale"],
                  q_gate_scale=torch.full((L,), GATE_SCALE, device=dil_w.device))
     return w
+
+
+def int8_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` of integer-valued operands (int8 values, any dtype) as f32:
+    summed exactly in float64 (every partial sum is an integer below 2^53
+    while K * 127^2 < 2^53), then rounded once to f32.  That is what an
+    int32 accumulator cast to f32 gives: K1's s32 sums, and the JAX int8
+    kernel's ``jnp.dot(..., preferred_element_type=jnp.int32)`` followed by
+    ``astype(jnp.float32)`` (`ops/ar_kernel.py:558-562` there), at every
+    width; an f32 product is exact only while K * 127^2 < 2^24.  Float64
+    and not int64, because torch has no integer matmul on CUDA, where this
+    is the card tests' reference too."""
+    return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(
+        torch.float32)
 
 
 def _gate_key(k: int) -> str:
@@ -300,14 +310,14 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
             return slice(j * 2 * R, (j + 1) * 2 * R)
 
         def qdot(a, l, cols):
-            """a (integer-valued f32) @ columns ``cols`` of layer l's int8
-            gate pack: exact in f32, then dequantized."""
-            return (_dot(a, w["q_wz"][l][:, cols])
+            """a (integer-valued) @ columns ``cols`` of layer l's int8 gate
+            pack: the exact sum rounded once to f32, then dequantized."""
+            return (int8_product(a, w["q_wz"][l][:, cols])
                     * (s[l] * w["q_wz_scale"][l][cols]))
     for l in range(L):
         if quantize:
             # the residual stream (f32) at the layer's static scale; the
-            # integer product is exact in f32, then dequantized
+            # integer product is exact, then dequantized
             xq = torch.clamp(torch.round(out * inv_s[l]), -127, 127)
             if k == 2:
                 zfull = qdot(xq, l, slice(None))
@@ -317,15 +327,16 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
             else:
                 # the raw int8 ring rows, lag d first; JAX's order of the
                 # f32 sums: cur + (((lag d + lag 2d) + aux) + bias)
-                zp = qdot(past[l, 0].float(), l, block(1))
+                zp = qdot(past[l, 0], l, block(1))
                 for j in range(2, k):
-                    zp = zp + qdot(past[l, j - 1].float(), l, block(j))
+                    zp = zp + qdot(past[l, j - 1], l, block(j))
                 z = (_deinterleave(qdot(xq, l, block(0)))
                      + ((_deinterleave(zp) + za_all[:, l]) + w["dil_b"][l]))
                 new_vals.append(xq)                 # the int8 ring row
             g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
             gq = torch.clamp(torch.round(g * inv_g[l]), -127, 127)
-            sr = (_dot(gq, w["q_wsr"][l]) * (gs[l] * w["q_wsr_scale"][l])
+            sr = (int8_product(gq, w["q_wsr"][l])
+                  * (gs[l] * w["q_wsr_scale"][l])
                   + w["sr_b"][l])
         else:
             z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
@@ -417,8 +428,11 @@ def quantize_ar_weights(params, config) -> dict:
     wsr (L, R, S+R) int8, wsr_scale (L, S+R) f32: [skip | res]
 
     Each weight is rounded to bf16; each output column gets
-    ``max(max_r |w|, 1e-8) / 127`` over its R input rows, and the weight
-    ``clip(round_half_even(w / scale), -127, 127)``.
+    ``max(max_r |w|, 1e-8) * fl(1/127)`` over its R input rows (the JAX
+    kernel writes ``/ 127.0``, which XLA folds into that product inside
+    its jit; the division rounds some scales an ulp apart, and so some
+    weights a unit apart), and the weight ``clip(round_half_even(w /
+    scale), -127, 127)``.
     """
     return _quantize_pack(pack_ar_weights(params, config))
 
@@ -430,7 +444,7 @@ def _quantize_pack(pk: dict) -> dict:
         if name not in pk:
             continue
         wf = pk[name].float()
-        scale = torch.clamp_min(wf.abs().amax(dim=1), 1e-8) / 127.0
+        scale = torch.clamp_min(wf.abs().amax(dim=1), 1e-8) * (1.0 / 127.0)
         out[name] = torch.clamp(torch.round(wf / scale[:, None, :]),
                                 -127, 127).to(torch.int8)
         out[name + "_scale"] = scale.contiguous()
@@ -988,9 +1002,9 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
     run) bf16 elements, or bytes (uint8) for the int8 stages.
 
     bf16 (``plan["quantize"]`` false): the unit's weight slice as 16 x 16
-    tiles (``_pack_units`` of ``ops/matmul_chain.py``: [K/16][quarters *
-    cw/16][16][16]) followed by its cw f32 biases.  The gate rows follow
-    the A rows ``ar_stage_shapes`` names, aux rows zero-padded to whole
+    tiles (``_pack_units``: [K/16][quarters * cw/16][16][16]) followed by
+    its cw f32 biases.  The gate rows follow the A rows
+    ``ar_stage_shapes`` names, aux rows zero-padded to whole
     tiles (and zero under the past tap at kernel_size 2); the past tap is
     interleaved like the current one, so a unit's projections are the ring
     values of the channels it gates; the gate's biases are zb of the unit's
@@ -1006,8 +1020,6 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
 
     A streamed gate (``plan["stages"]["gate"]["stream"]``) packs its run
     per chunk instead (``_pack_stream``), and int8 adds "gate_scales"."""
-    from pytorchwavenetvocoder_tpu_torch.ops.matmul_chain import _pack_units
-
     c = config
     R, A, k, L = c.n_resch, c.n_aux, c.kernel_size, c.n_layers
     Ap = _aux_pad(A)
@@ -1084,6 +1096,18 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
         bias = b.reshape(Lw, G, s["cw"]).contiguous().view(torch.bfloat16)
         out[name] = torch.cat([tiles.reshape(Lw, G, -1), bias], dim=-1)
     return out
+
+
+def _pack_units(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
+    """(L, K, N) -> per layer and column group the unit's slice as one run
+    of 16 x 16 tiles ([L][G][K/16][quarters * cw/16][16][16]): the columns
+    ``q * N/quarters + g * cw + (0 .. cw)`` of every quarter q, one bulk
+    copy each: how the units of ``pack_ar_units`` read their weights."""
+    Lw, K, N = w.shape
+    G = N // (quarters * cw)
+    t = w.reshape(Lw, K, quarters, G, cw).permute(0, 3, 1, 2, 4)
+    t = t.reshape(Lw, G, K // 16, 16, quarters * cw // 16, 16)
+    return t.permute(0, 1, 2, 4, 3, 5).contiguous()
 
 
 def _gate_rows(pk: dict, config, auxw: torch.Tensor) -> list:

@@ -411,19 +411,6 @@ def plan_array(plan: dict) -> torch.Tensor:
     return torch.tensor(head + ws + prods, dtype=torch.int32)
 
 
-def _pack_units(w: torch.Tensor, quarters: int, cw: int) -> torch.Tensor:
-    """(L, K, N) -> per layer and column group the unit's slice as one run
-    of 16 x 16 tiles ([L][G][K/16][quarters * cw/16][16][16]): the columns
-    ``q * N/quarters + g * cw + (0 .. cw)`` of every quarter q, one bulk
-    copy each: how K1's units (``ops/ar_kernel.py::pack_ar_units``) read
-    their weights."""
-    Lw, K, N = w.shape
-    G = N // (quarters * cw)
-    t = w.reshape(Lw, K, quarters, G, cw).permute(0, 3, 1, 2, 4)
-    t = t.reshape(Lw, G, K // 16, 16, quarters * cw // 16, 16)
-    return t.permute(0, 1, 2, 4, 3, 5).contiguous()
-
-
 def product_weights(weights: dict, variant: str) -> tuple:
     """The two products' (L, K, N) weights: split's first is [wc; wp]
     (K = 2R, as merged's wm), int8's w1 spans the four quarters."""

@@ -153,9 +153,10 @@ def _int8_counts():
     return ak.ar_generate.int8_persistent_launches
 
 
-def _int8_carry(params, cfg, dev, B, n, seed):
+def _int8_carry(params, cfg, dev, B, n, seed, layer0_scale=None):
     """The cuda warm-up's carry with its calibrated scales (kernel_size 3:
-    the int8 ring of ``int8_ring_fill``)."""
+    the int8 ring of ``int8_ring_fill``); ``layer0_scale`` replaces layer
+    0's."""
     rng = np.random.RandomState(seed)
     x = torch.as_tensor(rng.randint(0, 256, (B, cfg.receptive_field)),
                         device=dev)
@@ -164,6 +165,8 @@ def _int8_carry(params, cfg, dev, B, n, seed):
     carry, maxes = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
                                    collect_act_maxes=True, impl="cuda")
     scales = ak.act_scales_from_maxes(maxes)
+    if layer0_scale is not None:
+        scales[0] = layer0_scale
     if cfg.kernel_size == 3:
         carry = (ak.int8_ring_fill(carry[0], scales, cfg),) + carry[1:]
     return carry, h, x.shape[1], scales
@@ -339,11 +342,14 @@ def test_widths_off_the_tiling_decode_on_the_card(dev, quantize):
     assert all(((o >= 0) & (o < cfg.n_quantize)).all() for o in out)
 
 
-def _same_state(params, cfg, carry, h, T0, n, kernel, plain_cfg=None):
+def _same_state(params, cfg, carry, h, T0, n, kernel, plain_cfg=None,
+                share=None):
     """``kernel`` (c, p, steps) against the plain loop (on ``plain_cfg``,
     default ``cfg``) step by step from the plain loop's state: the [K1]
     limits, the ring after each step within 2e-2 of max|ring| and argmax
-    agreement >= 0.97."""
+    agreement >= 0.97.  ``share``: the most of layer 0's new ring slot that
+    may differ (one layer on the same input, as ``_check_streams``)."""
+    caps, offs, _ = P._buffer_layout(cfg)
     agree, cp = [], tuple(t.clone() for t in carry)
     for i in range(n):
         ck = tuple(t.clone() for t in cp)
@@ -352,6 +358,10 @@ def _same_state(params, cfg, carry, h, T0, n, kernel, plain_cfg=None):
                                       "argmax", i0=i)
         ring = (ck[0].float() - cp[0].float()).abs().max().item()
         assert ring <= 2e-2 * cp[0].float().abs().max().item()
+        if share is not None:
+            row = offs[0] + (T0 - 1 + i) % caps[0]
+            d = ck[0][row].float() != cp[0][row].float()
+            assert d.float().mean().item() <= share
         agree.append((sk == sp).float().mean().item())
     assert np.mean(agree) >= 0.97
 
@@ -405,10 +415,11 @@ def test_wide_k3_config_runs_on_the_streamed_gate(dev):
 
 
 def test_cuda_path_raises_outside_envelope(dev):
-    # n_resch 1,152 in int8 (INT8_MAX_RESCH); bf16 decodes it
+    # n_resch past K2's MAX_RESCH in int8, as in bf16 (the warm-up kernel
+    # refuses it; int8 takes every width the bf16 route takes)
     for cfg, quantize in ((_cfg(kernel_size=4), False),
                           (_cfg(compute_dtype="float64"), False),
-                          (_cfg(n_resch=1152), True),
+                          (_cfg(n_resch=tk.MAX_RESCH + 128), True),
                           (_cfg(n_aux=AUX_MAX + 1), False)):
         params = _params(cfg, dev)
         x = np.zeros((2, 1), np.int32)
@@ -460,6 +471,118 @@ def test_ar_kernels_at_wide_aux_match_plain(dev, n_aux, kernel_size, B, gate):
                      lambda c_, p, steps: ak.ar_generate_on(
                          gate, params, cfg, c_, h, p, steps, quantize=True,
                          act_scales=scales))
+
+
+#: residual widths past the first int8 route's 1,024: 9 x 128 (what JAX's
+#: ``supports_pallas_ar`` takes) and K2's MAX_RESCH
+WIDE_RESCH = [1152, 2048]
+
+
+def _wide_resch_cfg(n_resch, kernel_size):
+    return _cfg(kernel_size=kernel_size, n_resch=n_resch, n_skipch=256)
+
+
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+@pytest.mark.parametrize("B", [16, 64, 256])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("n_resch", WIDE_RESCH)
+def test_ar_kernels_at_wide_resch_match_plain(dev, n_resch, quantize,
+                                              kernel_size, B, gate):
+    """K1 in bf16 and int8 past n_resch 1,024 (the warm-up's K2 on the same
+    width first), on each gate design ``ar_plan`` has for the case, against
+    the plain loops: bf16 with the [K1] limits and layer 0's ring slot
+    within ``_wide_share``, int8 with ``_int8_same_state``'s."""
+    cfg = _wide_resch_cfg(n_resch, kernel_size)
+    try:
+        ak.ar_plan(cfg, B, quantize=quantize, device=dev, gate=gate)
+    except ValueError as e:
+        pytest.skip(f"ar_plan has no {gate} gate for this case: {e}")
+    params = _params(cfg, dev, seed=18)
+    n = 6
+    if quantize:
+        carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 18)
+        _int8_same_state(params, cfg, carry, h, T0, scales, n,
+                         lambda c_, p, steps: ak.ar_generate_on(
+                             gate, params, cfg, c_, h, p, steps,
+                             quantize=True, act_scales=scales))
+    else:
+        carry, h, T0 = _random_carry(params, cfg, dev, B, n, 18)
+        _same_state(params, cfg, carry, h, T0, n,
+                    lambda c_, p, steps: ak.ar_generate_on(
+                        gate, params, cfg, c_, h, p, steps),
+                    share=_wide_share(cfg))
+
+
+def saturate_layer0(params, cfg):
+    """Weights whose layer-0 integer sums pass 2^24 at n_resch >= 1,041:
+    the causal conv constant, so every channel of layer 0's input is equal
+    (``kernel_size / 4``; at the scale ``kernel_size / 4 / 127`` it
+    quantizes to 127 everywhere: a saturated stream), and
+    the current tap's gate columns of channel 0 (its sigmoid and its tanh
+    column) constant at 127 / 4096 but one row at 126 / 4096 (exact in
+    bf16), so both quantize to 127 with one 126:
+    an odd sum of 127 (R - 1) * 127 + 127 * 126, past 2^24 and not an f32
+    value.  In place; returns ``params``."""
+    k = cfg.kernel_size
+    params["causal"]["w"].fill_(0.25)
+    params["causal"]["b"].zero_()
+    for col in (0, cfg.n_resch):
+        w = params["dil"]["w"][0, k - 1, :, col]
+        w.fill_(127 / 4096)
+        w[0] = 126 / 4096
+    return params
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_ar_int8_kernel_past_2_24_matches_plain(dev, kernel_size):
+    """K1-int8 where layer 0's integer sums pass 2^24 (``saturate_layer0``
+    at n_resch 1,152, the int8 gate ``ar_gate`` picks at 16 rows): the
+    kernel's s32 sums and the plain loop's float64 ones, each rounded once
+    to f32, agree through the carry (``_int8_same_state``).  The old f32
+    sums were not exact there; the bit-level proof is the CPU product test
+    (tests/test_torch_int8_wide.py), as the bf16 ring cannot show one unit
+    in 2^24."""
+    cfg = _wide_resch_cfg(1152, kernel_size)
+    params = saturate_layer0(_params(cfg, dev, seed=19), cfg)
+    B, n = 16, 6
+    carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 19,
+                                       layer0_scale=kernel_size / 4 / 127)
+    # the stream is saturated: layer 0 quantizes every channel to 127
+    x0 = carry[0].new_full((), kernel_size / 4, dtype=torch.float32)
+    assert torch.round(x0 * (1.0 / scales[0])).item() == 127
+    q = ak.quantize_ar_weights(params, cfg)[
+        "w4" if kernel_size == 2 else "w6"][0, :, 0].long()
+    assert q.sum().item() * 127 > 2 ** 24 and q.sum().item() % 2 == 1
+    _int8_same_state(params, cfg, carry, h, T0, scales, n,
+                     lambda c_, p, steps: ak.ar_generate(
+                         params, cfg, c_, h, p, steps, "argmax",
+                         quantize=True, act_scales=scales))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_ar_kernel_one_launch_per_call_at_n_resch_2048(dev, kernel_size,
+                                                       quantize):
+    """At K2's MAX_RESCH the route makes one device launch of the AR loop
+    per call, bf16 and int8, on the gate design ``ar_gate`` picks."""
+    cfg = _wide_resch_cfg(2048, kernel_size)
+    params = _params(cfg, dev, seed=4)
+    B, n = 64, 12
+    if quantize:
+        carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, 4)
+    else:
+        carry, h, T0 = _random_carry(params, cfg, dev, B, n, 4)
+        scales = None
+
+    def call():
+        return ak.ar_generate(params, cfg, carry, h, T0, n, "argmax",
+                              quantize=quantize, act_scales=scales)
+
+    call()        # the build
+    torch.cuda.synchronize()
+    loop, names, _ = ar_loop_kernels(call)
+    assert len(loop) == 1 and "ar_persistent_kernel" in loop[0], (loop, names)
 
 
 @pytest.mark.parametrize("B", [16, 20])

@@ -68,12 +68,19 @@ def test_weight_quantization_matches_jax_formula(kernel_size):
     jc, pc = _cfgs(kernel_size=kernel_size)
     jp, pp = _params(jc, 3)
     wpack = jak._pack_weights(jp, jc)[0]
-    # the JAX kernel's quantization, ops/ar_kernel.py:481-485
-    wf = wpack.astype(jnp.float32)
-    wscale = jnp.maximum(jnp.max(jnp.abs(wf), axis=1), 1e-8) / 127.0
-    want_q = np.asarray(jnp.clip(jnp.round(wf / wscale[:, None, :]), -127,
-                                 127).astype(jnp.int8))
-    want_s = np.asarray(wscale)
+
+    # the JAX kernel's quantization, ops/ar_kernel.py:481-485, compiled as
+    # the kernel runs it, inside pallas_ar_generate's jit: XLA folds the
+    # division by the constant 127 into a product with fl(1/127), which
+    # rounds some scales an ulp away from the division evaluated eagerly
+    @jax.jit
+    def quantize(wpack):
+        wf = wpack.astype(jnp.float32)
+        wscale = jnp.maximum(jnp.max(jnp.abs(wf), axis=1), 1e-8) / 127.0
+        return jnp.clip(jnp.round(wf / wscale[:, None, :]), -127,
+                        127).astype(jnp.int8), wscale
+
+    want_q, want_s = (np.asarray(t) for t in quantize(wpack))
     q = ak.quantize_ar_weights(pp, pc)
     R = pc.n_resch
     gk = "w4" if kernel_size == 2 else "w6"
@@ -261,9 +268,10 @@ def test_int8_tracks_jax_scan():
     assert (diff <= 10).mean() > 0.7, (diff.mean(), (diff <= 10).mean())
 
 
-def _bundle(tmp_path, kernel_size=2):
+def _bundle(tmp_path, kernel_size=2, n_resch=128, n_skipch=128):
     """A port-written bundle (checkpoint, model.conf, stats.h5) and three
-    feature files, bf16 3 x 1 layers of 128 channels, upsampling 10."""
+    feature files, bf16 3 x 1 layers of ``n_resch`` (and ``n_skipch``)
+    channels, upsampling 10."""
     from pytorchwavenetvocoder_tpu_torch.parallel import (
         create_train_state,
         save_checkpoint,
@@ -271,7 +279,7 @@ def _bundle(tmp_path, kernel_size=2):
     )
     from pytorchwavenetvocoder_tpu_torch.utils import write_hdf5
 
-    cfg = P.WaveNetConfig(n_aux=8, n_resch=128, n_skipch=128,
+    cfg = P.WaveNetConfig(n_aux=8, n_resch=n_resch, n_skipch=n_skipch,
                           dilation_depth=3, dilation_repeat=1,
                           kernel_size=kernel_size, upsampling_factor=10,
                           compute_dtype="bfloat16")

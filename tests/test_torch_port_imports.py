@@ -23,6 +23,7 @@ from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
     ar_kernel_constraint_error,
 )
 from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+    MAX_RESCH,
     layer_stack_constraint_error,
 )
 
@@ -147,15 +148,24 @@ def test_kernel_envelopes_name_what_is_out():
     past = WaveNetConfig(compute_dtype="bfloat16", n_aux=AUX_MAX + 1)
     assert "n_aux" in layer_stack_constraint_error(past)
     assert "n_aux" in ar_kernel_constraint_error(past)
-    # the int8 variant: the bf16 envelope, kernel_size 2 or 3, n_resch <= 1024
+    # the int8 variant: the bf16 envelope and kernel_size 2 or 3, at every
+    # n_resch the bf16 route takes (its integer products are exact at any
+    # width); past K2's MAX_RESCH the warm-up kernel refuses both, and the
+    # cuda route raises naming n_resch, int8 as bf16
     assert ar_kernel_constraint_error(flag, quantize=True) is None
     why = ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="bfloat16", kernel_size=4), quantize=True)
     assert "int8" in why and "kernel_size" in why
-    assert "n_resch" in ar_kernel_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", n_resch=1152), quantize=True)
-    assert ar_kernel_constraint_error(
-        WaveNetConfig(compute_dtype="bfloat16", n_resch=1152)) is None
+    for n_resch in (1152, 2048):
+        wide = WaveNetConfig(compute_dtype="bfloat16", n_resch=n_resch)
+        assert ar_kernel_constraint_error(wide, quantize=True) is None
+        assert ar_kernel_constraint_error(wide) is None
+        assert layer_stack_constraint_error(wide) is None
+    past = WaveNetConfig(compute_dtype="bfloat16", n_resch=MAX_RESCH + 128)
+    assert "n_resch" in layer_stack_constraint_error(past)
+    for quantize in (False, True):
+        with pytest.raises(NotImplementedError, match="n_resch"):
+            _check_impl("cuda", past, torch.device("cuda"), quantize)
     assert ar_kernel_constraint_error(WaveNetConfig(), quantize=True) is None
     assert "compute_dtype" in ar_kernel_constraint_error(
         WaveNetConfig(compute_dtype="float64"), quantize=True)
