@@ -250,7 +250,7 @@ class File:
 
 #: A decode process under a launcher: ``bin/decode.py``'s main on the
 #: arguments after the first, then its rank's record written as JSON to the
-#: first (the rank, its device, utterances, fleets and kernel launches).
+#: first (the rank, its device, utterances, fleets and decode counters).
 _LAUNCHED_DECODE = """
 import json, sys
 from pytorchwavenetvocoder_tpu_torch.bin import decode
@@ -258,7 +258,7 @@ rk = decode.main(sys.argv[2:])["ranks"][0]
 with open(sys.argv[1], "w") as f:
     json.dump(dict(rank=rk["rank"], device=str(rk["device"]),
                    n_utts=rk["n_utts"], fleets=len(rk["batches"]),
-                   launches=rk["launches"]), f)
+                   counters=rk["counters"]), f)
 """
 
 
@@ -816,12 +816,14 @@ def main(argv=None) -> int:
 
     def read_launches():
         """The decode kernels' launch counts since reset_launches, by
-        kernel base name (the kernels line's)."""
+        kernel base name (the kernels line's): ``decode_counters`` less
+        the AR loop's row-steps."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import (
-            decode_launches,
+            decode_counters,
         )
 
-        return decode_launches()
+        return {k: v for k, v in decode_counters().items()
+                if not k.endswith("row_steps")}
 
     def set_launches(m, launches):
         """Launch counts of a main-path run, by kernel base name."""
@@ -3127,14 +3129,14 @@ def main(argv=None) -> int:
         per_rank = "; ".join(
             f"rank {rk['rank']} ({rk['device']}): {rk['n_utts']} utts, "
             f"{rk['n_samples']} samples in {rk['seconds']:.3f} s = "
-            f"{rk['n_samples'] / rk['seconds']:.0f} samples/s, launches "
-            f"{ {k: v for k, v in rk['launches'].items() if v} }"
+            f"{rk['n_samples'] / rk['seconds']:.0f} samples/s, counters "
+            f"{ {k: v for k, v in rk['counters'].items() if v} }"
             for rk in ranks)
         busiest = max(rk["seconds"] for rk in ranks)
         if per_card:    # correctness only: no multi-card speed is reported
             per_rank = "; ".join(
                 f"rank {rk['rank']} ({rk['device']}): {rk['n_utts']} utts, "
-                f"launches {dict((k, v) for k, v in rk['launches'].items() if v)}"
+                f"counters {dict((k, v) for k, v in rk['counters'].items() if v)}"
                 for rk in ranks)
             speed = "speed not reported"
         else:
@@ -3165,12 +3167,12 @@ def main(argv=None) -> int:
                                  f"{written}, {res['n_utts']} decoded")
         for rk in ranks:
             n_b = len(rk["batches"])
-            ar = sum(v for k, v in rk["launches"].items()
+            ar = sum(v for k, v in rk["counters"].items()
                      if k.startswith("ar_"))
-            if (not n_b or rk["launches"][k1_name] != n_b or ar != n_b
-                    or rk["launches"]["layer_stack_fwd"] < n_b):
+            if (not n_b or rk["counters"][k1_name] != n_b or ar != n_b
+                    or rk["counters"]["layer_stack_fwd"] < n_b):
                 raise AssertionError(f"rank {rk['rank']} not on the "
-                                     f"kernels: {rk['launches']}, {n_b} "
+                                     f"kernels: {rk['counters']}, {n_b} "
                                      f"fleets")
         if diff or sum(x["n_utts"] for x in refs) != n_utts:
             raise AssertionError(f"rank wavs differ from one-process decodes "
@@ -3219,20 +3221,20 @@ def main(argv=None) -> int:
               f"--device cuda on {n_cards} card: {len(ranks)} process(es) on "
               f"{[rk['device'] for rk in ranks]}, warning "
               f"{[w for w in warned if 'devices' in w]}, {res['n_utts']} utts "
-              f"in {[len(rk['batches']) for rk in ranks]} fleet(s), launches "
-              f"{ {k: v for k, v in ranks[0]['launches'].items() if v} } "
-              f"(K1), wavs differing from the one-process decode "
+              f"in {[len(rk['batches']) for rk in ranks]} fleet(s), counters "
+              f"{ {k: v for k, v in ranks[0]['counters'].items() if v} }, "
+              f"wavs differing from the one-process decode "
               f"{diff} | {h5_note} | {card}", flush=True)
         if len(ranks) != 1 or ranks[0]["device"] not in ("cuda", "cuda:0") \
                 or want not in warned:
             raise AssertionError(f"not clamped to one process with the "
                                  f"warning: {ranks}, {warned}")
         n_b = len(ranks[0]["batches"])
-        ar = sum(v for k, v in ranks[0]["launches"].items()
+        ar = sum(v for k, v in ranks[0]["counters"].items()
                  if k.startswith("ar_"))
-        if not n_b or ranks[0]["launches"][k1_name] != n_b or ar != n_b:
+        if not n_b or ranks[0]["counters"][k1_name] != n_b or ar != n_b:
             raise AssertionError(f"not one {k1_name} launch per fleet: "
-                                 f"{ranks[0]['launches']}, {n_b} fleets")
+                                 f"{ranks[0]['counters']}, {n_b} fleets")
         if diff or written != sorted(i + ".wav" for i in ids) or \
                 one["n_utts"] != n_utts:
             raise AssertionError(f"clamped wavs differ from the one-process "
@@ -4550,30 +4552,30 @@ def main(argv=None) -> int:
                        for r in range(2)]
             diff = [n for r in range(2) for n in differing_wavs(
                 os.path.join(tmp, f"wav_host{r}"), one)]
-        one_launch = res["ranks"][0]["launches"]
+        one_process = res["ranks"][0]["counters"]
         print(f"[launcher] {m['name']} two bin/decode.py processes as two "
               f"hosts (WORLD_SIZE 2, LOCAL_WORLD_SIZE 1, --device cuda, "
               f"--batch_size 2: fleets of 1) on the one card, {n_utts} utts "
               f"of {frames.min()}-{frames.max()} frames: " + "; ".join(
                   f"host {rc['rank']} ({rc['device']}): {rc['n_utts']} utts "
-                  f"in {rc['fleets']} fleets, wrote {w}, launches "
-                  f"{ {k: v for k, v in rc['launches'].items() if v} }"
+                  f"in {rc['fleets']} fleets, wrote {w}, counters "
+                  f"{ {k: v for k, v in rc['counters'].items() if v} }"
                   for rc, w in zip(recs, written))
               + f" | {wall:.1f} s wall for both | one process (--batch_size "
-              f"1): {res['n_utts']} utts, launches "
-              f"{ {k: v for k, v in one_launch.items() if v} } | wavs "
+              f"1): {res['n_utts']} utts, counters "
+              f"{ {k: v for k, v in one_process.items() if v} } | wavs "
               f"differing from it {diff} | {h5_note} | {card}", flush=True)
         for r, rc in enumerate(recs):
             if (rc["rank"] != r or rc["device"] != "cuda:0"
                     or written[r] != sorted(names[r::2])
-                    or rc["launches"]["ar_persistent"] != rc["fleets"]
+                    or rc["counters"]["ar_persistent"] != rc["fleets"]
                     or rc["fleets"] != len(names[r::2])
-                    or rc["launches"]["layer_stack_fwd"] < rc["fleets"]):
+                    or rc["counters"]["layer_stack_fwd"] < rc["fleets"]):
                 raise AssertionError(f"host {r} did not decode its stripe on "
                                      f"the kernels: {rc}, wrote {written[r]}")
-        if diff or one_launch["ar_persistent"] != n_utts:
+        if diff or one_process["ar_persistent"] != n_utts:
             raise AssertionError(f"the hosts' wavs differ from one process's: "
-                                 f"{diff} (one process: {one_launch})")
+                                 f"{diff} (one process: {one_process})")
 
     if opts.quality_sweep:
         phase("quality sweep", lambda: quality(

@@ -106,15 +106,20 @@ def load_model(checkpoint: str, config_path: str, device):
     return model, conf
 
 
-def decode_launches() -> dict:
-    """The decode kernels' launch counts in this process, by kernel: the
-    bf16 and int8 AR kernel and the warm-up layer stack."""
+def decode_counters() -> dict:
+    """The decode path's counters in this process: the kernels' launches
+    (the bf16 and int8 AR kernel, the warm-up layer stack) and the AR
+    loop's row-steps, those run (rows x the fleet's longest, summed over
+    its loop runs) and the useful ones (the utterances' samples)."""
+    from pytorchwavenetvocoder_tpu_torch.models import wavenet as wv
     from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
     from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
 
     return {"ar_persistent": ak.ar_generate.launches,
             "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
-            "layer_stack_fwd": tk.layer_stack_streams.launches}
+            "layer_stack_fwd": tk.layer_stack_streams.launches,
+            "row_steps": wv.ROW_STEPS["run"],
+            "useful_row_steps": wv.ROW_STEPS["useful"]}
 
 
 def decode_batches(model, batches, outdir: str, mode: str = "sampling",
@@ -132,7 +137,7 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
     the per-batch records.
     """
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import decode_mu_law
-    from pytorchwavenetvocoder_tpu_torch.utils import write_wav
+    from pytorchwavenetvocoder_tpu_torch.utils import tracing, write_wav
 
     n_quantize = model.config.n_quantize
     os.makedirs(outdir, exist_ok=True)
@@ -158,8 +163,14 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
     writer = threading.Thread(target=_writer, daemon=True)
     writer.start()
     records = []
+    fleets = iter(batches)
     try:
-        for feat_ids, (x, h, n_samples) in batches:
+        while True:
+            with tracing.span(tracing.DECODE_NEXT_FLEET):
+                item = next(fleets, None)
+            if item is None:
+                break
+            feat_ids, (x, h, n_samples) = item
             if not isinstance(feat_ids, list):
                 feat_ids, n_samples = [feat_ids], [n_samples]
             start = time.time()
@@ -185,8 +196,9 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
             if write_exc:
                 break
     finally:
-        write_q.put(None)
-        writer.join()
+        with tracing.span(tracing.DECODE_WRITER_JOIN):
+            write_q.put(None)
+            writer.join()
     if write_exc:
         raise write_exc[0]
     return dict(n_utts=sum(r["n_utts"] for r in records),
@@ -209,7 +221,7 @@ def decode_rank(info, args, feat_list: list) -> dict:
     """One rank's decode: the utterances ``feat_list[rank::world]`` in
     fleets of ``ceil(batch_size / world)`` on the rank's device (``info``,
     a ``parallel.distributed.RankInfo``).  Returns ``decode_batches``'
-    record with the rank, its device and its kernel launches."""
+    record with the rank, its device and its decode counters."""
     from pytorchwavenetvocoder_tpu_torch.data.generator import decode_generator
     from pytorchwavenetvocoder_tpu_torch.ops.mulaw import encode_mu_law
     from pytorchwavenetvocoder_tpu_torch.ops.scaler import (
@@ -248,16 +260,16 @@ def decode_rank(info, args, feat_list: list) -> dict:
         use_upsampling_layer=conf.get("use_upsampling_layer", True),
         use_speaker_code=conf.get("use_speaker_code", False),
     )
-    before = decode_launches()
+    before = decode_counters()
     res = decode_batches(model, BackgroundGenerator(batches, max_prefetch=2),
                          args.outdir, mode=args.mode, impl=args.impl,
                          generator=rank_generator(args.seed, rank, world),
                          fs=args.fs, intervals=args.intervals,
                          quantize=args.quantize,
                          ranks_on_device=info.ranks_on_device)
-    after = decode_launches()
+    after = decode_counters()
     return dict(res, rank=rank, device=str(device),
-                launches={k: after[k] - before[k] for k in after})
+                counters={k: after[k] - before[k] for k in after})
 
 
 def _decode_rank_entry(info, args, feat_list: list) -> dict:

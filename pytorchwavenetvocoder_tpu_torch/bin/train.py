@@ -233,6 +233,7 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
         rank,
         world_size,
     )
+    from pytorchwavenetvocoder_tpu_torch.utils import tracing
 
     device = torch.device(device)
     world = world_size()
@@ -284,11 +285,12 @@ def train_loop(config, batches, expdir: str, args, device) -> dict:
         if profiler is not None and i == start + 20:
             _stop_trace(profiler, profile_dir)
             profiler = None
-        (batch_x, batch_h), batch_t = next(batches)
-        if args.batch_length <= 0:
-            # utterance mode: pad to a length bucket (pad targets are -1)
-            batch_x, batch_h, batch_t = _pad_utterance_batch(
-                batch_x, batch_h, batch_t, config.upsampling_factor)
+        with tracing.span(tracing.TRAIN_NEXT_BATCH):
+            (batch_x, batch_h), batch_t = next(batches)
+            if args.batch_length <= 0:
+                # utterance mode: pad to a length bucket (pad targets are -1)
+                batch_x, batch_h, batch_t = _pad_utterance_batch(
+                    batch_x, batch_h, batch_t, config.upsampling_factor)
         state, loss = step_fn(state, batch_x, batch_h, batch_t)
         loss_acc += loss              # on the device: no host sync
         n_in_interval += 1

@@ -49,6 +49,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from pytorchwavenetvocoder_tpu_torch.utils import tracing
+
 Params = dict
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -574,8 +576,9 @@ def _warmup_state(params: Params, config: WaveNetConfig,
             )
 
             out0 = input_embed(x_chunk, params, c).to(torch.bfloat16)
-            streams = layer_stack_streams(layer_weights(params), c, out0,
-                                          h_chunk)
+            with tracing.span(tracing.WAVENET_PACK):
+                weights = layer_weights(params)
+            streams = layer_stack_streams(weights, c, out0, h_chunk)
         else:
             streams = _forward_collect(params, c, x_chunk, h_chunk,
                                        bf16_intermediates=bf16_intermediates)
@@ -615,6 +618,14 @@ def _warmup_state(params: Params, config: WaveNetConfig,
     return carry
 
 
+#: The AR loop's row-steps in this process, read as differences
+#: (``bin/decode.py::decode_counters``): "run", rows x the fleet's longest
+#: for each run of ``_generate_loop``, and "useful", the utterances' samples
+#: of each leaf ``batch_fast_generate`` call (after any sub-fleet split).
+#: In a ragged fleet their ratio is the share of the loop's work it uses.
+ROW_STEPS = {"run": 0, "useful": 0}
+
+
 def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
                    T0: int, max_n: int, mode: str, generator, impl: str,
                    intervals: int | None = None, quantize: bool = False,
@@ -627,30 +638,34 @@ def _generate_loop(params: Params, config: WaveNetConfig, carry, h_up,
     ``ar_generate_reference``, chunked so progress and sec/sample are
     logged every ``intervals`` samples (reference `wavenet.py:479-484`).
     The chunked stream equals the unchunked one: the carry is updated in
-    place and the generator is consumed step by step.
+    place and the generator is consumed step by step.  Counts the row-steps
+    it runs, rows x ``max_n``, in ``ROW_STEPS["run"]``.
     """
     from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
         ar_generate,
         ar_generate_reference,
     )
 
+    ROW_STEPS["run"] += carry[2].shape[0] * max_n
     q = dict(quantize=quantize, act_scales=act_scales)
-    if impl == "cuda":
-        return ar_generate(params, config, carry, h_up, T0, max_n, mode,
-                           generator, **q)
-    if not intervals or intervals >= max_n:
-        return ar_generate_reference(params, config, carry, h_up, T0, max_n,
-                                     mode, generator, **q)
-    gen, outs = 0, []
-    t_start = time.time()
-    while gen < max_n:
-        n_c = min(intervals, max_n - gen)
-        outs.append(ar_generate_reference(params, config, carry, h_up, T0,
-                                          n_c, mode, generator, i0=gen, **q))
-        gen += n_c
-        logging.info("%d/%d samples generated (%.6f sec / sample)",
-                     gen, max_n, (time.time() - t_start) / gen)
-    return torch.cat(outs, dim=1)
+    with tracing.span(tracing.WAVENET_AR_LOOP):
+        if impl == "cuda":
+            return ar_generate(params, config, carry, h_up, T0, max_n, mode,
+                               generator, **q)
+        if not intervals or intervals >= max_n:
+            return ar_generate_reference(params, config, carry, h_up, T0,
+                                         max_n, mode, generator, **q)
+        gen, outs = 0, []
+        t_start = time.time()
+        while gen < max_n:
+            n_c = min(intervals, max_n - gen)
+            outs.append(ar_generate_reference(params, config, carry, h_up, T0,
+                                              n_c, mode, generator, i0=gen,
+                                              **q))
+            gen += n_c
+            logging.info("%d/%d samples generated (%.6f sec / sample)",
+                         gen, max_n, (time.time() - t_start) / gen)
+        return torch.cat(outs, dim=1)
 
 
 def _check_impl(impl: str, config: WaveNetConfig, device: torch.device,
@@ -905,6 +920,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     Sampling draws one seed from ``generator`` and seeds sub-fleet i from
     (seed, i).  Each sub-fleet's rows come out as that sub-fleet decoded
     on its own.
+    Each (sub-)fleet decoded adds its utterances' samples to
+    ``ROW_STEPS["useful"]``.
 
     Returns:
       list of np.int32 arrays, one per utterance in input order, each of
@@ -919,8 +936,9 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
         # the kernels' config: bf16, the channel widths padded to the
         # multiples of their tiling (zero lanes)
         c = _kernel_config(c)
-        params, c = pad_params_for_kernels(params, c,
-                                           kernel_multiples(c, quantize))
+        with tracing.span(tracing.WAVENET_PACK):
+            params, c = pad_params_for_kernels(params, c,
+                                               kernel_multiples(c, quantize))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
@@ -950,38 +968,43 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
                     ranks_on_device=ranks_on_device))
             return outs
 
-    x = torch.as_tensor(x, dtype=torch.int64, device=device)
-    h = torch.as_tensor(h, dtype=c.acc_dtype, device=device)
-    if c.upsampling_factor > 0:
-        h = upsample_aux(params, c, h)
-    x, h = _pad_seed(c, x, h)
+    ROW_STEPS["useful"] += sum(int(n) for n in n_samples_list)
     max_n = int(max(n_samples_list))
-    T0 = x.shape[1]
-    # aux must cover positions up to T0 - 1 + max_n - 1 + 1
-    h = _pad_aux_to(h, T0 + max_n).contiguous()
+    with tracing.span(tracing.WAVENET_PREP):
+        x = torch.as_tensor(x, dtype=torch.int64, device=device)
+        h = torch.as_tensor(h, dtype=c.acc_dtype, device=device)
+        if c.upsampling_factor > 0:
+            h = upsample_aux(params, c, h)
+        x, h = _pad_seed(c, x, h)
+        T0 = x.shape[1]
+        # aux must cover positions up to T0 - 1 + max_n - 1 + 1
+        h = _pad_aux_to(h, T0 + max_n).contiguous()
 
-    carry = _warmup_state(params, c, x, h, bf16_intermediates=(impl == "cuda"),
-                          collect_act_maxes=quantize, impl=impl)
-    act_scales = None
-    if quantize:
-        from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
-            act_scales_from_maxes,
-        )
-
-        carry, maxes = carry
-        act_scales = act_scales_from_maxes(maxes)
-        if c.kernel_size > 2:
-            # raw rings become int8 rows under each layer's scale; the
-            # bf16 ring is dropped with the old carry
+    with tracing.span(tracing.WAVENET_WARMUP):
+        carry = _warmup_state(params, c, x, h,
+                              bf16_intermediates=(impl == "cuda"),
+                              collect_act_maxes=quantize, impl=impl)
+        act_scales = None
+        if quantize:
             from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
-                int8_ring_fill,
+                act_scales_from_maxes,
             )
 
-            carry = (int8_ring_fill(carry[0], act_scales, c),) + carry[1:]
+            carry, maxes = carry
+            act_scales = act_scales_from_maxes(maxes)
+            if c.kernel_size > 2:
+                # raw rings become int8 rows under each layer's scale; the
+                # bf16 ring is dropped with the old carry
+                from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import (
+                    int8_ring_fill,
+                )
+
+                carry = (int8_ring_fill(carry[0], act_scales, c),) + carry[1:]
     samples = _generate_loop(params, c, carry, h, T0, max_n, mode, generator,
                              impl, intervals=intervals, quantize=quantize,
                              act_scales=act_scales)
-    samples = samples.to(torch.int32).cpu().numpy()
+    with tracing.span(tracing.WAVENET_COPY_OUT):
+        samples = samples.to(torch.int32).cpu().numpy()
     return [samples[b, : int(n)] for b, n in enumerate(n_samples_list)]
 
 

@@ -69,6 +69,7 @@ import dataclasses
 import torch
 
 from pytorchwavenetvocoder_tpu_torch._build import AUX_MAX
+from pytorchwavenetvocoder_tpu_torch.utils import tracing
 
 
 #: The kernel sizes the AR kernel serves, bf16 and int8 (the JAX kernel's,
@@ -1279,7 +1280,8 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         raise ValueError(f"h_up must be contiguous float32 (B={B}, >= "
                          f"{T0 + max_n}, A={A}) on {dev}; got "
                          f"{tuple(h_up.shape)} {h_up.dtype} {h_up.device}")
-    pk = pack_ar_weights(params, c)
+    with tracing.span(tracing.WAVENET_PACK):
+        pk = pack_ar_weights(params, c)
     for name, t in pk.items():
         if t.device != dev:
             raise ValueError(f"params ({name}) are on {t.device}, not {dev}")
@@ -1354,7 +1356,8 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     bf, f32 = torch.bfloat16, torch.float32
     quantize = ascale is not None
     plan = ar_plan(c, B, quantize=quantize, device=dev, gate=gate)
-    units = pack_ar_units(pk, plan, c)
+    with tracing.span(tracing.WAVENET_PACK):
+        units = pack_ar_units(pk, plan, c)
     _caps, offsets, total_cap = _buffer_layout(c)
     meta = torch.tensor([offsets, list(c.dilations)], dtype=torch.int32,
                         device=dev).T.contiguous()                # (L, 2)

@@ -41,6 +41,8 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 
+from pytorchwavenetvocoder_tpu_torch.utils import tracing
+
 #: Seconds a collective, or the rendezvous, may wait for the other ranks
 #: before it fails the run (a dead rank must not hang the others).
 COLLECTIVE_TIMEOUT_S = 600.0
@@ -361,15 +363,16 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for same in by_dtype.values():
-        bucket = torch.cat([t.reshape(-1) for t in same])
-        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
-        bucket.div_(world)
-        offset = 0
-        for t in same:
-            n = t.numel()
-            t.copy_(bucket[offset:offset + n].view_as(t))
-            offset += n
+    with tracing.span(tracing.TRAIN_ALLREDUCE):
+        for same in by_dtype.values():
+            bucket = torch.cat([t.reshape(-1) for t in same])
+            dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+            bucket.div_(world)
+            offset = 0
+            for t in same:
+                n = t.numel()
+                t.copy_(bucket[offset:offset + n].view_as(t))
+                offset += n
 
 
 def shard_rows(batch, rank: int, world: int):

@@ -30,6 +30,7 @@ from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
     init_wavenet_params,
     wavenet_forward,
 )
+from pytorchwavenetvocoder_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -172,47 +173,53 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
                 and supports_fused_train(config, T))
 
     def step_fn(state: TrainState, batch_x, batch_h, batch_t):
-        device = state.params["causal"]["w"].device
-        bx = torch.as_tensor(batch_x, device=device).long()
-        bh = torch.as_tensor(batch_h, device=device)
-        bt = torch.as_tensor(batch_t, device=device).long()
-        on_fused = use_fused(device, bx.shape[1])
-        route = "fused" if on_fused else "plain"
-        if route != step_fn.route:
-            logging.info("train step route: %s (device %s, compute_dtype %s, "
-                         "fused=%s)", route, device, config.compute_dtype,
-                         "auto" if fused is None else fused)
-            step_fn.route = route
-        opt = state.optimizer
-        for group in opt.param_groups:
-            group["lr"] = lr
-            group["weight_decay"] = weight_decay
-        opt.zero_grad(set_to_none=True)
-        logits = wavenet_forward(state.params, config, bx, bh,
-                                 remat=remat and not on_fused,
-                                 bf16_intermediates=bf16_intermediates,
-                                 fused=on_fused, tp=grid)
-        loss = masked_ce_loss(logits, bt, rf)
-        loss.backward()
-        loss = loss.detach()
-        if data_parallel:
-            leaves = [t for _g, _n, t in param_leaves(state.params)]
-            for t in leaves:
-                if t.grad is None:
-                    t.grad = torch.zeros_like(t)
-            loss = loss.clone()
-            if grid is None:
-                all_reduce_mean([t.grad for t in leaves] + [loss])
-            else:
-                for g, n in sliced_replicated(grid):
-                    torch.distributed.all_reduce(
-                        state.params[g][n].grad, group=grid.model_group)
-                if grid.n_data > 1:
-                    all_reduce_mean([t.grad for t in leaves] + [loss],
-                                    group=grid.data_group)
-        opt.step()
-        state.step += 1
-        return state, loss
+        with tracing.span(tracing.TRAIN_STEP):
+            device = state.params["causal"]["w"].device
+            with tracing.span(tracing.TRAIN_BATCH_IN):
+                bx = torch.as_tensor(batch_x, device=device).long()
+                bh = torch.as_tensor(batch_h, device=device)
+                bt = torch.as_tensor(batch_t, device=device).long()
+            on_fused = use_fused(device, bx.shape[1])
+            route = "fused" if on_fused else "plain"
+            if route != step_fn.route:
+                logging.info("train step route: %s (device %s, compute_dtype "
+                             "%s, fused=%s)", route, device,
+                             config.compute_dtype,
+                             "auto" if fused is None else fused)
+                step_fn.route = route
+            opt = state.optimizer
+            for group in opt.param_groups:
+                group["lr"] = lr
+                group["weight_decay"] = weight_decay
+            opt.zero_grad(set_to_none=True)
+            with tracing.span(tracing.TRAIN_FORWARD):
+                logits = wavenet_forward(state.params, config, bx, bh,
+                                         remat=remat and not on_fused,
+                                         bf16_intermediates=bf16_intermediates,
+                                         fused=on_fused, tp=grid)
+                loss = masked_ce_loss(logits, bt, rf)
+            with tracing.span(tracing.TRAIN_BACKWARD):
+                loss.backward()
+            loss = loss.detach()
+            if data_parallel:
+                leaves = [t for _g, _n, t in param_leaves(state.params)]
+                for t in leaves:
+                    if t.grad is None:
+                        t.grad = torch.zeros_like(t)
+                loss = loss.clone()
+                if grid is None:
+                    all_reduce_mean([t.grad for t in leaves] + [loss])
+                else:
+                    for g, n in sliced_replicated(grid):
+                        torch.distributed.all_reduce(
+                            state.params[g][n].grad, group=grid.model_group)
+                    if grid.n_data > 1:
+                        all_reduce_mean([t.grad for t in leaves] + [loss],
+                                        group=grid.data_group)
+            with tracing.span(tracing.TRAIN_ADAM):
+                opt.step()
+            state.step += 1
+            return state, loss
 
     step_fn.route = None
     step_fn.grid = grid

@@ -1,5 +1,6 @@
 """Rank functions for tests/test_torch_parallel.py,
-tests/test_torch_tensor_parallel.py and tests/test_torch_cuda.py.
+tests/test_torch_tensor_parallel.py, tests/test_torch_tracing.py and
+tests/test_torch_cuda.py.
 
 ``parallel/distributed.py::spawn_local`` starts each rank in a fresh
 interpreter that imports its function by name, so the functions live here,
@@ -21,7 +22,10 @@ from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNetConfig
 from pytorchwavenetvocoder_tpu_torch.parallel.checkpoint import (
     restore_train_state,
 )
-from pytorchwavenetvocoder_tpu_torch.parallel.distributed import shard_rows
+from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+    all_reduce_mean,
+    shard_rows,
+)
 from pytorchwavenetvocoder_tpu_torch.parallel.mesh import (
     gather_params,
     shard_params,
@@ -72,6 +76,18 @@ def dp_digests(info, *args) -> dict:
     return from ranks at wide configs)."""
     return {k: v for k, v in dp_steps(info, *args).items()
             if k not in ("params", "moments")}
+
+
+def allreduce_spans(info) -> dict:
+    """``all_reduce_mean`` of a tensor holding the rank under a CPU
+    profiler: the program's spans the profiler saw, and the mean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = torch.full((3,), float(info.rank))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        all_reduce_mean([t])
+    return dict(spans=[e.name for e in prof.events()
+                       if e.name.startswith("train.")], value=t.tolist())
 
 
 def np_tree(params) -> dict:

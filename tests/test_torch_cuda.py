@@ -275,6 +275,50 @@ def test_batch_fast_generate_int8_runs_k1_int8(dev, kernel_size):
     assert tk.layer_stack_streams.launches == k2 + 1
 
 
+def test_cuda_fleet_enters_every_pack_and_counts_its_row_steps(dev):
+    """One fleet on the cuda route, under a profiler: the weight packs of
+    the decode path (the padding to the kernels' widths, K2's layer
+    weights inside the warm-up, K1's pack and its units inside the AR
+    loop) each enter ``wavenet.pack``, the loop ``wavenet.ar_loop`` once,
+    and the row-step counters read rows x the longest and the utterances'
+    samples."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_counters
+    from pytorchwavenetvocoder_tpu_torch.utils import tracing
+
+    cfg = _cfg(upsampling_factor=10)
+    params = _params(cfg, dev, seed=7)
+    rng = np.random.RandomState(7)
+    x = np.full((3, 1), 128, np.int32)
+    h = rng.randn(3, 7, cfg.n_aux).astype(np.float32)
+    lengths = [59, 40, 20]
+    P.batch_fast_generate(params, cfg, x, h, lengths, mode="argmax")  # build
+    torch.cuda.synchronize()
+    before = decode_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = P.batch_fast_generate(params, cfg, x, h, lengths, mode="argmax")
+    after = decode_counters()
+    assert [len(o) for o in out] == lengths
+    got = {k: after[k] - before[k] for k in after}
+    assert got["ar_persistent"] == 1 and got["layer_stack_fwd"] == 1
+    assert got["row_steps"] == 3 * 59 and got["useful_row_steps"] == 119
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.name in (
+                       tracing.WAVENET_PACK, tracing.WAVENET_WARMUP,
+                       tracing.WAVENET_AR_LOOP))
+
+    def inside(name):
+        return [(s, e) for s, e, n in spans if n == name]
+    packs = inside(tracing.WAVENET_PACK)
+    (w0, w1), = inside(tracing.WAVENET_WARMUP)
+    (a0, a1), = inside(tracing.WAVENET_AR_LOOP)
+    assert len(packs) == 4, spans
+    assert sum(w0 <= s and e <= w1 for s, e in packs) == 1
+    assert sum(a0 <= s and e <= a1 for s, e in packs) == 2
+    assert packs[0][1] <= w0     # the padding, before the warm-up
+
+
 # both int8 gate designs at one fleet, whichever ar_gate picks there: 200
 # rows (the streamed gate's slabs, more units than blocks in the cut into
 # units)

@@ -287,7 +287,13 @@ def test_decode_cli_two_ranks_writes_the_jax_clis_wavs(tmp_path, deadline):
     assert res["n_utts"] == 5
     assert res["n_samples"] == (5 + 3 + 4 + 6 + 2) * 10 - 5
     assert res["wall_seconds"] > 0
-    assert all(sum(r["launches"].values()) == 0 for r in ranks)  # plain
+    for r in ranks:
+        c = r["counters"]
+        # plain: no kernel launched; fleets of one run no spare row-step
+        assert c["ar_persistent"] == c["ar_persistent_int8"] == 0
+        assert c["layer_stack_fwd"] == 0
+        assert c["row_steps"] == c["useful_row_steps"] == sum(
+            b["n_samples"] for b in r["batches"])
 
 
 def test_rank_generators_are_seeded_by_seed_and_rank():
