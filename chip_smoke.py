@@ -817,13 +817,13 @@ def main(argv=None) -> int:
     def read_launches():
         """The decode kernels' launch counts since reset_launches, by
         kernel base name (the kernels line's): ``decode_counters`` less
-        the AR loop's row-steps."""
+        the AR loop's row-steps and K1's counter waits."""
         from pytorchwavenetvocoder_tpu_torch.bin.decode import (
             decode_counters,
         )
 
         return {k: v for k, v in decode_counters().items()
-                if not k.endswith("row_steps")}
+                if not k.endswith("row_steps") and not k.startswith("k1_")}
 
     def set_launches(m, launches):
         """Launch counts of a main-path run, by kernel base name."""
@@ -1104,7 +1104,7 @@ def main(argv=None) -> int:
     def k1_phase_line(tag, phases):
         return (f"{tag} where a step of the persistent kernel goes, us per "
                 f"stage (its phase times; means over the blocks with a unit, "
-                f"the barrier wait over all blocks): " + "; ".join(
+                f"the mean counter wait over all units): " + "; ".join(
                     f"B={b_} ({ph['design']} gate): " + ", ".join(
                         f"{st} " + (f"{v['epilogue']:.2f}" if st == "sample"
                                     else f"ask {v['ask']:.2f} wait "
@@ -1113,9 +1113,9 @@ def main(argv=None) -> int:
                                     f"{v['epilogue']:.2f} units "
                                     f"{v['units']:.2f}")
                         for st, v in ph.items()
-                        if st not in ("barrier", "design"))
-                    + f", barrier {ph['barrier']['wait']:.2f} x "
-                    f"{ph['barrier']['per_step']:.0f}/step"
+                        if st not in ("waits", "design"))
+                    + f", waits {ph['waits']['wait']:.2f} x "
+                    f"{ph['waits']['per_step']:.0f}/step"
                     for b_, ph in phases.items()) + f" | {card}")
 
     def k1(m, n, n_check, controls, n_big=64, n_wide=64):

@@ -155,7 +155,8 @@ def kernels() -> ctypes.CDLL:
         + [ctypes.c_float] * 2    # gscale ginv
         + [vp] * 4           # zb auxb dilb gate_scales (the streamed gate)
         + [i32]              # ring rows (total_cap * B)
-        + [vp, vp, vp])      # plan (host int*), phase times, stream
+        + [vp] * 5)          # plan (host int*), arrival counters, waits,
+                             # phase times, stream
     lib.wn_ar_phase_slots.restype = i32
     lib.wn_ar_phase_slots.argtypes = []
     lib.wn_layer_stack_fwd.restype = i32

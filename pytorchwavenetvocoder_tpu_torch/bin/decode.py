@@ -108,18 +108,23 @@ def load_model(checkpoint: str, config_path: str, device):
 
 def decode_counters() -> dict:
     """The decode path's counters in this process: the kernels' launches
-    (the bf16 and int8 AR kernel, the warm-up layer stack) and the AR
-    loop's row-steps, those run (rows x the fleet's longest, summed over
-    its loop runs) and the useful ones (the utterances' samples)."""
+    (the bf16 and int8 AR kernel, the warm-up layer stack), the AR loop's
+    row-steps, those run (rows x the fleet's longest, summed over its loop
+    runs) and the useful ones (the utterances' samples), and the AR
+    kernel's counter waits and those whose first poll found the previous
+    stage done (``k1_waits``, ``k1_waits_ready``: read from the device,
+    so this waits for its queued work)."""
     from pytorchwavenetvocoder_tpu_torch.models import wavenet as wv
     from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
     from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
 
+    waits, ready = ak.k1_waits()
     return {"ar_persistent": ak.ar_generate.launches,
             "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
             "layer_stack_fwd": tk.layer_stack_streams.launches,
             "row_steps": wv.ROW_STEPS["run"],
-            "useful_row_steps": wv.ROW_STEPS["useful"]}
+            "useful_row_steps": wv.ROW_STEPS["useful"],
+            "k1_waits": waits, "k1_waits_ready": ready}
 
 
 def decode_batches(model, batches, outdir: str, mode: str = "sampling",

@@ -9,7 +9,8 @@ per-call work, such as packing the weights, spread over the steps), the
 device-busy sum and the host clock per step.  bf16, and int8 with
 ``--quantize``: the persistent kernel runs the steps in one launch, whose
 device microseconds per step it names on a line of their own, followed by
-its phase times per stage.
+its phase times per stage and its counter waits (the mean microseconds of
+a unit's wait for the stage before it, and the waits per step).
 
 ``--turns B1,B2,...`` times the kernel's two gate designs instead (int8
 with ``--quantize``), the gate cut into units and the streamed gate, in
@@ -183,7 +184,8 @@ def main(argv=None) -> dict:
           f"us/step, idle share {1 - busy / host_us:.3f}")
     # where a step of the persistent kernel goes, from its phase times
     phases = ak.ar_phase_times(params, cfg, carry, h, T0 + 2 * n, n, **q)
-    print("  us per stage (means over the blocks with a unit):")
+    print("  us per stage (means over the blocks with a unit); waits: us "
+          "per counter wait, waits per step:")
     for st, v in phases.items():
         print(f"    {st:8s} " + ", ".join(f"{k} {x:.2f}"
                                            for k, x in v.items()))

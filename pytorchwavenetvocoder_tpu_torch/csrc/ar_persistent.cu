@@ -13,13 +13,14 @@
 // with k = 3, more than the 50 MB L2): 25.8 and 35.2 us at 3.35 TB/s.  The
 // step is a chain of dependent products: per layer the gate (which needs
 // the layer's input) and skip/res (which needs the gate), then the post
-// stack and the sample, 2L + 3 = 63 stages at L = 30, each ended by a grid
-// barrier (~1.08 us each on this card, ops/matmul_chain.py::barrier_chain):
-// ~68 us of barriers per step.  At wide fleets the gate stage's operands
-// bound it: a unit that holds all of K = 3R + aux of its rows and columns
-// in shared memory is small (32 rows x 16 columns at K = 1,584), so a
-// block took several in turn, each waiting for its own copies, and the
-// rows were read again for every column group.
+// stack and the sample, 2L + 3 = 63 stages at L = 30.  A grid barrier
+// after each (the first design: ~1.08 us each on this card,
+// ops/matmul_chain.py::barrier_chain) cost ~68 us a step; the stages now
+// wait on an arrival counter per stage instead (below).  At wide fleets
+// the gate stage's operands bound it: a unit that holds all of K = 3R +
+// aux of its rows and columns in shared memory is small (32 rows x 16
+// columns at K = 1,584), so a block took several in turn, each waiting for
+// its own copies, and the rows were read again for every column group.
 //
 // The gate stage runs one of two designs (ST, the kernel's template
 // parameter; ops/ar_kernel.py::ar_plan picks, AR_STREAM_FROM_B):
@@ -53,7 +54,7 @@
 //    tried).  What bounds it on an H100 (PERF.md): at B=256 the
 //    gate stage takes ~10 us a layer (bf16 k=3, 128 units of ~300 KB from
 //    L2 each, ~39 MB a stage, L2 bandwidth), the res stage ~8 us and the
-//    63 barriers ~2.7 us each.
+//    63 grid barriers of the first design ~2.7 us each.
 //  The two designs are separate instances: the streamed one's block has
 //  a 9th warp (the producer), and ptxas gives a block of 288 threads at
 //  most 168 registers a thread, under which the int8 stages spill (on one
@@ -64,11 +65,11 @@
 // wn_hopper.cuh):
 //  - one launch with cudaLaunchCooperativeKernel, one block per SM, checked
 //    against the occupancy (a grid that cannot be co-resident raises; there
-//    is no fallback); cooperative_groups grid.sync() between stages;
+//    is no fallback): the waits below need every block resident;
 //  - the stage plan per step: for each layer a gate stage and a res stage,
 //    then post1, post2 and the sample stage.  The input conv (embed) needs
 //    only the sampled ids and the aux term nothing of the chain, so neither
-//    has a barrier of its own: the sample stage embeds the new ids for the
+//    is a stage of its own: the sample stage embeds the new ids for the
 //    next step and stores that step's aux column (bf16) beside the stream
 //    (xs = [x | aux]), and the gate stage multiplies the aux column as an
 //    extra K of its product (the pack carries the aux rows under the gate
@@ -87,7 +88,7 @@
 //  - post1 (ReLU/1x1), post2 (1x1 to logits), then the sample stage: one
 //    warp per row takes the argmax (ties to the lowest index) or the
 //    Gumbel-max with the Philox4x32-10 noise of (seed, row, step, class)
-//    (wn_hopper.cuh::gumbel_noise), shifts the ids, and embeds them;
+//    (wn_hopper.cuh::gumbel_noise4), shifts the ids, and embeds them;
 //  - units (the other stages, and the gate of small fleets), as in K4: a
 //    row group of at most 64 rows x a column group, each taking all of K,
 //    so no block needs another's sums; a block takes a
@@ -100,15 +101,57 @@
 //    tiles followed by its biases (ops/ar_kernel.py::pack_ar_units), moved
 //    by one bulk copy (cp.async.bulk on an mbarrier); the next stage's run
 //    of a block's first unit is asked for during this stage, into a second
-//    buffer, so the weight stream overlaps the stage and the barrier.  The
+//    buffer, so the weight stream overlaps the stage and the wait.  The
 //    stages write their A operands (the stream with its aux column, the
 //    gate, relu(skip), post1's output) in rows padded by 16 bytes, as the
 //    units hold them in shared memory (wmma's 16-byte row chunks then fall
 //    on distinct banks), so a unit's A rows are one bulk copy; only the
 //    kernel_size 3 gate's lagged rows, row-major in the ring, go row by row.
 //    The epilogue's per-row operands (ring taps, old skip sums and stream)
-//    come by cp.async beside the A rows.  The writers of every array a later
-//    stage bulk-copies fence the proxies before the barrier.
+//    come by cp.async beside the A rows (asked for before the wait below,
+//    though the unit's own block wrote most of them, they made the small
+//    fleets' step 7% slower on the card: PERF.md, "K1 without grid barriers");
+//  - waits (the units instance), as K4's, with one counter a stage: a
+//    unit depends on the units of the stage before it (the gate of layer l
+//    on the res stage of layer l - 1, or at layer 0 on the sample stage
+//    that embedded the step's ids; res on the gate; post1 on the last res
+//    stage; post2 on post1; the sample stage on post2).  Each stage type
+//    has an arrival counter in device memory, set to AP_CTR0 per launch
+//    (it wraps at its first arrival) and never reset within it: after a
+//    unit's epilogue its writers fence the generic proxy to the async
+//    proxy, the workers sync, and one thread adds 1 with release
+//    semantics.  Before asking for a unit's A rows, one thread polls the
+//    counter of the previous stage with acquire semantics until it reaches
+//    that stage's units times its runs so far (a wait of 2^24 polls
+//    traps), the workers sync,
+//    and the unit asks for its A rows, then for the next stage's weights
+//    (asked for before the poll, as they could be, they delayed the A rows
+//    behind them: 3% of the step at B=32, PERF.md, "K1 without grid barriers").
+//    A block with no unit in a stage does not wait: it asks for the next
+//    stage's weights and goes on to its next unit.  The sample stage is
+//    cut into units of AP_SROWS rows (a warp a row); the first step's embed
+//    is its first run.  Each waiting thread counts its waits and those
+//    whose first poll found the target reached, and adds both to the
+//    launch's totals at its end (ops/ar_kernel.py::k1_waits).  The
+//    streamed instance keeps a grid barrier after every stage
+//    (cooperative_groups grid.sync()): there the same waits were slower
+//    (ar_persistent_kernel below).  Counters per row group (a unit waiting
+//    only for the units on its own rows, as K4's) tied with one a stage on
+//    the card, within 2% either way at 16-160 rows (PERF.md, "K1 without
+//    grid barriers");
+//
+// Why no buffer needs a second copy under the counter waits (K4's
+// argument).  Every unit of a stage waits until every unit of the previous
+// stage's run has arrived, and a unit arrives only after its last read of
+// a stage operand (its A rows and epilogue operands are in shared memory
+// before its products) and its last write (its epilogue, fenced).  The
+// stages form one chain, so by induction every earlier stage's units are
+// done: the stages are totally ordered, as under a grid barrier.  So each
+// array (the stream xs / of / xq with its aux column, the gate gs / gq,
+// skip, sr, h1, logits, ids and the ring) is touched by one stage at a
+// time.  A block with no unit in a stage touches none of them (it asks
+// only for weights, which no stage writes).  Within a block the unit
+// loop's syncs order the reuse of shared memory.
 //
 // What the card showed (PERF.md): asking for every operand row by row
 // made "asking" a third of a stage (each bulk copy costs its lane time);
@@ -117,7 +160,7 @@
 // rows a stage ahead did not pay, and neither did the lagged rows by
 // cp.async or 4-byte epilogue stores.  What remains per stage at the main
 // path's fleets is ~0.5-1.9 us asking, ~1.1-2.4 us of products (K4's wmma
-// core), ~0.5-1.4 us of epilogue, and the barrier.
+// core), ~0.5-1.4 us of epilogue, and the wait for the stage before.
 //
 // The ring hazard.  kernel_size 2: the gate stage of layer l reads ring slot
 // p mod d (the projection written d steps ago) and writes the projection
@@ -125,14 +168,14 @@
 // the one that overwrites it, after reading.  kernel_size 3: the gate stage
 // reads slots (p - d) and (p - 2d) mod 2d, the second being slot p mod 2d,
 // which the layer's input row overwrites; that write happens in the res
-// stage, one barrier after the last read.
+// stage, whose units wait for every gate unit of their rows.
 //
 // Numbers: the products sum in f32 in another order than the plain version
 // (the aux term inside the product, the biases after the ring tap), so
 // values agree up to f32 summation order before each bf16 rounding.
 //
 // int8 (the Q8 instances; the JAX kernel's int8 path): the same stage plan
-// and barriers.  The gate and res stages multiply int8 by int8 into int32
+// and waits.  The gate and res stages multiply int8 by int8 into int32
 // sums (exact), each product dequantized by (activation scale x column
 // scale) in the epilogue; the aux term stays a bf16 product (wmma, f32
 // sums) over the unit's aux rows, as in the JAX int8 path; post1, post2
@@ -181,6 +224,13 @@ using namespace nvcuda;
 // the weighted stages; GATE and POST1 use weight buffer 0, RES and POST2
 // buffer 1 (stage & 1), so consecutive weighted stages alternate
 enum { AP_GATE, AP_RES, AP_POST1, AP_POST2, AP_NSTAGES };
+// the sample stage (no weights): the fifth stage with arrival counters
+#define AP_SAMPLE AP_NSTAGES
+#define AP_SROWS AP_WARPS   // rows of a sample-stage unit: a warp each
+// the arrival counters' value at a launch's start: 2^32 - 1, so that each
+// wraps at its first arrival and every launch, not only a decode long
+// enough to pass 2^32 arrivals, runs wn_hopper.cuh's wrap-safe wait
+#define AP_CTR0 0xFFFFFFFFu
 
 struct ApStage {
     int K, quarters, N;    // weight rows (= A row width; int8: of each
@@ -270,6 +320,11 @@ struct ApArgs {
     // shared memory: two weight buffers, the A rows, the warps' sums, the
     // epilogue's operands
     int smem_w[2], smem_a, smem_p, smem_e;
+    // the arrival counters, [AP_SAMPLE + 1] from AP_CTR0: ctr[T] counts
+    // stage T's units that have written their rows
+    unsigned* ctr;
+    // null, or two u64 the launch adds its waits and its ready waits to
+    unsigned long long* waits;
     // phase times (null: off): per block AP_PH u64, see wn_ar_phase_slots
     unsigned long long* phase;
 };
@@ -277,9 +332,15 @@ struct ApArgs {
 // phase-time slots per block: per stage type (the four weighted ones, then
 // the sample stage) asking for operands, waiting for them, the products,
 // the epilogue, the stages with a unit, the units (ns sums and counts);
-// then the barrier waits and their count
+// then the counter waits (ns) and their count
 #define AP_PH_STAGE 6
 #define AP_PH (5 * AP_PH_STAGE + 2)
+
+// One waiting thread's count of its counter waits: all, those whose first
+// poll found the target reached, and (phase times on) their nanoseconds.
+struct ApWaits {
+    unsigned long long n, ready, ns;
+};
 
 // Per block: three mbarriers (the two weight buffers, the A rows) and the
 // parity each waits on next.
@@ -295,6 +356,31 @@ static __device__ __forceinline__ float ldcg_bf(const bf16* p) {
 // the first unit block `blk` takes in a stage of `units` units
 static __device__ __forceinline__ int unit_begin(int units, int blk) {
     return (int)((long long)blk * units / gridDim.x);
+}
+
+// The sample stage's units: AP_SROWS rows each, a warp a row; a block
+// takes a contiguous run of them, as of a weighted stage.
+static __device__ __forceinline__ int sample_units(const ApArgs& a) {
+    return (a.B + AP_SROWS - 1) / AP_SROWS;
+}
+
+// One thread: wait until stage T's units (AP_SAMPLE: its AP_SROWS-row
+// units) have arrived from `runs` runs of the stage, counted in w.
+static __device__ void wait_stage(const ApArgs& a, int T, unsigned runs, ApWaits& w) {
+    const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
+    const unsigned units = T == AP_SAMPLE ? sample_units(a) : a.st[T].units;
+    const unsigned polls = wait_counter(a.ctr + T, AP_CTR0 + runs * units);
+    w.n += 1;
+    w.ready += polls == 0;
+    if (a.phase != nullptr) w.ns += now_ns() - t0;
+}
+
+// The workers after a unit of stage T: each writer's fence (the next
+// stages' bulk copies read what it wrote), then one arrival.
+static __device__ __forceinline__ void arrive_stage(const ApArgs& a, int T) {
+    fence_proxy_async();
+    consumers_sync();
+    if (threadIdx.x == 0) arrive_counter(a.ctr + T);
 }
 
 // Thread 0: the weight slice of column group grp of stage T at layer l into
@@ -347,7 +433,8 @@ static __device__ __forceinline__ void mma_s8(int c[4], const unsigned a[4],
 // in f32 and bf16, the aux column after the stream (the gate's extra K).
 // Q8: out = ((w_0 + w_1) (+ w_2)) + causal_b (the JAX kernel's one-hot
 // product, then the bias) in f32 and as int8 at layer 0's scale, the aux
-// column in its own rows.  One warp.
+// column in its own rows.  One warp, a lane 8 channels at a time (16-byte
+// loads of the embedding rows, all issued before the sums).
 template <int KS, bool Q8>
 static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
                                  int lane) {
@@ -357,20 +444,48 @@ static __device__ void embed_row(const ApArgs& a, int b, const int* id, int p,
     for (int j = 0; j < KS; ++j)
         w[j] = a.causal_w + ((size_t)j * Q + ((id[j] % Q) + Q) % Q) * R;
     const float inv0 = Q8 ? __ldg(a.ainv) : 0.f;
-    for (int r = lane; r < R; r += 32) {
+    for (int r = 8 * lane; r < R; r += 256) {
+        uint4 e[KS];
+#pragma unroll
+        for (int j = 0; j < KS; ++j) e[j] = __ldg((const uint4*)(w[j] + r));
+        const float4 c0 = __ldg((const float4*)(a.causal_b + r));
+        const float4 c1 = __ldg((const float4*)(a.causal_b + r + 4));
+        const float cb[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            float x[KS];
+#pragma unroll
+            for (int j = 0; j < KS; ++j) {
+                const unsigned u2 = i < 2 ? e[j].x : i < 4 ? e[j].y : i < 6 ? e[j].z : e[j].w;
+                const float2 f = bits_bf2(u2);
+                x[j] = i & 1 ? f.y : f.x;
+            }
+            if constexpr (Q8) {
+                v[i] = x[0];
+#pragma unroll
+                for (int j = 1; j < KS; ++j) v[i] = __fadd_rn(v[i], x[j]);
+                v[i] = __fadd_rn(v[i], cb[i]);
+            } else {
+                v[i] = cb[i];
+#pragma unroll
+                for (int j = 0; j < KS; ++j) v[i] += x[j];
+            }
+        }
+        float4* of = (float4*)(a.of + (size_t)b * R + r);
+        of[0] = make_float4(v[0], v[1], v[2], v[3]);
+        of[1] = make_float4(v[4], v[5], v[6], v[7]);
         if constexpr (Q8) {
-            float v = bf2f(w[0][r]);
+            unsigned q[2] = {0u, 0u};
 #pragma unroll
-            for (int j = 1; j < KS; ++j) v = __fadd_rn(v, bf2f(w[j][r]));
-            v = __fadd_rn(v, a.causal_b[r]);
-            a.of[(size_t)b * R + r] = v;
-            a.xq[(size_t)b * a.q_ld + r] = quant_i8(__fmul_rn(v, inv0));
+            for (int i = 0; i < 8; ++i)
+                q[i / 4] |= (unsigned)(unsigned char)quant_i8(__fmul_rn(v[i], inv0))
+                            << (8 * (i % 4));
+            *(uint2*)(a.xq + (size_t)b * a.q_ld + r) = make_uint2(q[0], q[1]);
         } else {
-            float v = a.causal_b[r];
-#pragma unroll
-            for (int j = 0; j < KS; ++j) v += bf2f(w[j][r]);
-            a.of[(size_t)b * R + r] = v;
-            a.xs[(size_t)b * W + r] = f2bf(v);
+            *(uint4*)(a.xs + (size_t)b * W + r) =
+                make_uint4(bf2_bits(v[0], v[1]), bf2_bits(v[2], v[3]),
+                           bf2_bits(v[4], v[5]), bf2_bits(v[6], v[7]));
         }
     }
     const float* hp = a.h_up + ((size_t)b * a.h_T + p) * a.A;
@@ -562,12 +677,17 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
 
 // One weighted stage: this block's run of units, each taking all of K.  The
 // first unit's weights were asked for during the previous stage; a later
-// unit asks for its own only where its column group changes.  Right after
-// asking for its first unit's A rows, the block asks for its first unit's
-// weights of the next stage (Tn at layer ln; Tn < 0: none).
-template <int KS, int T>
+// unit asks for its own only where its column group changes, before its
+// wait.  Under counter waits (CW) thread 0 then waits until stage Tw's
+// units have arrived from `runs` runs; the workers sync, and the unit asks
+// for its A rows, then (its first unit) for the block's first unit's
+// weights of the next stage (Tn at layer ln; Tn < 0: none), and its
+// epilogue operands.  After its epilogue the unit arrives on its stage's
+// counter.  A block with no unit asks for the next stage's weights and
+// waits for nothing.
+template <int KS, int T, bool CW>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
-                              int Tn, int ln) {
+                              int Tn, int ln, int Tw, unsigned runs, ApWaits& w) {
     // the dynamic shared memory named here, not passed in: the compiler then
     // knows the operands are shared and loads them as such
     extern __shared__ __align__(128) unsigned char smem[];
@@ -600,10 +720,20 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         int grp, r0, rows, n;
         unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
-        if (ph) t[0] = now_ns();
-        consumers_sync();   // the previous unit's tiles, sums and operands are consumed
+        // the previous unit's tiles, sums and operands are consumed (the
+        // workers synced after it; so did the previous stage's last unit)
+        if (threadIdx.x == 0) {
+            if (ph) t[0] = now_ns();
+            if (fetch) fetch_w(a, smem, bars, T, l, grp);
+            if constexpr (CW) {
+                const unsigned long long ns = w.ns;
+                wait_stage(a, Tw, runs, w);
+                if (ph) t[0] += w.ns - ns;   // the wait is counted apart
+            }
+        }
+        consumers_sync();   // every worker after the acquire
+        // the A rows first: the next stage's weights are needed a stage later
         if (warp == 0) {
-            if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
             issue_a<KS, T>(a, smem, bars, l, p, u, lane);
             if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
         }
@@ -677,18 +807,20 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         consumers_sync();
         if (ph) t[3] = now_ns();
         epilogue<KS, T>(a, Ps, Es, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
-        if (a.phase != nullptr) {
-            consumers_sync();   // every thread's epilogue
-            if (ph) {
-                t[4] = now_ns();
-                for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
-                ph[5] += 1;
-            }
+        // the unit's tiles, sums and operands are consumed before the next
+        // unit's copies land (under waits: the arrival's sync)
+        if constexpr (CW) arrive_stage(a, T);
+        else consumers_sync();
+        if (ph) {
+            t[4] = now_ns();
+            for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
+            ph[5] += 1;
         }
     }
     if (ph) ph[4] += 1;
-    // the next stages' bulk copies read what this stage wrote
-    fence_proxy_async();
+    // under grid barriers: the next stages' bulk copies read what this
+    // stage wrote
+    if constexpr (!CW) fence_proxy_async();
 }
 
 // ---- int8: the gate and res stages -------------------------------------
@@ -824,14 +956,14 @@ static __device__ void epilogue_q8(const ApArgs& a, const int* Ps, const float* 
     }
 }
 
-// One int8 weighted stage (gate or res): the run of units and the
-// prefetch as in wstage.  Per unit, warp tasks of (16-column tile, segment,
-// K slice) over the unit's row tiles, each a chain of mma.sync m16n8k32 on
-// ldmatrix fragments; then (gate) the aux product, a task per 16 x 16 tile,
-// by wmma bf16.
-template <int KS, int T>
+// One int8 weighted stage (gate or res): the run of units, the prefetch,
+// the waits and the arrivals as in wstage.  Per unit, warp tasks of
+// (16-column tile, segment, K slice) over the unit's row tiles, each a
+// chain of mma.sync m16n8k32 on ldmatrix fragments; then (gate) the aux
+// product, a task per 16 x 16 tile, by wmma bf16.
+template <int KS, int T, bool CW>
 static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
-                                 int Tn, int ln) {
+                                 int Tn, int ln, int Tw, unsigned runs, ApWaits& w) {
     extern __shared__ __align__(128) unsigned char smem[];
     const ApStage& s = a.st[T];
     constexpr int buf = T & 1;
@@ -864,10 +996,18 @@ static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
         int grp, r0, rows, n;
         unit_rows(a, s, u, &grp, &r0, &rows, &n);
         const bool fetch = u != u0 && grp != have;
-        if (ph) t[0] = now_ns();
-        consumers_sync();
+        if (threadIdx.x == 0) {
+            if (ph) t[0] = now_ns();
+            if (fetch) fetch_w(a, smem, bars, T, l, grp);
+            if constexpr (CW) {
+                const unsigned long long ns = w.ns;
+                wait_stage(a, Tw, runs, w);
+                if (ph) t[0] += w.ns - ns;   // the wait is counted apart
+            }
+        }
+        consumers_sync();   // every worker after the acquire
+        // the A rows first: the next stage's weights are needed a stage later
         if (warp == 0) {
-            if (lane == 0 && fetch) fetch_w(a, smem, bars, T, l, grp);
             issue_a_q8<KS, T>(a, smem, bars, l, p, u, lane);
             if (lane == 0 && u == u0) prefetch(a, smem, bars, Tn, ln);
         }
@@ -976,17 +1116,20 @@ static __device__ void wstage_q8(const ApArgs& a, ApBars& bars, int l, int p,
         consumers_sync();
         if (ph) t[3] = now_ns();
         epilogue_q8<KS, T>(a, Ps, Pa, Es, sc, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
-        if (a.phase != nullptr) {
-            consumers_sync();
-            if (ph) {
-                t[4] = now_ns();
-                for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
-                ph[5] += 1;
-            }
+        // the unit's tiles, sums and operands are consumed before the next
+        // unit's copies land (under waits: the arrival's sync)
+        if constexpr (CW) arrive_stage(a, T);
+        else consumers_sync();
+        if (ph) {
+            t[4] = now_ns();
+            for (int i = 0; i < 4; ++i) ph[i] += t[i + 1] - t[i];
+            ph[5] += 1;
         }
     }
     if (ph) ph[4] += 1;
-    fence_proxy_async();
+    // under grid barriers: the next stages' bulk copies read what this
+    // stage wrote
+    if constexpr (!CW) fence_proxy_async();
 }
 
 // ---- the streamed gate stage ------------------------------------------------
@@ -1320,58 +1463,119 @@ static __device__ void gate_consume_at(const ApArgs& a, unsigned char* ring,
 
 // One warp per row: the argmax of the logits (plus the Gumbel noise in
 // sampling mode; ties to the lowest index, all-NaN logits to 0), the ids
-// shifted, and, before a next step, its embed and aux column.
-template <int KS, bool Q8>
-static __device__ void sample_stage(const ApArgs& a, int step, int p) {
+// shifted, and, before a next step, its embed and aux column.  Under
+// counter waits (CW), per unit thread 0 first waits until post2's units
+// have arrived from step + 1 runs, and the unit then arrives on the sample
+// stage's counter.
+template <int KS, bool Q8, bool CW>
+static __device__ void sample_stage(const ApArgs& a, int step, int p, ApWaits& w) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
-    for (int b = blockIdx.x * AP_WARPS + warp; b < a.B; b += gridDim.x * AP_WARPS) {
-        float best = -INFINITY;
-        int bi = 0x7fffffff;
-        for (int j = lane; j < a.Q; j += 32) {
-            float v = __ldcg(a.logits + (size_t)b * a.Q + j);
-            if (a.sampling) v += gumbel_noise(a.seed, b, step, j);
-            if (v > best || (v == best && j < bi)) { best = v; bi = j; }
+    const int units = sample_units(a);
+    const int u0 = unit_begin(units, blockIdx.x), u1 = unit_begin(units, blockIdx.x + 1);
+    unsigned long long waited = 0;
+    for (int u = u0; u < u1; ++u) {
+        if constexpr (CW) {
+            if (threadIdx.x == 0) {
+                const unsigned long long ns = w.ns;
+                wait_stage(a, AP_POST2, (unsigned)step + 1, w);
+                waited += w.ns - ns;
+            }
+            consumers_sync();
         }
+        const int b = u * AP_SROWS + warp;
+        if (b < a.B) {
+            // a lane 4 classes at a time (one 16-byte load, one Philox
+            // block); the result does not depend on the order
+            float best = -INFINITY;
+            int bi = 0x7fffffff;
+            for (int j0 = 4 * lane; j0 < a.Q; j0 += 128) {
+                const float4 lv = __ldcg((const float4*)(a.logits + (size_t)b * a.Q + j0));
+                float v[4] = {lv.x, lv.y, lv.z, lv.w};
+                if (a.sampling) {
+                    float g[4];
+                    gumbel_noise4(a.seed, b, step, j0, g);
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-            const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-            if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+                    for (int i = 0; i < 4; ++i) v[i] += g[i];
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    if (v[i] > best || (v[i] == best && j0 + i < bi)) { best = v[i]; bi = j0 + i; }
+            }
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+                const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+                if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+            }
+            int id[KS];
+#pragma unroll
+            for (int j = 0; j + 1 < KS; ++j) id[j] = a.ids[(size_t)b * KS + j + 1];
+            id[KS - 1] = bi < a.Q ? bi : 0;
+            __syncwarp();
+            if (lane == 0) {
+                a.samples[(size_t)b * a.max_n + step] = id[KS - 1];
+#pragma unroll
+                for (int j = 0; j < KS; ++j) a.ids[(size_t)b * KS + j] = id[j];
+            }
+            if (step + 1 < a.max_n) embed_row<KS, Q8>(a, b, id, p + 1, lane);
         }
-        int id[KS];
-#pragma unroll
-        for (int j = 0; j + 1 < KS; ++j) id[j] = a.ids[(size_t)b * KS + j + 1];
-        id[KS - 1] = bi < a.Q ? bi : 0;
-        __syncwarp();
-        if (lane == 0) {
-            a.samples[(size_t)b * a.max_n + step] = id[KS - 1];
-#pragma unroll
-            for (int j = 0; j < KS; ++j) a.ids[(size_t)b * KS + j] = id[j];
-        }
-        if (step + 1 < a.max_n) embed_row<KS, Q8>(a, b, id, p + 1, lane);
+        if constexpr (CW) arrive_stage(a, AP_SAMPLE);
     }
-    fence_proxy_async();
-    if (a.phase != nullptr) {
-        consumers_sync();
-        if (threadIdx.x == 0) {
-            unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH
-                                     + AP_NSTAGES * AP_PH_STAGE;
-            ph[3] += now_ns() - t0;
-            ph[4] += 1;
-        }
+    if constexpr (!CW) fence_proxy_async();
+    if (a.phase != nullptr && threadIdx.x == 0 && u0 < u1) {
+        unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH
+                                 + AP_NSTAGES * AP_PH_STAGE;
+        ph[3] += now_ns() - t0 - waited;
+        ph[4] += 1;
     }
 }
 
-// the grid barrier; with phase times on, thread 0 of each block adds its
-// wait (its arrival to the last block's) and counts it
-static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_group& grid) {
+// The first step's embed and aux column from the carry's ids, in the
+// sample stage's units: the sample stage's first run.
+template <int KS, bool Q8, bool CW>
+static __device__ void embed_stage(const ApArgs& a) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int units = sample_units(a);
+    const int u0 = unit_begin(units, blockIdx.x), u1 = unit_begin(units, blockIdx.x + 1);
+    for (int u = u0; u < u1; ++u) {
+        const int b = u * AP_SROWS + warp;
+        if (b < a.B) {
+            int id[KS];
+#pragma unroll
+            for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
+            embed_row<KS, Q8>(a, b, id, a.T0 - 1, lane);
+        }
+        if constexpr (CW) arrive_stage(a, AP_SAMPLE);
+    }
+    if constexpr (!CW) fence_proxy_async();
+}
+
+// Thread 0's counts: its counter waits into the launch's totals (a.waits),
+// and with phase times on its waits (or grid barriers) into its block's
+// wait slots.
+template <bool CW>
+static __device__ void add_waits(const ApArgs& a, const ApWaits& w) {
+    if (CW && a.waits != nullptr) {
+        atomicAdd(a.waits, w.n);
+        atomicAdd(a.waits + 1, w.ready);
+    }
+    if (a.phase != nullptr) {
+        unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH + 5 * AP_PH_STAGE;
+        atomicAdd(ph, w.ns);
+        atomicAdd(ph + 1, w.n);
+    }
+}
+
+// The grid barrier of the streamed instance; with phase times on, thread 0
+// of each block counts it and its wait (its arrival to the last block's).
+static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_group& grid,
+                                                  ApWaits& w) {
     const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
     grid.sync();
     if (a.phase != nullptr && threadIdx.x == 0) {
-        unsigned long long* ph = a.phase + (size_t)blockIdx.x * AP_PH + 5 * AP_PH_STAGE;
-        ph[0] += now_ns() - t0;
-        ph[1] += 1;
+        w.n += 1;
+        w.ns += now_ns() - t0;
     }
 }
 
@@ -1380,21 +1584,37 @@ static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_grou
 // streamed gate's code, whose registers would otherwise cap it: ptxas
 // gives a block of 288 threads at most 168 registers a thread, 65,536 /
 // 384, and the int8 stages then spill).
+//
+// How the stages wait for each other follows from the gate design (CW).
+// The units instance has no grid barrier: every unit waits for the units
+// of the stage before it (wait_stage) and arrives when its rows are
+// written (arrive_stage).  Runs of each stage's units, counted
+// from the launch's start: the sample stage's first run is the first
+// step's embed (embed_stage), so step i's gate of layer 0 waits for i + 1
+// sample runs, the gate of layer l > 0 for i L + l res runs, the res stage
+// of layer l for i L + l + 1 gate runs, post1 for (i + 1) L res runs, post2
+// and the sample stage for i + 1 runs of post1 and post2.  A block with no
+// unit in a stage goes straight on to its next one (asking for its weights
+// first); the waits need every block resident, which the cooperative
+// launch guarantees.  The streamed instance keeps a grid barrier after
+// every stage: on the same waits it ran 2-3% slower at bf16 kernel_size 3
+// and 128-256 rows, and 26% at 512 (PERF.md, "K1 without grid barriers").
 template <int KS, bool Q8, bool ST>
 __global__ void __launch_bounds__(ST ? AP_BLOCK : AP_THREADS, 1)
 ar_persistent_kernel(const __grid_constant__ ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ __align__(8) uint64_t bar[3];
     __shared__ __align__(8) uint64_t rbar[2 * AP_RING_MAX];   // full, then empty
+    constexpr bool CW = !ST;
     cg::grid_group grid = cg::this_grid();
     ApBars bars = {bar, {0u, 0u, 0u}};
-    constexpr bool stream = ST;
     uint64_t* full = rbar;
     uint64_t* empty = rbar + AP_RING_MAX;
     // the streamed gate's ring: 1024-aligned for the 128-byte swizzle
     unsigned char* ring = smem + ((smem_addr(smem) + a.sg.ring + 1023) & ~1023u)
                         - smem_addr(smem);
     ApRing rp = {0, 0u};
+    ApWaits w = {0, 0, 0};
     if (threadIdx.x == 0) {
         for (int i = 0; i < 3; ++i) mbar_init(bar + i);
         if constexpr (ST) {
@@ -1407,26 +1627,19 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
     }
     __syncthreads();
     const bool worker = !ST || threadIdx.x < AP_THREADS;
-    // the first step's embed and aux column, from the carry's ids
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int L = a.L;
     if (worker) {
-        for (int b = blockIdx.x * AP_WARPS + warp; b < a.B; b += gridDim.x * AP_WARPS) {
-            int id[KS];
-#pragma unroll
-            for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
-            embed_row<KS, Q8>(a, b, id, a.T0 - 1, lane);
-        }
-        fence_proxy_async();
-        if (threadIdx.x == 0 && !stream) prefetch(a, smem, bars, AP_GATE, 0);
+        if (threadIdx.x == 0 && !ST) prefetch(a, smem, bars, AP_GATE, 0);
+        embed_stage<KS, Q8, CW>(a);
     }
-    timed_sync(a, grid);
+    if constexpr (ST) timed_sync(a, grid, w);
     // the stage after which the next gate's weights are asked for: none
     // when the gate streams them itself
-    const int gate_next = stream ? -1 : AP_GATE;
+    const int gate_next = ST ? -1 : AP_GATE;
     for (int i = 0; i < a.max_n; ++i) {
         const int p = a.T0 - 1 + i;
-        for (int l = 0; l < a.L; ++l) {
-            const int Tn = l + 1 < a.L ? gate_next : AP_POST1, ln = l + 1 < a.L ? l + 1 : 0;
+        for (int l = 0; l < L; ++l) {
+            const int Tn = l + 1 < L ? gate_next : AP_POST1, ln = l + 1 < L ? l + 1 : 0;
             if constexpr (ST) {
                 if (threadIdx.x == AP_THREADS) {
                     gate_produce<KS, Q8>(a, ring, full, empty, rp, l, p);
@@ -1435,30 +1648,38 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
                     gate_consume_at<KS, Q8>(a, ring, full, empty, rp, l, p);
                     fence_proxy_async();
                 }
+                timed_sync(a, grid, w);
             } else {
-                if constexpr (Q8) wstage_q8<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
-                else wstage<KS, AP_GATE>(a, bars, l, p, AP_RES, l);
+                // the gate's input: the previous res stage, or the sample stage
+                const int Tw = l > 0 ? AP_RES : AP_SAMPLE;
+                const unsigned runs = l > 0 ? (unsigned)(i * L + l) : (unsigned)i + 1;
+                if constexpr (Q8) wstage_q8<KS, AP_GATE, CW>(a, bars, l, p, AP_RES, l, Tw, runs, w);
+                else wstage<KS, AP_GATE, CW>(a, bars, l, p, AP_RES, l, Tw, runs, w);
             }
-            timed_sync(a, grid);
             if (worker) {
-                if constexpr (Q8) wstage_q8<KS, AP_RES>(a, bars, l, p, Tn, ln);
-                else wstage<KS, AP_RES>(a, bars, l, p, Tn, ln);
+                const unsigned gr = (unsigned)(i * L + l + 1);
+                if constexpr (Q8) wstage_q8<KS, AP_RES, CW>(a, bars, l, p, Tn, ln, AP_GATE, gr, w);
+                else wstage<KS, AP_RES, CW>(a, bars, l, p, Tn, ln, AP_GATE, gr, w);
                 // the next gate's TMA writes over this stage's shared memory
                 if constexpr (ST) fence_proxy_async_smem();
             }
-            timed_sync(a, grid);
+            if constexpr (ST) timed_sync(a, grid, w);
         }
-        if (worker) wstage<KS, AP_POST1>(a, bars, 0, p, AP_POST2, 0);
-        timed_sync(a, grid);
+        if (worker)
+            wstage<KS, AP_POST1, CW>(a, bars, 0, p, AP_POST2, 0, AP_RES, (unsigned)((i + 1) * L), w);
+        if constexpr (ST) timed_sync(a, grid, w);
         // the next step's first gate weights: buffer 0, free since post1
-        if (worker) wstage<KS, AP_POST2>(a, bars, 0, p, i + 1 < a.max_n ? gate_next : -1, 0);
-        timed_sync(a, grid);
+        if (worker)
+            wstage<KS, AP_POST2, CW>(a, bars, 0, p, i + 1 < a.max_n ? gate_next : -1, 0,
+                                     AP_POST1, (unsigned)i + 1, w);
+        if constexpr (ST) timed_sync(a, grid, w);
         if (worker) {
-            sample_stage<KS, Q8>(a, i, p);
+            sample_stage<KS, Q8, CW>(a, i, p, w);
             if constexpr (ST) fence_proxy_async_smem();
         }
-        if (i + 1 < a.max_n) timed_sync(a, grid);
+        if (ST && i + 1 < a.max_n) timed_sync(a, grid, w);
     }
+    if (threadIdx.x == 0) add_waits<CW>(a, w);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -1645,10 +1866,13 @@ extern "C" {
 // bf16 with columns A .. Ap - 1 zero; ascale, ainv (L) f32 on the device;
 // gscale, ginv the gate's scale and its reciprocal.  ids (B, K) int32,
 // updated in place; samples (B, max_n) int32.  plan: host ints of
-// ar_plan_array.  phase: null, or (grid, wn_ar_phase_slots()) zeroed u64
-// that the run adds nanoseconds and counts to (AP_PH_STAGE slots per
-// stage type: gate, res, post1, post2, sample; then the barrier waits and
-// their count; thread 0, globaltimer).  The streamed gate (plan[19] set)
+// ar_plan_array.  ctr: the arrival counters, 5 u32 (the stage types),
+// which the launch sets to AP_CTR0 first.  waits: null,
+// or two u64 the launch adds its counter waits and those whose first poll
+// found the target reached to.  phase: null, or (grid,
+// wn_ar_phase_slots()) zeroed u64 that the run adds nanoseconds and counts
+// to (AP_PH_STAGE slots per stage type: gate, res, post1, post2, sample;
+// then the counter waits and their count; globaltimer).  The streamed gate (plan[19] set)
 // also takes ring_rows = total_cap * B (its TMA map of a kernel_size 3
 // ring) and, f32 (L, 2R) in channel order, zb (bf16) or auxb, dilb and gsc
 // (int8: (L, 2 or 3, 2R), the column scales of the current tap and the
@@ -1663,7 +1887,8 @@ int wn_ar_generate_persistent(
     unsigned long long seed, int q8, void* xq, void* gq, void* xa,
     const void* ascale, const void* ainv, float gscale, float ginv,
     const void* zb, const void* auxb, const void* dilb, const void* gsc,
-    int ring_rows, const void* plan, void* phase, void* stream) {
+    int ring_rows, const void* plan, void* ctr, void* waits, void* phase,
+    void* stream) {
     if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
     if (B < 1 || max_n < 1 || L < 1) return -3;
     ApArgs a{};
@@ -1715,9 +1940,12 @@ int wn_ar_generate_persistent(
     a.sampling = sampling;
     a.seed = seed;
     a.phase = (unsigned long long*)phase;
+    a.ctr = (unsigned*)ctr;
+    a.waits = (unsigned long long*)waits;
     int grid = 0, smem = 0;
     const int err = check_plan((const int*)plan, &a, K, q8 != 0, &grid, &smem);
     if (err != 0) return err;
+    if (ctr == nullptr) return -3;
     if (a.sg.on) {
         if ((q8 ? (!gsc || !auxb || !dilb) : !zb) || (K == 3 && ring_rows < B))
             return -3;
@@ -1726,9 +1954,13 @@ int wn_ar_generate_persistent(
     }
     void* args[] = {&a};
     const bool st = a.sg.on != 0;
-    cudaError_t e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0, st), dim3(grid),
-                                                dim3(block_threads(st)), args, smem,
-                                                (cudaStream_t)stream);
+    cudaError_t e = cudaMemsetAsync(ctr, 0xFF, (AP_SAMPLE + 1) * sizeof(unsigned),
+                                    (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    static_assert(AP_CTR0 == 0xFFFFFFFFu, "the memset's byte");
+    e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0, st), dim3(grid),
+                                    dim3(block_threads(st)), args, smem,
+                                    (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -57,7 +57,8 @@
 //    polls only its row group's counter of the previous product with
 //    acquire semantics until it reaches that product's column groups times
 //    the layers done (counters grow over the call and are never reset; a
-//    wait of 2^24 polls traps).  The first product of the first layer
+//    wait of 2^24 polls traps: wn_hopper.cuh's arrive_counter and
+//    wait_counter, which K1 shares).  The first product of the first layer
 //    waits for every block's part of the carry's initialisation.  A block
 //    with no unit in a stage does not wait.  The weights do not depend on
 //    the data: the producer asks for a unit's first ring-full of W tiles
@@ -119,7 +120,6 @@ namespace cg = cooperative_groups;
 #define MC_SMEM_MAX 232448
 #define MC_SMEM_FIXED (1024 + 2 * MC_RING_MAX * 8)
 #define MC_PHASES 10
-#define MC_POLL_MAX (1u << 24)
 
 enum { MC_SPLIT, MC_MERGED, MC_SPINE, MC_FULL, MC_DUAL, MC_INT8, MC_INT8RAW,
        MC_NVARIANTS };
@@ -209,26 +209,6 @@ static __device__ __forceinline__ signed char clip8(int v) {
 // undefined in C++)
 static __device__ __forceinline__ int wadd(int a, int b) {
     return (int)((unsigned)a + (unsigned)b);
-}
-
-// ---- counters ------------------------------------------------------
-static __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-    unsigned v;
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-    return v;
-}
-
-static __device__ __forceinline__ void arrive_counter(unsigned* p) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(1u) : "memory");
-}
-
-// poll *p until it reaches target; traps after MC_POLL_MAX polls (no healthy
-// wait lasts a millisecond); returns the polls
-static __device__ __forceinline__ unsigned wait_counter(const unsigned* p, unsigned target) {
-    for (unsigned i = 0;; ++i) {
-        if (ld_acquire(p) >= target) return i;
-        if (i > MC_POLL_MAX) __trap();
-    }
 }
 
 // ---- the ring ------------------------------------------------------------------

@@ -1,7 +1,9 @@
 // Hopper helpers shared by the persistent kernels (csrc/matmul_chain.cu,
 // csrc/ar_persistent.cu): bulk copies into shared memory completing on
 // mbarriers, the proxy fence their writers need, 16-byte cp.async copies,
-// and the counter-based Philox4x32-10 Gumbel noise of the AR sampler.
+// the arrival counters the kernels' stages wait on in place of a grid
+// barrier, and the counter-based Philox4x32-10 Gumbel noise of the AR
+// sampler.
 #pragma once
 
 #include <stdint.h>
@@ -69,6 +71,41 @@ static __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// ---- arrival counters --------------------------------------------------------
+// A stage's units add 1 to a counter in device memory once their writes are
+// done (the writers fence the proxies, the block syncs, one thread adds with
+// release semantics); a unit of the next stage polls it with acquire
+// semantics until it reaches its target.  Counters grow over a launch and
+// are never reset within it; they are u32 and wrap (a long decode passes
+// 2^32 arrivals on one counter), so a counter has reached its target when
+// (counter - target) read as signed is not negative, both mod 2^32: no
+// counter runs 2^31 past or behind a unit that waits on it (it gains at
+// most one run of its stage beyond the run the waiter needs).
+
+// polls before a wait gives up: no healthy wait lasts a millisecond, and a
+// fault in a plan then surfaces as a launch error, not a hung card
+#define WN_POLL_MAX (1u << 24)
+
+static __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+static __device__ __forceinline__ void arrive_counter(unsigned* p) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(1u) : "memory");
+}
+
+// poll *p until it reaches target (mod 2^32, above); traps after
+// WN_POLL_MAX polls; returns the polls before the one that found it reached
+// (0: the first did)
+static __device__ __forceinline__ unsigned wait_counter(const unsigned* p, unsigned target) {
+    for (unsigned i = 0;; ++i) {
+        if ((int)(ld_acquire(p) - target) >= 0) return i;
+        if (i > WN_POLL_MAX) __trap();
+    }
+}
+
 // ---- Philox ----------------------------------------------------------------
 static __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
     const unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -86,16 +123,20 @@ static __device__ uint4 philox4x32_10(uint4 c, uint2 k) {
     return c;
 }
 
-// Gumbel noise for (row, step, class); the uniform is ((bits >> 9) + 0.5)
-// * 2^-23, which lies in the open interval (0, 1) and is exact in f32.
-static __device__ float gumbel_noise(unsigned long long seed, int row,
-                                     int step, int cls) {
-    uint4 ctr = make_uint4((unsigned)cls >> 2, (unsigned)row,
-                           (unsigned)step, 0u);
+// Gumbel noise for (row, step, class) of classes cls4 .. cls4 + 3 (cls4 a
+// multiple of 4): the four words of the Philox block of counter (class / 4,
+// row, step, 0) under the key (seed's low word, its high word), word class
+// % 4 for each class; the uniform is ((bits >> 9) + 0.5) * 2^-23, which lies
+// in the open interval (0, 1) and is exact in f32.
+static __device__ void gumbel_noise4(unsigned long long seed, int row, int step,
+                                     int cls4, float g[4]) {
+    uint4 ctr = make_uint4((unsigned)cls4 >> 2, (unsigned)row, (unsigned)step, 0u);
     uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
     uint4 r = philox4x32_10(ctr, key);
-    unsigned w = (cls & 3) == 0 ? r.x : (cls & 3) == 1 ? r.y
-               : (cls & 3) == 2 ? r.z : r.w;
-    float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
-    return -logf(-logf(u));
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float u = ((float)(w[i] >> 9) + 0.5f) * (1.0f / 8388608.0f);
+        g[i] = -logf(-logf(u));
+    }
 }

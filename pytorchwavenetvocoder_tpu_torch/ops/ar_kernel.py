@@ -53,12 +53,13 @@ fleets by the chain of dependent products: 2L + 3 stages per step.  The
 persistent kernel (``_persistent``) runs every step of a call in one
 cooperative launch: per step L gate stages (bf16: the aux term an extra K
 of the product; int8: integer products and a bf16 aux product), L res
-stages, post1, post2 and the sample stage, with a grid barrier after
-each; a stage is cut into units by ``ar_plan``, each unit's weights packed
-by ``pack_ar_units``.  The gate stage runs one of two designs
-(``ar_gate``): small fleets cut it into units that each hold all of K in
-shared memory; larger ones stream K through a TMA ring into wgmma, one
-64-row unit a block.
+stages, post1, post2 and the sample stage; a stage is cut into units by
+``ar_plan``, each unit's weights packed by ``pack_ar_units``, and each
+unit waits for the previous stage's units (an arrival counter a stage in
+device memory, no grid barrier).  The gate stage
+runs one of two designs (``ar_gate``): small fleets cut it into units
+that each hold all of K in shared memory; larger ones stream K through a
+TMA ring into wgmma, one 64-row unit a block.
 """
 
 from __future__ import annotations
@@ -659,14 +660,15 @@ def _unit_bytes(config, name: str, quantize: bool) -> dict:
 
 
 def _cut(K: int, quarters: int, N: int, sizes: dict, row_tiles: int,
-         grid: int, w_max: int, a_max: int, p_max: int = AR_P_MAX):
+         grid: int, w_max: int, a_max: int, p_max: int = AR_P_MAX,
+         tiles_max: int = 4):
     """How a stage is cut into units (a row group of at most ``mt`` 16-row
     tiles x a column group of ``cw`` columns in each quarter), each taking
     all of K (K4's rule, ``ops/matmul_chain.py``): as many units as the
     grid holds, of those the widest column groups; where no cut fits the
     grid, the fewest units (blocks then take several).  ``sizes``: the
-    unit's bytes (``_unit_bytes``).  None where no cut fits the
-    shared-memory regions."""
+    unit's bytes (``_unit_bytes``); ``tiles_max``: the most tiles a unit
+    takes.  None where no cut fits the shared-memory regions."""
     best = None
     segs = max(1, sizes["segs"])
     widths = (128, 64, 32, 16) if sizes["segs"] else (64, 32, 16)
@@ -677,7 +679,7 @@ def _cut(K: int, quarters: int, N: int, sizes: dict, row_tiles: int,
         for mt in (4, 3, 2, 1):
             rg = -(-row_tiles // mt)
             mt_used = -(-row_tiles // rg)
-            if mt_used != mt or sizes["a"](mt) > a_max:
+            if mt_used != mt or mt > tiles_max or sizes["a"](mt) > a_max:
                 continue
             # the warps split K, a task each, in whole product steps
             ks = max(1, min(8 // (ntu * segs), K // sizes["depth"]))
@@ -708,24 +710,26 @@ def _a_row(name: str, K: int, kernel_size: int) -> int:
 
 
 def _cut_stages(config, quantize: bool, row_tiles: int, grid: int,
-                w_max: int, a_max: int, w1_max: int | None = None):
+                w_max: int, a_max: int, w1_max: int | None = None,
+                tiles_max: int = 4):
     """Every stage's cut under the caps: the gate first (the largest K);
     the other stages within the gate's weight slice, A rows and sums where
     they fit there (larger ones would only grow the regions), else within
     the caps; ``w1_max``: the weight slices of buffer 1's stages (res,
-    post2) at most that.  None where a stage has no cut."""
+    post2) at most that; no unit of more than ``tiles_max`` tiles.  None
+    where a stage has no cut."""
     stages = {}
     for name, (K, q, N) in ar_stage_shapes(config, quantize).items():
         args = (K, q, N, _unit_bytes(config, name, quantize), row_tiles, grid)
         if name == "gate":
-            stages[name] = _cut(*args, w_max, a_max)
+            stages[name] = _cut(*args, w_max, a_max, tiles_max=tiles_max)
         else:
             g = stages["gate"]
             cap = (w_max if w1_max is None or name == "post1"
                    else min(w_max, w1_max))
             stages[name] = (_cut(*args, min(cap, g["w"]), min(a_max, g["a"]),
-                                 g["p"])
-                            or _cut(*args, cap, a_max))
+                                 g["p"], tiles_max=tiles_max)
+                            or _cut(*args, cap, a_max, tiles_max=tiles_max))
         if stages[name] is None:
             return None
     return stages
@@ -839,11 +843,32 @@ AR_STREAM_FROM_B = {(2, False): 64, (3, False): 128, (2, True): 192,
 
 
 def _plan_units(config, quantize, B, grid):
-    """The plan with the gate cut into units (``_cut_stages``), or None:
-    two weight buffers of the largest slice; past ``AR_AUX_TUNED`` aux
-    rows, where those caps give no plan, buffer 0 (gate, post1) and buffer
-    1 (res, post2) each of its own stages' largest slice, under the wide
-    caps (``AR_W_WIDE``, ``AR_W1_CAPS``)."""
+    """The plan with the gate cut into units, or None: of units of at most
+    ``tiles_max`` 16-row tiles, the fewest tiles (from one) whose gate cut
+    still gives every block one unit at most, else up to 4
+    (``_plan_units_at``).
+
+    Each block then holds one unit of a stage, and the units are as short
+    as the grid allows: the chain's latency is a unit's.  In turns on an
+    H100 SXM (700 W), µs/step at 256 steps a call, arctic-sd's widths,
+    one-tile units / the cut's own choice (up to 4 tiles), on the waits of
+    the time (a counter a stage and row group): B=48 336.2 and 333.5 /
+    362.9 and 364.0 (PERF.md, "K1 without grid barriers")."""
+    plan = None
+    for tiles in range(1, 5):
+        plan = _plan_units_at(config, quantize, B, grid, tiles)
+        if plan is not None and plan["stages"]["gate"]["units"] <= grid:
+            return plan
+    return plan
+
+
+def _plan_units_at(config, quantize, B, grid, tiles_max):
+    """The plan with the gate cut into units (``_cut_stages``) of at most
+    ``tiles_max`` tiles, or None: two weight buffers of the largest
+    slice; past ``AR_AUX_TUNED`` aux rows, where those caps give no plan,
+    buffer 0 (gate, post1) and buffer 1 (res, post2) each of its own
+    stages' largest slice, under the wide caps (``AR_W_WIDE``,
+    ``AR_W1_CAPS``)."""
     row_tiles = -(-B // 16)
     tries = [(w, a, None) for w in AR_W_CAPS for a in AR_A_CAPS]
     if _aux_pad(config.n_aux) > AR_AUX_TUNED:
@@ -851,7 +876,7 @@ def _plan_units(config, quantize, B, grid):
                   for a in AR_A_CAPS]
     for w_max, a_max, w1_max in tries:
         stages = _cut_stages(config, quantize, row_tiles, grid, w_max, a_max,
-                             w1_max)
+                             w1_max, tiles_max=tiles_max)
         if stages is None:
             continue
         a, p, e = (max(_align256(s[key]) for s in stages.values())
@@ -863,8 +888,8 @@ def _plan_units(config, quantize, B, grid):
         if w0 + w1 + a + p + e <= AR_SMEM_MAX:
             wa = w0 + w1
             return dict(grid=grid, B=B, row_tiles=row_tiles, stages=stages,
-                        quantize=quantize, smem_w=(0, w0), smem_a=wa,
-                        smem_p=wa + a, smem_e=wa + a + p,
+                        quantize=quantize, tiles_max=tiles_max, smem_w=(0, w0),
+                        smem_a=wa, smem_p=wa + a, smem_e=wa + a + p,
                         smem=wa + a + p + e)
     return None
 
@@ -875,7 +900,8 @@ def _plan_stream(config, quantize, B, grid):
     where they fit there); the shared memory laid out as [buffer 1 |
     buffer 0 | A rows | sums | epilogue operands], the gate's ring over
     buffer 0 and what follows it (buffer 1 holds the res stage's weights,
-    asked for during the gate stage)."""
+    asked for during the gate stage).  Its stages wait at grid
+    barriers."""
     row_tiles = -(-B // 16)
     shapes = ar_stage_shapes(config, quantize)
     for w_max, a_max in ((w, a) for w in AR_W_CAPS for a in AR_A_CAPS):
@@ -995,6 +1021,49 @@ def ar_stage_units(plan: dict, stage: str, block: int):
         yield ((r0, r1), [(q * s["N"] + grp * s["cw"],
                            q * s["N"] + (grp + 1) * s["cw"])
                           for q in range(s["quarters"])])
+
+
+#: Rows of a unit of the sample stage (``AP_SROWS``: a warp a row)
+AR_SAMPLE_ROWS = 8
+
+#: The kernel's arrival counters at a launch's start (``AP_CTR0``): u32
+#: 2^32 - 1, each wrapping at its first arrival, which its wait's
+#: wrap-safe test (``wn_hopper.cuh::wait_counter``) takes in its stride
+AR_CTR0 = 2**32 - 1
+
+
+def ar_sample_units(plan: dict, block: int):
+    """The rows [r0, r1) of each unit of the sample stage (and of the
+    first step's embed) that block ``block`` takes, as the kernel walks
+    them: a contiguous run of the fleet's ``AR_SAMPLE_ROWS``-row units."""
+    B = plan["B"]
+    units = -(-B // AR_SAMPLE_ROWS)
+    u0, u1 = (block * units // plan["grid"],
+              (block + 1) * units // plan["grid"])
+    for u in range(u0, u1):
+        yield (u * AR_SAMPLE_ROWS, min((u + 1) * AR_SAMPLE_ROWS, B))
+
+
+def ar_stage_target(plan: dict, stage: str) -> int:
+    """What the counter of ``stage`` gains in one run of the stage, in a
+    plan whose gate is cut into units: its units (``csrc/ar_persistent.cu::
+    wait_stage``); ``stage`` an ``AR_STAGES`` name or "sample".  A unit
+    waiting on the stage waits for this times the stage's runs so far."""
+    if stage == "sample":
+        return -(-plan["B"] // AR_SAMPLE_ROWS)
+    return plan["stages"][stage]["units"]
+
+
+def ar_waits_per_step(plan: dict, n_layers: int) -> int:
+    """The kernel's counter waits in a step: one a unit of every stage (a
+    block with no unit in a stage waits for nothing), L gate and res
+    stages, post1, post2 and the sample stage; none where the gate streams
+    (its stages wait at grid barriers)."""
+    if plan["stages"]["gate"].get("stream"):
+        return 0
+    units = {n: plan["stages"][n]["units"] for n in AR_STAGES}
+    return (n_layers * (units["gate"] + units["res"]) + units["post1"]
+            + units["post2"] + -(-plan["B"] // AR_SAMPLE_ROWS))
 
 
 def pack_ar_units(pk: dict, plan: dict, config) -> dict:
@@ -1300,7 +1369,7 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=gdev))
     samples = _persistent(pk, c, act_buf, ids, h_up, T0, max_n, seed,
-                          mode == "sampling", ascale)
+                          mode == "sampling", ascale, count_waits=True)
     counter = "int8_persistent_launches" if quantize else "launches"
     setattr(ar_generate, counter, getattr(ar_generate, counter) + 1)
     sample_hist.copy_(ids[:, :-1])
@@ -1336,16 +1405,36 @@ def ar_gate(config, B: int, quantize: bool = False, device=None) -> str:
     return "stream" if plan["stages"]["gate"].get("stream") else "units"
 
 
+#: K1's counter waits in this process, per CUDA device: (2,) int64 on the
+#: device that ``ar_generate``'s launches add to (the waits, and those whose
+#: first poll found the target reached); read only by ``k1_waits``
+_K1_WAITS: dict = {}
+
+
+def k1_waits() -> tuple:
+    """K1's counter waits in ``ar_generate``'s launches of this process
+    (every device), and those whose first poll found its target reached:
+    (waits, ready).  Reading waits for the devices' queued work; nothing
+    resets them."""
+    waits = ready = 0
+    for t in _K1_WAITS.values():
+        n, r = t.tolist()
+        waits, ready = waits + n, ready + r
+    return waits, ready
+
+
 def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
                 seed: int, sampling: bool, ascale: torch.Tensor | None = None,
                 phase: torch.Tensor | None = None,
-                gate: str | None = None) -> torch.Tensor:
+                gate: str | None = None,
+                count_waits: bool = False) -> torch.Tensor:
     """Every step in one cooperative launch of ``wn_ar_generate_persistent``
     on the plan ``ar_plan`` cuts for this fleet (``gate``: its gate design,
     default the plan's rule), bf16, or int8 with the (L,) activation scales
     ``ascale``; ``ids`` (B, k) updated in place; ``phase`` (grid,
     ``wn_ar_phase_slots()``) zeroed int64 turns the kernel's phase times
-    on.  Returns (B, max_n) int32."""
+    on; ``count_waits`` adds the launch's counter waits to ``k1_waits``'.
+    Returns (B, max_n) int32."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
@@ -1386,6 +1475,15 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     else:
         xs = torch.zeros((B, R + Ap + pad), dtype=bf, device=dev)
         gs = torch.empty((B, R + pad), dtype=bf, device=dev)
+    # the arrival counters: one a stage type (the four weighted, the sample
+    # stage), which the launch sets to their start
+    ctr = torch.empty(5, dtype=torch.int32, device=dev)
+    waits = None
+    if count_waits:
+        waits = _K1_WAITS.get(dev)
+        if waits is None:
+            waits = _K1_WAITS[dev] = torch.zeros(2, dtype=torch.int64,
+                                                 device=dev)
     arr = ar_plan_array(plan)
     plan_arr = (ctypes.c_int * len(arr))(*arr)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1401,8 +1499,8 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
             _ptr(None if quantize else pk["zb"]),
             *(_ptr(pk[n] if quantize else None) for n in ("auxb", "dilb")),
             _ptr(units.get("gate_scales")), total_cap * B,
-            ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(phase),
-            ctypes.c_void_p(stream))
+            ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(ctr), _ptr(waits),
+            _ptr(phase), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_ar_generate_persistent ({'int8' if quantize else 'bf16'}, "
                            f"B={B}) failed: {_plan_error(err)}")
@@ -1422,10 +1520,13 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
     updated in place) with the kernel's phase times on and returns, per
     stage type, the mean microseconds a block with a unit spends per stage
     asking for its operands, waiting for them, in the products and in the
-    epilogue (the sample stage: all of it), and its units per stage; and
-    the mean wait per grid barrier over all blocks, and the barriers per
-    step.  ``gate`` picks the gate design as ``ar_plan``'s does.  CUDA
-    only; not counted in ``ar_generate``'s launch counts."""
+    epilogue (the sample stage: all of it, its waits left out), and its
+    units per stage; and under "waits" the mean microseconds of a counter
+    wait (a unit's wait for the stage before it; with the
+    streamed gate, of a block's wait at a grid barrier) and the waits per
+    step over all blocks.  ``gate`` picks the gate design as ``ar_plan``'s
+    does.  CUDA only; not counted in ``ar_generate``'s launch counts nor
+    in ``k1_waits``."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
 
     act_buf, sample_hist, prev = carry
@@ -1455,9 +1556,8 @@ def ar_phase_times(params, config, carry, h_up: torch.Tensor, T0: int,
         out[name] = dict(zip(("ask", "wait", "products", "epilogue"),
                              (1e-3 * stage[:, :4].mean(dim=0)).tolist()),
                          units=float(stage[:, 5].mean()))
-    bar = ph[:, per * 6: per * 6 + 2]
-    out["barrier"] = dict(wait=float(1e-3 * (bar[:, 0] / bar[:, 1]).mean()),
-                          per_step=float(bar[0, 1]) / max_n)
+    ns, n = ph[:, per * 6: per * 6 + 2].sum(dim=0).tolist()
+    out["waits"] = dict(wait=1e-3 * ns / max(n, 1.0), per_step=n / max_n)
     return out
 
 

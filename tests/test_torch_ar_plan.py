@@ -1052,3 +1052,192 @@ def test_wide_aux_emulated_stages_decode_as_the_plain_loop(kernel_size, gate):
 def test_wide_aux_int8_emulated_stages_decode_as_the_plain_int8_loop(
         kernel_size, gate):
     _wide_aux_decode(kernel_size, 37, gate, True, 33)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's waits: a counter a stage, its targets and the schedule
+# ---------------------------------------------------------------------------
+
+#: fleets on both sides of every unit height and gate design
+WAIT_FLEETS = [1, 16, 17, 31, 32, 33, 48, 63, 64, 128, 256, 512]
+#: the stages a unit waits on: the previous stage of each (the gate of
+#: layer 0 waits on the sample stage, later gates on the res stage)
+WAITS_ON = {"res": "gate", "post1": "res", "post2": "post1",
+            "sample": "post2"}
+
+
+def _stage_rows(plan, stage, block):
+    """The row ranges of the units ``block`` takes in ``stage`` (an
+    ``AR_STAGES`` name or "sample"), in the kernel's order."""
+    if stage == "sample":
+        return list(ak.ar_sample_units(plan, block))
+    return [rows for rows, _ in ak.ar_stage_units(plan, stage, block)]
+
+
+def _per_row(plan, stage):
+    """The units of one run of ``stage`` that write each row."""
+    return 1 if stage == "sample" else plan["stages"][stage]["G"]
+
+
+def _units_plan(kernel_size, B, quantize):
+    """The plan of the kernel's units instance (the one with counter
+    waits) for the flagship widths: ``ar_plan``'s where its gate is cut
+    into units, else the one ``gate="units"`` asks for; and ``ar_plan``'s
+    own.  A plan whose gate streams waits at grid barriers: no counter
+    waits."""
+    cfg = _cfg(kernel_size, "flagship")
+    plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=quantize)
+    if plan["stages"]["gate"].get("stream"):
+        assert ak.ar_waits_per_step(plan, cfg.n_layers) == 0
+        plan = ak.ar_plan(cfg, B, grid=ak.H100_SMS, quantize=quantize,
+                          gate="units")
+    return plan
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("B", WAIT_FLEETS)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_stage_targets_count_the_units(kernel_size, B, quantize):
+    plan = _units_plan(kernel_size, B, quantize)
+    grid, tiles = plan["grid"], plan["tiles_max"]
+    # the shortest units whose gate cut fits the grid
+    fits = plan["stages"]["gate"]["units"] <= grid
+    assert fits or tiles == 4
+    if fits and tiles > 1:
+        shorter = ak._plan_units_at(_cfg(kernel_size, "flagship"),
+                                    quantize, B, grid, tiles - 1)
+        assert shorter is None or shorter["stages"]["gate"]["units"] > grid
+    waits = 0
+    for stage in ak.AR_STAGES + ("sample",):
+        count = 0
+        with_unit = set()
+        for block in range(grid):
+            rows = _stage_rows(plan, stage, block)
+            for r0, r1 in rows:
+                assert 0 < r1 - r0 <= 16 * tiles, (stage, r0, r1)
+                count += 1
+            if rows:
+                with_unit.add(block)
+            waits += len(rows)
+        # each target is the units that write the stage's rows
+        assert ak.ar_stage_target(plan, stage) == count, stage
+        # the blocks that wait in the stage are those with a unit: the
+        # kernel's contiguous runs, one unit a block where the grid holds
+        # them all
+        units = (-(-B // ak.AR_SAMPLE_ROWS) if stage == "sample"
+                 else plan["stages"][stage]["units"])
+        assert with_unit == {b for b in range(grid)
+                             if (b + 1) * units // grid > b * units // grid}
+        assert len(with_unit) == min(units, grid)
+    assert waits == ak.ar_waits_per_step(plan, 1)
+
+
+def _schedule(plan, n_layers, steps):
+    """Each block's units in the kernel's order: (stage, its run, rows,
+    the stage it waits on, that stage's runs it waits for).  The first
+    step's embed is the sample stage's first run."""
+    runs = dict.fromkeys(ak.AR_STAGES, 0)
+    runs["sample"] = 1
+    order = [("sample", 0, None, 0)]
+    for _step in range(steps):
+        for l in range(n_layers):
+            for stage in ("gate", "res"):
+                on = WAITS_ON.get(stage) or ("res" if l else "sample")
+                order.append((stage, runs[stage], on, runs[on]))
+                runs[stage] += 1
+        for stage in ("post1", "post2", "sample"):
+            on = WAITS_ON[stage]
+            order.append((stage, runs[stage], on, runs[on]))
+            runs[stage] += 1
+    progs = [[(stage, run, rows, on, n)
+              for stage, run, on, n in order
+              for rows in _stage_rows(plan, stage, block)]
+             for block in range(plan["grid"])]
+    return progs, runs
+
+
+def _run_schedule(plan, B, progs, ctr0, reached, order=None):
+    """Run ``progs`` (``_schedule``'s) greedily block by block (in
+    ``order``, default the blocks' own) on u32
+    counters that start at ``ctr0``, a unit starting once
+    ``reached(counter, target)`` holds for the counter it polls (both mod
+    2^32, the target ``ctr0`` + runs x ``ar_stage_target``).  Returns the
+    blocks' positions, the counters, and the units that started before
+    every unit of the previous stage's run on their rows was done."""
+    ctr = {}
+    done = {}        # (stage, run) -> units done on each row
+    early = 0
+    pos = [0] * len(progs)
+    moved = True
+    while moved:
+        moved = False
+        for b in order or range(len(progs)):
+            prog = progs[b]
+            while pos[b] < len(prog):
+                stage, run, (r0, r1), on, n = prog[pos[b]]
+                if on is not None:
+                    target = (ctr0 + n * ak.ar_stage_target(plan, on)) % 2**32
+                    if not reached(ctr.get(on, ctr0), target):
+                        break
+                    rows = done.get((on, n - 1), np.zeros(B, np.int64))[r0:r1]
+                    early += not (rows == _per_row(plan, on)).all()
+                ctr[stage] = (ctr.get(stage, ctr0) + 1) % 2**32
+                done.setdefault((stage, run), np.zeros(B, np.int64))
+                done[(stage, run)][r0:r1] += 1
+                pos[b] += 1
+                moved = True
+    return pos, ctr, early
+
+
+def _wrap_safe(counter, target):
+    """``wn_hopper.cuh::wait_counter``'s test: (counter - target) mod 2^32
+    read as a signed 32-bit integer is not negative."""
+    return (counter - target) % 2**32 < 2**31
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("B", WAIT_FLEETS)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_schedule_on_the_counters_runs_three_steps(kernel_size, B, quantize):
+    """The kernel's schedule at 2 layers a step: each block takes its units
+    in the kernel's order and starts one only when the counter it polls
+    has reached its target; run greedily block by block, every block
+    reaches the end of 3 steps (no deadlock), each unit starting only once
+    every unit of the previous stage's run on its rows is done (so no
+    target is too low), and each counter ends at its runs x its target."""
+    plan = _units_plan(kernel_size, B, quantize)
+    progs, runs = _schedule(plan, 2, 3)
+    pos, ctr, early = _run_schedule(plan, B, progs, 0, lambda c, t: c >= t)
+    assert pos == [len(p) for p in progs], "deadlock"
+    assert early == 0
+    for stage, n in ctr.items():
+        assert n == runs[stage] * ak.ar_stage_target(plan, stage)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("B", [1, 17, 32, 48, 160])
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_counters_that_wrap_order_the_schedule(kernel_size, B, quantize):
+    """The kernel's counters start at ``AR_CTR0`` = 2^32 - 1, so each wraps
+    at its first arrival, as a counter of a long decode does past 2^32
+    arrivals (about 1.1M steps of 128 gate units at 30 layers): on the
+    wrap-safe test the schedule runs as from zero, each counter ending at
+    ``AR_CTR0`` + its runs x its target mod 2^32; an unsigned ``>=`` lets
+    a unit start before its rows are done, so the card's tests, which run
+    every launch from ``AR_CTR0``, fail on it.  Block 0, which holds the
+    first unit of every stage, runs last: the others then poll counters
+    that no unit has reached yet."""
+    assert ak.AR_CTR0 == 2**32 - 1
+    plan = _units_plan(kernel_size, B, quantize)
+    progs, runs = _schedule(plan, 2, 3)
+    order = list(range(1, plan["grid"])) + [0]
+    pos, ctr, early = _run_schedule(plan, B, progs, ak.AR_CTR0, _wrap_safe,
+                                    order)
+    assert pos == [len(p) for p in progs], "deadlock"
+    assert early == 0
+    for stage, n in ctr.items():
+        assert n == (ak.AR_CTR0 + runs[stage]
+                     * ak.ar_stage_target(plan, stage)) % 2**32
+    _, _, early = _run_schedule(plan, B, progs, ak.AR_CTR0,
+                                lambda c, t: c >= t, order)
+    assert early > 0

@@ -1004,3 +1004,159 @@ def test_one_rank_per_card_refuses_more_ranks_than_cards(dev, tmp_path,
     assert "requested 2 devices but only 1 available." in caplog.text
     with pytest.raises(ValueError, match=r"device_count\(\) is 1"):
         decode_cli.main(argv + ["--device", "cuda:1"])
+
+# ---------------------------------------------------------------------------
+# K1's counter waits: every cut of the units instance against the plain loop
+# ---------------------------------------------------------------------------
+
+# one tile (1, 16), a partial second tile (17), the recipe fleet (32), a
+# partial fourth tile (63), the last units-gate fleets and the streamed
+# gate's slabs (64, 256)
+WAIT_FLEETS = [1, 16, 17, 32, 63, 64, 256]
+
+
+def _carry_of(params, cfg, dev, B, n, seed, quantize):
+    """The warm-up's carry, h, T0 and the int8 call's arguments."""
+    if quantize:
+        carry, h, T0, scales = _int8_carry(params, cfg, dev, B, n, seed)
+        return carry, h, T0, dict(quantize=True, act_scales=scales)
+    carry, h, T0 = _random_carry(params, cfg, dev, B, n, seed)
+    return carry, h, T0, {}
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("B", WAIT_FLEETS)
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_k1_on_counter_waits_matches_plain(dev, kernel_size, B, quantize):
+    """K1 at every cut ``ar_plan`` makes for these fleets: argmax
+    steps against the plain loop from its state (``_same_state``'s or
+    ``_int8_same_state``'s limits); one call of n steps bit-equal to n
+    calls of one step (samples and ring: the waits across steps order the
+    stages as the launch boundary does); and a sampled call of n steps
+    whose classes are, at the plain loop's agreement limit, the argmax of
+    the plain logits plus the kernel's Philox noise (seed, (class / 4,
+    row, step, 0)), the plain loop forced along the kernel's classes."""
+    from port_bench.reference.sampler import kernel_noise
+
+    cfg = _cfg(kernel_size=kernel_size)
+    params = _params(cfg, dev, seed=11)
+    n = 8
+    carry, h, T0, q = _carry_of(params, cfg, dev, B, n, 11, quantize)
+    if quantize:
+        _int8_same_state(params, cfg, carry, h, T0, q["act_scales"], n,
+                         lambda c_, p, steps: ak.ar_generate(
+                             params, cfg, c_, h, p, steps, "argmax", **q))
+    else:
+        _same_state(params, cfg, carry, h, T0, n,
+                    lambda c_, p, steps: ak.ar_generate(
+                        params, cfg, c_, h, p, steps, "argmax"))
+    one = tuple(t.clone() for t in carry)
+    got = ak.ar_generate(params, cfg, one, h, T0, n, "argmax", **q)
+    each = tuple(t.clone() for t in carry)
+    steps = [ak.ar_generate(params, cfg, each, h, T0 + i, 1, "argmax", **q)
+             for i in range(n)]
+    assert torch.equal(got, torch.cat(steps, dim=1))
+    assert all(torch.equal(a, b) for a, b in zip(one, each))
+
+    seed = int(torch.randint(0, 2**62, (1,),
+                             generator=torch.Generator().manual_seed(5)))
+    ks = tuple(t.clone() for t in carry)
+    sampled = ak.ar_generate(params, cfg, ks, h, T0, n, "sampling",
+                             torch.Generator().manual_seed(5), **q)
+    noise = torch.stack([kernel_noise(seed, b, n, cfg.n_quantize, dev)
+                         for b in range(B)])                   # (B, n, Q)
+    act, hist, prev = (t.clone() for t in carry)
+    weights = ak._step_weights(params, cfg, quantize)
+    ids = torch.cat([hist, prev[:, None]], dim=1)
+    agree = []
+    for i in range(n):
+        logits = ak.ar_step_logits(weights, cfg, act, ids, h, T0 - 1 + i,
+                                   quantize, q.get("act_scales"))
+        want = (logits.float() + noise[:, i]).argmax(dim=-1)
+        agree.append((want == sampled[:, i].long()).float().mean().item())
+        ids = torch.cat([ids[:, 1:], sampled[:, i:i + 1]], dim=1)
+    assert np.mean(agree) >= 0.97
+
+
+@pytest.mark.parametrize("gate", ak.AR_GATES)
+def test_k1_runs_4096_steps_without_a_trap(dev, gate):
+    """4,096 steps in one launch, each gate design at B=32: every wait
+    finds its target (a wait of 2^24 polls would trap and fail the call);
+    the classes stay in range."""
+    cfg = _cfg()
+    params = _params(cfg, dev, seed=13)
+    n = 4096
+    carry, h, T0 = _random_carry(params, cfg, dev, 32, n, 13)
+    out = ak.ar_generate_on(gate, params, cfg, carry, h, T0, n)
+    torch.cuda.synchronize()
+    assert out.shape == (32, n)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.n_quantize
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("B", [32, 256])
+def test_k1_waits_are_the_plan_s_units(dev, B, quantize):
+    """``decode_counters()``' ``k1_waits`` gains steps x the plan's units
+    of every stage (one wait a unit; a block with no unit in a stage waits
+    for nothing; none at 256 rows, whose gate streams and whose stages
+    wait at grid barriers) in a call of ``ar_generate``, and
+    ``k1_waits_ready`` at most that; ``ar_generate_on`` adds none."""
+    from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_counters
+
+    cfg = _cfg()
+    params = _params(cfg, dev, seed=17)
+    n = 12
+    carry, h, T0, q = _carry_of(params, cfg, dev, B, n, 17, quantize)
+    before = decode_counters()
+    ak.ar_generate(params, cfg, carry, h, T0, n, "argmax", **q)
+    after = decode_counters()
+    plan = ak.ar_plan(cfg, B, quantize=quantize, device=dev)
+    waits = after["k1_waits"] - before["k1_waits"]
+    assert waits == n * ak.ar_waits_per_step(plan, cfg.n_layers)
+    assert 0 <= after["k1_waits_ready"] - before["k1_waits_ready"] <= waits
+    ak.ar_generate_on(ak.ar_gate(cfg, B, quantize, dev), params, cfg, carry,
+                      h, T0 + n, 1, **q)
+    assert decode_counters()["k1_waits"] == after["k1_waits"]
+
+
+# flagship widths (arctic-sd's, ljspeech-sd's n_aux at kernel_size 3) at
+# fleets whose units-gate plan needs units of several 16-row tiles to fit
+# the grid: bf16 k=3 at 48 and 64 rows, int8 k=2 at 160, int8 k=3 at 96 and
+# 160 (3 tiles: its post stages take 2-tile units)
+TALL_UNITS = [(3, False, 48), (3, False, 64), (2, True, 160), (3, True, 96),
+              (3, True, 160)]
+
+
+@pytest.mark.parametrize("kernel_size,quantize,B", TALL_UNITS)
+def test_k1_on_tall_units_matches_plain(dev, kernel_size, quantize, B):
+    """K1 where ``ar_plan`` cuts units of several tiles (``tiles_max`` >
+    1, some stage's ``mt`` > 1, the stages' unit counts and so their
+    counters' targets apart from the one-tile cuts): argmax steps against
+    the plain loop from its state with the existing limits
+    (``_same_state``, ``_int8_same_state``), and one call of n steps
+    bit-equal to n calls of one step."""
+    cfg = _cfg(kernel_size=kernel_size, n_aux=28 if kernel_size == 2 else 39,
+               n_resch=512, n_skipch=256, dilation_depth=10,
+               dilation_repeat=3)
+    plan = ak.ar_plan(cfg, B, quantize=quantize, device=dev)
+    assert not plan["stages"]["gate"].get("stream")
+    assert plan["tiles_max"] > 1
+    assert max(s["mt"] for s in plan["stages"].values()) > 1
+    params = _params(cfg, dev, seed=19)
+    n = 6
+    carry, h, T0, q = _carry_of(params, cfg, dev, B, n, 19, quantize)
+    if quantize:
+        _int8_same_state(params, cfg, carry, h, T0, q["act_scales"], n,
+                         lambda c_, p, steps: ak.ar_generate(
+                             params, cfg, c_, h, p, steps, "argmax", **q))
+    else:
+        _same_state(params, cfg, carry, h, T0, n,
+                    lambda c_, p, steps: ak.ar_generate(
+                        params, cfg, c_, h, p, steps, "argmax"))
+    one = tuple(t.clone() for t in carry)
+    got = ak.ar_generate(params, cfg, one, h, T0, n, "argmax", **q)
+    each = tuple(t.clone() for t in carry)
+    steps = [ak.ar_generate(params, cfg, each, h, T0 + i, 1, "argmax", **q)
+             for i in range(n)]
+    assert torch.equal(got, torch.cat(steps, dim=1))
+    assert all(torch.equal(a, b) for a, b in zip(one, each))
