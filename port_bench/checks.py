@@ -1,8 +1,13 @@
 """How ``correct`` is decided: what the timed path produced, compared with
-the plain reference (``reference/wavenet.py``) once the window has closed
-and the program's state is freed.  Every number compared has its limit in
-``limits/<workload>.json``; a run is correct when every number is within
-its limit.  ``PERF.md`` gives the readings each limit was set from.
+the plain reference of the configuration's architecture (its module
+``arch/<name>.py`` names it: ``reference/wavenet.py`` for the mu-law
+WaveNet) once the window has closed and the program's state is freed.
+Every number compared has its limit in ``limits/<workload>.json``; a run
+is correct when every number is within its limit.  ``PERF.md`` gives the
+readings each limit was set from.  What follows is the mu-law WaveNet's;
+the architecture's hooks (``read_served``, ``decode_noise``,
+``served_gaps``, ``reference_train_steps``, ``train_numbers``) decide what
+a served wav holds, the gaps and the training numbers.
 
 Decode: every wav the window delivered is read back (16-bit PCM, the
 stdlib's ``wave``): it must exist, hold its utterance's length and only
@@ -41,17 +46,14 @@ import wave
 import numpy as np
 import torch
 
+from port_bench import spec
 from port_bench import traffic as tr
-from port_bench.reference import wavenet as ref
 from port_bench.weights import make_params
 
 ADAM_BETA1 = 0.9
 #: The training steps the comparison follows from the initial weights.
 CHECKED_STEPS = 3
 FORBIDDEN = ("jax", "jaxlib", "flax", "pytorchwavenetvocoder_tpu")
-#: Leaves whose reference gradient is below this share of the median
-#: leaf's move under Adam by round-off alone: not in ``update_gap``.
-STILL_LEAF = 1e-3
 
 
 def forbidden_modules(modules) -> list:
@@ -74,43 +76,14 @@ def judge(numbers: dict, limits: dict) -> tuple:
     return ok and bool(limits), out
 
 
-def _read_pcm(path: str):
+def read_pcm(path: str):
+    """The samples (int16) and rate of a 16-bit mono wav, or (None, None)
+    for another format."""
     with wave.open(path, "rb") as w:
         if w.getsampwidth() != 2 or w.getnchannels() != 1:
             return None, None
         return (np.frombuffer(w.readframes(w.getnframes()), "<i2"),
                 w.getframerate())
-
-
-def read_served(cfg: dict, path: str, n: int):
-    """The mu-law classes a wav holds, or None where it is missing, of
-    another length or rate, or holds a value no class writes."""
-    if not os.path.exists(path):
-        return None
-    pcm, fs = _read_pcm(path)
-    if pcm is None or fs != cfg["fs"] or len(pcm) != n:
-        return None
-    table = ref.mulaw_pcm_table(cfg["n_quantize"])
-    inverse = np.full(65536, -1, np.int64)
-    inverse[table.astype(np.int64) + 32768] = np.arange(len(table))
-    served = inverse[pcm.astype(np.int64) + 32768]
-    return None if (served < 0).any() else served
-
-
-def _noise(cfg: dict, seed: int, device, fleets: list, sizes: dict):
-    """The sampler's noise of each sampled fleet among ``fleets`` (in the
-    order they were decoded, one generator's draws), as a function of
-    (fleet, row, steps); ``sizes`` maps a fleet to its (rows, longest)."""
-    from port_bench.reference import sampler
-
-    gen = tr.sampling_generator(seed)
-    sampled = [i for i in fleets if tr.fleet_mode(i) == "sampling"]
-    Q = cfg["n_quantize"]
-    if torch.device(device).type == "cuda":
-        seeds = dict(zip(sampled, sampler.fleet_seeds(gen, len(sampled))))
-        return lambda i, b, n: sampler.kernel_noise(seeds[i], b, n, Q, device)
-    drawn = {i: sampler.plain_noise(gen, *sizes[i], Q) for i in sampled}
-    return lambda i, b, n: drawn[i][b, :n].to(device)
 
 
 def decode(cfg: dict, traffic: dict, seed: int, device, outdir: str,
@@ -119,12 +92,14 @@ def decode(cfg: dict, traffic: dict, seed: int, device, outdir: str,
     indices ``fleets`` lists, in the order they were decoded;
     ``greedy_gap`` and ``sampled_gap`` over the (fleet, row) pairs
     ``rows`` of each mode."""
+    arch = spec.architecture(cfg)
     errors, served, sizes = 0, {}, {}
     for i in fleets:
         ids, (_x, _h, n_samples) = tr.fleet(traffic, cfg, seed, i)
         sizes[i] = (len(ids), max(n_samples))
         for b, (name, n) in enumerate(zip(ids, n_samples)):
-            got = read_served(cfg, os.path.join(outdir, name + ".wav"), n)
+            got = arch.read_served(cfg, os.path.join(outdir, name + ".wav"),
+                                   n)
             if got is None:
                 errors += 1
             elif (i, b) in rows:
@@ -132,8 +107,7 @@ def decode(cfg: dict, traffic: dict, seed: int, device, outdir: str,
     out = dict(wav_errors=errors)
     if not rows:
         return out
-    ref.strict_float32()
-    noise = _noise(cfg, seed, device, fleets, sizes)
+    noise = arch.decode_noise(cfg, seed, device, fleets, sizes)
     params = make_params(cfg, seed, device)
     uf = cfg["upsampling_factor"]
     for i, b in rows:
@@ -144,9 +118,9 @@ def decode(cfg: dict, traffic: dict, seed: int, device, outdir: str,
             continue
         _ids, (_x, h, n_samples) = tr.fleet(traffic, cfg, seed, i)
         n = n_samples[b]
-        g = ref.served_gaps(params, cfg, h[b, :(n + 1) // uf], served[(i, b)],
-                            tr.seed_class(cfg),
-                            None if mode == "argmax" else noise(i, b, n))
+        g = arch.served_gaps(params, cfg, h[b, :(n + 1) // uf],
+                             served[(i, b)],
+                             None if mode == "argmax" else noise(i, b, n))
         out[key] = max(out.get(key, 0.0), float(g.max()))
     del params
     return out
@@ -154,8 +128,9 @@ def decode(cfg: dict, traffic: dict, seed: int, device, outdir: str,
 
 def reference_steps(cfg: dict, traffic: dict, seed: int, world: int,
                     device, mm=torch.matmul, ranks_used=None) -> dict:
-    """The reference's checked steps from the seed's weights."""
-    ref.strict_float32()
+    """The reference's checked steps from the seed's weights, its products
+    through ``mm`` (the architecture's ``control_matmul`` for the
+    control)."""
     steps = []
     for s in range(CHECKED_STEPS):
         per_rank = []
@@ -165,46 +140,9 @@ def reference_steps(cfg: dict, traffic: dict, seed: int, world: int,
             per_rank.append(tuple(torch.as_tensor(a[None], device=device)
                                   for a in (x, h, t)))
         steps.append(per_rank)
-    return ref.train_steps(make_params(cfg, seed, device, bf16_values=False),
-                           cfg, steps,
-                           cfg["lr"], cfg["weight_decay"], mm=mm,
-                           ranks_used=ranks_used)
-
-
-def _norm(t: torch.Tensor) -> float:
-    return float(t.double().norm())
-
-
-def _leaf_gaps(prog: dict, refs: dict, keys) -> list:
-    med = float(np.median([refs[k] for k in keys]))
-    return [abs(prog[k] - refs[k]) / max(refs[k], med, 1e-30) for k in keys]
-
-
-def train_numbers(losses: list, grad1: dict, after: dict, theta0: dict,
-                  r: dict) -> dict:
-    """``loss_gap``, ``grad_gap``, ``grad_gap_median``,
-    ``grad_diff_median`` and ``update_gap`` of a run's ``losses``, first
-    gradient and params after the checked steps, against the reference's
-    ``r`` from ``theta0``."""
-    keys = ref.leaves(theta0)
-    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, r["losses"]))
-    g_ref = {k: _norm(r["grad1"][k]) for k in keys}
-    dev = theta0[keys[0][0]][keys[0][1]].device
-    g_prog = {k: _norm(grad1[k].to(dev)) for k in keys}
-    d_ref = {k: _norm(r["params"][k[0]][k[1]] - theta0[k[0]][k[1]])
-             for k in keys}
-    d_prog = {k: _norm(after[k].to(dev) - theta0[k[0]][k[1]])
-              for k in keys}
-    med = float(np.median(list(g_ref.values())))
-    moving = [k for k in keys if g_ref[k] >= STILL_LEAF * med]
-    grad_gaps = _leaf_gaps(g_prog, g_ref, keys)
-    diffs = [_norm(grad1[k].to(dev) - r["grad1"][k]) / max(g_ref[k], med,
-                                                            1e-30)
-             for k in keys]
-    return dict(loss_gap=loss_gap, grad_gap=max(grad_gaps),
-                grad_gap_median=float(np.median(grad_gaps)),
-                grad_diff_median=float(np.median(diffs)),
-                update_gap=max(_leaf_gaps(d_prog, d_ref, moving)))
+    return spec.architecture(cfg).reference_train_steps(
+        make_params(cfg, seed, device, bf16_values=False), cfg, steps,
+        mm=mm, ranks_used=ranks_used)
 
 
 def train(cell, seed: int, device, losses: list, grad1: dict, after: dict,
@@ -212,7 +150,7 @@ def train(cell, seed: int, device, losses: list, grad1: dict, after: dict,
     cfg = cell.config
     r = reference_steps(cfg, cell.traffic, seed, world, device)
     theta0 = make_params(cfg, seed, device, bf16_values=False)
-    out = train_numbers(losses, grad1, after, theta0, r)
+    out = cell.arch.train_numbers(losses, grad1, after, theta0, r)
     want = "fused" if torch.device(device).type == "cuda" else "plain"
     out["route_off"] = 0.0 if route == want else 1.0
     return out

@@ -10,13 +10,15 @@ control seed, the control's (the upper readings):
 - decode: the window's fleets ``--fleets`` (the greedy fleet 0 and the
   sampled fleet 1 by default) through ``decode_batches``, one generator's
   draws in that order, judged as a run judges them; the control is the
+  architecture's (``decode_controls``): for the mu-law WaveNet the
   program's own int8 path (``quantize=True``), the precision next below
   the configurations' bfloat16, on the same fleets (a traffic that is
   int8 already has no control here: int4 is below it, which the program
   lacks);
 - training: the checked steps through the program's training step (every
   rank), judged as a run judges them; the control is the reference with
-  its products in float8 in the program's place.  Also the faults,
+  its products through the architecture's ``control_matmul`` (float8 for
+  the mu-law WaveNet) in the program's place.  Also the faults,
   planted in the reference in the program's place: a step that leaves the
   state unchanged (every step's loss at the initial weights, no gradient
   in the optimizer) and, with more than one rank, the gradient exchange
@@ -50,17 +52,11 @@ def decode_fleets(cell, seed: int, device, quantize: bool,
     """The numbers of the window's fleets ``fleets``, decoded by the
     program (int8 with ``quantize``) in their modes."""
     from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
-    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
-        WaveNet,
-        WaveNetConfig,
-    )
 
     from port_bench.decode_cell import fleet_rows_to_check
 
     cfg, traffic = cell.config, cell.traffic
-    wcfg = WaveNetConfig(**{k: cfg[k] for k in cell.model_keys})
-    model = WaveNet(wcfg, params=make_params(cfg, seed, device),
-                    device=device)
+    model = cell.arch.decoder(cfg, make_params(cfg, seed, device), device)
     gen = tr.sampling_generator(seed)
     workdir = tempfile.mkdtemp(prefix="port_bench_control_")
     try:
@@ -99,21 +95,21 @@ def program_steps_rank(info, job: dict) -> list:
 
 
 def reference_controls(cell, seed: int, device) -> dict:
-    """The float8 control's numbers and the faults'."""
-    from port_bench.reference import wavenet as ref
-
-    cfg, traffic = cell.config, cell.traffic
+    """The control's numbers (the reference's products through the
+    architecture's ``control_matmul``: float8 for the mu-law WaveNet) and
+    the faults'."""
+    cfg, traffic, arch = cell.config, cell.traffic, cell.arch
     world = traffic["ranks"]
     sound = checks.reference_steps(cfg, traffic, seed, world, device)
     theta0 = make_params(cfg, seed, device, bf16_values=False)
 
     def numbers(r):
-        after = {k: r["params"][k[0]][k[1]] for k in ref.leaves(theta0)}
-        return checks.train_numbers(r["losses"], r["grad1"], after, theta0,
-                                    sound)
+        after = {(g, n): r["params"][g][n] for g in theta0 for n in theta0[g]}
+        return arch.train_numbers(r["losses"], r["grad1"], after, theta0,
+                                  sound)
 
     out = {"control_fp8": numbers(checks.reference_steps(
-        cfg, traffic, seed, world, device, mm=ref.fp8_matmul))}
+        cfg, traffic, seed, world, device, mm=arch.control_matmul))}
     still = checks.reference_steps(dict(cfg, lr=0.0), traffic, seed, world,
                                    device)
     out["state_unchanged"] = numbers(dict(
@@ -126,6 +122,46 @@ def reference_controls(cell, seed: int, device) -> dict:
             cfg, traffic, seed, world, device,
             ranks_used=list(range(world // 2))))
     return out
+
+
+def readings(cell, seeds: list, control: list, device, fleets=(0, 1),
+             program: bool = True):
+    """``(seed, who, numbers)`` of the sound program on every seed of
+    ``seeds`` (with ``program``) and of the control (and, training, the
+    faults) on every seed of ``control``."""
+    if cell.kind == "decode":
+        quantize = bool(cell.traffic.get("quantize", False))
+        for seed in seeds:
+            yield seed, "program", decode_fleets(cell, seed, device, quantize,
+                                                 fleets)
+        for seed in control:
+            for who, numbers in cell.arch.decode_controls(
+                    cell, seed, device, fleets).items():
+                yield seed, who, numbers
+        return
+    if program and seeds:
+        from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
+            RankInfo,
+            spawn_local,
+        )
+
+        job = dict(cell=cell, seeds=seeds)
+        ranks = cell.traffic["ranks"]
+        if ranks == 1:
+            got = program_steps_rank(RankInfo.alone(device), job)
+        else:
+            from importlib import import_module
+
+            here = import_module("port_bench.controls")
+            cuda = torch.device(device).type == "cuda"
+            got = spawn_local(ranks, here.program_steps_rank, (job,),
+                              device_arg="cuda" if cuda else "cpu",
+                              backend="nccl" if cuda else "gloo")[0]
+        for seed, numbers in got:
+            yield seed, "program", numbers
+    for seed in control:
+        for who, numbers in reference_controls(cell, seed, device).items():
+            yield seed, who, numbers
 
 
 def main(argv=None) -> int:
@@ -143,38 +179,10 @@ def main(argv=None) -> int:
     cell = spec.load_cell(args.workload)
     if not torch.cuda.is_available():
         raise SystemExit("port_bench.controls: no CUDA device")
-    dev = torch.device("cuda")
-    if cell.kind == "decode":
-        fleets = [int(i) for i in args.fleets.split(",")]
-        quantize = bool(cell.traffic.get("quantize", False))
-        for seed in seeds:
-            _print(seed, "program", decode_fleets(cell, seed, dev, quantize,
-                                                  fleets))
-        for seed in [] if quantize else control:
-            _print(seed, "control_int8", decode_fleets(cell, seed, dev, True,
-                                                       fleets))
-        return 0
-    if args.program and seeds:
-        from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
-            RankInfo,
-            spawn_local,
-        )
-
-        job = dict(cell=cell, seeds=seeds)
-        ranks = cell.traffic["ranks"]
-        if ranks == 1:
-            got = program_steps_rank(RankInfo.alone(dev), job)
-        else:
-            from importlib import import_module
-
-            here = import_module("port_bench.controls")
-            got = spawn_local(ranks, here.program_steps_rank, (job,),
-                              device_arg="cuda", backend="nccl")[0]
-        for seed, numbers in got:
-            _print(seed, "program", numbers)
-    for seed in control:
-        for who, numbers in reference_controls(cell, seed, dev).items():
-            _print(seed, who, numbers)
+    for seed, who, numbers in readings(
+            cell, seeds, control, torch.device("cuda"),
+            [int(i) for i in args.fleets.split(",")], bool(args.program)):
+        _print(seed, who, numbers)
     return 0
 
 

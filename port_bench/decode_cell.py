@@ -3,16 +3,18 @@
 ``BackgroundGenerator`` over the fleets), with the program's writer
 thread writing each utterance's wav.
 
-Set-up makes the weights on the device, builds the ``WaveNet``, and
-decodes one short fleet (``WARMUP_STEPS`` steps) of the cell's rows in each
-mode the window uses, so every kernel is built and every shape of the
-window warmed.  The traffic's ``quantize`` (default false) decodes on the
-program's int8 path, in the warm-up and the window alike.  The window
-then decodes fleets while the next one is due to end nearer to
-``--seconds`` than the last: the first fleet always, fleet i > 0 only
-while the elapsed time plus half the last fleet's wall time is within
-``--seconds``.  Consecutive fleets of one mode share one ``decode_batches``
-call; the window closes when the last call returns, its writer joined.
+Set-up makes the weights on the device, builds the program's model (the
+configuration's architecture's ``decoder``: the mu-law WaveNet's
+``WaveNet``), and decodes one short fleet (``WARMUP_STEPS`` steps) of
+the cell's rows in each mode the window uses, so every kernel is built
+and every shape of the window warmed.  The traffic's ``quantize``
+(default false) decodes on the program's int8 path, in the warm-up and
+the window alike.  The window then decodes fleets while the next one is
+due to end nearer to ``--seconds`` than the last: the first fleet
+always, fleet i > 0 only while the elapsed time plus half the last
+fleet's wall time is within ``--seconds``.  Consecutive fleets of one
+mode share one ``decode_batches`` call; the window closes when the last
+call returns, its writer joined.
 
 After the window the wavs are read back and judged (``checks.py``): the
 longest row and ``check_rows`` - 1 others drawn from the seed in every
@@ -103,19 +105,14 @@ def run(cell, seconds: float, seed: int, device, t_start: float,
     """Set up, measure, and return what the readers and checks need.
     ``traced``: a ``trace.Traced`` for a ``--trace 1`` run."""
     from pytorchwavenetvocoder_tpu_torch.bin.decode import decode_batches
-    from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
-        WaveNet,
-        WaveNetConfig,
-    )
     from pytorchwavenetvocoder_tpu_torch.utils import BackgroundGenerator
 
     cfg, traffic = cell.config, cell.traffic
     device = torch.device(device)
     phases = Phases(t_start)
     phases.mark("start to cell")
-    wcfg = WaveNetConfig(**{k: cfg[k] for k in cell.model_keys})
-    model = _Spanned(WaveNet(wcfg, params=make_params(cfg, seed, device),
-                             device=device))
+    model = _Spanned(cell.arch.decoder(cfg, make_params(cfg, seed, device),
+                                       device))
     phases.mark("weights")
     workdir = tempfile.mkdtemp(prefix="port_bench_decode_")
     quantize = bool(traffic.get("quantize", False))

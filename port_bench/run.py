@@ -57,9 +57,8 @@ def measure(cell, seconds: float, seed: int, trace: bool, device: str,
     if cell.kind == "train":
         from port_bench import train_cell
 
-        kw = {} if step_factory is None else dict(step_factory=step_factory)
         out = train_cell.run(cell, seconds, seed, device, t_start, trace,
-                             backend=backend, **kw)
+                             backend=backend, step_factory=step_factory)
         numbers = out.pop("numbers")
     else:
         from port_bench import decode_cell

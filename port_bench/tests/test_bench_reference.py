@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from port_bench import checks, weights
+from port_bench import checks, spec, weights
 from port_bench import traffic as tr
 from port_bench.reference import wavenet as ref
 from port_bench.tests import tiny
@@ -59,11 +59,11 @@ def test_mulaw_table_is_the_wav_writer_s(tmp_path):
     path = os.path.join(tmp_path, "a.wav")
     write_wav(path, decode_mu_law(classes, 256).astype(np.float32), 16000)
     cfg = dict(fs=16000, n_quantize=256)
-    np.testing.assert_array_equal(checks.read_served(cfg, path, 256),
-                                  classes)
+    read_served = spec.architecture(cfg).read_served
+    np.testing.assert_array_equal(read_served(cfg, path, 256), classes)
     assert len(set(ref.mulaw_pcm_table(256).tolist())) == 256
-    assert checks.read_served(cfg, path, 255) is None
-    assert checks.read_served(dict(cfg, fs=22050), path, 256) is None
+    assert read_served(cfg, path, 255) is None
+    assert read_served(dict(cfg, fs=22050), path, 256) is None
 
 
 def test_fp8_control_moves_the_numbers():
@@ -73,8 +73,8 @@ def test_fp8_control_moves_the_numbers():
                                  mm=ref.fp8_matmul)
     theta0 = weights.make_params(cfg, 4, "cpu", bf16_values=False)
     after = {k: fp8["params"][k[0]][k[1]] for k in ref.leaves(theta0)}
-    got = checks.train_numbers(fp8["losses"], fp8["grad1"], after, theta0,
-                               sound)
+    got = spec.architecture(cfg).train_numbers(fp8["losses"], fp8["grad1"],
+                                               after, theta0, sound)
     assert got["grad_gap"] > 1e-2
 
 

@@ -26,7 +26,7 @@ def test_fleets_hold_the_quantile_multiset(name):
             assert sorted(n) == want
             assert len(ids) == len(set(ids)) == cfg["decode_batch_size"]
             assert x.shape == (cfg["decode_batch_size"], 1)
-            assert (x == tr.seed_class(cfg)).all()
+            assert (x == cell.arch.seed_class(cfg)).all()
             for b, nb in enumerate(n):
                 f = (nb + 1) // cfg["upsampling_factor"]
                 assert not h[b, f:].any() and h[b, :f].any()

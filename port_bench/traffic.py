@@ -17,8 +17,11 @@ Two kinds of traffic:
   batch_length) // uf`` frames), ``ranks`` processes with one window each
   per step (the configuration's ``batch_size`` over the ranks), cycled
   over ``WINDOWS_PER_RANK`` distinct windows a rank holds in host memory.
-  A window is a synthetic utterance: a few damped partials and noise,
-  mu-law coded, with its next-sample targets and standardized features.
+  A window is a synthetic utterance, a few damped partials and noise,
+  with standardized features; the configuration's architecture
+  (``arch/<name>.py``) makes the program's inputs and next-sample
+  targets of it (the mu-law WaveNet codes it in mu-law classes), as it
+  gives a decode row's first input.
 
 Everything here is numpy on the host, as the program's own feeders give
 it (and one ``torch.Generator`` for the sampler); nothing depends on the
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from port_bench.bounds import receptive_field
+from port_bench.spec import architecture
 
 _FLEET, _WINDOW = 3, 7      # the streams' tags in each generator's seed
 #: A decode window's first fleet decodes greedily (the recipes' ``argmax``
@@ -81,11 +85,6 @@ def fleet_frames(traffic: dict, cfg: dict) -> np.ndarray:
     return np.maximum(1, np.rint(secs * fps)).astype(np.int64)
 
 
-def seed_class(cfg: dict) -> int:
-    """The mu-law class of silence, which every utterance starts from."""
-    return int(math.floor(0.5 * (cfg["n_quantize"] - 1) + 0.5))
-
-
 def sampling_generator(seed: int):
     """The generator a decode window hands the program's sampler."""
     return torch.Generator().manual_seed(seed % 2 ** 64)
@@ -97,9 +96,10 @@ def fleet_mode(i: int) -> str:
 
 def fleet(traffic: dict, cfg: dict, seed: int, i: int):
     """Fleet i as the program's decode feeder yields it: ``(ids, (x, h,
-    n_samples))``, x the (B, 1) seed classes, h (B, frames, A) float32
-    features zero-padded to the longest, n_samples frames * uf - 1 a row;
-    with each row's own frames ``h[b, :frames[b]]``."""
+    n_samples))``, x the (B, 1) first inputs (the architecture's
+    ``first_input``: the mu-law WaveNet's seed class), h (B, frames, A)
+    float32 features zero-padded to the longest, n_samples frames * uf - 1
+    a row; with each row's own frames ``h[b, :frames[b]]``."""
     rng = _rng(seed, _FLEET, i)
     frames = fleet_frames(traffic, cfg)[rng.permutation(
         cfg["decode_batch_size"])]
@@ -107,7 +107,7 @@ def fleet(traffic: dict, cfg: dict, seed: int, i: int):
     h = rng.standard_normal((B, int(frames.max()), A), dtype=np.float32)
     for b, n in enumerate(frames):
         h[b, n:] = 0.0
-    x = np.full((B, 1), seed_class(cfg), np.int32)
+    x = architecture(cfg).first_input(cfg, B)
     n_samples = [int(n) * cfg["upsampling_factor"] - 1 for n in frames]
     ids = [f"f{i:04d}_r{b:04d}" for b in range(B)]
     return ids, (x, h, n_samples)
@@ -122,8 +122,9 @@ def window_length(cfg: dict) -> int:
 
 
 def train_window(cfg: dict, seed: int, j: int):
-    """Training window j: ``(x (T,) int32, h (T / uf, A) float32, t (T,)
-    int32)``; t is x one sample ahead."""
+    """Training window j: the architecture's ``train_inputs`` of its T + 1
+    samples and its (T / uf, A) float32 features: for the mu-law WaveNet
+    ``(x (T,) int32, h, t (T,) int32)``, t x one sample ahead."""
     rng = _rng(seed, _WINDOW, j)
     T, fs = window_length(cfg), cfg["fs"]
     n = np.arange(T + 1) / fs
@@ -133,12 +134,9 @@ def train_window(cfg: dict, seed: int, j: int):
         wav += (rng.uniform(0.05, 0.2) * np.exp(-n * rng.uniform(0.0, 2.0))
                 * np.sin(2 * np.pi * f0 * n + rng.uniform(0, 2 * np.pi)))
     wav = np.clip(wav, -1.0, 1.0)
-    m = cfg["n_quantize"] - 1
-    fx = np.sign(wav) * np.log1p(m * np.abs(wav)) / np.log1p(m)
-    cls = np.floor((fx + 1) / 2 * m + 0.5).astype(np.int32)
     h = rng.standard_normal((T // cfg["upsampling_factor"], cfg["n_aux"]),
                             dtype=np.float32)
-    return cls[:T], h, cls[1:]
+    return architecture(cfg).train_inputs(cfg, wav, h)
 
 
 def window_index(traffic: dict, rank: int, step: int) -> int:

@@ -35,8 +35,6 @@ from port_bench import traffic as tr
 from port_bench.phases import Phases
 from port_bench.weights import make_params
 
-#: The program's training step; a test names a broken one in its place.
-STEP_FACTORY = "pytorchwavenetvocoder_tpu_torch.parallel.train:make_train_step"
 #: Steps timed in set-up to fix the window's step count
 ESTIMATE_STEPS = 10
 #: Steps a ``--trace 1`` run traces, from the middle of the window
@@ -76,29 +74,22 @@ class _Clock:
         return [self.elapsed_ms(i, i + 1) for i in range(n)]
 
 
-def build(cell, seed: int, info, step_factory: str = STEP_FACTORY):
+def build(cell, seed: int, info, step_factory: str | None = None):
     """The training state from the seed's weights (rank 0's, broadcast),
-    the step, and this rank's batches."""
+    the step (the architecture's ``STEP_FACTORY``, or ``step_factory`` in
+    its place), and this rank's batches."""
     import torch.distributed as dist
 
     from pytorchwavenetvocoder_tpu_torch.convert import param_leaves
-    from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNetConfig
-    from pytorchwavenetvocoder_tpu_torch.parallel.train import (
-        create_train_state,
-    )
 
     cfg = cell.config
-    wcfg = WaveNetConfig(**{k: cfg[k] for k in cell.model_keys})
     params = make_params(cfg, seed, info.device, bf16_values=False)
     if info.world > 1:
         for _g, _n, t in param_leaves(params):
             dist.broadcast(t, 0)
-    state = create_train_state(wcfg, lr=cfg["lr"],
-                               weight_decay=cfg["weight_decay"],
-                               params=params)
-    step_fn = _factory(step_factory)(wcfg, lr=cfg["lr"],
-                                     weight_decay=cfg["weight_decay"],
-                                     n_devices=info.world)
+    state, step_fn = cell.arch.train_step(
+        cfg, params, _factory(step_factory or cell.arch.STEP_FACTORY),
+        info.world)
     return state, step_fn, tr.rank_batches(cell.traffic, cfg, seed,
                                            info.rank)
 
@@ -138,8 +129,7 @@ def rank_main(info, job: dict) -> dict:
     dev, world, rank = info.device, info.world, info.rank
     phases = Phases(job["t_start"], f" (rank {rank})")
     phases.mark("start to rank")
-    state, step_fn, batches = build(
-        cell, seed, info, job.get("step_factory", STEP_FACTORY))
+    state, step_fn, batches = build(cell, seed, info, job["step_factory"])
     phases.mark("weights, state and batches")
     W = len(batches)
     checked = checks.CHECKED_STEPS
@@ -225,7 +215,7 @@ def rank_main(info, job: dict) -> dict:
 
 def run(cell, seconds: float, seed: int, device: str, t_start: float,
         trace: bool, backend: str = "nccl",
-        step_factory: str = STEP_FACTORY) -> dict:
+        step_factory: str | None = None) -> dict:
     """Run the cell's ranks and merge what they return: rank 0's run, the
     fullest device's peak, the ranks' mean busy seconds."""
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
