@@ -155,15 +155,19 @@ def kernels() -> ctypes.CDLL:
         + [ctypes.c_float] * 2    # gscale ginv
         + [vp] * 4           # zb auxb dilb gate_scales (the streamed gate)
         + [i32]              # ring rows (total_cap * B)
-        + [vp] * 5)          # plan (host int*), arrival counters, waits,
+        + [vp] * 5           # plan (host int*), arrival counters, waits,
                              # phase times, stream
+        + [i32] * 3          # mol G M
+        + [ctypes.c_float] * 3    # rscale sscale lsmin
+        + [vp])              # clamped (u64 on the device, or null)
     lib.wn_ar_phase_slots.restype = i32
     lib.wn_ar_phase_slots.argtypes = []
     lib.wn_layer_stack_fwd.restype = i32
     lib.wn_layer_stack_fwd.argtypes = (
         [vp] * 8             # x0 streams h wgate wres zb res_b g
         + [vp]               # dilations (host int*)
-        + [i32] * 6          # n_run B T R A64 kernel_size
+        + [i32] * 7          # n_run B T R G A64 kernel_size
+        + [ctypes.c_float]   # rscale
         + [vp])              # stream
     lib.wn_layer_stack_fwd_train.restype = i32
     lib.wn_layer_stack_fwd_train.argtypes = (

@@ -113,13 +113,16 @@ def decode_counters() -> dict:
     runs) and the useful ones (the utterances' samples), and the AR
     kernel's counter waits and those whose first poll found the previous
     stage done (``k1_waits``, ``k1_waits_ready``: read from the device,
-    so this waits for its queued work)."""
+    so this waits for its queued work), and the MoL sampler's draws that
+    its clamp to [-1, 1] cut (``mol_clamped``: the plain loop's and K1's,
+    over every row-step run)."""
     from pytorchwavenetvocoder_tpu_torch.models import wavenet as wv
     from pytorchwavenetvocoder_tpu_torch.ops import ar_kernel as ak
     from pytorchwavenetvocoder_tpu_torch.ops import train_kernel as tk
 
     waits, ready = ak.k1_waits()
     return {"ar_persistent": ak.ar_generate.launches,
+            "mol_clamped": ak.mol_clamped(),
             "ar_persistent_int8": ak.ar_generate.int8_persistent_launches,
             "layer_stack_fwd": tk.layer_stack_streams.launches,
             "row_steps": wv.ROW_STEPS["run"],
@@ -134,7 +137,9 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
                    quantize: bool = False, ranks_on_device: int = 1) -> dict:
     """Decode every ``(feat_ids, (x, h, n_samples))`` batch and write
     ``<outdir>/<feat_id>.wav`` (int8 decode with ``quantize``;
-    ``ranks_on_device`` decode processes share the model's device).
+    ``ranks_on_device`` decode processes share the model's device): the
+    mu-law classes decoded, or the MoL model's samples as they are, as
+    16-bit PCM.
 
     Wav writing runs on a bounded writer thread, overlapping the next
     fleet's decode.  Returns totals: utterances, samples, decode seconds
@@ -145,6 +150,7 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
     from pytorchwavenetvocoder_tpu_torch.utils import tracing, write_wav
 
     n_quantize = model.config.n_quantize
+    mol = model.config.mol
     os.makedirs(outdir, exist_ok=True)
     write_q: queue.Queue = queue.Queue(2)
     write_exc: list[BaseException] = []
@@ -157,7 +163,9 @@ def decode_batches(model, batches, outdir: str, mode: str = "sampling",
             feat_ids_w, samples_w = item
             try:
                 for feat_id, samples in zip(feat_ids_w, samples_w):
-                    wav = decode_mu_law(samples, n_quantize)
+                    # the MoL model's samples are the waveform already
+                    wav = samples if mol else decode_mu_law(samples,
+                                                            n_quantize)
                     path = os.path.join(outdir, feat_id + ".wav")
                     write_wav(path, wav.astype(np.float32), fs)
                     logging.info("wrote %s (%d samples)", path, len(wav))
@@ -258,7 +266,8 @@ def decode_rank(info, args, feat_list: list) -> dict:
         mine,
         batch_size=fleet,
         feature_type=feature_type,
-        wav_transform=lambda x: encode_mu_law(x, config.n_quantize),
+        wav_transform=((lambda x: np.asarray(x, np.float32)) if config.mol
+                       else lambda x: encode_mu_law(x, config.n_quantize)),
         feat_transform=feature_transform(
             scaler, n_extra=int(bool(conf.get("use_speaker_code", False)))),
         upsampling_factor=conf.get("upsampling_factor", 80),

@@ -111,6 +111,22 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--upsampling_factor", default=80, type=int)
     parser.add_argument("--use_upsampling_layer", default=True, type=strtobool)
     parser.add_argument("--use_speaker_code", default=False, type=strtobool)
+    parser.add_argument("--output", default="mulaw", choices=["mulaw", "mol"],
+                        help="mulaw: one-hot input and softmax over "
+                             "n_quantize classes; mol: the mixture-of-"
+                             "logistics vocoder (raw samples in and out, "
+                             "its likelihood over n_quantize bins)")
+    parser.add_argument("--n_mix", default=10, type=int,
+                        help="mol: the head's logistics")
+    parser.add_argument("--n_gatech", default=0, type=int,
+                        help="the gate's half width G (0: n_resch)")
+    parser.add_argument("--upsampling_scales", default=[], type=_int_list,
+                        help="comma-separated ConvTranspose2d stages whose "
+                             "factors multiply to upsampling_factor (each "
+                             "followed by a ReLU); empty: one stage")
+    parser.add_argument("--dropout", default=0.0, type=float,
+                        help="dropout of each layer's conv input (plain "
+                             "route)")
     # training setting (reference train.py:371-380)
     parser.add_argument("--lr", default=1e-4, type=float)
     parser.add_argument("--weight_decay", default=0.0, type=float)
@@ -167,9 +183,14 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _int_list(text: str) -> list:
+    return [int(v) for v in text.split(",") if v.strip()]
+
+
 def model_config(args):
     """The WaveNetConfig of the flags; upsampling_factor 0 disables the
-    learned upsampler."""
+    learned upsampler.  ``--output mol`` takes r9y9's frequency kernel and
+    log-scale floor (the config's defaults)."""
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import WaveNetConfig
 
     return WaveNetConfig(
@@ -183,6 +204,9 @@ def model_config(args):
         upsampling_factor=(args.upsampling_factor
                            if args.use_upsampling_layer else 0),
         compute_dtype=args.compute_dtype,
+        output=args.output, n_mix=args.n_mix, n_gatech=args.n_gatech,
+        upsampling_scales=tuple(args.upsampling_scales),
+        dropout=args.dropout,
     )
 
 
@@ -352,6 +376,19 @@ def main(argv=None) -> dict:
 
     if args.n_devices < 1:
         raise ValueError(f"--n_devices must be >= 1, got {args.n_devices}")
+    if args.fused == "true":
+        from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+            fused_model_error,
+        )
+
+        why = fused_model_error(model_config(args))
+        if why is not None:
+            raise ValueError(f"--fused true is refused: {why} (--fused auto "
+                             "or false)")
+    if args.output == "mol" and args.batch_length <= 0:
+        raise ValueError("--output mol trains on windows: --batch_length "
+                         "must be positive (utterance mode pads the mu-law "
+                         "targets only)")
     mp = args.model_parallel
     if mp < 1:
         raise ValueError(f"--model_parallel must be >= 1, got {mp}")
@@ -409,6 +446,7 @@ _FUSED_TP = ("--fused true is incompatible with --model_parallel > 1 (the "
              "fused CUDA kernels are one-device programs).")
 
 
+
 def _check_batch(args, n_data: int) -> None:
     """Every rank trains on ``batch_size / n_data`` rows (``n_data``, the
     data axis: the ranks over ``--model_parallel``): refuse a batch the
@@ -422,6 +460,11 @@ def _check_batch(args, n_data: int) -> None:
             f"{n_data}-rank data axis: each rank trains on batch_size / "
             "(n_devices / model_parallel) rows, so --batch_size must be a "
             "multiple of the data axis")
+
+
+def _as_float32(x: np.ndarray) -> np.ndarray:
+    """The MoL model's samples: the waveform itself, float32."""
+    return np.asarray(x, np.float32)
 
 
 def _train_rank_entry(info, args) -> dict:
@@ -509,7 +552,8 @@ def train_rank(info, args) -> dict:
         batch_length=args.batch_length if args.batch_length > 0 else None,
         batch_size=args.batch_size // n_data,
         feature_type=args.feature_type,
-        wav_transform=lambda x: encode_mu_law(x, args.n_quantize),
+        wav_transform=(_as_float32 if config.mol
+                       else lambda x: encode_mu_law(x, args.n_quantize)),
         feat_transform=feature_transform(
             scaler, n_extra=int(bool(args.use_speaker_code))),
         shuffle=True,

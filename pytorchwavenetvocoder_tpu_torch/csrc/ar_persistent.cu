@@ -1,5 +1,9 @@
 // The WaveNet AR sample loop in bf16 and int8 (kernel_size 2 and 3) for
 // Hopper: one persistent cooperative kernel runs every step of a call.
+// The mixture-of-logistics model (bf16, kernel_size 3) runs the same plan
+// at its own widths in instances of its own (template MOL: a gate of half
+// width G against R, scaled output and skip sums, the MoL sampler and the
+// 1x1 input; ar_persistent_kernel below).
 //
 // Replaces pytorchwavenetvocoder_tpu/ops/ar_kernel.py::_pallas_ar_generate
 // (the fused Pallas TPU kernel) in bf16 and in its int8 path
@@ -327,6 +331,14 @@ struct ApArgs {
     unsigned long long* waits;
     // phase times (null: off): per block AP_PH u64, see wn_ar_phase_slots
     unsigned long long* phase;
+    // the gate's half width (the mu-law model: R); the MoL instances' head
+    // (M logistics: logits, means and log-scales in logits' first 3M
+    // columns), the output and skip scales and the log-scales' floor, and
+    // null or a u64 their sampler adds its clamped draws to.  ids and
+    // samples then hold float samples: ids (B, 1), samples (B, max_n)
+    int G, M;
+    float rscale, sscale, lsmin;
+    unsigned long long* clamped;
 };
 
 // phase-time slots per block: per stage type (the four weighted ones, then
@@ -607,7 +619,7 @@ static __device__ __forceinline__ float psum(const float* Ps, int ks, int rows,
 // The epilogue of one unit: rows [r0, r0 + n) (real rows only) of column
 // group grp; the sums in Ps ([ks][rows][cols]), the per-row operands in Es
 // (fetch_e), the biases in eb (after the unit's weight tiles).
-template <int KS, int T>
+template <int KS, int T, bool MOL>
 static __device__ void epilogue(const ApArgs& a, const float* Ps,
                                 const unsigned char* Es, const float* eb,
                                 int l, int p, int grp, int r0, int n, int rows,
@@ -652,7 +664,13 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
             const float v = psum(Ps, ks, rows, cols, ml, jj) + eb[jj];
             const float old = col < S && l == 0
                 ? 0.f : ((const float*)Es)[(size_t)ml * cw + jj];
-            const float nv = v + old;
+            float nv = v + old;
+            if constexpr (MOL) {
+                // the skip sum s_0, then (sum + s_l) sqrt(0.5) (r9y9's
+                // legacy form); the stream (res + x) sqrt(0.5)
+                if (col >= S) nv *= a.rscale;
+                else if (l > 0) nv *= a.sscale;
+            }
             if (col < S) {
                 a.skip[(size_t)b * S + col] = nv;
                 if (last) a.sr[(size_t)b * a.s_ld + col] = f2bf(fmaxf(nv, 0.f));
@@ -685,7 +703,7 @@ static __device__ void epilogue(const ApArgs& a, const float* Ps,
 // epilogue operands.  After its epilogue the unit arrives on its stage's
 // counter.  A block with no unit asks for the next stage's weights and
 // waits for nothing.
-template <int KS, int T, bool CW>
+template <int KS, int T, bool CW, bool MOL>
 static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
                               int Tn, int ln, int Tw, unsigned runs, ApWaits& w) {
     // the dynamic shared memory named here, not passed in: the compiler then
@@ -806,7 +824,7 @@ static __device__ void wstage(const ApArgs& a, ApBars& bars, int l, int p,
         cp_async_wait();   // this thread's epilogue operands
         consumers_sync();
         if (ph) t[3] = now_ns();
-        epilogue<KS, T>(a, Ps, Es, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
+        epilogue<KS, T, MOL>(a, Ps, Es, eb, l, p, grp, r0, n, rows, cols, ks, s.cw);
         // the unit's tiles, sums and operands are consumed before the next
         // unit's copies land (under waits: the arrival's sync)
         if constexpr (CW) arrive_stage(a, T);
@@ -1248,7 +1266,7 @@ static __device__ __forceinline__ void st_bf2(bf16* p, float lo, float hi) {
 // the same 8 channels' tanh (pack_ar_weights' interleave), so the thread
 // holds both of each of its channels; at kernel_size 2 the past tap's NW/2
 // columns follow the current tap's, in the same order.
-template <int KS, bool Q8, int NW>
+template <int KS, bool Q8, int NW, bool MOL>
 static __device__ void gate_consume(const ApArgs& a, unsigned char* ring, uint64_t* full,
                                     uint64_t* empty, ApRing& rp, int l, int p) {
     const ApStream& s = a.sg;
@@ -1295,8 +1313,10 @@ static __device__ void gate_consume(const ApArgs& a, unsigned char* ring, uint64
                 }
             }
             if constexpr (!Q8) {
-                bias[q][0] = __ldg((const float2*)(a.zb + (size_t)l * 2 * R + ch));
-                bias[q][1] = __ldg((const float2*)(a.zb + (size_t)l * 2 * R + R + ch));
+                // zb is [sigmoid | tanh] of the gate's half width
+                const int GW = MOL ? a.G : R;
+                bias[q][0] = __ldg((const float2*)(a.zb + (size_t)l * 2 * GW + ch));
+                bias[q][1] = __ldg((const float2*)(a.zb + (size_t)l * 2 * GW + GW + ch));
             }
         }
         if (ph) t[1] = now_ns();
@@ -1445,29 +1465,106 @@ static __device__ void gate_consume(const ApArgs& a, unsigned char* ring, uint64
 }
 
 // The streamed gate stage on the consumers, at the plan's warpgroup width.
-template <int KS, bool Q8>
+template <int KS, bool Q8, bool MOL>
 static __device__ void gate_consume_at(const ApArgs& a, unsigned char* ring,
                                        uint64_t* full, uint64_t* empty, ApRing& rp,
                                        int l, int p) {
     switch (a.sg.nw) {
     case 16:   // kernel_size 2 splits a warpgroup's columns between two taps
-        if constexpr (KS == 3) gate_consume<KS, Q8, 16>(a, ring, full, empty, rp, l, p);
+        if constexpr (KS == 3) gate_consume<KS, Q8, 16, MOL>(a, ring, full, empty, rp, l, p);
         break;
-    case 32: gate_consume<KS, Q8, 32>(a, ring, full, empty, rp, l, p); break;
-    case 64: gate_consume<KS, Q8, 64>(a, ring, full, empty, rp, l, p); break;
+    case 32: gate_consume<KS, Q8, 32, MOL>(a, ring, full, empty, rp, l, p); break;
+    case 64: gate_consume<KS, Q8, 64, MOL>(a, ring, full, empty, rp, l, p); break;
     default:   // int8 at kernel_size 3: 64 at most (check_stream)
-        if constexpr (!(Q8 && KS == 3)) gate_consume<KS, Q8, 128>(a, ring, full, empty, rp, l, p);
+        if constexpr (!(Q8 && KS == 3)) gate_consume<KS, Q8, 128, MOL>(a, ring, full, empty, rp, l, p);
         break;
     }
 }
 
+// The MoL model's embed of row b for position p: x = y w_in + b_in (each
+// rounded, as the plain version's) in f32 and bf16, and the step's aux
+// column after the stream; one warp, a lane 8 channels at a time.
+static __device__ void embed_mol(const ApArgs& a, int b, float y, int p, int lane) {
+    const int R = a.R, W = a.xs_ld;
+    for (int r = 8 * lane; r < R; r += 256) {
+        const uint4 e = __ldg((const uint4*)(a.causal_w + r));
+        const float4 c0 = __ldg((const float4*)(a.causal_b + r));
+        const float4 c1 = __ldg((const float4*)(a.causal_b + r + 4));
+        const float cb[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        const unsigned u2[4] = {e.x, e.y, e.z, e.w};
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float2 f = bits_bf2(u2[i / 2]);
+            v[i] = __fadd_rn(__fmul_rn(y, i & 1 ? f.y : f.x), cb[i]);
+        }
+        float4* of = (float4*)(a.of + (size_t)b * R + r);
+        of[0] = make_float4(v[0], v[1], v[2], v[3]);
+        of[1] = make_float4(v[4], v[5], v[6], v[7]);
+        *(uint4*)(a.xs + (size_t)b * W + r) =
+            make_uint4(bf2_bits(v[0], v[1]), bf2_bits(v[2], v[3]),
+                       bf2_bits(v[4], v[5]), bf2_bits(v[6], v[7]));
+    }
+    const float* hp = a.h_up + ((size_t)b * a.h_T + p) * a.A;
+    bf16* aux = a.xs + (size_t)b * W + R;
+    for (int i = lane; i < a.A; i += 32) aux[i] = f2bf(hp[i]);
+}
+
+// The MoL sampler's uniform j of (row, step): word j % 4 of the
+// Philox4x32-10 block of the counter (j / 4, row, step, 1) under the key
+// (seed's low word, its high word), as ((bits >> 9) + 0.5) 2^-23 in (0, 1),
+// then 1e-5 + (1 - 2e-5) u (r9y9's interval), each operation rounded.
+static __device__ __forceinline__ float mol_uniform(unsigned long long seed, int row,
+                                                    int step, int j) {
+    const uint4 ctr = make_uint4((unsigned)j >> 2, (unsigned)row, (unsigned)step, 1u);
+    const uint4 r = philox4x32_10(ctr, make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
+    const unsigned w = (j & 3) == 0 ? r.x : (j & 3) == 1 ? r.y : (j & 3) == 2 ? r.z : r.w;
+    const float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
+    return __fadd_rn(__fmul_rn(u, 0.99998f), 1e-5f);
+}
+
+// One warp: the MoL sample of row b at step `step` from its 3M head outputs
+// (logits, means, log-scales): lane j < M takes component j's score, its
+// logit (plus the Gumbel noise -log(-log u_j) in sampling mode), the warp
+// the argmax (ties to the lowest index, all-NaN scores to 0); the sample is
+// the component's mean (greedy) or mu + exp(max(log_s, floor)) (log v -
+// log(1 - v)) with v = u_M, clamped to [-1, 1].  Every lane returns it.
+static __device__ float mol_sample_row(const ApArgs& a, int b, int step, int lane) {
+    const float* lg = a.logits + (size_t)b * a.Q;
+    const int M = a.M;
+    float best = -INFINITY, v = 0.5f;
+    int bi = 0x7fffffff;
+    if (lane < M) {
+        float sc = __ldcg(lg + lane);
+        if (a.sampling) sc += -logf(-logf(mol_uniform(a.seed, b, step, lane)));
+        if (sc > best) { best = sc; bi = lane; }
+    } else if (lane == M && a.sampling) {
+        v = mol_uniform(a.seed, b, step, M);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+    }
+    v = __shfl_sync(0xffffffffu, v, M);
+    const int c = bi < M ? bi : 0;
+    float y = __ldcg(lg + M + c);
+    if (a.sampling) {
+        const float ls = fmaxf(__ldcg(lg + 2 * M + c), a.lsmin);
+        y = y + expf(ls) * (logf(v) - logf(1.0f - v));
+    }
+    return fminf(fmaxf(y, -1.0f), 1.0f);
+}
+
 // One warp per row: the argmax of the logits (plus the Gumbel noise in
 // sampling mode; ties to the lowest index, all-NaN logits to 0), the ids
-// shifted, and, before a next step, its embed and aux column.  Under
-// counter waits (CW), per unit thread 0 first waits until post2's units
-// have arrived from step + 1 runs, and the unit then arrives on the sample
-// stage's counter.
-template <int KS, bool Q8, bool CW>
+// shifted, and, before a next step, its embed and aux column (MOL: the
+// MoL sample, mol_sample_row, its clamped draws counted, and its embed).
+// Under counter waits (CW), per unit thread 0 first waits until post2's
+// units have arrived from step + 1 runs, and the unit then arrives on the
+// sample stage's counter.
+template <int KS, bool Q8, bool CW, bool MOL>
 static __device__ void sample_stage(const ApArgs& a, int step, int p, ApWaits& w) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const unsigned long long t0 = a.phase != nullptr ? now_ns() : 0;
@@ -1484,7 +1581,16 @@ static __device__ void sample_stage(const ApArgs& a, int step, int p, ApWaits& w
             consumers_sync();
         }
         const int b = u * AP_SROWS + warp;
-        if (b < a.B) {
+        if (MOL && b < a.B) {
+            const float y = mol_sample_row(a, b, step, lane);
+            __syncwarp();
+            if (lane == 0) {
+                ((float*)a.samples)[(size_t)b * a.max_n + step] = y;
+                ((float*)a.ids)[b] = y;
+                if (a.clamped != nullptr && fabsf(y) >= 1.0f) atomicAdd(a.clamped, 1ull);
+            }
+            if (step + 1 < a.max_n) embed_mol(a, b, y, p + 1, lane);
+        } else if (b < a.B) {
             // a lane 4 classes at a time (one 16-byte load, one Philox
             // block); the result does not depend on the order
             float best = -INFINITY;
@@ -1533,14 +1639,16 @@ static __device__ void sample_stage(const ApArgs& a, int step, int p, ApWaits& w
 
 // The first step's embed and aux column from the carry's ids, in the
 // sample stage's units: the sample stage's first run.
-template <int KS, bool Q8, bool CW>
+template <int KS, bool Q8, bool CW, bool MOL>
 static __device__ void embed_stage(const ApArgs& a) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int units = sample_units(a);
     const int u0 = unit_begin(units, blockIdx.x), u1 = unit_begin(units, blockIdx.x + 1);
     for (int u = u0; u < u1; ++u) {
         const int b = u * AP_SROWS + warp;
-        if (b < a.B) {
+        if (MOL && b < a.B) {
+            embed_mol(a, b, ((const float*)a.ids)[b], a.T0 - 1, lane);
+        } else if (b < a.B) {
             int id[KS];
 #pragma unroll
             for (int j = 0; j < KS; ++j) id[j] = a.ids[(size_t)b * KS + j];
@@ -1599,7 +1707,13 @@ static __device__ __forceinline__ void timed_sync(const ApArgs& a, cg::grid_grou
 // launch guarantees.  The streamed instance keeps a grid barrier after
 // every stage: on the same waits it ran 2-3% slower at bf16 kernel_size 3
 // and 128-256 rows, and 26% at 512 (PERF.md, "K1 without grid barriers").
-template <int KS, bool Q8, bool ST>
+//
+// MOL: the mixture-of-logistics model (bf16, kernel_size 3): the res
+// stage's epilogue scales the stream and the skip sum, the sample stage
+// runs the MoL sampler and the 1x1 input (sample_stage, embed_stage), the
+// streamed gate's biases are of the gate's half width G.  The mu-law
+// instances (MOL false) are the code they were.
+template <int KS, bool Q8, bool ST, bool MOL>
 __global__ void __launch_bounds__(ST ? AP_BLOCK : AP_THREADS, 1)
 ar_persistent_kernel(const __grid_constant__ ApArgs a) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -1630,7 +1744,7 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
     const int L = a.L;
     if (worker) {
         if (threadIdx.x == 0 && !ST) prefetch(a, smem, bars, AP_GATE, 0);
-        embed_stage<KS, Q8, CW>(a);
+        embed_stage<KS, Q8, CW, MOL>(a);
     }
     if constexpr (ST) timed_sync(a, grid, w);
     // the stage after which the next gate's weights are asked for: none
@@ -1645,7 +1759,7 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
                     gate_produce<KS, Q8>(a, ring, full, empty, rp, l, p);
                 } else if (worker) {
                     if (threadIdx.x == 0) prefetch(a, smem, bars, AP_RES, l);
-                    gate_consume_at<KS, Q8>(a, ring, full, empty, rp, l, p);
+                    gate_consume_at<KS, Q8, MOL>(a, ring, full, empty, rp, l, p);
                     fence_proxy_async();
                 }
                 timed_sync(a, grid, w);
@@ -1654,27 +1768,28 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
                 const int Tw = l > 0 ? AP_RES : AP_SAMPLE;
                 const unsigned runs = l > 0 ? (unsigned)(i * L + l) : (unsigned)i + 1;
                 if constexpr (Q8) wstage_q8<KS, AP_GATE, CW>(a, bars, l, p, AP_RES, l, Tw, runs, w);
-                else wstage<KS, AP_GATE, CW>(a, bars, l, p, AP_RES, l, Tw, runs, w);
+                else wstage<KS, AP_GATE, CW, MOL>(a, bars, l, p, AP_RES, l, Tw, runs, w);
             }
             if (worker) {
                 const unsigned gr = (unsigned)(i * L + l + 1);
                 if constexpr (Q8) wstage_q8<KS, AP_RES, CW>(a, bars, l, p, Tn, ln, AP_GATE, gr, w);
-                else wstage<KS, AP_RES, CW>(a, bars, l, p, Tn, ln, AP_GATE, gr, w);
+                else wstage<KS, AP_RES, CW, MOL>(a, bars, l, p, Tn, ln, AP_GATE, gr, w);
                 // the next gate's TMA writes over this stage's shared memory
                 if constexpr (ST) fence_proxy_async_smem();
             }
             if constexpr (ST) timed_sync(a, grid, w);
         }
         if (worker)
-            wstage<KS, AP_POST1, CW>(a, bars, 0, p, AP_POST2, 0, AP_RES, (unsigned)((i + 1) * L), w);
+            wstage<KS, AP_POST1, CW, MOL>(a, bars, 0, p, AP_POST2, 0, AP_RES,
+                                          (unsigned)((i + 1) * L), w);
         if constexpr (ST) timed_sync(a, grid, w);
         // the next step's first gate weights: buffer 0, free since post1
         if (worker)
-            wstage<KS, AP_POST2, CW>(a, bars, 0, p, i + 1 < a.max_n ? gate_next : -1, 0,
+            wstage<KS, AP_POST2, CW, MOL>(a, bars, 0, p, i + 1 < a.max_n ? gate_next : -1, 0,
                                      AP_POST1, (unsigned)i + 1, w);
         if constexpr (ST) timed_sync(a, grid, w);
         if (worker) {
-            sample_stage<KS, Q8, CW>(a, i, p, w);
+            sample_stage<KS, Q8, CW, MOL>(a, i, p, w);
             if constexpr (ST) fence_proxy_async_smem();
         }
         if (ST && i + 1 < a.max_n) timed_sync(a, grid, w);
@@ -1686,8 +1801,8 @@ ar_persistent_kernel(const __grid_constant__ ApArgs a) {
 
 // Stage T's shape: K (weight rows; int8 products: of each segment), the
 // quarters a unit spans, the columns N of each quarter and the int8
-// segments (0: a bf16 stage).
-static void stage_shape(int T, int K_, bool q8, int R, int S, int Q, int Ap,
+// segments (0: a bf16 stage); G the gate's half width.
+static void stage_shape(int T, int K_, bool q8, int R, int S, int Q, int Ap, int G,
                         ApStage* s) {
     s->quarters = 1;
     s->segs = 0;
@@ -1695,26 +1810,28 @@ static void stage_shape(int T, int K_, bool q8, int R, int S, int Q, int Ap,
     case AP_GATE:
         s->K = q8 ? R : K_ == 2 ? R + Ap : 3 * R + Ap;
         s->quarters = K_ == 2 ? 2 : 1;
-        s->N = 2 * R;
+        s->N = 2 * G;
         if (q8) s->segs = K_ == 2 ? 1 : 3;
         break;
-    case AP_RES: s->K = R; s->N = S + R; s->segs = q8 ? 1 : 0; break;
+    case AP_RES: s->K = G; s->N = S + R; s->segs = q8 ? 1 : 0; break;
     case AP_POST1: s->K = S; s->N = S; break;
     default: s->K = S; s->N = Q; break;
     }
 }
 
 template <bool ST>
-static const void* kernel_fn_(int K, bool q8) {
-    if (q8) return K == 2 ? (const void*)ar_persistent_kernel<2, true, ST>
-                          : (const void*)ar_persistent_kernel<3, true, ST>;
-    return K == 2 ? (const void*)ar_persistent_kernel<2, false, ST>
-                  : (const void*)ar_persistent_kernel<3, false, ST>;
+static const void* kernel_fn_(int K, bool q8, bool mol) {
+    if (mol) return (const void*)ar_persistent_kernel<3, false, ST, true>;
+    if (q8) return K == 2 ? (const void*)ar_persistent_kernel<2, true, ST, false>
+                          : (const void*)ar_persistent_kernel<3, true, ST, false>;
+    return K == 2 ? (const void*)ar_persistent_kernel<2, false, ST, false>
+                  : (const void*)ar_persistent_kernel<3, false, ST, false>;
 }
 
-// the instance for the plan's gate design, and its block
-static const void* kernel_fn(int K, bool q8, bool stream) {
-    return stream ? kernel_fn_<true>(K, q8) : kernel_fn_<false>(K, q8);
+// the instance for the plan's gate design and the model (mol: the MoL
+// instances, bf16 at kernel_size 3), and its block
+static const void* kernel_fn(int K, bool q8, bool stream, bool mol) {
+    return stream ? kernel_fn_<true>(K, q8, mol) : kernel_fn_<false>(K, q8, mol);
 }
 
 static int block_threads(bool stream) { return stream ? AP_BLOCK : AP_THREADS; }
@@ -1738,7 +1855,7 @@ static int check_stream(const int* plan, ApArgs* a, int K_, bool q8, int wcap, i
     // (int8 at kernel_size 3 keeps four sums of nw / 2 registers a thread)
     const bool nw_ok = s.nw == 16 || s.nw == 32 || s.nw == 64
                     || (s.nw == 128 && !(q8 && K_ == 3));
-    if ((s.m != 1 && s.m != 2) || !nw_ok || s.cw < 16 || (2 * R) % s.cw
+    if ((s.m != 1 && s.m != 2) || !nw_ok || s.cw < 16 || (2 * a->G) % s.cw
         || s.nw * (s.m == 1 ? 2 : 1) != quarters * s.cw || (s.nw / quarters) % 16)
         return -3;
     const int nx = q8 ? (R + AP_CHUNK - 1) / AP_CHUNK : (R + a->Ap + 63) / 64;
@@ -1746,7 +1863,7 @@ static int check_stream(const int* plan, ApArgs* a, int K_, bool q8, int wcap, i
     const int na = q8 ? (a->Ap + 63) / 64 : 0;
     if (s.nx != nx || s.nl != nl || s.na != na) return -3;
     s.nc = nx + 2 * nl + na;
-    s.G = 2 * R / s.cw;
+    s.G = 2 * a->G / s.cw;
     s.rb = (a->B + AP_SLAB * s.m - 1) / (AP_SLAB * s.m);
     s.units = s.G * s.rb;
     s.a_bytes = AP_SLAB * s.m * AP_CHUNK;
@@ -1764,8 +1881,8 @@ static int check_stream(const int* plan, ApArgs* a, int K_, bool q8, int wcap, i
 // against the shapes and the card, and fill the stages.  0, or -1 (the grid
 // cannot be co-resident), -2 (no cooperative launch), -3 (a plan that does
 // not cut the stages or fit its shared memory), or a CUDA error.
-static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
-                      int* smem) {
+static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, bool mol,
+                      int* grid, int* smem) {
     *grid = plan[0];
     *smem = plan[1];
     a->smem_w[0] = plan[2];
@@ -1783,13 +1900,14 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
     if (a->smem_w[lo] != 0 || cap[lo] < 0 || cap[hi] < 0
         || a->smem_p < a->smem_a || a->smem_e < a->smem_p || *smem < a->smem_e
         || *grid < 1 || a->R % (q8 ? 32 : 16) || a->S % 16 || a->Q % 16
-        || a->Ap % 16 || a->Ap < a->A)
+        || a->Ap % 16 || a->Ap < a->A || a->G % 16 || a->G < 16
+        || (mol && (q8 || K_ != 3 || a->M < 1 || a->M > 31 || 3 * a->M > a->Q)))
         return -3;
     if (check_stream(plan, a, K_, q8, a->smem_w[0], *smem) != 0) return -3;
     for (int T = 0; T < AP_NSTAGES; ++T) {
         if (T == AP_GATE && stream) continue;
         ApStage& s = a->st[T];
-        stage_shape(T, K_, q8, a->R, a->S, a->Q, a->Ap, &s);
+        stage_shape(T, K_, q8, a->R, a->S, a->Q, a->Ap, a->G, &s);
         s.cw = plan[7 + 3 * T];
         s.mt = plan[8 + 3 * T];
         s.ks = plan[9 + 3 * T];
@@ -1827,7 +1945,7 @@ static int check_plan(const int* plan, ApArgs* a, int K_, bool q8, int* grid,
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return (int)e;
     if (!coop) return -2;
-    const void* fn = kernel_fn(K_, q8, stream);
+    const void* fn = kernel_fn(K_, q8, stream, mol);
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, block_threads(stream),
@@ -1878,6 +1996,14 @@ extern "C" {
 // (int8: (L, 2 or 3, 2R), the column scales of the current tap and the
 // past tap, or of the current tap and the lags d and 2d).  Returns 0, a
 // negative plan error (check_plan) or a CUDA error.
+// mol: the mixture-of-logistics model (bf16, kernel_size 3, q8 0), with G
+// the gate's half width (gs (B, G + 8), the gate stage 2G columns, the res
+// stage G rows), Q the head's columns padded to 16 (logits (B, Q), the
+// first 3M the head's), M the logistics, rscale and sscale the stream's and
+// the skip sum's scales, lsmin the log-scales' floor, clamped null or a u64
+// the sampler adds its clamped draws to; ids (B, 1) and samples (B, max_n)
+// f32 samples, ids updated in place.  The mu-law model passes G = R and
+// leaves M, the scales, lsmin and clamped unread.
 int wn_ar_generate_persistent(
     const void* w_gate, const void* w_res, const void* w_post1, const void* w_post2,
     const void* causal_w, const void* causal_b, const void* h_up, int h_T,
@@ -1888,8 +2014,10 @@ int wn_ar_generate_persistent(
     const void* ascale, const void* ainv, float gscale, float ginv,
     const void* zb, const void* auxb, const void* dilb, const void* gsc,
     int ring_rows, const void* plan, void* ctr, void* waits, void* phase,
-    void* stream) {
+    void* stream, int mol, int G, int M, float rscale, float sscale, float lsmin,
+    void* clamped) {
     if (K != 2 && K != 3) return (int)cudaErrorInvalidValue;
+    if (mol && (K != 3 || q8)) return (int)cudaErrorInvalidValue;
     if (B < 1 || max_n < 1 || L < 1) return -3;
     ApArgs a{};
     a.w[AP_GATE] = (const unsigned char*)w_gate;
@@ -1929,7 +2057,13 @@ int wn_ar_generate_persistent(
     a.A = A;
     a.Ap = (A + 15) / 16 * 16;
     a.xs_ld = R + a.Ap + AP_PAD;
-    a.gs_ld = R + AP_PAD;
+    a.gs_ld = G + AP_PAD;
+    a.G = G;
+    a.M = M;
+    a.rscale = rscale;
+    a.sscale = sscale;
+    a.lsmin = lsmin;
+    a.clamped = (unsigned long long*)clamped;
     a.s_ld = S + AP_PAD;
     a.q_ld = R + AP_QPAD;
     a.xa_ld = a.Ap + AP_PAD;
@@ -1943,7 +2077,7 @@ int wn_ar_generate_persistent(
     a.ctr = (unsigned*)ctr;
     a.waits = (unsigned long long*)waits;
     int grid = 0, smem = 0;
-    const int err = check_plan((const int*)plan, &a, K, q8 != 0, &grid, &smem);
+    const int err = check_plan((const int*)plan, &a, K, q8 != 0, mol != 0, &grid, &smem);
     if (err != 0) return err;
     if (ctr == nullptr) return -3;
     if (a.sg.on) {
@@ -1958,7 +2092,7 @@ int wn_ar_generate_persistent(
                                     (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     static_assert(AP_CTR0 == 0xFFFFFFFFu, "the memset's byte");
-    e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0, st), dim3(grid),
+    e = cudaLaunchCooperativeKernel(kernel_fn(K, q8 != 0, st, mol != 0), dim3(grid),
                                     dim3(block_threads(st)), args, smem,
                                     (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;

@@ -49,11 +49,12 @@ struct FwdGate {
     static constexpr int A_MN = 0, B_MN = 0, BN = 256, BLOCKS = 1;
     CUtensorMap xmap;    // this layer's input stream, (planes, T, R), rows 128
     CUtensorMap hmap;    // aux (B, T, A64), rows 128
-    CUtensorMap wmap;    // packed gate weights (layers, 2R, K*R + A64), rows 128
-    const float* zb;     // (2R) dil_b + aux_b
-    bf16* g;             // (B, T, R)
+    CUtensorMap wmap;    // packed gate weights (layers, 2G, K*R + A64), rows 128
+    const float* zb;     // (2G) dil_b + aux_b
+    bf16* g;             // (B, T, G)
     bf16* st;            // (B, T, 2R) this layer's sigma | tanh (training)
     int B, T, R, A64, K, d, l, plane0, ntt, nN;
+    int G;               // the gate's half width (the mu-law model's: R)
 
     __device__ int items() const { return B * ntt * nN; }
     __device__ int ksteps(int) const { return (K * R + A64) / WG_BK; }
@@ -86,7 +87,7 @@ struct FwdGate {
         for (int i = 0; i < BN / 16; ++i) {
             const int c = nt * (BN / 2) + 8 * i + f.col;
             const float bs0 = zb[c], bs1 = zb[c + 1];
-            const float bt0 = zb[R + c], bt1 = zb[R + c + 1];
+            const float bt0 = zb[G + c], bt1 = zb[G + c + 1];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int t = t0 + f.row + 8 * h;
@@ -104,7 +105,7 @@ struct FwdGate {
                     *(uint32_t*)(sr + c) = bf2_bits(sg0, sg1);
                     *(uint32_t*)(sr + R + c) = bf2_bits(th0, th1);
                 } else {
-                    *(uint32_t*)(g + row * R + c) =
+                    *(uint32_t*)(g + row * G + c) =
                         bf2_bits(wn_gate(s0, u0), wn_gate(s1, u1));
                 }
             }
@@ -113,20 +114,24 @@ struct FwdGate {
 };
 
 // (2) the residual 1x1 (columns [0, R)) and the skip 1x1 (columns
-// [R, R + S)) on g, over output columns [n_lo, n_lo + 128 nN)
+// [R, R + S)) on g, over output columns [n_lo, n_lo + 128 nN); the output
+// stream bf16((g W_res + b_res + x) rscale) where rscale is not 1 (the
+// MoL model's sqrt(0.5))
 struct FwdOut {
     static constexpr int A_MN = 0, B_MN = 0, BN = 128, BLOCKS = 2;
-    CUtensorMap gmap;      // g (B, T, R), rows 128
-    CUtensorMap wmap;      // packed (layers, R + S, R): W_res^T then W_skip^T
+    CUtensorMap gmap;      // g (B, T, G), rows 128
+    CUtensorMap wmap;      // packed (layers, R + S, G): W_res^T then W_skip^T
     const bf16* x;         // this layer's input stream (B, T, R)
     bf16* out;             // its output stream (B, T, R)
     const float* res_b;    // (R)
     float* skip;           // (B, T, S) f32 skip sum (training)
     const float* skip_b;   // (S)
     int B, T, R, S, l, ntt, n_lo, nN, first;
+    int G;                 // the product's K: the gate's half width
+    float rscale;
 
     __device__ int items() const { return B * ntt * nN; }
-    __device__ int ksteps(int) const { return R / WG_BK; }
+    __device__ int ksteps(int) const { return G / WG_BK; }
 
     __device__ void load(int it, int ks, unsigned char* sa, unsigned char* sb,
                          uint64_t* bar) const {
@@ -155,8 +160,12 @@ struct FwdOut {
                 const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
                 if (n0 < R) {
                     const float2 xv = bits_bf2(*(const uint32_t*)(x + row * R + n));
-                    *(uint32_t*)(out + row * R + n) =
-                        bf2_bits(a0 + res_b[n] + xv.x, a1 + res_b[n + 1] + xv.y);
+                    float v0 = a0 + res_b[n] + xv.x, v1 = a1 + res_b[n + 1] + xv.y;
+                    if (rscale != 1.f) {
+                        v0 *= rscale;
+                        v1 *= rscale;
+                    }
+                    *(uint32_t*)(out + row * R + n) = bf2_bits(v0, v1);
                 } else {
                     const int sc = n - R;
                     float2* dst = (float2*)(skip + row * S + sc);
@@ -177,37 +186,39 @@ struct FwdMaps {
 };
 
 // the maps of one call: x0 (B, T, R), streams (n_str, B, T, R), h (B, T,
-// A64), the packed weights of n_w layers, g (B, T, R)
+// A64), the packed weights of n_w layers, g (B, T, G)
 static int fwd_maps(FwdMaps& m, const void* x0, const void* streams, int n_str,
                     const void* h, const void* wgate, const void* wout, int n_w,
-                    int n_out, const void* g, int B, int T, int R, int A64, int K) {
+                    int n_out, const void* g, int B, int T, int R, int A64, int K,
+                    int G) {
     int e;
     if ((e = wg_map(&m.x0, x0, R, T, B, WG_BM))) return e;
     if (n_str > 0 && (e = wg_map(&m.xs, streams, R, T, (long long)n_str * B, WG_BM)))
         return e;
     if ((e = wg_map(&m.h, h, A64, T, B, WG_BM))) return e;
-    if ((e = wg_map(&m.wg, wgate, (long long)K * R + A64, 2 * R, n_w,
+    if ((e = wg_map(&m.wg, wgate, (long long)K * R + A64, 2 * G, n_w,
                     FwdGate<true>::BN)))
         return e;
-    if ((e = wg_map(&m.g, g, R, T, B, WG_BM))) return e;
-    return wg_map(&m.wo, wout, R, n_out, n_w, FwdOut::BN);
+    if ((e = wg_map(&m.g, g, G, T, B, WG_BM))) return e;
+    return wg_map(&m.wo, wout, G, n_out, n_w, FwdOut::BN);
 }
 
 template <bool TRAIN>
 static FwdGate<TRAIN> gate_problem(const FwdMaps& m, int l, int d, const void* zb,
                                    void* g, void* st, int B, int T, int R, int A64,
-                                   int K) {
+                                   int K, int G) {
     FwdGate<TRAIN> p;
     p.xmap = l == 0 ? m.x0 : m.xs;
     p.hmap = m.h;
     p.wmap = m.wg;
-    p.zb = (const float*)zb + (size_t)l * 2 * R;
+    p.zb = (const float*)zb + (size_t)l * 2 * G;
     p.g = (bf16*)g;
     p.st = (bf16*)st;
     p.B = B; p.T = T; p.R = R; p.A64 = A64; p.K = K; p.d = d; p.l = l;
+    p.G = G;
     p.plane0 = l == 0 ? 0 : (l - 1) * B;
     p.ntt = (T + WG_BM - 1) / WG_BM;
-    p.nN = 2 * R / p.BN;
+    p.nN = 2 * G / p.BN;
     return p;
 }
 
@@ -221,29 +232,33 @@ static int check_fwd_shape(int B, int T, int R, int A64, int K) {
 // The streams-only forward: layers 0 .. n_run-1 on `stream`.  Layer l reads
 // stream l (x0 for l = 0, else streams[l-1]) and writes streams[l];
 // streams is (n_run, B, T, R) bf16.  h: (B, T, A64) bf16, zero past n_aux;
-// wgate: (n_run, 2R, K*R + A64) and wres: (n_run, R, R) bf16, packed by
-// ops/train_kernel.py; zb (n_run, 2R) and res_b (n_run, R) f32; g: (B, T,
-// R) bf16 scratch; dilations: a host array of n_run ints.  Returns
-// cudaGetLastError() (0 = success).
+// wgate: (n_run, 2G, K*R + A64) and wres: (n_run, R, G) bf16, packed by
+// ops/train_kernel.py, G the gate's half width (R, or a multiple of 128);
+// zb (n_run, 2G) and res_b (n_run, R) f32; g: (B, T, G) bf16 scratch;
+// dilations: a host array of n_run ints; rscale the output streams' scale
+// (1, or the MoL model's sqrt(0.5)).  Returns cudaGetLastError() (0 =
+// success).
 extern "C" int wn_layer_stack_fwd(
     const void* x0, void* streams, const void* h, const void* wgate,
     const void* wres, const void* zb, const void* res_b, void* g,
-    const void* dilations_v, int n_run, int B, int T, int R, int A64, int K,
-    void* stream) {
+    const void* dilations_v, int n_run, int B, int T, int R, int G, int A64, int K,
+    float rscale, void* stream) {
     const int* dil = (const int*)dilations_v;
     cudaStream_t cs = (cudaStream_t)stream;
     int e;
     if ((e = check_fwd_shape(B, T, R, A64, K))) return e;
+    if (G < FwdGate<false>::BN / 2 || G % (FwdGate<false>::BN / 2) != 0)
+        return (int)cudaErrorInvalidValue;
     if (n_run < 1) return 0;
     FwdMaps m;
     if ((e = fwd_maps(m, x0, streams, n_run, h, wgate, wres, n_run, R, g, B, T, R,
-                      A64, K)))
+                      A64, K, G)))
         return e;
     const size_t ss = (size_t)B * T * R;
     const int ntt = (T + WG_BM - 1) / WG_BM;
     for (int l = 0; l < n_run; ++l) {
         const FwdGate<false> pg = gate_problem<false>(m, l, dil[l], zb, g, nullptr,
-                                                      B, T, R, A64, K);
+                                                      B, T, R, A64, K, G);
         if ((e = wg_launch(pg, pg.B * pg.ntt * pg.nN, cs))) return e;
         FwdOut po;
         po.gmap = m.g;
@@ -255,6 +270,7 @@ extern "C" int wn_layer_stack_fwd(
         po.skip_b = nullptr;
         po.B = B; po.T = T; po.R = R; po.S = 0; po.l = l; po.ntt = ntt;
         po.n_lo = 0; po.nN = R / po.BN; po.first = 0;
+        po.G = G; po.rscale = rscale;
         if ((e = wg_launch(po, B * ntt * po.nN, cs))) return e;
     }
     return (int)cudaGetLastError();
@@ -279,13 +295,13 @@ extern "C" int wn_layer_stack_fwd_train(
         return (int)cudaErrorInvalidValue;
     FwdMaps m;
     if ((e = fwd_maps(m, x0, streams, L - 1, h, wgate, wout, L, R + S, g, B, T, R,
-                      A64, K)))
+                      A64, K, R)))
         return e;
     const size_t ss = (size_t)B * T * R;
     const int ntt = (T + WG_BM - 1) / WG_BM;
     for (int l = 0; l < L; ++l) {
         const FwdGate<true> pg = gate_problem<true>(
-            m, l, dil[l], zb, g, (bf16*)st + (size_t)l * 2 * ss, B, T, R, A64, K);
+            m, l, dil[l], zb, g, (bf16*)st + (size_t)l * 2 * ss, B, T, R, A64, K, R);
         if ((e = wg_launch(pg, pg.B * pg.ntt * pg.nN, cs))) return e;
         FwdOut po;
         po.gmap = m.g;
@@ -300,6 +316,7 @@ extern "C" int wn_layer_stack_fwd_train(
         po.n_lo = l < L - 1 ? 0 : R;
         po.nN = ((l < L - 1 ? R : 0) + S) / po.BN;
         po.first = l == 0;
+        po.G = R; po.rscale = 1.f;
         if ((e = wg_launch(po, B * ntt * po.nN, cs))) return e;
     }
     return (int)cudaGetLastError();

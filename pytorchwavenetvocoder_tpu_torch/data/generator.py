@@ -81,6 +81,13 @@ def _load_utterance(wavfile: str, featfile: str, feature_type: str,
     return x, h
 
 
+def _sample_dtype(x: np.ndarray):
+    """int32 for class ids (a mu-law transform's output), float32 for the
+    samples a transform keeps as floats (the MoL model's)."""
+    return (np.float32 if np.issubdtype(np.asarray(x).dtype, np.floating)
+            else np.int32)
+
+
 def _emit(x_win: np.ndarray, h_win: np.ndarray,
           wav_transform: Optional[Callable],
           feat_transform: Optional[Callable],
@@ -97,8 +104,9 @@ def _emit(x_win: np.ndarray, h_win: np.ndarray,
         x_win = wav_transform(x_win)
     if feat_transform is not None:
         h_win = feat_transform(h_win)
-    x_in = np.asarray(x_win[:-1], np.int32)
-    t = np.asarray(x_win[1:], np.int32)
+    dt = _sample_dtype(x_win)
+    x_in = np.asarray(x_win[:-1], dt)
+    t = np.asarray(x_win[1:], dt)
     h = np.asarray(h_win[:-1] if drop_last_sample else h_win, np.float32)
     return x_in, h, t
 
@@ -287,7 +295,7 @@ def decode_generator(feat_list: Sequence[str],
         x = np.zeros((1,), np.float32)
         if wav_transform is not None:
             x = wav_transform(x)
-        return np.asarray(x, np.int32)
+        return np.asarray(x, _sample_dtype(x))
 
     def n_samples_of(h: np.ndarray) -> int:
         if use_upsampling_layer:

@@ -15,6 +15,17 @@ channels-last matmul weights (``y = x @ w + b``), stacked per layer:
   aux.w    (L, A, 2R)     skip.w (L, R, S)     res.w (L, R, R)
   post1.w  (S, S)         post2.w (S, Q)       upsampling.w (uf,)
 
+The mixture-of-logistics vocoder (``WaveNetConfig(output="mol")``,
+r9y9/wavenet_vocoder's mixture preset, the vocoder of Tacotron 2) keeps the
+layout with its own widths: ``causal.w (1, 1, R)`` (the 1x1 input of the
+scalar sample in [-1, 1]), a gate of half width G (``n_gatech``): ``dil.w
+(L, k, R, 2G)``, ``aux.w (L, A, 2G)`` and no ``aux.b`` (its conditioning
+1x1 has no bias), ``skip.w (L, G, S)``, ``res.w (L, G, R)``; ``post2.w (S,
+3M)``, the head of M logistics (``models/mol.py``); and ``upsampling.w<i>
+(F, s_i)``, ``.b<i>`` the ConvTranspose2d stages.  Each layer's output is
+scaled by ``residual_scale`` and the skip sum by ``skip_scale``, sqrt(0.5)
+each, as the preset's (properties of the config, 1 in the mu-law model).
+
 Building blocks are plain functions on tensors; ``WaveNet`` is the
 ``nn.Module`` holding the parameters.  Every entry point takes an explicit
 ``device`` and draws randomness from an explicit ``torch.Generator``.
@@ -76,11 +87,71 @@ class WaveNetConfig:
     kernel_size: int = 2
     upsampling_factor: int = 0
     compute_dtype: str = "float32"  # "float32", "bfloat16", or "float64"
+    # The mixture-of-logistics vocoder (r9y9/wavenet_vocoder's mixture
+    # preset); every default below is the mu-law model's.
+    #: "mulaw": a one-hot input over n_quantize classes and a softmax over
+    #: them; "mol": a scalar sample in [-1, 1] through a 1x1 input and a
+    #: head of n_mix logistics (3 n_mix outputs), its likelihood over
+    #: n_quantize bins (``models/mol.py``)
+    output: str = "mulaw"
+    n_mix: int = 10
+    #: the gate's width G (the gate is 2G wide, skip and res take G); 0:
+    #: n_resch
+    n_gatech: int = 0
+    #: ConvTranspose2d stages (1, 1, (freq_axis_kernel_size, s), stride
+    #: (1, s)) each followed by a ReLU, whose factors multiply to
+    #: upsampling_factor; empty: one (1, upsampling_factor) stage, no ReLU
+    upsampling_scales: tuple = ()
+    freq_axis_kernel_size: int = 3
+    log_scale_min: float = -32.23619130191664   # log(1e-14)
+    #: training only: dropout of each layer's input before its conv
+    dropout: float = 0.0
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {self.compute_dtype!r} is not "
                              f"one of {sorted(_DTYPES)}")
+        if self.output not in ("mulaw", "mol"):
+            raise ValueError(f"output {self.output!r} is not mulaw or mol")
+        object.__setattr__(self, "upsampling_scales",
+                           tuple(int(s) for s in self.upsampling_scales))
+        if (self.upsampling_scales and self.upsampling_factor > 0
+                and math.prod(self.upsampling_scales)
+                != self.upsampling_factor):
+            raise ValueError(f"upsampling_scales {self.upsampling_scales} "
+                             f"do not multiply to upsampling_factor "
+                             f"{self.upsampling_factor}")
+
+    @property
+    def mol(self) -> bool:
+        return self.output == "mol"
+
+    @property
+    def residual_scale(self) -> float:
+        """Each layer's output stream is (res + input) * residual_scale:
+        sqrt(0.5) in the MoL model (r9y9's), 1 in the mu-law model."""
+        return math.sqrt(0.5) if self.mol else 1.0
+
+    @property
+    def skip_scale(self) -> float:
+        """The skip sum is s_0, then (sum + s_l) * skip_scale: sqrt(0.5) in
+        the MoL model (r9y9's legacy form), 1 in the mu-law model."""
+        return math.sqrt(0.5) if self.mol else 1.0
+
+    @property
+    def gate_ch(self) -> int:
+        """G: the width of each half of the gate."""
+        return self.n_gatech or self.n_resch
+
+    @property
+    def n_out(self) -> int:
+        """The head's outputs: Q logits, or 3 n_mix mixture numbers."""
+        return 3 * self.n_mix if self.mol else self.n_quantize
+
+    @property
+    def input_taps(self) -> int:
+        """The input conv's taps: kernel_size (mu-law), 1 (the MoL 1x1)."""
+        return 1 if self.mol else self.kernel_size
 
     @property
     def dilations(self) -> tuple:
@@ -107,12 +178,25 @@ class WaveNetConfig:
         return torch.float64 if self.compute_dtype == "float64" else torch.float32
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The fields; those of the MoL model only where they differ from
+        their defaults, so that a mu-law model's dict is the JAX package's."""
+        d = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in _MOL_FIELDS and d[f.name] == f.default:
+                del d[f.name]
+        if "upsampling_scales" in d:
+            d["upsampling_scales"] = list(self.upsampling_scales)
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "WaveNetConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+#: The fields the mu-law model leaves at their defaults
+_MOL_FIELDS = ("output", "n_mix", "n_gatech", "upsampling_scales",
+               "freq_axis_kernel_size", "log_scale_min", "dropout")
 
 
 def _xavier_uniform(generator: torch.Generator, k: int, fan_in_c: int,
@@ -140,29 +224,41 @@ def init_wavenet_params(config: WaveNetConfig,
     c = config
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    Q, A, R, S = c.n_quantize, c.n_aux, c.n_resch, c.n_skipch
-    L, k = c.n_layers, c.kernel_size
+    A, R, S, G = c.n_aux, c.n_resch, c.n_skipch, c.gate_ch
+    L, k, O = c.n_layers, c.kernel_size, c.n_out
+    kin, Qin = c.input_taps, (1 if c.mol else c.n_quantize)
 
     def xavier(kk, in_c, out_c, shape):
         return _xavier_uniform(generator, kk, in_c, out_c, shape, device)
 
     def gate_pair(kk, in_c, shape_half):
-        return torch.cat([xavier(kk, in_c, R, shape_half),
-                          xavier(kk, in_c, R, shape_half)], dim=-1)
+        return torch.cat([xavier(kk, in_c, G, shape_half),
+                          xavier(kk, in_c, G, shape_half)], dim=-1)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
     params: Params = {
-        "causal": {"w": xavier(k, Q, R, (k, Q, R)), "b": zeros(R)},
-        "dil": {"w": gate_pair(k, R, (L, k, R, R)), "b": zeros(L, 2 * R)},
-        "aux": {"w": gate_pair(1, A, (L, A, R)), "b": zeros(L, 2 * R)},
-        "skip": {"w": xavier(1, R, S, (L, R, S)), "b": zeros(L, S)},
-        "res": {"w": xavier(1, R, R, (L, R, R)), "b": zeros(L, R)},
+        "causal": {"w": xavier(kin, Qin, R, (kin, Qin, R)), "b": zeros(R)},
+        "dil": {"w": gate_pair(k, R, (L, k, R, G)), "b": zeros(L, 2 * G)},
+        "aux": ({"w": gate_pair(1, A, (L, A, G))} if c.mol
+                else {"w": gate_pair(1, A, (L, A, G)), "b": zeros(L, 2 * G)}),
+        "skip": {"w": xavier(1, G, S, (L, G, S)), "b": zeros(L, S)},
+        "res": {"w": xavier(1, G, R, (L, G, R)), "b": zeros(L, R)},
         "post1": {"w": xavier(1, S, S, (S, S)), "b": zeros(S)},
-        "post2": {"w": xavier(1, S, Q, (S, Q)), "b": zeros(Q)},
+        "post2": {"w": xavier(1, S, O, (S, O)), "b": zeros(O)},
     }
-    if c.upsampling_factor > 0:
+    if c.upsampling_factor > 0 and c.upsampling_scales:
+        # each stage starts as replication over its factor: the centre tap
+        # of the frequency kernel 1, the others 0
+        F_ = c.freq_axis_kernel_size
+        up = {}
+        for i, sc in enumerate(c.upsampling_scales):
+            w = zeros(F_, sc)
+            w[F_ // 2] = 1.0
+            up[f"w{i}"], up[f"b{i}"] = w, zeros()
+        params["upsampling"] = up
+    elif c.upsampling_factor > 0:
         params["upsampling"] = {
             "w": torch.ones((c.upsampling_factor,), dtype=torch.float32,
                             device=device),
@@ -175,18 +271,25 @@ def param_shapes(config: WaveNetConfig) -> dict:
     """``{group: {name: shape}}`` of ``init_wavenet_params(config)``'s
     leaves, without making them."""
     c = config
-    Q, A, R, S = c.n_quantize, c.n_aux, c.n_resch, c.n_skipch
-    L, k = c.n_layers, c.kernel_size
+    A, R, S, G = c.n_aux, c.n_resch, c.n_skipch, c.gate_ch
+    L, k, O = c.n_layers, c.kernel_size, c.n_out
+    kin, Qin = c.input_taps, (1 if c.mol else c.n_quantize)
     shapes = {
-        "causal": {"w": (k, Q, R), "b": (R,)},
-        "dil": {"w": (L, k, R, 2 * R), "b": (L, 2 * R)},
-        "aux": {"w": (L, A, 2 * R), "b": (L, 2 * R)},
-        "skip": {"w": (L, R, S), "b": (L, S)},
-        "res": {"w": (L, R, R), "b": (L, R)},
+        "causal": {"w": (kin, Qin, R), "b": (R,)},
+        "dil": {"w": (L, k, R, 2 * G), "b": (L, 2 * G)},
+        "aux": ({"w": (L, A, 2 * G)} if c.mol
+                else {"w": (L, A, 2 * G), "b": (L, 2 * G)}),
+        "skip": {"w": (L, G, S), "b": (L, S)},
+        "res": {"w": (L, G, R), "b": (L, R)},
         "post1": {"w": (S, S), "b": (S,)},
-        "post2": {"w": (S, Q), "b": (Q,)},
+        "post2": {"w": (S, O), "b": (O,)},
     }
-    if c.upsampling_factor > 0:
+    if c.upsampling_factor > 0 and c.upsampling_scales:
+        shapes["upsampling"] = {}
+        for i, sc in enumerate(c.upsampling_scales):
+            shapes["upsampling"].update({f"w{i}": (c.freq_axis_kernel_size,
+                                                   sc), f"b{i}": ()})
+    elif c.upsampling_factor > 0:
         shapes["upsampling"] = {"w": (c.upsampling_factor,), "b": ()}
     return shapes
 
@@ -220,11 +323,37 @@ def upsample_aux(params: Params, config: WaveNetConfig,
     uf = config.upsampling_factor
     if uf <= 0:
         return h
+    if config.upsampling_scales:
+        with tracing.span(tracing.WAVENET_UPSAMPLE):
+            for i in range(len(config.upsampling_scales)):
+                h = upsample_stage(h, params["upsampling"][f"w{i}"],
+                                   params["upsampling"][f"b{i}"])
+        return h
     w = params["upsampling"]["w"]
     b = params["upsampling"]["b"]
     B, T, A = h.shape
     out = h[:, :, None, :] * w[None, None, :, None] + b
     return out.reshape(B, T * uf, A)
+
+
+def upsample_stage(h: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """One stage of r9y9's upsampler, ``ConvTranspose2d(1, 1, (F, s),
+    stride (1, s), padding ((F - 1) / 2, 0))`` then a ReLU, on channels-last
+    features: (B, T, C) -> (B, T * s, C), ``out[t s + j, c] = relu(b +
+    sum_f w[f, j] h[t, c + (F - 1) / 2 - f])`` (zero past the channel
+    edges)."""
+    F_, s = w.shape
+    B, T, C = h.shape
+    p = (F_ - 1) // 2
+    hp = F.pad(h, (p, p))
+    out = None
+    for f in range(F_):
+        # channel c reads input channel c + p - f: column c + 2p - f of hp
+        term = hp[:, :, 2 * p - f: 2 * p - f + C, None] * w[f].to(h.dtype)
+        out = term if out is None else out + term
+    out = torch.relu(out + b.to(h.dtype))           # (B, T, C, s)
+    return out.transpose(2, 3).reshape(B, T * s, C)
 
 
 def _shift_time(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -270,6 +399,13 @@ def input_embed(x_ids: torch.Tensor, params: Params,
     c = config
     acc = c.acc_dtype
     w = params["causal"]["w"].to(c.dtype).to(acc)
+    if c.mol:
+        # the 1x1 from the scalar sample: x w + b, each rounded
+        if tp is not None:
+            raise NotImplementedError("tensor parallelism serves the mu-law "
+                                      "model")
+        return (x_ids.to(acc)[..., None] * w[0, 0]
+                + params["causal"]["b"].to(acc))
     k = w.shape[0]
     ids = torch.remainder(x_ids.long(), c.n_quantize)
     T = ids.shape[1]
@@ -286,7 +422,8 @@ def input_embed(x_ids: torch.Tensor, params: Params,
 
 
 def _gate(z: torch.Tensor, za: torch.Tensor, R: int) -> torch.Tensor:
-    """sigmoid(z_s + za_s) * tanh(z_t + za_t) over fused 2R channels.
+    """sigmoid(z_s + za_s) * tanh(z_t + za_t) over fused 2R channels (R the
+    gate's half width).
 
     The sigmoid is JAX's own form, 1 / (1 + exp(-s)): ``torch.sigmoid``'s
     vectorised CPU body and its scalar tail round ~4% of inputs an ulp
@@ -314,11 +451,22 @@ def _post_stack(params: Params, skip_sum: torch.Tensor, dt,
             + params["post2"]["b"])
 
 
+def aux_bias(params: Params) -> torch.Tensor:
+    """The conditioning 1x1's bias (L, 2G): zeros where the model has none
+    (the MoL model, as r9y9's ``conv1x1c``)."""
+    b = params["aux"].get("b")
+    return torch.zeros_like(params["dil"]["b"]) if b is None else b
+
+
 def _residual_layer(params: Params, config: WaveNetConfig, l: int, d: int,
-                    out: torch.Tensor, h: torch.Tensor, mm_dt, tp=None):
+                    out: torch.Tensor, h: torch.Tensor, mm_dt, tp=None,
+                    mask: torch.Tensor | None = None):
     """Residual layer l (dilation d): input stream ``out``, aux ``h`` (in the
     compute dtype) -> (output stream, gate output g).  ``mm_dt`` (bf16 or
     None) is the dtype the big matmul outputs are materialized in.
+    ``mask`` (dropout's, 0 or 1 / (1 - p)) multiplies the conv's input, not
+    the residual; the output stream is scaled by ``residual_scale`` where
+    that is not 1.
 
     Tensor parallel (``tp``, residual width sharded): ``out`` and the res
     product's columns are this rank's, the gate product is row-parallel:
@@ -326,27 +474,32 @@ def _residual_layer(params: Params, config: WaveNetConfig, l: int, d: int,
     cast to ``mm_dt`` and given ``dil.b`` once.  The returned g is the skip
     product's input (``Grid.fan_out``)."""
     dt = config.dtype
+    x_in = out if mask is None else out * mask.to(out.dtype)
     if tp is not None and tp.split_r:
-        z = tp.sum(causal_conv(out.to(dt), params["dil"]["w"][l].to(dt),
+        z = tp.sum(causal_conv(x_in.to(dt), params["dil"]["w"][l].to(dt),
                                None, d))
         b = params["dil"]["b"][l]
         z = z.to(mm_dt) + b.to(mm_dt) if mm_dt is not None else z + b
     else:
-        z = causal_conv(out.to(dt), params["dil"]["w"][l].to(dt),
+        z = causal_conv(x_in.to(dt), params["dil"]["w"][l].to(dt),
                         params["dil"]["b"][l], d, out_dtype=mm_dt)
     za = _dot(h, params["aux"]["w"][l].to(dt), mm_dt)
-    za = za + (params["aux"]["b"][l].to(mm_dt) if mm_dt is not None
-               else params["aux"]["b"][l])
+    aux_b = aux_bias(params)[l]
+    za = za + (aux_b.to(mm_dt) if mm_dt is not None else aux_b)
     if mm_dt is not None:
         z = z.float()
         za = za.float()
-    g = _gate(z, za, config.n_resch).to(dt)
+    g = _gate(z, za, config.gate_ch).to(dt)
     g_res, g = (g, g) if tp is None else tp.fan_out(g)
     res_w = params["res"]["w"][l].to(dt)
     res_b = params["res"]["b"][l]
     if mm_dt is not None:
-        return _dot(g_res, res_w, mm_dt) + res_b.to(mm_dt) + out, g
-    return _dot(g_res, res_w) + res_b + out, g
+        nxt = _dot(g_res, res_w, mm_dt) + res_b.to(mm_dt) + out
+    else:
+        nxt = _dot(g_res, res_w) + res_b + out
+    if config.residual_scale != 1.0:
+        nxt = nxt * config.residual_scale
+    return nxt, g
 
 
 def _stack_inputs(params: Params, config: WaveNetConfig, x: torch.Tensor,
@@ -364,8 +517,11 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
                     x: torch.Tensor, h: torch.Tensor,
                     remat: bool = False,
                     bf16_intermediates: bool = False,
-                    fused: bool = False, tp=None) -> torch.Tensor:
-    """Training forward: (B, T) ids + (B, T', A) aux -> (B, T, Q) logits.
+                    fused: bool = False, tp=None,
+                    dropout_masks: list | None = None) -> torch.Tensor:
+    """Training forward: (B, T) ids + (B, T', A) aux -> (B, T, Q) logits
+    (the MoL model: (B, T) samples in [-1, 1] -> (B, T, 3 n_mix) mixture
+    outputs).
 
     Mirrors reference ``forward`` (`wavenet.py:212-241`).  If
     ``upsampling_factor > 0``, ``h`` is frame-rate and gets upsampled here;
@@ -391,6 +547,11 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
     (``mesh.model_pspec``): the residual stream and the skip sum stay
     sharded, the gate and the logits are replicated.  Without it one
     process runs as before.
+
+    ``dropout_masks`` (L tensors broadcasting against (B, T, R): 0, or
+    1 / (1 - p)) multiply each layer's conv input (r9y9's dropout, the
+    residual left whole); the skip sum takes ``skip_scale`` from the
+    second layer on where that is not 1.
     """
     c = config
     if fused and tp is not None:
@@ -402,6 +563,9 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
             fused_train_constraint_error,
         )
 
+        if dropout_masks is not None:
+            raise ValueError("fused=True takes no dropout masks: a model "
+                             "with dropout trains on the plain path")
         if c.dtype != torch.bfloat16:
             raise ValueError(
                 "fused=True requires compute_dtype='bfloat16' (the fused "
@@ -424,10 +588,15 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
     out, h, mm_dt = _stack_inputs(params, c, x, h, bf16_intermediates, tp)
 
     def layer(l, d, out, skip_sum, h):
-        out, g = _residual_layer(params, c, l, d, out, h, mm_dt, tp)
+        mask = None if dropout_masks is None else dropout_masks[l]
+        out, g = _residual_layer(params, c, l, d, out, h, mm_dt, tp, mask)
         # skip stays f32: it is the L-term accumulator
         skip = _dot(g, params["skip"]["w"][l].to(c.dtype)) + params["skip"]["b"][l]
-        return out, (skip if skip_sum is None else skip_sum + skip)
+        if skip_sum is None:
+            return out, skip
+        if c.skip_scale != 1.0:
+            return out, (skip_sum + skip) * c.skip_scale
+        return out, skip_sum + skip
 
     skip_sum = None
     for l, d in enumerate(c.dilations):
@@ -445,14 +614,16 @@ def wavenet_forward(params: Params, config: WaveNetConfig,
 
 
 def _pad_seed(config: WaveNetConfig, x: torch.Tensor, h: torch.Tensor):
-    """Left-pad seed ids with Q//2 and replicate-pad aux to receptive field.
+    """Left-pad seed ids with Q//2 (the MoL model's samples with 0.0,
+    silence) and replicate-pad aux to receptive field.
 
     Mirrors reference padding before generation (`wavenet.py:262-265`).
     ``h`` must already be at sample rate here.
     """
     n_pad = config.receptive_field - x.shape[1]
     if n_pad > 0:
-        x = F.pad(x, (n_pad, 0), value=config.n_quantize // 2)
+        x = F.pad(x, (n_pad, 0),
+                  value=0.0 if config.mol else config.n_quantize // 2)
         h = torch.cat([h[:, :1].expand(-1, n_pad, -1), h], dim=1)
     return x, h
 
@@ -610,9 +781,12 @@ def _warmup_state(params: Params, config: WaveNetConfig,
     act_buf = bufs[0] if len(bufs) == 1 else torch.cat(bufs, dim=1)
 
     # ids at positions p-k+1 .. p-1 for the first step (p = T0-1), oldest
-    # first; the current-position id rides separately as ``prev``
-    sample_hist = x[:, T0 - k: T0 - 1].to(torch.int32).contiguous()
-    carry = (act_buf, sample_hist, x[:, -1].to(torch.int32).contiguous())
+    # first; the current-position id rides separately as ``prev`` (the MoL
+    # model: its 1x1 input takes the current sample alone, float32)
+    kin = c.input_taps
+    sdt = torch.float32 if c.mol else torch.int32
+    sample_hist = x[:, T0 - kin: T0 - 1].to(sdt).contiguous()
+    carry = (act_buf, sample_hist, x[:, -1].to(sdt).contiguous())
     if collect_act_maxes:
         return carry, torch.stack(maxes).max(dim=0).values
     return carry
@@ -793,6 +967,11 @@ def pad_params_for_kernels(params: Params, config: WaveNetConfig,
     pc = _padded_config(c, multiple)
     if pc is c:
         return params, c
+    if c.mol or c.gate_ch != c.n_resch:
+        raise NotImplementedError(
+            f"the CUDA decode kernels take the MoL model at widths on their "
+            f"multiples {multiple} (n_resch, n_skipch); got "
+            f"{(c.n_resch, c.n_skipch)}")
     R, S = pc.n_resch, pc.n_skipch
     p = {
         "causal": {"w": _pad_last(params["causal"]["w"], R),
@@ -841,9 +1020,9 @@ def _fleet_hbm_bytes(config: WaveNetConfig, B: int, max_n: int,
     ring = slots * B * rw * (1 if raw_int8 else 2)
     h_up = B * need_T * c.n_aux * 4
     Ap = -(-c.n_aux // 16) * 16
-    row = (R + S + c.n_quantize + k) * 4 + 2 * (S + 8) * 2
+    row = (R + S + c.n_out + k) * 4 + 2 * (S + 8) * 2
     row += (2 * (R + 16) + (Ap + 8) * 2 if quantize
-            else (R + Ap + 8) * 2 + (R + 8) * 2)
+            else (R + Ap + 8) * 2 + (c.gate_ch + 8) * 2)
     out = B * max_n * 4
     loop = ring + h_up + B * row + out
     if not raw_int8:
@@ -924,8 +1103,10 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     ``ROW_STEPS["useful"]``.
 
     Returns:
-      list of np.int32 arrays, one per utterance in input order, each of
-      its requested length (finished utterances are masked, not removed).
+      list of np.int32 arrays (the MoL model: np.float32 samples in
+      [-1, 1]; ``x`` then holds float samples), one per utterance in input
+      order, each of its requested length (finished utterances are masked,
+      not removed).
     """
     c = config
     if device is None:
@@ -971,7 +1152,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
     ROW_STEPS["useful"] += sum(int(n) for n in n_samples_list)
     max_n = int(max(n_samples_list))
     with tracing.span(tracing.WAVENET_PREP):
-        x = torch.as_tensor(x, dtype=torch.int64, device=device)
+        x = torch.as_tensor(x, dtype=torch.float32 if c.mol else torch.int64,
+                            device=device)
         h = torch.as_tensor(h, dtype=c.acc_dtype, device=device)
         if c.upsampling_factor > 0:
             h = upsample_aux(params, c, h)
@@ -1004,7 +1186,8 @@ def batch_fast_generate(params: Params, config: WaveNetConfig,
                              impl, intervals=intervals, quantize=quantize,
                              act_scales=act_scales)
     with tracing.span(tracing.WAVENET_COPY_OUT):
-        samples = samples.to(torch.int32).cpu().numpy()
+        samples = samples.to(torch.float32 if c.mol
+                             else torch.int32).cpu().numpy()
     return [samples[b, : int(n)] for b, n in enumerate(n_samples_list)]
 
 
@@ -1034,26 +1217,29 @@ def generate(params: Params, config: WaveNetConfig, x, h, n_samples: int,
         device = params["causal"]["w"].device
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    x = torch.as_tensor(x, dtype=torch.int64, device=device)
+    xdt = torch.float32 if c.mol else torch.int64
+    x = torch.as_tensor(x, dtype=xdt, device=device)
     h = torch.as_tensor(h, dtype=c.acc_dtype, device=device)
     if c.upsampling_factor > 0:
         h = upsample_aux(params, c, h)
     x, h = _pad_seed(c, x, h)
     h = _pad_aux_to(h, x.shape[1] + n_samples)
     rf = c.receptive_field
-    cfg_no_up = dataclasses.replace(c, upsampling_factor=0)
+    cfg_no_up = dataclasses.replace(c, upsampling_factor=0,
+                                    upsampling_scales=())
 
-    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import _sample
+    from pytorchwavenetvocoder_tpu_torch.ops.ar_kernel import sample_head
 
     samples = x[0].tolist()
     for i in range(n_samples):
         cur = len(samples)
-        window_x = torch.tensor(samples[-rf:], dtype=torch.int64,
-                                device=device)[None]
+        window_x = torch.tensor(samples[-rf:], dtype=xdt, device=device)[None]
         window_h = h[:, cur - rf: cur]
         logits = wavenet_forward(params, cfg_no_up, window_x, window_h)
-        samples.append(int(_sample(logits[:, -1], mode, generator)[0]))
-    return np.asarray(samples[-n_samples:], np.int32)
+        samples.append(sample_head(logits[:, -1], c, mode,
+                                   generator)[0].item())
+    return np.asarray(samples[-n_samples:],
+                      np.float32 if c.mol else np.int32)
 
 
 class WaveNet(nn.Module):
@@ -1108,7 +1294,8 @@ class WaveNet(nn.Module):
     def forward(self, x, h):
         return wavenet_forward(
             self.params, self.config,
-            torch.as_tensor(x, dtype=torch.int64, device=self.device),
+            torch.as_tensor(x, dtype=torch.float32 if self.config.mol
+                            else torch.int64, device=self.device),
             torch.as_tensor(h, dtype=torch.float32, device=self.device))
 
     def generate(self, x, h, n_samples, mode="sampling", generator=None):

@@ -88,6 +88,10 @@ def int8_constraint_error(config) -> str | None:
     if c.kernel_size not in KERNEL_SIZES:
         return (f"int8 decode serves kernel_size 2 and 3 (as the JAX int8 "
                 f"kernel does); got kernel_size={c.kernel_size}")
+    if c.mol or c.gate_ch != c.n_resch:
+        return ("int8 decode serves the mu-law model (its gate as wide as "
+                "the residual stream, a one-hot input, no residual scale); "
+                "the mixture-of-logistics model decodes in bf16")
     return None
 
 
@@ -118,8 +122,15 @@ def ar_kernel_constraint_error(config, quantize: bool = False
     if c.kernel_size not in KERNEL_SIZES:
         return (f"kernel_size={c.kernel_size} (the kernel serves kernel_size "
                 "2 and 3)")
-    if c.n_quantize % 16 != 0:
+    if c.mol and c.kernel_size != 3:
+        return (f"the mixture-of-logistics kernels serve kernel_size 3; got "
+                f"{c.kernel_size}")
+    if c.mol and not 0 < c.n_mix <= 31:
+        return f"n_mix={c.n_mix} must be in 1..31 (a warp's lanes draw them)"
+    if not c.mol and c.n_quantize % 16 != 0:
         return f"n_quantize={c.n_quantize} must be a multiple of 16"
+    if c.gate_ch != c.n_resch and c.gate_ch % 16 != 0:
+        return f"the gate width {c.gate_ch} must be a multiple of 16"
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
     mr, ms = AR_MULTIPLES[quantize]
@@ -152,6 +163,24 @@ def _sample(logits: torch.Tensor, mode: str,
     return (logits.to(torch.float64) - torch.log(-torch.log(u))).argmax(dim=-1)
 
 
+def sample_head(y: torch.Tensor, config, mode: str,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """(B, n_out) head outputs -> (B,) samples: the mu-law model's class ids
+    (``_sample``), the MoL model's float32 samples (``models/mol.py::
+    mol_sample``)."""
+    if not config.mol:
+        return _sample(y, mode, generator)
+    from pytorchwavenetvocoder_tpu_torch.models.mol import mol_sample
+
+    return mol_sample(y, config.n_mix, config.log_scale_min, mode, generator)
+
+
+#: The MoL sampler's draws that the clamp to [-1, 1] cut, in the plain
+#: loop's steps of this process (rows x steps run); K1's are on the device
+#: (``mol_clamped``)
+MOL_CLAMPED = {"plain": 0}
+
+
 def _step_weights(params, config, quantize: bool = False) -> dict:
     """The per-step weight views the plain loop consumes, cast once.
 
@@ -161,16 +190,18 @@ def _step_weights(params, config, quantize: bool = False) -> dict:
     then taken in bf16 with f32 biases, as the JAX kernel's int8 path takes
     it whatever the compute dtype.
     """
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import aux_bias
+
     c = config
     if quantize:
         c = dataclasses.replace(c, compute_dtype="bfloat16")
-    L, A, R, k = c.n_layers, c.n_aux, c.n_resch, c.kernel_size
+    L, A, G, k = c.n_layers, c.n_aux, c.gate_ch, c.kernel_size
     dt = c.dtype
-    dil_w = params["dil"]["w"].to(dt)                       # (L, k, R, 2R)
+    dil_w = params["dil"]["w"].to(dt)                       # (L, k, R, 2G)
     w = dict(
-        # fused aux projection (A, L*2R)
-        aux_w=params["aux"]["w"].permute(1, 0, 2).reshape(A, L * 2 * R).to(dt),
-        aux_b=params["aux"]["b"],
+        # fused aux projection (A, L*2G)
+        aux_w=params["aux"]["w"].permute(1, 0, 2).reshape(A, L * 2 * G).to(dt),
+        aux_b=aux_bias(params),
         dil_w_cur=dil_w[:, k - 1],                          # (L, R, 2R)
         # past taps ordered by lag j = 1..k-1 -> weight index k-1-j
         dil_w_past=torch.flip(dil_w[:, : k - 1], dims=[1]),  # (L, k-1, R, 2R)
@@ -239,8 +270,9 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     """One step of the loop at absolute position ``p``: returns the (B, Q)
     logits and writes every layer's ring slot ``p mod cap`` in place.
 
-    ``ids`` (B, k) holds the class ids at p-k+1 .. p, oldest first.
-    ``quantize`` runs the int8 step (``weights`` from
+    ``ids`` (B, k) holds the class ids at p-k+1 .. p, oldest first (the
+    MoL model: (B, 1), the float sample at p; its logits are the (B, 3M)
+    mixture outputs).  ``quantize`` runs the int8 step (``weights`` from
     ``_step_weights(..., quantize=True)``, ``act_scales`` (L, 1) f32).
     """
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import (
@@ -265,15 +297,21 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
     lags_v = torch.tensor([[j * d for j in range(1, k)] for d in c.dilations],
                           dtype=torch.int64, device=dev).reshape(L, k - 1)
 
+    G = c.gate_ch
     # input causal conv at position p: taps are ids at p-k+1 .. p
-    ids = torch.remainder(ids.long(), c.n_quantize)
-    if quantize:
+    if c.mol:
+        # the 1x1 from the sample: y w + b (as ``input_embed``)
+        out = (ids[:, -1:].to(acc) * w["causal_w"][0, 0].to(acc)
+               + w["causal_b"].to(acc))
+    elif quantize:
+        ids = torch.remainder(ids.long(), c.n_quantize)
         # the JAX kernel's one-hot matmul: the taps summed, then the bias
         out = w["causal_w"][0][ids[:, 0]].to(acc)
         for j in range(1, k):
             out = out + w["causal_w"][j][ids[:, j]]
         out = out + w["causal_b"]
     else:
+        ids = torch.remainder(ids.long(), c.n_quantize)
         out = w["causal_b"].to(acc) + torch.zeros((B, R), dtype=acc,
                                                   device=dev)
         for j in range(k):
@@ -281,7 +319,7 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
 
     # aux column at position p, projected for all layers at once
     hcol = h_up[:, p, :].to(dt)
-    za_all = _dot(hcol, w["aux_w"]).reshape(B, L, 2 * R) + w["aux_b"][None]
+    za_all = _dot(hcol, w["aux_w"]).reshape(B, L, 2 * G) + w["aux_b"][None]
 
     # every layer's past taps in one gather; kernel_size 2 rings hold the
     # projected (B, 2R) gate contribution already (int8 reads them in bf16),
@@ -297,7 +335,7 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
             z_past = torch.einsum("ljbr,ljro->lbo", past.to(dt).to(acc),
                                   w["dil_w_past"].to(acc))     # (L, B, 2R)
     else:
-        z_past = torch.zeros((L, B, 2 * R), dtype=acc, device=dev)
+        z_past = torch.zeros((L, B, 2 * G), dtype=acc, device=dev)
 
     skip_sum = torch.zeros((B, S), dtype=acc, device=dev)
     new_vals = []
@@ -343,11 +381,18 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
         else:
             z = (_dot(out.to(dt), w["dil_w_cur"][l]) + z_past[l]
                  + w["dil_b"][l] + za_all[:, l])
-            g = torch.sigmoid(z[:, :R]) * torch.tanh(z[:, R:])
+            g = torch.sigmoid(z[:, :G]) * torch.tanh(z[:, G:])
             sr = _dot(g.to(dt), w["sr_w"][l]) + w["sr_b"][l]
             new_vals.append(out)
-        skip_sum = skip_sum + sr[:, :S]
+        if c.skip_scale != 1.0:
+            # the legacy skip sum: s_0, then (sum + s_l) * scale
+            skip_sum = (sr[:, :S] if l == 0
+                        else (skip_sum + sr[:, :S]) * c.skip_scale)
+        else:
+            skip_sum = skip_sum + sr[:, :S]
         out = sr[:, S:] + out
+        if c.residual_scale != 1.0:
+            out = out * c.residual_scale
 
     # every layer's input recorded for future taps in one scatter
     # (kernel_size 2: projected at write time)
@@ -362,7 +407,7 @@ def ar_step_logits(weights: dict, config, act_buf: torch.Tensor,
 
     post = torch.relu(skip_sum)
     post = torch.relu(_dot(post.to(dt), w["post1_w"]) + w["post1_b"])
-    return _dot(post.to(dt), w["post2_w"]) + w["post2_b"]     # (B, Q)
+    return _dot(post.to(dt), w["post2_w"]) + w["post2_b"]     # (B, n_out)
 
 
 def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
@@ -386,7 +431,8 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
         ``int8_ring_fill`` under those scales.
 
     Returns:
-      (B, max_n) int32 generated mu-law classes.
+      (B, max_n) int32 generated mu-law classes (the MoL model: float32
+      samples; its draws the clamp cut counted in ``MOL_CLAMPED``).
     """
     act_buf, sample_hist, prev = carry
     k = config.kernel_size
@@ -397,14 +443,17 @@ def ar_generate_reference(params, config, carry, h_up: torch.Tensor,
         _check_int8_ring(act_buf, k)
     weights = _step_weights(params, config, quantize)
     ids = torch.cat([sample_hist, prev[:, None]], dim=1)
+    sdt = torch.float32 if config.mol else torch.int32
     out = []
     for i in range(max_n):
         logits = ar_step_logits(weights, config, act_buf, ids, h_up,
                                 T0 - 1 + i0 + i, quantize, act_scales)
-        sample = _sample(logits, mode, generator).to(torch.int32)
+        sample = sample_head(logits, config, mode, generator).to(sdt)
+        if config.mol:
+            MOL_CLAMPED["plain"] += int((sample.abs() >= 1.0).sum())
         out.append(sample)
         ids = torch.cat([ids[:, 1:], sample[:, None]], dim=1)
-    if k > 1:
+    if ids.shape[1] > 1:
         sample_hist.copy_(ids[:, :-1])
     prev.copy_(ids[:, -1])
     return torch.stack(out, dim=1)
@@ -526,7 +575,13 @@ def pack_ar_weights(params, config) -> dict:
                            and auxb, for the int8 gate's order of sums);
                            srb (L, S+R) f32
     causal_w (k, Q, R) bf16, causal_b (R,) f32, post1/post2 w bf16, b f32
+
+    The MoL model: the gate blocks (L, R, 2G), wsr (L, G, S+R), causal_w
+    (1, 1, R) (its 1x1 input), post2 padded with zero columns to
+    ``head_columns``.
     """
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import aux_bias
+
     bf, f32 = torch.bfloat16, torch.float32
     dil_w = params["dil"]["w"]
     k = dil_w.shape[1]
@@ -540,18 +595,24 @@ def pack_ar_weights(params, config) -> dict:
         "wsr": torch.cat([params["skip"]["w"], params["res"]["w"]],
                          dim=-1).to(bf).contiguous(),
         "auxw": params["aux"]["w"].to(bf).contiguous(),
-        "zb": (params["dil"]["b"] + params["aux"]["b"]).to(f32).contiguous(),
+        "zb": (params["dil"]["b"] + aux_bias(params)).to(f32).contiguous(),
         "dilb": params["dil"]["b"].to(f32).contiguous(),
-        "auxb": params["aux"]["b"].to(f32).contiguous(),
+        "auxb": aux_bias(params).to(f32).contiguous(),
         "srb": torch.cat([params["skip"]["b"], params["res"]["b"]],
                          dim=-1).to(f32).contiguous(),
         "causal_w": params["causal"]["w"].to(bf).contiguous(),
         "causal_b": params["causal"]["b"].to(f32).contiguous(),
         "post1_w": params["post1"]["w"].to(bf).contiguous(),
         "post1_b": params["post1"]["b"].to(f32).contiguous(),
-        "post2_w": params["post2"]["w"].to(bf).contiguous(),
-        "post2_b": params["post2"]["b"].to(f32).contiguous(),
+        "post2_w": _pad_cols(params["post2"]["w"].to(bf), config),
+        "post2_b": _pad_cols(params["post2"]["b"].to(f32), config),
     }
+
+
+def _pad_cols(t: torch.Tensor, config) -> torch.Tensor:
+    """A head weight or bias with zero columns up to ``head_columns``."""
+    n = head_columns(config) - t.shape[-1]
+    return (torch.nn.functional.pad(t, (0, n)) if n else t).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -609,13 +670,23 @@ def ar_stage_shapes(config, quantize: bool = False) -> dict:
     res: g @ [W_skip | W_res]; post1: relu(skip) @ post1_w; post2: h1 @
     post2_w.  ``quantize``: the gate and res stages multiply int8 rows, K
     is R (at kernel_size 3 for each of the gate's three int8 products), and
-    the aux rows are a bf16 product of their own."""
+    the aux rows are a bf16 product of their own.  G (the gate's half
+    width, ``gate_ch``) sets the gate's columns and the res stage's K;
+    post2's columns are ``head_columns``."""
     c = config
-    R, S, Q, k = c.n_resch, c.n_skipch, c.n_quantize, c.kernel_size
+    R, S, k, G = c.n_resch, c.n_skipch, c.kernel_size, c.gate_ch
     Ap = _aux_pad(c.n_aux)
     gate_k = R if quantize else R + Ap if k == 2 else 3 * R + Ap
-    return {"gate": (gate_k, 2 if k == 2 else 1, 2 * R),
-            "res": (R, 1, S + R), "post1": (S, 1, S), "post2": (S, 1, Q)}
+    return {"gate": (gate_k, 2 if k == 2 else 1, 2 * G),
+            "res": (G, 1, S + R), "post1": (S, 1, S),
+            "post2": (S, 1, head_columns(c))}
+
+
+def head_columns(config) -> int:
+    """The columns of K1's last product: the Q logits, or the MoL model's
+    3M head outputs padded with zero columns to whole 16-column groups."""
+    return (-(-config.n_out // 16) * 16 if config.mol
+            else config.n_quantize)
 
 
 #: The int8 A rows' padding in shared memory and in the stages' int8
@@ -792,7 +863,7 @@ def _stream_cut(config, quantize: bool, B: int, grid: int, ring_max: int):
     fits."""
     c = config
     R, k = c.n_resch, c.kernel_size
-    quarters, N = (2 if k == 2 else 1), 2 * R
+    quarters, N = (2 if k == 2 else 1), 2 * c.gate_ch
     nx, nl, na = _stream_chunks(c, quantize)
     best = None
     for m in (1, 2):
@@ -1092,19 +1163,20 @@ def pack_ar_units(pk: dict, plan: dict, config) -> dict:
     per chunk instead (``_pack_stream``), and int8 adds "gate_scales"."""
     c = config
     R, A, k, L = c.n_resch, c.n_aux, c.kernel_size, c.n_layers
+    Gw = c.gate_ch
     Ap = _aux_pad(A)
     st = plan["stages"]
     u8 = torch.uint8
-    auxw = torch.zeros((L, Ap, 2 * R), dtype=torch.bfloat16,
+    auxw = torch.zeros((L, Ap, 2 * Gw), dtype=torch.bfloat16,
                        device=pk["auxw"].device)
     auxw[:, :A] = _interleave(pk["auxw"])
     hc = st["gate"]["cw"] // 2
 
     def by_group(b):
-        """(L, 2R) [sigmoid | tanh] -> (L, G, cw): column group g holds
-        channels [g hc, (g + 1) hc) of each half"""
-        return b.reshape(L, 2, R // hc, hc).transpose(1, 2).reshape(L, R // hc,
-                                                                    2 * hc)
+        """(L, 2G) [sigmoid | tanh] -> (L, G / hc, cw): column group g
+        holds channels [g hc, (g + 1) hc) of each half"""
+        return b.reshape(L, 2, Gw // hc, hc).transpose(1, 2).reshape(
+            L, Gw // hc, 2 * hc)
 
     def per_unit(t, quarters, cw):
         """(Lw, N*quarters) -> (Lw, G, quarters * cw): each unit's columns"""
@@ -1184,9 +1256,9 @@ def _gate_rows(pk: dict, config, auxw: torch.Tensor) -> list:
     """The bf16 gate's weight rows in the order of its A rows, as segments
     (``ar_stage_shapes``): kernel_size 2 one, [x | aux] rows x [current |
     past] columns (each interleaved; the aux rows zero under the past tap),
-    (L, R + Ap, 4R); kernel_size 3 three, [W_cur; aux] (L, R + Ap, 2R), then
-    W_d and W_2d (L, R, 2R)."""
-    R = config.n_resch
+    (L, R + Ap, 4R); kernel_size 3 three, [W_cur; aux] (L, R + Ap, 2G), then
+    W_d and W_2d (L, R, 2G) (G the gate's half width)."""
+    R = config.gate_ch
     if config.kernel_size == 2:
         w4 = pk["w4"]
         cur = torch.cat([w4[..., :2 * R], auxw], dim=1)
@@ -1313,7 +1385,9 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     ``quantize`` runs int8 with ``act_scales`` (L, 1) f32 on the carry's
     device.  Sampling draws one
     64-bit Philox seed from ``generator``; the kernels' Gumbel noise is a
-    function of (seed, row, step, class).
+    function of (seed, row, step, class).  The MoL model (``config.mol``)
+    returns (B, max_n) float32 samples; its uniforms are a function of
+    (seed, row, step, j), its clamped draws counted in ``mol_clamped``.
     """
     act_buf, sample_hist, prev = carry
     if act_buf.device.type == "cpu":
@@ -1341,8 +1415,9 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
     else:
         _check(act_buf, "act_buf", torch.int8 if quantize else bf,
                (total_cap, B, R), dev)
-    _check(sample_hist, "sample_hist", torch.int32, (B, k - 1), dev)
-    _check(prev, "prev", torch.int32, (B,), dev)
+    sdt = torch.float32 if c.mol else torch.int32
+    _check(sample_hist, "sample_hist", sdt, (B, c.input_taps - 1), dev)
+    _check(prev, "prev", sdt, (B,), dev)
     if (h_up.device != dev or h_up.dtype != torch.float32 or h_up.ndim != 3
             or h_up.shape[0] != B or h_up.shape[2] != A
             or h_up.shape[1] < T0 + max_n or not h_up.is_contiguous()):
@@ -1369,7 +1444,8 @@ def ar_generate(params, config, carry, h_up: torch.Tensor, T0: int,
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=gdev))
     samples = _persistent(pk, c, act_buf, ids, h_up, T0, max_n, seed,
-                          mode == "sampling", ascale, count_waits=True)
+                          mode == "sampling", ascale, count_waits=True,
+                          count_clamped=c.mol)
     counter = "int8_persistent_launches" if quantize else "launches"
     setattr(ar_generate, counter, getattr(ar_generate, counter) + 1)
     sample_hist.copy_(ids[:, :-1])
@@ -1411,6 +1487,19 @@ def ar_gate(config, B: int, quantize: bool = False, device=None) -> str:
 _K1_WAITS: dict = {}
 
 
+#: K1's clamped MoL samples in this process, per CUDA device: (1,) int64
+#: on the device that the MoL launches of ``ar_generate`` add to
+_K1_CLAMPED: dict = {}
+
+
+def mol_clamped() -> int:
+    """The MoL sampler's draws that its clamp to [-1, 1] cut (a sample of
+    |y| = 1), over every row-step run in this process: the plain loop's
+    and K1's (read from the devices: waits for their queued work)."""
+    return MOL_CLAMPED["plain"] + sum(int(t.item())
+                                      for t in _K1_CLAMPED.values())
+
+
 def k1_waits() -> tuple:
     """K1's counter waits in ``ar_generate``'s launches of this process
     (every device), and those whose first poll found its target reached:
@@ -1427,21 +1516,25 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
                 seed: int, sampling: bool, ascale: torch.Tensor | None = None,
                 phase: torch.Tensor | None = None,
                 gate: str | None = None,
-                count_waits: bool = False) -> torch.Tensor:
+                count_waits: bool = False,
+                count_clamped: bool = False) -> torch.Tensor:
     """Every step in one cooperative launch of ``wn_ar_generate_persistent``
     on the plan ``ar_plan`` cuts for this fleet (``gate``: its gate design,
     default the plan's rule), bf16, or int8 with the (L,) activation scales
     ``ascale``; ``ids`` (B, k) updated in place; ``phase`` (grid,
     ``wn_ar_phase_slots()``) zeroed int64 turns the kernel's phase times
     on; ``count_waits`` adds the launch's counter waits to ``k1_waits``'.
-    Returns (B, max_n) int32."""
+    Returns (B, max_n) int32.  The MoL model: ``ids`` (B, 1) float32
+    samples, the result float32; ``count_clamped`` adds its clamped draws to
+    ``mol_clamped``'."""
     from pytorchwavenetvocoder_tpu_torch._build import kernels
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _buffer_layout
 
     c = config
     dev = act_buf.device
     B = ids.shape[0]
-    R, S, Q, A, L = c.n_resch, c.n_skipch, c.n_quantize, c.n_aux, c.n_layers
+    R, S, Q, A, L = c.n_resch, c.n_skipch, head_columns(c), c.n_aux, \
+        c.n_layers
     bf, f32 = torch.bfloat16, torch.float32
     quantize = ascale is not None
     plan = ar_plan(c, B, quantize=quantize, device=dev, gate=gate)
@@ -1461,7 +1554,8 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     of = torch.empty((B, R), dtype=f32, device=dev)
     skip = torch.empty((B, S), dtype=f32, device=dev)
     logits = torch.empty((B, Q), dtype=f32, device=dev)
-    samples = torch.empty((B, max_n), dtype=torch.int32, device=dev)
+    samples = torch.empty((B, max_n), dtype=f32 if c.mol else torch.int32,
+                          device=dev)
     xs = gs = xq = gq = xa = ainv = None
     gscale = ginv = ctypes.c_float(0.0)
     if quantize:
@@ -1474,7 +1568,7 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
         ginv = ctypes.c_float(float(1.0 / torch.tensor(GATE_SCALE, dtype=f32)))
     else:
         xs = torch.zeros((B, R + Ap + pad), dtype=bf, device=dev)
-        gs = torch.empty((B, R + pad), dtype=bf, device=dev)
+        gs = torch.empty((B, c.gate_ch + pad), dtype=bf, device=dev)
     # the arrival counters: one a stage type (the four weighted, the sample
     # stage), which the launch sets to their start
     ctr = torch.empty(5, dtype=torch.int32, device=dev)
@@ -1487,6 +1581,12 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
     arr = ar_plan_array(plan)
     plan_arr = (ctypes.c_int * len(arr))(*arr)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    clamped = None
+    if c.mol and count_clamped:
+        clamped = _K1_CLAMPED.get(dev)
+        if clamped is None:
+            clamped = _K1_CLAMPED[dev] = torch.zeros(1, dtype=torch.int64,
+                                                     device=dev)
     with torch.cuda.device(dev):
         err = kernels().wn_ar_generate_persistent(
             *(_ptr(units[n]) for n in AR_STAGES),
@@ -1500,10 +1600,13 @@ def _persistent(pk: dict, config, act_buf, ids, h_up, T0: int, max_n: int,
             *(_ptr(pk[n] if quantize else None) for n in ("auxb", "dilb")),
             _ptr(units.get("gate_scales")), total_cap * B,
             ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(ctr), _ptr(waits),
-            _ptr(phase), ctypes.c_void_p(stream))
+            _ptr(phase), ctypes.c_void_p(stream), int(c.mol), c.gate_ch,
+            c.n_mix, c.residual_scale, c.skip_scale, c.log_scale_min,
+            _ptr(clamped))
     if err != 0:
-        raise RuntimeError(f"wn_ar_generate_persistent ({'int8' if quantize else 'bf16'}, "
-                           f"B={B}) failed: {_plan_error(err)}")
+        kind = "mol" if c.mol else "int8" if quantize else "bf16"
+        raise RuntimeError(f"wn_ar_generate_persistent ({kind}, B={B}) "
+                           f"failed: {_plan_error(err)}")
     return samples
 
 

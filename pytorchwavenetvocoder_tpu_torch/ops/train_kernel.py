@@ -78,9 +78,11 @@ _WEIGHT_KEYS = ("dil_w", "dil_b", "aux_w", "aux_b", "skip_w", "skip_b",
 
 def layer_weights(params) -> dict:
     """The stacked per-layer weight arrays the stack consumes."""
+    from pytorchwavenetvocoder_tpu_torch.models.wavenet import aux_bias
+
     return dict(
         dil_w=params["dil"]["w"], dil_b=params["dil"]["b"],
-        aux_w=params["aux"]["w"], aux_b=params["aux"]["b"],
+        aux_w=params["aux"]["w"], aux_b=aux_bias(params),
         skip_w=params["skip"]["w"], skip_b=params["skip"]["b"],
         res_w=params["res"]["w"], res_b=params["res"]["b"],
     )
@@ -119,13 +121,34 @@ def layer_stack_constraint_error(config) -> str | None:
                 f"kernels' {TILE_N}-column output tiles), <= {MAX_RESCH}")
     if not 0 < c.n_aux <= AUX_MAX:
         return f"n_aux={c.n_aux} must be in 1..{AUX_MAX}"
+    if c.gate_ch != c.n_resch and c.gate_ch % TILE_N != 0:
+        # the gate's items hold 128 channels (256 columns); the residual
+        # product's K walks the gate in 64-deep steps
+        return (f"the gate width {c.gate_ch} must be a multiple of {TILE_N} "
+                "(the gate's 256-column items)")
+    return None
+
+
+def fused_model_error(config) -> str | None:
+    """Why the CUDA training kernels can NOT train this model, whatever its
+    widths and window (None when they can): they serve the mu-law model
+    without dropout."""
+    if config.mol or config.gate_ch != config.n_resch:
+        return ("the fused training kernels serve the mu-law model (a gate "
+                "as wide as the residual stream, no residual scale, a "
+                "softmax head); the mixture-of-logistics model trains on "
+                "the plain route")
+    if config.dropout:
+        return (f"dropout={config.dropout}: the fused training kernels take "
+                "no dropout masks; a model with dropout trains on the plain "
+                "route")
     return None
 
 
 def fused_train_constraint_error(config, T: int) -> str | None:
     """Why the CUDA training kernels can NOT run this config and window
     length T (None when they can): Hopper's limits, not the TPU's."""
-    why = layer_stack_constraint_error(config)
+    why = fused_model_error(config) or layer_stack_constraint_error(config)
     if why is not None:
         return why
     if config.n_skipch % TILE_N != 0:
@@ -155,8 +178,8 @@ def _ref_gate(lw, l: int, d: int, x: torch.Tensor, h: torch.Tensor):
     )
 
     bf = torch.bfloat16
-    R = x.shape[-1]
-    w = lw["dil_w"][l].to(bf)                            # (k, R, 2R)
+    w = lw["dil_w"][l].to(bf)                            # (k, R, 2G)
+    R = w.shape[-1] // 2                                 # the gate's half
     k = w.shape[0]
     z = _dot(x, w[k - 1])
     for j in range(k - 1):
@@ -166,20 +189,26 @@ def _ref_gate(lw, l: int, d: int, x: torch.Tensor, h: torch.Tensor):
     return torch.sigmoid(zz[..., :R]), torch.tanh(zz[..., R:])
 
 
-def _ref_res(lw, l: int, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Layer l's output stream bf16(g @ W_res + b_res + x)."""
+def _ref_res(lw, l: int, g: torch.Tensor, x: torch.Tensor,
+             rscale: float = 1.0) -> torch.Tensor:
+    """Layer l's output stream bf16(g @ W_res + b_res + x), scaled by
+    ``rscale`` before the rounding where that is not 1."""
     from pytorchwavenetvocoder_tpu_torch.models.wavenet import _dot
 
-    return (_dot(g, lw["res_w"][l].to(torch.bfloat16)) + lw["res_b"][l]
-            + x.float()).to(torch.bfloat16)
+    v = (_dot(g, lw["res_w"][l].to(torch.bfloat16)) + lw["res_b"][l]
+         + x.float())
+    if rscale != 1.0:
+        v = v * rscale
+    return v.to(torch.bfloat16)
 
 
-def ref_layer(lw, l: int, d: int, x: torch.Tensor, h: torch.Tensor):
+def ref_layer(lw, l: int, d: int, x: torch.Tensor, h: torch.Tensor,
+              rscale: float = 1.0):
     """Plain version of ONE layer: bf16 input stream ``x`` (B, T, R) and bf16
     aux ``h`` -> (output stream bf16, gate output g bf16)."""
     s, t = _ref_gate(lw, l, d, x, h)
     g = (s * t).to(torch.bfloat16)
-    return _ref_res(lw, l, g, x), g
+    return _ref_res(lw, l, g, x, rscale), g
 
 
 def ref_layer_stack_streams(lw, config, stream0: torch.Tensor,
@@ -204,7 +233,7 @@ def ref_layer_stack_streams(lw, config, stream0: torch.Tensor,
     for l, d in enumerate(c.dilations):
         if l == L - 1 and not return_skip:
             break   # the last layer's output feeds no ring
-        x, g = ref_layer(lw, l, d, x, h)
+        x, g = ref_layer(lw, l, d, x, h, c.residual_scale)
         if return_skip:
             sk = _dot(g, lw["skip_w"][l].to(bf)) + lw["skip_b"][l]
             skip_sum = sk if skip_sum is None else skip_sum + sk
@@ -353,31 +382,33 @@ def aux_width(n_aux: int) -> int:
 
 def pack_gate_weights(lw, config, n_layers: int | None = None) -> torch.Tensor:
     """The gate product's B operand for the first ``n_layers`` layers:
-    (n, 2R, K) bf16, K-major, K = k R + aux_width(n_aux): rows in
+    (n, 2G, K) bf16, K-major, K = k R + aux_width(n_aux): rows in
     ``gate_column_order``, columns the taps x[t], x[t - d], (x[t - 2d])
-    (dil_w[k-1], dil_w[k-2], ...) then the aux rows, zero past n_aux."""
+    (dil_w[k-1], dil_w[k-2], ...) then the aux rows, zero past n_aux (G the
+    gate's half width, R for the mu-law model)."""
     c = config
-    R, A, k = c.n_resch, c.n_aux, c.kernel_size
+    R, A, k, G = c.n_resch, c.n_aux, c.kernel_size, c.gate_ch
     n = c.n_layers if n_layers is None else n_layers
-    w = lw["dil_w"]                                       # (L, k, R, 2R)
-    cat = torch.zeros((n, k * R + aux_width(A), 2 * R), dtype=torch.bfloat16,
+    w = lw["dil_w"]                                       # (L, k, R, 2G)
+    cat = torch.zeros((n, k * R + aux_width(A), 2 * G), dtype=torch.bfloat16,
                       device=w.device)
     for m in range(k):
         cat[:, m * R:(m + 1) * R] = w[:n, k - 1 - m]
     cat[:, k * R:k * R + A] = lw["aux_w"][:n]
-    perm = gate_column_order(R).to(w.device)
+    perm = gate_column_order(G).to(w.device)
     # one strided gather: (n, 2R, K), contiguous
     return torch.index_select(cat.transpose(1, 2), 1, perm)
 
 
 def pack_out_weights(lw, config, train: bool,
                      n_layers: int | None = None) -> torch.Tensor:
-    """The second product's B operand: (n, R, R) bf16 W_res^T, or in
-    training (n, R + S, R), [W_res^T ; W_skip^T], K-major."""
+    """The second product's B operand: (n, R, G) bf16 W_res^T, or in
+    training (n, R + S, R), [W_res^T ; W_skip^T], K-major (G the gate's
+    half width, R for the mu-law model)."""
     n = config.n_layers if n_layers is None else n_layers
-    R, S = config.n_resch, config.n_skipch
+    R, S, G = config.n_resch, config.n_skipch, config.gate_ch
     res_w = lw["res_w"]
-    out = torch.empty((n, R + (S if train else 0), R), dtype=torch.bfloat16,
+    out = torch.empty((n, R + (S if train else 0), G), dtype=torch.bfloat16,
                       device=res_w.device)
     out[:, :R] = res_w[:n].transpose(1, 2)
     if train:
@@ -474,26 +505,27 @@ def layer_stack_streams(lw, config, stream0: torch.Tensor,
 
     c = config
     dev = stream0.device
-    R, L = c.n_resch, c.n_layers
+    R, L, G = c.n_resch, c.n_layers, c.gate_ch
     n_run = L - 1
     if n_run == 0:
         return [stream0]
     bf, f32 = torch.bfloat16, torch.float32
-    wgate = pack_gate_weights(lw, c, n_run)      # (n_run, 2R, kR + A64)
-    wres = pack_out_weights(lw, c, False, n_run)  # (n_run, R, R)
+    wgate = pack_gate_weights(lw, c, n_run)      # (n_run, 2G, kR + A64)
+    wres = pack_out_weights(lw, c, False, n_run)  # (n_run, R, G)
     zb = (lw["dil_b"] + lw["aux_b"])[:n_run].to(f32).contiguous()
     res_b = lw["res_b"][:n_run].to(f32).contiguous()
     _on_device(dev, wgate=wgate, wres=wres, zb=zb, res_b=res_b)
     out = torch.empty((n_run, B, T, R), dtype=bf, device=dev)
-    g = torch.empty((B, T, R), dtype=bf, device=dev)
+    g = torch.empty((B, T, G), dtype=bf, device=dev)
     dils = (ctypes.c_int * L)(*c.dilations)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = kernels().wn_layer_stack_fwd(
             _ptr(stream0), _ptr(out), _ptr(h_b), _ptr(wgate), _ptr(wres),
             _ptr(zb), _ptr(res_b), _ptr(g),
-            ctypes.cast(dils, ctypes.c_void_p), n_run, B, T, R, h_b.shape[2],
-            c.kernel_size, ctypes.c_void_p(stream))
+            ctypes.cast(dils, ctypes.c_void_p), n_run, B, T, R, G,
+            h_b.shape[2], c.kernel_size, c.residual_scale,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wn_layer_stack_fwd failed: CUDA error {err}")
     layer_stack_streams.launches += 1

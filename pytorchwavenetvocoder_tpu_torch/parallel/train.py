@@ -21,6 +21,7 @@ import dataclasses
 import logging
 from typing import Callable
 
+import numpy as np
 import torch
 
 from pytorchwavenetvocoder_tpu_torch.convert import param_leaves
@@ -87,11 +88,45 @@ def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
     return (ce * mask).sum() / mask.sum().clamp(min=1.0)
 
 
+def dropout_masks(config: WaveNetConfig, shape, seed: int, rank: int,
+                  step: int, device) -> list | None:
+    """The L dropout masks of training step ``step`` on data rank ``rank``
+    (None where ``config.dropout`` is 0): each ``keep / (1 - p)`` with
+    ``keep = torch.rand(shape) >= p``, drawn layer by layer from a
+    ``torch.Generator`` on ``device`` seeded from (seed, rank, step)
+    through ``np.random.SeedSequence``, so that a check can draw them
+    again."""
+    p = config.dropout
+    if not p:
+        return None
+    state = np.random.SeedSequence([seed, rank, step]).generate_state(
+        1, np.uint64)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(int(state[0]))
+    return [(torch.rand(shape, generator=gen, device=device) >= p).float()
+            / (1.0 - p) for _ in range(config.n_layers)]
+
+
+def masked_mol_loss(y: torch.Tensor, targets: torch.Tensor,
+                    config: WaveNetConfig,
+                    receptive_field: int) -> torch.Tensor:
+    """The MoL model's mean negative log-likelihood over positions >=
+    receptive_field (r9y9's masked mixture loss)."""
+    from pytorchwavenetvocoder_tpu_torch.models.mol import mol_loss
+
+    pos = torch.arange(targets.shape[1], device=targets.device)
+    mask = (pos[None, :] >= receptive_field).expand_as(targets)
+    dt = torch.promote_types(y.dtype, torch.float32)
+    return mol_loss(y.to(dt), targets.to(dt), config.n_mix,
+                    config.n_quantize, config.log_scale_min, mask)
+
+
 def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
                     weight_decay: float = 0.0, remat: bool = False,
                     bf16_intermediates: bool | None = None,
                     fused: bool | None = None, n_devices: int = 1,
-                    model_parallel: int = 1) -> Callable:
+                    model_parallel: int = 1,
+                    dropout_seed: int = 0) -> Callable:
     """Build ``step_fn(state, batch_x, batch_h, batch_t) -> (state, loss)``.
 
     The batch (numpy or tensors) moves to the params' device; the state is
@@ -129,6 +164,14 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
     the model group, then every gradient and the loss are averaged over
     the data group only; Adam runs on the shards (elementwise: the full
     update's shards).
+
+    The mixture-of-logistics model (``config.mol``): float samples in and
+    as targets, its likelihood (``models/mol.py::mol_loss``, span
+    ``train.loss``) over the positions from the receptive field on, and
+    each layer's conv input dropped out at ``config.dropout`` with the masks
+    of ``dropout_masks`` (from ``dropout_seed``, the rank and the step).  It
+    trains on the plain route: ``fused=True`` raises, as it does for a
+    mu-law model with dropout (``train_kernel.py::fused_model_error``).
     """
     from pytorchwavenetvocoder_tpu_torch.parallel.distributed import (
         all_reduce_mean,
@@ -148,6 +191,14 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
     if model_parallel < 1 or n_devices % model_parallel:
         raise ValueError(f"model_parallel={model_parallel} must divide the "
                          f"{n_devices} device(s) (data x model)")
+    if fused:
+        from pytorchwavenetvocoder_tpu_torch.ops.train_kernel import (
+            fused_model_error,
+        )
+
+        why = fused_model_error(config)
+        if why is not None:
+            raise ValueError(f"fused=True: {why} (--fused false or auto)")
     if model_parallel > 1 and fused:
         # the fused kernels are one-device programs: the model axis would
         # leave their gradients divergent across it
@@ -156,6 +207,7 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
             f"{model_parallel}): tensor parallelism runs the plain route")
     grid = make_grid(config, model_parallel) if model_parallel > 1 else None
     data_parallel = torch.distributed.is_initialized()
+    rank = torch.distributed.get_rank() if data_parallel else 0
     rf = config.receptive_field
     if bf16_intermediates is None:
         bf16_intermediates = config.dtype == torch.bfloat16
@@ -176,9 +228,11 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
         with tracing.span(tracing.TRAIN_STEP):
             device = state.params["causal"]["w"].device
             with tracing.span(tracing.TRAIN_BATCH_IN):
-                bx = torch.as_tensor(batch_x, device=device).long()
+                bx = torch.as_tensor(batch_x, device=device)
                 bh = torch.as_tensor(batch_h, device=device)
-                bt = torch.as_tensor(batch_t, device=device).long()
+                bt = torch.as_tensor(batch_t, device=device)
+                bx, bt = ((bx.float(), bt.float()) if config.mol
+                          else (bx.long(), bt.long()))
             on_fused = use_fused(device, bx.shape[1])
             route = "fused" if on_fused else "plain"
             if route != step_fn.route:
@@ -193,11 +247,20 @@ def make_train_step(config: WaveNetConfig, lr: float = 1e-4,
                 group["weight_decay"] = weight_decay
             opt.zero_grad(set_to_none=True)
             with tracing.span(tracing.TRAIN_FORWARD):
+                # the fused route takes no masks (fused_model_error)
+                masks = None if on_fused else dropout_masks(
+                    config, (bx.shape[0], bx.shape[1], config.n_resch),
+                    dropout_seed, rank, state.step, device)
                 logits = wavenet_forward(state.params, config, bx, bh,
                                          remat=remat and not on_fused,
                                          bf16_intermediates=bf16_intermediates,
-                                         fused=on_fused, tp=grid)
-                loss = masked_ce_loss(logits, bt, rf)
+                                         fused=on_fused, tp=grid,
+                                         dropout_masks=masks)
+                if config.mol:
+                    with tracing.span(tracing.TRAIN_LOSS):
+                        loss = masked_mol_loss(logits, bt, config, rf)
+                else:
+                    loss = masked_ce_loss(logits, bt, rf)
             with tracing.span(tracing.TRAIN_BACKWARD):
                 loss.backward()
             loss = loss.detach()

@@ -27,6 +27,9 @@ DECODE_WRITER_JOIN = "decode.writer_join"
 #: ``models/wavenet.py::batch_fast_generate``: the fleet's inputs on the
 #: device, upsampled and padded
 WAVENET_PREP = "wavenet.prep"
+#: ``models/wavenet.py::upsample_aux``: the stages of the MoL model's
+#: conditioning network (decode's prep and the training forward)
+WAVENET_UPSAMPLE = "wavenet.upsample"
 #: every weight pack of the decode path (nested where one holds another)
 WAVENET_PACK = "wavenet.pack"
 #: the teacher-forced warm-up and, in int8, the scales and the int8 ring
@@ -41,6 +44,8 @@ TRAIN_STEP = "train.step"
 TRAIN_BATCH_IN = "train.batch_in"
 #: ``step_fn``: the forward and the loss
 TRAIN_FORWARD = "train.forward"
+#: ``step_fn``: the MoL model's loss (inside ``train.forward``)
+TRAIN_LOSS = "train.loss"
 #: ``step_fn``: the backward
 TRAIN_BACKWARD = "train.backward"
 #: ``parallel/distributed.py::all_reduce_mean``

@@ -1160,3 +1160,142 @@ def test_k1_on_tall_units_matches_plain(dev, kernel_size, quantize, B):
              for i in range(n)]
     assert torch.equal(got, torch.cat(steps, dim=1))
     assert all(torch.equal(a, b) for a, b in zip(one, each))
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-logistics model: K1's MoL instances and K2's warm-up
+# ---------------------------------------------------------------------------
+
+
+def _mol_cfg(**kw):
+    """r9y9's LJSpeech mixture preset at its published widths: 24 layers
+    (6 x 4), kernel 3, R 512, gate 2 x 256, S 256, 10 logistics, n_aux 80."""
+    base = dict(output="mol", n_quantize=65536, n_mix=10, n_aux=80,
+                n_resch=512, n_gatech=256, n_skipch=256, dilation_depth=6,
+                dilation_repeat=4, kernel_size=3, upsampling_factor=0,
+                compute_dtype="bfloat16")
+    base.update(kw)
+    return P.WaveNetConfig(**base)
+
+
+def _mol_params(cfg, dev, seed=0):
+    """Random weights with biases, the head's log-scales centred at -3
+    (scales ~0.05) and its logits spread, so that the sampler's
+    components and logistics both move the samples."""
+    gen = torch.Generator().manual_seed(seed)
+    params = P.init_wavenet_params(cfg, gen)
+    for group in ("dil", "res", "skip", "post1", "causal"):
+        b = params[group]["b"]
+        params[group]["b"] = 0.05 * torch.randn(b.shape, generator=gen)
+    M = cfg.n_mix
+    params["post2"]["w"][:, :M] *= 8.0
+    params["post2"]["b"][2 * M:] = -3.0
+    return {g: {n: t.to(dev) for n, t in d.items()}
+            for g, d in params.items()}
+
+
+def _mol_carry(params, cfg, dev, B, n, seed, impl="cuda"):
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(0.3 * rng.randn(B, cfg.receptive_field),
+                        dtype=torch.float32, device=dev).clamp(-1, 1)
+    h = torch.as_tensor(rng.randn(B, cfg.receptive_field + n, cfg.n_aux),
+                        dtype=torch.float32, device=dev)
+    carry = P._warmup_state(params, cfg, x, h, bf16_intermediates=True,
+                            impl=impl)
+    return carry, h, x.shape[1], x
+
+
+def test_mol_warmup_kernel_matches_plain(dev):
+    """K2's streams at G = 256 < R = 512 with the sqrt(0.5) output scale,
+    layer by layer from the kernel's own input (as ``_check_streams``)."""
+    cfg = _mol_cfg(dilation_depth=6, dilation_repeat=2)
+    params = _mol_params(cfg, dev, seed=3)
+    rng = np.random.RandomState(3)
+    B, T = 3, 700
+    s0 = torch.as_tensor(rng.randn(B, T, cfg.n_resch) * 0.5,
+                         dtype=torch.bfloat16, device=dev)
+    h = torch.as_tensor(rng.randn(B, T, cfg.n_aux), dtype=torch.float32,
+                        device=dev)
+    lw = tk.layer_weights(params)
+    got = tk.layer_stack_streams(lw, cfg, s0, h)
+    hb = h.to(torch.bfloat16)
+    for l in range(1, cfg.n_layers):
+        want, _ = tk.ref_layer(lw, l - 1, cfg.dilations[l - 1], got[l - 1],
+                               hb, cfg.residual_scale)
+        d = (got[l].float() - want.float()).abs()
+        assert d.max().item() <= 1e-2 * want.float().abs().max().item()
+        assert (d > 0).float().mean().item() <= 1e-2
+
+
+@pytest.mark.parametrize("B", [16, 32, 256])
+def test_mol_ar_kernel_matches_plain(dev, B):
+    """K1's MoL instance (units below ``AR_STREAM_FROM_B[(3, False)]``
+    rows, streamed from it) in greedy steps against the plain loop from
+    its state: every layer's ring slot within 2% of the ring's largest
+    value, and the samples (the likeliest component's mean) within 1e-2
+    of the plain loop's on at least 97% of the row-steps (a component whose
+    logits lie within a bf16 rounding of another's flips); one call of n
+    steps bit-equal to n calls of one step; sampling fixed by its seed, in
+    [-1, 1], counting its clamped draws; the warm-up through K2 against the
+    plain warm-up's ring."""
+    cfg = _mol_cfg()
+    params = _mol_params(cfg, dev, seed=5)
+    n = 8
+    carry, h, T0, x = _mol_carry(params, cfg, dev, B, n, 5)
+    plain, _h, _T0, _x = _mol_carry(params, cfg, dev, B, n, 5, impl="plain")
+    d = (carry[0].float() - plain[0].float()).norm().item()
+    assert d <= 2e-2 * plain[0].float().norm().item()
+    agree = []
+    cp = tuple(t.clone() for t in carry)
+    for i in range(n):
+        ck = tuple(t.clone() for t in cp)
+        before = ak.ar_generate.launches
+        sk = ak.ar_generate(params, cfg, ck, h, T0 + i, 1, "argmax")
+        assert ak.ar_generate.launches == before + 1
+        sp = ak.ar_generate_reference(params, cfg, cp, h, T0, 1, "argmax",
+                                      i0=i)
+        ring = (ck[0].float() - cp[0].float()).abs().max().item()
+        assert ring <= 2e-2 * cp[0].float().abs().max().item()
+        assert sk.dtype == torch.float32
+        agree.append(((sk - sp).abs() <= 1e-2).float().mean().item())
+    assert np.mean(agree) >= 0.97
+    one = tuple(t.clone() for t in carry)
+    got = ak.ar_generate(params, cfg, one, h, T0, n, "argmax")
+    each = tuple(t.clone() for t in carry)
+    steps = [ak.ar_generate(params, cfg, each, h, T0 + i, 1, "argmax")
+             for i in range(n)]
+    assert torch.equal(got, torch.cat(steps, dim=1))
+
+    def sample(seed):
+        return ak.ar_generate(params, cfg, tuple(t.clone() for t in carry), h,
+                              T0, n, "sampling",
+                              torch.Generator().manual_seed(seed))
+
+    c0 = ak.mol_clamped()
+    s = sample(0)
+    assert s.shape == (B, n) and s.abs().max() <= 1.0
+    assert ak.mol_clamped() - c0 == int((s.abs() >= 1.0).sum())
+    assert torch.equal(s, sample(0))
+    assert not torch.equal(s, sample(1))
+
+
+def test_mol_batch_fast_generate_runs_k1_and_k2(dev):
+    """``impl="auto"`` on the card serves the MoL model through K2 and K1,
+    one launch each, float samples in [-1, 1]; int8 is refused by name."""
+    cfg = _mol_cfg(upsampling_factor=256, upsampling_scales=(4, 4, 4, 4))
+    params = _mol_params(cfg, dev, seed=7)
+    params["upsampling"] = {k: v.to(dev) for k, v in P.init_wavenet_params(
+        cfg, torch.Generator().manual_seed(0))["upsampling"].items()}
+    rng = np.random.RandomState(7)
+    h = rng.randn(4, 3, cfg.n_aux).astype(np.float32)
+    x = np.zeros((4, 1), np.float32)
+    k1, k2 = ak.ar_generate.launches, tk.layer_stack_streams.launches
+    out = P.batch_fast_generate(params, cfg, x, h, [700, 500, 767, 300],
+                                "argmax", impl="auto", device=dev)
+    assert ak.ar_generate.launches == k1 + 1
+    assert tk.layer_stack_streams.launches == k2 + 1
+    assert [len(o) for o in out] == [700, 500, 767, 300]
+    assert all(o.dtype == np.float32 and np.abs(o).max() <= 1.0 for o in out)
+    with pytest.raises(NotImplementedError, match="mu-law"):
+        P.batch_fast_generate(params, cfg, x, h, [10] * 4, "argmax",
+                              impl="auto", quantize=True, device=dev)

@@ -103,7 +103,8 @@ def test_row_step_counters(chunk, run, monkeypatch):
     got = {k: after[k] - before[k] for k in after}
     assert got == dict(ar_persistent=0, ar_persistent_int8=0,
                        layer_stack_fwd=0, row_steps=run,
-                       useful_row_steps=17, k1_waits=0, k1_waits_ready=0)
+                       useful_row_steps=17, k1_waits=0, k1_waits_ready=0,
+                       mol_clamped=0)
 
 
 def _train_setup():
